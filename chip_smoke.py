@@ -1,0 +1,568 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (libheif_tpu_torch).
+
+Run from the root of the repository on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It needs no network and imports neither JAX nor the JAX package.  Phases:
+
+1. print the card's name and power limit (nvidia-smi);
+2. build the hand-written kernels from libheif_tpu_torch/codecs/unc/csrc;
+3. hold each kernel against its plain PyTorch version on the card, at the
+   shapes of the CPU tests, odd sizes and the full width: exact for
+   strided_extract_paste, <= 1 LSB on < 1% of pixels for the colour
+   kernels (the count of differing pixels is printed);
+4. drive the main path at full width -- a 4096x4096 YCbCr 4:2:0 unci item
+   in 8x8 tiles of 512x512: box bytes -> read_all_boxes -> UnciDecoder
+   .decode -> convert_image to RGB -- check it against the plain path on
+   the card, against numpy on a small input, and show through the launch
+   counts that it ran the strided_extract_paste and planes_ycbcr8_to_rgb
+   kernels;
+5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
+   the same shape, with its own launch count;
+6. time kernels, plain versions, one-call PyTorch yardsticks (also for
+   planar8_tiles_to_image, the copy case of strided_extract_paste, which
+   is off the main path) and the main path with CUDA events, and print
+   the numbers.
+
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from libheif_tpu_torch import _build
+from libheif_tpu_torch.boxes import read_all_boxes
+from libheif_tpu_torch.boxes.unc import (
+    Box_uncC, Box_cmpd, CmpdComponent, UncCComponent, InterleaveMode,
+    SamplingMode)
+from libheif_tpu_torch.codecs.unc import UnciDecoder, cuda_fast, kernels
+from libheif_tpu_torch.codecs.unc.layout import compute_layout
+from libheif_tpu_torch.color import convert_image, get_kr_kb
+from libheif_tpu_torch.color.ops import ColorConversionOptions, YCbCrToRGB
+from libheif_tpu_torch.core.fourcc import fourcc
+from libheif_tpu_torch.image.pixel_image import Channel, Colorspace, Chroma
+
+SEED = 0
+W = H = 4096
+TILES = 8                       # 8x8 grid of 512x512 tiles
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12           # f32 outside the tensor cores, same sheet
+PALLAS = "libheif_tpu/codecs/unc/pallas_fast.py"
+SOURCE = "libheif_tpu_torch/codecs/unc/csrc/unc_kernels.cu"
+KR, KB = get_kr_kb(6)
+DEV = "cuda"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ------------------------------------------------------------------ layouts
+
+def make_boxes(comps, types, tiles=(1, 1), version=0, profile=None,
+               **fields):
+    uncC = Box_uncC()
+    uncC.version = version
+    if profile:
+        uncC.profile = fourcc(profile)
+    uncC.components = [UncCComponent(i, d, 0, 0) for i, d in comps]
+    uncC.num_tile_cols, uncC.num_tile_rows = tiles
+    for k, v in fields.items():
+        setattr(uncC, k, v)
+    cmpd = Box_cmpd([CmpdComponent(t) for t in types]) if types else None
+    return uncC, cmpd
+
+
+def implied_cmpd():
+    return Box_cmpd([CmpdComponent(t) for t in (1, 2, 3)])
+
+
+def ycc420(w, h, tiles):
+    return make_boxes([(0, 8), (1, 8), (2, 8)], [1, 2, 3], tiles,
+                      sampling_type=SamplingMode.s420)
+
+
+# Byte-aligned layouts of the CPU tests (tests/test_torch_unc.py) that the
+# strided kernel takes, plus odd sizes: (name, w, h, boxes).
+STRIDED_CASES = [
+    ("comp420_8_2x2", 64, 32, ycc420(64, 32, (2, 2))),
+    ("comp422_8_2x2", 64, 32, make_boxes(
+        [(0, 8), (1, 8), (2, 8)], [1, 2, 3], (2, 2),
+        sampling_type=SamplingMode.s422)),
+    ("comp444_8_2x1", 48, 32, make_boxes(
+        [(0, 8), (1, 8), (2, 8)], [1, 2, 3], (2, 1))),
+    ("comp_rgb16_2x2", 32, 32, make_boxes(
+        [(0, 16), (1, 16), (2, 16)], [4, 5, 6], (2, 2))),
+    ("comp420_odd_rowalign_31x19", 31, 19, make_boxes(
+        [(0, 8), (1, 8), (2, 8)], [1, 2, 3], sampling_type=SamplingMode.s420,
+        row_align_size=4)),
+    ("pixel_rgb8_2x2", 32, 16, make_boxes(
+        [(0, 8), (1, 8), (2, 8)], [4, 5, 6], (2, 2),
+        interleave_type=InterleaveMode.pixel)),
+    ("pixel_rgba16_2x1", 32, 16, make_boxes(
+        [(0, 16), (1, 16), (2, 16), (3, 16)], [4, 5, 6, 7], (2, 1),
+        interleave_type=InterleaveMode.pixel)),
+    ("pixel_padded_size_4", 16, 8, make_boxes(
+        [(0, 8), (1, 8), (2, 8)], [4, 5, 6],
+        interleave_type=InterleaveMode.pixel, pixel_size=4)),
+    ("row_rgb8_2x2", 32, 16, make_boxes(
+        [(0, 8), (1, 8), (2, 8)], [4, 5, 6], (2, 2),
+        interleave_type=InterleaveMode.row)),
+    ("row_rgb16_odd_27x9", 27, 9, make_boxes(
+        [(0, 16), (1, 16), (2, 16)], [4, 5, 6],
+        interleave_type=InterleaveMode.row)),
+    ("mixed_nv12", 32, 16, make_boxes([], None, version=1, profile="nv12")),
+    ("comp420_8_full_4096", W, H, ycc420(W, H, (TILES, TILES))),
+]
+
+
+def layout_and_tiles(w, h, boxes, seed):
+    uncC, cmpd = boxes
+    lay = compute_layout(uncC, cmpd or implied_cmpd(), w, h)
+    data = np.random.default_rng(seed).integers(
+        0, 256, lay.total_data_size(), dtype=np.uint8).tobytes()
+    return lay, data, kernels.assemble_tile_buffers(lay, data)
+
+
+# --------------------------------------------------------------- comparison
+
+class Tally:
+    """Per-kernel check results."""
+
+    def __init__(self):
+        self.max_abs_err = {k: 0 for k in cuda_fast.KERNELS}
+        self.checks = {k: 0 for k in cuda_fast.KERNELS}
+        self.differing = {k: 0 for k in cuda_fast.KERNELS}
+
+    def compare(self, kernel, what, got, ref, exact):
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == ref.dtype, \
+            f"{kernel} {what}: {tuple(got.shape)} {got.dtype} vs " \
+            f"{tuple(ref.shape)} {ref.dtype}"
+        d = (got.to(torch.int64) - ref.to(torch.int64)).abs()
+        err = int(d.max()) if d.numel() else 0
+        ndiff = int((d > 0).sum())
+        log(f"check {kernel:22s} {what:44s} max_abs_err {err} "
+            f"differing {ndiff} of {d.numel()}")
+        if exact:
+            assert err == 0, f"{kernel} {what}: not exact"
+        else:
+            assert err <= 1 and ndiff < 0.01 * d.numel(), \
+                f"{kernel} {what}: beyond 1 LSB on 1% of pixels"
+        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        self.checks[kernel] += 1
+        self.differing[kernel] += ndiff
+
+
+def check_kernels(tally):
+    """Phase 3: every kernel against its plain version on the card."""
+    rng = np.random.default_rng(SEED)
+    # tile_yuv_to_rgb: the CPU tests' grids, odd widths, the full width
+    grids = [(2, 2, 64, 128, 2, 2), (3, 1, 18, 34, 2, 2),
+             (2, 2, 32, 64, 2, 1), (2, 2, 32, 64, 1, 1),
+             (1, 3, 6, 10, 2, 2), (TILES, TILES, H // TILES, W // TILES, 2, 2)]
+    for tr, tc, th, tw, sx, sy in grids:
+        n = th * tw + 2 * (th // sy) * (tw // sx)
+        tiles = torch.from_numpy(rng.integers(
+            0, 256, (tr * tc, n + 8), dtype=np.uint8)).to(DEV)
+        for full in (True, False):
+            kw = dict(tile_rows=tr, tile_cols=tc, tile_h=th, tile_w=tw,
+                      sub_x=sx, sub_y=sy, kr=float(KR), kb=float(KB),
+                      full_range=full)
+            tally.compare("tile_yuv_to_rgb",
+                          f"{tr}x{tc} tiles {tw}x{th} sub {sx}x{sy} "
+                          f"{'full' if full else 'limited'}",
+                          cuda_fast.yuv_tiles_to_rgb(tiles, **kw),
+                          cuda_fast.yuv_tiles_to_rgb_plain(tiles, **kw),
+                          exact=False)
+    # planes_ycbcr8_to_rgb: the CPU tests' sizes (odd 129x67 included)
+    sizes = [(64, 32), (129, 67), (7, 5), (W, H)]
+    for w, h in sizes:
+        for chroma, (sx, sy) in ((Chroma.C420, (2, 2)), (Chroma.C422, (2, 1)),
+                                 (Chroma.C444, (1, 1))):
+            if (w, h) == (W, H) and chroma != Chroma.C420:
+                continue
+            cw, ch = (w + sx - 1) // sx, (h + sy - 1) // sy
+            y = torch.from_numpy(rng.integers(0, 256, (h, w),
+                                              dtype=np.uint8)).to(DEV)
+            cb, cr = (torch.from_numpy(rng.integers(
+                0, 256, (ch, cw), dtype=np.uint8)).to(DEV) for _ in range(2))
+            for up in ("bilinear", "nearest-neighbor"):
+                for full in (True, False):
+                    kw = dict(kr=float(KR), kb=float(KB), full_range=full,
+                              upsampling=up)
+                    tally.compare(
+                        "planes_ycbcr8_to_rgb",
+                        f"{w}x{h} {chroma} {up} "
+                        f"{'full' if full else 'limited'}",
+                        cuda_fast.ycbcr8_planes_to_rgb(y, cb, cr, **kw),
+                        cuda_fast.ycbcr8_planes_to_rgb_plain(y, cb, cr, **kw),
+                        exact=False)
+    # strided_extract_paste: every byte-aligned layout, and the copy case
+    for i, (name, w, h, boxes) in enumerate(STRIDED_CASES):
+        lay, _, tiles = layout_and_tiles(w, h, boxes, seed=i)
+        t = torch.from_numpy(tiles).to(DEV)
+        got = cuda_fast.fused_strided_decode(lay, t)
+        assert got is not None, f"{name}: strided path declined"
+        ref = cuda_fast.fused_strided_decode_plain(lay, t)
+        generic = kernels._build_extractor(kernels._layout_key(lay))(t)
+        for ch in got:
+            tally.compare("strided_extract_paste", f"{name} {ch}",
+                          got[ch], ref[ch], exact=True)
+            tally.compare("strided_extract_paste", f"{name} {ch} vs generic",
+                          got[ch], generic[ch], exact=True)
+    for c in (1, 3):
+        tiles = torch.from_numpy(rng.integers(
+            0, 256, (6, c * 16 * 24 + 8), dtype=np.uint8)).to(DEV)
+        kw = dict(tile_rows=3, tile_cols=2, tile_h=16, tile_w=24,
+                  num_comps=c)
+        tally.compare("strided_extract_paste", f"planar8 copy case C={c}",
+                      cuda_fast.planar8_tiles_to_image(tiles, **kw),
+                      cuda_fast.planar8_tiles_to_image_plain(tiles, **kw),
+                      exact=True)
+
+
+# ------------------------------------------------------------ numpy checks
+
+def np_bilinear(a, out_h, out_w):
+    """Bilinear 2x chroma upsample of libheif_tpu/color/ops.py:80-99 in
+    numpy, for planes whose size doubles exactly."""
+    a = a.astype(np.float32)
+    lft = np.concatenate([a[:, :1], a[:, :-1]], 1)
+    rgt = np.concatenate([a[:, 1:], a[:, -1:]], 1)
+    a = np.stack([(3 * a + lft) / 4, (3 * a + rgt) / 4], -1) \
+        .reshape(a.shape[0], -1)[:, :out_w]
+    top = np.concatenate([a[:1], a[:-1]], 0)
+    bot = np.concatenate([a[1:], a[-1:]], 0)
+    return np.stack([(3 * a + top) / 4, (3 * a + bot) / 4], 1) \
+        .reshape(-1, a.shape[1])[:out_h]
+
+
+def np_planes(data, tiles, tw, th):
+    """Component-interleaved 4:2:0 tiles → full Y, Cb, Cr in numpy."""
+    s = tw * th * 3 // 2
+    buf = np.frombuffer(data, np.uint8).reshape(tiles, tiles, s)
+    out = []
+    for off, (pw, ph) in ((0, (tw, th)), (tw * th, (tw // 2, th // 2)),
+                          (tw * th * 5 // 4, (tw // 2, th // 2))):
+        p = buf[:, :, off:off + pw * ph].reshape(tiles, tiles, ph, pw)
+        out.append(p.transpose(0, 2, 1, 3).reshape(tiles * ph, tiles * pw))
+    return out
+
+
+def np_rgb(y, cb, cr):
+    f = np.float32
+    y = y.astype(f)
+    cb = np_bilinear(cb, *y.shape) - f(128)
+    cr = np_bilinear(cr, *y.shape) - f(128)
+    r = y + f(2 * (1 - KR)) * cr
+    b = y + f(2 * (1 - KB)) * cb
+    g = (y - f(KR) * r - f(KB) * b) / f(1 - KR - KB)
+    return np.stack([np.clip(np.round(c), 0, 255) for c in (r, g, b)]) \
+        .astype(np.uint8)
+
+
+def decode_and_convert(uncC, cmpd, w, h, data):
+    """The main path as a user calls it, from box bytes."""
+    boxes = {type(b): b for b in read_all_boxes(uncC.serialize()
+                                                + cmpd.serialize())}
+    dec = UnciDecoder(boxes[Box_uncC], boxes[Box_cmpd], w, h, device=DEV)
+    img = dec.decode(data)
+    return dec, img, convert_image(img, Colorspace.RGB, Chroma.C444)
+
+
+def rgb_of(img):
+    return torch.stack([img.plane(c) for c in (Channel.R, Channel.G,
+                                               Channel.B)])
+
+
+def small_input_check(tally):
+    """The main path on a small input against numpy."""
+    w, h, t = 128, 96, 2
+    uncC, cmpd = ycc420(w, h, (t, t))
+    data = np.random.default_rng(SEED + 1).integers(
+        0, 256, w * h * 3 // 2, dtype=np.uint8).tobytes()
+    _, img, rgb = decode_and_convert(uncC, cmpd, w, h, data)
+    ref_planes = np_planes(data, t, w // t, h // t)
+    for ch, ref in zip((Channel.Y, Channel.Cb, Channel.Cr), ref_planes):
+        tally.compare("strided_extract_paste", f"main path {w}x{h} {ch} "
+                      "vs numpy", img.plane(ch),
+                      torch.from_numpy(ref).to(DEV), exact=True)
+    tally.compare("planes_ycbcr8_to_rgb", f"main path {w}x{h} RGB vs numpy",
+                  rgb_of(rgb), torch.from_numpy(np_rgb(*ref_planes)).to(DEV),
+                  exact=False)
+
+
+# ------------------------------------------------------------------- timing
+
+class DeviceTimer:
+    """Device time of a call, from CUDA events around `n` back-to-back
+    calls.  A sleep kernel queued first holds the card while the host
+    queues them, so host overhead between calls is not counted."""
+
+    def __init__(self):
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(True), torch.cuda.Event(True)
+        s.record()
+        torch.cuda._sleep(10_000_000)
+        e.record()
+        e.synchronize()
+        self.cycles_per_ms = 10_000_000 / s.elapsed_time(e)
+
+    def __call__(self, fns, n=20):
+        fns = list(fns)
+        for f in fns:           # warm-up: allocator, first launch
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fns[i % len(fns)]()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(True), torch.cuda.Event(True)
+        torch.cuda._sleep(int(2 * host_ms * self.cycles_per_ms) + 100_000)
+        s.record()
+        for i in range(n):
+            fns[i % len(fns)]()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / n
+
+
+def bound(nbytes, nops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -------------------------------------------------------------------- main
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, check=True)
+    return out.stdout.strip()
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+
+    # 1. the card
+    card = nvidia_smi()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.LIBRARY.load()
+    log(f"built {_build.LIBRARY.path} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.LIBRARY.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("ptxas:", line.strip())
+
+    # 3. each kernel against its plain version
+    tally = Tally()
+    check_kernels(tally)
+    small_input_check(tally)
+
+    # 4. the main path at full width
+    uncC, cmpd = ycc420(W, H, (TILES, TILES))
+    rng = np.random.default_rng(SEED)
+    data = rng.integers(0, 256, W * H * 3 // 2, dtype=np.uint8).tobytes()
+    for k in cuda_fast.KERNELS.values():
+        k.launches = 0
+    dec, img, rgb = decode_and_convert(uncC, cmpd, W, H, data)
+    torch.cuda.synchronize()
+    main_launches = {n: k.launches for n, k in cuda_fast.KERNELS.items()}
+    log(f"main path launches {main_launches}")
+    for name in ("strided_extract_paste", "planes_ycbcr8_to_rgb"):
+        assert main_launches[name] > 0, f"main path did not launch {name}"
+    lay = dec.layout
+    tiles_np = kernels.assemble_tile_buffers(lay, data)
+    tiles = torch.from_numpy(tiles_np).to(DEV)
+    generic = kernels._build_extractor(kernels._layout_key(lay))(tiles)
+    for ch, ref in zip((Channel.Y, Channel.Cb, Channel.Cr),
+                       np_planes(data, TILES, W // TILES, H // TILES)):
+        tally.compare("strided_extract_paste", f"main path {W}x{H} {ch}",
+                      img.plane(ch), generic[ch], exact=True)
+        assert np.array_equal(img.np_plane(ch), ref), f"{ch} vs numpy"
+    try:
+        YCbCrToRGB.USE_KERNEL = False        # the plain path on the card
+        plain_rgb = convert_image(img, Colorspace.RGB, Chroma.C444)
+    finally:
+        YCbCrToRGB.USE_KERNEL = None
+    out = rgb_of(rgb)
+    assert out.shape == (3, H, W) and out.dtype == torch.uint8
+    tally.compare("planes_ycbcr8_to_rgb", f"main path {W}x{H} RGB",
+                  out, rgb_of(plain_rgb), exact=False)
+
+    # 5. the fused tile path at full width
+    fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
+                    tile_w=W // TILES, kr=float(KR), kb=float(KB))
+    for k in cuda_fast.KERNELS.values():
+        k.launches = 0
+    fused = cuda_fast.yuv420_tiles_to_rgb(tiles, **fused_kw)
+    torch.cuda.synchronize()
+    fused_launches = {n: k.launches for n, k in cuda_fast.KERNELS.items()}
+    log(f"fused path launches {fused_launches}")
+    assert fused_launches["tile_yuv_to_rgb"] > 0
+    nearest = convert_image(img, Colorspace.RGB, Chroma.C444,
+                            options=ColorConversionOptions(
+                                chroma_upsampling="nearest-neighbor"))
+    tally.compare("tile_yuv_to_rgb", f"fused {W}x{H} vs main path, nearest",
+                  fused, rgb_of(nearest), exact=False)
+    tally.compare("tile_yuv_to_rgb", f"fused {W}x{H} vs plain",
+                  fused, cuda_fast.yuv_tiles_to_rgb_plain(
+                      tiles, sub_x=2, sub_y=2, **fused_kw), exact=False)
+
+    # 6. timing
+    timer = DeviceTimer()
+    copies = [tiles.clone() for _ in range(4)]    # 100 MB: inputs not in L2
+    plane_copies = [tuple(img.plane(c).clone() for c in
+                          (Channel.Y, Channel.Cb, Channel.Cr))
+                    for _ in range(4)]
+    px = W * H
+    in_bytes = px * 3 // 2
+    kern = {}
+
+    def row(name, replaces, also, launches, fn, plain, lib, nbytes, nops):
+        ms, plain_ms = timer(fn), timer(plain)
+        lib_ms = timer(lib) if lib is not None else None
+        b_ms, b_by = bound(nbytes, nops)
+        kern[name] = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "also_replaces": also,
+            "launches": launches, "max_abs_err": tally.max_abs_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+            "checks": tally.checks[name],
+            "differing_pixels": tally.differing[name],
+            "bytes": nbytes, "ops": nops}
+
+    # f32 operations per output pixel: tile 20 (2 offsets, 9 matrix, 9
+    # round/clip), planes 22 (+2 scale); limited range is not timed
+    row("tile_yuv_to_rgb", f"{PALLAS}:124",
+        [f"{PALLAS}:370"], fused_launches["tile_yuv_to_rgb"],
+        [lambda t=t: cuda_fast.yuv420_tiles_to_rgb(t, **fused_kw)
+         for t in copies],
+        [lambda t=t: cuda_fast.yuv_tiles_to_rgb_plain(
+            t, sub_x=2, sub_y=2, **fused_kw) for t in copies],
+        None, in_bytes + 3 * px, 20 * px)
+    row("planes_ycbcr8_to_rgb", f"{PALLAS}:236", [f"{PALLAS}:144"],
+        main_launches["planes_ycbcr8_to_rgb"],
+        [lambda p=p: cuda_fast.ycbcr8_planes_to_rgb(*p, kr=float(KR),
+                                                    kb=float(KB))
+         for p in plane_copies],
+        [lambda p=p: cuda_fast.ycbcr8_planes_to_rgb_plain(*p, kr=float(KR),
+                                                          kb=float(KB))
+         for p in plane_copies],
+        None, in_bytes + 3 * px, 22 * px)
+
+    def as_strided_copy(t):
+        # one PyTorch call per channel: a strided view of the tile stack,
+        # made contiguous (the yardstick; the port never calls it)
+        p = t.shape[1]
+        return {v.channel: torch.as_strided(
+            t, (lay.tile_rows, v.height, lay.tile_cols, v.width),
+            (lay.tile_cols * p, v.row_stride_bits // 8, p,
+             v.x_stride_bits // 8), v.base_bits // 8).contiguous()
+            .view(lay.tile_rows * v.height, lay.tile_cols * v.width)
+            for v in lay.views}
+
+    lib_out = as_strided_copy(tiles)
+    for ch in lib_out:
+        tally.compare("strided_extract_paste", f"as_strided yardstick {ch}",
+                      img.plane(ch), lib_out[ch], exact=True)
+    row("strided_extract_paste", f"{PALLAS}:401",
+        [f"{PALLAS}:415", f"{PALLAS}:282"],
+        main_launches["strided_extract_paste"],
+        [lambda t=t: cuda_fast.fused_strided_decode(lay, t) for t in copies],
+        [lambda t=t: cuda_fast.fused_strided_decode_plain(lay, t)
+         for t in copies],
+        [lambda t=t: as_strided_copy(t) for t in copies],
+        2 * in_bytes, 0)
+
+    # planar8_tiles_to_image, the copy case of strided_extract_paste (off
+    # the main path): three 8-bit planes in the same 8x8 grid of tiles
+    th, tw = H // TILES, W // TILES
+    planar_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=th, tile_w=tw,
+                     num_comps=3)
+    planar = [torch.from_numpy(rng.integers(
+        0, 256, (TILES * TILES, 3 * th * tw + 8), dtype=np.uint8)).to(DEV)
+        for _ in range(4)]
+
+    def planar_copy(t):
+        # one PyTorch call: the tile stack viewed as (C, H, W), made
+        # contiguous (the yardstick; the port never calls it)
+        return t[:, :3 * th * tw].view(TILES, TILES, 3, th, tw) \
+            .permute(2, 0, 3, 1, 4).reshape(3, H, W)
+
+    tally.compare("strided_extract_paste", f"planar8 copy case {W}x{H} C=3",
+                  cuda_fast.planar8_tiles_to_image(planar[0], **planar_kw),
+                  planar_copy(planar[0]), exact=True)
+    planar_bound_ms, _ = bound(2 * 3 * px, 0)
+    planar8 = {
+        "ms": timer([lambda t=t: cuda_fast.planar8_tiles_to_image(
+            t, **planar_kw) for t in planar]),
+        "plain_ms": timer([lambda t=t: cuda_fast.planar8_tiles_to_image_plain(
+            t, **planar_kw) for t in planar]),
+        "library_ms": timer([lambda t=t: planar_copy(t) for t in planar]),
+        "bound_ms": planar_bound_ms, "launches_per_call": 3}
+
+    # the library path end to end, and its parts
+    def e2e():
+        _, _, r = decode_and_convert(uncC, cmpd, W, H, data)
+        return r
+    e2e()
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        e2e()
+    torch.cuda.synchronize()
+    e2e_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kernels.assemble_tile_buffers(lay, data)
+    assemble_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch.from_numpy(tiles_np).to(DEV)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3 / reps
+    device_ms = timer([lambda t=t: convert_image(
+        dec._to_image(kernels.decode_tiles(lay, t, DEV), W, H),
+        Colorspace.RGB, Chroma.C444) for t in copies])
+    fused_ms = kern["tile_yuv_to_rgb"]["ms"]
+    summary = {
+        "card": card, "shape": f"{W}x{H} YCbCr 4:2:0, {TILES}x{TILES} tiles",
+        "fused_yuv420_tiles_to_rgb_mps": px / 1e3 / fused_ms,
+        "library_path_ms": e2e_ms, "library_path_mps": px / 1e3 / e2e_ms,
+        "assemble_tile_buffers_ms": assemble_ms, "host_to_device_ms": h2d_ms,
+        "device_decode_convert_ms": device_ms,
+        "planar8_tiles_to_image": planar8,
+        "elapsed_s": time.perf_counter() - t_start}
+    log("summary " + json.dumps(summary))
+    print(json.dumps({"kernels": list(kern.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of libheif_tpu's unci decode + colour path.
+
+The package mirrors the module names of ``libheif_tpu`` so each part can
+be read beside its counterpart, but it imports nothing from it and never
+imports JAX.  Planes are torch tensors.  Every entry point takes
+``device=None``, which means ``"cuda"``: without CUDA it raises unless
+the caller passes ``device="cpu"``.  The hand-written Hopper kernels
+(``codecs/unc/csrc/unc_kernels.cu``) run on CUDA tensors; on CPU tensors
+each kernel wrapper runs its plain PyTorch version.
+"""
+
+from ._build import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,10 @@
+from .box import (
+    Box, FullBox, BoxHeader, Box_other, Box_Error, register_box,
+    read_box, read_all_boxes, BOX_REGISTRY,
+)
+from . import unc  # noqa: F401  (registers cmpd/uncC/cmpC/icef)
+
+__all__ = [
+    "Box", "FullBox", "BoxHeader", "Box_other", "Box_Error",
+    "register_box", "read_box", "read_all_boxes", "BOX_REGISTRY",
+]

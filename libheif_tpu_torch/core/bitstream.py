@@ -1,0 +1,181 @@
+"""Byte readers and writers for ISOBMFF parsing and serialization.
+
+Re-designed equivalents of the reference's bitstream layer
+(reference: libheif/bitstream.h — StreamReader:39, BitstreamRange:258,
+StreamWriter:511).  The reference threads an error flag through a BitstreamRange; we instead keep explicit bounds
+on a memoryview and raise :class:`HeifError` (End_of_data) on overrun,
+which parse code catches at box isolation boundaries.
+
+All multi-byte integers are big-endian (ISOBMFF network order) unless a
+method says otherwise.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Optional, Union
+
+from .error import HeifError, SubError
+
+_U16 = struct.Struct(">H")
+_U32 = struct.Struct(">I")
+_U64 = struct.Struct(">Q")
+
+
+class ByteReader:
+    """Bounded sequential big-endian byte reader (ref: BitstreamRange).
+
+    A child reader created by :meth:`sub_reader` shares the underlying
+    buffer but has its own tighter bounds — the analog of the
+    reference's nested BitstreamRange construction for child boxes.
+    """
+
+    __slots__ = ("_buf", "pos", "end")
+
+    def __init__(self, data: Union[bytes, bytearray, memoryview],
+                 start: int = 0, end: Optional[int] = None):
+        self._buf = memoryview(data)
+        self.pos = start
+        self.end = len(self._buf) if end is None else end
+        if self.end > len(self._buf):
+            raise HeifError.eof("reader bounds exceed buffer")
+
+    # -- state ----------------------------------------------------------
+
+    def remaining(self) -> int:
+        return self.end - self.pos
+
+    def eof(self) -> bool:
+        return self.pos >= self.end
+
+    def _need(self, n: int) -> None:
+        if self.pos + n > self.end:
+            raise HeifError.eof(
+                f"need {n} bytes at offset {self.pos}, only {self.remaining()} left")
+
+    def sub_reader(self, size: int) -> "ByteReader":
+        """Bounded child covering the next `size` bytes; advances self."""
+        self._need(size)
+        child = ByteReader(self._buf, self.pos, self.pos + size)
+        self.pos += size
+        return child
+
+    # -- reads ----------------------------------------------------------
+
+    def read8(self) -> int:
+        self._need(1)
+        v = self._buf[self.pos]
+        self.pos += 1
+        return v
+
+    def read16(self) -> int:
+        self._need(2)
+        v = _U16.unpack_from(self._buf, self.pos)[0]
+        self.pos += 2
+        return v
+
+    def read24(self) -> int:
+        self._need(3)
+        b = self._buf
+        v = (b[self.pos] << 16) | (b[self.pos + 1] << 8) | b[self.pos + 2]
+        self.pos += 3
+        return v
+
+    def read32(self) -> int:
+        self._need(4)
+        v = _U32.unpack_from(self._buf, self.pos)[0]
+        self.pos += 4
+        return v
+
+    def read64(self) -> int:
+        self._need(8)
+        v = _U64.unpack_from(self._buf, self.pos)[0]
+        self.pos += 8
+        return v
+
+    def read_uint(self, nbytes: int) -> int:
+        """Read an unsigned big-endian integer of 0/1/2/3/4/8 bytes.
+
+        Used for iloc offset/length fields whose size is a header
+        parameter (ref: Box_iloc parse, box.cc).
+        """
+        if nbytes == 0:
+            return 0
+        self._need(nbytes)
+        v = int.from_bytes(self._buf[self.pos:self.pos + nbytes], "big")
+        self.pos += nbytes
+        return v
+
+    def read_bytes(self, n: int) -> bytes:
+        self._need(n)
+        v = bytes(self._buf[self.pos:self.pos + n])
+        self.pos += n
+        return v
+
+    def read_remaining(self) -> bytes:
+        return self.read_bytes(self.remaining())
+
+    def read_string(self) -> str:
+        """NUL-terminated UTF-8 string (ref: BitstreamRange::read_string)."""
+        start = self.pos
+        buf = self._buf
+        while self.pos < self.end and buf[self.pos] != 0:
+            self.pos += 1
+        s = bytes(buf[start:self.pos]).decode("utf-8", errors="replace")
+        if self.pos < self.end:
+            self.pos += 1  # consume NUL
+        return s
+
+
+class ByteWriter:
+    """Append/patch byte writer (ref: bitstream.h StreamWriter:511).
+
+    A box header is written with a placeholder size that
+    :meth:`patch32` fixes once the body is written, and :meth:`insert`
+    widens it to a 64-bit size when needed (the reference's
+    ``reserve_box_header_space``/``prepend_header``).
+    """
+
+    __slots__ = ("_data",)
+
+    def __init__(self):
+        self._data = bytearray()
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    @property
+    def pos(self) -> int:
+        return len(self._data)
+
+    def data(self) -> bytes:
+        return bytes(self._data)
+
+    def write8(self, v: int) -> None:
+        self._data.append(v & 0xFF)
+
+    def write16(self, v: int) -> None:
+        self._data += _U16.pack(v & 0xFFFF)
+
+    def write24(self, v: int) -> None:
+        self._data += bytes(((v >> 16) & 0xFF, (v >> 8) & 0xFF, v & 0xFF))
+
+    def write32(self, v: int) -> None:
+        self._data += _U32.pack(v & 0xFFFFFFFF)
+
+    def write_uint(self, v: int, nbytes: int) -> None:
+        if nbytes:
+            self._data += int(v).to_bytes(nbytes, "big")
+
+    def write_bytes(self, b: Union[bytes, bytearray, memoryview]) -> None:
+        self._data += b
+
+    def write_string(self, s: str) -> None:
+        """NUL-terminated UTF-8."""
+        self._data += s.encode("utf-8") + b"\x00"
+
+    def insert(self, at: int, b: bytes) -> None:
+        self._data[at:at] = b
+
+    def patch32(self, at: int, v: int) -> None:
+        self._data[at:at + 4] = _U32.pack(v & 0xFFFFFFFF)

@@ -1,0 +1,330 @@
+"""The PyTorch port's colour kernels and YCbCr→RGB op against the JAX
+package, on the CPU.
+
+Contract (tests/test_pallas_fast.py:1-9): integer stages are exact; the
+f32 H.273 matrix may differ by at most 1 LSB, on fewer than 1% of the
+pixels, where a value sits on a .5 rounding boundary and the two
+compilers order or contract the f32 operations differently.  Within the
+port, the kernels' plain versions and the op's matrix path are held to
+each other exactly.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from libheif_tpu.codecs.unc import pallas_fast  # noqa: E402
+from libheif_tpu.color import ops as jops  # noqa: E402
+from libheif_tpu.color import pipeline as jpipeline  # noqa: E402
+from libheif_tpu.color.nclx import (  # noqa: E402
+    NclxProfile as JNclx, get_kr_kb)
+from libheif_tpu.color.state import ColorState as JColorState  # noqa: E402
+from libheif_tpu.image.pixel_image import (  # noqa: E402
+    PixelImage as JPixelImage, Colorspace, Chroma, Channel)
+
+from libheif_tpu_torch.codecs.unc import cuda_fast  # noqa: E402
+from libheif_tpu_torch.color import ops, pipeline  # noqa: E402
+from libheif_tpu_torch.color.nclx import NclxProfile  # noqa: E402
+from libheif_tpu_torch.color.state import ColorState  # noqa: E402
+from libheif_tpu_torch.core.error import HeifError, SubError  # noqa: E402
+from libheif_tpu_torch.image.pixel_image import from_numpy_planes  # noqa: E402
+
+SUB = {Chroma.C420: (2, 2), Chroma.C422: (2, 1), Chroma.C444: (1, 1)}
+KR, KB = get_kr_kb(6)
+
+
+def _assert_lsb_contract(a, b, what=""):
+    a = np.asarray(a).astype(np.int64)
+    b = np.asarray(b).astype(np.int64)
+    assert a.shape == b.shape, what
+    d = np.abs(a - b)
+    assert d.max(initial=0) <= 1, f"{what}: maxdiff {d.max()}"
+    assert (d > 0).mean() < 0.01, f"{what}: {(d > 0).mean():.3%} differ"
+
+
+def _tiles(t, nbytes, seed):
+    return np.random.default_rng(seed).integers(0, 256, (t, nbytes + 8),
+                                                dtype=np.uint8)
+
+
+def _ref_tiles(tiles, sub_x, sub_y, *, tile_rows, tile_cols, tile_h,
+               tile_w, kr, kb, full_range):
+    """numpy float32 reference in the order of libheif_tpu/color/ops.py
+    (plane slices, nearest upsample, matrix), tiles pasted in place.
+
+    In limited range with subsampled chroma, JAX's Pallas tile kernels
+    scale the chroma before their bf16 upsample matmul
+    (pallas_fast.py:88-111), which rounds it to bf16; the port keeps it
+    in f32 as ops.py does, so there the port is held to this reference
+    and not to the Pallas output."""
+    t = tile_rows * tile_cols
+    ch, cw = tile_h // sub_y, tile_w // sub_x
+    ys, cs = tile_h * tile_w, ch * cw
+    f = np.float32
+    y = tiles[:, :ys].reshape(t, tile_h, tile_w).astype(f)
+
+    def up(off):
+        c = tiles[:, off:off + cs].reshape(t, ch, cw).astype(f) - f(128)
+        return c.repeat(sub_y, 1).repeat(sub_x, 2)
+
+    cb, cr = up(ys), up(ys + cs)
+    if not full_range:
+        y = (y - f(16)) * f(255.0 / 219.0)
+        cb = cb * f(255.0 / 224.0)
+        cr = cr * f(255.0 / 224.0)
+    r = y + f(2 * (1 - kr)) * cr
+    b = y + f(2 * (1 - kb)) * cb
+    g = (y - f(kr) * r - f(kb) * b) / f(1 - kr - kb)
+    rgb = np.stack([np.clip(np.round(c), 0, 255) for c in (r, g, b)])
+    return rgb.astype(np.uint8).reshape(3, tile_rows, tile_cols, tile_h,
+                                        tile_w) \
+        .transpose(0, 1, 3, 2, 4).reshape(3, tile_rows * tile_h,
+                                          tile_cols * tile_w)
+
+
+# -------------------------------------------------- (d) tile colour kernels
+
+@pytest.mark.parametrize("grid", [(2, 2, 64, 128), (3, 1, 18, 34)],
+                         ids=["2x2x64x128", "3x1x18x34"])
+@pytest.mark.parametrize("full_range", [True, False])
+def test_yuv420_tiles_to_rgb_matches_jax(grid, full_range):
+    tr, tc, th, tw = grid
+    tiles = _tiles(tr * tc, th * tw * 3 // 2, seed=th + tw)
+    kw = dict(tile_rows=tr, tile_cols=tc, tile_h=th, tile_w=tw,
+              kr=float(KR), kb=float(KB), full_range=full_range)
+    got = cuda_fast.yuv420_tiles_to_rgb(torch.from_numpy(tiles), **kw)
+    assert got.dtype == torch.uint8
+    _assert_lsb_contract(_ref_tiles(tiles, 2, 2, **kw), got.numpy())
+    if full_range:
+        ref = pallas_fast.yuv420_tiles_to_rgb(tiles, interpret=True, **kw)
+        _assert_lsb_contract(np.asarray(ref), got.numpy())
+
+
+@pytest.mark.parametrize("sub", [(2, 2), (2, 1), (1, 1)],
+                         ids=["420", "422", "444"])
+@pytest.mark.parametrize("full_range", [True, False])
+def test_yuv_tiles_to_rgb_matches_jax(sub, full_range):
+    sx, sy = sub
+    th, tw = 32, 64
+    tiles = _tiles(4, th * tw + 2 * (th // sy) * (tw // sx), seed=5)
+    kw = dict(tile_rows=2, tile_cols=2, tile_h=th, tile_w=tw, sub_x=sx,
+              sub_y=sy, kr=float(KR), kb=float(KB), full_range=full_range)
+    got = cuda_fast.yuv_tiles_to_rgb(torch.from_numpy(tiles), **kw)
+    _assert_lsb_contract(_ref_tiles(tiles, **kw), got.numpy())
+    if full_range or sub == (1, 1):
+        ref = pallas_fast.yuv_tiles_to_rgb(tiles, interpret=True, **kw)
+        _assert_lsb_contract(np.asarray(ref), got.numpy())
+
+
+@pytest.mark.parametrize("num_comps", [1, 3])
+def test_planar8_tiles_to_image_exact(num_comps):
+    th, tw = 16, 24
+    tiles = _tiles(6, num_comps * th * tw, seed=num_comps)
+    kw = dict(tile_rows=3, tile_cols=2, tile_h=th, tile_w=tw,
+              num_comps=num_comps)
+    ref = pallas_fast.planar8_tiles_to_image(tiles, interpret=True, **kw)
+    got = cuda_fast.planar8_tiles_to_image(torch.from_numpy(tiles), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "short", "odd_tile"])
+def test_tile_wrapper_rejects(bad):
+    tiles = torch.zeros((4, 64 * 64 * 3 // 2 + 8), dtype=torch.uint8)
+    kw = dict(tile_rows=2, tile_cols=2, tile_h=64, tile_w=64, kr=0.299,
+              kb=0.114)
+    if bad == "dtype":
+        tiles = tiles.to(torch.int16)
+    elif bad == "short":
+        tiles = tiles[:, :100]
+    else:
+        kw["tile_w"] = 63
+    with pytest.raises((ValueError, TypeError)):
+        cuda_fast.yuv420_tiles_to_rgb(tiles, **kw)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "cb_cr_differ", "empty_chroma"])
+def test_planes_wrapper_rejects(bad):
+    y = torch.zeros((8, 8), dtype=torch.uint8)
+    cb = cr = torch.zeros((4, 4), dtype=torch.uint8)
+    if bad == "dtype":
+        y = y.to(torch.int16)
+    elif bad == "cb_cr_differ":
+        cr = torch.zeros((4, 3), dtype=torch.uint8)
+    else:
+        cb = cr = torch.zeros((0, 0), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        cuda_fast.ycbcr8_planes_to_rgb(y, cb, cr, kr=0.299, kb=0.114)
+
+
+# ------------------------------------- planes_ycbcr8_to_rgb index arithmetic
+
+def _emulate_chroma_taps(p, out_h, out_w, method):
+    """The planes_ycbcr8_to_rgb kernel's axis_taps/chroma_scaled
+    (csrc/unc_kernels.cu) replayed in numpy: the scaled chroma value of
+    every output pixel."""
+    h, w = p.shape
+    x_mode, y_mode, scale = cuda_fast.upsample_plan(h, w, out_h, out_w,
+                                                    method)
+
+    def taps(mode, n, N):
+        o = np.arange(N)
+        if mode == 0:
+            return (o * n) // N, None
+        i0 = o >> 1
+        return i0, np.where(o & 1, np.minimum(i0 + 1, n - 1),
+                            np.maximum(i0 - 1, 0))
+
+    r0, r1 = taps(y_mode, h, out_h)
+    c0, c1 = taps(x_mode, w, out_w)
+    a = p.astype(np.int64)
+
+    def hrow(r):
+        v = a[r][:, c0]
+        return v if c1 is None else 3 * v + a[r][:, c1]
+
+    v = hrow(r0)
+    return (v if r1 is None else 3 * v + hrow(r1)), scale
+
+
+@pytest.mark.parametrize("geom", [
+    (32, 16, 64, 32), (34, 17, 67, 33), (5, 9, 5, 18), (5, 9, 9, 17),
+    (1, 1, 2, 2), (1, 1, 1, 3), (8, 8, 8, 8), (4, 6, 13, 7)])
+@pytest.mark.parametrize("method", ["bilinear", "nearest-neighbor"])
+def test_chroma_upsample_index_math(geom, method):
+    h, w, out_h, out_w = geom
+    p = np.random.default_rng(h * w).integers(0, 256, (h, w), dtype=np.uint8)
+    plain, scale = cuda_fast._upsample_int_plain(torch.from_numpy(p), out_h,
+                                                 out_w, method)
+    emu, emu_scale = _emulate_chroma_taps(p, out_h, out_w, method)
+    assert scale == emu_scale
+    np.testing.assert_array_equal(plain.numpy(), emu)
+
+
+# ------------------------------------------- (e) YCbCrToRGB and the pipeline
+
+def _planes(w, h, chroma, bits=8, seed=0):
+    rng = np.random.default_rng(seed)
+    sx, sy = SUB[chroma]
+    cw, ch = (w + sx - 1) // sx, (h + sy - 1) // sy
+    dt = np.uint8 if bits <= 8 else np.uint16
+    return {Channel.Y: rng.integers(0, 1 << bits, (h, w), dtype=dt),
+            Channel.Cb: rng.integers(0, 1 << bits, (ch, cw), dtype=dt),
+            Channel.Cr: rng.integers(0, 1 << bits, (ch, cw), dtype=dt)}
+
+
+def _both_images(planes, chroma, bits, mc=6, full_range=True):
+    jimg = JPixelImage(planes[Channel.Y].shape[1], planes[Channel.Y].shape[0],
+                       Colorspace.YCbCr, chroma)
+    for ch, a in planes.items():
+        jimg.set_plane(ch, a, bits)
+    pimg = from_numpy_planes(planes, {c: bits for c in planes},
+                             Colorspace.YCbCr, chroma, device="cpu")
+    jimg.color_profile_nclx = JNclx(matrix_coefficients=mc,
+                                    full_range_flag=full_range)
+    pimg.color_profile_nclx = NclxProfile(matrix_coefficients=mc,
+                                          full_range_flag=full_range)
+    return jimg, pimg
+
+
+def _apply_both(jimg, pimg, upsampling, use_kernel):
+    """YCbCrToRGB.apply in each package, the kernel path forced on or off
+    (JAX: Pallas in interpret mode; port: the kernel's plain version)."""
+    jin, pin = JColorState.of(jimg), ColorState.of(pimg)
+    jout = JColorState(colorspace=Colorspace.RGB, chroma=Chroma.C444,
+                       bits_per_pixel=jin.bits_per_pixel)
+    pout = ColorState(colorspace=Colorspace.RGB, chroma=Chroma.C444,
+                      bits_per_pixel=pin.bits_per_pixel)
+    try:
+        jops.YCbCrToRGB.USE_PALLAS = use_kernel
+        ops.YCbCrToRGB.USE_KERNEL = use_kernel
+        ref = jops.YCbCrToRGB().apply(
+            jimg, jin, jout,
+            jops.ColorConversionOptions(chroma_upsampling=upsampling))
+        got = ops.YCbCrToRGB().apply(
+            pimg, pin, pout,
+            ops.ColorConversionOptions(chroma_upsampling=upsampling))
+    finally:
+        jops.YCbCrToRGB.USE_PALLAS = None
+        ops.YCbCrToRGB.USE_KERNEL = None
+    return ref, got
+
+
+@pytest.mark.parametrize("chroma", [Chroma.C420, Chroma.C422, Chroma.C444])
+@pytest.mark.parametrize("upsampling", ["bilinear", "nearest-neighbor"])
+@pytest.mark.parametrize("size", [(64, 32), (129, 67)])
+@pytest.mark.parametrize("full_range", [True, False])
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["matrix", "kernel"])
+def test_ycbcr_to_rgb_matches_jax(chroma, upsampling, size, full_range,
+                                  use_kernel):
+    w, h = size
+    planes = _planes(w, h, chroma, seed=w + h)
+    jimg, pimg = _both_images(planes, chroma, 8, full_range=full_range)
+    ref, got = _apply_both(jimg, pimg, upsampling, use_kernel)
+    for ch in (Channel.R, Channel.G, Channel.B):
+        assert got.plane(ch).dtype == torch.uint8
+        assert got.plane(ch).shape == (h, w)
+        _assert_lsb_contract(np.asarray(ref.plane(ch)), got.np_plane(ch), ch)
+    # the kernel's plain version and the matrix path agree exactly
+    _, other = _apply_both(jimg, pimg, upsampling, not use_kernel)
+    for ch in (Channel.R, Channel.G, Channel.B):
+        np.testing.assert_array_equal(got.np_plane(ch), other.np_plane(ch))
+
+
+@pytest.mark.parametrize("chroma", [Chroma.C420, Chroma.C444])
+@pytest.mark.parametrize("full_range", [True, False])
+def test_ycbcr10_to_rgb_matches_jax(chroma, full_range):
+    planes = _planes(33, 18, chroma, bits=10, seed=3)
+    jimg, pimg = _both_images(planes, chroma, 10, full_range=full_range)
+    ref, got = _apply_both(jimg, pimg, "bilinear", None)
+    for ch in (Channel.R, Channel.G, Channel.B):
+        assert got.plane(ch).dtype == torch.uint16
+        assert got.bit_depth(ch) == 10
+        _assert_lsb_contract(np.asarray(ref.plane(ch)), got.np_plane(ch), ch)
+
+
+@pytest.mark.parametrize("upsampling", ["bilinear", "nearest-neighbor"])
+def test_identity_matrix_matches_jax(upsampling):
+    planes = _planes(20, 14, Chroma.C420, seed=9)
+    jimg, pimg = _both_images(planes, Chroma.C420, 8, mc=0)
+    ref, got = _apply_both(jimg, pimg, upsampling, True)
+    for ch in (Channel.R, Channel.G, Channel.B):
+        np.testing.assert_array_equal(got.np_plane(ch),
+                                      np.asarray(ref.plane(ch)))
+
+
+@pytest.mark.parametrize("chroma,bits", [(Chroma.C420, 8), (Chroma.C422, 8),
+                                         (Chroma.C444, 10)])
+def test_convert_image_chain_and_pixels(chroma, bits):
+    planes = _planes(40, 24, chroma, bits=bits, seed=11)
+    jimg, pimg = _both_images(planes, chroma, bits)
+    jin, pin = JColorState.of(jimg), ColorState.of(pimg)
+    jt = JColorState(colorspace=Colorspace.RGB, chroma=Chroma.C444,
+                     has_alpha=False, bits_per_pixel=0,
+                     color_primaries=jin.color_primaries)
+    pt = ColorState(colorspace=Colorspace.RGB, chroma=Chroma.C444,
+                    has_alpha=False, bits_per_pixel=0,
+                    color_primaries=pin.color_primaries)
+    jchain = jpipeline.find_pipeline(jin, jt)
+    pchain = pipeline.find_pipeline(pin, pt)
+    assert [type(op).__name__ for op, _ in pchain] == \
+        [type(op).__name__ for op, _ in jchain]
+    ref = jpipeline.convert_image(jimg, Colorspace.RGB, Chroma.C444)
+    got = pipeline.convert_image(pimg, Colorspace.RGB, Chroma.C444,
+                                 device="cpu")
+    assert (got.colorspace, got.chroma) == (ref.colorspace, ref.chroma)
+    for ch in (Channel.R, Channel.G, Channel.B):
+        _assert_lsb_contract(np.asarray(ref.plane(ch)), got.np_plane(ch), ch)
+
+
+def test_unported_conversion_raises():
+    planes = _planes(8, 8, Chroma.C444, seed=1)
+    rgb = {Channel.R: planes[Channel.Y], Channel.G: planes[Channel.Cb],
+           Channel.B: planes[Channel.Cr]}
+    img = from_numpy_planes(rgb, {c: 8 for c in rgb}, Colorspace.RGB,
+                            Chroma.C444, device="cpu")
+    with pytest.raises(HeifError) as e:
+        pipeline.convert_image(img, Colorspace.YCbCr, Chroma.C420,
+                               device="cpu")
+    assert e.value.subcode == SubError.Unsupported_color_conversion
