@@ -10,9 +10,12 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
 1. print the card's name and power limit (nvidia-smi);
 2. build the hand-written kernels from libheif_tpu_torch/codecs/unc/csrc;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the CPU tests, odd sizes and the full width: exact for
-   strided_extract_paste, <= 1 LSB on < 1% of pixels for the colour
-   kernels (the count of differing pixels is printed);
+   shapes of the CPU tests, odd sizes, every vector width and tap rule of
+   the colour kernels, and the full width: all exact (the count of
+   differing pixels is printed); then compare the colour kernels' f32
+   core with the straightforward per-pixel core over every reachable
+   input (Y 0..255 x scaled Cb, Cr 0..255*s, s = 1, 4, 16) for five
+   matrices in both ranges, and require 0 mismatches;
 4. drive the main path at full width -- a 4096x4096 YCbCr 4:2:0 unci item
    in 8x8 tiles of 512x512: box bytes -> read_all_boxes -> UnciDecoder
    .decode -> convert_image to RGB -- check it against the plain path on
@@ -23,8 +26,11 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
    planar8_tiles_to_image, the copy case of strided_extract_paste, which
-   is off the main path) and the main path with CUDA events, and print
-   the numbers.
+   is off the main path; for the colour kernels, which have none, a
+   device-to-device copy_ of as many bytes as they move) and the main
+   path with CUDA events, and print the numbers;
+7. print the colour kernels' SASS instructions per output pixel
+   (sass_count.py, cuobjdump).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
@@ -45,7 +51,8 @@ from libheif_tpu_torch.boxes import read_all_boxes
 from libheif_tpu_torch.boxes.unc import (
     Box_uncC, Box_cmpd, CmpdComponent, UncCComponent, InterleaveMode,
     SamplingMode)
-from libheif_tpu_torch.codecs.unc import UnciDecoder, cuda_fast, kernels
+from libheif_tpu_torch.codecs.unc import (
+    UnciDecoder, cuda_fast, kernels, sass_count)
 from libheif_tpu_torch.codecs.unc.layout import compute_layout
 from libheif_tpu_torch.color import convert_image, get_kr_kb
 from libheif_tpu_torch.color.ops import ColorConversionOptions, YCbCrToRGB
@@ -61,6 +68,9 @@ PALLAS = "libheif_tpu/codecs/unc/pallas_fast.py"
 SOURCE = "libheif_tpu_torch/codecs/unc/csrc/unc_kernels.cu"
 KR, KB = get_kr_kb(6)
 DEV = "cuda"
+# mangled names of the flagship instantiations in csrc/unc_kernels.cu
+SASS_TILE = r"tile_yuv_to_rgb_kernelILi8ELi16ELi2ELi2ELb1EE"
+SASS_PLANES = r"planes_ycbcr8_to_rgb_kernelILi16ELi1ELb1ELb1EE"
 
 
 def log(*a):
@@ -167,47 +177,63 @@ class Tally:
 def check_kernels(tally):
     """Phase 3: every kernel against its plain version on the card."""
     rng = np.random.default_rng(SEED)
-    # tile_yuv_to_rgb: the CPU tests' grids, odd widths, the full width
-    grids = [(2, 2, 64, 128, 2, 2), (3, 1, 18, 34, 2, 2),
-             (2, 2, 32, 64, 2, 1), (2, 2, 32, 64, 1, 1),
-             (1, 3, 6, 10, 2, 2), (TILES, TILES, H // TILES, W // TILES, 2, 2)]
-    for tr, tc, th, tw, sx, sy in grids:
+    # tile_yuv_to_rgb: the CPU tests' grids, odd widths, tile widths that
+    # are not a multiple of 16, pitches aligned to 16 and 8 bytes and odd
+    # ((tr, tc, th, tw, sx, sy, bytes of padding)), the full width
+    tw, th = W // TILES, H // TILES
+    grids = [(2, 2, 64, 128, 2, 2, 8), (2, 2, 64, 128, 2, 2, 16),
+             (2, 2, 64, 128, 2, 2, 9), (3, 1, 18, 34, 2, 2, 8),
+             (2, 2, 32, 64, 2, 1, 8), (2, 2, 32, 64, 1, 1, 8),
+             (1, 3, 6, 10, 2, 2, 8), (2, 3, 8, 24, 2, 2, 8),
+             (3, 2, 6, 40, 2, 2, 8), (TILES, TILES, th, tw, 2, 2, 8),
+             (TILES, TILES, th, tw, 2, 1, 8), (TILES, TILES, th, tw, 1, 1, 8)]
+    for tr, tc, th, tw, sx, sy, pad in grids:
         n = th * tw + 2 * (th // sy) * (tw // sx)
         tiles = torch.from_numpy(rng.integers(
-            0, 256, (tr * tc, n + 8), dtype=np.uint8)).to(DEV)
+            0, 256, (tr * tc, n + pad), dtype=np.uint8)).to(DEV)
+        vec = cuda_fast.tile_vector_width(n + pad, tw, sx, tc,
+                                          tiles.data_ptr())
         for full in (True, False):
             kw = dict(tile_rows=tr, tile_cols=tc, tile_h=th, tile_w=tw,
                       sub_x=sx, sub_y=sy, kr=float(KR), kb=float(KB),
                       full_range=full)
             tally.compare("tile_yuv_to_rgb",
                           f"{tr}x{tc} tiles {tw}x{th} sub {sx}x{sy} "
+                          f"pitch {n + pad} ({vec} B) "
                           f"{'full' if full else 'limited'}",
                           cuda_fast.yuv_tiles_to_rgb(tiles, **kw),
                           cuda_fast.yuv_tiles_to_rgb_plain(tiles, **kw),
-                          exact=False)
-    # planes_ycbcr8_to_rgb: the CPU tests' sizes (odd 129x67 included)
-    sizes = [(64, 32), (129, 67), (7, 5), (W, H)]
-    for w, h in sizes:
-        for chroma, (sx, sy) in ((Chroma.C420, (2, 2)), (Chroma.C422, (2, 1)),
-                                 (Chroma.C444, (1, 1))):
-            if (w, h) == (W, H) and chroma != Chroma.C420:
-                continue
-            cw, ch = (w + sx - 1) // sx, (h + sy - 1) // sy
-            y = torch.from_numpy(rng.integers(0, 256, (h, w),
-                                              dtype=np.uint8)).to(DEV)
-            cb, cr = (torch.from_numpy(rng.integers(
-                0, 256, (ch, cw), dtype=np.uint8)).to(DEV) for _ in range(2))
-            for up in ("bilinear", "nearest-neighbor"):
-                for full in (True, False):
-                    kw = dict(kr=float(KR), kb=float(KB), full_range=full,
-                              upsampling=up)
-                    tally.compare(
-                        "planes_ycbcr8_to_rgb",
-                        f"{w}x{h} {chroma} {up} "
-                        f"{'full' if full else 'limited'}",
-                        cuda_fast.ycbcr8_planes_to_rgb(y, cb, cr, **kw),
-                        cuda_fast.ycbcr8_planes_to_rgb_plain(y, cb, cr, **kw),
-                        exact=False)
+                          exact=True)
+    # planes_ycbcr8_to_rgb: the CPU tests' sizes (odd 129x67 included),
+    # widths of 16-, 4- and 1-byte vectors with odd heights, the full
+    # width, then chroma of a general nearest ratio and identity axes
+    sub = {Chroma.C420: (2, 2), Chroma.C422: (2, 1), Chroma.C444: (1, 1)}
+    sizes = [(64, 32), (129, 67), (7, 5), (W, 33), (W + 4, 31), (W + 1, 29),
+             (W, H)]
+    geoms = [(w, h, (w + sx - 1) // sx, (h + sy - 1) // sy, chroma)
+             for w, h in sizes for chroma, (sx, sy) in sub.items()
+             if w < W or chroma == Chroma.C420]
+    geoms += [(64, 32, 20, 10, "general ratio"), (64, 32, 64, 16, "x same"),
+              (64, 32, 32, 32, "y same")]
+    for w, h, cw, ch, what in geoms:
+        y = torch.from_numpy(rng.integers(0, 256, (h, w),
+                                          dtype=np.uint8)).to(DEV)
+        cb, cr = (torch.from_numpy(rng.integers(
+            0, 256, (ch, cw), dtype=np.uint8)).to(DEV) for _ in range(2))
+        vec = cuda_fast.planes_vector_width(
+            w, cw, *(t.data_ptr() for t in (y, cb, cr)))
+        for up in ("bilinear", "nearest-neighbor"):
+            rules = cuda_fast.upsample_plan(ch, cw, h, w, up)
+            for full in (True, False):
+                kw = dict(kr=float(KR), kb=float(KB), full_range=full,
+                          upsampling=up)
+                tally.compare(
+                    "planes_ycbcr8_to_rgb",
+                    f"{w}x{h} {cw}x{ch} {what} {up} rules {rules[:2]} "
+                    f"({vec} B) {'full' if full else 'limited'}",
+                    cuda_fast.ycbcr8_planes_to_rgb(y, cb, cr, **kw),
+                    cuda_fast.ycbcr8_planes_to_rgb_plain(y, cb, cr, **kw),
+                    exact=True)
     # strided_extract_paste: every byte-aligned layout, and the copy case
     for i, (name, w, h, boxes) in enumerate(STRIDED_CASES):
         lay, _, tiles = layout_and_tiles(w, h, boxes, seed=i)
@@ -230,6 +256,28 @@ def check_kernels(tally):
                       cuda_fast.planar8_tiles_to_image(tiles, **kw),
                       cuda_fast.planar8_tiles_to_image_plain(tiles, **kw),
                       exact=True)
+
+
+CORE_MATRICES = (1, 4, 6, 7, 9)     # every distinct named Kr/Kb pair
+
+
+def check_colour_core():
+    """Phase 3b: the colour kernels' f32 core against the straightforward
+    per-pixel core over every reachable input; returns the counts."""
+    counts = {}
+    t0 = time.perf_counter()
+    for mc in CORE_MATRICES:
+        kr, kb = get_kr_kb(mc)
+        for full in (True, False):
+            for scale in (1, 4, 16):
+                n = cuda_fast.colour_core_mismatches(kr, kb, full, scale)
+                counts[f"mc{mc} {'full' if full else 'limited'} s{scale}"] = n
+    torch.cuda.synchronize()
+    log(f"colour core check: {json.dumps(counts)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    bad = {k: v for k, v in counts.items() if v}
+    assert not bad, f"colour core differs from the reference core: {bad}"
+    return counts
 
 
 # ------------------------------------------------------------ numpy checks
@@ -345,6 +393,58 @@ def bound(nbytes, nops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def vector_width_sweep(timer, rng, fused_kw, plane_copies):
+    """The colour kernels at 4096^2 with their access widths forced:
+    (load, store) bytes for tile_yuv_to_rgb on the flagship tile buffers
+    (pitch 393,224; 16-byte loads need a 393,232 pitch), and the one
+    width of planes_ycbcr8_to_rgb.  Same arithmetic, other access
+    widths; each is checked exactly against the plain version first,
+    and each is timed twice, in opposite orders."""
+    th, tw = H // TILES, W // TILES
+    n = th * tw * 3 // 2
+    mat = cuda_fast._matrix(float(KR), float(KB), True)
+    bufs = {pad: [torch.from_numpy(rng.integers(
+        0, 256, (TILES * TILES, n + pad), dtype=np.uint8)).to(DEV)
+        for _ in range(4)] for pad in (8, 16)}
+
+    def tile(t, load, store):
+        out = torch.empty((3, H, W), dtype=torch.uint8, device=DEV)
+        cuda_fast.TILE_YUV_TO_RGB.launch(
+            out, t.data_ptr(), out.data_ptr(), t.shape[1], TILES, TILES, th,
+            tw, 2, 2, load, store, *mat)
+        return out
+
+    def planes(p, vec):
+        out = torch.empty((3, H, W), dtype=torch.uint8, device=DEV)
+        cuda_fast.PLANES_YCBCR8_TO_RGB.launch(
+            out, *(t.data_ptr() for t in p), out.data_ptr(), H, W, H // 2,
+            W // 2, cuda_fast.DOUBLE, cuda_fast.DOUBLE, 16, vec, *mat)
+        return out
+
+    cases = {f"tile_load{lo}_store{st}": (
+        lambda lo=lo, st=st, pad=pad: [lambda t=t: tile(t, lo, st)
+                                       for t in bufs[pad]])
+        for lo, st, pad in ((16, 16, 16), (8, 16, 8), (8, 8, 8), (4, 4, 8),
+                            (1, 16, 8), (1, 1, 8))}
+    cases.update({f"planes_{v}": (
+        lambda v=v: [lambda p=p: planes(p, v) for p in plane_copies])
+        for v in (16, 8, 4, 1)})
+    for name, fns in cases.items():
+        if name.startswith("tile"):
+            t = bufs[16 if "load16" in name else 8][0]
+            ref = cuda_fast.yuv_tiles_to_rgb_plain(t, sub_x=2, sub_y=2,
+                                                   **fused_kw)
+        else:
+            ref = cuda_fast.ycbcr8_planes_to_rgb_plain(
+                *plane_copies[0], kr=float(KR), kb=float(KB))
+        assert torch.equal(fns()[0](), ref), name
+    out = {name: [] for name in cases}
+    for name in list(cases) + list(cases)[::-1]:
+        out[name].append(timer(cases[name]()))
+    log(f"access widths {json.dumps(out)}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def nvidia_smi():
@@ -378,6 +478,7 @@ def main():
     tally = Tally()
     check_kernels(tally)
     small_input_check(tally)
+    core_counts = check_colour_core()
 
     # 4. the main path at full width
     uncC, cmpd = ycc420(W, H, (TILES, TILES))
@@ -408,7 +509,7 @@ def main():
     out = rgb_of(rgb)
     assert out.shape == (3, H, W) and out.dtype == torch.uint8
     tally.compare("planes_ycbcr8_to_rgb", f"main path {W}x{H} RGB",
-                  out, rgb_of(plain_rgb), exact=False)
+                  out, rgb_of(plain_rgb), exact=True)
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -427,7 +528,7 @@ def main():
                   fused, rgb_of(nearest), exact=False)
     tally.compare("tile_yuv_to_rgb", f"fused {W}x{H} vs plain",
                   fused, cuda_fast.yuv_tiles_to_rgb_plain(
-                      tiles, sub_x=2, sub_y=2, **fused_kw), exact=False)
+                      tiles, sub_x=2, sub_y=2, **fused_kw), exact=True)
 
     # 6. timing
     timer = DeviceTimer()
@@ -439,7 +540,16 @@ def main():
     in_bytes = px * 3 // 2
     kern = {}
 
-    def row(name, replaces, also, launches, fn, plain, lib, nbytes, nops):
+    # the colour kernels' yardstick: a device-to-device copy_ that moves
+    # as many bytes (half read, half written), over four copies
+    colour_bytes = in_bytes + 3 * px
+    srcs = [torch.empty(colour_bytes // 2, dtype=torch.uint8, device=DEV)
+            for _ in range(4)]
+    dst = torch.empty_like(srcs[0])
+    copy_ms = timer([lambda s=s: dst.copy_(s) for s in srcs])
+
+    def row(name, replaces, also, launches, fn, plain, lib, nbytes, nops,
+            extra=None):
         ms, plain_ms = timer(fn), timer(plain)
         lib_ms = timer(lib) if lib is not None else None
         b_ms, b_by = bound(nbytes, nops)
@@ -451,7 +561,7 @@ def main():
             "bound_by": b_by, "library_ms": lib_ms,
             "checks": tally.checks[name],
             "differing_pixels": tally.differing[name],
-            "bytes": nbytes, "ops": nops}
+            "bytes": nbytes, "ops": nops, **(extra or {})}
 
     # f32 operations per output pixel: tile 20 (2 offsets, 9 matrix, 9
     # round/clip), planes 22 (+2 scale); limited range is not timed
@@ -461,7 +571,7 @@ def main():
          for t in copies],
         [lambda t=t: cuda_fast.yuv_tiles_to_rgb_plain(
             t, sub_x=2, sub_y=2, **fused_kw) for t in copies],
-        None, in_bytes + 3 * px, 20 * px)
+        None, colour_bytes, 20 * px, {"copy_ms": copy_ms})
     row("planes_ycbcr8_to_rgb", f"{PALLAS}:236", [f"{PALLAS}:144"],
         main_launches["planes_ycbcr8_to_rgb"],
         [lambda p=p: cuda_fast.ycbcr8_planes_to_rgb(*p, kr=float(KR),
@@ -470,7 +580,7 @@ def main():
         [lambda p=p: cuda_fast.ycbcr8_planes_to_rgb_plain(*p, kr=float(KR),
                                                           kb=float(KB))
          for p in plane_copies],
-        None, in_bytes + 3 * px, 22 * px)
+        None, colour_bytes, 22 * px, {"copy_ms": copy_ms})
 
     def as_strided_copy(t):
         # one PyTorch call per channel: a strided view of the tile stack,
@@ -515,6 +625,7 @@ def main():
                   cuda_fast.planar8_tiles_to_image(planar[0], **planar_kw),
                   planar_copy(planar[0]), exact=True)
     planar_bound_ms, _ = bound(2 * 3 * px, 0)
+    widths = vector_width_sweep(timer, rng, fused_kw, plane_copies)
     planar8 = {
         "ms": timer([lambda t=t: cuda_fast.planar8_tiles_to_image(
             t, **planar_kw) for t in planar]),
@@ -548,6 +659,15 @@ def main():
         dec._to_image(kernels.decode_tiles(lay, t, DEV), W, H),
         Colorspace.RGB, Chroma.C444) for t in copies])
     fused_ms = kern["tile_yuv_to_rgb"]["ms"]
+
+    # 7. SASS instructions per output pixel of the flagship instantiations
+    # (tile: 8-byte vectors, 4:2:0; planes: 16-byte vectors, bilinear 2x2)
+    sass = sass_count.cuobjdump_sass(str(_build.LIBRARY.path))
+    for name, pattern in (("tile_yuv_to_rgb", SASS_TILE),
+                          ("planes_ycbcr8_to_rgb", SASS_PLANES)):
+        c = sass_count.count(sass, pattern, 32)
+        log(f"sass {name} {json.dumps(c)}")
+        kern[name]["sass_per_pixel"] = c["per_pixel"]
     summary = {
         "card": card, "shape": f"{W}x{H} YCbCr 4:2:0, {TILES}x{TILES} tiles",
         "fused_yuv420_tiles_to_rgb_mps": px / 1e3 / fused_ms,
@@ -555,6 +675,8 @@ def main():
         "assemble_tile_buffers_ms": assemble_ms, "host_to_device_ms": h2d_ms,
         "device_decode_convert_ms": device_ms,
         "planar8_tiles_to_image": planar8,
+        "copy_ms": copy_ms, "access_width_ms": widths,
+        "colour_core_mismatches": sum(core_counts.values()),
         "elapsed_s": time.perf_counter() - t_start}
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))

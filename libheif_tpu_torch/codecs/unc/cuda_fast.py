@@ -39,10 +39,10 @@ _MATRIX_ARGS = [_F] * 7 + [_I]
 
 TILE_YUV_TO_RGB = CudaKernel(
     "tile_yuv_to_rgb", "launch_tile_yuv_to_rgb",
-    [_P, _P, _L] + [_I] * 6 + _MATRIX_ARGS)
+    [_P, _P, _L] + [_I] * 8 + _MATRIX_ARGS)
 PLANES_YCBCR8_TO_RGB = CudaKernel(
     "planes_ycbcr8_to_rgb", "launch_planes_ycbcr8_to_rgb",
-    [_P] * 4 + [_I] * 6 + [_F] + _MATRIX_ARGS)
+    [_P] * 4 + [_I] * 8 + _MATRIX_ARGS)
 STRIDED_EXTRACT_PASTE = CudaKernel(
     "strided_extract_paste", "launch_strided_extract_paste",
     [_P, _P] + [_L] * 5 + [_I] * 5)
@@ -51,7 +51,16 @@ KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (TILE_YUV_TO_RGB, PLANES_YCBCR8_TO_RGB,
                         STRIDED_EXTRACT_PASTE)}
 
+# The exhaustive check of the colour kernels' f32 core against the
+# straightforward per-pixel core (a check, not a kernel of any path).
+COLOUR_CORE_CHECK = CudaKernel(
+    "colour_core_check", "launch_colour_core_check",
+    _MATRIX_ARGS + [_I, _P])
+
 NEAREST = "nearest-neighbor"
+
+# Chroma tap rules per axis of planes_ycbcr8_to_rgb (csrc/unc_kernels.cu).
+GATHER, DOUBLE, HALF, SAME = 0, 1, 2, 3
 
 
 # ------------------------------------------------------------------ checks
@@ -81,6 +90,40 @@ def _check_u8(t: torch.Tensor, name: str, ndim: int = 2) -> None:
     if t.dtype != torch.uint8 or t.dim() != ndim:
         raise ValueError(f"{name}: expected a {ndim}-D uint8 tensor, got "
                          f"{t.dim()}-D {t.dtype}")
+
+
+def vector_width(*sizes: int) -> int:
+    """The widest access of a colour kernel, 16, 8, 4 or 1 bytes, that
+    divides every given row pitch, width, plane offset and address, so
+    that each vector load and store is aligned."""
+    for v in (16, 8, 4):
+        if all(int(s) % v == 0 for s in sizes):
+            return v
+    return 1
+
+
+def tile_vector_width(pitch: int, tile_w: int, sub_x: int, tile_cols: int,
+                      *addresses: int) -> int:
+    """Load width of tile_yuv_to_rgb: the tile buffer's pitch, the luma
+    and chroma row widths (the plane offsets are multiples of them), the
+    output row width, and the tile buffer's address."""
+    return vector_width(pitch, tile_w, tile_w // sub_x, tile_cols * tile_w,
+                        *addresses)
+
+
+def tile_store_width(load: int, tile_w: int, tile_cols: int,
+                     address: int) -> int:
+    """Store width of tile_yuv_to_rgb: 16 bytes where the output rows
+    allow it (the tile pitch constrains only the loads), else the load
+    width."""
+    return 16 if vector_width(tile_w, tile_cols * tile_w, address) == 16 \
+        else load
+
+
+def planes_vector_width(w: int, cw: int, *addresses: int) -> int:
+    """Vector width of planes_ycbcr8_to_rgb: the luma/output and chroma
+    row widths."""
+    return vector_width(w, cw, *addresses)
 
 
 # ------------------------------------------------------------------ matrix
@@ -149,9 +192,13 @@ def yuv_tiles_to_rgb(tiles_u8: torch.Tensor, *, tile_rows: int,
             kb=kb, full_range=full_range)
     out = torch.empty((3, tile_rows * tile_h, tile_cols * tile_w),
                       dtype=torch.uint8, device=tiles_u8.device)
+    pitch = tiles_u8.shape[1]
+    vec = tile_vector_width(pitch, tile_w, sub_x, tile_cols,
+                            tiles_u8.data_ptr())
     TILE_YUV_TO_RGB.launch(
-        out, tiles_u8.data_ptr(), out.data_ptr(),
-        tiles_u8.shape[1], tile_rows, tile_cols, tile_h, tile_w, sub_x, sub_y,
+        out, tiles_u8.data_ptr(), out.data_ptr(), pitch, tile_rows,
+        tile_cols, tile_h, tile_w, sub_x, sub_y, vec,
+        tile_store_width(vec, tile_w, tile_cols, out.data_ptr()),
         *_matrix(kr, kb, full_range))
     return out
 
@@ -189,17 +236,32 @@ def yuv_tiles_to_rgb_plain(tiles_u8, *, tile_rows, tile_cols, tile_h, tile_w,
 
 # --------------------------------------------- planes_ycbcr8_to_rgb wrapper
 
+def _tap_rule(n: int, N: int, double: bool) -> int:
+    """The kernel's tap rule for an axis of n chroma samples under N
+    output samples.  A nearest axis with N in {2n, 2n - 1} is HALF:
+    there (o*n)//N == o >> 1 for every o < N."""
+    if double:
+        return DOUBLE
+    if n == N:
+        return SAME
+    if N in (2 * n, 2 * n - 1):
+        return HALF
+    return GATHER
+
+
 def upsample_plan(h: int, w: int, out_h: int, out_w: int,
                   method: str) -> Tuple[int, int, int]:
-    """(x_mode, y_mode, scale) of the integer chroma upsample of
-    pallas_fast._upsample_int16: mode 0 gathers at (o*n)//N (nearest,
-    or identity when n == N), mode 1 doubles with the (3a+b) taps; each
-    doubled axis multiplies the scale by 4."""
-    if method == NEAREST or (h == out_h and w == out_w):
-        return 0, 0, 1
-    x_mode = int(out_w == 2 * w or (w * 2 - out_w in (0, 1)))
-    y_mode = int(out_h == 2 * h or (2 * h - out_h in (0, 1)))
-    return x_mode, y_mode, 4 ** (x_mode + y_mode)
+    """(x_rule, y_rule, scale) of the integer chroma upsample of
+    pallas_fast._upsample_int16: a bilinear axis doubles with the (3a+b)
+    taps when 2n - N is 0 or 1 (DOUBLE, scale x4); every other axis
+    gathers at (o*n)//N, as a shift (HALF), as itself (SAME) or through
+    a table (GATHER)."""
+    x_double = y_double = False
+    if method != NEAREST and (h, w) != (out_h, out_w):
+        x_double = out_w == 2 * w or (w * 2 - out_w in (0, 1))
+        y_double = out_h == 2 * h or (2 * h - out_h in (0, 1))
+    return (_tap_rule(w, out_w, x_double), _tap_rule(h, out_h, y_double),
+            4 ** (x_double + y_double))
 
 
 def ycbcr8_planes_to_rgb(y_u8: torch.Tensor, cb_u8: torch.Tensor,
@@ -226,13 +288,28 @@ def ycbcr8_planes_to_rgb(y_u8: torch.Tensor, cb_u8: torch.Tensor,
                                           upsampling=upsampling)
     H, W = y_u8.shape
     ch, cw = cb_u8.shape
-    x_mode, y_mode, scale = upsample_plan(ch, cw, H, W, upsampling)
+    x_rule, y_rule, scale = upsample_plan(ch, cw, H, W, upsampling)
     out = torch.empty((3, H, W), dtype=torch.uint8, device=y_u8.device)
+    ptrs = [t.data_ptr() for t in (y_u8, cb_u8, cr_u8, out)]
     PLANES_YCBCR8_TO_RGB.launch(
-        out, y_u8.data_ptr(), cb_u8.data_ptr(), cr_u8.data_ptr(),
-        out.data_ptr(), H, W, ch, cw, x_mode, y_mode,
-        float(np.float32(1.0 / scale)), *_matrix(kr, kb, full_range))
+        out, *ptrs, H, W, ch, cw, x_rule, y_rule, scale,
+        planes_vector_width(W, cw, *ptrs), *_matrix(kr, kb, full_range))
     return out
+
+
+def colour_core_mismatches(kr: float, kb: float, full_range: bool,
+                           scale: int, device=None) -> int:
+    """On the card: the number of (Y, Cb, Cr) inputs, over all of Y in
+    0..255 and scaled Cb, Cr in 0..255*scale, where the colour kernels'
+    f32 core and the straightforward per-pixel core (rintf, fminf/fmaxf,
+    IEEE division) give different RGB bytes."""
+    count = torch.zeros(1, dtype=torch.int64,
+                        device=device if device is not None else "cuda")
+    if _on_cpu(count):
+        raise ValueError("colour_core_mismatches runs on a CUDA device")
+    COLOUR_CORE_CHECK.launch(count, *_matrix(kr, kb, full_range), scale,
+                             count.data_ptr())
+    return int(count.item())
 
 
 def _upsample_int_plain(p: torch.Tensor, out_h: int, out_w: int,

@@ -24,7 +24,7 @@ from libheif_tpu.color.state import ColorState as JColorState  # noqa: E402
 from libheif_tpu.image.pixel_image import (  # noqa: E402
     PixelImage as JPixelImage, Colorspace, Chroma, Channel)
 
-from libheif_tpu_torch.codecs.unc import cuda_fast  # noqa: E402
+from libheif_tpu_torch.codecs.unc import cuda_fast, kernels  # noqa: E402
 from libheif_tpu_torch.color import ops, pipeline  # noqa: E402
 from libheif_tpu_torch.color.nclx import NclxProfile  # noqa: E402
 from libheif_tpu_torch.color.state import ColorState  # noqa: E402
@@ -161,36 +161,66 @@ def test_planes_wrapper_rejects(bad):
 # ------------------------------------- planes_ycbcr8_to_rgb index arithmetic
 
 def _emulate_chroma_taps(p, out_h, out_w, method):
-    """The planes_ycbcr8_to_rgb kernel's axis_taps/chroma_scaled
-    (csrc/unc_kernels.cu) replayed in numpy: the scaled chroma value of
-    every output pixel."""
+    """The planes_ycbcr8_to_rgb kernel's chroma taps (csrc/unc_kernels.cu)
+    replayed in numpy: the scaled chroma value of every output pixel.
+
+    As the kernel does, it combines the chroma rows of an output row first
+    (DOUBLE: 3 * row[y >> 1] + the row above or below, edge-clamped; HALF:
+    row y >> 1; SAME: row y; GATHER: row (y*h)//out_h), then the columns
+    of each 16-pixel run a thread owns: DOUBLE reads the run's 8 chroma
+    columns, clamps those past the last one to it, and takes the halo
+    column on each side from the neighbouring run (a shuffle, or the edge
+    lane's own load) or, at the plane's edges, from its own end columns;
+    HALF and SAME index by shift or identity; GATHER reads a per-block
+    table of (o*w)//out_w for the block's 512 columns."""
     h, w = p.shape
-    x_mode, y_mode, scale = cuda_fast.upsample_plan(h, w, out_h, out_w,
+    x_rule, y_rule, scale = cuda_fast.upsample_plan(h, w, out_h, out_w,
                                                     method)
-
-    def taps(mode, n, N):
-        o = np.arange(N)
-        if mode == 0:
-            return (o * n) // N, None
-        i0 = o >> 1
-        return i0, np.where(o & 1, np.minimum(i0 + 1, n - 1),
-                            np.maximum(i0 - 1, 0))
-
-    r0, r1 = taps(y_mode, h, out_h)
-    c0, c1 = taps(x_mode, w, out_w)
     a = p.astype(np.int64)
 
-    def hrow(r):
-        v = a[r][:, c0]
-        return v if c1 is None else 3 * v + a[r][:, c1]
+    def row(y):
+        if y_rule == cuda_fast.DOUBLE:
+            m = y >> 1
+            other = max(m - 1, 0) if y % 2 == 0 else min(m + 1, h - 1)
+            return 3 * a[m] + a[other]
+        if y_rule == cuda_fast.SAME:
+            return a[y]
+        if y_rule == cuda_fast.HALF:
+            return a[y >> 1]
+        return a[(y * h) // out_h]
 
-    v = hrow(r0)
-    return (v if r1 is None else 3 * v + hrow(r1)), scale
+    out = np.zeros((out_h, out_w), np.int64)
+    for y in range(out_h):
+        v = row(y)
+        for x0 in range(0, out_w, 16):
+            k = np.arange(x0, min(x0 + 16, out_w))
+            if x_rule == cuda_fast.DOUBLE:
+                c0 = x0 // 2
+                cols = v[c0:c0 + 8]
+                cols = np.concatenate([cols, np.repeat(cols[-1:],
+                                                       8 - len(cols))])
+                left = v[c0 - 1] if c0 > 0 else cols[0]
+                right = v[c0 + 8] if c0 + 8 < w else cols[-1]
+                ext = np.concatenate([[left], cols, [right]])
+                j = (k - x0) // 2 + 1
+                out[y, k] = 3 * ext[j] + np.where((k - x0) & 1, ext[j + 1],
+                                                  ext[j - 1])
+            elif x_rule == cuda_fast.HALF:
+                out[y, k] = v[k >> 1]
+            elif x_rule == cuda_fast.SAME:
+                out[y, k] = v[k]
+            else:
+                block = (x0 // 512) * 512
+                table = ((block + np.arange(512)) * w) // out_w
+                out[y, k] = v[table[k - block]]
+    return out, scale
 
 
 @pytest.mark.parametrize("geom", [
     (32, 16, 64, 32), (34, 17, 67, 33), (5, 9, 5, 18), (5, 9, 9, 17),
-    (1, 1, 2, 2), (1, 1, 1, 3), (8, 8, 8, 8), (4, 6, 13, 7)])
+    (1, 1, 2, 2), (1, 1, 1, 3), (8, 8, 8, 8), (4, 6, 13, 7),
+    (10, 20, 32, 64), (16, 64, 32, 64), (32, 32, 32, 64), (20, 600, 40, 1200),
+    (7, 301, 13, 601)])
 @pytest.mark.parametrize("method", ["bilinear", "nearest-neighbor"])
 def test_chroma_upsample_index_math(geom, method):
     h, w, out_h, out_w = geom
@@ -200,6 +230,61 @@ def test_chroma_upsample_index_math(geom, method):
     emu, emu_scale = _emulate_chroma_taps(p, out_h, out_w, method)
     assert scale == emu_scale
     np.testing.assert_array_equal(plain.numpy(), emu)
+
+
+@pytest.mark.parametrize("gap", [0, 1], ids=["N=2n", "N=2n-1"])
+def test_half_tap_rule_is_a_shift(gap):
+    """(o*n)//N == o >> 1 for every n <= 4096, N = 2n - gap and o < N: the
+    kernel's HALF rule replaces the division by a shift."""
+    for lo in range(1, 4097, 256):
+        n = np.arange(lo, min(lo + 256, 4097), dtype=np.int64)
+        N = 2 * n - gap
+        starts = np.cumsum(N) - N
+        ns = np.repeat(n, N)
+        Ns = np.repeat(N, N)
+        o = np.arange(int(N.sum()), dtype=np.int64) - np.repeat(starts, N)
+        assert np.array_equal((o * ns) // Ns, o >> 1), lo
+
+
+def test_tap_rules():
+    plan = cuda_fast.upsample_plan
+    D, H, S, G = (cuda_fast.DOUBLE, cuda_fast.HALF, cuda_fast.SAME,
+                  cuda_fast.GATHER)
+    assert plan(2048, 2048, 4096, 4096, "bilinear") == (D, D, 16)
+    assert plan(34, 65, 67, 129, "bilinear") == (D, D, 16)
+    assert plan(32, 32, 32, 64, "bilinear") == (D, S, 4)
+    assert plan(2048, 2048, 4096, 4096, "nearest-neighbor") == (H, H, 1)
+    assert plan(10, 20, 32, 64, "bilinear") == (G, G, 1)
+    assert plan(32, 64, 32, 64, "bilinear") == (S, S, 1)
+
+
+@pytest.mark.parametrize("case", [
+    ("flagship 512x512 4:2:0 tiles", "tile", (512 * 512 * 3 // 2 + 8, 512, 2,
+                                               8), 8),
+    ("flagship tiles, 16-byte pitch", "tile", (393232, 512, 2, 8), 16),
+    ("18x34 tiles", "tile", (18 * 34 * 3 // 2 + 8, 34, 2, 1), 1),
+    ("6x10 tiles", "tile", (6 * 10 * 3 // 2 + 8, 10, 2, 3), 1),
+    ("24-wide tiles", "tile", (8 * 24 * 3 // 2 + 8, 24, 2, 3), 4),
+    ("4096-wide planes", "planes", (4096, 2048), 16),
+    ("4100-wide planes", "planes", (4100, 2050), 1),
+    ("4097-wide planes", "planes", (4097, 2049), 1),
+    ("odd address", "planes", (4096, 2048, 0x7f0000001001), 1)],
+    ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_vector_width_choice(case):
+    _, kind, args, want = case
+    fn = cuda_fast.tile_vector_width if kind == "tile" \
+        else cuda_fast.planes_vector_width
+    assert fn(*args) == want
+
+
+def test_tile_store_width():
+    """Tile outputs take 16-byte stores whatever the tile pitch allows
+    the loads; otherwise the load width."""
+    assert kernels._GATHER_PAD == 8      # the flagship pitch is 393,224
+    assert cuda_fast.tile_store_width(8, 512, 8, 0x7f0000000000) == 16
+    assert cuda_fast.tile_store_width(1, 512, 8, 0x7f0000000000) == 16
+    assert cuda_fast.tile_store_width(4, 24, 3, 0x7f0000000000) == 4
+    assert cuda_fast.tile_store_width(1, 34, 1, 0x7f0000000000) == 1
 
 
 # ------------------------------------------- (e) YCbCrToRGB and the pipeline
