@@ -12,25 +12,30 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes of the CPU tests, odd sizes, every vector width and tap rule of
    the colour kernels, and the full width: all exact (the count of
-   differing pixels is printed); then compare the colour kernels' f32
-   core with the straightforward per-pixel core over every reachable
-   input (Y 0..255 x scaled Cb, Cr 0..255*s, s = 1, 4, 16) for five
-   matrices in both ranges, and require 0 mismatches;
+   differing pixels is printed); the strided kernel on the padded (T, S+8)
+   tile buffers and on the payload read in place at pitch S, with every
+   load and store width the alignment allows forced, a short last row at
+   pitch S, an odd address and 4096x4096 pixel-interleaved RGB8 and
+   component RGB16; then compare the colour kernels' f32 core with the
+   straightforward per-pixel core over every reachable input (Y 0..255 x
+   scaled Cb, Cr 0..255*s, s = 1, 4, 16) for five matrices in both
+   ranges, and require 0 mismatches;
 4. drive the main path at full width -- a 4096x4096 YCbCr 4:2:0 unci item
    in 8x8 tiles of 512x512: box bytes -> read_all_boxes -> UnciDecoder
    .decode -> convert_image to RGB -- check it against the plain path on
    the card, against numpy on a small input, and show through the launch
-   counts that it ran the strided_extract_paste and planes_ycbcr8_to_rgb
-   kernels;
+   counts that it ran planes_ycbcr8_to_rgb and strided_extract_paste, the
+   latter exactly once, without assembling tile buffers on the host;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
    planar8_tiles_to_image, the copy case of strided_extract_paste, which
-   is off the main path; for the colour kernels, which have none, a
-   device-to-device copy_ of as many bytes as they move) and the main
-   path with CUDA events, and print the numbers;
-7. print the colour kernels' SASS instructions per output pixel
-   (sass_count.py, cuobjdump).
+   is off the main path, and for the other 4096x4096 strided layouts), a
+   device-to-device copy_ of as many bytes as each kernel moves, the
+   access-width sweeps of the colour and strided kernels, and the main
+   path and its host parts, with CUDA events, and print the numbers;
+7. print the colour kernels' SASS instructions per output pixel and the
+   strided kernel's per output byte (sass_count.py, cuobjdump).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
@@ -53,7 +58,8 @@ from libheif_tpu_torch.boxes.unc import (
     SamplingMode)
 from libheif_tpu_torch.codecs.unc import (
     UnciDecoder, cuda_fast, kernels, sass_count)
-from libheif_tpu_torch.codecs.unc.layout import compute_layout
+from libheif_tpu_torch.codecs.unc.layout import (
+    ComponentView, UncLayout, compute_layout)
 from libheif_tpu_torch.color import convert_image, get_kr_kb
 from libheif_tpu_torch.color.ops import ColorConversionOptions, YCbCrToRGB
 from libheif_tpu_torch.core.fourcc import fourcc
@@ -71,6 +77,7 @@ DEV = "cuda"
 # mangled names of the flagship instantiations in csrc/unc_kernels.cu
 SASS_TILE = r"tile_yuv_to_rgb_kernelILi8ELi16ELi2ELi2ELb1EE"
 SASS_PLANES = r"planes_ycbcr8_to_rgb_kernelILi16ELi1ELb1ELb1EE"
+SASS_STRIDED = r"strided_extract_paste_kernelILi16ELi16EE"
 
 
 def log(*a):
@@ -133,7 +140,13 @@ STRIDED_CASES = [
         interleave_type=InterleaveMode.row)),
     ("mixed_nv12", 32, 16, make_boxes([], None, version=1, profile="nv12")),
     ("comp420_8_full_4096", W, H, ycc420(W, H, (TILES, TILES))),
+    ("pixel_rgb8_full_4096", W, H, make_boxes(
+        [(0, 8), (1, 8), (2, 8)], [4, 5, 6], (TILES, TILES),
+        interleave_type=InterleaveMode.pixel)),
+    ("comp_rgb16_full_4096", W, H, make_boxes(
+        [(0, 16), (1, 16), (2, 16)], [4, 5, 6], (TILES, TILES))),
 ]
+WIDTHS = (16, 8, 4, 1)          # vector widths of the strided kernel
 
 
 def layout_and_tiles(w, h, boxes, seed):
@@ -142,6 +155,38 @@ def layout_and_tiles(w, h, boxes, seed):
     data = np.random.default_rng(seed).integers(
         0, 256, lay.total_data_size(), dtype=np.uint8).tobytes()
     return lay, data, kernels.assemble_tile_buffers(lay, data)
+
+
+def short_last_row():
+    """Two tiles at pitch S (the payload read in place) whose view's last
+    row ends past the tile size S = 14: the kernel must read zeros there,
+    not the next tile's first bytes (or, after the last tile, past the
+    allocation)."""
+    v = ComponentView(comp_index=0, channel=Channel.Y, depth=8, width=4,
+                      height=3, base_bits=0, row_stride_bits=6 * 8,
+                      x_stride_bits=8, read_bits=8, mask=0xFF)
+    lay = UncLayout(width=8, height=3, tile_cols=2, tile_rows=1,
+                    tile_width=4, tile_height=3, views=[v],
+                    tile_size_bytes=14)
+    data = bytes(range(1, 29))
+    return lay, data
+
+
+def strided_widths(lay, t):
+    """The (load, store) widths the host picks for a layout's views."""
+    views = list(cuda_fast.strided_views(lay, t.device).values())
+    return (cuda_fast.strided_load_width(t.shape[1], t.data_ptr(), views),
+            cuda_fast.strided_store_width(views))
+
+
+def strided_forced(lay, t, widths):
+    """fused_strided_decode with the kernel's (load, store) widths
+    forced."""
+    views = cuda_fast.strided_views(lay, t.device)
+    cuda_fast.strided_extract_paste(t, lay.tile_size_bytes, lay.tile_rows,
+                                    lay.tile_cols, list(views.values()),
+                                    widths)
+    return {ch: v.out for ch, v in views.items()}
 
 
 # --------------------------------------------------------------- comparison
@@ -234,19 +279,66 @@ def check_kernels(tally):
                     cuda_fast.ycbcr8_planes_to_rgb(y, cb, cr, **kw),
                     cuda_fast.ycbcr8_planes_to_rgb_plain(y, cb, cr, **kw),
                     exact=True)
-    # strided_extract_paste: every byte-aligned layout, and the copy case
+    check_strided(tally, rng)
+
+
+def check_strided(tally, rng):
+    """strided_extract_paste: every byte-aligned layout on the padded
+    (T, S+8) buffers and on the payload read in place at pitch S, every
+    load and store width the alignment allows, a short last row at pitch
+    S, an odd address, and the planar copy case."""
+    def compare_planes(what, got, ref):
+        for ch in ref:
+            tally.compare("strided_extract_paste", f"{what} {ch}", got[ch],
+                          ref[ch], exact=True)
+
     for i, (name, w, h, boxes) in enumerate(STRIDED_CASES):
-        lay, _, tiles = layout_and_tiles(w, h, boxes, seed=i)
-        t = torch.from_numpy(tiles).to(DEV)
-        got = cuda_fast.fused_strided_decode(lay, t)
+        lay, data, tiles = layout_and_tiles(w, h, boxes, seed=i)
+        padded = torch.from_numpy(tiles).to(DEV)
+        inplace = kernels.payload_tiles(lay, data, DEV)
+        got = cuda_fast.fused_strided_decode(lay, padded)
         assert got is not None, f"{name}: strided path declined"
-        ref = cuda_fast.fused_strided_decode_plain(lay, t)
-        generic = kernels._build_extractor(kernels._layout_key(lay))(t)
-        for ch in got:
-            tally.compare("strided_extract_paste", f"{name} {ch}",
-                          got[ch], ref[ch], exact=True)
-            tally.compare("strided_extract_paste", f"{name} {ch} vs generic",
-                          got[ch], generic[ch], exact=True)
+        ref = cuda_fast.fused_strided_decode_plain(lay, padded)
+        compare_planes(f"{name} S+8", got, ref)
+        compare_planes(f"{name} S+8 vs generic", got,
+                       kernels._build_extractor(kernels._layout_key(lay))(
+                           padded))
+        compare_planes(f"{name} S", cuda_fast.fused_strided_decode(
+            lay, inplace), cuda_fast.fused_strided_decode_plain(lay, inplace))
+        compare_planes(f"{name} S vs S+8", cuda_fast.fused_strided_decode(
+            lay, inplace), ref)
+        lo, st = strided_widths(lay, inplace)
+        log(f"strided widths {name}: S+8 {strided_widths(lay, padded)} "
+            f"S {(lo, st)}")
+        for vl in WIDTHS:
+            for vs in WIDTHS:
+                if vl <= lo and vs <= st:
+                    compare_planes(f"{name} S load {vl} store {vs}",
+                                   strided_forced(lay, inplace, (vl, vs)),
+                                   ref)
+    lay, data = short_last_row()
+    inplace = kernels.payload_tiles(lay, data, DEV)
+    expect = torch.tensor([[1, 2, 3, 4, 15, 16, 17, 18],
+                           [7, 8, 9, 10, 21, 22, 23, 24],
+                           [13, 14, 0, 0, 27, 28, 0, 0]], dtype=torch.uint8,
+                          device=DEV)
+    compare_planes("short last row at pitch S",
+                   cuda_fast.fused_strided_decode(lay, inplace),
+                   {Channel.Y: expect})
+    compare_planes("short last row at pitch S, 1-byte access",
+                   strided_forced(lay, inplace, (1, 1)), {Channel.Y: expect})
+    lay, data, tiles = layout_and_tiles(*STRIDED_CASES[0][1:], seed=0)
+    flat = torch.zeros(tiles.size + 1, dtype=torch.uint8, device=DEV)
+    odd = flat[1:].view(tiles.shape)
+    odd.copy_(torch.from_numpy(tiles))
+    assert strided_widths(lay, odd)[0] == 1
+    compare_planes("odd address", cuda_fast.fused_strided_decode(lay, odd),
+                   cuda_fast.fused_strided_decode_plain(lay, odd))
+    try:        # a width the alignment forbids is refused, not run
+        strided_forced(lay, odd, (16, 16))
+        raise AssertionError("a misaligned 16-byte load was launched")
+    except RuntimeError:
+        pass
     for c in (1, 3):
         tiles = torch.from_numpy(rng.integers(
             0, 256, (6, c * 16 * 24 + 8), dtype=np.uint8)).to(DEV)
@@ -445,6 +537,83 @@ def vector_width_sweep(timer, rng, fused_kw, plane_copies):
     return out
 
 
+def as_strided_copy(lay, t):
+    """One PyTorch call per channel: a strided view of the (T, pitch)
+    tile stack, made contiguous (the strided kernel's yardstick; the port
+    never calls it).  16-bit samples are copied as int16 without the
+    byte swap, so they move the same bytes but stay big-endian."""
+    out = {}
+    for v in lay.views:
+        nb = v.depth // 8
+        src = t if nb == 1 else t.view(torch.int16)
+        p = src.shape[1]
+        out[v.channel] = torch.as_strided(
+            src, (lay.tile_rows, v.height, lay.tile_cols, v.width),
+            (lay.tile_cols * p, v.row_stride_bits // 8 // nb, p,
+             v.x_stride_bits // 8 // nb), v.base_bits // 8 // nb) \
+            .contiguous().view(lay.tile_rows * v.height,
+                               lay.tile_cols * v.width)
+    return out
+
+
+def same_samples(got, lib):
+    """A plane of the strided kernel against its as_strided yardstick
+    (16-bit: with the yardstick's bytes swapped)."""
+    if got.dtype == torch.uint8:
+        return torch.equal(got, lib)
+    return torch.equal(got.view(torch.uint8).view(-1, 2),
+                       lib.view(torch.uint8).view(-1, 2).flip(1))
+
+
+def strided_width_sweep(timer, lay, inplace):
+    """strided_extract_paste at 4096^2 on the payload at pitch S with its
+    (load, store) widths forced, every pair: same work, other access
+    widths; each is checked against the plain version first and timed
+    twice, in opposite orders."""
+    ref = cuda_fast.fused_strided_decode_plain(lay, inplace[0])
+    cases = {}
+    for vl in WIDTHS:
+        for vs in WIDTHS:
+            got = strided_forced(lay, inplace[0], (vl, vs))
+            for ch in ref:
+                assert torch.equal(got[ch], ref[ch]), (vl, vs, ch)
+            cases[f"load{vl}_store{vs}"] = [
+                lambda t=t, w=(vl, vs): strided_forced(lay, t, w)
+                for t in inplace]
+    out = {name: [] for name in cases}
+    for name in list(cases) + list(cases)[::-1]:
+        out[name].append(timer(cases[name]))
+    log(f"strided widths {json.dumps(out)}")
+    return out
+
+
+def strided_layout_timings(timer):
+    """strided_extract_paste on the other 4096^2 layouts of STRIDED_CASES
+    (pixel-interleaved 8-bit RGB, component 16-bit RGB) at pitch S,
+    beside their as_strided().contiguous() yardstick."""
+    out = {}
+    for i, (name, w, h, boxes) in enumerate(STRIDED_CASES):
+        if w < W or name.startswith("comp420"):
+            continue
+        lay, data, _ = layout_and_tiles(w, h, boxes, seed=i)
+        ts = [kernels.payload_tiles(lay, data, DEV) for _ in range(4)]
+        got = cuda_fast.fused_strided_decode(lay, ts[0])
+        for ch, p in as_strided_copy(lay, ts[0]).items():
+            assert same_samples(got[ch], p), (name, ch)
+        nbytes = ts[0].numel() + sum(p.numel() * p.element_size()
+                                     for p in got.values())
+        out[name] = {
+            "ms": timer([lambda t=t: cuda_fast.fused_strided_decode(lay, t)
+                         for t in ts]),
+            "library_ms": timer([lambda t=t: as_strided_copy(lay, t)
+                                 for t in ts]),
+            "bound_ms": bound(nbytes, 0)[0], "bytes": nbytes,
+            "widths": strided_widths(lay, ts[0])}
+        del ts, got
+    log(f"strided layouts {json.dumps(out)}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def nvidia_smi():
@@ -484,14 +653,29 @@ def main():
     uncC, cmpd = ycc420(W, H, (TILES, TILES))
     rng = np.random.default_rng(SEED)
     data = rng.integers(0, 256, W * H * 3 // 2, dtype=np.uint8).tobytes()
-    for k in cuda_fast.KERNELS.values():
-        k.launches = 0
-    dec, img, rgb = decode_and_convert(uncC, cmpd, W, H, data)
-    torch.cuda.synchronize()
-    main_launches = {n: k.launches for n, k in cuda_fast.KERNELS.items()}
-    log(f"main path launches {main_launches}")
+    assemble = kernels.assemble_tile_buffers
+    assembled = []
+
+    def counted_assemble(*args):
+        assembled.append(1)
+        return assemble(*args)
+
+    kernels.assemble_tile_buffers = counted_assemble
+    try:
+        for k in cuda_fast.KERNELS.values():
+            k.launches = 0
+        dec, img, rgb = decode_and_convert(uncC, cmpd, W, H, data)
+        torch.cuda.synchronize()
+        main_launches = {n: k.launches for n, k in cuda_fast.KERNELS.items()}
+    finally:
+        kernels.assemble_tile_buffers = assemble
+    log(f"main path launches {main_launches}, assemble_tile_buffers calls "
+        f"{len(assembled)}")
     for name in ("strided_extract_paste", "planes_ycbcr8_to_rgb"):
         assert main_launches[name] > 0, f"main path did not launch {name}"
+    assert main_launches["strided_extract_paste"] == 1, \
+        "strided_extract_paste: not one launch per decode"
+    assert not assembled, "the CUDA strided path assembled tile buffers"
     lay = dec.layout
     tiles_np = kernels.assemble_tile_buffers(lay, data)
     tiles = torch.from_numpy(tiles_np).to(DEV)
@@ -582,29 +766,33 @@ def main():
          for p in plane_copies],
         None, colour_bytes, 22 * px, {"copy_ms": copy_ms})
 
-    def as_strided_copy(t):
-        # one PyTorch call per channel: a strided view of the tile stack,
-        # made contiguous (the yardstick; the port never calls it)
-        p = t.shape[1]
-        return {v.channel: torch.as_strided(
-            t, (lay.tile_rows, v.height, lay.tile_cols, v.width),
-            (lay.tile_cols * p, v.row_stride_bits // 8, p,
-             v.x_stride_bits // 8), v.base_bits // 8).contiguous()
-            .view(lay.tile_rows * v.height, lay.tile_cols * v.width)
-            for v in lay.views}
-
-    lib_out = as_strided_copy(tiles)
-    for ch in lib_out:
+    # strided_extract_paste on the main path's input, the payload read in
+    # place at pitch S; the yardstick copy_ moves the same 50.3 MB
+    inplace = [kernels.payload_tiles(lay, data, DEV) for _ in range(4)]
+    for ch, p in as_strided_copy(lay, tiles).items():
         tally.compare("strided_extract_paste", f"as_strided yardstick {ch}",
-                      img.plane(ch), lib_out[ch], exact=True)
+                      img.plane(ch), p, exact=True)
+    srcs = [torch.empty(in_bytes, dtype=torch.uint8, device=DEV)
+            for _ in range(4)]
+    dst = torch.empty_like(srcs[0])
+    strided_copy_ms = timer([lambda s=s: dst.copy_(s) for s in srcs])
+    del srcs, dst
     row("strided_extract_paste", f"{PALLAS}:401",
         [f"{PALLAS}:415", f"{PALLAS}:282"],
         main_launches["strided_extract_paste"],
-        [lambda t=t: cuda_fast.fused_strided_decode(lay, t) for t in copies],
+        [lambda t=t: cuda_fast.fused_strided_decode(lay, t) for t in inplace],
         [lambda t=t: cuda_fast.fused_strided_decode_plain(lay, t)
-         for t in copies],
-        [lambda t=t: as_strided_copy(t) for t in copies],
-        2 * in_bytes, 0)
+         for t in inplace],
+        [lambda t=t: as_strided_copy(lay, t) for t in inplace],
+        2 * in_bytes, 0, {
+            "copy_ms": strided_copy_ms,
+            "widths_pitch_s": strided_widths(lay, inplace[0]),
+            "ms_pitch_s_plus_8": timer([
+                lambda t=t: cuda_fast.fused_strided_decode(lay, t)
+                for t in copies]),
+            "widths_pitch_s_plus_8": strided_widths(lay, copies[0])})
+    strided_sweep = strided_width_sweep(timer, lay, inplace)
+    strided_layouts = strided_layout_timings(timer)
 
     # planar8_tiles_to_image, the copy case of strided_extract_paste (off
     # the main path): three 8-bit planes in the same 8x8 grid of tiles
@@ -626,13 +814,18 @@ def main():
                   planar_copy(planar[0]), exact=True)
     planar_bound_ms, _ = bound(2 * 3 * px, 0)
     widths = vector_width_sweep(timer, rng, fused_kw, plane_copies)
+    before = cuda_fast.STRIDED_EXTRACT_PASTE.launches
+    cuda_fast.planar8_tiles_to_image(planar[0], **planar_kw)
+    planar_launches = cuda_fast.STRIDED_EXTRACT_PASTE.launches - before
     planar8 = {
         "ms": timer([lambda t=t: cuda_fast.planar8_tiles_to_image(
             t, **planar_kw) for t in planar]),
         "plain_ms": timer([lambda t=t: cuda_fast.planar8_tiles_to_image_plain(
             t, **planar_kw) for t in planar]),
         "library_ms": timer([lambda t=t: planar_copy(t) for t in planar]),
-        "bound_ms": planar_bound_ms, "launches_per_call": 3}
+        "bound_ms": planar_bound_ms,
+        "launches_per_call": planar_launches}
+    del planar
 
     # the library path end to end, and its parts
     def e2e():
@@ -646,35 +839,45 @@ def main():
         e2e()
     torch.cuda.synchronize()
     e2e_ms = (time.perf_counter() - t0) * 1e3 / reps
+    # the parts on the path: the payload's host view and its host→device
+    # copy (kernels.payload_tiles), then the device time; tile assembly is
+    # timed for comparison only (the generic program's layouts need it)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kernels.payload_tiles(lay, data, DEV)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3 / reps
     t0 = time.perf_counter()
     for _ in range(reps):
         kernels.assemble_tile_buffers(lay, data)
     assemble_ms = (time.perf_counter() - t0) * 1e3 / reps
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        torch.from_numpy(tiles_np).to(DEV)
-    torch.cuda.synchronize()
-    h2d_ms = (time.perf_counter() - t0) * 1e3 / reps
     device_ms = timer([lambda t=t: convert_image(
-        dec._to_image(kernels.decode_tiles(lay, t, DEV), W, H),
-        Colorspace.RGB, Chroma.C444) for t in copies])
+        dec._to_image(cuda_fast.fused_strided_decode(lay, t), W, H),
+        Colorspace.RGB, Chroma.C444) for t in inplace])
     fused_ms = kern["tile_yuv_to_rgb"]["ms"]
 
-    # 7. SASS instructions per output pixel of the flagship instantiations
-    # (tile: 8-byte vectors, 4:2:0; planes: 16-byte vectors, bilinear 2x2)
+    # 7. SASS instructions per output pixel of the colour kernels' flagship
+    # instantiations (tile: 8-byte vectors, 4:2:0; planes: 16-byte vectors,
+    # bilinear 2x2), and per output byte of the strided kernel's (16-byte
+    # loads and stores; a thread moves kUnits x 16 = 128 bytes per item)
     sass = sass_count.cuobjdump_sass(str(_build.LIBRARY.path))
-    for name, pattern in (("tile_yuv_to_rgb", SASS_TILE),
-                          ("planes_ycbcr8_to_rgb", SASS_PLANES)):
-        c = sass_count.count(sass, pattern, 32)
+    for name, pattern, per in (("tile_yuv_to_rgb", SASS_TILE, 32),
+                               ("planes_ycbcr8_to_rgb", SASS_PLANES, 32),
+                               ("strided_extract_paste", SASS_STRIDED, 128)):
+        c = sass_count.count(sass, pattern, per)
         log(f"sass {name} {json.dumps(c)}")
-        kern[name]["sass_per_pixel"] = c["per_pixel"]
+        kern[name]["sass_per_pixel" if per == 32 else "sass_per_byte"] = \
+            c["per_pixel"]
     summary = {
         "card": card, "shape": f"{W}x{H} YCbCr 4:2:0, {TILES}x{TILES} tiles",
         "fused_yuv420_tiles_to_rgb_mps": px / 1e3 / fused_ms,
         "library_path_ms": e2e_ms, "library_path_mps": px / 1e3 / e2e_ms,
-        "assemble_tile_buffers_ms": assemble_ms, "host_to_device_ms": h2d_ms,
+        "payload_to_device_ms": h2d_ms,
+        "assemble_tile_buffers_ms_off_path": assemble_ms,
         "device_decode_convert_ms": device_ms,
         "planar8_tiles_to_image": planar8,
+        "strided_width_ms": strided_sweep,
+        "strided_layouts_4096": strided_layouts,
         "copy_ms": copy_ms, "access_width_ms": widths,
         "colour_core_mismatches": sum(core_counts.values()),
         "elapsed_s": time.perf_counter() - t_start}

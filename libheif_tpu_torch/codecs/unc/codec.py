@@ -6,8 +6,9 @@ unc_codec.h:52, decode_uncompressed_image_tile unc_codec.h:56) plus the
 generic-compression handling (cmpC/icef, unc_decoder.cc:200-282).
 
 Host side: layout computation, zlib/deflate decompression, tile buffer
-assembly.  Device side: the extraction in kernels.py.  Encoding stays
-with the JAX package for now.
+assembly (skipped on CUDA for the byte-aligned layouts, whose strided
+kernel reads the payload in place).  Device side: the extraction in
+kernels.py.  Encoding stays with the JAX package for now.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ...boxes.unc import (
 )
 from ...image.pixel_image import PixelImage, subsampled_size
 from .layout import compute_layout, UncLayout
-from . import kernels
+from . import cuda_fast, kernels
 
 
 def _decompress(method: str, data: bytes) -> bytes:
@@ -94,8 +95,15 @@ class UnciDecoder:
     def decode(self, data) -> PixelImage:
         """Decode the full image (all tiles batched on the device)."""
         payload = self._uncompressed_payload(bytes(data))
-        tiles = kernels.assemble_tile_buffers(self.layout, payload)
-        planes = kernels.decode_tiles(self.layout, tiles, self.device)
+        if self.device.type == "cuda" and \
+                cuda_fast._strided_gate(self.layout):
+            # the strided kernel reads the payload in place, at pitch S
+            planes = cuda_fast.fused_strided_decode(
+                self.layout,
+                kernels.payload_tiles(self.layout, payload, self.device))
+        else:
+            tiles = kernels.assemble_tile_buffers(self.layout, payload)
+            planes = kernels.decode_tiles(self.layout, tiles, self.device)
         return self._to_image(planes, self.layout.width, self.layout.height)
 
     def decode_tile(self, data, tile_x: int, tile_y: int) -> PixelImage:

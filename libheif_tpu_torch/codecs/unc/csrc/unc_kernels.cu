@@ -65,7 +65,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 4;            // strided_extract_paste
 constexpr int kMaxGridY = 65535;
 constexpr int kWarp = 32;
 constexpr int kRun = 16;                 // colour kernels: pixels per row
@@ -582,69 +581,194 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// strided_extract_paste: one component of byte-aligned big-endian 8- or
-// 16-bit samples at constant byte strides (base, row_stride, x_stride) from
-// each (T, pitch) tile buffer, pasted at the tile's place in the
-// (tile_rows * h, tile_cols * w) plane.  Bytes at or past `size` (the
-// tile's payload size; the buffer's padding lies beyond it) read as zero,
-// as pallas_fast.py:464-468 pads a short last row.  One thread writes four
-// neighbouring samples of a row, with byte loads.
+// strided_extract_paste: the views of one layout -- each one component of
+// byte-aligned big-endian 8- or 16-bit samples at constant byte strides
+// (base, row_stride, x_stride) in every (T, pitch) tile buffer -- each
+// pasted at the tile's place in its (tile_rows * h, tile_cols * w) plane,
+// all views in one launch.  Bytes at or past `size` (the tile's payload
+// size) read as zero, as pallas_fast.py:464-468 pads a short last row.  The
+// buffers may be the payload itself (pitch == size): then the byte after a
+// tile is the next tile's first byte, or the end of the allocation, and no
+// load reaches it.
+//
+// It moves bytes and computes nothing, so it is bound by device memory (a
+// 4096x4096 4:2:0 image moves 50.3 MB: 15 us at 3.35 TB/s).  The design:
+//
+// * Work item = (view, tile, band of rows): the view, the tile index and
+//   their input and output base pointers are worked out once per block;
+//   inside a tile every offset is 32-bit (the launcher rejects layouts
+//   where they would not fit).  The items of all views form one 1-D grid,
+//   so a layout takes one launch.  They run view by view: interleaving
+//   the views tile by tile made the planar copy case 2.4x slower on an
+//   H100, likely because its three planes lie 2^24 bytes apart and
+//   concurrent blocks then hit aliased addresses.
+// * A unit is 16 output bytes of one row.  A tile row has `full` whole
+//   units; the unit slots of a row are padded to a power of two (1 << lg),
+//   so a slot s is row s >> lg, unit s & mask, with no division.  A thread
+//   takes kUnits slots kThreads apart: neighbouring lanes, neighbouring
+//   units.
+// * Contiguous views (x_stride == bytes per sample: component and row
+//   interleave, the planar copy) are a vector copy: every load of the
+//   thread's kUnits units (128 bytes) is issued before any store, in
+//   vectors of VL = 16, 8, 4 or 1 bytes; stores are streaming (st.global.cs)
+//   vectors of VS bytes, chosen by the host apart from VL (store width
+//   mattered 7x more than load width for the colour kernels).  16-bit
+//   samples are byte-swapped in registers, one PRMT per word.
+// * Pixel-interleaved views (x_stride > bytes per sample) gather a unit's
+//   samples with byte loads at 32-bit offsets, two units in flight, and
+//   store the unit as vectors; each row span is read once per view.
+//   (4-byte units, whose warp loads span 3 cache lines instead of 12, ran
+//   1.8x slower on an H100.)
+// * The ragged edges take a scalar path, sample by sample: the last,
+//   partial unit of a row, and a unit whose bytes run past `size`.
 
-// Store kPerThread values of one output row starting at column x0.
-template <typename T>
-__device__ __forceinline__ void store_row(T* __restrict__ row, int x0, int W,
-                                          const T v[kPerThread]) {
-  if ((W % kPerThread) == 0) {   // x0 + 3 < W and the address is aligned
-    if constexpr (sizeof(T) == 1) {
-      *reinterpret_cast<uchar4*>(row + x0) = make_uchar4(v[0], v[1], v[2], v[3]);
-    } else {
-      *reinterpret_cast<ushort4*>(row + x0) =
-          make_ushort4(v[0], v[1], v[2], v[3]);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k)
-      if (x0 + k < W) row[x0 + k] = v[k];
+constexpr int kMaxViews = 16;
+constexpr int kUnit = 16;              // output bytes of a unit
+constexpr int kUnits = 8;              // units of a thread per item
+
+struct View {
+  uint8_t* out;          // the view's (tile_rows * h, tile_cols * w) plane
+  int base, row_stride, x_stride;
+  int bps;               // bytes per sample: 1 or 2
+  int h, w;              // tile rows and samples per tile row
+  int row_bytes;         // w * bps: output bytes of one tile row
+  int out_pitch;         // output bytes of one plane row
+  int full;              // whole units per tile row
+  int lg;                // unit slots per tile row: 1 << lg
+  int bands, first;      // items per tile, first item of the view
+};
+
+struct StridedArgs {
+  const uint8_t* tiles;
+  long long pitch;
+  int size, tile_cols, nviews, items;
+  View v[kMaxViews];
+};
+
+// One sample of `bps` big-endian bytes at `off`; bytes at or past `size`
+// read as zero.
+__device__ __forceinline__ uint32_t sample_at(const uint8_t* __restrict__ tb,
+                                              int off, int size, int bps) {
+  const uint32_t hi = off < size ? __ldg(tb + off) : 0u;
+  if (bps == 1) return hi;
+  return (hi << 8) | (off + 1 < size ? __ldg(tb + off + 1) : 0u);
+}
+
+// The scalar path: n samples from off0 on, x_stride apart, into o.
+__device__ __noinline__ void scalar_unit(const uint8_t* __restrict__ tb,
+                                         int off0, int size, int x_stride,
+                                         int bps, int n,
+                                         uint8_t* __restrict__ o) {
+  for (int j = 0; j < n; ++j) {
+    const uint32_t s = sample_at(tb, off0 + j * x_stride, size, bps);
+    if (bps == 1)
+      o[j] = static_cast<uint8_t>(s);
+    else
+      reinterpret_cast<uint16_t*>(o)[j] = static_cast<uint16_t>(s);
   }
 }
 
-template <typename T>
-__global__ void strided_extract_paste_kernel(
-    const uint8_t* __restrict__ tiles, T* __restrict__ out, long long pitch,
-    long long size, long long base, long long row_stride, long long x_stride,
-    int tile_cols, int h, int w, int H, int W) {
-  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * kPerThread;
-  if (x0 >= W) return;
-  for (int y = blockIdx.y; y < H; y += gridDim.y) {
-    const int ti = y / h;
-    const long long roff = base + static_cast<long long>(y - ti * h) * row_stride;
-    T v[kPerThread];
+// The view of an item: the last one whose first item is at or before it
+// (the launcher lists views in order and leaves out empty ones).
+__device__ __forceinline__ int view_of(const StridedArgs& a, int item) {
+  int vi = 0;
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int x = x0 + k;
-      T s = 0;
-      if (x < W) {
-        const int tj = x / w;
-        const uint8_t* tb =
-            tiles + static_cast<long long>(ti * tile_cols + tj) * pitch;
-        const long long off = roff + static_cast<long long>(x - tj * w) * x_stride;
-        const unsigned hi = off < size ? tb[off] : 0u;
-        if constexpr (sizeof(T) == 1) {
-          s = static_cast<T>(hi);
-        } else {
-          const unsigned lo = off + 1 < size ? tb[off + 1] : 0u;
-          s = static_cast<T>((hi << 8) | lo);
+  for (int i = 1; i < kMaxViews; ++i) {
+    if (i >= a.nviews || item < a.v[i].first) break;
+    vi = i;
+  }
+  return vi;
+}
+
+template <int VL, int VS>
+__device__ __forceinline__ void contiguous_units(
+    const View& v, const uint8_t* __restrict__ tb, uint8_t* __restrict__ ob,
+    int s0, int size) {
+  const int mask = (1 << v.lg) - 1;
+  uint32_t w[kUnits][4];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int s = s0 + k * kThreads;
+    const int r = s >> v.lg, c = s & mask;
+    const int off = v.base + r * v.row_stride + c * kUnit;
+    const bool vec = r < v.h && c < v.full && off <= size - kUnit;
+    load_run<VL, kUnit>(tb + off, vec ? kUnit : 0, w[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int s = s0 + k * kThreads;
+    const int r = s >> v.lg, c = s & mask;
+    if (r >= v.h || c * kUnit >= v.row_bytes) continue;
+    const int off = v.base + r * v.row_stride + c * kUnit;
+    uint8_t* o = ob + r * v.out_pitch + c * kUnit;
+    if (c < v.full && off <= size - kUnit) {
+      if (v.bps == 2) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) w[k][q] = __byte_perm(w[k][q], 0u, 0x2301u);
+      }
+      store_run<VS>(o, kUnit, w[k]);
+    } else {
+      scalar_unit(tb, off, size, v.bps, v.bps,
+                  min(kUnit, v.row_bytes - c * kUnit) / v.bps, o);
+    }
+  }
+}
+
+template <int VS>
+__device__ __forceinline__ void pixel_units(const View& v,
+                                            const uint8_t* __restrict__ tb,
+                                            uint8_t* __restrict__ ob, int s0,
+                                            int size) {
+  const int mask = (1 << v.lg) - 1;
+  const int per = kUnit / v.bps;       // samples of a unit
+#pragma unroll 2
+  for (int k = 0; k < kUnits; ++k) {
+    const int s = s0 + k * kThreads;
+    const int r = s >> v.lg, c = s & mask;
+    if (r >= v.h || c * kUnit >= v.row_bytes) continue;
+    const int off = v.base + r * v.row_stride + c * per * v.x_stride;
+    uint8_t* o = ob + r * v.out_pitch + c * kUnit;
+    if (c < v.full && off + (per - 1) * v.x_stride + v.bps <= size) {
+      uint32_t b[kUnit];               // output bytes, little-endian
+      if (v.bps == 1) {
+#pragma unroll
+        for (int j = 0; j < kUnit; ++j) b[j] = __ldg(tb + off + j * v.x_stride);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kUnit / 2; ++j) {
+          b[2 * j + 1] = __ldg(tb + off + j * v.x_stride);
+          b[2 * j] = __ldg(tb + off + j * v.x_stride + 1);
         }
       }
-      v[k] = s;
+      uint32_t w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w[q] = pack4(b[4 * q], b[4 * q + 1], b[4 * q + 2], b[4 * q + 3]);
+      store_run<VS>(o, kUnit, w);
+    } else {
+      scalar_unit(tb, off, size, v.x_stride, v.bps,
+                  min(per, v.w - c * per), o);
     }
-    store_row<T>(out + static_cast<size_t>(y) * W, x0, W, v);
   }
 }
 
-dim3 grid_for(int H, int W) {
-  const int quads = (W + kPerThread - 1) / kPerThread;
-  return dim3((quads + kThreads - 1) / kThreads, H < kMaxGridY ? H : kMaxGridY);
+template <int VL, int VS>
+__global__ void __launch_bounds__(kThreads)
+    strided_extract_paste_kernel(const StridedArgs a) {
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const View v = a.v[view_of(a, item)];
+    const int local = item - v.first;
+    const int t = local / v.bands;
+    const int ti = t / a.tile_cols;
+    const uint8_t* tb = a.tiles + t * a.pitch;
+    uint8_t* ob = v.out + static_cast<long long>(ti * v.h) * v.out_pitch +
+                  (t - ti * a.tile_cols) * v.row_bytes;
+    const int s0 = (local - t * v.bands) * (kThreads * kUnits) + threadIdx.x;
+    if (v.x_stride == v.bps)
+      contiguous_units<VL, VS>(v, tb, ob, s0, a.size);
+    else
+      pixel_units<VS>(v, tb, ob, s0, a.size);
+  }
 }
 
 int finish_launch() { return static_cast<int>(cudaGetLastError()); }
@@ -695,6 +819,22 @@ template <typename Fn>
 Fn by_width(int vec, Fn f16, Fn f8, Fn f4, Fn f1) {
   return vec == 16 ? f16 : vec == 8 ? f8 : vec == 4 ? f4 : f1;
 }
+
+template <int VL, int VS>
+void strided_launch(dim3 grid, cudaStream_t s, const StridedArgs& a) {
+  strided_extract_paste_kernel<VL, VS><<<grid, kThreads, 0, s>>>(a);
+}
+
+using StridedFn = void (*)(dim3, cudaStream_t, const StridedArgs&);
+
+template <int VL>
+constexpr StridedFn kStridedRow[4] = {
+    strided_launch<VL, 16>, strided_launch<VL, 8>, strided_launch<VL, 4>,
+    strided_launch<VL, 1>};
+
+// [load width][store width], 16, 8, 4, 1 bytes
+constexpr const StridedFn* kStridedFns[4] = {
+    kStridedRow<16>, kStridedRow<8>, kStridedRow<4>, kStridedRow<1>};
 
 }  // namespace
 
@@ -811,30 +951,75 @@ int launch_colour_core_check(float krf, float kbf, float c_cr, float c_cb,
   return finish_launch();
 }
 
-int launch_strided_extract_paste(const void* tiles, void* out, long long pitch,
-                                 long long size, long long base,
-                                 long long row_stride, long long x_stride,
-                                 int bytes_per_sample, int tile_rows,
-                                 int tile_cols, int h, int w, int device,
-                                 void* stream) {
+// views: nviews rows of (out, base, row_stride, x_stride, bytes per sample,
+// h, w); vec and store_vec are the load and store widths of contiguous
+// views (16, 8, 4 or 1 bytes).
+int launch_strided_extract_paste(const void* tiles, long long pitch,
+                                 long long size, int tile_rows, int tile_cols,
+                                 int nviews, const long long* views, int vec,
+                                 int store_vec, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int H = tile_rows * h, W = tile_cols * w;
-  if (H == 0 || W == 0) return 0;
-  const dim3 grid = grid_for(H, W);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* in = static_cast<const uint8_t*>(tiles);
-  if (bytes_per_sample == 1) {
-    strided_extract_paste_kernel<uint8_t><<<grid, kThreads, 0, s>>>(
-        in, static_cast<uint8_t*>(out), pitch, size, base, row_stride,
-        x_stride, tile_cols, h, w, H, W);
-  } else if (bytes_per_sample == 2) {
-    strided_extract_paste_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-        in, static_cast<uint16_t*>(out), pitch, size, base, row_stride,
-        x_stride, tile_cols, h, w, H, W);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (nviews < 1 || nviews > kMaxViews || tile_rows < 0 || tile_cols < 0 ||
+      size < 0 || size > pitch || size > INT_MAX - kUnit)
+    return kInvalid;
+  StridedArgs a;
+  a.tiles = static_cast<const uint8_t*>(tiles);
+  a.pitch = pitch;
+  a.size = static_cast<int>(size);
+  a.tile_cols = tile_cols;
+  a.nviews = 0;
+  if (!aligned(vec, {static_cast<unsigned long long>(pitch),
+                     reinterpret_cast<uintptr_t>(tiles)}))
+    return kInvalid;
+  const long long tiles_n = static_cast<long long>(tile_rows) * tile_cols;
+  long long items = 0;
+  for (int i = 0; i < nviews; ++i) {
+    const long long* p = views + 7 * i;
+    const long long base = p[1], rs = p[2], xs = p[3], bps = p[4], h = p[5],
+                    w = p[6];
+    if ((bps != 1 && bps != 2) || xs < bps || base < 0 || rs < 0 || h < 0 ||
+        w < 0)
+      return kInvalid;
+    if (h == 0 || w == 0 || tiles_n == 0) continue;
+    const long long row_bytes = w * bps, out_pitch = tile_cols * row_bytes;
+    int lg = 0;
+    while ((1LL << lg) * kUnit < row_bytes) ++lg;
+    const long long slots = (h << lg) + kThreads * kUnits;
+    // every 32-bit offset inside a tile, rows of the last band included
+    if (tile_rows * h > INT_MAX || out_pitch > INT_MAX ||
+        (h - 1) * out_pitch + row_bytes > INT_MAX || slots > INT_MAX ||
+        base + (h + kThreads * kUnits) * rs + w * xs + kUnit > INT_MAX)
+      return kInvalid;
+    if (!aligned(store_vec, {static_cast<unsigned long long>(row_bytes),
+                             static_cast<unsigned long long>(p[0])}) ||
+        (xs == bps && !aligned(vec, {static_cast<unsigned long long>(base),
+                                     static_cast<unsigned long long>(rs)})))
+      return kInvalid;
+    View& v = a.v[a.nviews++];
+    v.out = reinterpret_cast<uint8_t*>(static_cast<uintptr_t>(p[0]));
+    v.base = static_cast<int>(base);
+    v.row_stride = static_cast<int>(rs);
+    v.x_stride = static_cast<int>(xs);
+    v.bps = static_cast<int>(bps);
+    v.h = static_cast<int>(h);
+    v.w = static_cast<int>(w);
+    v.row_bytes = static_cast<int>(row_bytes);
+    v.out_pitch = static_cast<int>(out_pitch);
+    v.full = static_cast<int>(row_bytes / kUnit);
+    v.lg = lg;
+    v.bands = static_cast<int>(((h << lg) + kThreads * kUnits - 1) /
+                               (kThreads * kUnits));
+    v.first = static_cast<int>(items);
+    items += tiles_n * v.bands;
+    if (items > INT_MAX) return kInvalid;
   }
+  if (items == 0) return 0;
+  a.items = static_cast<int>(items);
+  const int li = vec == 16 ? 0 : vec == 8 ? 1 : vec == 4 ? 2 : 3;
+  const int si = store_vec == 16 ? 0 : store_vec == 8 ? 1 : store_vec == 4 ? 2 : 3;
+  kStridedFns[li][si](dim3(a.items < kMaxItems ? a.items : kMaxItems),
+                      static_cast<cudaStream_t>(stream), a);
   return finish_launch();
 }
 

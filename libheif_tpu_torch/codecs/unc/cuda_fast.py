@@ -26,7 +26,7 @@ rounding half to even.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +45,7 @@ PLANES_YCBCR8_TO_RGB = CudaKernel(
     [_P] * 4 + [_I] * 8 + _MATRIX_ARGS)
 STRIDED_EXTRACT_PASTE = CudaKernel(
     "strided_extract_paste", "launch_strided_extract_paste",
-    [_P, _P] + [_L] * 5 + [_I] * 5)
+    [_P, _L, _L, _I, _I, _I, _P, _I, _I])
 
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (TILE_YUV_TO_RGB, PLANES_YCBCR8_TO_RGB,
@@ -124,6 +124,35 @@ def planes_vector_width(w: int, cw: int, *addresses: int) -> int:
     """Vector width of planes_ycbcr8_to_rgb: the luma/output and chroma
     row widths."""
     return vector_width(w, cw, *addresses)
+
+
+class StridedView(NamedTuple):
+    """One view of strided_extract_paste: ``h`` rows of ``w`` samples of
+    ``bps`` big-endian bytes at byte offsets base + y*row_stride +
+    x*x_stride of every tile buffer, pasted into the plane ``out``."""
+    out: torch.Tensor
+    base: int
+    row_stride: int
+    x_stride: int
+    bps: int
+    h: int
+    w: int
+
+
+def strided_load_width(pitch: int, address: int, views) -> int:
+    """Load width of strided_extract_paste: the tile buffers' pitch and
+    address and, for each contiguous view (x stride == bytes per sample),
+    its base and row stride.  Pixel-interleaved views load bytes."""
+    return vector_width(pitch, address, *(
+        n for v in views if v.x_stride == v.bps
+        for n in (v.base, v.row_stride)))
+
+
+def strided_store_width(views) -> int:
+    """Store width of strided_extract_paste, chosen apart from the loads:
+    each view's output bytes per tile row and plane address."""
+    return vector_width(*(n for v in views
+                          for n in (v.w * v.bps, v.out.data_ptr())))
 
 
 # ------------------------------------------------------------------ matrix
@@ -384,13 +413,59 @@ def _strided_gate(layout) -> bool:
     return len(set(channels)) == len(channels)
 
 
+MAX_VIEWS = 16     # views of one launch (kMaxViews, csrc/unc_kernels.cu)
+
+
+def strided_extract_paste(tiles_u8: torch.Tensor, size: int, tile_rows: int,
+                          tile_cols: int, views: Sequence[StridedView],
+                          widths: Optional[Tuple[int, int]] = None) -> None:
+    """Launch strided_extract_paste on CUDA tiles for all ``views`` at
+    once (one launch per MAX_VIEWS views).  ``widths`` forces the (load,
+    store) vector widths; by default they are the widest the alignment
+    allows (strided_load_width, strided_store_width)."""
+    views = [v for v in views if v.out.numel()]
+    if not views:
+        return
+    pitch = tiles_u8.shape[1]
+    load, store = widths or (
+        strided_load_width(pitch, tiles_u8.data_ptr(), views),
+        strided_store_width(views))
+    for i in range(0, len(views), MAX_VIEWS):
+        part = views[i:i + MAX_VIEWS]
+        table = (ctypes.c_longlong * (7 * len(part)))(*(
+            n for v in part for n in (v.out.data_ptr(), v.base, v.row_stride,
+                                      v.x_stride, v.bps, v.h, v.w)))
+        STRIDED_EXTRACT_PASTE.launch(
+            part[0].out, tiles_u8.data_ptr(), pitch, size, tile_rows,
+            tile_cols, len(part), ctypes.addressof(table), load, store)
+
+
+def strided_views(layout, device) -> Dict[str, StridedView]:
+    """Channel → the kernel's view of it, with a new output plane on
+    ``device`` (layouts that passed _strided_gate)."""
+    out = {}
+    for v in layout.views:
+        nbytes = v.depth // 8
+        plane = torch.empty(
+            (layout.tile_rows * v.height, layout.tile_cols * v.width),
+            dtype=torch.uint8 if nbytes == 1 else torch.uint16,
+            device=device)
+        out[v.channel] = StridedView(plane, v.base_bits // 8,
+                                     v.row_stride_bits // 8,
+                                     v.x_stride_bits // 8, nbytes, v.height,
+                                     v.width)
+    return out
+
+
 def fused_strided_decode(layout, tiles_u8: torch.Tensor
                          ) -> Optional[Dict[str, torch.Tensor]]:
     """Decode byte-aligned uniform-stride layouts (component, pixel and
     row interleave, 8/16-bit, any sampling) to dict channel → full plane
     (uint8 or uint16), pasting each tile at its place.  Returns None for
     the layouts that need the generic bit-gather program, exactly where
-    pallas_fast.fused_strided_decode does.  One launch per channel."""
+    pallas_fast.fused_strided_decode does.  ``tiles_u8`` is (T, pitch)
+    with pitch >= the tile size: the padded tile buffers, or the payload
+    itself (kernels.payload_tiles).  One launch for all channels."""
     if not _strided_gate(layout):
         return None
     _check_u8(tiles_u8, "tiles_u8")
@@ -400,20 +475,10 @@ def fused_strided_decode(layout, tiles_u8: torch.Tensor
                          f"({layout.num_tiles}, >= {s})")
     if _on_cpu(tiles_u8):
         return fused_strided_decode_plain(layout, tiles_u8)
-    out = {}
-    for v in layout.views:
-        nbytes = v.depth // 8
-        plane = torch.empty(
-            (layout.tile_rows * v.height, layout.tile_cols * v.width),
-            dtype=torch.uint8 if nbytes == 1 else torch.uint16,
-            device=tiles_u8.device)
-        STRIDED_EXTRACT_PASTE.launch(
-            plane, tiles_u8.data_ptr(), plane.data_ptr(),
-            tiles_u8.shape[1], s, v.base_bits // 8, v.row_stride_bits // 8,
-            v.x_stride_bits // 8, nbytes, layout.tile_rows, layout.tile_cols,
-            v.height, v.width)
-        out[v.channel] = plane
-    return out
+    views = strided_views(layout, tiles_u8.device)
+    strided_extract_paste(tiles_u8, s, layout.tile_rows, layout.tile_cols,
+                          list(views.values()))
+    return {ch: v.out for ch, v in views.items()}
 
 
 def _paste_plain(arr: torch.Tensor, tile_rows: int,
@@ -455,8 +520,9 @@ def planar8_tiles_to_image(tiles_u8: torch.Tensor, *, tile_rows: int,
                            tile_cols: int, tile_h: int, tile_w: int,
                            num_comps: int) -> torch.Tensor:
     """(T, S+pad) uint8 planar tiles → (C, H, W) uint8: the copy case of
-    strided_extract_paste (x stride 1, row stride tile_w, one launch per
-    component).  Counterpart of pallas_fast.planar8_tiles_to_image."""
+    strided_extract_paste (x stride 1, row stride tile_w, one view per
+    component, one launch).  Counterpart of
+    pallas_fast.planar8_tiles_to_image."""
     _check_u8(tiles_u8, "tiles_u8")
     T = tile_rows * tile_cols
     ps = tile_h * tile_w
@@ -469,11 +535,10 @@ def planar8_tiles_to_image(tiles_u8: torch.Tensor, *, tile_rows: int,
             tile_h=tile_h, tile_w=tile_w, num_comps=num_comps)
     out = torch.empty((num_comps, tile_rows * tile_h, tile_cols * tile_w),
                       dtype=torch.uint8, device=tiles_u8.device)
-    for c in range(num_comps):
-        STRIDED_EXTRACT_PASTE.launch(
-            out[c], tiles_u8.data_ptr(), out[c].data_ptr(),
-            tiles_u8.shape[1], num_comps * ps, c * ps, tile_w, 1, 1,
-            tile_rows, tile_cols, tile_h, tile_w)
+    strided_extract_paste(
+        tiles_u8, num_comps * ps, tile_rows, tile_cols,
+        [StridedView(out[c], c * ps, tile_w, 1, 1, tile_h, tile_w)
+         for c in range(num_comps)])
     return out
 
 

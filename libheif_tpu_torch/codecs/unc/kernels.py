@@ -10,12 +10,15 @@ wrap exactly where the JAX package's uint32 arithmetic wraps.
 On CUDA, ``decode_tiles`` sends the layouts that
 cuda_fast.fused_strided_decode accepts to the strided_extract_paste
 kernel; every other layout, and every layout on the CPU, runs the
-generic program, as the JAX package does off the TPU.
+generic program, as the JAX package does off the TPU.  The strided
+kernel also reads the payload in place (``payload_tiles``), which is how
+``UnciDecoder.decode`` feeds it on CUDA.
 """
 
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Dict, Tuple
 
 import numpy as np
@@ -156,6 +159,37 @@ def decode_tiles(layout: UncLayout, tiles_u8,
         if out is not None:
             return out
     return _build_extractor(_layout_key(layout))(tiles)
+
+
+def payload_tiles(layout: UncLayout, payload: bytes,
+                  device=None) -> torch.Tensor:
+    """The first T*S bytes of the uncompressed payload as a (T, S) uint8
+    tensor on ``device`` (``None`` means CUDA), for the strided kernel
+    (cuda_fast.fused_strided_decode), which reads it in place: no padding
+    and no host copy, only the host→device one.
+
+    At pitch S the byte after a tile's last row is the next tile's first
+    byte (past the last tile, the end of the allocation); the strided
+    kernel reads bytes at or past S as zero and never loads them.  The
+    generic program needs the padded buffers of assemble_tile_buffers.
+    """
+    from ...core.error import HeifError
+
+    if layout.comp_tile_sizes is not None:
+        raise ValueError("tile-component layouts have no (T, S) payload view")
+    T, S = layout.num_tiles, layout.tile_size_bytes
+    if len(payload) < T * S:
+        raise HeifError.eof(
+            f"unci data too short: have {len(payload)}, need {T * S}")
+    dev = resolve_device(device)
+    if T * S == 0:
+        return torch.zeros((T, S), dtype=torch.uint8, device=dev)
+    with warnings.catch_warnings():
+        # a bytes payload is read-only; the tensor is only read, then copied
+        warnings.filterwarnings("ignore", "The given buffer is not writable",
+                                UserWarning)
+        host = torch.frombuffer(payload, dtype=torch.uint8, count=T * S)
+    return host.view(T, S).to(dev, copy=True)
 
 
 def assemble_tile_buffers(layout: UncLayout, data: bytes) -> np.ndarray:

@@ -254,26 +254,109 @@ def test_strided_decode_matches_jax_and_generic(name):
                                       err_msg=ch)
 
 
-def _emulate_strided_kernel(layout, tiles):
-    """The strided_extract_paste kernel's per-element address arithmetic
-    (csrc/unc_kernels.cu), replayed in numpy."""
-    s = layout.tile_size_bytes
-    out = {}
+# csrc/unc_kernels.cu: threads of a block, units of a thread per item,
+# output bytes of a unit
+K_THREADS, K_UNITS, K_UNIT = 256, 8, 16
+
+
+def _kernel_views(layout):
+    """The view table that launch_strided_extract_paste builds: per
+    non-empty view its unit slots per tile row (1 << lg),
+    whole units per row, bands per tile and first work item; and the item
+    count."""
+    table, items = [], 0
     for v in layout.views:
-        H, W = layout.tile_rows * v.height, layout.tile_cols * v.width
-        y, x = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-        ti, tj = y // v.height, x // v.width
-        off = (v.base_bits // 8 + (y - ti * v.height) * (v.row_stride_bits // 8)
-               + (x - tj * v.width) * (v.x_stride_bits // 8))
-        t = ti * layout.tile_cols + tj
+        bps, xs = v.depth // 8, v.x_stride_bits // 8
+        if not (v.width and v.height and layout.num_tiles):
+            continue
+        row_bytes = v.width * bps
+        lg = 0
+        while (1 << lg) * K_UNIT < row_bytes:
+            lg += 1
+        bands = -(-(v.height << lg) // (K_THREADS * K_UNITS))
+        table.append(dict(view=v, bps=bps, base=v.base_bits // 8,
+                          rs=v.row_stride_bits // 8, xs=xs,
+                          row_bytes=row_bytes, full=row_bytes // K_UNIT,
+                          lg=lg, bands=bands,
+                          first=items))
+        items += layout.num_tiles * bands
+    return table, items
 
-        def byte(o):
-            return np.where(o < s, tiles[t, np.minimum(o, s - 1)], 0) \
-                .astype(np.int64)
 
-        val = byte(off) if v.depth == 8 else (byte(off) << 8) | byte(off + 1)
-        out[v.channel] = val.astype(np.uint8 if v.depth == 8 else np.uint16)
-    return out
+def _host_widths(layout, pitch, address):
+    """The (load, store) widths the host picks (output planes as the
+    CPU allocator aligns them)."""
+    views = list(cuda_fast.strided_views(layout, CPU).values())
+    return (cuda_fast.strided_load_width(pitch, address, views),
+            cuda_fast.strided_store_width(views))
+
+
+def _emulate_strided_kernel(layout, tiles, widths=None, address=0):
+    """The strided_extract_paste kernel (csrc/unc_kernels.cu) replayed in
+    numpy: its work items (view, tile, band of kThreads x kUnits unit
+    slots), the slot → (row, unit) split by shift and mask, the whole
+    units (16 output bytes stored in pieces of the store width;
+    contiguous views loaded in pieces of the load width, 16-bit samples
+    byte-swapped; pixel interleave gathered sample by sample) and the
+    scalar path for a row's partial last unit and units that run past
+    the tile size.
+    Asserts that every vector access is aligned to its width (tile
+    buffers at ``address``, output planes at 0) and that no load reaches
+    a byte at or past the tile size."""
+    S = layout.tile_size_bytes
+    pitch = tiles.shape[1]
+    load, store = widths or _host_widths(layout, pitch, address)
+    table, items = _kernel_views(layout)
+    planes = {e["view"].channel: np.full(
+        (layout.tile_rows * e["view"].height,
+         layout.tile_cols * e["row_bytes"]), 0xEE, np.uint8) for e in table}
+    slots = (np.arange(K_UNITS)[:, None] * K_THREADS
+             + np.arange(K_THREADS)[None, :]).ravel()
+
+    def sample(t, off, bps):       # the scalar path's sample_at
+        hi = int(tiles[t, off]) if off < S else 0
+        if bps == 1:
+            return [hi]
+        lo = int(tiles[t, off + 1]) if off + 1 < S else 0
+        return [lo, hi]            # little-endian uint16 in the plane
+
+    for item in range(items):
+        e = [e for e in table if e["first"] <= item][-1]
+        v, bps, lg = e["view"], e["bps"], e["lg"]
+        t, band = divmod(item - e["first"], e["bands"])
+        ti, tj = divmod(t, layout.tile_cols)
+        out = planes[v.channel]
+        contiguous = e["xs"] == bps
+        per = K_UNIT // bps
+        for s in band * K_THREADS * K_UNITS + slots:
+            r, c = s >> lg, s & ((1 << lg) - 1)
+            if r >= v.height or c * K_UNIT >= e["row_bytes"]:
+                continue
+            step = bps if contiguous else e["xs"]
+            off = e["base"] + r * e["rs"] + c * per * step
+            y, x = ti * v.height + r, tj * e["row_bytes"] + c * K_UNIT
+            if c < e["full"] and off + (per - 1) * step + bps <= S:
+                if contiguous:
+                    assert off + K_UNIT <= S
+                    for p in range(0, K_UNIT, load):
+                        assert (address + t * pitch + off + p) % load == 0
+                    b = tiles[t, off:off + K_UNIT].copy()
+                    if bps == 2:
+                        b = b.reshape(-1, 2)[:, ::-1].ravel()
+                else:
+                    b = np.array([byte for j in range(per) for byte in
+                                  sample(t, off + j * step, bps)], np.uint8)
+                for p in range(0, K_UNIT, store):
+                    assert (y * out.shape[1] + x + p) % store == 0
+                out[y, x:x + K_UNIT] = b
+            else:
+                n = min(per, v.width - c * per)
+                out[y, x:x + n * bps] = [
+                    byte for j in range(n)
+                    for byte in sample(t, off + j * step, bps)]
+    return {e["view"].channel: planes[e["view"].channel] if e["bps"] == 1
+            else planes[e["view"].channel].view("<u2").astype(np.uint16)
+            for e in table}
 
 
 @pytest.mark.parametrize("name", ["comp420_8_tiled", "comp_rgb16_tiled",
@@ -309,6 +392,156 @@ def test_strided_short_last_row_reads_zero():
     np.testing.assert_array_equal(got[Channel.Y].numpy(), expect)
     np.testing.assert_array_equal(_emulate_strided_kernel(lay, tiles)[
         Channel.Y], expect)
+
+
+# ------------------------------------------- (d) the payload read in place
+
+def _payload_and_decoders(name):
+    case = CASES[name]()
+    jdec, pdec = _decoders(case)
+    return case, jdec, pdec, pdec._uncompressed_payload(case["data"])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_strided_in_place_matches_jax(name):
+    """The payload viewed in place as (T, S) tiles decodes through the
+    strided path (plain version) exactly like the JAX package's
+    fused_strided_decode (interpret mode) on the assembled buffers, and
+    like the port's own padded decode; the layouts the gate declines
+    stay declined."""
+    case, jdec, pdec, payload = _payload_and_decoders(name)
+    lay = pdec.layout
+    if lay.comp_tile_sizes is not None:
+        with pytest.raises(ValueError):
+            kernels.payload_tiles(lay, payload, CPU)
+        assert cuda_fast.fused_strided_decode(lay, torch.from_numpy(
+            kernels.assemble_tile_buffers(lay, payload))) is None
+        return
+    inplace = kernels.payload_tiles(lay, payload, CPU)
+    assert inplace.shape == (lay.num_tiles, lay.tile_size_bytes)
+    got = cuda_fast.fused_strided_decode(lay, inplace)
+    jtiles = jkernels.assemble_tile_buffers(jdec.layout, payload)
+    ref = pallas_fast.fused_strided_decode(jdec.layout, jtiles,
+                                           interpret=True)
+    if ref is None:
+        assert got is None and not cuda_fast._strided_gate(lay)
+        return
+    padded = cuda_fast.fused_strided_decode(lay, torch.from_numpy(
+        kernels.assemble_tile_buffers(lay, payload)))
+    assert set(got) == set(ref) == set(padded)
+    for ch in ref:
+        np.testing.assert_array_equal(got[ch].numpy(), np.asarray(ref[ch]),
+                                      err_msg=ch)
+        np.testing.assert_array_equal(got[ch].numpy(), padded[ch].numpy(),
+                                      err_msg=ch)
+
+
+def test_strided_short_last_row_in_place_reads_zero():
+    """Two tiles at pitch S, the view's last row ending past S: the bytes
+    past S read as zero -- not the next tile's first bytes, and not past
+    the end of the payload after the last tile."""
+    from libheif_tpu_torch.codecs.unc.layout import (ComponentView,
+                                                     UncLayout)
+    v = ComponentView(comp_index=0, channel=Channel.Y, depth=8, width=4,
+                      height=3, base_bits=0, row_stride_bits=6 * 8,
+                      x_stride_bits=8, read_bits=8, mask=0xFF)
+    lay = UncLayout(width=8, height=3, tile_cols=2, tile_rows=1,
+                    tile_width=4, tile_height=3, views=[v],
+                    tile_size_bytes=14)
+    tiles = kernels.payload_tiles(lay, bytes(range(1, 29)), CPU)
+    assert tiles.shape == (2, 14)
+    expect = np.array([[1, 2, 3, 4, 15, 16, 17, 18],
+                       [7, 8, 9, 10, 21, 22, 23, 24],
+                       [13, 14, 0, 0, 27, 28, 0, 0]], dtype=np.uint8)
+    got = cuda_fast.fused_strided_decode(lay, tiles)
+    np.testing.assert_array_equal(got[Channel.Y].numpy(), expect)
+    for widths in (None, (1, 1), (1, 4)):
+        np.testing.assert_array_equal(_emulate_strided_kernel(
+            lay, tiles.numpy(), widths)[Channel.Y], expect)
+
+
+REPLAY_LAYOUTS = ["comp420_8_tiled", "comp_rgb16_tiled", "pixel_rgba16_tiled",
+                  "row_rgb8_tiled", "pixel_padded_size"]
+
+
+@pytest.mark.parametrize("store", [16, 8, 4, 1])
+@pytest.mark.parametrize("load", [16, 8, 4, 1])
+@pytest.mark.parametrize("name", REPLAY_LAYOUTS)
+def test_strided_kernel_replay_widths(name, load, store):
+    """The kernel's replay at every forced (load, store) width, on the
+    payload read in place (pitch S, a multiple of 16 for these layouts),
+    equals the plain version."""
+    _, _, pdec, payload = _payload_and_decoders(name)
+    lay = pdec.layout
+    tiles = kernels.payload_tiles(lay, payload, CPU)
+    assert _host_widths(lay, tiles.shape[1], 0) == (16, 16)
+    ref = cuda_fast.fused_strided_decode(lay, tiles)
+    emu = _emulate_strided_kernel(lay, tiles.numpy(), (load, store))
+    assert set(emu) == set(ref)
+    for ch in ref:
+        np.testing.assert_array_equal(emu[ch], ref[ch].numpy(), err_msg=ch)
+
+
+def _sv(out, base, rs, xs, bps, h, w):
+    return cuda_fast.StridedView(out, base, rs, xs, bps, h, w)
+
+
+@pytest.mark.parametrize("case", [
+    ("flagship at pitch S", 393216, 0, [(0, 512, 1, 1, 512, 512),
+                                        (262144, 256, 1, 1, 256, 256),
+                                        (327680, 256, 1, 1, 256, 256)],
+     (16, 16)),
+    ("flagship at pitch S+8", 393224, 0, [(0, 512, 1, 1, 512, 512),
+                                          (262144, 256, 1, 1, 256, 256)],
+     (8, 16)),
+    ("odd address", 393216, 1, [(0, 512, 1, 1, 512, 512)], (1, 16)),
+    ("pixel rgb8: bases and strides load bytes", 1536 * 512, 0,
+     [(0, 1536, 3, 1, 512, 512), (1, 1536, 3, 1, 512, 512)], (16, 16)),
+    ("contiguous base 4", 4096, 0, [(4, 64, 1, 1, 8, 64)], (4, 16)),
+    ("16-bit rows of 27 samples", 162 * 9, 0, [(0, 162, 2, 2, 9, 27)],
+     (1, 1)),
+    ("rows of 24 bytes", 1024, 0, [(0, 24, 1, 1, 16, 24)], (8, 8))],
+    ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_strided_width_choice(case):
+    """Load and store widths are chosen apart: loads from the pitch,
+    address and the contiguous views' bases and row strides; stores
+    from each view's output row bytes and plane address."""
+    _, pitch, address, views, want = case
+    svs = [_sv(torch.empty(8 * w * bps, dtype=torch.uint8), *v)
+           for v in views for w, bps in [(v[5], v[3])]]
+    assert (cuda_fast.strided_load_width(pitch, 0x7f0000000000 + address,
+                                         svs),
+            cuda_fast.strided_store_width(svs)) == want
+
+
+def test_strided_store_width_follows_the_plane_address():
+    out = torch.empty(64, dtype=torch.uint8)
+    assert cuda_fast.strided_store_width([_sv(out, 0, 16, 1, 1, 2, 16)]) == 16
+    assert cuda_fast.strided_store_width([_sv(out[4:], 0, 16, 1, 1, 2, 16)]) \
+        == 4
+
+
+def test_payload_tiles_reads_in_place():
+    """payload_tiles: the first T*S bytes as (T, S), no warning about the
+    read-only payload, a tensor of its own, and the short-payload error
+    of assemble_tile_buffers."""
+    import warnings
+    from libheif_tpu_torch.core.error import HeifError
+    _, _, pdec, payload = _payload_and_decoders("comp420_8_tiled")
+    lay = pdec.layout
+    T, S = lay.num_tiles, lay.tile_size_bytes
+    snapshot = bytearray(payload)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tiles = kernels.payload_tiles(lay, payload + b"tail", CPU)
+    np.testing.assert_array_equal(
+        tiles.numpy(), np.frombuffer(payload, np.uint8, T * S).reshape(T, S))
+    np.testing.assert_array_equal(
+        tiles.numpy(), kernels.assemble_tile_buffers(lay, payload)[:, :S])
+    tiles.zero_()
+    assert payload == snapshot
+    with pytest.raises(HeifError):
+        kernels.payload_tiles(lay, payload[:-1], CPU)
 
 
 @pytest.mark.parametrize("raw", [
