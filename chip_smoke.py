@@ -26,6 +26,19 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    the card, against numpy on a small input, and show through the launch
    counts that it ran planes_ycbcr8_to_rgb and strided_extract_paste, the
    latter exactly once, without assembling tile buffers on the host;
+4b. drive the file path through HeifContext.read_from_bytes(...)
+   .decode_image(...): a file written with the port's HeifFile holding an
+   8x8 grid of 512x512 4:2:0 unci items (4096x4096, the flagship's
+   payload) with irot 90, imir and a centred 4032x3024 clap, and a
+   4096x4096 monochrome alpha item linked by auxl, decoded to
+   interleaved RGBA with the launch counts read around it
+   (strided_extract_paste once per unci item, 65; planes_ycbcr8_to_rgb
+   once); then that file, the flagship as a single-item file, and small
+   files (overlay with a partly transparent layer, iden, decode_tile,
+   a missing grid tile, 10-bit with convert_hdr_to_8bit), each decoded
+   on the card and on the CPU with 0 samples differing, the grid's planes
+   equal to the generator's with and without the transforms, and the
+   single-item file equal to the library path's image;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -33,7 +46,11 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    is off the main path, and for the other 4096x4096 strided layouts), a
    device-to-device copy_ of as many bytes as each kernel moves, the
    access-width sweeps of the colour and strided kernels, and the main
-   path and its host parts, with CUDA events, and print the numbers;
+   path and its host parts, with CUDA events, the two files' decode
+   through the context part by part (parse, item data, tile decode,
+   paste, transforms, alpha, convert, interleave) over REPEATS fresh
+   contexts, and their device time (torch.profiler) over wall time,
+   and print the numbers;
 7. print the colour kernels' SASS instructions per output pixel and the
    strided kernel's per output byte (sass_count.py, cuobjdump).
 
@@ -43,6 +60,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -51,8 +69,10 @@ import time
 import numpy as np
 import torch
 
-from libheif_tpu_torch import _build
+from libheif_tpu_torch import DecodingOptions, HeifContext, HeifFile, _build
 from libheif_tpu_torch.boxes import read_all_boxes
+from libheif_tpu_torch.boxes.meta import (
+    Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe)
 from libheif_tpu_torch.boxes.unc import (
     Box_uncC, Box_cmpd, CmpdComponent, UncCComponent, InterleaveMode,
     SamplingMode)
@@ -62,8 +82,12 @@ from libheif_tpu_torch.codecs.unc.layout import (
     ComponentView, UncLayout, compute_layout)
 from libheif_tpu_torch.color import convert_image, get_kr_kb
 from libheif_tpu_torch.color.ops import ColorConversionOptions, YCbCrToRGB
+from libheif_tpu_torch.core.error import HeifError
 from libheif_tpu_torch.core.fourcc import fourcc
-from libheif_tpu_torch.image.pixel_image import Channel, Colorspace, Chroma
+from libheif_tpu_torch.core.fraction import Fraction
+from libheif_tpu_torch.image.pixel_image import (
+    Channel, Colorspace, Chroma, PixelImage)
+from libheif_tpu_torch.items.derived import ImageGrid, ImageOverlay
 
 SEED = 0
 W = H = 4096
@@ -78,6 +102,12 @@ DEV = "cuda"
 SASS_TILE = r"tile_yuv_to_rgb_kernelILi8ELi16ELi2ELi2ELb1EE"
 SASS_PLANES = r"planes_ycbcr8_to_rgb_kernelILi16ELi1ELb1ELb1EE"
 SASS_STRIDED = r"strided_extract_paste_kernelILi16ELi16EE"
+# the file phase: the grid item's clean aperture, centred after irot 90
+# and imir (a 12.2 MP phone-photo frame), and the timing repeats
+CLAP = (4032, 3024)
+MIRROR = "vertical"
+REPEATS = 5
+ALPHA_URN = "urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"
 
 
 def log(*a):
@@ -614,6 +644,463 @@ def strided_layout_timings(timer):
     return out
 
 
+@contextlib.contextmanager
+def launch_counts():
+    """Every kernel's launch count set to 0 on entry; on exit (after a
+    synchronise) the dict yielded holds the counts and the number of
+    host tile assemblies (kernels.assemble_tile_buffers calls) made
+    inside the block."""
+    assemble = kernels.assemble_tile_buffers
+    counts = {"assemble_tile_buffers": 0}
+
+    def counted_assemble(*args):
+        counts["assemble_tile_buffers"] += 1
+        return assemble(*args)
+
+    kernels.assemble_tile_buffers = counted_assemble
+    for k in cuda_fast.KERNELS.values():
+        k.launches = 0
+    try:
+        yield counts
+        torch.cuda.synchronize()
+        counts.update({n: k.launches for n, k in cuda_fast.KERNELS.items()})
+    finally:
+        kernels.assemble_tile_buffers = assemble
+
+
+# -------------------------------------------------------------------- files
+# HEIF files written with the port's own HeifFile, decoded through
+# HeifContext as a user calls it.
+
+def mono8(tiles=(1, 1)):
+    return make_boxes([(0, 8)], [0], tiles)
+
+
+def rgb8():
+    return make_boxes([(0, 8), (1, 8), (2, 8)], [4, 5, 6])
+
+
+def payload(w, h, boxes, seed):
+    uncC, cmpd = boxes
+    lay = compute_layout(uncC, cmpd, w, h)
+    return np.random.default_rng(seed).integers(
+        0, 256, lay.total_data_size(), dtype=np.uint8).tobytes()
+
+
+def new_file():
+    f = HeifFile()
+    f.init_for_writing("mif1", ["mif1", "miaf"])
+    return f
+
+
+def add_unci(f, w, h, boxes, data, props=(), hidden=True):
+    """An unci item with its ispe, cmpd and uncC, then ``props``
+    ((box, essential) pairs) in association order."""
+    uncC, cmpd = boxes
+    item = f.add_new_item("unci").item_id
+    f.append_item_data(item, data)
+    f.add_property(item, Box_ispe(w, h), False)
+    f.add_property(item, cmpd, False)
+    f.add_property(item, uncC, True)
+    for prop, essential in props:
+        f.add_property(item, prop, essential)
+    f.get_infe(item).hidden = hidden
+    return item
+
+
+def transforms():
+    """irot 90, imir and the centred clap, in that order."""
+    return [(Box_irot(90), True), (Box_imir(MIRROR), True),
+            (Box_clap(Fraction(CLAP[0], 1), Fraction(CLAP[1], 1)), True)]
+
+
+def alpha_payload():
+    return np.random.default_rng(SEED + 2).integers(
+        0, 256, W * H, dtype=np.uint8).tobytes()
+
+
+def grid_file(data, alpha):
+    """An 8x8 grid of 512x512 4:2:0 unci items (item i holds tile i of the
+    flagship payload, so the grid's planes are the flagship's) with irot
+    90, imir and the clap, plus a 4096x4096 monochrome alpha item in 8x8
+    tiles with the same transforms, linked by auxl."""
+    f = new_file()
+    tw, th = W // TILES, H // TILES
+    size = tw * th * 3 // 2
+    ids = [add_unci(f, tw, th, ycc420(tw, th, (1, 1)),
+                    data[i * size:(i + 1) * size])
+           for i in range(TILES * TILES)]
+    grid = f.add_new_item("grid").item_id
+    f.append_item_data(grid, ImageGrid(TILES, TILES, W, H).write(), 1)
+    f.add_property(grid, Box_ispe(W, H), False)
+    for prop, essential in transforms():
+        f.add_property(grid, prop, essential)
+    f.add_reference("dimg", grid, ids)
+    alpha_id = add_unci(f, W, H, mono8((TILES, TILES)), alpha,
+                        [(Box_auxC(ALPHA_URN), False)] + transforms())
+    f.add_reference("auxl", alpha_id, [grid])
+    f.set_primary_item(grid)
+    return f.write()
+
+
+def single_file(data):
+    """The flagship as a file: one 4096x4096 unci item in 8x8 tiles."""
+    f = new_file()
+    f.set_primary_item(add_unci(f, W, H, ycc420(W, H, (TILES, TILES)),
+                                data, hidden=False))
+    return f.write()
+
+
+def overlay_file():
+    """A 96x64 overlay on a coloured background: an RGB layer, a 4:2:0
+    layer with a partly transparent alpha item hanging over the left
+    edge, and a monochrome layer over the top right corner."""
+    f = new_file()
+    a = add_unci(f, 40, 32, rgb8(), payload(40, 32, rgb8(), 10))
+    b = add_unci(f, 36, 30, ycc420(36, 30, (1, 1)),
+                 payload(36, 30, ycc420(36, 30, (1, 1)), 11))
+    alpha = add_unci(f, 36, 30, mono8(), payload(36, 30, mono8(), 12),
+                     [(Box_auxC(ALPHA_URN), False)])
+    f.add_reference("auxl", alpha, [b])
+    c = add_unci(f, 17, 13, mono8(), payload(17, 13, mono8(), 13))
+    ov = f.add_new_item("iovl").item_id
+    f.append_item_data(ov, ImageOverlay(
+        0, (0x1234, 0x5678, 0x9abc, 0xffff), 96, 64,
+        [(5, 3), (-3, 20), (85, -2)]).write(), 1)
+    f.add_property(ov, Box_ispe(96, 64), False)
+    f.add_reference("dimg", ov, [a, b, c])
+    f.set_primary_item(ov)
+    return f.write()
+
+
+def iden_file():
+    """iden (imir horizontal) of an odd 4:2:0 unci item with irot 270."""
+    f = new_file()
+    boxes = ycc420(37, 23, (1, 1))
+    src = add_unci(f, 37, 23, boxes, payload(37, 23, boxes, 20),
+                   [(Box_irot(270), True)])
+    iden = f.add_new_item("iden").item_id
+    f.add_reference("dimg", iden, [src])
+    f.add_property(iden, Box_ispe(23, 37), False)
+    f.add_property(iden, Box_imir("horizontal"), True)
+    f.set_primary_item(iden)
+    return f.write()
+
+
+def missing_tile_file():
+    """A 2x2 grid whose second tile is an item of an unknown type."""
+    f = new_file()
+    boxes = ycc420(32, 32, (1, 1))
+    ids = [add_unci(f, 32, 32, boxes, payload(32, 32, boxes, 30 + i))
+           for i in range(3)]
+    bad = f.add_new_item("zzzz").item_id
+    grid = f.add_new_item("grid").item_id
+    f.append_item_data(grid, ImageGrid(2, 2, 64, 64).write(), 1)
+    f.add_property(grid, Box_ispe(64, 64), False)
+    f.add_reference("dimg", grid, [ids[0], bad, ids[1], ids[2]])
+    f.set_primary_item(grid)
+    return f.write()
+
+
+def hdr10_file():
+    """A 48x40 4:4:4 YCbCr item of packed 10-bit samples."""
+    f = new_file()
+    boxes = make_boxes([(0, 10), (1, 10), (2, 10)], [1, 2, 3])
+    f.set_primary_item(add_unci(f, 48, 40, boxes,
+                                payload(48, 40, boxes, 40), hidden=False))
+    return f.write()
+
+
+def same_image(what, got, ref):
+    """A decode on the card against the port's CPU decode of the same
+    file (the plain versions): every sample equal."""
+    assert (got.width, got.height, got.colorspace, got.chroma,
+            got.channels()) == (ref.width, ref.height, ref.colorspace,
+                                ref.chroma, ref.channels()), what
+    assert len(got.warnings) == len(ref.warnings), what
+    n = total = 0
+    for ch in ref.channels():
+        assert got.plane(ch).device.type == DEV, f"{what} {ch}"
+        assert got.bit_depth(ch) == ref.bit_depth(ch), f"{what} {ch}"
+        a, b = got.np_plane(ch), ref.np_plane(ch)
+        assert a.dtype == b.dtype and a.shape == b.shape, f"{what} {ch}"
+        n += int(np.count_nonzero(a != b))
+        total += a.size
+    log(f"check file {what:44s} {got.width}x{got.height} "
+        f"{got.colorspace}/{got.chroma} {'+'.join(got.channels())} "
+        f"differing {n} of {total}")
+    assert n == 0, f"{what}: the card's decode differs from the CPU's"
+
+
+def decode_both(what, blob, *args, tile=None, **opts):
+    """The file decoded on the card and on the CPU, held equal; returns
+    the card's image."""
+    out = []
+    for device in (None, "cpu"):
+        ctx = HeifContext.read_from_bytes(blob, device=device)
+        options = DecodingOptions(**opts)
+        if tile is None:
+            out.append(ctx.decode_image(None, *args, options=options))
+        else:
+            out.append(ctx.decode_tile(ctx.primary_item_id, *tile, *args,
+                                       options=options))
+    same_image(what, *out)
+    return out[0]
+
+
+def np_tiles(data, tiles, tw, th):
+    """A monochrome 8-bit payload in tiles x tiles → the plane."""
+    return np.frombuffer(data, np.uint8).reshape(tiles, tiles, th, tw) \
+        .transpose(0, 2, 1, 3).reshape(tiles * th, tiles * tw)
+
+
+def transformed(p, sub):
+    """numpy's irot 90 / imir / centred clap of a plane subsampled by
+    ``sub`` in both directions."""
+    p = np.flip(np.rot90(p, 1), 1 if MIRROR == "vertical" else 0)
+    w, h = (CLAP[0] + sub - 1) // sub, (CLAP[1] + sub - 1) // sub
+    left = (p.shape[1] * sub - CLAP[0]) // 2 // sub
+    top = (p.shape[0] * sub - CLAP[1]) // 2 // sub
+    return p[top:top + h, left:left + w]
+
+
+def check_files(data, alpha, lib_rgb):
+    """Phase 4b: the file path.  The grid + alpha file at full size is
+    decoded once with the launch counts read around it; then every file
+    is decoded on the card and on the CPU and held equal, the grid's
+    planes against the generator's with and without the transforms, and
+    the single-item file against the library path's image."""
+    blobs = {"grid": grid_file(data, alpha), "single": single_file(data)}
+    log(f"files: grid {len(blobs['grid'])} B, single "
+        f"{len(blobs['single'])} B")
+    with launch_counts() as launches:
+        rgba = HeifContext.read_from_bytes(blobs["grid"]).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGBA)
+    log(f"file grid launches {launches}")
+    tiles = TILES * TILES
+    assert launches["strided_extract_paste"] == tiles + 1, \
+        "strided_extract_paste: not one launch per unci item"
+    assert launches["planes_ycbcr8_to_rgb"] == 1, \
+        "planes_ycbcr8_to_rgb: not one launch per decode"
+    assert launches["tile_yuv_to_rgb"] == 0
+    assert launches["assemble_tile_buffers"] == 0, \
+        "the file path assembled tile buffers"
+    inter = rgba.plane(Channel.Interleaved)
+    assert (rgba.width, rgba.height) == CLAP and \
+        tuple(inter.shape) == (CLAP[1], CLAP[0] * 4) and \
+        inter.dtype == torch.uint8
+    same_image("grid+alpha interleaved RGBA", rgba, HeifContext.read_from_bytes(
+        blobs["grid"], device="cpu").decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGBA))
+
+    # the planes against the generator's, without and with the transforms
+    y, cb, cr = np_planes(data, TILES, W // TILES, H // TILES)
+    a = np_tiles(alpha, TILES, W // TILES, H // TILES)
+    for what, opts, fix in (("untransformed", {"ignore_transformations": True},
+                             lambda p, sub: p),
+                            ("transformed", {}, transformed)):
+        img = decode_both(f"grid+alpha {what}", blobs["grid"], **opts)
+        for ch, ref, sub in ((Channel.Y, y, 1), (Channel.Cb, cb, 2),
+                             (Channel.Cr, cr, 2), (Channel.Alpha, a, 1)):
+            assert np.array_equal(img.np_plane(ch), fix(ref, sub)), \
+                f"grid {what} {ch} vs the generator"
+        log(f"check file grid+alpha {what} planes vs the generator: equal")
+
+    # the single-item file: the library path's image, through the context
+    rgb = decode_both(f"single {W} RGB", blobs["single"], Colorspace.RGB,
+                      Chroma.C444)
+    for i, ch in enumerate((Channel.R, Channel.G, Channel.B)):
+        assert torch.equal(rgb.plane(ch), lib_rgb[i]), \
+            f"single-item file {ch} vs the library path"
+    log(f"check file single {W} RGB vs the library path: equal")
+
+    # small files, and tiles
+    decode_both("overlay, partly transparent layer", overlay_file())
+    decode_both("overlay RGBA", overlay_file(), Colorspace.RGB,
+                Chroma.InterleavedRGBA)
+    decode_both("iden", iden_file())
+    decode_both("iden RGB", iden_file(), Colorspace.RGB, Chroma.C444)
+    for name, tile in (("grid", (TILES // 2 - 1, TILES - 1)),
+                       ("single", (TILES - 1, TILES // 2))):
+        decode_both(f"{name} tile {tile}", blobs[name], tile=tile)
+        decode_both(f"{name} tile {tile} RGB", blobs[name], Colorspace.RGB,
+                    Chroma.C444, tile=tile)
+    img = decode_both("grid missing tile, strict off", missing_tile_file())
+    assert len(img.warnings) == 1 and \
+        not img.np_plane(Channel.Y)[:32, 32:].any()
+    try:
+        HeifContext.read_from_bytes(missing_tile_file()).decode_image(
+            None, options=DecodingOptions(strict_decoding=True))
+        raise AssertionError("a missing grid tile decoded in strict mode")
+    except HeifError:
+        pass
+    decode_both("10-bit", hdr10_file())
+    for chroma in (Chroma.C444, Chroma.InterleavedRGB,
+                   Chroma.InterleavedRGBA):
+        img = decode_both(f"10-bit RGB {chroma}", hdr10_file(),
+                          Colorspace.RGB, chroma)
+        assert img.bit_depth(img.channels()[0]) == 10
+        img = decode_both(f"10-bit RGB {chroma} convert_hdr_to_8bit",
+                          hdr10_file(), Colorspace.RGB, chroma,
+                          convert_hdr_to_8bit=True)
+        assert img.bit_depth(img.channels()[0]) == 8
+    return blobs, launches
+
+
+def ms_since(t0):
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def device_ms(fn):
+    """Device time of what ``fn`` runs, from the device events of
+    torch.profiler: kernels and copies apart, and the kernels with the
+    most time.  None when the profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    copies_us = 0.0
+    kernels = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies_us += us
+        else:
+            n, t = kernels.get(e.name[:70], (0, 0.0))
+            kernels[e.name[:70]] = (n + 1, t + us)
+    if not kernels:
+        return None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    return {"kernels_ms": sum(t for _, t in kernels.values()) / 1e3,
+            "copies_ms": copies_us / 1e3,
+            "top": [{"name": k, "count": n, "ms": t / 1e3}
+                    for k, (n, t) in top[:10]]}
+
+
+def time_grid_file(blob):
+    """The grid + alpha file's decode, once through the entry point
+    (total) and once part by part, in a fresh context each repeat; the
+    parts' result is held equal to the entry point's."""
+    tw, th = W // TILES, H // TILES
+    runs = []
+    for _ in range(REPEATS):
+        t = {}
+        t0 = time.perf_counter()
+        ref = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGBA)
+        t["total_ms"] = ms_since(t0)
+
+        t0 = time.perf_counter()
+        ctx = HeifContext.read_from_bytes(blob)
+        t["parse_ms"] = ms_since(t0)
+        grid = ctx.get_item(ctx.primary_item_id)
+        ids = grid.tile_item_ids()
+        t0 = time.perf_counter()
+        for i in ids + [grid.alpha_item.item_id]:
+            ctx.file.get_item_data(i)
+        t["item_data_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        tiles = [ctx.get_item(i).decode_image() for i in ids]
+        t["tile_decode_ms"] = ms_since(t0)
+        t["per_tile_decode_ms"] = t["tile_decode_ms"] / len(ids)
+        t0 = time.perf_counter()
+        img = PixelImage(W, H, tiles[0].colorspace, tiles[0].chroma)
+        for ch in tiles[0].channels():
+            img.add_plane(ch, bit_depth=8, device=DEV)
+        for idx, tile in enumerate(tiles):
+            ty, tx = divmod(idx, TILES)
+            img.copy_into(tile, tx * tw, ty * th)
+        t["paste_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        img = grid.apply_transforms(img)
+        t["transform_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        alpha = grid.alpha_item.decode_image()
+        img.set_plane(Channel.Alpha, alpha.plane(Channel.Y), 8)
+        t["alpha_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        rgb = convert_image(img, Colorspace.RGB, Chroma.C444)
+        t["convert_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        rgba = convert_image(rgb, Colorspace.RGB, Chroma.InterleavedRGBA)
+        t["interleave_ms"] = ms_since(t0)
+        assert torch.equal(rgba.plane(Channel.Interleaved),
+                           ref.plane(Channel.Interleaved)), \
+            "the parts' result differs from the entry point's"
+        t["mp_per_s"] = CLAP[0] * CLAP[1] / 1e3 / t["total_ms"]
+        runs.append(t)
+        log(f"file grid {json.dumps(t)}")
+    return runs
+
+
+def host_address(buf):
+    return np.frombuffer(buf, np.uint8).ctypes.data
+
+
+def time_single_file(blob, lay):
+    """The single-item file: parse, item data, unci decode and colour
+    conversion, and the entry point's total, each repeat; and the
+    payload's host→device copy (kernels.payload_tiles) from the item data
+    (a view of the file buffer) beside the same from a bytes copy of it,
+    with each source's host address modulo 4096."""
+    runs = []
+    for _ in range(REPEATS):
+        t = {}
+        t0 = time.perf_counter()
+        HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.C444)
+        t["total_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        ctx = HeifContext.read_from_bytes(blob)
+        t["parse_ms"] = ms_since(t0)
+        item = ctx.get_item(ctx.primary_item_id)
+        t0 = time.perf_counter()
+        ctx.file.get_item_data(item.item_id)
+        t["item_data_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        img = item.decode_image()
+        t["decode_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        convert_image(img, Colorspace.RGB, Chroma.C444)
+        t["convert_ms"] = ms_since(t0)
+        t["mp_per_s"] = W * H / 1e3 / t["total_ms"]
+        view = ctx.file.get_item_data(item.item_id)
+        for name, src in (("file_view", view), ("bytes_copy", bytes(view))):
+            t0 = time.perf_counter()
+            kernels.payload_tiles(lay, src, DEV)
+            t[f"h2d_{name}_ms"] = ms_since(t0)
+            t[f"h2d_{name}_address_mod_4096"] = host_address(src) % 4096
+        runs.append(t)
+        log(f"file single {json.dumps(t)}")
+    return runs
+
+
+def file_device_share(blobs, grid_runs, single_runs):
+    """Kernel and copy time on the card over the entry point's wall time
+    (median of the repeats) for both files."""
+    out = {}
+    for name, runs, target in (
+            ("grid", grid_runs, Chroma.InterleavedRGBA),
+            ("single", single_runs, Chroma.C444)):
+        dev = device_ms(lambda: HeifContext.read_from_bytes(
+            blobs[name]).decode_image(None, Colorspace.RGB, target))
+        wall = float(np.median([r["total_ms"] for r in runs]))
+        if dev is None:
+            out[name] = "not measured (the profiler recorded no device time)"
+        else:
+            dev["kernel_share"] = dev["kernels_ms"] / wall
+            dev["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / wall
+            out[name] = dev
+        log(f"file {name} device {json.dumps(out[name])}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def nvidia_smi():
@@ -653,29 +1140,15 @@ def main():
     uncC, cmpd = ycc420(W, H, (TILES, TILES))
     rng = np.random.default_rng(SEED)
     data = rng.integers(0, 256, W * H * 3 // 2, dtype=np.uint8).tobytes()
-    assemble = kernels.assemble_tile_buffers
-    assembled = []
-
-    def counted_assemble(*args):
-        assembled.append(1)
-        return assemble(*args)
-
-    kernels.assemble_tile_buffers = counted_assemble
-    try:
-        for k in cuda_fast.KERNELS.values():
-            k.launches = 0
+    with launch_counts() as main_launches:
         dec, img, rgb = decode_and_convert(uncC, cmpd, W, H, data)
-        torch.cuda.synchronize()
-        main_launches = {n: k.launches for n, k in cuda_fast.KERNELS.items()}
-    finally:
-        kernels.assemble_tile_buffers = assemble
-    log(f"main path launches {main_launches}, assemble_tile_buffers calls "
-        f"{len(assembled)}")
+    log(f"main path launches {main_launches}")
     for name in ("strided_extract_paste", "planes_ycbcr8_to_rgb"):
         assert main_launches[name] > 0, f"main path did not launch {name}"
     assert main_launches["strided_extract_paste"] == 1, \
         "strided_extract_paste: not one launch per decode"
-    assert not assembled, "the CUDA strided path assembled tile buffers"
+    assert main_launches["assemble_tile_buffers"] == 0, \
+        "the CUDA strided path assembled tile buffers"
     lay = dec.layout
     tiles_np = kernels.assemble_tile_buffers(lay, data)
     tiles = torch.from_numpy(tiles_np).to(DEV)
@@ -695,14 +1168,15 @@ def main():
     tally.compare("planes_ycbcr8_to_rgb", f"main path {W}x{H} RGB",
                   out, rgb_of(plain_rgb), exact=True)
 
+    # 4b. the file path: HEIF files through HeifContext
+    alpha = alpha_payload()
+    blobs, file_launches = check_files(data, alpha, out)
+
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
                     tile_w=W // TILES, kr=float(KR), kb=float(KB))
-    for k in cuda_fast.KERNELS.values():
-        k.launches = 0
-    fused = cuda_fast.yuv420_tiles_to_rgb(tiles, **fused_kw)
-    torch.cuda.synchronize()
-    fused_launches = {n: k.launches for n, k in cuda_fast.KERNELS.items()}
+    with launch_counts() as fused_launches:
+        fused = cuda_fast.yuv420_tiles_to_rgb(tiles, **fused_kw)
     log(f"fused path launches {fused_launches}")
     assert fused_launches["tile_yuv_to_rgb"] > 0
     nearest = convert_image(img, Colorspace.RGB, Chroma.C444,
@@ -732,15 +1206,21 @@ def main():
     dst = torch.empty_like(srcs[0])
     copy_ms = timer([lambda s=s: dst.copy_(s) for s in srcs])
 
+    def launches_by_path(name):
+        return {"file_grid_alpha": file_launches[name],
+                "library_4096": main_launches[name],
+                "fused_4096": fused_launches[name]}
+
     def row(name, replaces, also, launches, fn, plain, lib, nbytes, nops,
-            extra=None):
+            by_path, extra=None):
         ms, plain_ms = timer(fn), timer(plain)
         lib_ms = timer(lib) if lib is not None else None
         b_ms, b_by = bound(nbytes, nops)
         kern[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "also_replaces": also,
-            "launches": launches, "max_abs_err": tally.max_abs_err[name],
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": tally.max_abs_err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
             "checks": tally.checks[name],
@@ -755,16 +1235,18 @@ def main():
          for t in copies],
         [lambda t=t: cuda_fast.yuv_tiles_to_rgb_plain(
             t, sub_x=2, sub_y=2, **fused_kw) for t in copies],
-        None, colour_bytes, 20 * px, {"copy_ms": copy_ms})
+        None, colour_bytes, 20 * px, launches_by_path("tile_yuv_to_rgb"),
+        {"copy_ms": copy_ms})
     row("planes_ycbcr8_to_rgb", f"{PALLAS}:236", [f"{PALLAS}:144"],
-        main_launches["planes_ycbcr8_to_rgb"],
+        file_launches["planes_ycbcr8_to_rgb"],
         [lambda p=p: cuda_fast.ycbcr8_planes_to_rgb(*p, kr=float(KR),
                                                     kb=float(KB))
          for p in plane_copies],
         [lambda p=p: cuda_fast.ycbcr8_planes_to_rgb_plain(*p, kr=float(KR),
                                                           kb=float(KB))
          for p in plane_copies],
-        None, colour_bytes, 22 * px, {"copy_ms": copy_ms})
+        None, colour_bytes, 22 * px, launches_by_path("planes_ycbcr8_to_rgb"),
+        {"copy_ms": copy_ms})
 
     # strided_extract_paste on the main path's input, the payload read in
     # place at pitch S; the yardstick copy_ moves the same 50.3 MB
@@ -779,12 +1261,12 @@ def main():
     del srcs, dst
     row("strided_extract_paste", f"{PALLAS}:401",
         [f"{PALLAS}:415", f"{PALLAS}:282"],
-        main_launches["strided_extract_paste"],
+        file_launches["strided_extract_paste"],
         [lambda t=t: cuda_fast.fused_strided_decode(lay, t) for t in inplace],
         [lambda t=t: cuda_fast.fused_strided_decode_plain(lay, t)
          for t in inplace],
         [lambda t=t: as_strided_copy(lay, t) for t in inplace],
-        2 * in_bytes, 0, {
+        2 * in_bytes, 0, launches_by_path("strided_extract_paste"), {
             "copy_ms": strided_copy_ms,
             "widths_pitch_s": strided_widths(lay, inplace[0]),
             "ms_pitch_s_plus_8": timer([
@@ -855,6 +1337,11 @@ def main():
         dec._to_image(cuda_fast.fused_strided_decode(lay, t), W, H),
         Colorspace.RGB, Chroma.C444) for t in inplace])
     fused_ms = kern["tile_yuv_to_rgb"]["ms"]
+    grid_runs = time_grid_file(blobs["grid"])
+    single_runs = time_single_file(blobs["single"], lay)
+    file_device = file_device_share(blobs, grid_runs, single_runs)
+    log(f"file single total ms {[r['total_ms'] for r in single_runs]} "
+        f"beside the library path {e2e_ms} ms")
 
     # 7. SASS instructions per output pixel of the colour kernels' flagship
     # instantiations (tile: 8-byte vectors, 4:2:0; planes: 16-byte vectors,
@@ -880,6 +1367,11 @@ def main():
         "strided_layouts_4096": strided_layouts,
         "copy_ms": copy_ms, "access_width_ms": widths,
         "colour_core_mismatches": sum(core_counts.values()),
+        "file_grid_alpha": {"runs": grid_runs, "device": file_device["grid"],
+                            "launches": file_launches},
+        "file_single": {"runs": single_runs,
+                        "device": file_device["single"],
+                        "library_path_ms": e2e_ms},
         "elapsed_s": time.perf_counter() - t_start}
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))

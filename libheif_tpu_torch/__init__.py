@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of libheif_tpu's unci decode + colour path.
+"""PyTorch/CUDA port of libheif_tpu: HEIF files with unci, grid, iden and
+overlay images, their transforms and alpha, and the colour conversion.
 
 The package mirrors the module names of ``libheif_tpu`` so each part can
 be read beside its counterpart, but it imports nothing from it and never
@@ -10,5 +11,8 @@ each kernel wrapper runs its plain PyTorch version.
 """
 
 from ._build import resolve_device
+from .context import HeifContext
+from .file import HeifFile
+from .items import DecodingOptions
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "HeifContext", "HeifFile", "DecodingOptions"]

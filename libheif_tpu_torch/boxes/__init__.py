@@ -2,6 +2,7 @@ from .box import (
     Box, FullBox, BoxHeader, Box_other, Box_Error, register_box,
     read_box, read_all_boxes, BOX_REGISTRY,
 )
+from . import meta  # noqa: F401  (registers the item and property boxes)
 from . import unc  # noqa: F401  (registers cmpd/uncC/cmpC/icef)
 
 __all__ = [

@@ -100,6 +100,10 @@ class Box:
                 raise HeifError.security(
                     f"more than {cap} child boxes in '{self.box_type}'")
 
+    def get_child(self, cls) -> Optional["Box"]:
+        """The first child box of type ``cls`` (ref: Box::get_child_box)."""
+        return next((c for c in self.children if isinstance(c, cls)), None)
+
     # ---------------------------------------------------------------- write
 
     def derive_version(self) -> None:

@@ -1,0 +1,944 @@
+"""Standard HEIF/ISOBMFF metadata boxes, trimmed to a still-image file.
+
+Counterpart of libheif_tpu/boxes/meta.py (reference: libheif/box.{h,cc} —
+box.h:401-2039): the file-level boxes (ftyp, meta, hdlr, pitm), the item
+tables (iloc, iinf/infe, iref, idat, dinf/dref/url), the property
+containers (iprp/ipco/ipma) and the properties the decode path reads
+(ispe, pixi, irot, imir, clap, colr, auxC), plus free/skip and mdat.
+Every other box parses as :class:`Box_other` and round-trips unchanged.
+Wire formats follow ISO/IEC 14496-12 and ISO/IEC 23008-12.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from ..core.bitstream import ByteReader, ByteWriter
+from ..core.error import HeifError, SubError
+from ..core.fraction import Fraction
+from ..core.limits import SecurityLimits
+from .box import Box, FullBox, register_box
+
+# --------------------------------------------------------------------------
+# File-level boxes
+# --------------------------------------------------------------------------
+
+@register_box("ftyp")
+class Box_ftyp(Box):
+    """File type box (ref: box.h:401 Box_ftyp)."""
+
+    def __init__(self, major: str = "heic", minor: int = 0,
+                 compatible: Optional[List[str]] = None):
+        super().__init__()
+        self.major_brand = major
+        self.minor_version = minor
+        self.compatible_brands: List[str] = list(compatible or [])
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.major_brand = r.read_bytes(4).decode("latin-1")
+        self.minor_version = r.read32()
+        self.compatible_brands = []
+        n = 0
+        while r.remaining() >= 4:
+            self.compatible_brands.append(r.read_bytes(4).decode("latin-1"))
+            n += 1
+            if limits.max_number_of_file_brands and n > limits.max_number_of_file_brands:
+                raise HeifError.security("too many compatible brands in ftyp")
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write_bytes(self.major_brand.encode("latin-1"))
+        w.write32(self.minor_version)
+        for b in self.compatible_brands:
+            w.write_bytes(b.encode("latin-1"))
+
+    def has_compatible_brand(self, brand: str) -> bool:
+        return brand in self.compatible_brands
+
+    def dump_fields(self) -> List[str]:
+        return [f"major brand: {self.major_brand}",
+                f"minor version: {self.minor_version}",
+                f"compatible brands: {','.join(self.compatible_brands)}"]
+
+
+@register_box("meta")
+class Box_meta(FullBox):
+    """Meta box: container of hdlr/pitm/iloc/iinf/iprp/... (ref: box.h:427)."""
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.read_children(r, limits, depth)
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        self.write_children(w)
+
+
+@register_box("hdlr")
+class Box_hdlr(FullBox):
+    """Handler box (ref: box.h:440)."""
+
+    def __init__(self, handler_type: str = "pict"):
+        super().__init__()
+        self.pre_defined = 0
+        self.handler_type = handler_type
+        self.name = ""
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.pre_defined = r.read32()
+        self.handler_type = r.read_bytes(4).decode("latin-1")
+        for _ in range(3):
+            r.read32()
+        self.name = r.read_string() if not r.eof() else ""
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        w.write32(self.pre_defined)
+        w.write_bytes(self.handler_type.encode("latin-1"))
+        for _ in range(3):
+            w.write32(0)
+        w.write_string(self.name)
+
+    def dump_fields(self) -> List[str]:
+        return [f"handler_type: {self.handler_type}", f"name: {self.name}"]
+
+
+@register_box("pitm")
+class Box_pitm(FullBox):
+    """Primary item box (ref: box.cc:1507)."""
+
+    supported_versions = (0, 1)
+
+    def __init__(self, item_id: int = 0):
+        super().__init__()
+        self.item_id = item_id
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.item_id = r.read16() if self.version == 0 else r.read32()
+
+    def derive_version(self) -> None:
+        self.version = 1 if self.item_id > 0xFFFF else 0
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        if self.version == 0:
+            w.write16(self.item_id)
+        else:
+            w.write32(self.item_id)
+
+    def dump_fields(self) -> List[str]:
+        return [f"item_ID: {self.item_id}"]
+
+
+# --------------------------------------------------------------------------
+# iloc
+# --------------------------------------------------------------------------
+
+@dataclass
+class IlocExtent:
+    index: int = 0
+    offset: int = 0
+    length: int = 0
+
+
+@dataclass
+class IlocItem:
+    item_id: int = 0
+    construction_method: int = 0  # 0=file offset, 1=idat, 2=item
+    data_reference_index: int = 0
+    base_offset: int = 0
+    extents: List[IlocExtent] = field(default_factory=list)
+    # True when method-0 extent offsets are relative to the mdat payload
+    # being assembled for writing; False when they are absolute offsets
+    # into a source file that was read (rebased before re-writing).
+    mdat_relative: bool = False
+
+
+@register_box("iloc")
+class Box_iloc(FullBox):
+    """Item location box (ref: box.cc:1566 Box_iloc::parse).
+
+    On write, extents whose construction_method is 0 carry offsets
+    relative to the start of the mdat payload; their absolute file
+    positions are patched after mdat placement via
+    :meth:`patch_iloc_offsets` (ref: patch_file_pointers box.h:199-201).
+    """
+
+    supported_versions = (0, 1, 2)
+
+    def __init__(self):
+        super().__init__()
+        self.items: List[IlocItem] = []
+        self.offset_size = 4
+        self.length_size = 4
+        self.base_offset_size = 0
+        self.index_size = 0
+        self._offset_patch_pos: List[Tuple[int, int, int]] = []  # (writer pos, item idx, extent idx)
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        b = r.read8()
+        self.offset_size = b >> 4
+        self.length_size = b & 0xF
+        b = r.read8()
+        self.base_offset_size = b >> 4
+        self.index_size = (b & 0xF) if self.version in (1, 2) else 0
+
+        item_count = r.read16() if self.version < 2 else r.read32()
+        if limits.max_items and item_count > limits.max_items:
+            raise HeifError.security(f"iloc with {item_count} items")
+
+        self.items = []
+        for _ in range(item_count):
+            it = IlocItem()
+            it.item_id = r.read16() if self.version < 2 else r.read32()
+            if self.version in (1, 2):
+                it.construction_method = r.read16() & 0xF
+            it.data_reference_index = r.read16()
+            it.base_offset = r.read_uint(self.base_offset_size)
+            extent_count = r.read16()
+            if limits.max_iloc_extents_per_item and \
+                    extent_count > limits.max_iloc_extents_per_item:
+                raise HeifError.security(
+                    f"{extent_count} iloc extents for item {it.item_id}")
+            for _ in range(extent_count):
+                ext = IlocExtent()
+                if self.version in (1, 2) and self.index_size > 0:
+                    ext.index = r.read_uint(self.index_size)
+                ext.offset = r.read_uint(self.offset_size)
+                ext.length = r.read_uint(self.length_size)
+                it.extents.append(ext)
+            self.items.append(it)
+
+    def find_item(self, item_id: int) -> Optional[IlocItem]:
+        for it in self.items:
+            if it.item_id == item_id:
+                return it
+        return None
+
+    def derive_version(self) -> None:
+        v = 0
+        if any(it.item_id > 0xFFFF for it in self.items):
+            v = 2
+        elif any(it.construction_method != 0 for it in self.items):
+            v = 1
+        self.version = v
+        # 64-bit offsets/lengths if needed
+        big = any(e.offset > 0xFFFFFFFF or e.length > 0xFFFFFFFF
+                  for it in self.items for e in it.extents)
+        self.offset_size = self.length_size = 8 if big else 4
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        self._offset_patch_pos = []
+        w.write8((self.offset_size << 4) | self.length_size)
+        idx_nibble = self.index_size if self.version in (1, 2) else 0
+        w.write8((self.base_offset_size << 4) | idx_nibble)
+        if self.version < 2:
+            w.write16(len(self.items))
+        else:
+            w.write32(len(self.items))
+        for i, it in enumerate(self.items):
+            if self.version < 2:
+                w.write16(it.item_id)
+            else:
+                w.write32(it.item_id)
+            if self.version in (1, 2):
+                w.write16(it.construction_method)
+            w.write16(it.data_reference_index)
+            w.write_uint(it.base_offset, self.base_offset_size)
+            w.write16(len(it.extents))
+            for j, ext in enumerate(it.extents):
+                if self.version in (1, 2) and self.index_size > 0:
+                    w.write_uint(ext.index, self.index_size)
+                if it.construction_method == 0:
+                    self._offset_patch_pos.append((w.pos, i, j))
+                w.write_uint(ext.offset, self.offset_size)
+                w.write_uint(ext.length, self.length_size)
+
+    def patch_iloc_offsets(self, w: ByteWriter, mdat_payload_start: int) -> None:
+        """Rewrite method-0 extent offsets to absolute file positions."""
+        for pos, i, j in self._offset_patch_pos:
+            ext = self.items[i].extents[j]
+            w.patch_uint(pos, ext.offset + mdat_payload_start, self.offset_size)
+
+    def dump_fields(self) -> List[str]:
+        out = []
+        for it in self.items:
+            exts = " ".join(f"[{e.offset}+{e.length}]" for e in it.extents)
+            out.append(f"item {it.item_id}: method={it.construction_method} "
+                       f"base={it.base_offset} extents: {exts}")
+        return out
+
+
+# --------------------------------------------------------------------------
+# iinf / infe
+# --------------------------------------------------------------------------
+
+@register_box("infe")
+class Box_infe(FullBox):
+    """Item info entry (ref: box.cc:2390)."""
+
+    supported_versions = (0, 1, 2, 3)
+
+    def __init__(self, item_id: int = 0, item_type: str = "    ",
+                 name: str = ""):
+        super().__init__()
+        self.version = 2
+        self.item_id = item_id
+        self.item_protection_index = 0
+        self.item_type = item_type
+        self.item_name = name
+        self.content_type = ""
+        self.content_encoding = ""
+        self.item_uri_type = ""
+
+    @property
+    def hidden(self) -> bool:
+        return bool(self.flags & 1)
+
+    @hidden.setter
+    def hidden(self, v: bool) -> None:
+        self.flags = (self.flags & ~1) | int(v)
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        if self.version <= 1:
+            self.item_id = r.read16()
+            self.item_protection_index = r.read16()
+            self.item_name = r.read_string()
+            self.content_type = r.read_string() if not r.eof() else ""
+            self.content_encoding = r.read_string() if not r.eof() else ""
+            self.item_type = "mime" if self.content_type else ""
+            return
+        self.item_id = r.read16() if self.version == 2 else r.read32()
+        self.item_protection_index = r.read16()
+        self.item_type = r.read_bytes(4).decode("latin-1")
+        self.item_name = r.read_string() if not r.eof() else ""
+        if self.item_type == "mime":
+            self.content_type = r.read_string() if not r.eof() else ""
+            self.content_encoding = r.read_string() if not r.eof() else ""
+        elif self.item_type == "uri ":
+            self.item_uri_type = r.read_string() if not r.eof() else ""
+
+    def derive_version(self) -> None:
+        self.version = 3 if self.item_id > 0xFFFF else 2
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        if self.version == 2:
+            w.write16(self.item_id)
+        else:
+            w.write32(self.item_id)
+        w.write16(self.item_protection_index)
+        w.write_bytes(self.item_type.encode("latin-1"))
+        w.write_string(self.item_name)
+        if self.item_type == "mime":
+            w.write_string(self.content_type)
+            if self.content_encoding:
+                w.write_string(self.content_encoding)
+        elif self.item_type == "uri ":
+            w.write_string(self.item_uri_type)
+
+    def dump_fields(self) -> List[str]:
+        f = [f"item_ID: {self.item_id}", f"item_type: {self.item_type}"]
+        if self.item_name:
+            f.append(f"item_name: {self.item_name}")
+        if self.content_type:
+            f.append(f"content_type: {self.content_type}")
+        if self.hidden:
+            f.append("hidden: true")
+        return f
+
+
+@register_box("iinf")
+class Box_iinf(FullBox):
+    """Item info box (ref: box.cc:2536)."""
+
+    supported_versions = (0, 1)
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        count = r.read16() if self.version == 0 else r.read32()
+        if limits.max_items and count > limits.max_items:
+            raise HeifError.security(f"iinf with {count} entries")
+        self.read_children(r, limits, depth, max_children=max(count, 1) + 1)
+
+    def derive_version(self) -> None:
+        self.version = 1 if len(self.children) > 0xFFFF else 0
+        super().derive_version()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        if self.version == 0:
+            w.write16(len(self.children))
+        else:
+            w.write32(len(self.children))
+        self.write_children(w)
+
+    @property
+    def entries(self) -> List[Box_infe]:
+        return [c for c in self.children if isinstance(c, Box_infe)]
+
+
+# --------------------------------------------------------------------------
+# Properties: iprp / ipco / ipma and the property boxes
+# --------------------------------------------------------------------------
+
+@register_box("iprp")
+class Box_iprp(Box):
+    """Item properties container (ref: box.h:765)."""
+
+
+@register_box("ipco")
+class Box_ipco(Box):
+    """Item property container (ref: box.h:779)."""
+
+    def get_property(self, index_1based: int) -> Optional[Box]:
+        if 1 <= index_1based <= len(self.children):
+            return self.children[index_1based - 1]
+        return None
+
+    def find_or_append(self, box: Box) -> int:
+        """Append a property with dedup, returning its 1-based index
+        (ref: HeifFile property dedup, file.h:168-216)."""
+        ser = box.serialize()
+        for i, c in enumerate(self.children):
+            if c.box_type == box.box_type and c.serialize() == ser:
+                return i + 1
+        self.children.append(box)
+        return len(self.children)
+
+
+@dataclass
+class PropertyAssociation:
+    property_index: int  # 1-based into ipco
+    essential: bool
+
+
+@register_box("ipma")
+class Box_ipma(FullBox):
+    """Item property association (ref: box.cc:3219)."""
+
+    supported_versions = (0, 1)
+
+    def __init__(self):
+        super().__init__()
+        self.associations: Dict[int, List[PropertyAssociation]] = {}
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        entry_count = r.read32()
+        if limits.max_items and entry_count > limits.max_items:
+            raise HeifError.security(f"ipma with {entry_count} entries")
+        for _ in range(entry_count):
+            item_id = r.read16() if self.version < 1 else r.read32()
+            assoc_count = r.read8()
+            assocs = []
+            for _ in range(assoc_count):
+                if self.flags & 1:
+                    v = r.read16()
+                    assocs.append(PropertyAssociation(v & 0x7FFF, bool(v & 0x8000)))
+                else:
+                    v = r.read8()
+                    assocs.append(PropertyAssociation(v & 0x7F, bool(v & 0x80)))
+            self.associations[item_id] = assocs
+
+    def get(self, item_id: int) -> List[PropertyAssociation]:
+        return self.associations.get(item_id, [])
+
+    def add(self, item_id: int, prop_index: int, essential: bool) -> None:
+        lst = self.associations.setdefault(item_id, [])
+        for a in lst:
+            if a.property_index == prop_index:
+                a.essential = a.essential or essential
+                return
+        lst.append(PropertyAssociation(prop_index, essential))
+
+    def derive_version(self) -> None:
+        self.version = 1 if any(i > 0xFFFF for i in self.associations) else 0
+        big_index = any(a.property_index > 0x7F
+                        for lst in self.associations.values() for a in lst)
+        self.flags = 1 if big_index else 0
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        w.write32(len(self.associations))
+        for item_id, assocs in self.associations.items():
+            if self.version < 1:
+                w.write16(item_id)
+            else:
+                w.write32(item_id)
+            w.write8(len(assocs))
+            for a in assocs:
+                if self.flags & 1:
+                    w.write16((a.property_index & 0x7FFF) | (0x8000 if a.essential else 0))
+                else:
+                    w.write8((a.property_index & 0x7F) | (0x80 if a.essential else 0))
+
+    def dump_fields(self) -> List[str]:
+        return [f"item {i}: " + " ".join(
+            f"{a.property_index}{'*' if a.essential else ''}" for a in lst)
+            for i, lst in self.associations.items()]
+
+
+@register_box("ispe")
+class Box_ispe(FullBox):
+    """Image spatial extents (ref: box.h:583)."""
+
+    def __init__(self, width: int = 0, height: int = 0):
+        super().__init__()
+        self.width = width
+        self.height = height
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.width = r.read32()
+        self.height = r.read32()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        w.write32(self.width)
+        w.write32(self.height)
+
+    def dump_fields(self) -> List[str]:
+        return [f"image width: {self.width}", f"image height: {self.height}"]
+
+
+@register_box("pixi")
+class Box_pixi(FullBox):
+    """Pixel information (ref: box.cc:2651)."""
+
+    def __init__(self, bits: Optional[List[int]] = None):
+        super().__init__()
+        self.bits_per_channel: List[int] = list(bits or [])
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        n = r.read8()
+        self.bits_per_channel = [r.read8() for _ in range(n)]
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        w.write8(len(self.bits_per_channel))
+        for b in self.bits_per_channel:
+            w.write8(b)
+
+    def dump_fields(self) -> List[str]:
+        return ["bits_per_channel: " + ",".join(map(str, self.bits_per_channel))]
+
+
+@register_box("irot")
+class Box_irot(Box):
+    """Image rotation, CCW degrees (ref: box.cc:3496)."""
+
+    def __init__(self, angle_ccw: int = 0):
+        super().__init__()
+        self.angle = angle_ccw  # 0/90/180/270
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.angle = (r.read8() & 0x3) * 90
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write8(self.angle // 90)
+
+    def dump_fields(self) -> List[str]:
+        return [f"rotation: {self.angle} degrees (CCW)"]
+
+
+@register_box("imir")
+class Box_imir(Box):
+    """Image mirroring (ref: box.cc:3532).
+
+    axis 'vertical'   = mirror over a vertical axis (left-right flip),
+    axis 'horizontal' = mirror over a horizontal axis (top-bottom flip).
+    Wire: bit0 set → horizontal.
+    """
+
+    MIRROR_VERTICAL = "vertical"
+    MIRROR_HORIZONTAL = "horizontal"
+
+    def __init__(self, direction: str = MIRROR_VERTICAL):
+        super().__init__()
+        self.direction = direction
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.direction = (self.MIRROR_HORIZONTAL if (r.read8() & 1)
+                          else self.MIRROR_VERTICAL)
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write8(1 if self.direction == self.MIRROR_HORIZONTAL else 0)
+
+    def dump_fields(self) -> List[str]:
+        return [f"mirror direction: {self.direction}"]
+
+
+@register_box("clap")
+class Box_clap(Box):
+    """Clean aperture (ref: box.cc:3633)."""
+
+    def __init__(self, w: Optional[Fraction] = None, h: Optional[Fraction] = None,
+                 hoff: Optional[Fraction] = None, voff: Optional[Fraction] = None):
+        super().__init__()
+        self.ap_width = w or Fraction(0, 1)
+        self.ap_height = h or Fraction(0, 1)
+        self.h_offset = hoff or Fraction(0, 1)
+        self.v_offset = voff or Fraction(0, 1)
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        wn, wd = r.read32(), r.read32()
+        hn, hd = r.read32(), r.read32()
+        hon, hod = r.read32s(), r.read32()
+        von, vod = r.read32s(), r.read32()
+        for v in (wn, wd, hn, hd, hod, vod):
+            if v > 0x7FFFFFFF:
+                raise HeifError.invalid_input(
+                    SubError.Invalid_fractional_number, "clap value out of range")
+        self.ap_width = Fraction(wn, wd)
+        self.ap_height = Fraction(hn, hd)
+        self.h_offset = Fraction(hon, hod)
+        self.v_offset = Fraction(von, vod)
+        for f in (self.ap_width, self.ap_height, self.h_offset, self.v_offset):
+            if not f.is_valid():
+                raise HeifError.invalid_input(
+                    SubError.Invalid_fractional_number, "invalid clap fraction")
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write32(self.ap_width.numerator)
+        w.write32(self.ap_width.denominator)
+        w.write32(self.ap_height.numerator)
+        w.write32(self.ap_height.denominator)
+        w.write32s(self.h_offset.numerator)
+        w.write32(self.h_offset.denominator)
+        w.write32s(self.v_offset.numerator)
+        w.write32(self.v_offset.denominator)
+
+    # Cropping math (ref: Box_clap::left_rounded etc., box.cc):
+    # left = horizOff + (width_image - apertureWidth)/2 , rounded.
+    def left(self, image_width: int) -> int:
+        x = self.h_offset + Fraction(image_width - 1, 2) - (self.ap_width - Fraction(1, 1)) / 2
+        return x.round()
+
+    def top(self, image_height: int) -> int:
+        y = self.v_offset + Fraction(image_height - 1, 2) - (self.ap_height - Fraction(1, 1)) / 2
+        return y.round()
+
+    def width_rounded(self) -> int:
+        return self.ap_width.round()
+
+    def height_rounded(self) -> int:
+        return self.ap_height.round()
+
+    def dump_fields(self) -> List[str]:
+        return [f"aperture: {self.ap_width.to_float():g}x{self.ap_height.to_float():g}"
+                f" offset ({self.h_offset.to_float():g},{self.v_offset.to_float():g})"]
+
+
+@register_box("colr")
+class Box_colr(Box):
+    """Colour information (ref: libheif/nclx.h:201 Box_colr).
+
+    colour_type 'nclx' carries CICP fields; 'prof'/'rICC' carry a raw
+    ICC profile blob.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.colour_type = "nclx"
+        # CICP (H.273); defaults match the reference color_profile_nclx
+        self.colour_primaries = 2      # unspecified
+        self.transfer_characteristics = 2
+        self.matrix_coefficients = 2
+        self.full_range_flag = True
+        self.icc_profile = b""
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.colour_type = r.read_bytes(4).decode("latin-1")
+        if self.colour_type == "nclx":
+            self.colour_primaries = r.read16()
+            self.transfer_characteristics = r.read16()
+            self.matrix_coefficients = r.read16()
+            self.full_range_flag = bool(r.read8() & 0x80)
+        elif self.colour_type in ("prof", "rICC"):
+            if limits.max_color_profile_size and \
+                    r.remaining() > limits.max_color_profile_size:
+                raise HeifError.security("color profile too large")
+            self.icc_profile = r.read_remaining()
+        else:
+            raise HeifError.invalid_input(
+                SubError.Unknown_color_profile_type,
+                f"unknown colour type {self.colour_type!r}")
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write_bytes(self.colour_type.encode("latin-1"))
+        if self.colour_type == "nclx":
+            w.write16(self.colour_primaries)
+            w.write16(self.transfer_characteristics)
+            w.write16(self.matrix_coefficients)
+            w.write8(0x80 if self.full_range_flag else 0)
+        else:
+            w.write_bytes(self.icc_profile)
+
+    def dump_fields(self) -> List[str]:
+        if self.colour_type == "nclx":
+            return [f"colour_type: nclx",
+                    f"primaries: {self.colour_primaries}, "
+                    f"transfer: {self.transfer_characteristics}, "
+                    f"matrix: {self.matrix_coefficients}, "
+                    f"full range: {self.full_range_flag}"]
+        return [f"colour_type: {self.colour_type}",
+                f"ICC profile: {len(self.icc_profile)} bytes"]
+
+
+@register_box("auxC")
+class Box_auxC(FullBox):
+    """Auxiliary type property (ref: box.h:1134)."""
+
+    ALPHA_TYPES = ("urn:mpeg:hevc:2015:auxid:1",
+                   "urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+                   "urn:com:apple:photo:2020:aux:hdrgainmap")
+    DEPTH_TYPES = ("urn:mpeg:hevc:2015:auxid:2",
+                   "urn:mpeg:mpegB:cicp:systems:auxiliary:depth")
+
+    def __init__(self, aux_type: str = ""):
+        super().__init__()
+        self.aux_type = aux_type
+        self.aux_subtypes = b""
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.aux_type = r.read_string()
+        self.aux_subtypes = r.read_remaining()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        w.write_string(self.aux_type)
+        w.write_bytes(self.aux_subtypes)
+
+    def is_alpha(self) -> bool:
+        return self.aux_type in ("urn:mpeg:hevc:2015:auxid:1",
+                                 "urn:mpeg:mpegB:cicp:systems:auxiliary:alpha")
+
+    def is_depth(self) -> bool:
+        return self.aux_type in self.DEPTH_TYPES
+
+    def dump_fields(self) -> List[str]:
+        return [f"aux type: {self.aux_type}"]
+
+
+# --------------------------------------------------------------------------
+# iref / idat / dinf
+# --------------------------------------------------------------------------
+
+@dataclass
+class ItemReference:
+    ref_type: str
+    from_item_id: int
+    to_item_ids: List[int]
+
+
+@register_box("iref")
+class Box_iref(FullBox):
+    """Item reference box (ref: box.cc:3798)."""
+
+    supported_versions = (0, 1)
+
+    def __init__(self):
+        super().__init__()
+        self.references: List[ItemReference] = []
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        id_read = r.read16 if self.version == 0 else r.read32
+        while not r.eof():
+            size = r.read32()
+            ref_type = r.read_bytes(4).decode("latin-1")
+            if size < 8:
+                raise HeifError.invalid_input(
+                    SubError.Invalid_box_size, "iref reference too small")
+            body = r.sub_reader(size - 8)
+            sub_id_read = body.read16 if self.version == 0 else body.read32
+            from_id = sub_id_read()
+            count = body.read16()
+            to_ids = [sub_id_read() for _ in range(count)]
+            self.references.append(ItemReference(ref_type, from_id, to_ids))
+
+    def derive_version(self) -> None:
+        big = any(ref.from_item_id > 0xFFFF or any(t > 0xFFFF for t in ref.to_item_ids)
+                  for ref in self.references)
+        self.version = 1 if big else 0
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        for ref in self.references:
+            idsz = 2 if self.version == 0 else 4
+            size = 8 + idsz + 2 + idsz * len(ref.to_item_ids)
+            w.write32(size)
+            w.write_bytes(ref.ref_type.encode("latin-1"))
+            wid = w.write16 if self.version == 0 else w.write32
+            wid(ref.from_item_id)
+            w.write16(len(ref.to_item_ids))
+            for t in ref.to_item_ids:
+                wid(t)
+
+    # -- queries (ref: HeifFile::get_item_references) -------------------
+
+    def get_references_from(self, item_id: int,
+                            ref_type: Optional[str] = None) -> List[ItemReference]:
+        return [ref for ref in self.references
+                if ref.from_item_id == item_id
+                and (ref_type is None or ref.ref_type == ref_type)]
+
+    def get_references_to(self, item_id: int,
+                          ref_type: Optional[str] = None) -> List[ItemReference]:
+        return [ref for ref in self.references
+                if item_id in ref.to_item_ids
+                and (ref_type is None or ref.ref_type == ref_type)]
+
+    def add_reference(self, ref_type: str, from_id: int, to_ids: List[int]) -> None:
+        for ref in self.references:
+            if ref.from_item_id == from_id and ref.ref_type == ref_type:
+                ref.to_item_ids.extend(to_ids)
+                return
+        self.references.append(ItemReference(ref_type, from_id, list(to_ids)))
+
+    def check_for_cycles(self) -> None:
+        """Reject reference cycles (ref: file.h:311-316).
+
+        Applies per reference type: the derived-image graph must be a DAG.
+        Types are not merged, because a valid file links two items both
+        ways through two types: 'auxl' from an alpha item to its master,
+        'prem' from the master back to it.  (The JAX package merges them,
+        so it rejects such files, its own writer's included.)
+        """
+        for ref_type in {ref.ref_type for ref in self.references}:
+            adj: Dict[int, List[int]] = {}
+            for ref in self.references:
+                if ref.ref_type == ref_type:
+                    adj.setdefault(ref.from_item_id, []).extend(
+                        ref.to_item_ids)
+            _check_acyclic(adj)
+
+    def dump_fields(self) -> List[str]:
+        return [f"{ref.ref_type}: {ref.from_item_id} -> {ref.to_item_ids}"
+                for ref in self.references]
+
+
+def _check_acyclic(adj: Dict[int, List[int]]) -> None:
+    WHITE, GRAY, BLACK = 0, 1, 2
+    color: Dict[int, int] = {}
+
+    def visit(n: int, depth: int = 0) -> None:
+        if depth > 1000:
+            raise HeifError.usage(SubError.Item_reference_cycle,
+                                  "item reference chain too deep")
+        color[n] = GRAY
+        for m in adj.get(n, []):
+            c = color.get(m, WHITE)
+            if c == GRAY:
+                raise HeifError.usage(SubError.Item_reference_cycle,
+                                      f"item reference cycle through item {m}")
+            if c == WHITE:
+                visit(m, depth + 1)
+        color[n] = BLACK
+
+    for n in list(adj):
+        if color.get(n, WHITE) == WHITE:
+            visit(n)
+
+
+@register_box("idat")
+class Box_idat(Box):
+    """Item data box (ref: box.h:1714)."""
+
+    def __init__(self, data: bytes = b""):
+        super().__init__()
+        self.data = data
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.data = r.read_remaining()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write_bytes(self.data)
+
+    def dump_fields(self) -> List[str]:
+        return [f"{len(self.data)} data bytes"]
+
+
+@register_box("dinf")
+class Box_dinf(Box):
+    """Data information box (ref: box.cc:4556)."""
+
+
+@register_box("dref")
+class Box_dref(FullBox):
+    """Data reference box (ref: box.h:1745)."""
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        count = r.read32()
+        self.read_children(r, limits, depth, max_children=max(count, 1) + 1)
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        w.write32(len(self.children))
+        self.write_children(w)
+
+
+@register_box("url ")
+class Box_url(FullBox):
+    """Data entry URL box (ref: box.h:1760)."""
+
+    def __init__(self):
+        super().__init__()
+        self.flags = 1  # self-contained
+        self.location = ""
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        if not (self.flags & 1):
+            self.location = r.read_string()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        if not (self.flags & 1):
+            w.write_string(self.location)
+
+    def is_self_contained(self) -> bool:
+        return bool(self.flags & 1)
+
+
+# --------------------------------------------------------------------------
+# misc
+# --------------------------------------------------------------------------
+
+@register_box("free", "skip")
+class Box_free(Box):
+    """Free-space box (ref: box.h:2027)."""
+
+    def __init__(self, size: int = 0):
+        super().__init__()
+        self.payload = b"\x00" * size
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.payload = r.read_remaining()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write_bytes(self.payload)
+
+
+@register_box("mdat")
+class Box_mdat(Box):
+    """Media data box.
+
+    Parsed lazily: we record the absolute file offset/length of the
+    payload rather than copying it, mirroring the reference's lazy mdat
+    handling through FileLayout (file_layout.cc:38) — item data is read
+    through iloc extents directly from the file buffer.
+    """
+
+    def __init__(self, payload: bytes = b""):
+        super().__init__()
+        self.payload = payload       # only used on the write path
+        self.data_start = 0          # absolute file offset of payload (read path)
+        self.data_size = 0
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.data_start = r.pos
+        self.data_size = r.remaining()
+        r.skip_to_end()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write_bytes(self.payload)
+
+    def dump_fields(self) -> List[str]:
+        return [f"{self.data_size or len(self.payload)} data bytes"]

@@ -75,7 +75,7 @@ class UnciDecoder:
 
     # ------------------------------------------------------------- decompress
 
-    def _uncompressed_payload(self, data: bytes) -> bytes:
+    def _uncompressed_payload(self, data: memoryview):
         """Resolve generic compression to the raw sample buffer."""
         if self.cmpC is None:
             return data
@@ -93,8 +93,10 @@ class UnciDecoder:
     # ----------------------------------------------------------------- decode
 
     def decode(self, data) -> PixelImage:
-        """Decode the full image (all tiles batched on the device)."""
-        payload = self._uncompressed_payload(bytes(data))
+        """Decode the full image (all tiles batched on the device).
+        ``data`` is bytes-like (bytes, or a memoryview of the file
+        buffer) and is read in place, not copied on the host."""
+        payload = self._uncompressed_payload(memoryview(data))
         if self.device.type == "cuda" and \
                 cuda_fast._strided_gate(self.layout):
             # the strided kernel reads the payload in place, at pitch S
@@ -115,7 +117,7 @@ class UnciDecoder:
             raise HeifError.usage(SubError.Invalid_parameter_value,
                                   f"tile ({tile_x},{tile_y}) out of range")
         idx = tile_y * lay.tile_cols + tile_x
-        buf = self._fetch_tile_payload(bytes(data), idx)
+        buf = self._fetch_tile_payload(memoryview(data), idx)
         tiles = np.zeros((1, buf.shape[0] + kernels._GATHER_PAD), dtype=np.uint8)
         tiles[0, :buf.shape[0]] = buf
         single = UncLayout(
@@ -129,7 +131,7 @@ class UnciDecoder:
         planes = kernels.decode_tiles(single, tiles, self.device)
         return self._to_image(planes, lay.tile_width, lay.tile_height)
 
-    def _fetch_tile_payload(self, data: bytes, idx: int) -> np.ndarray:
+    def _fetch_tile_payload(self, data: memoryview, idx: int) -> np.ndarray:
         """Only this tile's byte ranges are read (ref: tile stride
         computation unc_decoder_component_interleave.cc:28)."""
         lay = self.layout

@@ -20,6 +20,13 @@ class NclxProfile:
     matrix_coefficients: int = 6      # BT.601
     full_range_flag: bool = True
 
+    @staticmethod
+    def from_colr_box(colr) -> "NclxProfile":
+        return NclxProfile(colr.colour_primaries,
+                           colr.transfer_characteristics,
+                           colr.matrix_coefficients,
+                           colr.full_range_flag)
+
 
 # H.273 Table 2 colour primaries: (rx, ry, gx, gy, bx, by, wx, wy)
 # (ref: nclx.cc get_colour_primaries table)

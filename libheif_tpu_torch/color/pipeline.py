@@ -3,7 +3,9 @@
 Counterpart of libheif_tpu/color/pipeline.py (reference:
 libheif/color-conversion/colorconversion.{h,cc} — ColorConversionPipeline
 colorconversion.h:103, Dijkstra search colorconversion.cc:302), over this
-package's own ``ALL_OPS``.
+package's own ``ALL_OPS``: the JAX package's ops, in its order and with
+its costs, so both packages pick the same chain.  A chain that needs an
+op this package has not ported yet raises before any op runs.
 """
 
 from __future__ import annotations
@@ -19,11 +21,13 @@ from .ops import ALL_OPS, ColorOp, ColorConversionOptions
 _MAX_CHAIN = 6
 
 
-def find_pipeline(inp: ColorState, target: ColorState
+def find_pipeline(inp: ColorState, target: ColorState,
+                  options: Optional[ColorConversionOptions] = None
                   ) -> Optional[List[Tuple[ColorOp, ColorState]]]:
     """Dijkstra over (state) nodes; returns [(op, out_state), ...]."""
     if inp.matches(target):
         return []
+    ops = [op for op in ALL_OPS if op.enabled(options)]
     counter = 0
     heap = [(0, counter, inp, [])]
     best = {inp: 0}
@@ -31,7 +35,7 @@ def find_pipeline(inp: ColorState, target: ColorState
         cost, _, state, chain = heapq.heappop(heap)
         if len(chain) >= _MAX_CHAIN:
             continue
-        for op in ALL_OPS:
+        for op in ops:
             out = op.output_state(state, target)
             if out is None:
                 continue
@@ -77,11 +81,17 @@ def convert_image(img: PixelImage,
         full_range=inp.full_range if target_full_range is None
         else target_full_range,
     )
-    chain = find_pipeline(inp, target)
+    chain = find_pipeline(inp, target, options)
     if chain is None:
         raise HeifError.unsupported(
             SubError.Unsupported_color_conversion,
             f"no conversion from {inp} to {target}")
+    missing = [type(op).__name__ for op, _ in chain if not op.ported]
+    if missing:
+        raise HeifError.unsupported(
+            SubError.Unsupported_color_conversion,
+            f"the conversion from {inp} to {target} needs "
+            f"{', '.join(missing)}, not ported yet")
     state = inp
     for op, out_state in chain:
         img = op.apply(img, state, out_state, options)

@@ -1,0 +1,206 @@
+"""HeifContext: the semantic image model over a parsed file.
+
+Counterpart of libheif_tpu/context.py, read side only (reference:
+libheif/context.{h,cc} — HeifContext context.h:65,
+interpret_heif_file_images context.cc:584, decode orchestration
+context.cc:1425).  A context lives on one device, ``None`` meaning CUDA
+(which raises without a card; pass ``device="cpu"`` for the CPU): every
+item decodes onto it and every decoded plane stays on it, through the
+composition, the transforms and the output conversion.  There is no
+encode or write API yet; ``HeifFile`` has the write side.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+from ._build import resolve_device
+from .core.error import HeifError, ErrorCode, SubError
+from .core.limits import SecurityLimits
+from .file import HeifFile
+from .boxes.meta import Box_auxC
+from .image.pixel_image import PixelImage, Colorspace, Chroma
+from .color import convert_image
+from .color.ops import ColorConversionOptions
+from .items import (
+    ImageItem, ImageItem_Error, DecodingOptions, ImageTiling, alloc_item,
+)
+
+
+class HeifContext:
+    """Top-level engine object (mirrors heif_context)."""
+
+    def __init__(self, limits: Optional[SecurityLimits] = None, device=None):
+        self.device = resolve_device(device)
+        self.limits = limits or SecurityLimits()
+        self.file: Optional[HeifFile] = None
+        self.items: Dict[int, ImageItem] = {}
+        self.primary_id: Optional[int] = None
+        self.max_decoding_threads = 4  # ref: context.h:72 (CPU grid tiles)
+
+    # ================================================================ read
+
+    @staticmethod
+    def read_from_file(path: str, limits: Optional[SecurityLimits] = None,
+                       device=None) -> "HeifContext":
+        ctx = HeifContext(limits, device)
+        ctx.file = HeifFile.from_file(path, ctx.limits)
+        ctx._interpret()
+        return ctx
+
+    @staticmethod
+    def read_from_bytes(data: bytes, limits: Optional[SecurityLimits] = None,
+                        device=None) -> "HeifContext":
+        ctx = HeifContext(limits, device)
+        ctx.file = HeifFile.from_bytes(data, ctx.limits)
+        ctx._interpret()
+        return ctx
+
+    def _interpret(self) -> None:
+        """Build the item graph (ref: interpret_heif_file context.cc:564)."""
+        f = self.file
+        for item_id in f.item_ids:
+            infe = f.get_infe(item_id)
+            try:
+                item = alloc_item(self, item_id, infe.item_type)
+            except HeifError as e:
+                item = ImageItem_Error(self, item_id, infe.item_type, e)
+            item.is_hidden = infe.hidden
+            self.items[item_id] = item
+
+        try:
+            self.primary_id = f.primary_item_id
+        except HeifError:
+            self.primary_id = None
+        if self.primary_id in self.items:
+            self.items[self.primary_id].is_primary = True
+
+        # --- link aux images via iref (ref: context.cc:800+)
+        for item_id, item in self.items.items():
+            # thumbnails: 'thmb' ref from thumbnail to master
+            for ref in f.get_references_from(item_id, "thmb"):
+                item.is_thumbnail = True
+                for master_id in ref.to_item_ids:
+                    m = self.items.get(master_id)
+                    if m is not None:
+                        m.thumbnails.append(item)
+            # aux images: 'auxl' ref from aux item to master
+            for ref in f.get_references_from(item_id, "auxl"):
+                item.is_aux = True
+                auxC = f.get_property(item_id, Box_auxC)
+                for master_id in ref.to_item_ids:
+                    m = self.items.get(master_id)
+                    if m is None:
+                        continue
+                    if auxC is not None and auxC.is_alpha():
+                        m.alpha_item = item
+                        # premultiplied alpha: 'prem' ref master→alpha
+                        for pref in f.get_references_from(master_id, "prem"):
+                            if item_id in pref.to_item_ids:
+                                m.premultiplied_alpha = True
+                    elif auxC is not None and auxC.is_depth():
+                        m.depth_item = item
+                    else:
+                        m.aux_items.append(item)
+            # metadata: 'cdsc' ref from metadata item to image
+            infe = f.get_infe(item_id)
+            if infe.item_type in ("Exif", "mime", "uri "):
+                for ref in f.get_references_from(item_id, "cdsc"):
+                    for target in ref.to_item_ids:
+                        m = self.items.get(target)
+                        if m is None:
+                            continue
+                        m.metadata.append({
+                            "item_id": item_id,
+                            "item_type": infe.item_type,
+                            "content_type": infe.content_type,
+                            "item_uri_type": infe.item_uri_type,
+                        })
+
+    # ---------------------------------------------------------------- query
+
+    def get_item(self, item_id: int) -> ImageItem:
+        item = self.items.get(item_id)
+        if item is None:
+            raise HeifError.usage(SubError.Nonexisting_item_referenced,
+                                  f"item {item_id} does not exist")
+        return item
+
+    @property
+    def primary_item_id(self) -> int:
+        if self.primary_id is None:
+            raise HeifError(ErrorCode.Invalid_input,
+                            SubError.No_or_invalid_primary_item)
+        return self.primary_id
+
+    def top_level_image_ids(self) -> List[int]:
+        """(ref: heif_context_get_list_of_top_level_image_IDs)."""
+        return [i for i, item in self.items.items()
+                if item.is_image_item and not item.is_thumbnail
+                and not item.is_aux and not item.is_hidden
+                and item.item_type not in ("Exif", "mime", "uri ", "rgan",
+                                           "txti")]
+
+    def get_image_info(self, item_id: int) -> dict:
+        item = self.get_item(item_id)
+        w, h = item.width_height()
+        return {
+            "id": item_id,
+            "type": item.item_type,
+            "width": w,
+            "height": h,
+            "has_alpha": item.alpha_item is not None,
+            "has_depth": item.depth_item is not None,
+            "is_primary": item.is_primary,
+            "thumbnails": [t.item_id for t in item.thumbnails],
+            "luma_bits_per_pixel": item.luma_bits_per_pixel(),
+        }
+
+    # ---------------------------------------------------------------- decode
+
+    def decode_image(self, item_id: Optional[int] = None,
+                     colorspace: str = Colorspace.Undefined,
+                     chroma: str = Chroma.Undefined,
+                     options: Optional[DecodingOptions] = None) -> PixelImage:
+        """(ref: HeifContext::decode_image context.cc:1425 +
+        convert_to_output_colorspace context.cc:1515)."""
+        if item_id is None:
+            item_id = self.primary_item_id
+        item = self.get_item(item_id)
+        img = item.decode_image(options)
+        return self._convert_output(img, colorspace, chroma, options)
+
+    def decode_tile(self, item_id: int, tile_x: int, tile_y: int,
+                    colorspace: str = Colorspace.Undefined,
+                    chroma: str = Chroma.Undefined,
+                    options: Optional[DecodingOptions] = None) -> PixelImage:
+        """(ref: heif_image_handle_decode_image_tile heif_tiling.h:86)."""
+        item = self.get_item(item_id)
+        img = item.decode_tile(tile_x, tile_y, options)
+        return self._convert_output(img, colorspace, chroma, options)
+
+    def _convert_output(self, img, colorspace, chroma, options):
+        opts = options or DecodingOptions()
+        target_bits = 8 if opts.convert_hdr_to_8bit else 0
+        conv = opts.color_conversion_options
+        flatten = (conv is not None and conv.alpha_composition_mode !=
+                   ColorConversionOptions.ALPHA_NONE and img.has_alpha())
+        needs = ((colorspace != Colorspace.Undefined and
+                  img.colorspace != colorspace) or
+                 (chroma != Chroma.Undefined and img.chroma != chroma) or
+                 flatten or
+                 (target_bits and any(img.bit_depth(c) != 8
+                                      for c in img.channels())))
+        if needs:
+            if flatten and colorspace == Colorspace.Undefined:
+                colorspace = img.colorspace
+            if flatten and chroma == Chroma.Undefined:
+                chroma = img.chroma
+            img = convert_image(img, colorspace, chroma,
+                                target_has_alpha=False if flatten else None,
+                                target_bits=target_bits,
+                                options=conv, device=self.device)
+        return img
+
+    def get_image_tiling(self, item_id: int) -> ImageTiling:
+        return self.get_item(item_id).get_tiling()

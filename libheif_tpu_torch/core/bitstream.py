@@ -19,6 +19,8 @@ from .error import HeifError, SubError
 
 _U16 = struct.Struct(">H")
 _U32 = struct.Struct(">I")
+_I16 = struct.Struct(">h")
+_I32 = struct.Struct(">i")
 _U64 = struct.Struct(">Q")
 
 
@@ -53,6 +55,9 @@ class ByteReader:
             raise HeifError.eof(
                 f"need {n} bytes at offset {self.pos}, only {self.remaining()} left")
 
+    def skip_to_end(self) -> None:
+        self.pos = self.end
+
     def sub_reader(self, size: int) -> "ByteReader":
         """Bounded child covering the next `size` bytes; advances self."""
         self._need(size)
@@ -84,6 +89,18 @@ class ByteReader:
     def read32(self) -> int:
         self._need(4)
         v = _U32.unpack_from(self._buf, self.pos)[0]
+        self.pos += 4
+        return v
+
+    def read16s(self) -> int:
+        self._need(2)
+        v = _I16.unpack_from(self._buf, self.pos)[0]
+        self.pos += 2
+        return v
+
+    def read32s(self) -> int:
+        self._need(4)
+        v = _I32.unpack_from(self._buf, self.pos)[0]
         self.pos += 4
         return v
 
@@ -163,6 +180,12 @@ class ByteWriter:
     def write32(self, v: int) -> None:
         self._data += _U32.pack(v & 0xFFFFFFFF)
 
+    def write16s(self, v: int) -> None:
+        self._data += _I16.pack(v)
+
+    def write32s(self, v: int) -> None:
+        self._data += _I32.pack(v)
+
     def write_uint(self, v: int, nbytes: int) -> None:
         if nbytes:
             self._data += int(v).to_bytes(nbytes, "big")
@@ -179,3 +202,6 @@ class ByteWriter:
 
     def patch32(self, at: int, v: int) -> None:
         self._data[at:at + 4] = _U32.pack(v & 0xFFFFFFFF)
+
+    def patch_uint(self, at: int, v: int, nbytes: int) -> None:
+        self._data[at:at + nbytes] = int(v).to_bytes(nbytes, "big")

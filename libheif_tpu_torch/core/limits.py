@@ -55,3 +55,14 @@ class SecurityLimits:
             raise HeifError.security(
                 f"tile count {cols}x{rows} exceeds limit of "
                 f"{self.max_number_of_tiles}")
+
+    def check_item_count(self, n: int) -> None:
+        if self.max_items and n > self.max_items:
+            raise HeifError.security(
+                f"{n} items exceed limit of {self.max_items}")
+
+    def check_block_size(self, nbytes: int, what: str = "memory block") -> None:
+        if self.max_memory_block_size and nbytes > self.max_memory_block_size:
+            raise HeifError.security(
+                f"{what} of {nbytes} bytes exceeds limit of "
+                f"{self.max_memory_block_size} bytes")

@@ -4,14 +4,16 @@ Counterpart of libheif_tpu/image/pixel_image.py (reference:
 libheif/image/pixelimage.{h,cc} — HeifPixelImage pixelimage.h:60).
 Planes are 2-D torch tensors on one device: ``torch.uint8`` for depths
 up to 8 bits and ``torch.uint16`` above, as in the JAX package.  The
-geometric transforms (rotate, mirror, crop, scale, extend) are not part
-of this package yet.
+geometric transforms (rotate, mirror, crop, scale, extend) and the grid
+paste (``copy_into``) run as torch ops on the planes' device; each
+returns contiguous planes, so a cropped or rotated image can go straight
+to a kernel that takes contiguous tensors.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +96,28 @@ def subsampled_size(width: int, height: int, channel: str,
     return width, height
 
 
+# PyTorch implements few operators for uint16/uint32 (on the CPU not even
+# flip); data movement runs on a signed view of the same bits instead.
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def _moved(fn: Callable[..., torch.Tensor],
+           *arrays: torch.Tensor) -> torch.Tensor:
+    """``fn(*arrays)`` for an ``fn`` that only moves samples of arrays of
+    one dtype (flip, rot90, slice, gather, stack, pad with zeros), made
+    contiguous."""
+    dtype = arrays[0].dtype
+    view = _SIGNED_VIEW.get(dtype)
+    if view is None:
+        return fn(*arrays).contiguous()
+    return fn(*(a.view(view) for a in arrays)).contiguous().view(dtype)
+
+
+def _dtype_for(bit_depth: int) -> torch.dtype:
+    return torch.uint8 if bit_depth <= 8 else (
+        torch.uint16 if bit_depth <= 16 else torch.uint32)
+
+
 @dataclass
 class PlaneInfo:
     bit_depth: int = 8
@@ -120,6 +144,22 @@ class PixelImage:
         self.warnings: List[DecodeWarning] = []
 
     # ---------------------------------------------------------------- planes
+
+    def add_plane(self, channel: str, bit_depth: int = 8,
+                  device=None) -> None:
+        """Allocate a zeroed plane of the channel's size on ``device``
+        (``None`` means CUDA) under the security budget (ref:
+        HeifPixelImage::add_plane / alloc under memory budget).  Unsigned
+        samples only."""
+        width, height = subsampled_size(self.width, self.height, channel,
+                                        self.chroma)
+        self.limits.check_image_size(width, height)
+        dtype = _dtype_for(bit_depth)
+        nbytes = width * height * dtype.itemsize
+        self.limits.check_block_size(nbytes, f"plane {channel}")
+        self.planes[channel] = torch.zeros((height, width), dtype=dtype,
+                                           device=resolve_device(device))
+        self.plane_info[channel] = PlaneInfo(bit_depth)
 
     def set_plane(self, channel: str, array: torch.Tensor,
                   bit_depth: Optional[int] = None,
@@ -153,6 +193,123 @@ class PixelImage:
     def has_alpha(self) -> bool:
         return (Channel.Alpha in self.planes or
                 self.chroma == Chroma.InterleavedRGBA)
+
+    def add_warning(self, err: HeifError) -> None:
+        self.warnings.append(DecodeWarning(err))
+
+    # ------------------------------------------------------------ transforms
+    # (ref: pixelimage.h:277-297 rotate_ccw/mirror/crop ops)
+
+    def rotate_ccw(self, degrees: int) -> "PixelImage":
+        if degrees % 360 == 0:
+            return self
+        k = (degrees // 90) % 4
+        w, h = (self.width, self.height) if k % 2 == 0 \
+            else (self.height, self.width)
+        out = self._like(w, h)
+        for ch, arr in self.planes.items():
+            out.planes[ch] = _moved(
+                lambda a: torch.rot90(a, k, dims=(0, 1)), arr)
+            out.plane_info[ch] = self.plane_info[ch]
+        return out
+
+    def mirror(self, direction: str) -> "PixelImage":
+        """direction: 'vertical' mirrors left-right (over the vertical
+        axis), 'horizontal' mirrors top-bottom — matching Box_imir."""
+        axis = 1 if direction == "vertical" else 0
+        out = self._like(self.width, self.height)
+        for ch, arr in self.planes.items():
+            out.planes[ch] = _moved(lambda a: torch.flip(a, dims=(axis,)),
+                                    arr)
+            out.plane_info[ch] = self.plane_info[ch]
+        return out
+
+    def crop(self, left: int, top: int, width: int,
+             height: int) -> "PixelImage":
+        """The planes are copied, not viewed: chroma of a subsampled image
+        starts at left // sh, top // sv and spans the rounded-up size."""
+        if left < 0 or top < 0 or left + width > self.width or \
+                top + height > self.height:
+            raise HeifError.invalid_input(
+                SubError.Invalid_clean_aperture,
+                f"crop [{left},{top},{width}x{height}] outside image "
+                f"{self.width}x{self.height}")
+        out = self._like(width, height)
+        for ch, arr in self.planes.items():
+            sh = sv = 1
+            if ch in (Channel.Cb, Channel.Cr):
+                sh, sv = chroma_subsampling(self.chroma)
+            l, t = left // sh, top // sv
+            w = (width + sh - 1) // sh
+            h = (height + sv - 1) // sv
+            out.planes[ch] = _moved(lambda a: a[t:t + h, l:l + w], arr)
+            out.plane_info[ch] = self.plane_info[ch]
+        return out
+
+    def scale_nearest(self, new_width: int, new_height: int) -> "PixelImage":
+        """Nearest-neighbour scale (ref: pixelimage.cc scale_nearest_neighbor)."""
+        out = self._like(new_width, new_height)
+        for ch, arr in self.planes.items():
+            ph, pw = arr.shape
+            tw, th = subsampled_size(new_width, new_height, ch, self.chroma)
+            ys = (torch.arange(th, device=arr.device) * ph) // th
+            xs = (torch.arange(tw, device=arr.device) * pw) // tw
+            out.planes[ch] = _moved(lambda a: a[ys[:, None], xs[None, :]],
+                                    arr)
+            out.plane_info[ch] = self.plane_info[ch]
+        return out
+
+    def extend(self, new_width: int, new_height: int,
+               mode: str = "edge") -> "PixelImage":
+        """Pad to a larger canvas replicating the border, or with zeros
+        for any other mode (ref: pixelimage.cc extend_to_size_with_zero /
+        edge replication)."""
+        out = self._like(new_width, new_height)
+        for ch, arr in self.planes.items():
+            tw, th = subsampled_size(new_width, new_height, ch, self.chroma)
+            ph, pw = arr.shape
+            if th < ph or tw < pw:
+                raise ValueError(f"extend to {tw}x{th} from {pw}x{ph}")
+            if mode == "edge":
+                # replicate: index with the coordinates clamped to the plane
+                ys = torch.clamp(torch.arange(th, device=arr.device),
+                                 max=ph - 1)
+                xs = torch.clamp(torch.arange(tw, device=arr.device),
+                                 max=pw - 1)
+                out.planes[ch] = _moved(
+                    lambda a: a[ys[:, None], xs[None, :]], arr)
+            else:
+                out.planes[ch] = _moved(lambda a: torch.nn.functional.pad(
+                    a, (0, tw - pw, 0, th - ph)), arr)
+            out.plane_info[ch] = self.plane_info[ch]
+        return out
+
+    def copy_into(self, other: "PixelImage", x0: int, y0: int) -> None:
+        """Paste `other` at (x0,y0), clipped to this image's planes, in
+        place on their device — the grid tile composition primitive (ref:
+        pixelimage.cc copy_image / grid.cc paste).  Chroma offsets are
+        x0 // sh, y0 // sv."""
+        for ch, src in other.planes.items():
+            if ch not in self.planes:
+                continue
+            dst = self.planes[ch]
+            sh, sv = 1, 1
+            if ch in (Channel.Cb, Channel.Cr):
+                sh, sv = chroma_subsampling(self.chroma)
+            x, y = x0 // sh, y0 // sv
+            h = min(src.shape[0], dst.shape[0] - y)
+            w = min(src.shape[1], dst.shape[1] - x)
+            if h > 0 and w > 0:
+                dst[y:y + h, x:x + w].copy_(src[:h, :w])
+
+    def _like(self, width: int, height: int) -> "PixelImage":
+        out = PixelImage(width, height, self.colorspace, self.chroma,
+                         self.limits)
+        out.premultiplied_alpha = self.premultiplied_alpha
+        out.color_profile_nclx = self.color_profile_nclx
+        out.color_profile_icc = self.color_profile_icc
+        out.warnings = list(self.warnings)
+        return out
 
     # ------------------------------------------------------------- placement
 

@@ -413,3 +413,205 @@ def test_unported_conversion_raises():
         pipeline.convert_image(img, Colorspace.YCbCr, Chroma.C420,
                                device="cpu")
     assert e.value.subcode == SubError.Unsupported_color_conversion
+
+
+# ---------------------------------- the ops of the output conversion, chains
+
+CHAIN_INPUTS = {
+    "ycc420": dict(colorspace=Colorspace.YCbCr, chroma=Chroma.C420),
+    "ycc444_10": dict(colorspace=Colorspace.YCbCr, chroma=Chroma.C444,
+                      bits_per_pixel=10),
+    "ycc422_alpha": dict(colorspace=Colorspace.YCbCr, chroma=Chroma.C422,
+                         has_alpha=True),
+    "rgb444": dict(colorspace=Colorspace.RGB, chroma=Chroma.C444),
+    "rgb444_16_alpha": dict(colorspace=Colorspace.RGB, chroma=Chroma.C444,
+                            bits_per_pixel=16, has_alpha=True),
+    "mono": dict(colorspace=Colorspace.Monochrome,
+                 chroma=Chroma.Monochrome),
+    "mono_alpha": dict(colorspace=Colorspace.Monochrome,
+                       chroma=Chroma.Monochrome, has_alpha=True),
+    "interleaved_rgba": dict(colorspace=Colorspace.RGB,
+                             chroma=Chroma.InterleavedRGBA, has_alpha=True),
+    "filter_array": dict(colorspace=Colorspace.FilterArray,
+                         chroma=Chroma.Monochrome),
+}
+CHAIN_TARGETS = {
+    "rgb444": dict(colorspace=Colorspace.RGB, chroma=Chroma.C444),
+    "rgb444_8bit": dict(colorspace=Colorspace.RGB, chroma=Chroma.C444,
+                        bits_per_pixel=8),
+    "rgb_no_alpha": dict(colorspace=Colorspace.RGB, chroma=Chroma.C444,
+                         has_alpha=False),
+    "rgb_alpha": dict(colorspace=Colorspace.RGB, chroma=Chroma.C444,
+                      has_alpha=True),
+    "interleaved_rgb": dict(colorspace=Colorspace.RGB,
+                            chroma=Chroma.InterleavedRGB, has_alpha=False),
+    "interleaved_rgba": dict(colorspace=Colorspace.RGB,
+                             chroma=Chroma.InterleavedRGBA, has_alpha=True),
+    "interleaved_rgba_8bit": dict(colorspace=Colorspace.RGB,
+                                  chroma=Chroma.InterleavedRGBA,
+                                  has_alpha=True, bits_per_pixel=8),
+    "ycc420": dict(colorspace=Colorspace.YCbCr, chroma=Chroma.C420),
+    "ycc444": dict(colorspace=Colorspace.YCbCr, chroma=Chroma.C444),
+    "mono": dict(colorspace=Colorspace.Monochrome,
+                 chroma=Chroma.Monochrome),
+    "same_8bit": dict(bits_per_pixel=8),
+}
+# alpha composition modes (DropAlpha or FlattenAlpha in the search)
+CHAIN_OPTIONS = {"none": "none", "flatten": "solid-color"}
+
+
+def _states(inp, target):
+    """The (JAX, port) input and target states; a target without
+    has_alpha keeps the input's, as convert_image does."""
+    t = dict(target)
+    t.setdefault("has_alpha", inp.get("has_alpha", False))
+    t.setdefault("bits_per_pixel", 0)
+    return (JColorState(**inp), JColorState(**t)), \
+        (ColorState(**inp), ColorState(**t))
+
+
+def _chain_names(chain):
+    return None if chain is None else [type(op).__name__ for op, _ in chain]
+
+
+@pytest.mark.parametrize("mode", list(CHAIN_OPTIONS))
+@pytest.mark.parametrize("target", list(CHAIN_TARGETS))
+@pytest.mark.parametrize("inp", list(CHAIN_INPUTS))
+def test_chain_matches_jax(inp, target, mode):
+    """The port's Dijkstra search picks the JAX chain, op by op and state
+    by state, for every (input, target) of the matrix, also where the
+    chain runs through an op that is not ported yet (convert_image then
+    refuses it, test_unported_op_is_named)."""
+    (jin, jt), (pin, pt) = _states(CHAIN_INPUTS[inp], CHAIN_TARGETS[target])
+    jopts = jops.ColorConversionOptions(
+        alpha_composition_mode=CHAIN_OPTIONS[mode])
+    popts = ops.ColorConversionOptions(
+        alpha_composition_mode=CHAIN_OPTIONS[mode])
+    jchain = jpipeline.find_pipeline(jin, jt, jopts)
+    pchain = pipeline.find_pipeline(pin, pt, popts)
+    assert _chain_names(pchain) == _chain_names(jchain)
+    if pchain is not None:
+        assert [s for _, s in pchain] == [ColorState(**vars(s))
+                                          for _, s in jchain]
+
+
+UNPORTED = ["RGBToYCbCr", "MonoToYCbCr", "ChromaResample", "FlattenAlpha",
+            "RGBToMono", "BayerToRGB"]
+
+
+def test_all_ops_in_jax_order():
+    assert [type(op).__name__ for op in ops.ALL_OPS] == \
+        [type(op).__name__ for op in jops.ALL_OPS]
+    assert [op.cost for op in ops.ALL_OPS] == \
+        [op.cost for op in jops.ALL_OPS]
+    assert sorted(type(op).__name__ for op in ops.ALL_OPS
+                  if not op.ported) == sorted(UNPORTED)
+
+
+def _rgb_image(w, h, bits, alpha_bits=None, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = np.uint8 if bits <= 8 else np.uint16
+    planes = {c: rng.integers(0, 1 << bits, (h, w), dtype=dt)
+              for c in (Channel.R, Channel.G, Channel.B)}
+    bit_map = {c: bits for c in planes}
+    if alpha_bits:
+        planes[Channel.Alpha] = rng.integers(
+            0, 1 << alpha_bits, (h, w),
+            dtype=np.uint8 if alpha_bits <= 8 else np.uint16)
+        bit_map[Channel.Alpha] = alpha_bits
+    return planes, bit_map
+
+
+def _pair(planes, bit_map, colorspace, chroma):
+    h, w = next(iter(planes.values())).shape
+    jimg = JPixelImage(w, h, colorspace, chroma)
+    for ch, a in planes.items():
+        jimg.set_plane(ch, a, bit_map[ch])
+    return jimg, from_numpy_planes(planes, bit_map, colorspace, chroma,
+                                   device="cpu")
+
+
+@pytest.mark.parametrize("case", [
+    ("rgb8", Colorspace.RGB, Chroma.InterleavedRGBA, False, 0),
+    ("rgb8", Colorspace.RGB, Chroma.InterleavedRGB, None, 0),
+    ("rgb10_a8", Colorspace.RGB, Chroma.InterleavedRGBA, True, 0),
+    ("rgb8_a10", Colorspace.RGB, Chroma.InterleavedRGBA, True, 0),
+    ("rgb10_a8", Colorspace.RGB, Chroma.C444, False, 8),
+    ("rgb8", Colorspace.RGB, Chroma.C444, True, 0),
+    ("rgb12", Colorspace.RGB, Chroma.C444, None, 8),
+    ("rgb8", Colorspace.RGB, Chroma.C444, None, 10),
+    ("rgb8", Colorspace.RGB, Chroma.InterleavedRGB, None, 16),
+    ("mono8_a8", Colorspace.RGB, Chroma.InterleavedRGBA, True, 0),
+    ("mono16", Colorspace.RGB, Chroma.C444, None, 8),
+    ("irgba8", Colorspace.RGB, Chroma.C444, None, 0),
+    ("irgba8", Colorspace.RGB, Chroma.C444, False, 0),
+    ("irgb10", Colorspace.RGB, Chroma.C444, None, 8),
+], ids=lambda c: "-".join(str(x).replace(" ", "") for x in c))
+def test_output_ops_match_jax(case):
+    """MonoToRGB, BitDepthConvert (down and up), DropAlpha, AddAlpha and
+    the two interleave ops through convert_image: exact, and the same
+    chain as the JAX package."""
+    src, colorspace, chroma, has_alpha, bits = case
+    if src.startswith("mono"):
+        b = int(src[4:].split("_")[0])
+        rng = np.random.default_rng(b)
+        dt = np.uint8 if b <= 8 else np.uint16
+        planes = {Channel.Y: rng.integers(0, 1 << b, (7, 9), dtype=dt)}
+        bit_map = {Channel.Y: b}
+        if src.endswith("_a8"):
+            planes[Channel.Alpha] = rng.integers(0, 256, (7, 9),
+                                                 dtype=np.uint8)
+            bit_map[Channel.Alpha] = 8
+        jimg, pimg = _pair(planes, bit_map, Colorspace.Monochrome,
+                           Chroma.Monochrome)
+    elif src.startswith("irgb"):
+        n = 4 if src.startswith("irgba") else 3
+        b = int(src[4 if n == 3 else 5:])
+        rng = np.random.default_rng(n + b)
+        dt = np.uint8 if b <= 8 else np.uint16
+        planes = {Channel.Interleaved: rng.integers(0, 1 << b, (7, 9 * n),
+                                                    dtype=dt)}
+        jimg, pimg = _pair(planes, {Channel.Interleaved: b}, Colorspace.RGB,
+                           Chroma.InterleavedRGBA if n == 4
+                           else Chroma.InterleavedRGB)
+    else:
+        parts = src[3:].split("_a")
+        planes, bit_map = _rgb_image(9, 7, int(parts[0]),
+                                     int(parts[1]) if len(parts) > 1 else None,
+                                     seed=len(src))
+        jimg, pimg = _pair(planes, bit_map, Colorspace.RGB, Chroma.C444)
+    kw = dict(target_has_alpha=has_alpha, target_bits=bits)
+    ref = jpipeline.convert_image(jimg, colorspace, chroma, **kw)
+    got = pipeline.convert_image(pimg, colorspace, chroma, device="cpu", **kw)
+    assert (got.colorspace, got.chroma) == (ref.colorspace, ref.chroma)
+    assert got.channels() == ref.channels()
+    for ch in ref.channels():
+        want = np.asarray(ref.plane(ch))
+        assert got.bit_depth(ch) == ref.bit_depth(ch), ch
+        assert got.np_plane(ch).dtype == want.dtype, ch
+        np.testing.assert_array_equal(got.np_plane(ch), want, err_msg=ch)
+
+
+@pytest.mark.parametrize("request_", [
+    (Colorspace.YCbCr, Chroma.C420, "RGBToYCbCr"),
+    (Colorspace.Monochrome, Chroma.Monochrome, "RGBToMono"),
+], ids=["RGBToYCbCr", "RGBToMono"])
+def test_unported_op_is_named(request_):
+    colorspace, chroma, name = request_
+    planes, bit_map = _rgb_image(8, 8, 8)
+    _, pimg = _pair(planes, bit_map, Colorspace.RGB, Chroma.C444)
+    with pytest.raises(HeifError) as e:
+        pipeline.convert_image(pimg, colorspace, chroma, device="cpu")
+    assert e.value.subcode == SubError.Unsupported_color_conversion
+    assert name in str(e.value)
+
+
+def test_flatten_alpha_is_named():
+    planes, bit_map = _rgb_image(8, 8, 8, alpha_bits=8)
+    _, pimg = _pair(planes, bit_map, Colorspace.RGB, Chroma.C444)
+    with pytest.raises(HeifError) as e:
+        pipeline.convert_image(
+            pimg, Colorspace.RGB, Chroma.C444, target_has_alpha=False,
+            options=ops.ColorConversionOptions(
+                alpha_composition_mode="solid-color"), device="cpu")
+    assert "FlattenAlpha" in str(e.value)
