@@ -8,7 +8,7 @@ Run from the root of the repository on a machine with one CUDA card:
 It needs no network and imports neither JAX nor the JAX package.  Phases:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the hand-written kernels from libheif_tpu_torch/codecs/unc/csrc;
+2. build the hand-written kernels from libheif_tpu_torch/codecs/*/csrc;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes of the CPU tests, odd sizes, every vector width and tap rule of
    the colour kernels, and the full width: all exact (the count of
@@ -39,6 +39,21 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    on the card and on the CPU with 0 samples differing, the grid's planes
    equal to the generator's with and without the transforms, and the
    single-item file equal to the library path's image;
+4c. the HEVC phase, on the streams committed in
+   libheif_tpu_torch/testdata/hevc (encoded by the JAX package, with the
+   plane hashes of its device engine): hold hevc_dequant_itx against its
+   plain version on every TU group of every stream, and hevc_intra_wave
+   through the whole wave loop against the plain loop on every small
+   stream and a batch of two 512x512 tiles; decode every stream on the
+   card and require its planes' hashes; write a phone photo's HEIC (an
+   8x6 grid of 48 512x512 hvc1 items, 4032x3024 output) and decode it
+   through HeifContext to interleaved RGB, with the launch counts read
+   around it (hevc_dequant_itx once per TU group, hevc_intra_wave once
+   per wave of the whole batch, planes_ycbcr8_to_rgb once, no
+   strided_extract_paste) and its planes held equal to the single tiles'
+   decodes placed where the grid puts them; decode a single-item hvc1
+   file and the 10-bit tile through the context on the card and on the
+   CPU with 0 samples differing;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -49,8 +64,14 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    path and its host parts, with CUDA events, the two files' decode
    through the context part by part (parse, item data, tile decode,
    paste, transforms, alpha, convert, interleave) over REPEATS fresh
-   contexts, and their device time (torch.profiler) over wall time,
-   and print the numbers;
+   contexts, and their device time (torch.profiler) over wall time;
+   the HEVC kernels at the photo's shapes beside their plain versions,
+   the float64 matmul yardstick of the transforms, their byte bounds and
+   the wave chain's bound (waves x an empty launch), the plain deblock
+   and SAO stages, and the photo's decode part by part (parse, tile
+   parses, plan on the host and on the card, host-to-device copies, the
+   four stages, compose, convert, interleave) over REPEATS fresh
+   contexts with its device share; and print the numbers;
 7. print the colour kernels' SASS instructions per output pixel and the
    strided kernel's per output byte (sass_count.py, cuobjdump).
 
@@ -61,7 +82,9 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -71,11 +94,16 @@ import torch
 
 from libheif_tpu_torch import DecodingOptions, HeifContext, HeifFile, _build
 from libheif_tpu_torch.boxes import read_all_boxes
+from libheif_tpu_torch.boxes.codec_cfg import Box_hvcC
 from libheif_tpu_torch.boxes.meta import (
     Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe)
 from libheif_tpu_torch.boxes.unc import (
     Box_uncC, Box_cmpd, CmpdComponent, UncCComponent, InterleaveMode,
     SamplingMode)
+from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
+from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
+from libheif_tpu_torch.codecs.hevc import device_recon
+from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
 from libheif_tpu_torch.codecs.unc import (
     UnciDecoder, cuda_fast, kernels, sass_count)
 from libheif_tpu_torch.codecs.unc.layout import (
@@ -88,6 +116,7 @@ from libheif_tpu_torch.core.fraction import Fraction
 from libheif_tpu_torch.image.pixel_image import (
     Channel, Colorspace, Chroma, PixelImage)
 from libheif_tpu_torch.items.derived import ImageGrid, ImageOverlay
+from libheif_tpu_torch.parallel import coded_grid
 
 SEED = 0
 W = H = 4096
@@ -108,6 +137,10 @@ CLAP = (4032, 3024)
 MIRROR = "vertical"
 REPEATS = 5
 ALPHA_URN = "urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"
+
+
+# every hand-written kernel, by name
+ALL_KERNELS = {**cuda_fast.KERNELS, **hevc_fast.KERNELS}
 
 
 def log(*a):
@@ -225,9 +258,9 @@ class Tally:
     """Per-kernel check results."""
 
     def __init__(self):
-        self.max_abs_err = {k: 0 for k in cuda_fast.KERNELS}
-        self.checks = {k: 0 for k in cuda_fast.KERNELS}
-        self.differing = {k: 0 for k in cuda_fast.KERNELS}
+        self.max_abs_err = {k: 0 for k in ALL_KERNELS}
+        self.checks = {k: 0 for k in ALL_KERNELS}
+        self.differing = {k: 0 for k in ALL_KERNELS}
 
     def compare(self, kernel, what, got, ref, exact):
         torch.cuda.synchronize()
@@ -658,12 +691,12 @@ def launch_counts():
         return assemble(*args)
 
     kernels.assemble_tile_buffers = counted_assemble
-    for k in cuda_fast.KERNELS.values():
+    for k in ALL_KERNELS.values():
         k.launches = 0
     try:
         yield counts
         torch.cuda.synchronize()
-        counts.update({n: k.launches for n, k in cuda_fast.KERNELS.items()})
+        counts.update({n: k.launches for n, k in ALL_KERNELS.items()})
     finally:
         kernels.assemble_tile_buffers = assemble
 
@@ -1101,6 +1134,415 @@ def file_device_share(blobs, grid_runs, single_runs):
     return out
 
 
+# --------------------------------------------------------------------- HEVC
+# The HEVC phase: the committed streams of libheif_tpu_torch/testdata/hevc
+# (encoded by the JAX package's IntraEncoder, with the plane hashes of its
+# device engine), the two reconstruction kernels against their plain
+# versions, and a phone photo's HEIC: an 8x6 grid of 512x512 hvc1 tiles
+# under a 4032x3024 output.
+
+HEVC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "libheif_tpu_torch", "testdata", "hevc")
+HEVC_SOURCE = "libheif_tpu_torch/codecs/hevc/csrc/hevc_kernels.cu"
+JNP_RECON = "libheif_tpu/codecs/hevc/device_recon.py"
+PHOTO = (4032, 3024)
+PHOTO_GRID = (6, 8)                  # rows, columns of 512x512 tiles
+PHOTO_TILES = ("tile512_s0", "tile512_s1", "tile512_s2", "tile512_s3")
+K2_BATCH = ("tile512_s0", "tile512_s1")   # the plain wave loop is slow
+# int32 operations per predicted sample in hevc_intra_wave (angular: two
+# products, three sums, shift, clip; planar and DC fewer) and per
+# multiply-add of hevc_dequant_itx
+K2_OPS_PER_SAMPLE = 10
+
+
+def hevc_streams():
+    with open(os.path.join(HEVC_DIR, "manifest.json")) as f:
+        return {e["name"]: e for e in json.load(f)["streams"]}
+
+
+def hevc_nals(e):
+    with open(os.path.join(HEVC_DIR, e["slice"]), "rb") as f:
+        return bytes.fromhex(e["sps"]), bytes.fromhex(e["pps"]), f.read()
+
+
+def hevc_parse(e):
+    """(SliceSyntax, raw TUs) of a stream, by the host parser."""
+    sps, pps, sl = hevc_nals(e)
+    return hevc_decoder.parse_picture(hevc_headers.parse_sps(sps),
+                                      hevc_headers.parse_pps(pps), [sl])
+
+
+def int32_hashes(planes):
+    """SHA-256 of each plane as little-endian int32 (the manifest's)."""
+    return {ch: hashlib.sha256(np.ascontiguousarray(
+        p.cpu().numpy(), "<i4").tobytes()).hexdigest()
+        for ch, p in zip(("Y", "Cb", "Cr"), planes)}
+
+
+def add_hvc1(f, e, hidden=True):
+    """An hvc1 item holding stream ``e``: the slice with a 4-byte length,
+    an hvcC with its SPS and PPS, and ispe."""
+    sps, pps, sl = hevc_nals(e)
+    cfg = Box_hvcC()
+    cfg.general_profile_idc = 1 if e["bit_depth"] == 8 else 2
+    cfg.bit_depth_luma = cfg.bit_depth_chroma = e["bit_depth"]
+    cfg.add_nal(sps)
+    cfg.add_nal(pps)
+    item = f.add_new_item("hvc1").item_id
+    f.append_item_data(item, len(sl).to_bytes(4, "big") + sl)
+    f.add_property(item, cfg, True)
+    f.add_property(item, Box_ispe(e["width"], e["height"]), False)
+    f.get_infe(item).hidden = hidden
+    return item
+
+
+def photo_file(streams):
+    """The phone photo: 48 hidden hvc1 items (item i holds stream i mod 4)
+    in a 6x8 grid with a 4032x3024 output."""
+    f = new_file()
+    rows, cols = PHOTO_GRID
+    ids = [add_hvc1(f, streams[PHOTO_TILES[i % 4]])
+           for i in range(rows * cols)]
+    grid = f.add_new_item("grid").item_id
+    f.append_item_data(grid, ImageGrid(rows, cols, *PHOTO).write(), 1)
+    f.add_property(grid, Box_ispe(*PHOTO), False)
+    f.add_reference("dimg", grid, ids)
+    f.set_primary_item(grid)
+    return f.write()
+
+
+def hvc1_file(e):
+    f = new_file()
+    f.set_primary_item(add_hvc1(f, e, hidden=False))
+    return f.write()
+
+
+def plain_waves(plan, waves):
+    """predict_waves with the plain version of hevc_intra_wave."""
+    T, W, H = plan.t, plan.width, plan.height
+    ybuf = torch.zeros(T * H * W + 1, dtype=torch.int32, device=DEV)
+    cbuf = torch.zeros(T * 2 * (H >> 1) * (W >> 1) + 1, dtype=torch.int32,
+                       device=DEV)
+    for w in range(plan.n_waves):
+        hevc_fast.intra_wave_plain(
+            ybuf, cbuf, waves, [int(g.starts[w]) for g in plan.groups],
+            [int(g.counts[w]) for g in plan.groups], bd=plan.bd,
+            strong=plan.strong_smoothing)
+    return ybuf, cbuf
+
+
+def plain_residuals(plan):
+    return [hevc_fast.dequant_itx_plain(
+        g.coeffs, g.qp, g.ts, g.tqb,
+        hevc_fast.transform_matrix(g.key[0], g.key[1], DEV), log2=g.key[1],
+        bd=plan.bd) for g in plan.groups]
+
+
+def check_hevc_kernels(tally, streams):
+    """hevc_dequant_itx on every group of every stream, and hevc_intra_wave
+    through the whole wave loop on every small stream and on a batch of
+    two 512x512 tiles, against their plain versions on the card."""
+    small = [e for n, e in streams.items() if not n.startswith("tile512")]
+    batches = [[e] for e in small] + [[streams[n] for n in K2_BATCH]]
+    batches += [[e] for n, e in streams.items()
+                if n.startswith("tile512") and n not in K2_BATCH]
+    for batch in batches:
+        what = "+".join(e["name"] for e in batch)
+        parsed = [hevc_parse(e) for e in batch]
+        plan = device_recon.build_plan([p[0] for p in parsed],
+                                       [p[1] for p in parsed], DEV)
+        waves = device_recon.residuals(plan)
+        for g, w, ref in zip(plan.groups, waves, plain_residuals(plan)):
+            tally.compare("hevc_dequant_itx", f"{what} {g.key} n={g.n}",
+                          w.res, ref, exact=True)
+        if len(batch) == 1 and batch[0]["name"].startswith("tile512"):
+            continue
+        y, cb, cr = device_recon.predict_waves(plan, waves)
+        ybuf, cbuf = plain_waves(plan, waves)
+        tally.compare("hevc_intra_wave", f"{what} luma, {plan.n_waves} waves",
+                      y.reshape(-1), ybuf[:-1], exact=True)
+        tally.compare("hevc_intra_wave", f"{what} chroma",
+                      torch.stack([cb, cr], 1).reshape(-1), cbuf[:-1],
+                      exact=True)
+
+
+def check_hevc_streams(streams):
+    """Every stream decoded on the card (decode_intra_picture): its planes
+    hash to the manifest (the JAX package's device engine)."""
+    for name, e in streams.items():
+        sps, pps, sl = hevc_nals(e)
+        planes = hevc_decoder.decode_intra_picture(
+            hevc_headers.parse_sps(sps), hevc_headers.parse_pps(pps), [sl])
+        assert all(p.device.type == DEV for p in planes), name
+        ok = int32_hashes(planes) == e["sha256"]
+        log(f"check hevc stream {name:22s} {e['width']}x{e['height']} "
+            f"{e['bit_depth']}-bit planes vs manifest: "
+            f"{'equal' if ok else 'DIFFERENT'}")
+        assert ok, f"{name}: planes differ from the manifest"
+
+
+def photo_plan(streams):
+    """The plan of the photo's 48 tiles, as the grid path builds it."""
+    rows, cols = PHOTO_GRID
+    parsed = [hevc_parse(streams[PHOTO_TILES[i % 4]])
+              for i in range(rows * cols)]
+    return device_recon.build_plan([p[0] for p in parsed],
+                                   [p[1] for p in parsed], DEV)
+
+
+def check_photo(blob, streams, plan):
+    """The phone photo through HeifContext: its launches (read around the
+    decode to interleaved RGB), and its YCbCr planes against the single
+    tiles' decodes placed where the grid puts them."""
+    with launch_counts() as launches:
+        rgb = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+    log(f"hevc photo launches {launches} (plan: {len(plan.groups)} "
+        f"groups, {plan.n_waves} waves)")
+    assert launches["hevc_dequant_itx"] == len(plan.groups), \
+        "hevc_dequant_itx: not one launch per TU group"
+    assert launches["hevc_intra_wave"] == plan.n_waves, \
+        "hevc_intra_wave: not one launch per wave"
+    assert launches["planes_ycbcr8_to_rgb"] == 1
+    assert launches["strided_extract_paste"] == 0
+    assert launches["tile_yuv_to_rgb"] == 0
+    inter = rgb.plane(Channel.Interleaved)
+    assert (rgb.width, rgb.height) == PHOTO and inter.dtype == torch.uint8 \
+        and tuple(inter.shape) == (PHOTO[1], PHOTO[0] * 3) \
+        and inter.device.type == DEV
+
+    img = HeifContext.read_from_bytes(blob).decode_image(None)
+    singles = {}
+    for n in PHOTO_TILES:
+        sps, pps, sl = hevc_nals(streams[n])
+        singles[n] = hevc_decoder.decode_intra_picture(
+            hevc_headers.parse_sps(sps), hevc_headers.parse_pps(pps), [sl])
+    rows, cols = PHOTO_GRID
+    n_diff = 0
+    for i in range(rows * cols):
+        ty, tx = divmod(i, cols)
+        for ch, ref, sub in zip((Channel.Y, Channel.Cb, Channel.Cr),
+                                singles[PHOTO_TILES[i % 4]], (1, 2, 2)):
+            t = 512 // sub
+            y0, x0 = ty * t, tx * t
+            got = img.plane(ch)[y0:y0 + t, x0:x0 + t]
+            h, w = got.shape
+            n_diff += int((got.to(torch.int32) != ref[:h, :w]).sum())
+    log(f"check hevc photo YCbCr vs the single tiles placed: differing "
+        f"{n_diff}")
+    assert n_diff == 0, "the grid's planes differ from the single tiles"
+    try:
+        YCbCrToRGB.USE_KERNEL = False        # the plain path on the card
+        plain = convert_image(img, Colorspace.RGB, Chroma.InterleavedRGB)
+    finally:
+        YCbCrToRGB.USE_KERNEL = None
+    assert torch.equal(plain.plane(Channel.Interleaved), inter), \
+        "the photo's RGB differs from the plain conversion"
+    return launches
+
+
+def check_hvc1_files(streams):
+    """A single-item hvc1 file and the 10-bit tile, through the context on
+    the card and on the CPU (the plain versions), YCbCr and RGB; their
+    YCbCr against the manifest."""
+    blobs = {}
+    for name in ("tile512_s0", "tile512_10bit"):
+        e = streams[name]
+        blobs[name] = hvc1_file(e)
+        img = decode_both(f"hvc1 {name}", blobs[name])
+        ok = int32_hashes([img.plane(c).to(torch.int32) for c in
+                           (Channel.Y, Channel.Cb, Channel.Cr)]) == e["sha256"]
+        assert ok, f"{name}: the file's planes differ from the manifest"
+        log(f"check file hvc1 {name} planes vs manifest: equal")
+        decode_both(f"hvc1 {name} RGB", blobs[name], Colorspace.RGB,
+                    Chroma.C444)
+    return blobs
+
+
+def time_photo(blob, streams):
+    """The photo's decode through the entry point (total), then part by
+    part, in a fresh context each repeat; the parts' result is held equal
+    to the entry point's."""
+    runs = []
+    for _ in range(REPEATS):
+        t = {}
+        t0 = time.perf_counter()
+        ref = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        t["total_ms"] = ms_since(t0)
+
+        t0 = time.perf_counter()
+        ctx = HeifContext.read_from_bytes(blob)
+        t["parse_ms"] = ms_since(t0)
+        grid = ctx.get_item(ctx.primary_item_id)
+        t0 = time.perf_counter()
+        jobs = []
+        for i in grid.tile_item_ids():
+            item = ctx.get_item(i)
+            jobs.append((item.config_box(), item.coded_data(), (512, 512),
+                         ctx.limits))
+        t["item_data_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        parsed = coded_grid.parse_tiles(jobs)
+        t["tile_parse_ms"] = ms_since(t0)
+        syns, raws = [p[1] for p in parsed], [p[2] for p in parsed]
+        t0 = time.perf_counter()
+        inp = device_recon.plan_inputs(raws, 512, 512)
+        t["plan_host_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        {k: torch.from_numpy(v).to(DEV) for k, v in inp.items()}
+        t["h2d_ms"] = ms_since(t0)
+        t["h2d_bytes"] = sum(v.nbytes for v in inp.values())
+        t0 = time.perf_counter()
+        device_recon._build_deblock_params(syns, 512, 512, 8)
+        device_recon._build_sao_params(syns, 512, 512)
+        t["filter_params_host_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        plan = device_recon.build_plan(syns, raws, DEV)
+        t["plan_ms"] = ms_since(t0)
+        t["plan_device_ms"] = t["plan_ms"] - t["plan_host_ms"] - \
+            t["h2d_ms"] - t["filter_params_host_ms"]
+        t0 = time.perf_counter()
+        waves = device_recon.residuals(plan)
+        t["k1_stage_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        y, cb, cr = device_recon.predict_waves(plan, waves)
+        t["k2_stage_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        y, cb, cr = device_recon.deblock(plan.deblock, y, cb, cr, 255)
+        t["deblock_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        y, cb, cr = device_recon.sao(plan, y, cb, cr)
+        t["sao_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        img = coded_grid.compose(grid.grid_spec(), [p[0] for p in parsed],
+                                 [(y[i], cb[i], cr[i]) for i in range(len(y))],
+                                 ctx, DecodingOptions())
+        t["compose_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        rgb = convert_image(img, Colorspace.RGB, Chroma.C444)
+        t["convert_ms"] = ms_since(t0)
+        t0 = time.perf_counter()
+        out = convert_image(rgb, Colorspace.RGB, Chroma.InterleavedRGB)
+        t["interleave_ms"] = ms_since(t0)
+        assert torch.equal(out.plane(Channel.Interleaved),
+                           ref.plane(Channel.Interleaved)), \
+            "the parts' result differs from the entry point's"
+        t["mp_per_s"] = PHOTO[0] * PHOTO[1] / 1e3 / t["total_ms"]
+        runs.append(t)
+        log(f"hevc photo {json.dumps(t)}")
+    return runs
+
+
+def time_hvc1_single(blob):
+    runs = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        runs.append(ms_since(t0))
+    log(f"hevc single item total ms {runs}")
+    return runs
+
+
+def hevc_kernel_rows(timer, tally, plan, launches):
+    """The kernels' rows of the {"kernels": ...} line, at the photo's
+    shapes: the 48-tile plan's stage A and stage B."""
+    waves = device_recon.residuals(plan)
+    rows = {}
+    # hevc_dequant_itx: coefficients in and residuals out (int32), qp, ts
+    # and tqb, the matrices; two passes of s multiply-adds per sample
+    nbytes = sum(g.n * ((1 << 2 * g.key[1]) * 8 + 6) + (1 << 2 * g.key[1]) * 4
+                 for g in plan.groups)
+    nops = sum(g.n * (1 << 2 * g.key[1]) * 4 * (1 << g.key[1])
+               for g in plan.groups)
+    mats = [hevc_fast.transform_matrix(g.key[0], g.key[1], DEV).double()
+            for g in plan.groups]
+    deq = [dequantised(g, plan.bd).double() for g in plan.groups]
+
+    def f64_matmul():
+        return [torch.matmul(torch.matmul(m.t(), d), m)
+                for m, d in zip(mats, deq)]
+    b_ms, b_by = bound(nbytes, nops)
+    rows["hevc_dequant_itx"] = {
+        "name": "hevc_dequant_itx", "route": "cuda", "source": HEVC_SOURCE,
+        "replaces": f"{JNP_RECON}:540",
+        "launches": launches["hevc_dequant_itx"],
+        "max_abs_err": tally.max_abs_err["hevc_dequant_itx"],
+        "ms": timer([lambda: device_recon.residuals(plan)]),
+        "plain_ms": timer([lambda: plain_residuals(plan)], n=3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer([f64_matmul], n=5),
+        "library_call": "float64 torch.matmul, M^T D M per group",
+        "checks": tally.checks["hevc_dequant_itx"],
+        "differing_pixels": tally.differing["hevc_dequant_itx"],
+        "bytes": nbytes, "ops": nops,
+        "groups": {str(g.key): g.n for g in plan.groups}}
+    # hevc_intra_wave: per TU its references (index, availability and
+    # sample), mode, and per sample residual, scatter index and store
+    nbytes = nops = 0
+    for g in plan.groups:
+        n = 1 << g.key[1]
+        nbytes += g.n * ((4 * n + 1) * 9 + 4 + n * n * 12)
+        nops += g.n * n * n * K2_OPS_PER_SAMPLE
+    b_ms, b_by = bound(nbytes, nops)
+    empty_ms = timer([lambda: torch.cuda._sleep(0)], n=500)
+    rows["hevc_intra_wave"] = {
+        "name": "hevc_intra_wave", "route": "cuda", "source": HEVC_SOURCE,
+        "replaces": f"{JNP_RECON}:890",
+        "launches": launches["hevc_intra_wave"],
+        "max_abs_err": tally.max_abs_err["hevc_intra_wave"],
+        # one pass at a time: its 336 launches fit the launch queue, so
+        # the host's enqueue does not pace the card
+        "ms": float(np.median([timer([
+            lambda: device_recon.predict_waves(plan, waves)], n=1)
+            for _ in range(5)])),
+        "plain_ms": timer([lambda: plain_waves(plan, waves)], n=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "chain_bound_ms": plan.n_waves * empty_ms,
+        "empty_launch_ms": empty_ms, "waves": plan.n_waves,
+        "checks": tally.checks["hevc_intra_wave"],
+        "differing_pixels": tally.differing["hevc_intra_wave"],
+        "bytes": nbytes, "ops": nops}
+    log(f"hevc kernels {json.dumps(rows)}")
+    return rows
+
+
+def photo_device_share(blob, runs):
+    """Kernel and copy time on the card over the entry point's wall time
+    (median of the repeats) for the photo."""
+    dev = device_ms(lambda: HeifContext.read_from_bytes(blob).decode_image(
+        None, Colorspace.RGB, Chroma.InterleavedRGB))
+    wall = float(np.median([r["total_ms"] for r in runs]))
+    if dev is None:
+        dev = "not measured (the profiler recorded no device time)"
+    else:
+        dev["kernel_share"] = dev["kernels_ms"] / wall
+        dev["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / wall
+    log(f"hevc photo device {json.dumps(dev)}")
+    return dev
+
+
+def dequantised(g, bd):
+    """A group's dequantised, clipped levels: the operand of stage A's
+    matrix products (device_recon.py:547-551)."""
+    lvl = torch.tensor(hevc_fast.LEVEL_SCALE, dtype=torch.int32, device=DEV)
+    bs = bd + g.key[1] - 5
+    scale = lvl[g.qp % 6] << (g.qp // 6)
+    return torch.clamp((g.coeffs * scale[:, None, None] + (1 << (bs - 5)))
+                       >> (bs - 4), -32768, 32767)
+
+
+def stage_ms(timer, plan):
+    """Device time of the plain stages C and D on the photo's planes."""
+    y, cb, cr = device_recon.predict_waves(plan, device_recon.residuals(plan))
+    out = {"deblock_ms": timer([lambda: device_recon.deblock(
+        plan.deblock, y, cb, cr, 255)], n=5)}
+    y, cb, cr = device_recon.deblock(plan.deblock, y, cb, cr, 255)
+    out["sao_ms"] = timer([lambda: device_recon.sao(plan, y, cb, cr)], n=5)
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def nvidia_smi():
@@ -1171,6 +1613,18 @@ def main():
     # 4b. the file path: HEIF files through HeifContext
     alpha = alpha_payload()
     blobs, file_launches = check_files(data, alpha, out)
+
+    # 4c. HEVC: the kernels, the streams, the phone photo, hvc1 files
+    streams = hevc_streams()
+    check_hevc_kernels(tally, streams)
+    check_hevc_streams(streams)
+    photo = photo_file(streams)
+    plan = photo_plan(streams)
+    log(f"hevc photo file {len(photo)} B, {plan.t} tiles, "
+        f"{plan.n_waves} waves, groups "
+        f"{ {str(g.key): g.n for g in plan.groups} }")
+    photo_launches = check_photo(photo, streams, plan)
+    hvc1_blobs = check_hvc1_files(streams)
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -1340,6 +1794,13 @@ def main():
     grid_runs = time_grid_file(blobs["grid"])
     single_runs = time_single_file(blobs["single"], lay)
     file_device = file_device_share(blobs, grid_runs, single_runs)
+
+    # the HEVC kernels at the photo's shapes, its stages and file path
+    kern.update(hevc_kernel_rows(timer, tally, plan, photo_launches))
+    hevc_stages = stage_ms(timer, plan)
+    photo_runs = time_photo(photo, streams)
+    hvc1_runs = time_hvc1_single(hvc1_blobs["tile512_s0"])
+    photo_device = photo_device_share(photo, photo_runs)
     log(f"file single total ms {[r['total_ms'] for r in single_runs]} "
         f"beside the library path {e2e_ms} ms")
 
@@ -1372,6 +1833,13 @@ def main():
         "file_single": {"runs": single_runs,
                         "device": file_device["single"],
                         "library_path_ms": e2e_ms},
+        "hevc_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
+                       f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} hvc1 tiles of "
+                       "512x512", "waves": plan.n_waves,
+                       "launches": photo_launches, "runs": photo_runs,
+                       "device": photo_device,
+                       "stage_device_ms": hevc_stages},
+        "hevc_single_item_total_ms": hvc1_runs,
         "elapsed_s": time.perf_counter() - t_start}
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))

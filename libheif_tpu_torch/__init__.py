@@ -1,18 +1,22 @@
-"""PyTorch/CUDA port of libheif_tpu: HEIF files with unci, grid, iden and
-overlay images, their transforms and alpha, and the colour conversion.
+"""PyTorch/CUDA port of libheif_tpu: HEIF files with unci, hvc1 (HEVC
+intra), grid, iden and overlay images, their transforms and alpha, and
+the colour conversion.
 
 The package mirrors the module names of ``libheif_tpu`` so each part can
 be read beside its counterpart, but it imports nothing from it and never
 imports JAX.  Planes are torch tensors.  Every entry point takes
 ``device=None``, which means ``"cuda"``: without CUDA it raises unless
 the caller passes ``device="cpu"``.  The hand-written Hopper kernels
-(``codecs/unc/csrc/unc_kernels.cu``) run on CUDA tensors; on CPU tensors
-each kernel wrapper runs its plain PyTorch version.
+(``codecs/*/csrc/*.cu``) run on CUDA tensors; on CPU tensors each kernel
+wrapper runs its plain PyTorch version.  The HEVC parser is host C++
+(``codecs/hevc/host/``), built at first use on every device.
 """
 
 from ._build import resolve_device
+from .codecs.hevc import decode_intra_picture
 from .context import HeifContext
 from .file import HeifFile
 from .items import DecodingOptions
 
-__all__ = ["resolve_device", "HeifContext", "HeifFile", "DecodingOptions"]
+__all__ = ["resolve_device", "HeifContext", "HeifFile", "DecodingOptions",
+           "decode_intra_picture"]

@@ -1,16 +1,21 @@
-"""Device resolution, and the build and load of the hand-written kernels.
+"""Device resolution, and the build and load of the native code.
 
-The CUDA sources under ``codecs/unc/csrc/`` are compiled at first use by
-``nvcc`` into a shared library with a plain C interface, written to
+The CUDA sources under ``codecs/*/csrc/`` are compiled at first use by
+``nvcc`` (one process per source, all started together) and linked into
+one shared library with a plain C interface, written to
 ``build/libheif_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``.  The library's file name carries a hash of the sources and
-flags, so an edited source is rebuilt and a stale library is never
+``ctypes``.  The host C++ of the HEVC parser (``codecs/hevc/host/``) is
+built the same way by the system C++ compiler, on every machine that
+decodes HEVC, the CPU included.  Each library's file name carries a hash
+of its sources and flags (and, for the host library, of the CPU it is
+tuned for), so an edited source is rebuilt and a stale library is never
 loaded.  A build or launch failure raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -22,11 +27,12 @@ from typing import Optional, Sequence
 import torch
 
 _PKG = Path(__file__).resolve().parent
-CSRC_DIR = _PKG / "codecs" / "unc" / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "libheif_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's flags for the same sources (libheif_tpu/native)
+HOST_CXX_FLAGS = ("-O3", "-march=native", "-mno-avx512f", "-funroll-loops",
+                  "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -50,17 +56,45 @@ def _nvcc() -> str:
     return found
 
 
-class _Library:
-    """The compiled kernel library: built once per process, on demand."""
+def _run(cmds, what: str) -> str:
+    """Run the commands at once; their joined output, or raise naming the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{what} failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(logs)
 
-    def __init__(self):
+
+def _cpu_id() -> bytes:
+    """The CPU a -march=native build is tuned for (its flags line)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((ln for ln in f if ln.startswith("flags")),
+                        "").encode()
+    except OSError:
+        return b""
+
+
+class _Library:
+    """One compiled library: built once per process, on demand, under a
+    lock file so that processes sharing a checkout build it once."""
+
+    def __init__(self, stem: str, pattern: str, key: bytes):
+        self.stem = stem
+        self.pattern = pattern
+        self.key = key
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
         self.build_log = ""
         self.path: Optional[Path] = None
 
     def sources(self) -> Sequence[Path]:
-        return sorted(CSRC_DIR.glob("*.cu"))
+        return sorted(_PKG.glob(self.pattern))
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
@@ -70,28 +104,59 @@ class _Library:
 
     def _build(self) -> Path:
         srcs = self.sources()
-        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        for s in sorted(CSRC_DIR.glob("*.cu*")):
+        h = hashlib.sha1(self.key)
+        for s in srcs:
             h.update(s.name.encode())
             h.update(s.read_bytes())
-        out = BUILD_DIR / f"unc_kernels-{h.hexdigest()[:16]}.so"
+        out = BUILD_DIR / f"{self.stem}-{h.hexdigest()[:16]}.so"
         self.path = out
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{self.build_log}")
-        os.replace(tmp, out)
+        with open(out.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not out.exists():
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                self.build_log = self.compile(srcs, tmp)
+                os.replace(tmp, out)
         return out
 
+    def compile(self, srcs: Sequence[Path], out: Path) -> str:
+        raise NotImplementedError
 
-LIBRARY = _Library()
+
+class _CudaLibrary(_Library):
+    """The hand-written kernels: each ``.cu`` compiled by its own nvcc,
+    all at once, then linked into one library."""
+
+    def compile(self, srcs, out):
+        nvcc = _nvcc()
+        objs = [out.with_name(f"{out.stem}.{s.stem}.o") for s in srcs]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                    for s, o in zip(srcs, objs)], "nvcc")
+        log += _run([[nvcc, "-shared", "-o", str(out), *map(str, objs)]],
+                    "nvcc link")
+        for o in objs:
+            o.unlink()
+        return log
+
+
+class _HostLibrary(_Library):
+    """The HEVC parser and wave planner, host C++ built by ``c++``."""
+
+    def compile(self, srcs, out):
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("no C++ compiler: the HEVC parser cannot be "
+                               "built")
+        return _run([[cxx, *HOST_CXX_FLAGS, "-o", str(out),
+                      *map(str, srcs)]], "c++")
+
+
+LIBRARY = _CudaLibrary("kernels", "codecs/*/csrc/*.cu",
+                       " ".join(NVCC_FLAGS).encode())
+HOST_LIBRARY = _HostLibrary("hevc_host", "codecs/hevc/host/*.cc",
+                            " ".join(HOST_CXX_FLAGS).encode() + _cpu_id())
 
 
 class CudaKernel:

@@ -1,0 +1,171 @@
+"""The HEVC codec configuration box (hvcC) and NAL emulation prevention.
+
+Counterpart of libheif_tpu/boxes/codec_cfg.py:26-192, trimmed to HEVC
+(reference: libheif/codecs/hevc_boxes.{h,cc} Box_hvcC hevc_boxes.h:35).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List
+
+import numpy as np
+
+from ..core.bitstream import ByteReader, ByteWriter
+from ..core.limits import SecurityLimits
+from .box import Box, register_box
+
+
+@dataclass
+class HvcCNalArray:
+    array_completeness: bool = True
+    nal_unit_type: int = 0
+    nal_units: List[bytes] = field(default_factory=list)
+
+
+@register_box("hvcC")
+class Box_hvcC(Box):
+    """HEVCDecoderConfigurationRecord (ISO/IEC 14496-15 §8.3.3.1; ref:
+    hevc_boxes.h:35 Box_hvcC)."""
+
+    NAL_VPS, NAL_SPS, NAL_PPS = 32, 33, 34
+
+    def __init__(self):
+        super().__init__()
+        self.configuration_version = 1
+        self.general_profile_space = 0
+        self.general_tier_flag = 0
+        self.general_profile_idc = 0
+        self.general_profile_compatibility_flags = 0
+        self.general_constraint_indicator_flags = 0
+        self.general_level_idc = 0
+        self.min_spatial_segmentation_idc = 0
+        self.parallelism_type = 0
+        self.chroma_format = 1
+        self.bit_depth_luma = 8
+        self.bit_depth_chroma = 8
+        self.avg_frame_rate = 0
+        self.constant_frame_rate = 0
+        self.num_temporal_layers = 1
+        self.temporal_id_nested = 1
+        self.length_size = 4  # NAL length prefix size in bytes
+        self.nal_arrays: List[HvcCNalArray] = []
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits,
+                      depth=0) -> None:
+        self.configuration_version = r.read8()
+        b = r.read8()
+        self.general_profile_space = b >> 6
+        self.general_tier_flag = (b >> 5) & 1
+        self.general_profile_idc = b & 0x1F
+        self.general_profile_compatibility_flags = r.read32()
+        self.general_constraint_indicator_flags = \
+            (r.read32() << 16) | r.read16()
+        self.general_level_idc = r.read8()
+        self.min_spatial_segmentation_idc = r.read16() & 0x0FFF
+        self.parallelism_type = r.read8() & 0x3
+        self.chroma_format = r.read8() & 0x3
+        self.bit_depth_luma = (r.read8() & 0x7) + 8
+        self.bit_depth_chroma = (r.read8() & 0x7) + 8
+        self.avg_frame_rate = r.read16()
+        b = r.read8()
+        self.constant_frame_rate = b >> 6
+        self.num_temporal_layers = (b >> 3) & 0x7
+        self.temporal_id_nested = (b >> 2) & 1
+        self.length_size = (b & 0x3) + 1
+        num_arrays = r.read8()
+        self.nal_arrays = []
+        for _ in range(num_arrays):
+            b = r.read8()
+            arr = HvcCNalArray(bool(b & 0x80), b & 0x3F)
+            n = r.read16()
+            for _ in range(n):
+                ln = r.read16()
+                arr.nal_units.append(r.read_bytes(ln))
+            self.nal_arrays.append(arr)
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write8(self.configuration_version)
+        w.write8((self.general_profile_space << 6) |
+                 (self.general_tier_flag << 5) | self.general_profile_idc)
+        w.write32(self.general_profile_compatibility_flags)
+        w.write32(self.general_constraint_indicator_flags >> 16)
+        w.write16(self.general_constraint_indicator_flags & 0xFFFF)
+        w.write8(self.general_level_idc)
+        w.write16(0xF000 | self.min_spatial_segmentation_idc)
+        w.write8(0xFC | self.parallelism_type)
+        w.write8(0xFC | self.chroma_format)
+        w.write8(0xF8 | (self.bit_depth_luma - 8))
+        w.write8(0xF8 | (self.bit_depth_chroma - 8))
+        w.write16(self.avg_frame_rate)
+        w.write8((self.constant_frame_rate << 6) |
+                 (self.num_temporal_layers << 3) |
+                 (self.temporal_id_nested << 2) | (self.length_size - 1))
+        w.write8(len(self.nal_arrays))
+        for arr in self.nal_arrays:
+            w.write8((0x80 if arr.array_completeness else 0)
+                     | arr.nal_unit_type)
+            w.write16(len(arr.nal_units))
+            for nal in arr.nal_units:
+                w.write16(len(nal))
+                w.write_bytes(nal)
+
+    def get_header_nals(self) -> List[bytes]:
+        """All VPS/SPS/PPS NALs in array order, as stored."""
+        return [nal for arr in self.nal_arrays for nal in arr.nal_units]
+
+    def add_nal(self, nal: bytes) -> None:
+        nal_type = (nal[0] >> 1) & 0x3F
+        for arr in self.nal_arrays:
+            if arr.nal_unit_type == nal_type:
+                arr.nal_units.append(nal)
+                return
+        self.nal_arrays.append(HvcCNalArray(True, nal_type, [nal]))
+
+    def dump_fields(self) -> List[str]:
+        return [
+            f"profile: space={self.general_profile_space} "
+            f"idc={self.general_profile_idc} "
+            f"level={self.general_level_idc / 30:.1f}",
+            f"chroma format: {self.chroma_format}, bit depth: "
+            f"{self.bit_depth_luma}/{self.bit_depth_chroma}",
+            "NAL arrays: " + " ".join(
+                f"type{a.nal_unit_type}x{len(a.nal_units)}"
+                for a in self.nal_arrays),
+        ]
+
+
+def emulation_prevention_positions(nal: bytes) -> List[int]:
+    """Indices of the 0x000003 emulation-prevention bytes: candidate
+    00 00 03 triplets, then a scalar pass over the rare overlapping
+    chains (00 00 03 00 00 03 is two, 00 00 00 03 03 one)."""
+    a = np.frombuffer(nal, np.uint8)
+    if len(a) < 3:
+        return []
+    cand = np.nonzero((a[2:] == 3) & (a[1:-1] == 0) & (a[:-2] == 0))[0] + 2
+    out = []
+    last = -10
+    for i in cand.tolist():
+        if i - last <= 2:
+            # the zeros before it may belong to the previous EPB: recount
+            zeros = 0
+            for j in range(last + 1, i):
+                zeros = zeros + 1 if nal[j] == 0 else 0
+            if zeros >= 2:
+                out.append(i)
+                last = i
+        else:
+            out.append(i)
+            last = i
+    return out
+
+
+def remove_emulation_prevention(nal: bytes) -> bytes:
+    """Strip the 0x000003 emulation-prevention bytes (NAL → RBSP)."""
+    pos = emulation_prevention_positions(nal)
+    if not pos:
+        return nal
+    a = np.frombuffer(nal, np.uint8)
+    mask = np.ones(len(a), bool)
+    mask[np.asarray(pos, np.int64)] = False
+    return a[mask].tobytes()

@@ -1,0 +1,313 @@
+"""Hand-written CUDA kernels of the HEVC intra reconstruction, and their
+plain PyTorch versions.
+
+Two stages of the JAX package's jnp device program
+(libheif_tpu/codecs/hevc/device_recon.py ``_build_program``) are kernels
+in ``csrc/hevc_kernels.cu``:
+
+=================  ==========================================  ==========
+kernel             replaces                                    wrapper
+=================  ==========================================  ==========
+hevc_dequant_itx   stage A, ``residuals`` (:540-567)           dequant_itx
+hevc_intra_wave    stage B, ``predict`` + scatter, one wave    intra_wave
+                   of the ``lax.scan`` (:571-698, :890-927)
+=================  ==========================================  ==========
+
+A wrapper given CUDA tensors launches its kernel (or raises); given CPU
+tensors it runs the plain version beside it, which repeats the jnp
+program's int32 arithmetic operation by operation.  Every kernel carries
+a launch count (``KERNELS[name].launches``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..._build import CudaKernel
+from ..unc.cuda_fast import _on_cpu
+from .ctu import INTRA_DC, INTRA_PLANAR
+from .tables import DCT, DST4, INTRA_INV_ANGLE, INTRA_PRED_ANGLE
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+HEVC_DEQUANT_ITX = CudaKernel(
+    "hevc_dequant_itx", "launch_hevc_dequant_itx", [_P] * 6 + [_I] * 3)
+HEVC_INTRA_WAVE = CudaKernel(
+    "hevc_intra_wave", "launch_hevc_intra_wave", [_P, _I, _P, _P, _I, _I])
+
+KERNELS: Dict[str, CudaKernel] = {
+    k.name: k for k in (HEVC_DEQUANT_ITX, HEVC_INTRA_WAVE)}
+
+LEVEL_SCALE = (40, 45, 51, 57, 64, 72)
+MAX_GROUPS = 7          # kMaxGroups in csrc/hevc_kernels.cu
+
+# prediction angles as dense tables indexed by mode 0..34
+ANGLE = np.zeros(35, np.int32)
+INV_ANGLE = np.zeros(35, np.int32)
+for _m in range(2, 35):
+    ANGLE[_m] = INTRA_PRED_ANGLE[_m]
+    if INTRA_PRED_ANGLE[_m] < 0:
+        INV_ANGLE[_m] = INTRA_INV_ANGLE[INTRA_PRED_ANGLE[_m]]
+
+
+def transform_matrix(luma: bool, log2: int, device) -> torch.Tensor:
+    """The (s, s) int32 inverse-transform matrix of a TU group: DST-VII
+    for luma 4x4, else the DCT of its size."""
+    m = DST4 if (luma and log2 == 2) else DCT[1 << log2]
+    return torch.as_tensor(np.asarray(m, np.int32), device=device)
+
+
+# --------------------------------------------------------- hevc_dequant_itx
+
+def dequant_itx(coeffs: torch.Tensor, qp: torch.Tensor, ts: torch.Tensor,
+                tqb: torch.Tensor, mat: torch.Tensor, *, luma: bool,
+                log2: int, bd: int) -> torch.Tensor:
+    """Stage A for one TU group: (N, s, s) int32 coefficient levels →
+    (N, s, s) int32 residuals.  Dequantise (flat scaling), clip, the
+    column then the row pass of ``mat`` with HEVC's shifts and clips,
+    transform skip (4x4) and transquant bypass.  ``qp`` (N,) int32,
+    ``ts``/``tqb`` (N,) bool."""
+    s = 1 << log2
+    n = coeffs.shape[0]
+    if coeffs.dtype != torch.int32 or tuple(coeffs.shape[1:]) != (s, s):
+        raise ValueError(f"coeffs: expected (N, {s}, {s}) int32, got "
+                         f"{tuple(coeffs.shape)} {coeffs.dtype}")
+    for t, name, dt in ((qp, "qp", torch.int32), (ts, "ts", torch.bool),
+                        (tqb, "tqb", torch.bool)):
+        if t.dtype != dt or tuple(t.shape) != (n,):
+            raise ValueError(f"{name}: expected ({n},) {dt}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if _on_cpu(coeffs, qp, ts, tqb, mat):
+        return dequant_itx_plain(coeffs, qp, ts, tqb, mat, log2=log2, bd=bd)
+    out = torch.empty_like(coeffs)
+    HEVC_DEQUANT_ITX.launch(out, coeffs.data_ptr(), qp.data_ptr(),
+                            ts.data_ptr(), tqb.data_ptr(), mat.data_ptr(),
+                            out.data_ptr(), n, log2, bd)
+    return out
+
+
+def dequant_itx_plain(coeffs, qp, ts, tqb, mat, *, log2, bd, chunk=4096):
+    """Plain PyTorch version of hevc_dequant_itx: device_recon.py:540-567
+    with each int32 matrix product as an int64 broadcast product and sum
+    (CUDA has no integer matmul); every sum is below 2^31, so the int32
+    result is exact.  Done ``chunk`` TUs at a time to bound the (N, s, s,
+    s) temporaries."""
+    s = 1 << log2
+    bs = bd + log2 - 5
+    dev = coeffs.device
+    lvl = torch.tensor(LEVEL_SCALE, dtype=torch.int32, device=dev)
+    m = mat.to(torch.int64)
+    shift2 = 20 - bd
+    out = torch.empty_like(coeffs)
+    for lo in range(0, coeffs.shape[0], chunk):
+        c = coeffs[lo:lo + chunk]
+        q = qp[lo:lo + chunk]
+        scale = lvl[q % 6] << (q // 6)
+        # (c*16*scale + 2^(bs-1)) >> bs  ==  (c*scale + 2^(bs-5)) >> (bs-4)
+        d = (c * scale[:, None, None] + (1 << (bs - 5))) >> (bs - 4)
+        d = torch.clamp(d, -32768, 32767)
+        # e[n, j, k] = sum_i m[i, j] d[n, i, k]
+        e = (d.to(torch.int64)[:, :, None, :] * m[None, :, :, None]).sum(1)
+        e = torch.clamp((e + 64) >> 7, -32768, 32767)
+        # r[n, i, k] = sum_j e[n, i, j] m[j, k]
+        r = (e[:, :, :, None] * m[None, None, :, :]).sum(2)
+        r = torch.clamp((r + (1 << (shift2 - 1))) >> shift2, -32768, 32767)
+        r = r.to(torch.int32)
+        if s == 4:      # transform skip only exists at 4x4
+            tsr = ((d << (5 + log2)) + (1 << (shift2 - 1))) >> shift2
+            r = torch.where(ts[lo:lo + chunk, None, None], tsr, r)
+        out[lo:lo + chunk] = torch.where(tqb[lo:lo + chunk, None, None], c, r)
+    return out
+
+
+# --------------------------------------------------------- hevc_intra_wave
+
+class WaveGroup(NamedTuple):
+    """One TU group's tables as hevc_intra_wave reads them: rows sorted by
+    wave; ``ref_idx``/``ref_avail`` (n, 4s+1) int32/bool, ``mode`` (n,)
+    int32, ``scat_idx`` (n, s*s) int32 flat indices into the luma or
+    chroma buffer, ``res`` (n, s, s) int32 residuals."""
+    luma: bool
+    log2: int
+    ref_idx: torch.Tensor
+    ref_avail: torch.Tensor
+    mode: torch.Tensor
+    scat_idx: torch.Tensor
+    res: torch.Tensor
+
+
+def intra_wave(ybuf: torch.Tensor, cbuf: torch.Tensor,
+               groups: Sequence[WaveGroup], starts: Sequence[int],
+               counts: Sequence[int], *, bd: int, strong: bool) -> None:
+    """Stage B for one wave, in place: for rows starts[g] ..
+    starts[g] + counts[g] of every group g, predict from the reference
+    samples in the flat int32 buffers, add the residual, clip to
+    [0, 2^bd - 1] and scatter the TU into its buffer.  All TUs of a wave
+    read samples written by earlier waves only (the planner's schedule),
+    so one launch covers every group."""
+    if len(groups) > MAX_GROUPS:
+        raise ValueError(f"at most {MAX_GROUPS} groups, got {len(groups)}")
+    for buf, name in ((ybuf, "ybuf"), (cbuf, "cbuf")):
+        if buf.dtype != torch.int32 or buf.dim() != 1:
+            raise ValueError(f"{name}: expected a flat int32 tensor")
+    for g, st, cn in zip(groups, starts, counts):
+        if st < 0 or cn < 0 or st + cn > g.mode.shape[0]:
+            raise ValueError(f"rows {st}..{st + cn} outside the group's "
+                             f"{g.mode.shape[0]}")
+    tensors = [ybuf, cbuf] + [t for g in groups for t in g[2:]]
+    if _on_cpu(*tensors):
+        intra_wave_plain(ybuf, cbuf, groups, starts, counts, bd=bd,
+                         strong=strong)
+        return
+    total = sum(counts)
+    if total == 0:
+        return
+    table = (ctypes.c_longlong * (9 * len(groups)))(*(
+        v for g, st, cn in zip(groups, starts, counts)
+        for v in (g.ref_idx.data_ptr(), g.ref_avail.data_ptr(),
+                  g.mode.data_ptr(), g.scat_idx.data_ptr(),
+                  g.res.data_ptr(), g.log2, int(g.luma), st, cn)))
+    HEVC_INTRA_WAVE.launch(ybuf, ctypes.addressof(table), len(groups),
+                           ybuf.data_ptr(), cbuf.data_ptr(), bd, int(strong))
+
+
+def intra_wave_plain(ybuf, cbuf, groups, starts, counts, *, bd, strong):
+    """Plain PyTorch version of hevc_intra_wave: the body of the jnp
+    program's wave scan (device_recon.py:893-924), one group after the
+    other, on the rows the wave holds."""
+    maxv = (1 << bd) - 1
+    for g, st, cn in zip(groups, starts, counts):
+        if cn == 0:
+            continue
+        buf = ybuf if g.luma else cbuf
+        rows = slice(st, st + cn)
+        refs = buf[g.ref_idx[rows]]
+        pred = predict_plain(g.luma, g.log2, refs, g.ref_avail[rows],
+                             g.mode[rows], bd=bd, strong=strong)
+        n = 1 << g.log2
+        rec = torch.clamp(pred + g.res[rows], 0, maxv).reshape(cn, n * n)
+        buf[g.scat_idx[rows].reshape(-1)] = rec.reshape(-1)
+
+
+def predict_plain(luma: bool, log2: int, refs: torch.Tensor,
+                  av: torch.Tensor, mode: torch.Tensor, *, bd: int,
+                  strong: bool) -> torch.Tensor:
+    """Intra prediction of k TUs of one size (device_recon.py:571-698):
+    refs/av (k, 4n+1) in the order left column bottom→top, corner, top
+    row; returns (k, n, n) int32."""
+    n = 1 << log2
+    L = 4 * n + 1
+    ci = 2 * n
+    k = refs.shape[0]
+    dev = refs.device
+    half = 1 << (bd - 1)
+    maxv = (1 << bd) - 1
+
+    # substitution (recon.py:_gather_refs): each missing sample takes the
+    # nearest available one before it, else the first available one
+    j = torch.arange(L, dtype=torch.int32, device=dev).expand(k, L)
+    vidx = torch.where(av, j, torch.full_like(j, -1))
+    ff = torch.cummax(vidx, dim=1).values
+    first = av.to(torch.int32).argmax(dim=1).to(torch.int32)
+    fidx = torch.where(ff >= 0, ff, first[:, None])
+    vals = torch.gather(refs, 1, fidx.to(torch.int64))
+    vals = torch.where(av.any(dim=1)[:, None], vals,
+                       torch.full_like(vals, half))
+
+    # reference filtering (recon.py:_filter_refs)
+    if luma and n > 4:
+        sm = torch.cat([
+            vals[:, :1],
+            (vals[:, :-2] + 2 * vals[:, 1:-1] + vals[:, 2:] + 2) >> 2,
+            vals[:, -1:]], dim=1)
+        if n == 32 and strong:
+            cv = vals[:, ci]
+            v0 = vals[:, 0]
+            v4n = vals[:, 4 * n]
+            flat_top = torch.abs(cv + v4n - 2 * vals[:, ci + n]) \
+                < (1 << (bd - 5))
+            flat_left = torch.abs(cv + v0 - 2 * vals[:, n]) < (1 << (bd - 5))
+            i_rel = j - ci                               # -2n..2n
+            a = torch.abs(i_rel)
+            endv = torch.where(i_rel > 0, v4n[:, None], v0[:, None])
+            bil = ((2 * n - a) * cv[:, None] + a * endv + n) >> (log2 + 1)
+            bil = torch.where((a >= 1) & (a <= 2 * n - 1), bil, vals)
+            sm = torch.where((flat_top & flat_left)[:, None], bil, sm)
+        dist = torch.minimum(torch.abs(mode - 26), torch.abs(mode - 10))
+        thresh = {8: 7, 16: 1, 32: 0}[n]
+        use = (mode != INTRA_DC) & ((mode == INTRA_PLANAR) | (dist > thresh))
+        vals = torch.where(use[:, None], sm, vals)
+
+    corner = vals[:, ci]                                 # (k,)
+    left = torch.flip(vals[:, :ci], dims=(1,))           # (k, 2n), y = i
+    top = vals[:, ci + 1:]                               # (k, 2n), x = i
+
+    ar = torch.arange(n, dtype=torch.int32, device=dev)
+    x1 = ar[None, :].expand(n, n)                        # column index
+    y1 = ar[:, None].expand(n, n)                        # row index
+
+    # planar
+    tr = top[:, n][:, None, None]
+    bl = left[:, n][:, None, None]
+    planar = ((n - 1 - x1)[None] * left[:, :n][:, :, None] + (x1 + 1)[None]
+              * tr + (n - 1 - y1)[None] * top[:, :n][:, None, :]
+              + (y1 + 1)[None] * bl + n) >> (log2 + 1)
+
+    # DC, with its edge filter for luma below 32x32
+    dc = (top[:, :n].sum(dim=1, dtype=torch.int32)
+          + left[:, :n].sum(dim=1, dtype=torch.int32) + n) >> (log2 + 1)
+    dcp = dc[:, None, None].expand(k, n, n)
+    if luma and n < 32:
+        row0 = (top[:, :n] + 3 * dc[:, None] + 2) >> 2
+        col0 = (left[:, :n] + 3 * dc[:, None] + 2) >> 2
+        c00 = (left[:, 0] + 2 * dc + top[:, 0] + 2) >> 2
+        dcp = torch.where((y1 == 0)[None], row0[:, None, :], dcp)
+        dcp = torch.where((x1 == 0)[None], col0[:, :, None], dcp).clone()
+        dcp[:, 0, 0] = c00
+
+    # angular: ext[e] = ref[e - n] along the main direction, e in [0, 3n]
+    mc = torch.clamp(mode, 0, 34).to(torch.int64)
+    angle = torch.as_tensor(ANGLE, device=dev)[mc]
+    inv = torch.as_tensor(INV_ANGLE, device=dev)[mc]
+    vertical = mode >= 18
+    main = torch.where(vertical[:, None], top, left)
+    side = torch.where(vertical[:, None], left, top)
+    ext_len = 3 * n + 1
+    xneg = torch.arange(-n, 0, dtype=torch.int32, device=dev)
+    nidx = (xneg[None, :] * inv[:, None] + 128) >> 8     # (k, n) >= 0
+    nval = torch.where(
+        nidx == 0, corner[:, None],
+        torch.gather(side, 1,
+                     torch.clamp(nidx - 1, 0, 2 * n - 1).to(torch.int64)))
+    ext = torch.cat([nval, corner[:, None], main], dim=1)
+    kk = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    prod = kk[None, :] * angle[:, None]                  # (k, n)
+    i_fact = prod & 31
+    base = n + (prod >> 5) + 1
+    idx0 = torch.clamp(base[:, :, None] + ar[None, None, :], max=ext_len - 1)
+    idx1 = torch.clamp(idx0 + 1, max=ext_len - 1)
+    e0 = torch.gather(ext, 1, idx0.reshape(k, -1).to(torch.int64)) \
+        .reshape(k, n, n)
+    e1 = torch.gather(ext, 1, idx1.reshape(k, -1).to(torch.int64)) \
+        .reshape(k, n, n)
+    f = i_fact[:, :, None]
+    ang = ((32 - f) * e0 + f * e1 + 16) >> 5             # rows = distance
+    ang = torch.where(vertical[:, None, None], ang, ang.transpose(1, 2))
+    if luma and n < 32:
+        # pure vertical (26) / horizontal (10) edge filter
+        col = torch.clamp(top[:, 0][:, None]
+                          + ((left[:, :n] - corner[:, None]) >> 1), 0, maxv)
+        row = torch.clamp(left[:, 0][:, None]
+                          + ((top[:, :n] - corner[:, None]) >> 1), 0, maxv)
+        is26 = (mode == 26)[:, None, None]
+        is10 = (mode == 10)[:, None, None]
+        ang = torch.where(is26 & (x1 == 0)[None], col[:, :, None], ang)
+        ang = torch.where(is10 & (y1 == 0)[None], row[:, None, :], ang)
+
+    return torch.where((mode == INTRA_PLANAR)[:, None, None], planar,
+                       torch.where((mode == INTRA_DC)[:, None, None], dcp,
+                                   ang)).to(torch.int32)

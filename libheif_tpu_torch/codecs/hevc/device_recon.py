@@ -1,0 +1,627 @@
+"""HEVC intra reconstruction on the device, for a batch of pictures.
+
+Counterpart of libheif_tpu/codecs/hevc/device_recon.py.  Entropy decoding
+stays on the host (native_parse); everything after it runs on the plan's
+device in the JAX program's four stages:
+
+  stage A  dequant + inverse transforms   kernel hevc_dequant_itx, one
+                                          launch per TU group (size and
+                                          plane)
+  stage B  intra prediction + recon       kernel hevc_intra_wave, one
+                                          launch per dependency wave:
+                                          every TU whose reference
+                                          samples are reconstructed, of
+                                          every group and every picture
+  stage C  deblocking                     plain PyTorch, dense passes
+                                          over the 8-sample edge lattice
+  stage D  SAO                            plain PyTorch, per-CTB
+                                          parameters broadcast to pixels
+
+Bit-exact against the JAX package's device engine: int32 arithmetic
+with HEVC's arithmetic shifts.  The picture axis is a batch axis, so the
+tiles of a grid decode as one batch, their waves in lockstep.
+
+The plan differs from the JAX one in what jit forced on it: its tables
+carry no padding (rows ``[:n]`` and waves ``[:n_waves]`` equal the JAX
+tables), and the per-wave ``starts``/``counts`` live on the host, where
+the launch loop reads them; they come from the planner's waves without a
+device round trip.  The per-row tables (reference and scatter indices,
+coefficients, the wave sort) are built on the plan's device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..._build import HOST_LIBRARY, resolve_device
+from .ctu import SliceSyntax
+from .cuda_fast import (WaveGroup, dequant_itx, intra_wave,
+                        transform_matrix)
+from .filters import BETA_TABLE, TC_TABLE
+from .tables import chroma_qp
+
+# group keys: (is_luma, log2). DST-VII applies to the (True, 2) group.
+GROUP_KEYS = [(True, 2), (True, 3), (True, 4), (True, 5),
+              (False, 2), (False, 3), (False, 4)]
+
+AVAIL_STRIDE = 4 * 32 + 1        # ref array length of the largest TU
+
+# in-order ref coordinate offsets per TU size: left column bottom→top,
+# corner, top row (recon.py:_gather_refs)
+_REF_DX: Dict[int, np.ndarray] = {}
+_REF_DY: Dict[int, np.ndarray] = {}
+for _n in (4, 8, 16, 32):
+    _i = np.arange(2 * _n)
+    _REF_DX[_n] = np.concatenate(
+        [np.full(2 * _n, -1), [-1], _i]).astype(np.int32)
+    _REF_DY[_n] = np.concatenate(
+        [2 * _n - 1 - _i, [-1], np.full(2 * _n, -1)]).astype(np.int32)
+
+
+@dataclass
+class GroupPlan:
+    """One TU group (plane and size), rows sorted by wave (stable, so
+    ties keep picture then decode order).  Tensors on the plan's device;
+    ``starts``/``counts`` (n_waves,) on the host."""
+    key: Tuple[bool, int]
+    n: int
+    coeffs: torch.Tensor     # (n, s, s) int32
+    qp: torch.Tensor         # (n,) int32
+    ts: torch.Tensor         # (n,) bool   transform skip
+    tqb: torch.Tensor        # (n,) bool   transquant bypass
+    mode: torch.Tensor       # (n,) int32
+    ref_idx: torch.Tensor    # (n, 4s+1) int32 flat gather indices
+    ref_avail: torch.Tensor  # (n, 4s+1) bool
+    scat_idx: torch.Tensor   # (n, s*s) int32 flat scatter indices
+    starts: np.ndarray       # (n_waves,) int32
+    counts: np.ndarray       # (n_waves,) int32
+
+
+@dataclass
+class ReconPlan:
+    t: int                          # batch (picture) count
+    width: int
+    height: int
+    bd: int
+    strong_smoothing: bool
+    n_waves: int
+    groups: List[GroupPlan]
+    deblock: Optional[Dict[str, torch.Tensor]]   # None: off everywhere
+    sao: Optional[Dict[str, torch.Tensor]]       # None: no CTB uses SAO
+    tqb_mask: Optional[torch.Tensor]             # (t, h4, w4) bool
+    device: torch.device
+
+
+def plan_waves(cols: np.ndarray, W: int, H: int):
+    """Wave index and reference availability (N, AVAIL_STRIDE) of every
+    TU, by host/hevc_plan.cc."""
+    import ctypes
+    fn = HOST_LIBRARY.load().tpuheif_hevc_plan
+    fn.restype = ctypes.c_int
+    N = len(cols)
+    waves = np.zeros(N, np.int32)
+    avail = np.zeros((N, AVAIL_STRIDE), np.uint8)
+    cols_c = np.ascontiguousarray(cols, np.int32)
+    rc = fn(ctypes.c_void_p(cols_c.ctypes.data), ctypes.c_int64(N),
+            ctypes.c_int32(cols_c.shape[1]), ctypes.c_int32(W),
+            ctypes.c_int32(H), ctypes.c_void_p(waves.ctypes.data),
+            ctypes.c_void_p(avail.ctypes.data), ctypes.c_int32(AVAIL_STRIDE))
+    if rc != 0:
+        raise RuntimeError(f"tpuheif_hevc_plan failed ({rc})")
+    return waves, avail
+
+
+def plan_inputs(raw_tus: Sequence[tuple], W: int, H: int
+                ) -> Dict[str, np.ndarray]:
+    """The host part of a plan: the wave planner over each picture, and
+    the batch's TU columns, picture index, waves, availability (packed to
+    bits) and coefficients concatenated into flat arrays, the coefficient
+    offsets moved to the joined buffer (which ends with a zero)."""
+    cols_l, tile_l, waves_l, avail_l, offs_l, coeff_l = [], [], [], [], [], []
+    pos = 0
+    for t_idx, (cols, coeff, offs) in enumerate(raw_tus):
+        waves, avail = plan_waves(cols, W, H)
+        cols_l.append(cols)
+        tile_l.append(np.full(len(cols), t_idx, np.int32))
+        waves_l.append(waves)
+        avail_l.append(np.packbits(avail, axis=1))
+        offs_l.append(np.where(offs >= 0, offs + pos, -1))
+        coeff_l.append(coeff)
+        pos += len(coeff)
+    return dict(cols=np.concatenate(cols_l), tile=np.concatenate(tile_l),
+                waves=np.concatenate(waves_l),
+                avail_bits=np.concatenate(avail_l),
+                offs=np.concatenate(offs_l),
+                coeff=np.concatenate(coeff_l + [np.zeros(1, np.int32)]))
+
+
+def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
+               device=None) -> ReconPlan:
+    """Wavefront schedule and TU tables for a batch of pictures of one
+    size and bit depth.  raw_tus: per picture (cols, coeff_buf, offs)
+    from native_parse.parse_picture_raw."""
+    dev = resolve_device(device)
+    sps0 = syntaxes[0].sps
+    W, H = sps0.pic_width, sps0.pic_height
+    bd = sps0.bit_depth_luma
+    cw, ch = W >> 1, H >> 1
+    T = len(syntaxes)
+    for syn in syntaxes:
+        if (syn.sps.pic_width, syn.sps.pic_height) != (W, H) or \
+                syn.sps.bit_depth_luma != bd:
+            raise ValueError("batch pictures must share shape/depth")
+    y_plane_sz = H * W
+    c_plane_sz = ch * cw
+    trash_y = T * y_plane_sz          # one extra slot at the end
+    trash_c = T * 2 * c_plane_sz
+
+    inp = plan_inputs(raw_tus, W, H)
+    cols, waves = inp["cols"], inp["waves"]
+    n_waves = int(waves.max()) + 1 if len(waves) else 1
+    c_idx, log2c = cols[:, 3], cols[:, 2]
+
+    # device: the columns, coefficients and packed availability, once
+    d = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
+    cols_d, tile_d, waves_d = d["cols"], d["tile"], d["waves"]
+    avail_bits, offs_d, coeff_d = d["avail_bits"], d["offs"], d["coeff"]
+
+    groups: List[GroupPlan] = []
+    for key in GROUP_KEYS:
+        luma, lg = key
+        sel = np.nonzero(((c_idx == 0) == luma) & (log2c == lg))[0]
+        if len(sel) == 0:
+            continue
+        s = 1 << lg
+        L = 4 * s + 1
+        gw = waves[sel]
+        counts = np.bincount(gw, minlength=n_waves).astype(np.int32)
+        starts = (np.cumsum(counts) - counts).astype(np.int32)
+
+        sel_d = torch.from_numpy(sel).to(dev)
+        order = torch.sort(waves_d[sel_d], stable=True).indices
+        idx = sel_d[order]
+        c = cols_d[idx].to(torch.int64)
+        tile = tile_d[idx].to(torch.int64)
+        if luma:
+            px, py, pw, ph = c[:, 0], c[:, 1], W, H
+            base = tile * y_plane_sz
+            trash = trash_y
+        else:
+            px, py, pw, ph = c[:, 0] >> 1, c[:, 1] >> 1, cw, ch
+            base = tile * 2 * c_plane_sz + (c[:, 3] - 1) * c_plane_sz
+            trash = trash_c
+
+        xs = px[:, None] + torch.from_numpy(_REF_DX[s]).to(dev)[None, :]
+        ys = py[:, None] + torch.from_numpy(_REF_DY[s]).to(dev)[None, :]
+        cxs = torch.clamp(xs, 0, pw - 1)
+        cys = torch.clamp(ys, 0, ph - 1)
+        bit = torch.arange(L, device=dev)
+        av = ((avail_bits[idx][:, bit >> 3] >> (7 - (bit & 7))) & 1).bool()
+        ridx = torch.where(av, base[:, None] + cys * pw + cxs, 0)
+
+        ii = torch.arange(s * s, device=dev)
+        sx = px[:, None] + (ii % s)[None, :]
+        sy = py[:, None] + (ii // s)[None, :]
+        s_in = (sx < pw) & (sy < ph)
+        scat = torch.where(s_in, base[:, None] + sy * pw + sx, trash)
+
+        off = offs_d[idx]
+        has = off >= 0
+        gidx = torch.where(has, off, 0)[:, None] + ii[None, :]
+        cf = coeff_d[torch.clamp(gidx, max=coeff_d.numel() - 1)]
+        cf = torch.where(has[:, None], cf, 0).reshape(-1, s, s)
+
+        groups.append(GroupPlan(
+            key=key, n=len(sel), coeffs=cf.to(torch.int32),
+            qp=c[:, 5].to(torch.int32), ts=c[:, 6] != 0, tqb=c[:, 7] != 0,
+            mode=c[:, 4].to(torch.int32), ref_idx=ridx.to(torch.int32),
+            ref_avail=av, scat_idx=scat.to(torch.int32),
+            starts=starts, counts=counts))
+
+    deblock = _build_deblock_params(syntaxes, W, H, bd)
+    sao, tqb_mask = _build_sao_params(syntaxes, W, H)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return ReconPlan(
+        t=T, width=W, height=H, bd=bd,
+        strong_smoothing=bool(sps0.strong_intra_smoothing), n_waves=n_waves,
+        groups=groups,
+        deblock=None if deblock is None else
+        {k: put(v) for k, v in deblock.items()},
+        sao=None if sao is None else {k: put(v) for k, v in sao.items()},
+        tqb_mask=None if tqb_mask is None else put(tqb_mask).bool(),
+        device=dev)
+
+
+# ---------------------------------------------------------------- deblock
+
+_CHROMA_QP_TABLE = np.array([chroma_qp(i) for i in range(58)], np.int32)
+
+
+def _build_deblock_params(syntaxes, W, H, bd):
+    """Per-edge-segment beta/tc/enabled arrays (the filter decisions that
+    depend only on the parse maps, not on pixels), vectorised over the
+    (segment, edge) lattice; beta and tc scale with the bit depth (spec
+    8.7.2.5.3).  Counterpart of device_recon.py:346-446."""
+    if all(syn.sh.deblocking_filter_disabled for syn in syntaxes):
+        return None
+    T = len(syntaxes)
+    cw, ch = W >> 1, H >> 1
+
+    # luma vertical:  edges x=8,16,..,≤W-4  segments y=0,4,..
+    # (pic luma dims are multiples of 8; chroma dims only of 4, so the
+    # chroma edge count is len(range(8, d, 8)) = (d-1)//8)
+    ev = max(0, (W - 4) // 8)
+    sv = H // 4
+    eh = max(0, (H - 4) // 8)
+    sh_ = W // 4
+    cev = max(0, (cw - 1) // 8)
+    csv = ch // 4
+    ceh = max(0, (ch - 1) // 8)
+    csh = cw // 4
+
+    out = dict(
+        beta_v=np.zeros((T, sv, ev), np.int32),
+        tc_v=np.zeros((T, sv, ev), np.int32),
+        en_v=np.zeros((T, sv, ev), bool),
+        beta_h=np.zeros((T, sh_, eh), np.int32),
+        tc_h=np.zeros((T, sh_, eh), np.int32),
+        en_h=np.zeros((T, sh_, eh), bool),
+        ctc_v=np.zeros((T, 2, csv, cev), np.int32),
+        cen_v=np.zeros((T, 2, csv, cev), bool),
+        ctc_h=np.zeros((T, 2, csh, ceh), np.int32),
+        cen_h=np.zeros((T, 2, csh, ceh), bool),
+    )
+
+    for t, syn in enumerate(syntaxes):
+        if syn.sh.deblocking_filter_disabled:
+            continue
+        beta_off = syn.sh.beta_offset_div2 * 2
+        tc_off = syn.sh.tc_offset_div2 * 2
+        qp_y = np.asarray(syn.qp_y, np.int32)
+        tu4 = np.asarray(syn.tu_log2, np.int32)
+        cu4 = np.asarray(syn.cu_log2, np.int32)
+
+        def edge_mask(x, y, vertical):
+            """filters.py:_is_block_edge over coordinate arrays."""
+            bx, by = x >> 2, y >> 2
+            tl = tu4[by, bx]
+            cl = cu4[by, bx]
+            tl = np.where(tl == 0, np.where(cl != 0, cl, 3), tl)
+            pos = x if vertical else y
+            is_tu = (pos & ((1 << tl) - 1)) == 0
+            is_cu = (cl != 0) & ((pos & ((1 << cl) - 1)) == 0)
+            return is_tu | is_cu
+
+        def avg_qp(x, y, vertical):
+            if vertical:
+                return (qp_y[y >> 2, (x - 1) >> 2] +
+                        qp_y[y >> 2, x >> 2] + 1) >> 1
+            return (qp_y[(y - 1) >> 2, x >> 2] +
+                    qp_y[y >> 2, x >> 2] + 1) >> 1
+
+        for vertical, ne, ns, bkey, tkey, ekey in (
+                (True, ev, sv, "beta_v", "tc_v", "en_v"),
+                (False, eh, sh_, "beta_h", "tc_h", "en_h")):
+            if ne == 0:
+                continue
+            pos = 8 * (np.arange(ne) + 1)[None, :]       # (1, E)
+            seg = 4 * np.arange(ns)[:, None]             # (S, 1)
+            x, y = (pos, seg) if vertical else (seg, pos)
+            x = np.broadcast_to(x, (ns, ne))
+            y = np.broadcast_to(y, (ns, ne))
+            en = edge_mask(x, y, vertical)
+            qp = avg_qp(x, y, vertical)
+            beta = BETA_TABLE[np.clip(qp + beta_off, 0, 51)] << (bd - 8)
+            tc = TC_TABLE[np.clip(qp + 2 + tc_off, 0, 53)] << (bd - 8)
+            out[bkey][t] = np.where(en, beta, 0)
+            out[tkey][t] = np.where(en, tc, 0)
+            out[ekey][t] = en
+
+        for vertical, ne, ns, tkey, ekey in (
+                (True, cev, csv, "ctc_v", "cen_v"),
+                (False, ceh, csh, "ctc_h", "cen_h")):
+            if ne == 0:
+                continue
+            pos = 8 * (np.arange(ne) + 1)[None, :]
+            seg = 4 * np.arange(ns)[:, None]
+            cx, cy = (pos, seg) if vertical else (seg, pos)
+            lx = np.broadcast_to(cx, (ns, ne)) << 1
+            ly = np.broadcast_to(cy, (ns, ne)) << 1
+            en = edge_mask(lx, ly, vertical)
+            qp_l = avg_qp(lx, ly, vertical)
+            for ci, off in ((0, syn.pps.cb_qp_offset),
+                            (1, syn.pps.cr_qp_offset)):
+                qpc = _CHROMA_QP_TABLE[np.clip(qp_l + off, 0, 57)]
+                tc = TC_TABLE[np.clip(qpc + 2 + tc_off, 0, 53)] << (bd - 8)
+                en_c = en & (tc != 0)
+                out[tkey][t, ci] = np.where(en_c, tc, 0)
+                out[ekey][t, ci] = en_c
+    return out
+
+
+# -------------------------------------------------------------------- sao
+
+def _build_sao_params(syntaxes, W, H):
+    """Per-CTB SAO parameter maps (T, 3, rows, cols) (offsets (T, 3, 4,
+    rows, cols)) from the parser's per-CTB records, and the transquant
+    bypass mask (T, h4, w4); counterpart of device_recon.py:451-481."""
+    if not any(syn.sao_table is not None for syn in syntaxes):
+        return None, None
+    T = len(syntaxes)
+    sps0 = syntaxes[0].sps
+    ctb = sps0.ctb_size
+    ncx = (W + ctb - 1) // ctb
+    ncy = (H + ctb - 1) // ctb
+    tab = np.zeros((T, ncy, ncx, 20), np.int32)
+    for t, syn in enumerate(syntaxes):
+        if syn.sao_table is not None:
+            tab[t] = syn.sao_table
+    tab = tab.transpose(0, 3, 1, 2)                     # (T, 20, ncy, ncx)
+    sao = dict(typ=tab[:, 0:3], bpos=tab[:, 15:18],
+               eoc=tab[:, [18, 19, 19]],
+               offs=tab[:, 3:15].reshape(T, 3, 4, ncy, ncx),
+               ctb=np.int32(ctb))
+    tqb = None
+    if any(syn.tqb_map.any() for syn in syntaxes):
+        h4 = (H + 3) // 4
+        w4 = (W + 3) // 4
+        tqb = np.stack([syn.tqb_map[:h4, :w4] for syn in syntaxes])
+    return sao, tqb
+
+
+# ============================================================== the program
+
+def deblock_luma_pass(plane, beta, tc, en, maxv):
+    """Vertical-edge luma pass over a (T, H', W') int32 plane
+    (device_recon.py:702-793); the horizontal pass is the same on the
+    transposed plane.  beta/tc/en: (T, S, E) with S = H'//4 segments, E
+    edges at x = 8(e+1)."""
+    t_, hh, ww = plane.shape
+    E = en.shape[2]
+    if E == 0:
+        return plane
+    S = hh // 4
+    lines = plane[:, :, 4:4 + 8 * E].reshape(t_, S, 4, E, 8)
+    # columns: [p3 p2 p1 p0 q0 q1 q2 q3]
+    p = lines[..., [3, 2, 1, 0]]    # (..., 4) p0..p3
+    q = lines[..., 4:]
+
+    def dgrad(r):
+        return (torch.abs(p[:, :, r, :, 2] - 2 * p[:, :, r, :, 1]
+                          + p[:, :, r, :, 0]),
+                torch.abs(q[:, :, r, :, 2] - 2 * q[:, :, r, :, 1]
+                          + q[:, :, r, :, 0]))
+    dp0, dq0 = dgrad(0)
+    dp3, dq3 = dgrad(3)
+    dpq0 = dp0 + dq0
+    dpq3 = dp3 + dq3
+    d = dpq0 + dpq3                                       # (T, S, E)
+    act = en & ~((beta == 0) & (tc == 0)) & (d < beta)
+
+    def strong_cond(dpq, r):
+        return ((2 * dpq < (beta >> 2)) &
+                (torch.abs(p[:, :, r, :, 3] - p[:, :, r, :, 0]) +
+                 torch.abs(q[:, :, r, :, 0] - q[:, :, r, :, 3])
+                 < (beta >> 3)) &
+                (torch.abs(p[:, :, r, :, 0] - q[:, :, r, :, 0])
+                 < ((5 * tc + 1) >> 1)))
+    strong = strong_cond(dpq0, 0) & strong_cond(dpq3, 3)
+
+    tc4 = tc[:, :, None, :]                               # per line
+    p0, p1, p2, p3 = (p[..., 0], p[..., 1], p[..., 2], p[..., 3])
+    q0, q1, q2, q3 = (q[..., 0], q[..., 1], q[..., 2], q[..., 3])
+    c2 = 2 * tc4
+
+    def cl(base, v):
+        return torch.clamp(v, base - c2, base + c2)
+    sp0 = cl(p0, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3)
+    sp1 = cl(p1, (p2 + p1 + p0 + q0 + 2) >> 2)
+    sp2 = cl(p2, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3)
+    sq0 = cl(q0, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3)
+    sq1 = cl(q1, (p0 + q0 + q1 + q2 + 2) >> 2)
+    sq2 = cl(q2, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3)
+
+    d_ep = (dp0 + dp3 < ((beta + (beta >> 1)) >> 3))
+    d_eq = (dq0 + dq3 < ((beta + (beta >> 1)) >> 3))
+    delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+    line_on = torch.abs(delta) < tc4 * 10
+    delta = torch.clamp(delta, -tc4, tc4)
+    np0 = torch.clamp(p0 + delta, 0, maxv)
+    nq0 = torch.clamp(q0 - delta, 0, maxv)
+    tch = tc4 >> 1
+    dp = torch.clamp((((p2 + p0 + 1) >> 1) - p1 + delta) >> 1, -tch, tch)
+    dq = torch.clamp((((q2 + q0 + 1) >> 1) - q1 - delta) >> 1, -tch, tch)
+    np1 = torch.clamp(p1 + dp, 0, maxv)
+    nq1 = torch.clamp(q1 + dq, 0, maxv)
+
+    ep4 = d_ep[:, :, None, :]
+    eq4 = d_eq[:, :, None, :]
+    n_p0 = torch.where(line_on, np0, p0)
+    n_q0 = torch.where(line_on, nq0, q0)
+    n_p1 = torch.where(line_on & ep4, np1, p1)
+    n_q1 = torch.where(line_on & eq4, nq1, q1)
+
+    st4 = strong[:, :, None, :]
+    a4 = act[:, :, None, :]
+    out = lines.clone()
+    for col, v in ((1, torch.where(st4, sp2, p2)),
+                   (2, torch.where(st4, sp1, n_p1)),
+                   (3, torch.where(st4, sp0, n_p0)),
+                   (4, torch.where(st4, sq0, n_q0)),
+                   (5, torch.where(st4, sq1, n_q1)),
+                   (6, torch.where(st4, sq2, q2))):
+        out[..., col] = torch.where(a4, torch.clamp(v, 0, maxv),
+                                    lines[..., col])
+    res = plane.clone()
+    res[:, :, 4:4 + 8 * E] = out.reshape(t_, hh, 8 * E)
+    return res
+
+
+def deblock_chroma_pass(plane, tc, en, maxv):
+    """Vertical-edge chroma pass (device_recon.py:795-821); tc/en:
+    (T, S, E)."""
+    t_, hh, ww = plane.shape
+    E = en.shape[2]
+    if E == 0:
+        return plane
+    S = hh // 4
+    need = 6 + 8 * E
+    padw = max(0, need - ww)
+    src = torch.nn.functional.pad(plane, (0, padw)) if padw else plane
+    blocks = src[:, :, 6:need].reshape(t_, S, 4, E, 8)
+    p1, p0, q0, q1 = (blocks[..., 0], blocks[..., 1], blocks[..., 2],
+                      blocks[..., 3])
+    tc4 = tc[:, :, None, :]
+    delta = torch.clamp((((q0 - p0) * 4) + p1 - q1 + 4) >> 3, -tc4, tc4)
+    a4 = en[:, :, None, :]
+    out = blocks.clone()
+    out[..., 1] = torch.where(a4, torch.clamp(p0 + delta, 0, maxv), p0)
+    out[..., 2] = torch.where(a4, torch.clamp(q0 - delta, 0, maxv), q0)
+    res = src.clone()
+    res[:, :, 6:need] = out.reshape(t_, hh, 8 * E)
+    return res[:, :, :ww] if padw else res
+
+
+def sao_apply(src, typ, bpos, eoc, offs, ctb_sz, bd):
+    """SAO of one component (device_recon.py:825-866): src (T, h, w)
+    int32; typ/bpos/eoc (T, ncy, ncx); offs (T, 4, ncy, ncx)."""
+    t_, hh, ww = src.shape
+    dev = src.device
+    maxv = (1 << bd) - 1
+
+    def rep(a):
+        return a.repeat_interleave(ctb_sz, dim=-2) \
+            .repeat_interleave(ctb_sz, dim=-1)[..., :hh, :ww]
+    typ_p, bpos_p, eoc_p, offs_p = rep(typ), rep(bpos), rep(eoc), rep(offs)
+
+    # band offset
+    band = src >> (bd - 5)
+    res_b = src
+    for kq in range(4):
+        match = band == ((bpos_p + kq) & 31)
+        res_b = torch.where(match, src + offs_p[:, kq], res_b)
+
+    # edge offset: 4 classes; neighbours through clamped (edge) indices
+    yy = torch.arange(hh, device=dev)
+    xx = torch.arange(ww, device=dev)
+
+    def shifted(dy, dx):
+        return src[:, torch.clamp(yy + dy, 0, hh - 1)][
+            :, :, torch.clamp(xx + dx, 0, ww - 1)]
+    eo_d = {0: ((0, -1), (0, 1)), 1: ((-1, 0), (1, 0)),
+            2: ((-1, -1), (1, 1)), 3: ((-1, 1), (1, -1))}
+    y2, x2 = yy[:, None], xx[None, :]
+    res_e = src
+    for cls, ((dy0, dx0), (dy1, dx1)) in eo_d.items():
+        n1 = shifted(dy0, dx0)
+        n2 = shifted(dy1, dx1)
+        valid = ((y2 + dy0 >= 0) & (y2 + dy0 < hh) &
+                 (y2 + dy1 >= 0) & (y2 + dy1 < hh) &
+                 (x2 + dx0 >= 0) & (x2 + dx0 < ww) &
+                 (x2 + dx1 >= 0) & (x2 + dx1 < ww))[None]
+        eidx = 2 + torch.sign(src - n1) + torch.sign(src - n2)
+        v = src
+        for ei, kq in ((0, 0), (1, 1), (3, 2), (4, 3)):
+            v = torch.where(eidx == ei, src + offs_p[:, kq], v)
+        v = torch.where(valid, v, src)
+        res_e = torch.where(eoc_p == cls, v, res_e)
+
+    return torch.where(typ_p == 1, torch.clamp(res_b, 0, maxv),
+                       torch.where(typ_p == 2, torch.clamp(res_e, 0, maxv),
+                                   src))
+
+
+def residuals(plan: ReconPlan) -> List[WaveGroup]:
+    """Stage A: every group's residuals (one hevc_dequant_itx launch a
+    group), with the tables stage B reads."""
+    out = []
+    for g in plan.groups:
+        luma, lg = g.key
+        res = dequant_itx(g.coeffs, g.qp, g.ts, g.tqb,
+                          transform_matrix(luma, lg, plan.device), luma=luma,
+                          log2=lg, bd=plan.bd)
+        out.append(WaveGroup(luma, lg, g.ref_idx, g.ref_avail, g.mode,
+                             g.scat_idx, res))
+    return out
+
+
+def predict_waves(plan: ReconPlan, waves: Sequence[WaveGroup]):
+    """Stage B: one hevc_intra_wave launch per wave → (Y (T, H, W), Cb,
+    Cr (T, H/2, W/2)) int32, views of the flat buffers.
+
+    The buffers keep the JAX program's layout: T·H·W + 1 luma and
+    T·2·ch·cw + 1 chroma samples, the last one a trash slot that takes
+    the writes of samples outside the picture.  The waves update them in
+    place, one after the other."""
+    T, W, H = plan.t, plan.width, plan.height
+    cw, ch = W >> 1, H >> 1
+    ybuf = torch.zeros(T * H * W + 1, dtype=torch.int32, device=plan.device)
+    cbuf = torch.zeros(T * 2 * ch * cw + 1, dtype=torch.int32,
+                       device=plan.device)
+    for w in range(plan.n_waves):
+        intra_wave(ybuf, cbuf, waves, [int(g.starts[w]) for g in plan.groups],
+                   [int(g.counts[w]) for g in plan.groups], bd=plan.bd,
+                   strong=plan.strong_smoothing)
+    cpl = cbuf[:-1].view(T, 2, ch, cw)
+    return ybuf[:-1].view(T, H, W), cpl[:, 0], cpl[:, 1]
+
+
+def reconstruct(plan: ReconPlan):
+    """Stages A-D for the plan's batch: (Y (T, H, W), Cb, Cr
+    (T, H/2, W/2)) int32 on the plan's device."""
+    y, cb, cr = predict_waves(plan, residuals(plan))
+    if plan.deblock is not None:
+        y, cb, cr = deblock(plan.deblock, y, cb, cr, (1 << plan.bd) - 1)
+    if plan.sao is not None:
+        y, cb, cr = sao(plan, y, cb, cr)
+    return y, cb, cr
+
+
+def deblock(db, y, cb, cr, maxv):
+    """Stage C: vertical edges, then horizontal ones on the transposed
+    planes (device_recon.py:933-952)."""
+    y = deblock_luma_pass(y, db["beta_v"], db["tc_v"], db["en_v"], maxv)
+    cb = deblock_chroma_pass(cb, db["ctc_v"][:, 0], db["cen_v"][:, 0], maxv)
+    cr = deblock_chroma_pass(cr, db["ctc_v"][:, 1], db["cen_v"][:, 1], maxv)
+    y = deblock_luma_pass(y.transpose(1, 2), db["beta_h"], db["tc_h"],
+                          db["en_h"], maxv).transpose(1, 2)
+    cb = deblock_chroma_pass(cb.transpose(1, 2), db["ctc_h"][:, 0],
+                             db["cen_h"][:, 0], maxv).transpose(1, 2)
+    cr = deblock_chroma_pass(cr.transpose(1, 2), db["ctc_h"][:, 1],
+                             db["cen_h"][:, 1], maxv).transpose(1, 2)
+    return y.contiguous(), cb.contiguous(), cr.contiguous()
+
+
+def sao(plan, y, cb, cr):
+    """Stage D (device_recon.py:954-977), keeping transquant-bypass
+    samples as they were."""
+    s = plan.sao
+    ctb = int(s["ctb"])
+    out = [sao_apply(p, s["typ"][:, c], s["bpos"][:, c], s["eoc"][:, c],
+                     s["offs"][:, c], ctb if c == 0 else ctb >> 1, plan.bd)
+           for c, p in enumerate((y, cb, cr))]
+    if plan.tqb_mask is not None:
+        my = plan.tqb_mask.repeat_interleave(4, dim=1) \
+            .repeat_interleave(4, dim=2)[:, :plan.height, :plan.width]
+        mc = my[:, ::2, ::2]
+        out = [torch.where(m, p, o)
+               for m, p, o in ((my, y, out[0]), (mc, cb, out[1]),
+                               (mc, cr, out[2]))]
+    return tuple(out)
+
+
+def decode_pictures_device(syntaxes: Sequence[SliceSyntax],
+                           raw_tus: Sequence[tuple], device=None
+                           ) -> List[Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]]:
+    """Reconstruct a batch of parsed intra pictures on ``device`` (None
+    means CUDA): per picture the uncropped (Y, Cb, Cr) int32 planes."""
+    plan = build_plan(syntaxes, raw_tus, device)
+    y, cb, cr = reconstruct(plan)
+    return [(y[i], cb[i], cr[i]) for i in range(plan.t)]

@@ -1,0 +1,167 @@
+"""ctypes bridge to the C++ HEVC slice parser (host/hevc_parse.cc).
+
+Counterpart of libheif_tpu/codecs/hevc/native_parse.py:23-248.  The
+parser is the port's only one: it builds at first use
+(``_build.HOST_LIBRARY``) and a failed build raises.  Its output stays in
+flat form, the TU columns and coefficient buffer that
+``device_recon.build_plan`` consumes; the port builds no TU objects and
+has no host reconstruction engine.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import List, Tuple
+
+import numpy as np
+
+from ...core.error import HeifError, SubError
+from ..._build import HOST_LIBRARY
+from .headers import SPS, PPS, SliceHeader
+from .cabac import ContextModels
+from .ctu import SliceSyntax
+
+# fixed family order shared with hevc_parse.cc (enum CtxFamily)
+_FAMILIES = [
+    "sao_merge_flag", "sao_type_idx", "split_cu_flag",
+    "cu_transquant_bypass_flag", "part_mode", "prev_intra_luma_pred_flag",
+    "intra_chroma_pred_mode", "split_transform_flag", "cbf_luma",
+    "cbf_chroma", "cu_qp_delta_abs", "transform_skip_flag",
+    "last_sig_x_prefix", "last_sig_y_prefix", "coded_sub_block_flag",
+    "sig_coeff_flag", "coeff_abs_level_greater1_flag",
+    "coeff_abs_level_greater2_flag",
+]
+
+_P = ctypes.c_void_p
+_ARGS = ([_P, ctypes.c_int64, _P, _P, _P, _P, ctypes.c_int32, _P,
+          ctypes.c_int32] + [_P] * 9 + [ctypes.c_int32, ctypes.c_int32,
+                                        _P, ctypes.c_int64, _P,
+                                        ctypes.c_int64, _P, _P, _P,
+                                        ctypes.c_int32, _P, _P])
+
+
+def _entry(name: str):
+    fn = getattr(HOST_LIBRARY.load(), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGS + ([ctypes.c_int32] if name.endswith("_wpp")
+                               else [])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _params_array(sps: SPS, pps: PPS, sh: SliceHeader) -> np.ndarray:
+    pcm = 0
+    if sps.pcm_enabled:
+        pcm = 1 | (sps.log2_min_pcm_cb_size << 8) | \
+            (sps.log2_max_pcm_cb_size << 16)
+    vals = [
+        sps.pic_width, sps.pic_height, sps.log2_ctb_size,
+        sps.log2_min_cb_size, sps.log2_min_tb_size, sps.log2_max_tb_size,
+        sps.max_transform_hierarchy_depth_intra,
+        int(sps.sample_adaptive_offset_enabled), pcm,
+        int(pps.transquant_bypass_enabled),
+        int(pps.cu_qp_delta_enabled), pps.diff_cu_qp_delta_depth,
+        pps.cb_qp_offset, pps.cr_qp_offset,
+        int(pps.transform_skip_enabled),
+        int(pps.sign_data_hiding_enabled),
+        int(pps.entropy_coding_sync_enabled),
+        sh.qp, int(sh.sao_luma), int(sh.sao_chroma),
+        sh.cb_qp_offset, sh.cr_qp_offset,
+        sps.pic_width_in_ctbs, sps.pic_height_in_ctbs,
+        sps.bit_depth_luma, sps.bit_depth_chroma,
+    ]
+    return np.asarray(vals, dtype=np.int32)
+
+
+def _alloc_parse_bufs(sps: SPS, pps: PPS, sh: SliceHeader):
+    """Scratch buffers the C++ parser fills."""
+    out = SliceSyntax(sps, pps, sh)
+    n_ctbs = sps.pic_width_in_ctbs * sps.pic_height_in_ctbs
+    # worst-case TU count: every 4x4 luma position + chroma entries
+    tu_cap = 2 * out.w4 * out.h4 + 64
+    coeff_cap = 2 * sps.pic_width * sps.pic_height + 4096
+    tu_meta = np.empty((tu_cap, 10), dtype=np.int32)
+    coeff_buf = np.empty(coeff_cap, dtype=np.int32)
+    sao_buf = np.zeros((n_ctbs, 20), dtype=np.int16)
+    counts = np.zeros(2, dtype=np.int64)
+    return out, tu_meta, coeff_buf, sao_buf, counts
+
+
+def _parse_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
+               substreams: List[Tuple[int, int]]):
+    """Run the C++ parser; returns (syntax, tu_meta, n_tus, coeff_buf,
+    sao_buf)."""
+    out, tu_meta, coeff_buf, sao_buf, counts = _alloc_parse_bufs(sps, pps,
+                                                                 sh)
+    ctx = ContextModels(0, sh.qp)
+    fam = np.asarray([ContextModels.LAYOUT[n][0] for n in _FAMILIES],
+                     dtype=np.int32)
+    init_p = np.asarray(ctx.p_state, dtype=np.uint8)
+    init_m = np.asarray(ctx.val_mps, dtype=np.uint8)
+    params = _params_array(sps, pps, sh)
+    subs = np.asarray([v for se in substreams for v in se], dtype=np.int64)
+    rbsp_arr = np.frombuffer(rbsp, dtype=np.uint8)
+    err = ctypes.create_string_buffer(200)
+
+    # WPP wavefront-parallel entropy decode: rows interleave across
+    # worker threads with the spec's 2-column lag, where the stream has
+    # one entry point per CTB row and no cu_qp_delta, on hosts with at
+    # least 3 cores (the JAX package's rule, native_parse.py:126-148)
+    n_workers = 1
+    cores = os.cpu_count() or 1
+    if cores >= 3 and pps.entropy_coding_sync_enabled:
+        n_workers = min(cores - 1, sps.pic_height_in_ctbs)
+    extra = ()
+    name = "tpuheif_hevc_parse_slice"
+    if n_workers > 1 and pps.entropy_coding_sync_enabled and \
+            not pps.cu_qp_delta_enabled and \
+            len(substreams) >= sps.pic_height_in_ctbs:
+        name += "_wpp"
+        extra = (n_workers,)
+
+    ptr = [a.ctypes.data for a in (
+        rbsp_arr, params, fam, init_p, init_m, subs, out.intra_mode_y,
+        out.intra_mode_c, out.ct_depth, out.cu_log2, out.tu_log2, out.qp_y,
+        out.tqb_map, out.nonzero_y, out.avail, tu_meta, coeff_buf, sao_buf,
+        counts)]
+    rc = _entry(name)(
+        ptr[0], len(rbsp), ptr[1], ptr[2], ptr[3], ptr[4], len(init_p),
+        ptr[5], len(substreams), *ptr[6:15], out.w4, out.h4,
+        ptr[15], tu_meta.shape[0], ptr[16], coeff_buf.shape[0], ptr[17],
+        ptr[18], err, len(err), None, None, *extra)
+    if rc == 2:
+        raise HeifError.unsupported(SubError.Unsupported_codec,
+                                    err.value.decode() or "unsupported")
+    if rc != 0:
+        raise HeifError.invalid_input(
+            msg=err.value.decode() or "HEVC slice parse failed")
+    return out, tu_meta, int(counts[0]), coeff_buf, sao_buf
+
+
+def _unpack_sao(out: SliceSyntax, sao_buf, sps: SPS, sh: SliceHeader):
+    """Keep the parser's per-CTB SAO records as (rows, cols, 20)."""
+    if sps.sample_adaptive_offset_enabled and (sh.sao_luma or sh.sao_chroma):
+        out.sao_table = sao_buf.reshape(sps.pic_height_in_ctbs,
+                                        sps.pic_width_in_ctbs, 20)
+
+
+def parse_picture_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
+                      substreams: List[Tuple[int, int]]):
+    """Parse one slice for the device reconstruction: returns (SliceSyntax
+    with maps and SAO, cols (N, 8) int32 [x y log2 c mode qp ts tqb],
+    coeff_buf, offs (N,) int64 offsets into coeff_buf, -1 = no
+    residual)."""
+    out, tu_meta, n_tus, coeff_buf, sao_buf = _parse_raw(
+        sps, pps, sh, rbsp, substreams)
+    cols = np.ascontiguousarray(
+        tu_meta[:n_tus][:, [0, 1, 2, 3, 4, 5, 7, 8]], np.int32)
+    offs = tu_meta[:n_tus, 9].astype(np.int64)
+    # trim the scratch coefficient buffer to its used length (it is
+    # over-allocated and the tail is uninitialized)
+    has = offs >= 0
+    used = int((offs[has] + (1 << (2 * cols[has, 2].astype(np.int64)))
+                ).max()) if has.any() else 0
+    coeff_buf = np.ascontiguousarray(coeff_buf[:used])
+    _unpack_sao(out, sao_buf, sps, sh)
+    return out, cols, coeff_buf, offs

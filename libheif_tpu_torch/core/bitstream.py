@@ -1,8 +1,8 @@
-"""Byte readers and writers for ISOBMFF parsing and serialization.
+"""Byte and bit readers and writers for ISOBMFF parsing and serialization.
 
 Re-designed equivalents of the reference's bitstream layer
 (reference: libheif/bitstream.h — StreamReader:39, BitstreamRange:258,
-StreamWriter:511).  The reference threads an error flag through a BitstreamRange; we instead keep explicit bounds
+BitReader:408, StreamWriter:511).  The reference threads an error flag through a BitstreamRange; we instead keep explicit bounds
 on a memoryview and raise :class:`HeifError` (End_of_data) on overrun,
 which parse code catches at box isolation boundaries.
 
@@ -142,6 +142,69 @@ class ByteReader:
         if self.pos < self.end:
             self.pos += 1  # consume NUL
         return s
+
+
+class BitReader:
+    """MSB-first bit reader with Exp-Golomb codes (ref: bitstream.h
+    BitReader:408), for the HEVC parameter sets and slice headers."""
+
+    __slots__ = ("_buf", "_bytepos", "_end", "_bitbuf", "_bits")
+
+    def __init__(self, data: Union[bytes, bytearray, memoryview]):
+        self._buf = memoryview(data)
+        self._bytepos = 0
+        self._end = len(self._buf)
+        self._bitbuf = 0
+        self._bits = 0
+
+    def _fill(self, nbits: int) -> None:
+        while self._bits < nbits:
+            if self._bytepos >= self._end:
+                raise HeifError.eof("bit reader underrun")
+            self._bitbuf = (self._bitbuf << 8) | self._buf[self._bytepos]
+            self._bytepos += 1
+            self._bits += 8
+
+    def read_bits(self, n: int) -> int:
+        if n == 0:
+            return 0
+        self._fill(n)
+        self._bits -= n
+        v = (self._bitbuf >> self._bits) & ((1 << n) - 1)
+        self._bitbuf &= (1 << self._bits) - 1
+        return v
+
+    def read_flag(self) -> bool:
+        return bool(self.read_bits(1))
+
+    def read_ue(self) -> int:
+        """Exp-Golomb ue(v) (ref: BitReader::get_uvlc)."""
+        zeros = 0
+        while self.read_bits(1) == 0:
+            zeros += 1
+            if zeros > 32:
+                raise HeifError.invalid_input(msg="uvlc code too long")
+        if zeros == 0:
+            return 0
+        return (1 << zeros) - 1 + self.read_bits(zeros)
+
+    def read_se(self) -> int:
+        """Exp-Golomb se(v) (ref: BitReader::get_svlc)."""
+        u = self.read_ue()
+        if u == 0:
+            return 0
+        sign = 1 if (u & 1) else -1
+        return sign * ((u + 1) // 2)
+
+    def skip_bits(self, n: int) -> None:
+        self.read_bits(n)
+
+    def bits_remaining(self) -> int:
+        return (self._end - self._bytepos) * 8 + self._bits
+
+    def byte_align(self) -> None:
+        self._bits -= self._bits % 8
+        self._bitbuf &= (1 << self._bits) - 1
 
 
 class ByteWriter:

@@ -55,10 +55,11 @@ class ImageTiling:
 class DecodingOptions:
     """(ref: heif_decoding_options v10, heif_decoding.h:63-158).
 
-    The JAX package's ``prefer_device_grid`` and ``mesh`` (batched
-    coded-grid and sharded decode) wait for the slices that port those
-    paths, and its ``decoder_id`` (which codec plugin decodes a coded
-    item) for the first coded-image slice."""
+    The JAX package's ``prefer_device_grid`` has no counterpart: an hvc1
+    grid always decodes as one batch on the context's device.  Its
+    ``mesh`` (sharded decode) waits for the multi-card slice, and its
+    ``decoder_id`` (which codec plugin decodes a coded item) for a second
+    decoder of one format."""
 
     ignore_transformations: bool = False
     convert_hdr_to_8bit: bool = False

@@ -650,6 +650,12 @@ NEW_MODULES = [
     "libheif_tpu_torch.items.item", "libheif_tpu_torch.items.unci_item",
     "libheif_tpu_torch.items.derived", "libheif_tpu_torch.image.pixel_image",
     "libheif_tpu_torch.color.ops", "libheif_tpu_torch.color.pipeline",
+    "libheif_tpu_torch.boxes.codec_cfg", "libheif_tpu_torch.items.codec_items",
+    "libheif_tpu_torch.parallel.coded_grid",
+    "libheif_tpu_torch.codecs.hevc.decoder",
+    "libheif_tpu_torch.codecs.hevc.device_recon",
+    "libheif_tpu_torch.codecs.hevc.cuda_fast",
+    "libheif_tpu_torch.codecs.hevc.native_parse",
 ]
 
 

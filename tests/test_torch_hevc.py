@@ -1,0 +1,311 @@
+"""HEVC decode of the PyTorch port against the JAX package, on the CPU.
+
+Streams come from the JAX package's IntraEncoder on seeded numpy images;
+the port decodes them with ``device="cpu"`` (the kernels' plain
+versions) and every comparison is bit for bit.  The committed fixtures
+under libheif_tpu_torch/testdata/hevc/ (the card's test data) are
+regenerated with
+
+    python -m tests.test_torch_hevc --write-fixtures
+
+and checked by tests/test_torch_hevc_fixtures.py.
+"""
+
+import dataclasses
+import hashlib
+import json
+import os
+import re
+import sys
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from libheif_tpu.codecs.hevc import headers as JH  # noqa: E402
+from libheif_tpu.codecs.hevc import device_recon as jrecon  # noqa: E402
+from libheif_tpu.codecs.hevc.decoder import (  # noqa: E402
+    decode_intra_picture as jdecode, _substreams as jsubstreams)
+from libheif_tpu.codecs.hevc.encoder import (  # noqa: E402
+    IntraEncoder, EncParams)
+from libheif_tpu.codecs.hevc.native_parse import (  # noqa: E402
+    parse_picture_raw as jparse_raw)
+from libheif_tpu.boxes.codec_cfg import (  # noqa: E402
+    remove_emulation_prevention as jremove_epb)
+from tests.hevc_difftest import make_image, CONFIGS  # noqa: E402
+
+from libheif_tpu_torch import decode_intra_picture  # noqa: E402
+from libheif_tpu_torch.codecs.hevc import (  # noqa: E402
+    cuda_fast as hcf, decoder as pdecoder, device_recon as precon,
+    headers as PH)
+from libheif_tpu_torch.core.error import (  # noqa: E402
+    ErrorCode, HeifError)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "libheif_tpu_torch", "testdata", "hevc")
+KERNEL_SRC = os.path.join(REPO, "libheif_tpu_torch", "codecs", "hevc",
+                          "csrc", "hevc_kernels.cu")
+
+# the feature matrix of tests/test_hevc_device.py:23-26, then 10 and 12 bit
+SUBSET = ("auto-qp26", "nxn-dqp-sh", "big-ctb-auto", "strongsmooth",
+          "rqt1-cu32", "deblock-smooth", "sao", "wpp-ctb64", "x265full",
+          "x265full-smooth", "dqp-big-varcu", "chromamodes")
+X265LIKE = dict(ctb_log2=6, cu_log2=4, rqt_depth=1, strong_smoothing=True,
+                sign_hiding=True, cu_qp_delta=True, diff_qg_depth=1,
+                deblock=True, sao=True, wpp=True)
+STREAMS = [c for c in CONFIGS if c[0] in SUBSET] + [
+    c for c in CONFIGS if c[0] == "10bit-x265full"] + [
+    ("12bit-x265like", dict(qp=26, bit_depth=12, **X265LIKE), (96, 64),
+     True)]
+# the card's full-width tiles: (name, seed, smooth, qp, bit depth)
+TILES = [("tile512_s0", 0, False, 26, 8), ("tile512_s1", 1, True, 22, 8),
+         ("tile512_s2", 2, False, 34, 8), ("tile512_s3", 3, True, 30, 8),
+         ("tile512_10bit", 4, True, 30, 10)]
+
+
+def encode(kw, size, smooth, seed=7):
+    """(sps, pps, slice) NALs of one picture."""
+    w, h = size
+    img = make_image(w, h, seed, smooth, bit_depth=kw.get("bit_depth", 8))
+    slice_nal, (sps, pps) = IntraEncoder(w, h, EncParams(**kw)).encode(img)
+    return sps, pps, slice_nal
+
+
+def port_decode(sps, pps, slices):
+    return [p.numpy() for p in decode_intra_picture(
+        PH.parse_sps(sps), PH.parse_pps(pps), slices, device="cpu")]
+
+
+@pytest.fixture(autouse=True)
+def serial_native_engine(monkeypatch):
+    """The JAX native engine parses and reconstructs on two threads by
+    default, and under load that pipeline can give wrong samples (8 of
+    300 decodes of one stream, six busy cores); its serial form is the
+    reference here."""
+    monkeypatch.setenv("TPUHEIF_HEVC_PIPELINE", "0")
+
+
+def jax_decode(sps, pps, slices, engine):
+    return [np.asarray(p) for p in jdecode(
+        JH.parse_sps(sps), JH.parse_pps(pps), slices, engine=engine)]
+
+
+def plane_hashes(planes):
+    """SHA-256 of each uncropped plane as little-endian int32."""
+    return {ch: hashlib.sha256(np.ascontiguousarray(p, "<i4").tobytes())
+            .hexdigest() for ch, p in zip(("Y", "Cb", "Cr"), planes)}
+
+
+def assert_planes_equal(got, ref, what=""):
+    for ch, a, b in zip(("Y", "Cb", "Cr"), got, ref):
+        np.testing.assert_array_equal(a, b, err_msg=f"{what} {ch}")
+
+
+# ------------------------------------------------------------ the decode
+
+@pytest.mark.parametrize("name,kw,size,smooth", STREAMS,
+                         ids=[s[0] for s in STREAMS])
+def test_matches_jax_device_engine(name, kw, size, smooth):
+    sps, pps, sl = encode(kw, size, smooth)
+    assert_planes_equal(port_decode(sps, pps, [sl]),
+                        jax_decode(sps, pps, [sl], "device"), name)
+
+
+def _parsed(kw, size, smooth, seed=7):
+    """One stream parsed by both packages: (JAX syntax and raw TUs, the
+    port's syntax and raw TUs)."""
+    sps_n, pps_n, sl = encode(kw, size, smooth, seed)
+    sps, pps = JH.parse_sps(sps_n), JH.parse_pps(pps_n)
+    sh = JH.parse_slice_header(sl, sps, {pps.pps_id: pps})
+    rbsp = jremove_epb(sl[2:])
+    subs = jsubstreams(sl, rbsp, sh.data_offset_bits, sh.entry_point_offsets)
+    jsyn, cols, coeff, offs = jparse_raw(sps, pps, sh, rbsp, subs)
+    psyn, praw = pdecoder.parse_picture(PH.parse_sps(sps_n),
+                                        PH.parse_pps(pps_n), [sl])
+    return (jsyn, (cols, coeff, offs)), (psyn, praw)
+
+
+def test_batch_matches_single_pictures():
+    """Six pictures as one batch (the grid path) against the JAX
+    package's one-picture decodes."""
+    cfgs = [c for c in CONFIGS if c[0] in ("auto-qp26", "sao",
+                                             "deblock")][:3] * 2
+    syns, raws, singles = [], [], []
+    for seed, (name, kw, _, smooth) in enumerate(cfgs):
+        sps, pps, sl = encode(kw, (64, 64), smooth, seed)
+        syn, raw = pdecoder.parse_picture(PH.parse_sps(sps),
+                                          PH.parse_pps(pps), [sl])
+        syns.append(syn)
+        raws.append(raw)
+        singles.append(jax_decode(sps, pps, [sl], "native"))
+    batch = precon.decode_pictures_device(syns, raws, "cpu")
+    assert len(batch) == len(singles)
+    for i, (b, s) in enumerate(zip(batch, singles)):
+        assert_planes_equal([p.numpy() for p in b], s, f"picture {i}")
+
+
+def test_parse_matches_jax():
+    """The port's copy of the C++ parser gives the JAX package's TU
+    columns, coefficients, maps and SAO parameters."""
+    kw = dict(qp=24, bit_depth=8, **X265LIKE, var_cu=True, nxn=True,
+              chroma_modes=True)
+    (jsyn, jraw), (psyn, praw) = _parsed(kw, (192, 128), False)
+    for a, b in zip(praw, jraw):
+        np.testing.assert_array_equal(a, b)
+    for m in ("intra_mode_y", "intra_mode_c", "cu_log2", "tu_log2", "qp_y",
+              "tqb_map", "nonzero_y", "avail"):
+        np.testing.assert_array_equal(getattr(psyn, m), getattr(jsyn, m))
+    assert jsyn.sao and psyn.sao_table is not None
+    for (cx, cy), sp in jsyn.sao.items():
+        assert dataclasses.asdict(psyn.sao_param(cx, cy)) == \
+            dataclasses.asdict(sp)
+
+
+@pytest.mark.parametrize("cfg", ["x265full", "wpp-ctb64", "10bit-x265full",
+                                 "slists-custom"])
+def test_headers_match_jax(cfg):
+    name, kw, size, smooth = next(c for c in CONFIGS if c[0] == cfg)
+    sps_n, pps_n, sl = encode(kw, size, smooth)
+    jsps, jpps = JH.parse_sps(sps_n), JH.parse_pps(pps_n)
+    psps, ppps = PH.parse_sps(sps_n), PH.parse_pps(pps_n)
+    assert dataclasses.asdict(psps) == dataclasses.asdict(jsps)
+    assert dataclasses.asdict(ppps) == dataclasses.asdict(jpps)
+    jsh = JH.parse_slice_header(sl, jsps, {jpps.pps_id: jpps})
+    psh = PH.parse_slice_header(sl, psps, {ppps.pps_id: ppps})
+    assert dataclasses.asdict(psh) == dataclasses.asdict(jsh)
+    assert psps.cropped_size == jsps.cropped_size
+
+
+def test_plan_tables_match_jax():
+    """build_plan's tables for a two-picture batch equal the JAX
+    package's on the real rows and waves (the port keeps no padding)."""
+    pics = [_parsed(dict(qp=q, **X265LIKE, var_cu=True, nxn=True), (128, 64),
+                    sm, seed) for seed, (q, sm) in enumerate([(24, False),
+                                                               (34, True)])]
+    jplan = jrecon.build_plan([j[0] for j, _ in pics],
+                              raw_tus=[j[1] for j, _ in pics])
+    pplan = precon.build_plan([p[0] for _, p in pics],
+                              [p[1] for _, p in pics], "cpu")
+    assert pplan.n_waves <= jplan.n_waves
+    assert [g.key for g in pplan.groups] == [g.key for g in jplan.groups]
+    for pg, jg in zip(pplan.groups, jplan.groups):
+        n = jg.n
+        assert pg.n == n
+        for f in ("coeffs", "qp", "ts", "tqb", "mode", "ref_idx",
+                  "ref_avail", "scat_idx"):
+            np.testing.assert_array_equal(getattr(pg, f).numpy(),
+                                          getattr(jg, f)[:n],
+                                          err_msg=f"{jg.key} {f}")
+        for f in ("starts", "counts"):
+            np.testing.assert_array_equal(getattr(pg, f),
+                                          getattr(jg, f)[:pplan.n_waves])
+        assert not jg.counts[pplan.n_waves:].any()
+    for k, v in jplan.deblock.items():
+        np.testing.assert_array_equal(pplan.deblock[k].numpy(), v, k)
+    for k in ("typ", "bpos", "eoc", "offs"):
+        np.testing.assert_array_equal(pplan.sao[k].numpy(), jplan.sao[k], k)
+    assert int(pplan.sao["ctb"]) == int(jplan.sao["ctb"])
+    assert (pplan.tqb_mask is None) == (jplan.tqb_mask is None)
+
+
+def test_transform_skip_and_bypass_arms():
+    """The arms the encoder never emits: transform skip on 4x4 TUs and
+    transquant bypass, set in the parsed TU columns, through the JAX
+    device program and the port on the same columns."""
+    kw = dict(qp=30, cu_log2=3, nxn=True, deblock=True, sao=True)
+    (jsyn, (cols, coeff, offs)), (psyn, _) = _parsed(kw, (64, 64), False)
+    cols = cols.copy()
+    i = np.arange(len(cols))
+    cols[:, 6] = (cols[:, 2] == 2) & (i % 3 == 0)       # ts at 4x4
+    cols[:, 7] = (i % 7 == 1)                           # tqb anywhere
+    assert cols[:, 6].any() and cols[:, 7].any()
+    raw = (cols, coeff, offs)
+    ref = [np.asarray(p) for p in
+           jrecon.decode_pictures_device([jsyn], raw_tus=[raw])[0]]
+    got = [p.numpy() for p in
+           precon.decode_pictures_device([psyn], [raw], "cpu")[0]]
+    assert_planes_equal(got, ref)
+
+
+def test_kernel_constants_match_tables():
+    """The angle and level-scale tables written into hevc_kernels.cu
+    equal the port's tables (tables.py)."""
+    src = open(KERNEL_SRC).read()
+
+    def table(name):
+        body = re.search(name + r"\[\d+\] = \{(.*?)\};", src, re.S).group(1)
+        return [int(v) for v in body.replace("\n", " ").split(",")]
+    assert table("kIntraAngle") == hcf.ANGLE.tolist()
+    assert table("kInvAngle") == hcf.INV_ANGLE.tolist()
+    assert table("kLevelScale") == list(hcf.LEVEL_SCALE)
+
+
+# ---------------------------------------------------------- what is refused
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(qp=26, scaling_lists="default"), "scaling lists"),
+    (dict(qp=26, num_slices=2), "slice")])
+def test_unsupported_streams_raise(kw, what):
+    w, h = 96, 64
+    img = make_image(w, h, 7, False)
+    enc = IntraEncoder(w, h, EncParams(**kw))
+    slices, (sps, pps) = enc.encode_slices(img)
+    with pytest.raises(HeifError, match=what) as e:
+        decode_intra_picture(PH.parse_sps(sps), PH.parse_pps(pps), slices,
+                             device="cpu")
+    assert e.value.code == ErrorCode.Unsupported_feature
+
+
+def test_tiles_refused():
+    sps, pps, sl = encode(dict(qp=26), (64, 64), False)
+    psps, ppps = PH.parse_sps(sps), PH.parse_pps(pps)
+    pdecoder.check_picture_supported(psps, ppps, [sl])
+    ppps.tiles_enabled = True
+    with pytest.raises(HeifError, match="tiles"):
+        pdecoder.check_picture_supported(psps, ppps, [sl])
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    sps, pps, sl = encode(dict(qp=26), (64, 64), False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decode_intra_picture(PH.parse_sps(sps), PH.parse_pps(pps), [sl])
+
+
+# ------------------------------------------------------------- fixtures
+
+def write_fixtures():
+    """Encode the card's test streams and write them with a manifest of
+    the JAX device engine's plane hashes."""
+    os.makedirs(FIXTURES, exist_ok=True)
+    jobs = [(name, dict(qp=qp, bit_depth=bd, **X265LIKE), (512, 512), sm,
+             seed) for name, seed, sm, qp, bd in TILES]
+    jobs += [(name, kw, size, sm, 7) for name, kw, size, sm in STREAMS]
+    streams = []
+    for name, kw, size, smooth, seed in jobs:
+        sps, pps, sl = encode(kw, size, smooth, seed)
+        planes = jax_decode(sps, pps, [sl], "device")
+        fname = f"{name}.hevc"
+        with open(os.path.join(FIXTURES, fname), "wb") as f:
+            f.write(sl)
+        streams.append(dict(
+            name=name, width=size[0], height=size[1],
+            bit_depth=kw.get("bit_depth", 8), seed=seed, smooth=smooth,
+            params=kw, sps=sps.hex(), pps=pps.hex(), slice=fname,
+            sha256=plane_hashes(planes)))
+        print(name, size, len(sl), "bytes", flush=True)
+    with open(os.path.join(FIXTURES, "manifest.json"), "w") as f:
+        json.dump({"about": "HEVC intra streams from the JAX package's "
+                   "IntraEncoder (tests/test_torch_hevc.py write_fixtures)"
+                   "; sha256 of the uncropped Y, Cb, Cr planes as "
+                   "little-endian int32, decoded by its device engine",
+                   "streams": streams}, f, indent=1)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--write-fixtures"]:
+        write_fixtures()
+    else:
+        sys.exit("usage: python -m tests.test_torch_hevc --write-fixtures")

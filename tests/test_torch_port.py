@@ -163,22 +163,29 @@ def test_explicit_cpu_device_runs(monkeypatch):
 
 
 def test_kernel_build_is_configured_for_hopper():
-    """The build compiles every source under csrc/ for sm_90a without FMA
-    contraction and writes under build/libheif_tpu_torch/."""
+    """The build compiles every source under codecs/*/csrc/ for sm_90a
+    without FMA contraction into one library under
+    build/libheif_tpu_torch/, and every kernel's entry point is in its
+    codec's source."""
     from libheif_tpu_torch import _build
-    srcs = [p.name for p in _build.LIBRARY.sources()]
-    assert srcs == ["unc_kernels.cu"]
+    srcs = [p.relative_to(REPO).as_posix() for p in _build.LIBRARY.sources()]
+    assert srcs == ["libheif_tpu_torch/codecs/hevc/csrc/hevc_kernels.cu",
+                    "libheif_tpu_torch/codecs/unc/csrc/unc_kernels.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags and "use_fast_math" not in flags
     assert _build.BUILD_DIR.relative_to(REPO).as_posix() == \
         "build/libheif_tpu_torch"
+    from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
     from libheif_tpu_torch.codecs.unc import cuda_fast
     assert sorted(cuda_fast.KERNELS) == [
         "planes_ycbcr8_to_rgb", "strided_extract_paste", "tile_yuv_to_rgb"]
-    src = (_build.CSRC_DIR / "unc_kernels.cu").read_text()
-    for k in cuda_fast.KERNELS.values():
-        assert f'int {k.symbol}(' in src
+    assert sorted(hevc_fast.KERNELS) == ["hevc_dequant_itx",
+                                         "hevc_intra_wave"]
+    for mod, src in ((cuda_fast, srcs[1]), (hevc_fast, srcs[0])):
+        text = open(os.path.join(REPO, src)).read()
+        for k in mod.KERNELS.values():
+            assert f'int {k.symbol}(' in text
 
 
 def test_empty_output_launches_nothing():
