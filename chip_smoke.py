@@ -41,19 +41,21 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    single-item file equal to the library path's image;
 4c. the HEVC phase, on the streams committed in
    libheif_tpu_torch/testdata/hevc (encoded by the JAX package, with the
-   plane hashes of its device engine): hold hevc_dequant_itx against its
-   plain version on every TU group of every stream, and hevc_intra_wave
-   through the whole wave loop against the plain loop on every small
-   stream and a batch of two 512x512 tiles; decode every stream on the
-   card and require its planes' hashes; write a phone photo's HEIC (an
-   8x6 grid of 48 512x512 hvc1 items, 4032x3024 output) and decode it
-   through HeifContext to interleaved RGB, with the launch counts read
-   around it (hevc_dequant_itx once per TU group, hevc_intra_wave once
-   per wave of the whole batch, planes_ycbcr8_to_rgb once, no
-   strided_extract_paste) and its planes held equal to the single tiles'
-   decodes placed where the grid puts them; decode a single-item hvc1
-   file and the 10-bit tile through the context on the card and on the
-   CPU with 0 samples differing;
+   plane hashes of its device engine): hold hevc_dequant_itx (one launch
+   for all TU groups) against its plain version on every TU group of
+   every stream, and hevc_intra_wave (one launch walking every picture's
+   waves, one block a picture) against the plain lockstep wave loop, on
+   every small stream, a batch of two 512x512 tiles, a batch whose
+   pictures have different wave counts, one 512x512 tile and the photo's
+   48 tiles (stage A on the photo's 48 tiles too); decode every stream on the card and require its
+   planes' hashes; write a phone photo's HEIC (an 8x6 grid of 48 512x512
+   hvc1 items, 4032x3024 output) and decode it through HeifContext to
+   interleaved RGB, with the launch counts read around it
+   (hevc_dequant_itx once, hevc_intra_wave once, planes_ycbcr8_to_rgb
+   once, no strided_extract_paste) and its planes held equal to the
+   single tiles' decodes placed where the grid puts them; decode a
+   single-item hvc1 file and the 10-bit tile through the context on the
+   card and on the CPU with 0 samples differing;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -67,7 +69,11 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    contexts, and their device time (torch.profiler) over wall time;
    the HEVC kernels at the photo's shapes beside their plain versions,
    the float64 matmul yardstick of the transforms, their byte bounds and
-   the wave chain's bound (waves x an empty launch), the plain deblock
+   the wave chain's bound (waves x one step of hevc_wave_probe, which has
+   the wave kernel's launch shape and per step one store, the barrier and
+   one dependent load), stage B as the decode calls it (predict_waves:
+   buffers allocated and zeroed, then the kernel), hevc_intra_wave on one
+   tile beside its chain bound, the plain deblock
    and SAO stages, and the photo's decode part by part (parse, tile
    parses, plan on the host and on the card, host-to-device copies, the
    four stages, compose, convert, interleave) over REPEATS fresh
@@ -1149,6 +1155,8 @@ PHOTO = (4032, 3024)
 PHOTO_GRID = (6, 8)                  # rows, columns of 512x512 tiles
 PHOTO_TILES = ("tile512_s0", "tile512_s1", "tile512_s2", "tile512_s3")
 K2_BATCH = ("tile512_s0", "tile512_s1")   # the plain wave loop is slow
+K2_SINGLE = "tile512_s2"
+K2_MIXED = ("nxn-dqp-sh", "rqt1-cu32")    # 112 and 12 waves, one key
 # int32 operations per predicted sample in hevc_intra_wave (angular: two
 # products, three sums, shift, clip; planar and DC fewer) and per
 # multiply-add of hevc_dequant_itx
@@ -1238,12 +1246,39 @@ def plain_residuals(plan):
         bd=plan.bd) for g in plan.groups]
 
 
+def check_residuals(tally, what, plan):
+    """hevc_dequant_itx (one launch for every group of the plan) against
+    its plain version on each group; the kernel's residuals."""
+    waves = device_recon.residuals(plan)
+    for g, w, ref in zip(plan.groups, waves, plain_residuals(plan)):
+        tally.compare("hevc_dequant_itx", f"{what} {g.key} n={g.n}",
+                      w.res, ref, exact=True)
+    return waves
+
+
+def check_waves(tally, what, plan, waves):
+    """hevc_intra_wave against the plain lockstep wave loop; the plain
+    buffers."""
+    ybuf, cbuf = plain_waves(plan, waves)
+    y, c = wave_buffers(plan)
+    hevc_fast.intra_waves(y, c, waves, plan.wave_rows, bd=plan.bd,
+                          strong=plan.strong_smoothing)
+    tally.compare("hevc_intra_wave", f"{what} luma, {plan.n_waves} waves",
+                  y[:-1], ybuf[:-1], exact=True)
+    tally.compare("hevc_intra_wave", f"{what} chroma", c[:-1], cbuf[:-1],
+                  exact=True)
+    return ybuf, cbuf
+
+
 def check_hevc_kernels(tally, streams):
     """hevc_dequant_itx on every group of every stream, and hevc_intra_wave
-    through the whole wave loop on every small stream and on a batch of
-    two 512x512 tiles, against their plain versions on the card."""
+    on every small stream, on a batch of two 512x512 tiles, on a batch
+    whose pictures have different wave counts and on one 512x512 tile,
+    against their plain versions on the card; then predict_waves (the
+    decode's call) against the same."""
     small = [e for n, e in streams.items() if not n.startswith("tile512")]
     batches = [[e] for e in small] + [[streams[n] for n in K2_BATCH]]
+    batches += [[streams[n] for n in K2_MIXED]]
     batches += [[e] for n, e in streams.items()
                 if n.startswith("tile512") and n not in K2_BATCH]
     for batch in batches:
@@ -1251,17 +1286,15 @@ def check_hevc_kernels(tally, streams):
         parsed = [hevc_parse(e) for e in batch]
         plan = device_recon.build_plan([p[0] for p in parsed],
                                        [p[1] for p in parsed], DEV)
-        waves = device_recon.residuals(plan)
-        for g, w, ref in zip(plan.groups, waves, plain_residuals(plan)):
-            tally.compare("hevc_dequant_itx", f"{what} {g.key} n={g.n}",
-                          w.res, ref, exact=True)
-        if len(batch) == 1 and batch[0]["name"].startswith("tile512"):
+        waves = check_residuals(tally, what, plan)
+        if len(batch) == 1 and batch[0]["name"].startswith("tile512") \
+                and batch[0]["name"] != K2_SINGLE:
             continue
+        ybuf, cbuf = check_waves(tally, what, plan, waves)
         y, cb, cr = device_recon.predict_waves(plan, waves)
-        ybuf, cbuf = plain_waves(plan, waves)
-        tally.compare("hevc_intra_wave", f"{what} luma, {plan.n_waves} waves",
+        tally.compare("hevc_intra_wave", f"{what} predict_waves luma",
                       y.reshape(-1), ybuf[:-1], exact=True)
-        tally.compare("hevc_intra_wave", f"{what} chroma",
+        tally.compare("hevc_intra_wave", f"{what} predict_waves chroma",
                       torch.stack([cb, cr], 1).reshape(-1), cbuf[:-1],
                       exact=True)
 
@@ -1299,10 +1332,10 @@ def check_photo(blob, streams, plan):
             None, Colorspace.RGB, Chroma.InterleavedRGB)
     log(f"hevc photo launches {launches} (plan: {len(plan.groups)} "
         f"groups, {plan.n_waves} waves)")
-    assert launches["hevc_dequant_itx"] == len(plan.groups), \
-        "hevc_dequant_itx: not one launch per TU group"
-    assert launches["hevc_intra_wave"] == plan.n_waves, \
-        "hevc_intra_wave: not one launch per wave"
+    assert launches["hevc_dequant_itx"] == 1, \
+        "hevc_dequant_itx: not one launch per plan"
+    assert launches["hevc_intra_wave"] == 1, \
+        "hevc_intra_wave: not one launch per plan"
     assert launches["planes_ycbcr8_to_rgb"] == 1
     assert launches["strided_extract_paste"] == 0
     assert launches["tile_yuv_to_rgb"] == 0
@@ -1485,27 +1518,69 @@ def hevc_kernel_rows(timer, tally, plan, launches):
         n = 1 << g.key[1]
         nbytes += g.n * ((4 * n + 1) * 9 + 4 + n * n * 12)
         nops += g.n * n * n * K2_OPS_PER_SAMPLE
-    b_ms, b_by = bound(nbytes, nops)
+    b_ms, _ = bound(nbytes, nops)
+    chain_ms = wave_chain_ms(timer, plan)
     empty_ms = timer([lambda: torch.cuda._sleep(0)], n=500)
+    ybuf, cbuf = wave_buffers(plan)
     rows["hevc_intra_wave"] = {
         "name": "hevc_intra_wave", "route": "cuda", "source": HEVC_SOURCE,
         "replaces": f"{JNP_RECON}:890",
         "launches": launches["hevc_intra_wave"],
         "max_abs_err": tally.max_abs_err["hevc_intra_wave"],
-        # one pass at a time: its 336 launches fit the launch queue, so
-        # the host's enqueue does not pace the card
-        "ms": float(np.median([timer([
+        "ms": timer([lambda: hevc_fast.intra_waves(
+            ybuf, cbuf, waves, plan.wave_rows, bd=plan.bd,
+            strong=plan.strong_smoothing)]),
+        # stage B as the decode calls it (and as the per-wave design's
+        # row timed it): the buffers allocated and zeroed, then the kernel
+        "predict_waves_ms": float(np.median([timer([
             lambda: device_recon.predict_waves(plan, waves)], n=1)
             for _ in range(5)])),
         "plain_ms": timer([lambda: plain_waves(plan, waves)], n=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "chain_bound_ms": plan.n_waves * empty_ms,
+        # the larger of the in-kernel chain (waves x one probe step) and
+        # the bytes
+        "bound_ms": max(chain_ms, b_ms),
+        "bound_by": "operations" if chain_ms > b_ms else "bytes",
+        "library_ms": None,
+        "chain_bound_ms": chain_ms, "byte_bound_ms": b_ms,
+        "launch_chain_ms": plan.n_waves * empty_ms,
         "empty_launch_ms": empty_ms, "waves": plan.n_waves,
         "checks": tally.checks["hevc_intra_wave"],
         "differing_pixels": tally.differing["hevc_intra_wave"],
         "bytes": nbytes, "ops": nops}
     log(f"hevc kernels {json.dumps(rows)}")
     return rows
+
+
+def wave_buffers(plan):
+    """Flat luma and chroma sample buffers of a plan (with the trash
+    slot).  The wave kernel writes every sample before it reads it, so a
+    timing loop reuses them."""
+    T, H, W = plan.t, plan.height, plan.width
+    return (torch.zeros(T * H * W + 1, dtype=torch.int32, device=DEV),
+            torch.zeros(T * 2 * (H >> 1) * (W >> 1) + 1, dtype=torch.int32,
+                        device=DEV))
+
+
+def wave_chain_ms(timer, plan):
+    """hevc_intra_wave's in-kernel chain bound on a plan: n_waves steps of
+    hevc_wave_probe (one block a picture, as the kernel), from a launch of
+    10 x n_waves steps, so the launch itself is amortised."""
+    buf = torch.zeros(plan.t, dtype=torch.int32, device=DEV)
+    steps = 10 * plan.n_waves
+    ms = timer([lambda: hevc_fast.wave_probe(buf, steps)], n=5)
+    return ms / steps * plan.n_waves
+
+
+def wave_single(timer, plan):
+    """hevc_intra_wave on a one-picture plan beside its chain bound."""
+    waves = device_recon.residuals(plan)
+    ybuf, cbuf = wave_buffers(plan)
+    out = {"ms": timer([lambda: hevc_fast.intra_waves(
+        ybuf, cbuf, waves, plan.wave_rows, bd=plan.bd,
+        strong=plan.strong_smoothing)], n=10),
+        "chain_bound_ms": wave_chain_ms(timer, plan), "waves": plan.n_waves}
+    log(f"hevc wave single tile {json.dumps(out)}")
+    return out
 
 
 def photo_device_share(blob, runs):
@@ -1623,6 +1698,8 @@ def main():
     log(f"hevc photo file {len(photo)} B, {plan.t} tiles, "
         f"{plan.n_waves} waves, groups "
         f"{ {str(g.key): g.n for g in plan.groups} }")
+    check_waves(tally, f"photo {plan.t} tiles", plan,
+                check_residuals(tally, f"photo {plan.t} tiles", plan))
     photo_launches = check_photo(photo, streams, plan)
     hvc1_blobs = check_hvc1_files(streams)
 
@@ -1797,6 +1874,9 @@ def main():
 
     # the HEVC kernels at the photo's shapes, its stages and file path
     kern.update(hevc_kernel_rows(timer, tally, plan, photo_launches))
+    single = hevc_parse(streams[PHOTO_TILES[0]])
+    wave_one = wave_single(timer, device_recon.build_plan(
+        [single[0]], [single[1]], DEV))
     hevc_stages = stage_ms(timer, plan)
     photo_runs = time_photo(photo, streams)
     hvc1_runs = time_hvc1_single(hvc1_blobs["tile512_s0"])
@@ -1838,7 +1918,8 @@ def main():
                        "512x512", "waves": plan.n_waves,
                        "launches": photo_launches, "runs": photo_runs,
                        "device": photo_device,
-                       "stage_device_ms": hevc_stages},
+                       "stage_device_ms": hevc_stages,
+                       "wave_single_tile": wave_one},
         "hevc_single_item_total_ms": hvc1_runs,
         "elapsed_s": time.perf_counter() - t_start}
     log("summary " + json.dumps(summary))

@@ -3,15 +3,17 @@ plain PyTorch versions.
 
 Two stages of the JAX package's jnp device program
 (libheif_tpu/codecs/hevc/device_recon.py ``_build_program``) are kernels
-in ``csrc/hevc_kernels.cu``:
+in ``csrc/hevc_kernels.cu``, each one launch for a whole plan:
 
-=================  ==========================================  ==========
+=================  ==========================================  ===========
 kernel             replaces                                    wrapper
-=================  ==========================================  ==========
-hevc_dequant_itx   stage A, ``residuals`` (:540-567)           dequant_itx
-hevc_intra_wave    stage B, ``predict`` + scatter, one wave    intra_wave
-                   of the ``lax.scan`` (:571-698, :890-927)
-=================  ==========================================  ==========
+=================  ==========================================  ===========
+hevc_dequant_itx   stage A, ``residuals`` (:540-567), every    dequant_itx
+                   TU group
+hevc_intra_wave    stage B, ``predict`` + scatter, the whole   intra_waves
+                   ``lax.scan`` over waves (:571-698,
+                   :890-927), every picture
+=================  ==========================================  ===========
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
 tensors it runs the plain version beside it, which repeats the jnp
@@ -22,7 +24,7 @@ a launch count (``KERNELS[name].launches``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -35,9 +37,15 @@ from .tables import DCT, DST4, INTRA_INV_ANGLE, INTRA_PRED_ANGLE
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 HEVC_DEQUANT_ITX = CudaKernel(
-    "hevc_dequant_itx", "launch_hevc_dequant_itx", [_P] * 6 + [_I] * 3)
+    "hevc_dequant_itx", "launch_hevc_dequant_itx", [_P, _I, _I])
 HEVC_INTRA_WAVE = CudaKernel(
-    "hevc_intra_wave", "launch_hevc_intra_wave", [_P, _I, _P, _P, _I, _I])
+    "hevc_intra_wave", "launch_hevc_intra_wave",
+    [_P, _I, _P, _I, _I, _P, _P, _I, _I])
+# hevc_intra_wave's chain-bound probe (off the decode path, no plain
+# version): `steps` steps of one store, the wave barrier and one dependent
+# load, with the wave kernel's launch shape
+HEVC_WAVE_PROBE = CudaKernel(
+    "hevc_wave_probe", "launch_hevc_wave_probe", [_P, _I, _I])
 
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (HEVC_DEQUANT_ITX, HEVC_INTRA_WAVE)}
@@ -56,38 +64,67 @@ for _m in range(2, 35):
 
 def transform_matrix(luma: bool, log2: int, device) -> torch.Tensor:
     """The (s, s) int32 inverse-transform matrix of a TU group: DST-VII
-    for luma 4x4, else the DCT of its size."""
+    for luma 4x4, else the DCT of its size (the plain version's operand;
+    the kernel has the coefficients as constants)."""
     m = DST4 if (luma and log2 == 2) else DCT[1 << log2]
     return torch.as_tensor(np.asarray(m, np.int32), device=device)
 
 
 # --------------------------------------------------------- hevc_dequant_itx
 
-def dequant_itx(coeffs: torch.Tensor, qp: torch.Tensor, ts: torch.Tensor,
-                tqb: torch.Tensor, mat: torch.Tensor, *, luma: bool,
-                log2: int, bd: int) -> torch.Tensor:
-    """Stage A for one TU group: (N, s, s) int32 coefficient levels →
-    (N, s, s) int32 residuals.  Dequantise (flat scaling), clip, the
-    column then the row pass of ``mat`` with HEVC's shifts and clips,
-    transform skip (4x4) and transquant bypass.  ``qp`` (N,) int32,
-    ``ts``/``tqb`` (N,) bool."""
-    s = 1 << log2
-    n = coeffs.shape[0]
-    if coeffs.dtype != torch.int32 or tuple(coeffs.shape[1:]) != (s, s):
-        raise ValueError(f"coeffs: expected (N, {s}, {s}) int32, got "
-                         f"{tuple(coeffs.shape)} {coeffs.dtype}")
-    for t, name, dt in ((qp, "qp", torch.int32), (ts, "ts", torch.bool),
-                        (tqb, "tqb", torch.bool)):
-        if t.dtype != dt or tuple(t.shape) != (n,):
-            raise ValueError(f"{name}: expected ({n},) {dt}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    if _on_cpu(coeffs, qp, ts, tqb, mat):
-        return dequant_itx_plain(coeffs, qp, ts, tqb, mat, log2=log2, bd=bd)
-    out = torch.empty_like(coeffs)
-    HEVC_DEQUANT_ITX.launch(out, coeffs.data_ptr(), qp.data_ptr(),
-                            ts.data_ptr(), tqb.data_ptr(), mat.data_ptr(),
-                            out.data_ptr(), n, log2, bd)
-    return out
+class ItxGroup(NamedTuple):
+    """One TU group's stage-A inputs: ``coeffs`` (n, s, s) int32 levels,
+    ``qp`` (n,) int32, ``ts``/``tqb`` (n,) bool (transform skip,
+    transquant bypass)."""
+    luma: bool
+    log2: int
+    coeffs: torch.Tensor
+    qp: torch.Tensor
+    ts: torch.Tensor
+    tqb: torch.Tensor
+
+
+def dequant_itx(groups: Sequence[ItxGroup], *, bd: int
+                ) -> List[torch.Tensor]:
+    """Stage A for every TU group of a plan, one launch: each group's
+    (n, s, s) int32 residuals.  Dequantise (flat scaling), clip, the
+    column then the row pass of the inverse DST-VII (luma 4x4) or DCT with
+    HEVC's shifts and clips, transform skip (4x4) and transquant bypass."""
+    if len(groups) > MAX_GROUPS:
+        raise ValueError(f"at most {MAX_GROUPS} groups, got {len(groups)}")
+    for g in groups:
+        s = 1 << g.log2
+        n = g.coeffs.shape[0]
+        if g.coeffs.dtype != torch.int32 or \
+                tuple(g.coeffs.shape[1:]) != (s, s):
+            raise ValueError(f"coeffs: expected (N, {s}, {s}) int32, got "
+                             f"{tuple(g.coeffs.shape)} {g.coeffs.dtype}")
+        for t, name, dt in ((g.qp, "qp", torch.int32),
+                            (g.ts, "ts", torch.bool),
+                            (g.tqb, "tqb", torch.bool)):
+            if t.dtype != dt or tuple(t.shape) != (n,):
+                raise ValueError(f"{name}: expected ({n},) {dt}, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
+    if not groups:
+        return []
+    if _on_cpu(*(t for g in groups for t in g[2:])):
+        return [dequant_itx_plain(
+            g.coeffs, g.qp, g.ts, g.tqb,
+            transform_matrix(g.luma, g.log2, g.coeffs.device), log2=g.log2,
+            bd=bd) for g in groups]
+    outs = [torch.empty_like(g.coeffs) for g in groups]
+    for t in [g.coeffs for g in groups] + outs:
+        if t.data_ptr() % 16:
+            raise ValueError("hevc_dequant_itx: coefficients and residuals "
+                             "must be 16-byte aligned")
+    table = (ctypes.c_longlong * (8 * len(groups)))(*(
+        v for g, o in zip(groups, outs)
+        for v in (g.coeffs.data_ptr(), g.qp.data_ptr(), g.ts.data_ptr(),
+                  g.tqb.data_ptr(), o.data_ptr(), g.coeffs.shape[0], g.log2,
+                  int(g.luma and g.log2 == 2))))
+    HEVC_DEQUANT_ITX.launch(max(outs, key=torch.Tensor.numel),
+                            ctypes.addressof(table), len(groups), bd)
+    return outs
 
 
 def dequant_itx_plain(coeffs, qp, ts, tqb, mat, *, log2, bd, chunk=4096):
@@ -140,45 +177,59 @@ class WaveGroup(NamedTuple):
     res: torch.Tensor
 
 
-def intra_wave(ybuf: torch.Tensor, cbuf: torch.Tensor,
-               groups: Sequence[WaveGroup], starts: Sequence[int],
-               counts: Sequence[int], *, bd: int, strong: bool) -> None:
-    """Stage B for one wave, in place: for rows starts[g] ..
-    starts[g] + counts[g] of every group g, predict from the reference
-    samples in the flat int32 buffers, add the residual, clip to
-    [0, 2^bd - 1] and scatter the TU into its buffer.  All TUs of a wave
-    read samples written by earlier waves only (the planner's schedule),
-    so one launch covers every group."""
+def intra_waves(ybuf: torch.Tensor, cbuf: torch.Tensor,
+                groups: Sequence[WaveGroup], rows: torch.Tensor, *, bd: int,
+                strong: bool) -> None:
+    """Stage B for a whole plan, in place, one launch: every wave of every
+    picture; for each TU predict from the reference samples in the flat
+    int32 buffers, add the residual, clip to [0, 2^bd - 1] and scatter it
+    into its buffer.  ``rows`` (G, n_waves, T+1) int32: the rows of group
+    g, wave w and picture t are rows[g, w, t] .. rows[g, w, t+1] (the
+    plan's ``wave_rows``).  A TU reads samples of its own picture written
+    by earlier waves only (the planner's schedule), so the kernel walks
+    each picture's waves on its own, one block a picture; the plain
+    version walks the waves in lockstep."""
     if len(groups) > MAX_GROUPS:
         raise ValueError(f"at most {MAX_GROUPS} groups, got {len(groups)}")
     for buf, name in ((ybuf, "ybuf"), (cbuf, "cbuf")):
         if buf.dtype != torch.int32 or buf.dim() != 1:
             raise ValueError(f"{name}: expected a flat int32 tensor")
-    for g, st, cn in zip(groups, starts, counts):
-        if st < 0 or cn < 0 or st + cn > g.mode.shape[0]:
-            raise ValueError(f"rows {st}..{st + cn} outside the group's "
-                             f"{g.mode.shape[0]}")
-    tensors = [ybuf, cbuf] + [t for g in groups for t in g[2:]]
-    if _on_cpu(*tensors):
-        intra_wave_plain(ybuf, cbuf, groups, starts, counts, bd=bd,
-                         strong=strong)
+    if rows.dtype != torch.int32 or rows.dim() != 3 or \
+            rows.shape[0] != len(groups) or rows.shape[2] < 2:
+        raise ValueError(f"rows: expected ({len(groups)}, n_waves, T+1) "
+                         f"int32, got {tuple(rows.shape)} {rows.dtype}")
+    if _on_cpu(ybuf, cbuf, rows, *(t for g in groups for t in g[2:])):
+        starts = rows[:, :, 0].T.tolist()
+        counts = (rows[:, :, -1] - rows[:, :, 0]).T.tolist()
+        for st, cn in zip(starts, counts):
+            intra_wave_plain(ybuf, cbuf, groups, st, cn, bd=bd,
+                             strong=strong)
         return
-    total = sum(counts)
-    if total == 0:
+    if not groups:
         return
-    table = (ctypes.c_longlong * (9 * len(groups)))(*(
-        v for g, st, cn in zip(groups, starts, counts)
+    table = (ctypes.c_longlong * (7 * len(groups)))(*(
+        v for g in groups
         for v in (g.ref_idx.data_ptr(), g.ref_avail.data_ptr(),
                   g.mode.data_ptr(), g.scat_idx.data_ptr(),
-                  g.res.data_ptr(), g.log2, int(g.luma), st, cn)))
+                  g.res.data_ptr(), g.log2, int(g.luma))))
     HEVC_INTRA_WAVE.launch(ybuf, ctypes.addressof(table), len(groups),
+                           rows.data_ptr(), rows.shape[1], rows.shape[2] - 1,
                            ybuf.data_ptr(), cbuf.data_ptr(), bd, int(strong))
 
 
+def wave_probe(buf: torch.Tensor, steps: int) -> None:
+    """hevc_intra_wave's chain-bound probe on the card: one block per
+    element of the int32 ``buf``, ``steps`` dependent steps."""
+    if buf.dtype != torch.int32 or buf.dim() != 1 or buf.device.type != \
+            "cuda":
+        raise ValueError("wave_probe: a flat int32 CUDA tensor")
+    HEVC_WAVE_PROBE.launch(buf, buf.data_ptr(), buf.numel(), steps)
+
+
 def intra_wave_plain(ybuf, cbuf, groups, starts, counts, *, bd, strong):
-    """Plain PyTorch version of hevc_intra_wave: the body of the jnp
-    program's wave scan (device_recon.py:893-924), one group after the
-    other, on the rows the wave holds."""
+    """Plain PyTorch version of one wave of hevc_intra_wave: the body of
+    the jnp program's wave scan (device_recon.py:893-924), one group after
+    the other, on rows starts[g] .. starts[g] + counts[g] of each group."""
     maxv = (1 << bd) - 1
     for g, st, cn in zip(groups, starts, counts):
         if cn == 0:
@@ -191,6 +242,18 @@ def intra_wave_plain(ybuf, cbuf, groups, starts, counts, *, bd, strong):
         n = 1 << g.log2
         rec = torch.clamp(pred + g.res[rows], 0, maxv).reshape(cn, n * n)
         buf[g.scat_idx[rows].reshape(-1)] = rec.reshape(-1)
+
+
+def intra_waves_by_picture_plain(ybuf, cbuf, groups, rows, *, bd, strong):
+    """Stage B in the order hevc_intra_wave walks it: picture after
+    picture, each picture's waves in order, every group of a wave; rows as
+    for intra_waves.  The tests hold it equal to the lockstep order."""
+    r = rows.tolist()
+    for t in range(rows.shape[2] - 1):
+        for w in range(rows.shape[1]):
+            intra_wave_plain(ybuf, cbuf, groups, [g[w][t] for g in r],
+                             [g[w][t + 1] - g[w][t] for g in r], bd=bd,
+                             strong=strong)
 
 
 def predict_plain(luma: bool, log2: int, refs: torch.Tensor,

@@ -5,13 +5,13 @@ stays on the host (native_parse); everything after it runs on the plan's
 device in the JAX program's four stages:
 
   stage A  dequant + inverse transforms   kernel hevc_dequant_itx, one
-                                          launch per TU group (size and
-                                          plane)
+                                          launch for every TU group
+                                          (size and plane)
   stage B  intra prediction + recon       kernel hevc_intra_wave, one
-                                          launch per dependency wave:
-                                          every TU whose reference
-                                          samples are reconstructed, of
-                                          every group and every picture
+                                          launch: each picture walks its
+                                          dependency waves (every TU
+                                          whose reference samples are
+                                          reconstructed) on its own
   stage C  deblocking                     plain PyTorch, dense passes
                                           over the 8-sample edge lattice
   stage D  SAO                            plain PyTorch, per-CTB
@@ -19,14 +19,16 @@ device in the JAX program's four stages:
 
 Bit-exact against the JAX package's device engine: int32 arithmetic
 with HEVC's arithmetic shifts.  The picture axis is a batch axis, so the
-tiles of a grid decode as one batch, their waves in lockstep.
+tiles of a grid decode as one batch; the JAX program walks their waves in
+lockstep, the kernel each picture's on its own (a TU reads samples of its
+own picture only), and the plain version in lockstep.
 
 The plan differs from the JAX one in what jit forced on it: its tables
 carry no padding (rows ``[:n]`` and waves ``[:n_waves]`` equal the JAX
-tables), and the per-wave ``starts``/``counts`` live on the host, where
-the launch loop reads them; they come from the planner's waves without a
-device round trip.  The per-row tables (reference and scatter indices,
-coefficients, the wave sort) are built on the plan's device.
+tables), and each group's rows of a (wave, picture) come from a
+(n_waves, T+1) table of starts built on the host from the planner's
+waves and copied once.  The per-row tables (reference and scatter
+indices, coefficients, the wave sort) are built on the plan's device.
 """
 
 from __future__ import annotations
@@ -39,8 +41,7 @@ import torch
 
 from ..._build import HOST_LIBRARY, resolve_device
 from .ctu import SliceSyntax
-from .cuda_fast import (WaveGroup, dequant_itx, intra_wave,
-                        transform_matrix)
+from .cuda_fast import ItxGroup, WaveGroup, dequant_itx, intra_waves
 from .filters import BETA_TABLE, TC_TABLE
 from .tables import chroma_qp
 
@@ -66,7 +67,8 @@ for _n in (4, 8, 16, 32):
 class GroupPlan:
     """One TU group (plane and size), rows sorted by wave (stable, so
     ties keep picture then decode order).  Tensors on the plan's device;
-    ``starts``/``counts`` (n_waves,) on the host."""
+    ``wave_rows`` (n_waves, T+1) on the host: the rows of wave w and
+    picture t are wave_rows[w, t] .. wave_rows[w, t+1]."""
     key: Tuple[bool, int]
     n: int
     coeffs: torch.Tensor     # (n, s, s) int32
@@ -77,8 +79,17 @@ class GroupPlan:
     ref_idx: torch.Tensor    # (n, 4s+1) int32 flat gather indices
     ref_avail: torch.Tensor  # (n, 4s+1) bool
     scat_idx: torch.Tensor   # (n, s*s) int32 flat scatter indices
-    starts: np.ndarray       # (n_waves,) int32
-    counts: np.ndarray       # (n_waves,) int32
+    wave_rows: np.ndarray    # (n_waves, T+1) int32
+
+    @property
+    def starts(self) -> np.ndarray:
+        """(n_waves,) the first row of each wave."""
+        return self.wave_rows[:, 0]
+
+    @property
+    def counts(self) -> np.ndarray:
+        """(n_waves,) the rows of each wave, all pictures."""
+        return self.wave_rows[:, -1] - self.wave_rows[:, 0]
 
 
 @dataclass
@@ -90,6 +101,7 @@ class ReconPlan:
     strong_smoothing: bool
     n_waves: int
     groups: List[GroupPlan]
+    wave_rows: torch.Tensor    # (G, n_waves, T+1) int32, the groups' tables
     deblock: Optional[Dict[str, torch.Tensor]]   # None: off everywhere
     sao: Optional[Dict[str, torch.Tensor]]       # None: no CTB uses SAO
     tqb_mask: Optional[torch.Tensor]             # (t, h4, w4) bool
@@ -139,28 +151,60 @@ def plan_inputs(raw_tus: Sequence[tuple], W: int, H: int
                 coeff=np.concatenate(coeff_l + [np.zeros(1, np.int32)]))
 
 
+class BatchMismatch(ValueError):
+    """The pictures of a batch differ in a field the plan takes batch-wide
+    (``batch_key``)."""
+
+
+def batch_key(sps) -> tuple:
+    """The SPS fields a plan takes from its first picture for the whole
+    batch: the picture size and bit depth (buffers, clips, filter
+    strengths), the CTB size (the SAO parameter maps) and strong intra
+    smoothing (stage B).  Pictures batch together only where these agree;
+    every other field is read per picture.  (The port decodes 4:2:0 with
+    equal luma and chroma depths only, so those need no key.)"""
+    return (sps.pic_width, sps.pic_height, sps.bit_depth_luma, sps.ctb_size,
+            bool(sps.strong_intra_smoothing))
+
+
+def wave_rows(waves: np.ndarray, tiles: np.ndarray, n_waves: int,
+              T: int) -> np.ndarray:
+    """(n_waves, T+1) int32 row ranges of one group whose rows are sorted
+    by wave, stable: its rows in picture order (tile ascending), so those
+    of wave w and picture t are rows [r[w, t], r[w, t+1]), and r[w, T] is
+    r[w+1, 0]."""
+    cnt = np.bincount(waves.astype(np.int64) * T + tiles,
+                      minlength=n_waves * T).reshape(n_waves, T)
+    out = np.zeros((n_waves, T + 1), np.int64)
+    out[:, 1:] = np.cumsum(cnt.ravel()).reshape(n_waves, T)
+    out[1:, 0] = out[:-1, T]
+    return out.astype(np.int32)
+
+
 def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
                device=None) -> ReconPlan:
-    """Wavefront schedule and TU tables for a batch of pictures of one
-    size and bit depth.  raw_tus: per picture (cols, coeff_buf, offs)
-    from native_parse.parse_picture_raw."""
+    """Wavefront schedule and TU tables for a batch of pictures that agree
+    on ``batch_key`` (else BatchMismatch).  raw_tus: per picture (cols,
+    coeff_buf, offs) from native_parse.parse_picture_raw."""
     dev = resolve_device(device)
     sps0 = syntaxes[0].sps
     W, H = sps0.pic_width, sps0.pic_height
     bd = sps0.bit_depth_luma
     cw, ch = W >> 1, H >> 1
     T = len(syntaxes)
+    key = batch_key(sps0)
     for syn in syntaxes:
-        if (syn.sps.pic_width, syn.sps.pic_height) != (W, H) or \
-                syn.sps.bit_depth_luma != bd:
-            raise ValueError("batch pictures must share shape/depth")
+        if batch_key(syn.sps) != key:
+            raise BatchMismatch(
+                f"batch pictures must agree on (width, height, bit depth, "
+                f"CTB size, strong smoothing): {batch_key(syn.sps)} vs {key}")
     y_plane_sz = H * W
     c_plane_sz = ch * cw
     trash_y = T * y_plane_sz          # one extra slot at the end
     trash_c = T * 2 * c_plane_sz
 
     inp = plan_inputs(raw_tus, W, H)
-    cols, waves = inp["cols"], inp["waves"]
+    cols, waves, tiles = inp["cols"], inp["waves"], inp["tile"]
     n_waves = int(waves.max()) + 1 if len(waves) else 1
     c_idx, log2c = cols[:, 3], cols[:, 2]
 
@@ -177,9 +221,7 @@ def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
             continue
         s = 1 << lg
         L = 4 * s + 1
-        gw = waves[sel]
-        counts = np.bincount(gw, minlength=n_waves).astype(np.int32)
-        starts = (np.cumsum(counts) - counts).astype(np.int32)
+        rows = wave_rows(waves[sel], tiles[sel], n_waves, T)
 
         sel_d = torch.from_numpy(sel).to(dev)
         order = torch.sort(waves_d[sel_d], stable=True).indices
@@ -219,8 +261,7 @@ def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
             key=key, n=len(sel), coeffs=cf.to(torch.int32),
             qp=c[:, 5].to(torch.int32), ts=c[:, 6] != 0, tqb=c[:, 7] != 0,
             mode=c[:, 4].to(torch.int32), ref_idx=ridx.to(torch.int32),
-            ref_avail=av, scat_idx=scat.to(torch.int32),
-            starts=starts, counts=counts))
+            ref_avail=av, scat_idx=scat.to(torch.int32), wave_rows=rows))
 
     deblock = _build_deblock_params(syntaxes, W, H, bd)
     sao, tqb_mask = _build_sao_params(syntaxes, W, H)
@@ -231,6 +272,8 @@ def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
         t=T, width=W, height=H, bd=bd,
         strong_smoothing=bool(sps0.strong_intra_smoothing), n_waves=n_waves,
         groups=groups,
+        wave_rows=put(np.stack([g.wave_rows for g in groups])
+                      if groups else np.zeros((0, n_waves, T + 1), np.int32)),
         deblock=None if deblock is None else
         {k: put(v) for k, v in deblock.items()},
         sao=None if sao is None else {k: put(v) for k, v in sao.items()},
@@ -538,36 +581,29 @@ def sao_apply(src, typ, bpos, eoc, offs, ctb_sz, bd):
 
 
 def residuals(plan: ReconPlan) -> List[WaveGroup]:
-    """Stage A: every group's residuals (one hevc_dequant_itx launch a
-    group), with the tables stage B reads."""
-    out = []
-    for g in plan.groups:
-        luma, lg = g.key
-        res = dequant_itx(g.coeffs, g.qp, g.ts, g.tqb,
-                          transform_matrix(luma, lg, plan.device), luma=luma,
-                          log2=lg, bd=plan.bd)
-        out.append(WaveGroup(luma, lg, g.ref_idx, g.ref_avail, g.mode,
-                             g.scat_idx, res))
-    return out
+    """Stage A: every group's residuals (one hevc_dequant_itx launch for
+    the plan), with the tables stage B reads."""
+    res = dequant_itx([ItxGroup(g.key[0], g.key[1], g.coeffs, g.qp, g.ts,
+                                g.tqb) for g in plan.groups], bd=plan.bd)
+    return [WaveGroup(g.key[0], g.key[1], g.ref_idx, g.ref_avail, g.mode,
+                      g.scat_idx, r) for g, r in zip(plan.groups, res)]
 
 
 def predict_waves(plan: ReconPlan, waves: Sequence[WaveGroup]):
-    """Stage B: one hevc_intra_wave launch per wave → (Y (T, H, W), Cb,
-    Cr (T, H/2, W/2)) int32, views of the flat buffers.
+    """Stage B: one hevc_intra_wave launch for the plan → (Y (T, H, W),
+    Cb, Cr (T, H/2, W/2)) int32, views of the flat buffers.
 
     The buffers keep the JAX program's layout: T·H·W + 1 luma and
     T·2·ch·cw + 1 chroma samples, the last one a trash slot that takes
     the writes of samples outside the picture.  The waves update them in
-    place, one after the other."""
+    place, each picture's one after the other."""
     T, W, H = plan.t, plan.width, plan.height
     cw, ch = W >> 1, H >> 1
     ybuf = torch.zeros(T * H * W + 1, dtype=torch.int32, device=plan.device)
     cbuf = torch.zeros(T * 2 * ch * cw + 1, dtype=torch.int32,
                        device=plan.device)
-    for w in range(plan.n_waves):
-        intra_wave(ybuf, cbuf, waves, [int(g.starts[w]) for g in plan.groups],
-                   [int(g.counts[w]) for g in plan.groups], bd=plan.bd,
-                   strong=plan.strong_smoothing)
+    intra_waves(ybuf, cbuf, waves, plan.wave_rows, bd=plan.bd,
+                strong=plan.strong_smoothing)
     cpl = cbuf[:-1].view(T, 2, ch, cw)
     return ybuf[:-1].view(T, H, W), cpl[:, 0], cpl[:, 1]
 

@@ -6,8 +6,10 @@ libheif/image-items/grid.cc:285-453 std::async fan-out):
 
   1. the entropy decode of every tile runs on the host in a thread pool
      (the C++ parser releases the GIL), giving flat TU arrays;
-  2. all tiles reconstruct as one batch on the device: one plan, stage
-     A once per TU group and stage B once per wave for the whole batch;
+  2. the tiles reconstruct on the device in batches, one batch for each
+     group of tiles that agree on ``device_recon.batch_key`` (the tiles of
+     a camera's grid all do): one plan, one launch of stage A and one of
+     stage B for the whole batch;
   3. each tile's cropped planes are pasted into the output planes on
      the device.
 
@@ -19,12 +21,13 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..boxes.meta import Box_clap, Box_imir, Box_irot, Box_ispe
 from ..codecs.hevc.decoder import (check_size, extract_stream,
                                    parse_picture, planes_to_image)
-from ..codecs.hevc.device_recon import decode_pictures_device
+from ..codecs.hevc.device_recon import (BatchMismatch, batch_key,
+                                        decode_pictures_device)
 from ..core.error import HeifError
 from ..image.pixel_image import PixelImage, Colorspace, Chroma
 from ..items.codec_items import ImageItem_HEVC
@@ -53,7 +56,9 @@ def try_batched_hevc_grid(grid_item, grid, tile_ids,
     """Batched decode of an all-hvc1 grid, composed on the context's
     device.  Returns None where the batch does not apply (other item
     types, per-tile transforms or alpha, streams the port refuses, tiles
-    of different size or depth): the caller then decodes tile by tile."""
+    of different size or depth): the caller then decodes tile by tile.
+    Tiles that differ in another field a plan takes batch-wide (CTB size,
+    strong smoothing) decode as separate batches."""
     ctx = grid_item.ctx
     try:
         tiles = [ctx.get_item(tid) for tid in tile_ids]
@@ -78,12 +83,24 @@ def try_batched_hevc_grid(grid_item, grid, tile_ids,
         return None
 
     sps0 = parsed[0][0]
-    if any((p[0].pic_width, p[0].pic_height, p[0].bit_depth_luma) !=
-           (sps0.pic_width, sps0.pic_height, sps0.bit_depth_luma)
-           for p in parsed):
+    if any((p[0].cropped_size, p[0].bit_depth_luma) !=
+           (sps0.cropped_size, sps0.bit_depth_luma) for p in parsed):
         return None
-    planes = decode_pictures_device([p[1] for p in parsed],
-                                    [p[2] for p in parsed], ctx.device)
+    # one batch per group of tiles that agree on what a plan takes
+    # batch-wide (a phone photo's tiles make one group)
+    groups: Dict[tuple, List[int]] = {}
+    for i, p in enumerate(parsed):
+        groups.setdefault(batch_key(p[0]), []).append(i)
+    planes: List = [None] * len(parsed)
+    for idx in groups.values():
+        try:
+            out = decode_pictures_device([parsed[i][1] for i in idx],
+                                         [parsed[i][2] for i in idx],
+                                         ctx.device)
+        except BatchMismatch:
+            return None
+        for i, pl in zip(idx, out):
+            planes[i] = pl
     return compose(grid, [p[0] for p in parsed], planes, ctx, options)
 
 

@@ -12,6 +12,7 @@ and checked by tests/test_torch_hevc_fixtures.py.
 """
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -40,6 +41,7 @@ from libheif_tpu_torch import decode_intra_picture  # noqa: E402
 from libheif_tpu_torch.codecs.hevc import (  # noqa: E402
     cuda_fast as hcf, decoder as pdecoder, device_recon as precon,
     headers as PH)
+from libheif_tpu_torch.codecs.hevc.tables import DCT, DST4  # noqa: E402
 from libheif_tpu_torch.core.error import (  # noqa: E402
     ErrorCode, HeifError)
 
@@ -146,6 +148,114 @@ def test_batch_matches_single_pictures():
         assert_planes_equal([p.numpy() for p in b], s, f"picture {i}")
 
 
+@functools.lru_cache(maxsize=None)
+def walk_batch():
+    """The six pictures of test_batch_matches_single_pictures and a
+    seventh with fewer waves (32x32 CUs of a smooth image): per picture
+    its NALs and the port's (syntax, raw TUs)."""
+    cfgs = [c for c in CONFIGS if c[0] in ("auto-qp26", "sao",
+                                             "deblock")][:3] * 2
+    jobs = [(kw, smooth) for _, kw, _, smooth in cfgs]
+    jobs.append((dict(qp=30, cu_log2=5), True))
+    out = []
+    for seed, (kw, smooth) in enumerate(jobs):
+        nals = encode(kw, (64, 64), smooth, seed)
+        out.append((nals, pdecoder.parse_picture(
+            PH.parse_sps(nals[0]), PH.parse_pps(nals[1]), [nals[2]])))
+    return out
+
+
+def test_wave_rows_table():
+    """Each (group, wave, picture) range of the plan's (G, n_waves, T+1)
+    table holds exactly that wave's rows of that picture (a numpy
+    reference from the planner's waves and the stable wave sort)."""
+    batch = walk_batch()
+    syns, raws = [b[1][0] for b in batch], [b[1][1] for b in batch]
+    plan = precon.build_plan(syns, raws, "cpu")
+    inp = precon.plan_inputs(raws, 64, 64)
+    T = len(batch)
+    per_picture = [int(inp["waves"][inp["tile"] == t].max()) + 1
+                   for t in range(T)]
+    assert per_picture[-1] < plan.n_waves == max(per_picture)
+    table = plan.wave_rows.numpy()
+    assert table.shape == (len(plan.groups), plan.n_waves, T + 1)
+    c = inp["cols"]
+    for gi, g in enumerate(plan.groups):
+        luma, lg = g.key
+        sel = np.nonzero(((c[:, 3] == 0) == luma) & (c[:, 2] == lg))[0]
+        order = np.argsort(inp["waves"][sel], kind="stable")
+        wave, tile = inp["waves"][sel][order], inp["tile"][sel][order]
+        np.testing.assert_array_equal(table[gi], g.wave_rows)
+        for w in range(plan.n_waves):
+            for t in range(T):
+                lo, hi = table[gi, w, t], table[gi, w, t + 1]
+                np.testing.assert_array_equal(
+                    np.nonzero((wave == w) & (tile == t))[0],
+                    np.arange(lo, hi), err_msg=f"{g.key} wave {w} pic {t}")
+        assert table[gi, 0, 0] == 0 and table[gi, -1, -1] == g.n
+        np.testing.assert_array_equal(table[gi, 1:, 0], table[gi, :-1, -1])
+
+
+def test_wave_walk_by_picture_matches_lockstep_and_jax():
+    """Stage B picture by picture, each picture's waves in order (the
+    order hevc_intra_wave walks), equals the lockstep loop of
+    intra_wave_plain; with stages C and D after it, every picture equals
+    the JAX device engine's decode of it alone."""
+    batch = walk_batch()
+    plan = precon.build_plan([b[1][0] for b in batch],
+                             [b[1][1] for b in batch], "cpu")
+    waves = precon.residuals(plan)
+    lock = precon.predict_waves(plan, waves)
+    T, H, W = plan.t, plan.height, plan.width
+    ybuf = torch.zeros(T * H * W + 1, dtype=torch.int32)
+    cbuf = torch.zeros(T * H * W // 2 + 1, dtype=torch.int32)
+    hcf.intra_waves_by_picture_plain(ybuf, cbuf, waves, plan.wave_rows,
+                                     bd=plan.bd, strong=plan.strong_smoothing)
+    cpl = cbuf[:-1].view(T, 2, H // 2, W // 2)
+    walk = (ybuf[:-1].view(T, H, W), cpl[:, 0], cpl[:, 1])
+    for a, b in zip(walk, lock):
+        assert torch.equal(a, b)
+    y, cb, cr = precon.deblock(plan.deblock, *walk, (1 << plan.bd) - 1)
+    y, cb, cr = precon.sao(plan, y, cb, cr)
+    for t, (nals, _) in enumerate(batch):
+        assert_planes_equal([y[t].numpy(), cb[t].numpy(), cr[t].numpy()],
+                            jax_decode(*nals[:2], [nals[2]], "device"),
+                            f"picture {t}")
+
+
+def test_one_call_wrappers_run_plain_on_cpu(monkeypatch):
+    """Stage A and stage B are one wrapper call each for the plan; on CPU
+    tensors each runs its plain version (per group, per wave) and
+    launches nothing, and the decode equals the JAX device engine."""
+    calls = {"dequant_itx": 0, "intra_waves": 0, "dequant_itx_plain": 0,
+             "intra_wave_plain": 0}
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def f(*a, **kw):
+            calls[name] += 1
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, name, f)
+    for name in ("dequant_itx", "intra_waves"):
+        spy(precon, name)
+    for name in ("dequant_itx_plain", "intra_wave_plain"):
+        spy(hcf, name)
+    launches = {k: v.launches for k, v in hcf.KERNELS.items()}
+    batch = walk_batch()
+    syns, raws = [b[1][0] for b in batch], [b[1][1] for b in batch]
+    plan = precon.build_plan(syns, raws, "cpu")
+    got = precon.decode_pictures_device(syns, raws, "cpu")
+    assert calls == {"dequant_itx": 1, "intra_waves": 1,
+                     "dequant_itx_plain": len(plan.groups),
+                     "intra_wave_plain": plan.n_waves}
+    assert {k: v.launches for k, v in hcf.KERNELS.items()} == launches
+    for t, (nals, _) in enumerate(batch):
+        assert_planes_equal([p.numpy() for p in got[t]],
+                            jax_decode(*nals[:2], [nals[2]], "device"),
+                            f"picture {t}")
+
+
 def test_parse_matches_jax():
     """The port's copy of the C++ parser gives the JAX package's TU
     columns, coefficients, maps and SAO parameters."""
@@ -227,6 +337,33 @@ def test_transform_skip_and_bypass_arms():
     got = [p.numpy() for p in
            precon.decode_pictures_device([psyn], [raw], "cpu")[0]]
     assert_planes_equal(got, ref)
+
+
+def test_kernel_transform_constants_match_tables():
+    """hevc_dequant_itx's butterfly coefficients (dct32 in
+    hevc_kernels.cu: the 32-point matrix from its first column by the
+    cosine's symmetry, the S-point matrix as rows r*32/S) equal the DCT
+    tables, and its DST-VII rows equal DST4."""
+    src = open(KERNEL_SRC).read()
+    body = re.search(r"constexpr int c\[33\] = \{(.*?)\};", src,
+                     re.S).group(1)
+    c = [int(v) for v in body.replace("\n", " ").split(",")]
+
+    def dct32(r, j):
+        a = ((2 * j + 1) * r) & 127
+        return (c[a] if a <= 32 else -c[64 - a] if a <= 64
+                else -c[a - 64] if a <= 96 else c[128 - a])
+    for s, m in DCT.items():
+        assert [[dct32(i * 32 // s, j) for j in range(s)]
+                for i in range(s)] == np.asarray(m).tolist(), s
+    dst = re.search(r"void idst4\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    rows = re.findall(r"y\[(\d)\] = (.*?);", dst)
+    for j, expr in rows:
+        coef = [0] * 4
+        for sign, k, i in re.findall(r"([+-]?)\s*(\d+) \* x\[(\d)\]",
+                                     expr):
+            coef[int(i)] = -int(k) if sign == "-" else int(k)
+        assert coef == [row[int(j)] for row in DST4], j
 
 
 def test_kernel_constants_match_tables():
