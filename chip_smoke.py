@@ -56,6 +56,23 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    single tiles' decodes placed where the grid puts them; decode a
    single-item hvc1 file and the 10-bit tile through the context on the
    card and on the CPU with 0 samples differing;
+4d. the AV1 phase, on the streams committed in
+   libheif_tpu_torch/testdata/av1 (the JAX package's Av1IntraEncoder and
+   libaom with every intra tool, 8 and 10 bits, with the plane hashes of
+   the JAX host engine): hold av1_dequant_itx (one launch for all job
+   groups) and av1_intra_wave (one launch walking every picture's waves,
+   one block a picture) against their plain versions on every small
+   stream, a batch whose pictures have different wave counts, the
+   512x512 tiles (stage B on three) and the photo's 48 tiles; decode
+   every stream on the card, in-loop filters included, and require its
+   planes' hashes; write an AVIF phone photo (an 8x6 grid of 48 512x512
+   av01 items, 4032x3024 output) and decode it through HeifContext to
+   interleaved RGB, with the launch counts read around it
+   (av1_dequant_itx once, av1_intra_wave once, planes_ycbcr8_to_rgb
+   once, no strided_extract_paste) and its planes held equal to the
+   single tiles' CPU decodes placed where the grid puts them; decode
+   single-item av01 files (8-bit, 10-bit, 508x500) through the context on
+   the card and on the CPU with 0 samples differing;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -77,7 +94,13 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    and SAO stages, and the photo's decode part by part (parse, tile
    parses, plan on the host and on the card, host-to-device copies, the
    four stages, compose, convert, interleave) over REPEATS fresh
-   contexts with its device share; and print the numbers;
+   contexts with its device share; the AV1 kernels at the AVIF photo's
+   shapes beside their plain versions and byte bounds, and the photo's
+   decode twice: the launch-count decode split by part from the decode
+   path's own spans (core/trace.py: tile parses, plan on the host, its
+   copies and the rest on the card, stages A and B, deblock, CDEF, loop
+   restoration, compose, convert, interleave), then once under
+   torch.profiler for its device share; and print the numbers;
 7. print the colour kernels' SASS instructions per output pixel and the
    strided kernel's per output byte (sass_count.py, cuobjdump).
 
@@ -99,13 +122,18 @@ import numpy as np
 import torch
 
 from libheif_tpu_torch import DecodingOptions, HeifContext, HeifFile, _build
+from libheif_tpu_torch import context as context_mod
 from libheif_tpu_torch.boxes import read_all_boxes
-from libheif_tpu_torch.boxes.codec_cfg import Box_hvcC
+from libheif_tpu_torch.boxes.codec_cfg import Box_av1C, Box_hvcC
 from libheif_tpu_torch.boxes.meta import (
     Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe)
 from libheif_tpu_torch.boxes.unc import (
     Box_uncC, Box_cmpd, CmpdComponent, UncCComponent, InterleaveMode,
     SamplingMode)
+from libheif_tpu_torch.codecs.av1 import cuda_fast as av1_fast
+from libheif_tpu_torch.codecs.av1 import decoder as av1_decoder
+from libheif_tpu_torch.codecs.av1 import device_recon as av1_recon
+from libheif_tpu_torch.codecs.av1 import obu as av1_obu
 from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
 from libheif_tpu_torch.codecs.hevc import device_recon
@@ -116,6 +144,7 @@ from libheif_tpu_torch.codecs.unc.layout import (
     ComponentView, UncLayout, compute_layout)
 from libheif_tpu_torch.color import convert_image, get_kr_kb
 from libheif_tpu_torch.color.ops import ColorConversionOptions, YCbCrToRGB
+from libheif_tpu_torch.core import trace
 from libheif_tpu_torch.core.error import HeifError
 from libheif_tpu_torch.core.fourcc import fourcc
 from libheif_tpu_torch.core.fraction import Fraction
@@ -146,7 +175,8 @@ ALPHA_URN = "urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"
 
 
 # every hand-written kernel, by name
-ALL_KERNELS = {**cuda_fast.KERNELS, **hevc_fast.KERNELS}
+ALL_KERNELS = {**cuda_fast.KERNELS, **hevc_fast.KERNELS,
+               **av1_fast.KERNELS}
 
 
 def log(*a):
@@ -1004,8 +1034,12 @@ def device_ms(fn):
         torch.cuda.synchronize()
     copies_us = 0.0
     kernels = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    events = prof.events()
+    # a record_function range (core/trace.py spans) is mirrored on the
+    # device timeline under its own name: it is not device work
+    ranges = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in ranges:
             continue
         us = e.time_range.elapsed_us()
         if e.name.startswith(("Memcpy", "Memset")):
@@ -1618,6 +1652,449 @@ def stage_ms(timer, plan):
     return out
 
 
+# ---------------------------------------------------------------------- AV1
+# The AV1 phase: the committed streams of libheif_tpu_torch/testdata/av1
+# (the JAX package's Av1IntraEncoder and libaom, with the plane hashes of
+# the JAX host engine), the two reconstruction kernels against their
+# plain versions, and a phone photo's AVIF: an 8x6 grid of 512x512 av01
+# tiles under a 4032x3024 output.
+
+AV1_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "libheif_tpu_torch", "testdata", "av1")
+AV1_SOURCE = "libheif_tpu_torch/codecs/av1/csrc/av1_kernels.cu"
+AV1_JNP = "libheif_tpu/codecs/av1/device_recon.py"
+AV1_MIXED = ("aom-128-q30-c0", "aom-128-q60-c2")   # different wave counts
+# stage B on these tiles alone (the photo's plan holds tile512_s0..s3)
+AV1_WAVE_SINGLES = ("tile512_10bit", "tile508x500")
+AV1_PLAIN_WAVES_MS = {}
+AV1_PARSED = {}          # stream name -> (seq, fh, TileDecoder), parsed once
+AV1_REPEATS = 2          # the photo's Python parse takes tens of seconds
+# int32 operations per predicted sample of av1_intra_wave (directional:
+# two index products, shifts, two samples' interpolation, clip; residual
+# add and clip) and per transformed sample and 1-D stage of
+# av1_dequant_itx (a butterfly's multiply-add pair and rounding)
+AV1_OPS_PER_SAMPLE = 14
+AV1_OPS_PER_STAGE = 4
+
+
+def av1_streams():
+    with open(os.path.join(AV1_DIR, "manifest.json")) as f:
+        return {e["name"]: e for e in json.load(f)["streams"]}
+
+
+def av1_data(e):
+    with open(os.path.join(AV1_DIR, e["file"]), "rb") as f:
+        return f.read()
+
+
+def av1_parse(e):
+    """(seq, fh, TileDecoder) of a stream, by the host parse, once a
+    stream (a plan and the filters only read the decoder)."""
+    if e["name"] not in AV1_PARSED:
+        AV1_PARSED[e["name"]] = av1_decoder.parse_frame(av1_data(e))
+    return AV1_PARSED[e["name"]]
+
+
+def av1_decode_parsed(e, device):
+    """A parsed stream's cropped int32 planes on ``device``, in-loop
+    filters included (decode_intra_frame after its parse)."""
+    seq, fh, dec = av1_parse(e)
+    planes = av1_recon.decode_frames_device([dec], device)[0]
+    return av1_decoder.finish_frame(seq, fh, dec, planes)
+
+
+def av1_hashes(planes):
+    return {k: hashlib.sha256(np.ascontiguousarray(
+        v.cpu().numpy(), "<i4").tobytes()).hexdigest()
+        for k, v in planes.items()}
+
+
+def leb128(n):
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def add_av01(f, e, hidden=True):
+    """An av01 item holding stream ``e``: the OBUs, an av1C with the
+    sequence header OBU, and ispe."""
+    data = av1_data(e)
+    cfg = Box_av1C()
+    cfg.high_bitdepth = int(e["bit_depth"] > 8)
+    seqh = next(o for o in av1_obu.split_obus(data)
+                if o.type == av1_obu.OBU_SEQUENCE_HEADER)
+    cfg.config_obus = bytes([(av1_obu.OBU_SEQUENCE_HEADER << 3) | 2]) + \
+        leb128(len(seqh.payload)) + seqh.payload
+    item = f.add_new_item("av01").item_id
+    f.append_item_data(item, data)
+    f.add_property(item, cfg, True)
+    f.add_property(item, Box_ispe(e["width"], e["height"]), False)
+    f.get_infe(item).hidden = hidden
+    return item
+
+
+def av1_photo_file(streams):
+    """The AVIF phone photo: 48 hidden av01 items (item i holds stream
+    i mod 4) in a 6x8 grid with a 4032x3024 output."""
+    f = new_file()
+    rows, cols = PHOTO_GRID
+    ids = [add_av01(f, streams[PHOTO_TILES[i % 4]])
+           for i in range(rows * cols)]
+    grid = f.add_new_item("grid").item_id
+    f.append_item_data(grid, ImageGrid(rows, cols, *PHOTO).write(), 1)
+    f.add_property(grid, Box_ispe(*PHOTO), False)
+    f.add_reference("dimg", grid, ids)
+    f.set_primary_item(grid)
+    return f.write()
+
+
+def av01_file(e):
+    f = new_file()
+    f.set_primary_item(add_av01(f, e, hidden=False))
+    return f.write()
+
+
+def av1_plain_residuals(plan):
+    return [av1_fast.dequant_itx_plain(g.sq, g.coeffs, g.txp)
+            for g in plan.groups]
+
+
+def av1_plain_waves(plan, res):
+    """Stage B with the plain version: the palette jobs, then the jnp
+    program's lockstep wave loop."""
+    buf, waves = av1_recon.palette_and_waves(plan, res)
+    starts = plan.wave_rows[:, :, 0].T.tolist()
+    counts = (plan.wave_rows[:, :, -1] - plan.wave_rows[:, :, 0]).T.tolist()
+    for st, cn in zip(starts, counts):
+        av1_fast.intra_wave_plain(buf, waves, st, cn,
+                                  **av1_recon.wave_args(plan))
+    return buf
+
+
+def check_av1_plan(tally, what, plan, waves=True):
+    """av1_dequant_itx (one launch for every group) against its plain
+    version on each group, then av1_intra_wave (one launch) against the
+    plain lockstep wave loop on the kernel's residuals (its device time,
+    from CUDA events around the one run, kept in AV1_PLAIN_WAVES_MS)."""
+    res = av1_recon.residuals(plan)
+    for g, r, ref in zip(plan.groups, res, av1_plain_residuals(plan)):
+        tally.compare("av1_dequant_itx",
+                      f"{what} {av1_recon.KIND_NAMES[g.kind]}{g.sq} n={g.n}",
+                      r, ref, exact=True)
+    if waves:
+        buf = av1_recon.predict_waves(plan, res)
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(True), torch.cuda.Event(True)
+        s.record()
+        ref = av1_plain_waves(plan, res)
+        e.record()
+        e.synchronize()
+        AV1_PLAIN_WAVES_MS[what.split(" ")[0]] = s.elapsed_time(e)
+        tally.compare("av1_intra_wave", f"{what}, {plan.n_waves} waves",
+                      buf[:-1], ref[:-1], exact=True)
+    return res
+
+
+def check_av1_kernels(tally, streams):
+    """Both AV1 kernels on every small stream, on a batch whose pictures
+    have different wave counts and on 512x512 tiles (stage B on three of
+    them; the plain wave loop is slow), against their plain versions."""
+    small = [[e] for n, e in streams.items() if not n.startswith("tile")]
+    batches = small + [[streams[n] for n in AV1_MIXED]]
+    batches += [[e] for n, e in streams.items() if n.startswith("tile")]
+    for batch in batches:
+        what = "+".join(e["name"] for e in batch)
+        plan = av1_recon.build_plan([av1_parse(e)[2] for e in batch], DEV)
+        check_av1_plan(tally, what, plan, waves=not what.startswith(
+            "tile") or what in AV1_WAVE_SINGLES)
+
+
+def check_av1_streams(streams):
+    """Every stream decoded on the card (decode_intra_frame's steps after
+    the parse, in-loop filters included): its planes hash to the manifest
+    (the JAX host engine)."""
+    for name, e in streams.items():
+        planes = av1_decode_parsed(e, DEV)
+        assert all(p.device.type == DEV for p in planes.values()), name
+        ok = av1_hashes(planes) == e["sha256"]
+        log(f"check av1 stream {name:22s} {e['width']}x{e['height']} "
+            f"{e['bit_depth']}-bit planes vs manifest: "
+            f"{'equal' if ok else 'DIFFERENT'}")
+        assert ok, f"{name}: planes differ from the manifest"
+
+
+def av1_photo_plan(streams):
+    """The plan of the photo's 48 tiles, as the grid path builds it (tile
+    i holding stream i mod 4)."""
+    rows, cols = PHOTO_GRID
+    return av1_recon.build_plan([av1_parse(streams[PHOTO_TILES[i % 4]])[2]
+                                 for i in range(rows * cols)], DEV)
+
+
+def check_av1_photo(blob, streams, plan):
+    """The AVIF photo through HeifContext: its launches and the wall
+    time of each span of the decode path (core/trace.py), read around the
+    decode to interleaved RGB; the YCbCr planes that decode hands to the
+    output conversion against the single tiles' decodes on the CPU placed
+    where the grid puts them, and its RGB against the plain conversion of
+    those planes.  (The photo's Python parse takes about a minute, so one
+    decode serves all four.)  Returns (launches, the decode's times by
+    part, RGB)."""
+    seen = []
+    real_convert = context_mod.convert_image
+
+    def convert(img, *args, **kw):
+        seen.append(img)
+        return real_convert(img, *args, **kw)
+    context_mod.convert_image = convert
+    try:
+        with launch_counts() as launches, trace.collect() as spans:
+            t0 = time.perf_counter()
+            ctx = HeifContext.read_from_bytes(blob)
+            file_ms = ms_since(t0)
+            rgb = ctx.decode_image(None, Colorspace.RGB,
+                                   Chroma.InterleavedRGB)
+            first_ms = ms_since(t0)
+    finally:
+        context_mod.convert_image = real_convert
+    parts = {"total_ms": first_ms, "file_parse_ms": file_ms, "spans": spans}
+    log(f"av1 photo launches {launches} (plan: {len(plan.groups)} groups, "
+        f"{plan.n_waves} waves) in {first_ms:.1f} ms, by part "
+        f"{json.dumps(parts)}")
+    for name in ("av1.parse", "av1.plan", "av1.plan_host", "av1.plan_copies",
+                 "av1.stage_a", "av1.stage_b", "av1.deblock", "av1.cdef",
+                 "av1.lr", "grid.compose"):
+        assert name in spans, f"the photo's decode ran no {name} span"
+    assert spans["av1.parse"]["count"] == plan.t, "not one parse a tile"
+    assert launches["av1_dequant_itx"] == 1, \
+        "av1_dequant_itx: not one launch per plan"
+    assert launches["av1_intra_wave"] == 1, \
+        "av1_intra_wave: not one launch per plan"
+    assert launches["planes_ycbcr8_to_rgb"] == 1
+    assert launches["strided_extract_paste"] == 0
+    assert launches["tile_yuv_to_rgb"] == 0
+    assert launches["hevc_dequant_itx"] == launches["hevc_intra_wave"] == 0
+    inter = rgb.plane(Channel.Interleaved)
+    assert (rgb.width, rgb.height) == PHOTO and inter.dtype == torch.uint8 \
+        and tuple(inter.shape) == (PHOTO[1], PHOTO[0] * 3) \
+        and inter.device.type == DEV
+
+    img, = seen
+    assert (img.width, img.height, img.colorspace, img.chroma) == \
+        (*PHOTO, Colorspace.YCbCr, Chroma.C420)
+    singles = {}
+    for n in PHOTO_TILES:
+        planes = av1_decode_parsed(streams[n], "cpu")
+        assert av1_hashes(planes) == streams[n]["sha256"], n
+        singles[n] = planes
+    rows, cols = PHOTO_GRID
+    n_diff = 0
+    for i in range(rows * cols):
+        ty, tx = divmod(i, cols)
+        for ch, key, sub in ((Channel.Y, "Y", 1), (Channel.Cb, "U", 2),
+                             (Channel.Cr, "V", 2)):
+            t = 512 // sub
+            y0, x0 = ty * t, tx * t
+            got = img.plane(ch)[y0:y0 + t, x0:x0 + t].cpu()
+            h, w = got.shape
+            ref = singles[PHOTO_TILES[i % 4]][key][:h, :w]
+            n_diff += int((got.to(torch.int32) != ref).sum())
+    log(f"check av1 photo YCbCr (card) vs the single tiles' CPU decodes "
+        f"placed: differing {n_diff}")
+    assert n_diff == 0, "the grid's planes differ from the single tiles"
+    try:
+        YCbCrToRGB.USE_KERNEL = False        # the plain path on the card
+        plain = convert_image(img, Colorspace.RGB, Chroma.InterleavedRGB)
+    finally:
+        YCbCrToRGB.USE_KERNEL = None
+    assert torch.equal(plain.plane(Channel.Interleaved), inter), \
+        "the photo's RGB differs from the plain conversion"
+    return launches, parts, rgb
+
+
+def check_av01_files(streams):
+    """Single-item av01 files (an 8-bit tile, the 10-bit tile and the
+    non-8-aligned one) through the context on the card and on the CPU,
+    YCbCr against the manifest, and the 8-bit one's RGB."""
+    blobs = {}
+    for name in ("tile512_s0", "tile512_10bit", "tile508x500"):
+        e = streams[name]
+        blobs[name] = av01_file(e)
+        img = decode_both(f"av01 {name}", blobs[name])
+        ok = av1_hashes({k: img.plane(c).to(torch.int32) for k, c in
+                         (("Y", Channel.Y), ("U", Channel.Cb),
+                          ("V", Channel.Cr))}) == e["sha256"]
+        assert ok, f"{name}: the file's planes differ from the manifest"
+        log(f"check file av01 {name} planes vs manifest: equal")
+        if name == "tile512_s0":
+            decode_both(f"av01 {name} RGB", blobs[name], Colorspace.RGB,
+                        Chroma.C444)
+    return blobs
+
+
+def time_av1_photo(blob, ref, first):
+    """The photo's second decode through the entry point, under
+    torch.profiler: its total beside the first decode's (``first``, the
+    launch-count decode split by part), its RGB equal to the first's, and
+    the card's kernel and copy time over its own total."""
+    out = {}
+
+    def decode():
+        t0 = time.perf_counter()
+        out["rgb"] = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        out["ms"] = ms_since(t0)
+    dev = device_ms(decode)
+    assert torch.equal(out["rgb"].plane(Channel.Interleaved),
+                       ref.plane(Channel.Interleaved)), \
+        "the second decode differs from the first"
+    totals = [first["total_ms"], out["ms"]]
+    t = {"total_ms": totals,
+         "mp_per_s": [PHOTO[0] * PHOTO[1] / 1e3 / ms for ms in totals],
+         "by_part": first}
+    if dev is None:
+        dev = "not measured (the profiler recorded no device time)"
+    else:
+        dev["kernel_share"] = dev["kernels_ms"] / out["ms"]
+        dev["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / out["ms"]
+    t["device"] = dev
+    log(f"av1 photo {json.dumps(t)}")
+    return t
+
+
+def av1_itx_work(plan):
+    """(bytes, int32 operations) of av1_dequant_itx on a plan's data.
+    Bytes: each job's flags word, the rest of its scalars and its
+    min(th, 32) x min(tw, 32) coefficients where it has a residual (a
+    job without one reads nothing more), and its whole (sq x sq) output.
+    Operations: per sample of a residual block a butterfly stage of each
+    1-D transform (log2 of its length)."""
+    nbytes = nops = 0
+    for g in plan.groups:
+        tw = g.txp[:, av1_fast.TXP_TW].long()
+        th = g.txp[:, av1_fast.TXP_TH].long()
+        on = (g.txp[:, av1_fast.TXP_FLAGS] & 1).long()
+        coeffs = int((on * tw.clamp(max=32) * th.clamp(max=32)).sum())
+        nbytes += g.n * 4 + int(on.sum()) * 5 * 4 + coeffs * 4 \
+            + g.n * g.sq * g.sq * 4
+        nops += int((on * tw * th).double().mul(
+            torch.log2(tw.double()) + torch.log2(th.double())).sum()) \
+            * AV1_OPS_PER_STAGE
+    return nbytes, nops
+
+
+# kernel's non-directional modes: DC, SMOOTH, SMOOTH_V, SMOOTH_H, PAETH
+AV1_NON_DIRECTIONAL = (0, 9, 10, 11, 12)
+
+
+def av1_wave_work(plan):
+    """(bytes, int32 operations) of av1_intra_wave on a plan's data
+    (palette jobs are a scatter before the launch).  Bytes, per job: the
+    scalars its kind reads; the gather index entries its mode uses (a
+    directional or filter-intra job all of its table, the others wv
+    above, hv left and, for PAETH, the corner); the distinct samples
+    those entries point at (sentinels read nothing); hh x ww residuals
+    read and samples stored; a CfL job's luma box (its wv x hv clipped
+    to the frame, 4, 2 or 1 samples each); and the plan's wave-row table
+    once.  Operations: AV1_OPS_PER_SAMPLE per predicted sample."""
+    nm = 4 if plan.ssx and plan.ssy else (2 if plan.ssx else 1)
+    nbytes = plan.wave_rows.numel() * 4
+    nops = 0
+    for g in plan.groups:
+        if g.kind == av1_recon.KIND_PAL or not g.n:
+            continue
+        p = g.params.long()
+
+        def col(name):
+            return p[:, av1_fast.P[name]]
+        la = g.above.shape[1]
+        r = torch.arange(la, device=p.device)[None, :]
+        samples = int((col("hh") * col("ww")).sum())
+        if g.kind == av1_recon.KIND_FI:
+            words = 5 * g.n                  # fi_mode, dst, pw, hh, ww
+            use_a = use_l = torch.ones((g.n, la), dtype=torch.bool,
+                                       device=p.device)
+            use_c = torch.ones(g.n, dtype=torch.bool, device=p.device)
+            cfl = 0
+        else:
+            mode = col("mode")
+            directional = ~torch.isin(mode, torch.tensor(
+                AV1_NON_DIRECTIONAL, device=p.device))
+            edge = directional.long() * int(plan.edge_filter)
+            is_cfl = col("is_cfl")
+            words = int((20 + 5 * edge + is_cfl).sum())
+            use_a = directional[:, None] | (r < col("wv")[:, None])
+            use_l = directional[:, None] | (r < col("hv")[:, None])
+            use_c = directional | (mode == 12)
+            cfl = int((is_cfl * torch.minimum(col("wv"), col("bw")) *
+                       torch.minimum(col("hv"), col("bh"))).sum()) * nm
+        idx = torch.cat([torch.where(use_a, g.above.long(), -4),
+                         torch.where(use_l, g.left.long(), -4),
+                         torch.where(use_c, g.corner.long(), -4)[:, None]],
+                        1).sort(1).values
+        distinct = int(((idx[:, 1:] != idx[:, :-1]) & (idx[:, 1:] >= 0))
+                       .sum() + (idx[:, 0] >= 0).sum())
+        entries = int(use_a.sum() + use_l.sum() + use_c.sum())
+        nbytes += 4 * (words + entries + distinct + 2 * samples + cfl)
+        nops += samples * AV1_OPS_PER_SAMPLE
+    return nbytes, nops
+
+
+def av1_kernel_rows(timer, tally, plan, launches):
+    """The AV1 kernels' rows of the {"kernels": ...} line, at the photo's
+    shapes: the 48-tile plan's stage A and stage B."""
+    res = av1_recon.residuals(plan)
+    rows = {}
+    nbytes, nops = av1_itx_work(plan)
+    b_ms, b_by = bound(nbytes, nops)
+    rows["av1_dequant_itx"] = {
+        "name": "av1_dequant_itx", "route": "cuda", "source": AV1_SOURCE,
+        "replaces": f"{AV1_JNP}:548",
+        "launches": launches["av1_dequant_itx"],
+        "max_abs_err": tally.max_abs_err["av1_dequant_itx"],
+        "ms": timer([lambda: av1_recon.residuals(plan)]),
+        "plain_ms": timer([lambda: av1_plain_residuals(plan)], n=2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library_note": "no one PyTorch call computes the staged AV1 "
+                        "inverse transforms (integer butterflies with "
+                        "their intermediate roundings; no integer matmul "
+                        "on CUDA)",
+        "checks": tally.checks["av1_dequant_itx"],
+        "differing_pixels": tally.differing["av1_dequant_itx"],
+        "bytes": nbytes, "ops": nops,
+        "groups": {f"{av1_recon.KIND_NAMES[g.kind]}{g.sq}": g.n
+                   for g in plan.groups}}
+    nbytes, nops = av1_wave_work(plan)
+    b_ms, b_by = bound(nbytes, nops)
+    buf0, waves = av1_recon.palette_and_waves(plan, res)
+    bufs = [buf0.clone() for _ in range(2)]
+    rows["av1_intra_wave"] = {
+        "name": "av1_intra_wave", "route": "cuda", "source": AV1_SOURCE,
+        "replaces": f"{AV1_JNP}:885",
+        "launches": launches["av1_intra_wave"],
+        "max_abs_err": tally.max_abs_err["av1_intra_wave"],
+        "ms": timer([lambda b=b: av1_fast.intra_waves(
+            b, waves, plan.wave_rows, **av1_recon.wave_args(plan))
+            for b in bufs], n=6),
+        "predict_waves_ms": timer([lambda: av1_recon.predict_waves(
+            plan, res)], n=4),
+        "plain_ms": AV1_PLAIN_WAVES_MS.get("photo"),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library_note": "no one PyTorch call computes AV1 intra "
+                        "prediction over dependency waves",
+        "waves": plan.n_waves,
+        "checks": tally.checks["av1_intra_wave"],
+        "differing_pixels": tally.differing["av1_intra_wave"],
+        "bytes": nbytes, "ops": nops}
+    log(f"av1 kernels {json.dumps(rows)}")
+    return rows
+
+
+
 # -------------------------------------------------------------------- main
 
 def nvidia_smi():
@@ -1632,6 +2109,10 @@ def main():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    phase_s = {}        # seconds since the start at the end of each phase
+
+    def phase_done(name):
+        phase_s[name] = time.perf_counter() - t_start
 
     # 1. the card
     card = nvidia_smi()
@@ -1647,11 +2128,15 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("ptxas:", line.strip())
 
+    phase_done("build")
+
     # 3. each kernel against its plain version
     tally = Tally()
     check_kernels(tally)
     small_input_check(tally)
     core_counts = check_colour_core()
+
+    phase_done("kernels")
 
     # 4. the main path at full width
     uncC, cmpd = ycc420(W, H, (TILES, TILES))
@@ -1685,9 +2170,13 @@ def main():
     tally.compare("planes_ycbcr8_to_rgb", f"main path {W}x{H} RGB",
                   out, rgb_of(plain_rgb), exact=True)
 
+    phase_done("main_path")
+
     # 4b. the file path: HEIF files through HeifContext
     alpha = alpha_payload()
     blobs, file_launches = check_files(data, alpha, out)
+
+    phase_done("files")
 
     # 4c. HEVC: the kernels, the streams, the phone photo, hvc1 files
     streams = hevc_streams()
@@ -1702,6 +2191,28 @@ def main():
                 check_residuals(tally, f"photo {plan.t} tiles", plan))
     photo_launches = check_photo(photo, streams, plan)
     hvc1_blobs = check_hvc1_files(streams)
+
+    phase_done("hevc")
+
+    # 4d. AV1: the kernels, the streams, the AVIF photo, av01 files
+    a_streams = av1_streams()
+    check_av1_kernels(tally, a_streams)
+    check_av1_streams(a_streams)
+    a_photo = av1_photo_file(a_streams)
+    t0 = time.perf_counter()
+    a_plan = av1_photo_plan(a_streams)
+    a_plan_ms = ms_since(t0)
+    a_groups = {f"{av1_recon.KIND_NAMES[g.kind]}{g.sq}": g.n
+                for g in a_plan.groups}
+    log(f"av1 photo file {len(a_photo)} B, {a_plan.t} tiles, "
+        f"{a_plan.n_waves} waves, groups {a_groups}, plan "
+        f"{a_plan_ms:.0f} ms")
+    check_av1_plan(tally, f"photo {a_plan.t} tiles", a_plan)
+    a_launches, a_first, a_rgb = check_av1_photo(a_photo, a_streams,
+                                                 a_plan)
+    av01_blobs = check_av01_files(a_streams)
+
+    phase_done("av1")
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -1718,6 +2229,8 @@ def main():
     tally.compare("tile_yuv_to_rgb", f"fused {W}x{H} vs plain",
                   fused, cuda_fast.yuv_tiles_to_rgb_plain(
                       tiles, sub_x=2, sub_y=2, **fused_kw), exact=True)
+
+    phase_done("fused")
 
     # 6. timing
     timer = DeviceTimer()
@@ -1881,8 +2394,21 @@ def main():
     photo_runs = time_photo(photo, streams)
     hvc1_runs = time_hvc1_single(hvc1_blobs["tile512_s0"])
     photo_device = photo_device_share(photo, photo_runs)
+
+    # the AV1 kernels at the photo's shapes, and its decode part by part
+    kern.update(av1_kernel_rows(timer, tally, a_plan, a_launches))
+    a_runs = time_av1_photo(a_photo, a_rgb, a_first)
+    av01_single = []
+    for _ in range(AV1_REPEATS):
+        t0 = time.perf_counter()
+        HeifContext.read_from_bytes(av01_blobs["tile512_s0"]).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        av01_single.append(ms_since(t0))
+    log(f"av1 single item total ms {av01_single}")
     log(f"file single total ms {[r['total_ms'] for r in single_runs]} "
         f"beside the library path {e2e_ms} ms")
+
+    phase_done("timing")
 
     # 7. SASS instructions per output pixel of the colour kernels' flagship
     # instantiations (tile: 8-byte vectors, 4:2:0; planes: 16-byte vectors,
@@ -1921,7 +2447,12 @@ def main():
                        "stage_device_ms": hevc_stages,
                        "wave_single_tile": wave_one},
         "hevc_single_item_total_ms": hvc1_runs,
-        "elapsed_s": time.perf_counter() - t_start}
+        "av1_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
+                      f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} av01 tiles of "
+                      "512x512", "waves": a_plan.n_waves,
+                      "launches": a_launches, "parts": a_runs},
+        "av1_single_item_total_ms": av01_single,
+        "phase_s": phase_s, "elapsed_s": time.perf_counter() - t_start}
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ import heapq
 from typing import List, Optional, Tuple
 
 from ..core.error import HeifError, SubError
+from ..core.trace import span
 from ..image.pixel_image import PixelImage, Colorspace, Chroma
 from .state import ColorState
 from .ops import ALL_OPS, ColorOp, ColorConversionOptions
@@ -94,7 +95,8 @@ def convert_image(img: PixelImage,
             f"{', '.join(missing)}, not ported yet")
     state = inp
     for op, out_state in chain:
-        img = op.apply(img, state, out_state, options)
+        with span(f"color.{type(op).__name__}"):
+            img = op.apply(img, state, out_state, options)
         img.colorspace = out_state.colorspace
         img.chroma = out_state.chroma
         state = out_state

@@ -2,7 +2,7 @@ from .item import (
     ImageItem, ImageItem_Error, DecodingOptions, ImageTiling, alloc_item,
 )
 from . import unci_item  # noqa: F401 (registers 'unci')
-from . import codec_items  # noqa: F401 (registers 'hvc1')
+from . import codec_items  # noqa: F401 (registers 'hvc1', 'av01')
 from . import derived    # noqa: F401 (grid/iovl/iden)
 
 __all__ = ["ImageItem", "ImageItem_Error", "DecodingOptions", "ImageTiling",

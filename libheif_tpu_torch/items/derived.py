@@ -5,16 +5,16 @@ libheif/image-items/grid.{h,cc} — ImageGrid grid.h:31, ImageItem_Grid
 grid.h:77, parallel tile decode grid.cc:285-453; overlay.{h,cc} —
 ImageOverlay overlay.cc:76; iden.{h,cc} iden.h:31).
 
-A grid of hvc1 tiles decodes as one batch (parallel/coded_grid: one
-plan and one pass of the reconstruction for every tile), as the JAX
-package's device grid path does, on every device.  Any other grid, and
-an hvc1 grid the batch does not take, decodes its tiles in grid order
+A grid of hvc1 tiles, or of av01 tiles, decodes as one batch
+(parallel/coded_grid: one plan and one pass of the reconstruction for
+every tile), as the JAX package's device grid path does, on every
+device.  Any other grid, and a grid the batch does not take, decodes its
+tiles in grid order
 and pastes them with ``PixelImage.copy_into`` into zeroed planes on the
 context's device.  On CUDA the tiles decode one after another on the
 current stream, so the kernels' launch counts stay exact; on the CPU
 they decode on a thread pool, as the JAX package does, with the same
-result.  The batched AV1 grid path of the JAX package waits for the AV1
-slice.
+result.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..core.error import HeifError, ErrorCode, SubError
 from ..image.pixel_image import PixelImage, Channel, Colorspace, Chroma
 from ..codecs.unc import cuda_fast
 from ..color import convert_image
-from ..parallel.coded_grid import try_batched_hevc_grid
+from ..parallel.coded_grid import try_batched_av1_grid, try_batched_hevc_grid
 from .item import ImageItem, ImageTiling, register_item, DecodingOptions
 
 
@@ -111,6 +111,8 @@ class ImageItem_Grid(ImageItem):
         self.ctx.limits.check_tile_count(grid.columns, grid.rows)
 
         batched = try_batched_hevc_grid(self, grid, tile_ids, options)
+        if batched is None:
+            batched = try_batched_av1_grid(self, grid, tile_ids, options)
         if batched is not None:
             return batched
 

@@ -1,17 +1,24 @@
-"""Batched decode of HEVC grid tiles.
+"""Batched decode of HEVC and AV1 grid tiles.
 
-Counterpart of libheif_tpu/parallel/coded_grid.py:34-61, 202-276, the
+Counterpart of libheif_tpu/parallel/coded_grid.py:34-61, 202-360, the
 replacement for the reference's per-tile thread pool (reference:
 libheif/image-items/grid.cc:285-453 std::async fan-out):
 
-  1. the entropy decode of every tile runs on the host in a thread pool
-     (the C++ parser releases the GIL), giving flat TU arrays;
+  1. the entropy decode of every tile runs on the host: HEVC in a thread
+     pool (the C++ parser releases the GIL), giving flat TU arrays; AV1
+     tile after tile (the Python parse holds the GIL), giving each tile's
+     deferred reconstruction jobs;
   2. the tiles reconstruct on the device in batches, one batch for each
-     group of tiles that agree on ``device_recon.batch_key`` (the tiles of
-     a camera's grid all do): one plan, one launch of stage A and one of
-     stage B for the whole batch;
+     group of tiles that agree on their codec's ``device_recon.batch_key``
+     (the tiles of a camera's grid all do): one plan, one launch of stage
+     A and one of stage B for the whole batch; AV1's in-loop filters then
+     run tile by tile on the device;
   3. each tile's cropped planes are pasted into the output planes on
-     the device.
+     the device, keeping the tiles' bit depth and chroma.
+
+The JAX package's batched AV1 path writes 8-bit 4:2:0 output whatever
+the tiles are (coded_grid.py:331-356); this one is held to the JAX
+tile-by-tile decode instead.
 
 The JAX package's mesh sharding of the tile batch (decode_tiles_device)
 is not ported yet.
@@ -24,13 +31,16 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..boxes.meta import Box_clap, Box_imir, Box_irot, Box_ispe
+from ..codecs.av1 import decoder as av1_decoder
+from ..codecs.av1 import device_recon as av1_recon
 from ..codecs.hevc.decoder import (check_size, extract_stream,
                                    parse_picture, planes_to_image)
 from ..codecs.hevc.device_recon import (BatchMismatch, batch_key,
                                         decode_pictures_device)
 from ..core.error import HeifError
-from ..image.pixel_image import PixelImage, Colorspace, Chroma
-from ..items.codec_items import ImageItem_HEVC
+from ..core.trace import span
+from ..image.pixel_image import PixelImage
+from ..items.codec_items import ImageItem_AVIF, ImageItem_HEVC
 
 
 def parse_tile(config_box, data: bytes, declared_size=None, limits=None):
@@ -105,19 +115,84 @@ def try_batched_hevc_grid(grid_item, grid, tile_ids,
 
 
 def compose(grid, spss, planes, ctx, options) -> PixelImage:
-    """Paste each tile's cropped planes into the grid's output planes on
-    the context's device, in grid order."""
-    tw, th = spss[0].cropped_size
+    """Paste each HEVC tile's cropped planes into the grid's output planes
+    on the context's device, in grid order."""
+    return paste_tiles(grid, [planes_to_image(sps, *pl)
+                              for sps, pl in zip(spss, planes)], ctx, options)
+
+
+def paste_tiles(grid, tiles: Sequence[PixelImage], ctx, options
+                ) -> PixelImage:
+    """Paste decoded tiles into the grid's output planes on the context's
+    device, in grid order (the output takes the first tile's colourspace,
+    chroma and depths)."""
+    tw, th = tiles[0].width, tiles[0].height
     out = PixelImage(grid.output_width, grid.output_height,
-                     Colorspace.YCbCr, Chroma.C420, ctx.limits)
-    n_total = len(spss)
-    for idx, (sps, pl) in enumerate(zip(spss, planes)):
-        tile = planes_to_image(sps, *pl)
-        if not out.planes:
-            for ch in tile.channels():
-                out.add_plane(ch, tile.bit_depth(ch), device=ctx.device)
-        ty, tx = divmod(idx, grid.columns)
-        out.copy_into(tile, tx * tw, ty * th)
-        if options.on_progress is not None:
-            options.on_progress(idx + 1, n_total)
+                     tiles[0].colorspace, tiles[0].chroma, ctx.limits)
+    n_total = len(tiles)
+    with span("grid.compose"):
+        for idx, tile in enumerate(tiles):
+            if not out.planes:
+                for ch in tile.channels():
+                    out.add_plane(ch, tile.bit_depth(ch), device=ctx.device)
+            ty, tx = divmod(idx, grid.columns)
+            out.copy_into(tile, tx * tw, ty * th)
+            if options.on_progress is not None:
+                options.on_progress(idx + 1, n_total)
     return out
+
+
+def parse_av1_tile(item, limits):
+    """Host entropy decode of one av01 tile → (seq, fh, TileDecoder)."""
+    return av1_decoder.parse_frame(
+        av1_decoder.config_stream(item.config_box(), item.coded_data()),
+        limits)
+
+
+def try_batched_av1_grid(grid_item, grid, tile_ids,
+                         options) -> Optional[PixelImage]:
+    """Batched decode of an all-av01 grid, composed on the context's
+    device.  Returns None where the batch does not apply (other item
+    types, per-tile transforms or alpha, streams the port refuses, tiles
+    of different size, depth or chroma): the caller then decodes tile by
+    tile.  Tiles that differ in another field a plan takes batch-wide
+    (the intra edge filter flag) decode as separate batches."""
+    ctx = grid_item.ctx
+    try:
+        tiles = [ctx.get_item(tid) for tid in tile_ids]
+        if not all(isinstance(t, ImageItem_AVIF) for t in tiles):
+            return None
+        for t in tiles:
+            if t.init_error is not None or t.alpha_item is not None:
+                return None
+            if any(isinstance(p, (Box_irot, Box_imir, Box_clap))
+                   for p in t.properties()):
+                return None
+        if options.cancel is not None and options.cancel():
+            return None
+        parsed = [parse_av1_tile(t, ctx.limits) for t in tiles]
+    except HeifError:
+        return None
+
+    def shape(p):
+        seq, fh, _ = p
+        return (fh.frame_width, fh.frame_height, seq.bit_depth,
+                seq.monochrome, seq.subsampling_x, seq.subsampling_y)
+    if any(shape(p) != shape(parsed[0]) for p in parsed):
+        return None
+    groups: Dict[tuple, List[int]] = {}
+    for i, p in enumerate(parsed):
+        groups.setdefault(av1_recon.batch_key(p[2]), []).append(i)
+    images: List = [None] * len(parsed)
+    for idx in groups.values():
+        try:
+            out = av1_recon.decode_frames_device([parsed[i][2] for i in idx],
+                                                 ctx.device)
+        except av1_recon.BatchMismatch:
+            return None
+        for i, pl in zip(idx, out):
+            seq, fh, dec = parsed[i]
+            images[i] = av1_decoder.planes_to_image(
+                av1_decoder.finish_frame(seq, fh, dec, pl), seq.bit_depth,
+                ctx.limits)
+    return paste_tiles(grid, images, ctx, options)
