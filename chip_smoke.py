@@ -73,6 +73,27 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    single tiles' CPU decodes placed where the grid puts them; decode
    single-item av01 files (8-bit, 10-bit, 508x500) through the context on
    the card and on the CPU with 0 samples differing;
+4e. the JPEG phase, on the streams committed in
+   libheif_tpu_torch/testdata/jpeg (PIL's libjpeg and the JAX package's
+   encoder, with the plane hashes of the JAX decode_jpeg): hold
+   jpeg_dequant_idct (one launch for every component plane of a batch)
+   against recon_plain on every stream, a batch of the small streams
+   (different tables, sizes and sampling), random int16 coefficients with
+   16-bit tables (int32 wraparound) and the photo's 48 tiles; decode
+   every stream on the card and require its planes' hashes (the
+   progressive one must raise); write a JPEG phone photo (an 8x6 grid of
+   48 512x512 jpeg items, 4032x3024 output) and decode it through
+   HeifContext to interleaved RGB, with the launch counts read around it
+   (jpeg_dequant_idct once, planes_ycbcr8_to_rgb once, nothing else) and
+   its planes held equal to the single tiles' CPU decodes placed where
+   the grid puts them; decode on the card and on the CPU with 0 samples
+   differing: a single-item jpeg file and one with its tables in jpgC
+   (both against the manifest), the committed mini files (an av01 image
+   with alpha and Exif, an hvc1 image; written by the JAX package,
+   against their manifest), a 4096x4096 tili of 64 unci 512x512 tiles
+   (every tile through decode_tile, strided_extract_paste once a tile,
+   each equal to the payload), a tili of the four hvc1 tiles and 8- and
+   16-bit mski masks;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -100,7 +121,13 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    path's own spans (core/trace.py: tile parses, plan on the host, its
    copies and the rest on the card, stages A and B, deblock, CDEF, loop
    restoration, compose, convert, interleave), then once under
-   torch.profiler for its device share; and print the numbers;
+   torch.profiler for its device share; jpeg_dequant_idct at the JPEG
+   photo's shapes beside recon_plain, its byte bound and a copy_ of the
+   same bytes (the JPEG photo's decode is timed in phase 4e: REPEATS
+   decodes, the first, the launch-count decode, split by the spans: tile
+   parses and scans, the one reconstruction, compose, convert,
+   interleave; the last under torch.profiler for its device share); and
+   print the numbers;
 7. print the colour kernels' SASS instructions per output pixel and the
    strided kernel's per output byte (sass_count.py, cuobjdump).
 
@@ -124,9 +151,10 @@ import torch
 from libheif_tpu_torch import DecodingOptions, HeifContext, HeifFile, _build
 from libheif_tpu_torch import context as context_mod
 from libheif_tpu_torch.boxes import read_all_boxes
-from libheif_tpu_torch.boxes.codec_cfg import Box_av1C, Box_hvcC
+from libheif_tpu_torch.boxes.codec_cfg import Box_av1C, Box_hvcC, Box_jpgC
 from libheif_tpu_torch.boxes.meta import (
     Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe)
+from libheif_tpu_torch.boxes.tild import Box_tilC, TiledImageParameters
 from libheif_tpu_torch.boxes.unc import (
     Box_uncC, Box_cmpd, CmpdComponent, UncCComponent, InterleaveMode,
     SamplingMode)
@@ -138,6 +166,9 @@ from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
 from libheif_tpu_torch.codecs.hevc import device_recon
 from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
+from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
+from libheif_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
+from libheif_tpu_torch.codecs.jpeg import idct as jpeg_idct
 from libheif_tpu_torch.codecs.unc import (
     UnciDecoder, cuda_fast, kernels, sass_count)
 from libheif_tpu_torch.codecs.unc.layout import (
@@ -151,6 +182,8 @@ from libheif_tpu_torch.core.fraction import Fraction
 from libheif_tpu_torch.image.pixel_image import (
     Channel, Colorspace, Chroma, PixelImage)
 from libheif_tpu_torch.items.derived import ImageGrid, ImageOverlay
+from libheif_tpu_torch.items.mask_item import Box_mskC
+from libheif_tpu_torch.items.tiled_item import TiledHeader
 from libheif_tpu_torch.parallel import coded_grid
 
 SEED = 0
@@ -176,7 +209,7 @@ ALPHA_URN = "urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"
 
 # every hand-written kernel, by name
 ALL_KERNELS = {**cuda_fast.KERNELS, **hevc_fast.KERNELS,
-               **av1_fast.KERNELS}
+               **av1_fast.KERNELS, **jpeg_fast.KERNELS}
 
 
 def log(*a):
@@ -2095,6 +2128,447 @@ def av1_kernel_rows(timer, tally, plan, launches):
 
 
 
+# The JPEG phase: the committed streams of libheif_tpu_torch/testdata/jpeg
+# (PIL's libjpeg and the JAX package's encoder, with the plane hashes of
+# the JAX decode_jpeg), the reconstruction kernel against its plain
+# version, a phone photo's JPEG (an 8x6 grid of 512x512 jpeg tiles under a
+# 4032x3024 output), and the jpeg, mini, tili and mski items.
+
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "libheif_tpu_torch", "testdata", "jpeg")
+ITEMS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "libheif_tpu_torch", "testdata", "items")
+JPEG_SOURCE = "libheif_tpu_torch/codecs/jpeg/csrc/jpeg_kernels.cu"
+JPEG_JNP = "libheif_tpu/codecs/jpeg/decoder.py"
+JPEG_PARSED = {}         # stream name -> JpegFrame, parsed once
+JPEG_PLAIN_MS = {}
+# int32 operations per sample of jpeg_dequant_idct: the dequantising
+# product, two 1-D passes (per output ~1.5 products and ~4 adds, shifts),
+# the level shift and the clip
+JPEG_OPS_PER_SAMPLE = 16
+TILI = 4096              # the unci tili: 8x8 tiles of 512x512
+
+
+def jpeg_streams():
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        return {e["name"]: e for e in json.load(f)["streams"]}
+
+
+def jpeg_data(e):
+    with open(os.path.join(JPEG_DIR, e["file"]), "rb") as f:
+        return f.read()
+
+
+def jpeg_frame(e):
+    if e["name"] not in JPEG_PARSED:
+        JPEG_PARSED[e["name"]] = jpeg_decoder.parse_jpeg(jpeg_data(e))
+    return JPEG_PARSED[e["name"]]
+
+
+def u8_hashes(img):
+    return {ch: hashlib.sha256(img.np_plane(ch).tobytes()).hexdigest()
+            for ch in img.channels()}
+
+
+def jpeg_jobs(frames):
+    """Every component of ``frames`` as a job on the card writing its
+    whole (blocks_h*8, blocks_w*8) plane: (coefficients, tables, jobs)."""
+    coeffs, quant, jobs = [], [], []
+    first = 0
+    for frame in frames:
+        rows = {}
+        for c in frame.components:
+            if c.tq not in rows:
+                rows[c.tq] = len(quant)
+                quant.append(frame.quant[c.tq])
+            out = torch.empty((c.blocks_h * 8, c.blocks_w * 8),
+                              dtype=torch.uint8, device=DEV)
+            jobs.append(jpeg_fast.Job(first, c.blocks_w, c.blocks_h,
+                                      rows[c.tq], out))
+            coeffs.append(c.coeffs)
+            first += c.blocks_w * c.blocks_h
+    return (torch.from_numpy(np.concatenate(coeffs)).to(DEV),
+            torch.from_numpy(np.stack(quant).astype(np.int32)).to(DEV), jobs)
+
+
+def jpeg_plain(coeffs, quant, jobs):
+    return [jpeg_idct.recon_plain(coeffs[j.first:j.first + j.blocks_w *
+                                         j.blocks_h], quant[j.qidx],
+                                  j.blocks_h, j.blocks_w) for j in jobs]
+
+
+def check_jpeg_batch(tally, what, coeffs, quant, jobs):
+    """jpeg_dequant_idct (one launch for every job) against recon_plain on
+    the card (its device time kept in JPEG_PLAIN_MS)."""
+    before = jpeg_fast.JPEG_DEQUANT_IDCT.launches
+    jpeg_fast.dequant_idct(coeffs, quant, jobs)
+    assert jpeg_fast.JPEG_DEQUANT_IDCT.launches - before == 1
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(True), torch.cuda.Event(True)
+    s.record()
+    ref = jpeg_plain(coeffs, quant, jobs)
+    e.record()
+    e.synchronize()
+    JPEG_PLAIN_MS[what] = s.elapsed_time(e)
+    got = torch.cat([j.out.reshape(-1) for j in jobs])
+    tally.compare("jpeg_dequant_idct", f"{what}, {len(jobs)} planes",
+                  got, torch.cat([r.reshape(-1) for r in ref]), exact=True)
+
+
+def check_jpeg_kernel(tally, streams):
+    """jpeg_dequant_idct against recon_plain on the card: every committed
+    stream alone, all the small streams in one batch (different tables,
+    sizes and sampling), random int16 coefficients with 16-bit tables
+    (int32 wraparound) and the photo's 48 tiles."""
+    good = [e for e in streams.values() if "sha256" in e]
+    for e in good:
+        check_jpeg_batch(tally, e["name"], *jpeg_jobs([jpeg_frame(e)]))
+    small = [jpeg_frame(e) for e in good if not e["name"].startswith("tile")]
+    check_jpeg_batch(tally, f"batch of {len(small)} streams",
+                     *jpeg_jobs(small))
+    rng = np.random.default_rng(SEED + 8)
+    for bh, bw in ((37, 53), (64, 64), (1, 1)):
+        coeffs = torch.from_numpy(rng.integers(
+            -32768, 32768, (bh * bw, 64), dtype=np.int16)).to(DEV)
+        quant = torch.from_numpy(rng.integers(1, 65536, (2, 64))
+                                 .astype(np.int32)).to(DEV)
+        out = torch.empty((bh * 8, bw * 8), dtype=torch.uint8, device=DEV)
+        check_jpeg_batch(tally, f"wrap {bh}x{bw} blocks, 16-bit tables",
+                         coeffs, quant, [jpeg_fast.Job(0, bw, bh, 1, out)])
+    rows, cols = PHOTO_GRID
+    frames = [jpeg_frame(streams[PHOTO_TILES[i % 4]])
+              for i in range(rows * cols)]
+    check_jpeg_batch(tally, "photo", *jpeg_jobs(frames))
+    return frames
+
+
+def check_jpeg_streams(streams):
+    """Every stream decoded on the card (decode_jpeg): its planes hash to
+    the manifest (the JAX decode, libjpeg's where PIL gives them raw);
+    the progressive stream raises Unsupported."""
+    for name, e in streams.items():
+        data = jpeg_data(e)
+        if "sha256" not in e:
+            try:
+                jpeg_decoder.decode_jpeg(data)
+            except HeifError as err:
+                log(f"check jpeg stream {name:14s} raises: {err}")
+                continue
+            raise AssertionError(f"{name}: decoded, expected a refusal")
+        img = jpeg_decoder.decode_jpeg(data)
+        assert all(img.plane(c).device.type == DEV for c in img.channels())
+        ok = u8_hashes(img) == e["sha256"]
+        assert len(img.warnings) == e["warnings"], name
+        log(f"check jpeg stream {name:14s} {e['width']}x{e['height']} "
+            f"planes vs manifest: {'equal' if ok else 'DIFFERENT'}")
+        assert ok, f"{name}: planes differ from the manifest"
+
+
+def add_jpeg(f, data, w, h, config=b"", hidden=True):
+    """A jpeg item holding ``data`` with its ispe, and a jpgC of
+    ``config`` where given."""
+    item = f.add_new_item("jpeg").item_id
+    f.append_item_data(item, data)
+    f.add_property(item, Box_ispe(w, h), False)
+    if config:
+        f.add_property(item, Box_jpgC(config), True)
+    f.get_infe(item).hidden = hidden
+    return item
+
+
+def jpeg_photo_file(streams):
+    """The JPEG phone photo: 48 hidden jpeg items (item i holds stream i
+    mod 4) in a 6x8 grid with a 4032x3024 output."""
+    f = new_file()
+    rows, cols = PHOTO_GRID
+    ids = []
+    for i in range(rows * cols):
+        e = streams[PHOTO_TILES[i % 4]]
+        ids.append(add_jpeg(f, jpeg_data(e), e["width"], e["height"]))
+    grid = f.add_new_item("grid").item_id
+    f.append_item_data(grid, ImageGrid(rows, cols, *PHOTO).write(), 1)
+    f.add_property(grid, Box_ispe(*PHOTO), False)
+    f.add_reference("dimg", grid, ids)
+    f.set_primary_item(grid)
+    return f.write()
+
+
+def check_jpeg_photo(blob, streams):
+    """The JPEG photo through HeifContext to interleaved RGB: its launches
+    and the wall time of each span of the decode path, read around it;
+    the YCbCr planes handed to the output conversion against the single
+    tiles' CPU decodes placed where the grid puts them, and the RGB
+    against the plain conversion of those planes.  Returns (launches,
+    times by part, RGB)."""
+    seen = []
+    real_convert = context_mod.convert_image
+
+    def convert(img, *args, **kw):
+        seen.append(img)
+        return real_convert(img, *args, **kw)
+    context_mod.convert_image = convert
+    try:
+        with launch_counts() as launches, trace.collect() as spans:
+            t0 = time.perf_counter()
+            ctx = HeifContext.read_from_bytes(blob)
+            file_ms = ms_since(t0)
+            rgb = ctx.decode_image(None, Colorspace.RGB,
+                                   Chroma.InterleavedRGB)
+            first_ms = ms_since(t0)
+    finally:
+        context_mod.convert_image = real_convert
+    parts = {"total_ms": first_ms, "file_parse_ms": file_ms, "spans": spans}
+    log(f"jpeg photo launches {launches} in {first_ms:.1f} ms, by part "
+        f"{json.dumps(parts)}")
+    n = PHOTO_GRID[0] * PHOTO_GRID[1]
+    assert spans["jpeg.parse"]["count"] == spans["jpeg.scan"]["count"] == n
+    assert spans["jpeg.recon"]["count"] == spans["grid.compose"]["count"] \
+        == 1
+    assert launches["jpeg_dequant_idct"] == 1, \
+        "jpeg_dequant_idct: not one launch for the photo"
+    assert launches["planes_ycbcr8_to_rgb"] == 1
+    assert launches["strided_extract_paste"] == 0
+    assert sum(launches[k] for k in ALL_KERNELS) == 2, launches
+    inter = rgb.plane(Channel.Interleaved)
+    assert (rgb.width, rgb.height) == PHOTO and inter.dtype == torch.uint8 \
+        and tuple(inter.shape) == (PHOTO[1], PHOTO[0] * 3) \
+        and inter.device.type == DEV
+    img, = seen
+    assert (img.width, img.height, img.colorspace, img.chroma) == \
+        (*PHOTO, Colorspace.YCbCr, Chroma.C420)
+    singles = {n_: jpeg_decoder.decode_jpeg(jpeg_data(streams[n_]), "cpu")
+               for n_ in PHOTO_TILES}
+    for n_, s_img in singles.items():
+        assert u8_hashes(s_img) == streams[n_]["sha256"], n_
+    rows, cols = PHOTO_GRID
+    n_diff = 0
+    for i in range(rows * cols):
+        ty, tx = divmod(i, cols)
+        for ch, sub in ((Channel.Y, 1), (Channel.Cb, 2), (Channel.Cr, 2)):
+            t = 512 // sub
+            got = img.plane(ch)[ty * t:ty * t + t, tx * t:tx * t + t].cpu()
+            h, w = got.shape
+            ref = singles[PHOTO_TILES[i % 4]].plane(ch)[:h, :w]
+            n_diff += int((got != ref).sum())
+    log(f"check jpeg photo YCbCr (card) vs the single tiles' CPU decodes "
+        f"placed: differing {n_diff}")
+    assert n_diff == 0, "the grid's planes differ from the single tiles"
+    try:
+        YCbCrToRGB.USE_KERNEL = False        # the plain path on the card
+        plain = convert_image(img, Colorspace.RGB, Chroma.InterleavedRGB)
+    finally:
+        YCbCrToRGB.USE_KERNEL = None
+    assert torch.equal(plain.plane(Channel.Interleaved), inter), \
+        "the photo's RGB differs from the plain conversion"
+    return launches, parts, rgb
+
+
+def jpeg_file(e, split=False):
+    """A single-item jpeg file of stream ``e``; with ``split`` its SOI and
+    tables (everything before SOS) in a jpgC."""
+    data = jpeg_data(e)
+    cut = data.index(b"\xff\xda") if split else 0
+    f = new_file()
+    f.set_primary_item(add_jpeg(f, data[cut:], e["width"], e["height"],
+                                data[:cut], hidden=False))
+    return f.write()
+
+
+def unci_tili_file(data):
+    """A 4096x4096 tili of 64 unci 512x512 4:2:0 tiles (tile i holds tile i
+    of the flagship payload), its unci boxes in tilC."""
+    tw = TILI // TILES
+    size = tw * tw * 3 // 2
+    return tili_file([data[i * size:(i + 1) * size]
+                      for i in range(TILES * TILES)], TILI, TILI, tw, tw,
+                     "unci", list(ycc420(tw, tw, (1, 1))))
+
+
+def hvc1_tili_file(streams):
+    """A 1024x1024 tili of the four committed hvc1 512x512 tiles, each
+    tile carrying its SPS and PPS in band, the first one's hvcC in
+    tilC."""
+    tiles = []
+    for n in PHOTO_TILES:
+        sps, pps, sl = hevc_nals(streams[n])
+        tiles.append(b"".join(len(x).to_bytes(4, "big") + x
+                              for x in (sps, pps, sl)))
+    sps, pps, _ = hevc_nals(streams[PHOTO_TILES[0]])
+    cfg = Box_hvcC()
+    cfg.general_profile_idc = 1
+    cfg.add_nal(sps)
+    cfg.add_nal(pps)
+    return tili_file(tiles, 1024, 1024, 512, 512, "hvc1", [cfg])
+
+
+def tili_file(tiles, w, h, tw, th, fourcc_, props):
+    """A tili item: the offset table (40-bit offsets, 24-bit sizes), then
+    the tiles in grid order; ``props`` go in tilC."""
+    params = TiledImageParameters(image_width=w, image_height=h,
+                                  tile_width=tw, tile_height=th,
+                                  compression_format=fourcc_)
+    hdr = TiledHeader(params)
+    pos = hdr.table_size()
+    for i, t in enumerate(tiles):
+        hdr.set_tile_range(i % params.tiles_h(), i // params.tiles_h(), pos,
+                           len(t))
+        pos += len(t)
+    tilC = Box_tilC(params)
+    tilC.children.extend(props)
+    f = new_file()
+    item = f.add_new_item("tili").item_id
+    f.append_item_data(item, hdr.serialize() + b"".join(tiles))
+    f.add_property(item, tilC, True)
+    f.add_property(item, Box_ispe(w, h), False)
+    f.set_primary_item(item)
+    return f.write()
+
+
+def mski_file(bits):
+    """A 333x77 mask of random samples (16-bit ones big-endian)."""
+    rng = np.random.default_rng(SEED + bits)
+    vals = rng.integers(0, 1 << bits, (77, 333),
+                        dtype=np.uint8 if bits == 8 else np.uint16)
+    f = new_file()
+    item = f.add_new_item("mski").item_id
+    f.append_item_data(item, vals.astype(">u2" if bits == 16 else np.uint8)
+                       .tobytes())
+    f.add_property(item, Box_ispe(333, 77), False)
+    f.add_property(item, Box_mskC(bits), True)
+    f.set_primary_item(item)
+    return f.write(), vals
+
+
+def check_jpeg_files(streams, hevc, data):
+    """jpeg (with and without jpgC), mini, tili and mski files through
+    the context, each on the card and on the CPU with 0 samples differing,
+    and against the manifests or the generators."""
+    e = streams[PHOTO_TILES[0]]
+    for split in (False, True):
+        what = f"jpeg {e['name']}" + (" jpgC" if split else "")
+        img = decode_both(what, jpeg_file(e, split))
+        assert u8_hashes(img) == e["sha256"], what
+        log(f"check file {what} planes vs manifest: equal")
+    decode_both("jpeg RGB", jpeg_file(e), Colorspace.RGB, Chroma.C444)
+
+    with open(os.path.join(ITEMS_DIR, "manifest.json")) as f:
+        for m in json.load(f)["files"]:
+            with open(os.path.join(ITEMS_DIR, m["file"]), "rb") as g:
+                blob = g.read()
+            img = decode_both(f"mini {m['name']}", blob)
+            assert img.channels() == m["channels"]
+            assert u8_hashes(img) == m["sha256"], m["name"]
+            log(f"check file mini {m['name']} planes vs manifest: equal")
+
+    blob = unci_tili_file(data)
+    tw = TILI // TILES
+    cards = []
+    with launch_counts() as launches:
+        ctx = HeifContext.read_from_bytes(blob)
+        for i in range(TILES * TILES):
+            cards.append(ctx.decode_tile(ctx.primary_item_id, i % TILES,
+                                         i // TILES))
+    log(f"tili unci launches {launches}")
+    assert launches["strided_extract_paste"] == TILES * TILES, \
+        "strided_extract_paste: not one launch per tili tile"
+    assert launches["assemble_tile_buffers"] == 0
+    cpu = HeifContext.read_from_bytes(blob, device="cpu")
+    full = np_planes(data, TILES, tw, tw)
+    for i, img in enumerate(cards):
+        same_image(f"tili unci tile {i}", img, cpu.decode_tile(
+            cpu.primary_item_id, i % TILES, i // TILES))
+        ty, tx = divmod(i, TILES)
+        for ch, plane, t in zip((Channel.Y, Channel.Cb, Channel.Cr), full,
+                                (tw, tw // 2, tw // 2)):
+            want = plane[ty * t:ty * t + t, tx * t:tx * t + t]
+            assert np.array_equal(img.np_plane(ch), want), (i, ch)
+    log(f"check file tili unci {TILI}x{TILI}: {TILES * TILES} tiles equal "
+        "to the payload")
+
+    blob = hvc1_tili_file(hevc)
+    for i, n in enumerate(PHOTO_TILES):
+        img = decode_both(f"tili hvc1 tile {i}", blob, tile=(i % 2, i // 2))
+        assert int32_hashes([img.plane(c).to(torch.int32) for c in
+                             (Channel.Y, Channel.Cb, Channel.Cr)]) == \
+            hevc[n]["sha256"], n
+
+    for bits in (8, 16):
+        blob, vals = mski_file(bits)
+        img = decode_both(f"mski {bits}-bit", blob)
+        got = img.plane(Channel.Y).cpu()
+        if bits == 16:
+            got = got.view(torch.int16)
+        assert np.array_equal(got.numpy().view(vals.dtype), vals), bits
+
+
+def time_jpeg_photo(blob, ref, first):
+    """The photo's decode through the entry point REPEATS times in fresh
+    contexts, the last under torch.profiler: totals beside the first
+    decode's (``first``, the launch-count decode split by part), each RGB
+    equal to the first's, and the card's kernel and copy time over that
+    decode's total."""
+    totals = [first["total_ms"]]
+    out = {}
+
+    def decode():
+        t0 = time.perf_counter()
+        out["rgb"] = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        out["ms"] = ms_since(t0)
+    for _ in range(REPEATS - 1):
+        decode()
+        totals.append(out["ms"])
+        assert torch.equal(out["rgb"].plane(Channel.Interleaved),
+                           ref.plane(Channel.Interleaved))
+    dev = device_ms(decode)
+    totals.append(out["ms"])
+    assert torch.equal(out["rgb"].plane(Channel.Interleaved),
+                       ref.plane(Channel.Interleaved))
+    t = {"total_ms": totals,
+         "mp_per_s": [PHOTO[0] * PHOTO[1] / 1e3 / ms for ms in totals],
+         "by_part": first}
+    if dev is None:
+        dev = "not measured (the profiler recorded no device time)"
+    else:
+        dev["kernel_share"] = dev["kernels_ms"] / out["ms"]
+        dev["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / out["ms"]
+    t["device"] = dev
+    log(f"jpeg photo {json.dumps(t)}")
+    return t
+
+
+def jpeg_kernel_row(timer, tally, frames, launches):
+    """jpeg_dequant_idct's row of the {"kernels": ...} line at the photo's
+    shapes (48 tiles, 294,912 blocks, one launch)."""
+    sets = [jpeg_jobs(frames) for _ in range(2)]
+    blocks = sum(j.blocks_w * j.blocks_h for j in sets[0][2])
+    # coefficients read and samples written once, the tables and the job
+    # table (10 int64 a plane) once
+    nbytes = blocks * (128 + 64) + sets[0][1].numel() * 4 + \
+        len(sets[0][2]) * 80
+    b_ms, b_by = bound(nbytes, blocks * 64 * JPEG_OPS_PER_SAMPLE)
+    srcs = [torch.empty(nbytes // 2, dtype=torch.uint8, device=DEV)
+            for _ in range(4)]
+    dst = torch.empty_like(srcs[0])
+    row = {
+        "name": "jpeg_dequant_idct", "route": "cuda", "source": JPEG_SOURCE,
+        "replaces": f"{JPEG_JNP}:500",
+        "launches": launches["jpeg_dequant_idct"],
+        "max_abs_err": tally.max_abs_err["jpeg_dequant_idct"],
+        "ms": timer([lambda s=s: jpeg_fast.dequant_idct(*s) for s in sets]),
+        "plain_ms": timer([lambda: jpeg_plain(*sets[0])], n=2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library_note": "no one PyTorch call computes the islow IDCT with "
+                        "its fixed-point roundings and int32 wraparound",
+        "copy_ms": timer([lambda s=s: dst.copy_(s) for s in srcs]),
+        "checks": tally.checks["jpeg_dequant_idct"],
+        "differing_pixels": tally.differing["jpeg_dequant_idct"],
+        "bytes": nbytes, "blocks": blocks,
+        "plain_ms_by_check": JPEG_PLAIN_MS}
+    log(f"jpeg kernel {json.dumps(row)}")
+    return {"jpeg_dequant_idct": row}
+
+
 # -------------------------------------------------------------------- main
 
 def nvidia_smi():
@@ -2213,6 +2687,20 @@ def main():
     av01_blobs = check_av01_files(a_streams)
 
     phase_done("av1")
+
+    # 4e. JPEG: the kernel, the streams, the JPEG photo, jpeg/mini/tili/mski
+    j_streams = jpeg_streams()
+    j_frames = check_jpeg_kernel(tally, j_streams)
+    check_jpeg_streams(j_streams)
+    j_photo = jpeg_photo_file(j_streams)
+    log(f"jpeg photo file {len(j_photo)} B, {len(j_frames)} tiles")
+    j_launches, j_first, j_rgb = check_jpeg_photo(j_photo, j_streams)
+    # timed here: the process's first profiler session records the card
+    # (a later one recorded no device event in one run)
+    j_runs = time_jpeg_photo(j_photo, j_rgb, j_first)
+    check_jpeg_files(j_streams, streams, data)
+
+    phase_done("jpeg")
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -2405,6 +2893,9 @@ def main():
             None, Colorspace.RGB, Chroma.InterleavedRGB)
         av01_single.append(ms_since(t0))
     log(f"av1 single item total ms {av01_single}")
+
+    # the JPEG kernel at the photo's shapes, and its decode part by part
+    kern.update(jpeg_kernel_row(timer, tally, j_frames, j_launches))
     log(f"file single total ms {[r['total_ms'] for r in single_runs]} "
         f"beside the library path {e2e_ms} ms")
 
@@ -2452,6 +2943,9 @@ def main():
                       "512x512", "waves": a_plan.n_waves,
                       "launches": a_launches, "parts": a_runs},
         "av1_single_item_total_ms": av01_single,
+        "jpeg_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
+                       f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} jpeg tiles of "
+                       "512x512", "launches": j_launches, "parts": j_runs},
         "phase_s": phase_s, "elapsed_s": time.perf_counter() - t_start}
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))

@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of libheif_tpu: HEIF files with unci, hvc1 (HEVC
-intra), grid, iden and overlay images, their transforms and alpha, and
-the colour conversion.
+intra), av01 (AV1 intra), jpeg, grid, iden, overlay, tili and mski
+images, mini files, their transforms and alpha, and the colour
+conversion.
 
 The package mirrors the module names of ``libheif_tpu`` so each part can
 be read beside its counterpart, but it imports nothing from it and never
@@ -8,8 +9,9 @@ imports JAX.  Planes are torch tensors.  Every entry point takes
 ``device=None``, which means ``"cuda"``: without CUDA it raises unless
 the caller passes ``device="cpu"``.  The hand-written Hopper kernels
 (``codecs/*/csrc/*.cu``) run on CUDA tensors; on CPU tensors each kernel
-wrapper runs its plain PyTorch version.  The HEVC parser is host C++
-(``codecs/hevc/host/``), built at first use on every device.
+wrapper runs its plain PyTorch version.  The HEVC parser and the JPEG
+scan are host C++ (``codecs/hevc/host/``, ``codecs/jpeg/host/``), built
+at first use on every device.
 """
 
 from ._build import resolve_device

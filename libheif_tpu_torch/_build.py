@@ -4,9 +4,10 @@ The CUDA sources under ``codecs/*/csrc/`` are compiled at first use by
 ``nvcc`` (one process per source, all started together) and linked into
 one shared library with a plain C interface, written to
 ``build/libheif_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``.  The host C++ of the HEVC parser (``codecs/hevc/host/``) is
-built the same way by the system C++ compiler, on every machine that
-decodes HEVC, the CPU included.  Each library's file name carries a hash
+``ctypes``.  The host C++ of the HEVC parser (``codecs/hevc/host/``) and
+of the JPEG scan (``codecs/jpeg/host/``) is built the same way by the
+system C++ compiler, one library each, on every machine that decodes
+that codec, the CPU included.  Each library's file name carries a hash
 of its sources and flags (and, for the host library, of the CPU it is
 tuned for), so an edited source is rebuilt and a stale library is never
 loaded.  A build or launch failure raises; nothing falls back.
@@ -142,12 +143,17 @@ class _CudaLibrary(_Library):
 
 
 class _HostLibrary(_Library):
-    """The HEVC parser and wave planner, host C++ built by ``c++``."""
+    """A codec's host C++ (``what``: the HEVC parser and wave planner, the
+    JPEG scan), built by ``c++``."""
+
+    def __init__(self, stem: str, pattern: str, key: bytes, what: str):
+        super().__init__(stem, pattern, key)
+        self.what = what
 
     def compile(self, srcs, out):
         cxx = shutil.which("c++") or shutil.which("g++")
         if cxx is None:
-            raise RuntimeError("no C++ compiler: the HEVC parser cannot be "
+            raise RuntimeError(f"no C++ compiler: the {self.what} cannot be "
                                "built")
         return _run([[cxx, *HOST_CXX_FLAGS, "-o", str(out),
                       *map(str, srcs)]], "c++")
@@ -156,7 +162,11 @@ class _HostLibrary(_Library):
 LIBRARY = _CudaLibrary("kernels", "codecs/*/csrc/*.cu",
                        " ".join(NVCC_FLAGS).encode())
 HOST_LIBRARY = _HostLibrary("hevc_host", "codecs/hevc/host/*.cc",
-                            " ".join(HOST_CXX_FLAGS).encode() + _cpu_id())
+                            " ".join(HOST_CXX_FLAGS).encode() + _cpu_id(),
+                            "HEVC parser")
+JPEG_HOST_LIBRARY = _HostLibrary("jpeg_host", "codecs/jpeg/host/*.cc",
+                                 " ".join(HOST_CXX_FLAGS).encode() +
+                                 _cpu_id(), "JPEG scan")
 
 
 class CudaKernel:

@@ -58,6 +58,9 @@ class HeifContext:
 
     def _interpret(self) -> None:
         """Build the item graph (ref: interpret_heif_file context.cc:564)."""
+        if self.file.mini is not None and self.file.meta is None:
+            self._interpret_mini()
+            return
         f = self.file
         for item_id in f.item_ids:
             infe = f.get_infe(item_id)
@@ -116,6 +119,13 @@ class HeifContext:
                             "content_type": infe.content_type,
                             "item_uri_type": infe.item_uri_type,
                         })
+
+    def _interpret_mini(self) -> None:
+        """Make the items of a 'mini' file (ref: Box_mini::
+        create_expanded_boxes mini.h:40 — the reference expands the box
+        into real boxes; the items are made directly)."""
+        from .items.mini_item import make_mini_items
+        make_mini_items(self)
 
     # ---------------------------------------------------------------- query
 

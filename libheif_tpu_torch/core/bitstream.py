@@ -146,7 +146,8 @@ class ByteReader:
 
 class BitReader:
     """MSB-first bit reader with Exp-Golomb codes (ref: bitstream.h
-    BitReader:408), for the HEVC parameter sets and slice headers."""
+    BitReader:408), for the HEVC parameter sets and slice headers and the
+    bit-packed mini box."""
 
     __slots__ = ("_buf", "_bytepos", "_end", "_bitbuf", "_bits")
 
@@ -205,6 +206,19 @@ class BitReader:
     def byte_align(self) -> None:
         self._bits -= self._bits % 8
         self._bitbuf &= (1 << self._bits) - 1
+
+    def read_bytes_aligned(self, n: int) -> bytes:
+        """Read n whole bytes; the position must be byte-aligned."""
+        if self._bits % 8 != 0:
+            raise HeifError.usage(msg="BitReader not byte-aligned")
+        pos = self._bytepos - self._bits // 8
+        if pos + n > self._end:
+            raise HeifError.eof("bit reader byte read underrun")
+        out = bytes(self._buf[pos:pos + n])
+        self._bytepos = pos + n
+        self._bitbuf = 0
+        self._bits = 0
+        return out
 
 
 class ByteWriter:

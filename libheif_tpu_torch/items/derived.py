@@ -5,10 +5,10 @@ libheif/image-items/grid.{h,cc} — ImageGrid grid.h:31, ImageItem_Grid
 grid.h:77, parallel tile decode grid.cc:285-453; overlay.{h,cc} —
 ImageOverlay overlay.cc:76; iden.{h,cc} iden.h:31).
 
-A grid of hvc1 tiles, or of av01 tiles, decodes as one batch
-(parallel/coded_grid: one plan and one pass of the reconstruction for
-every tile), as the JAX package's device grid path does, on every
-device.  Any other grid, and a grid the batch does not take, decodes its
+A grid of hvc1 tiles, of av01 tiles or of jpeg tiles decodes as one
+batch (parallel/coded_grid: one plan and one pass of the reconstruction
+for every tile), as the JAX package's device grid path does for the
+first two, on every device.  Any other grid, and a grid the batch does not take, decodes its
 tiles in grid order
 and pastes them with ``PixelImage.copy_into`` into zeroed planes on the
 context's device.  On CUDA the tiles decode one after another on the
@@ -31,7 +31,9 @@ from ..core.error import HeifError, ErrorCode, SubError
 from ..image.pixel_image import PixelImage, Channel, Colorspace, Chroma
 from ..codecs.unc import cuda_fast
 from ..color import convert_image
-from ..parallel.coded_grid import try_batched_av1_grid, try_batched_hevc_grid
+from ..parallel.coded_grid import (try_batched_av1_grid,
+                                  try_batched_hevc_grid,
+                                  try_batched_jpeg_grid)
 from .item import ImageItem, ImageTiling, register_item, DecodingOptions
 
 
@@ -113,6 +115,8 @@ class ImageItem_Grid(ImageItem):
         batched = try_batched_hevc_grid(self, grid, tile_ids, options)
         if batched is None:
             batched = try_batched_av1_grid(self, grid, tile_ids, options)
+        if batched is None:
+            batched = try_batched_jpeg_grid(self, grid, tile_ids, options)
         if batched is not None:
             return batched
 

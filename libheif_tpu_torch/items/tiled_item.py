@@ -1,0 +1,271 @@
+"""'tili' dynamically tiled image item (experimental 23008-12 tiling).
+
+Counterpart of libheif_tpu/items/tiled_item.py, decode side (:54-272;
+reference: libheif/image-items/tiled.h:148 — ImageItem_Tiled, TiledHeader
+tiled.h:92; decode path tiled.cc:959-1035, offset-table IO
+tiled.cc:363-556).
+
+A tili item stores one offset table ("header") followed by the
+concatenated per-tile bitstreams in its item data.  Tile codec
+configuration lives as a shared property template in the tilC box.
+Offsets are relative to the start of the item data, so a single tile of
+a gigapixel image decodes from two small ranged reads (table entry, in
+chunks of entries, and the tile's bytes).  Each tile decodes on the
+context's device: unci tiles through one UnciDecoder kept by the item,
+hvc1, av01 and jpeg tiles through their item's decoder
+(``codec_items.CodedImageItem``).  A full-image decode
+is refused, as in the reference.  The write side (add_new_tiled_item,
+add_image_tile) waits for the write API.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Set, Tuple
+
+from ..core.error import HeifError, SubError, ErrorCode
+from ..core.limits import SecurityLimits
+from ..boxes.meta import Box_ispe
+from ..boxes.tild import Box_tilC, TiledImageParameters
+from ..boxes.unc import Box_uncC, Box_cmpd, Box_cmpC, Box_icef
+from ..codecs.unc import UnciDecoder
+from ..image.pixel_image import PixelImage
+from .codec_items import CodedImageItem
+from .item import (ImageItem, ImageTiling, ITEM_REGISTRY, register_item,
+                   DecodingOptions)
+
+# special offset-table values (ref: tiled.h:89-91)
+TILD_OFFSET_NOT_AVAILABLE = 0
+TILD_OFFSET_SEE_LOWER_RESOLUTION_LAYER = 1
+TILD_OFFSET_NOT_LOADED = 10
+
+# tiles of the codecs that the JAX package decodes on the host only are
+# refused by name
+_UNPORTED_TILES = {"vvc1": "VVC", "avc1": "AVC (H.264)", "j2k1": "JPEG 2000"}
+
+# entries to fetch per offset-table read, so remote/streaming access
+# amortizes transfer latency (ref: mReadChunkSize_bytes tiled.cc:1054)
+_READ_CHUNK_ENTRIES = 1024
+
+
+class TiledHeader:
+    """Tile offset table of a tili item (ref: TiledHeader, tiled.h:92)."""
+
+    def __init__(self, params: TiledImageParameters,
+                 limits: Optional[SecurityLimits] = None):
+        self.params = params
+        n = params.number_of_tiles(limits)
+        self._offsets: List[int] = [TILD_OFFSET_NOT_LOADED] * n
+        self._sizes: List[int] = [0] * n
+
+    # ------------------------------------------------------------ geometry
+
+    @property
+    def num_tiles(self) -> int:
+        return len(self._offsets)
+
+    def entry_size(self) -> int:
+        """(ref: get_offset_table_entry_size, tiled.cc:430)."""
+        return (self.params.offset_field_length +
+                self.params.size_field_length) // 8
+
+    def table_size(self) -> int:
+        return self.num_tiles * self.entry_size()
+
+    def is_offset_known(self, idx: int) -> bool:
+        return self._offsets[idx] != TILD_OFFSET_NOT_LOADED
+
+    def get_offset(self, idx: int) -> int:
+        return self._offsets[idx]
+
+    def get_size(self, idx: int) -> int:
+        return self._sizes[idx]
+
+    def range_to_read(self, idx: int,
+                      n_entries: int) -> Tuple[int, int]:
+        """[start, end) window of unknown entries around idx
+        (ref: get_tile_offset_table_range_to_read, tiled.cc:436)."""
+        if self.is_offset_known(idx):
+            return (idx, idx)
+        start, end = idx, idx + 1
+        while end - start < n_entries and end < self.num_tiles and \
+                not self.is_offset_known(end):
+            end += 1
+        while end - start < n_entries and start > 0 and \
+                not self.is_offset_known(start - 1):
+            start -= 1
+        return (start, end)
+
+    # ----------------------------------------------------------------- IO
+
+    def read_range(self, file, item_id: int, start: int, end: int) -> None:
+        """Parse entries [start, end) from the item data
+        (ref: read_offset_table_range, tiled.cc:374)."""
+        esz = self.entry_size()
+        raw = file.get_item_data_range(item_id, start * esz,
+                                       (end - start) * esz)
+        off_bytes = self.params.offset_field_length // 8
+        sz_bytes = self.params.size_field_length // 8
+        pos = 0
+        for i in range(start, end):
+            self._offsets[i] = int.from_bytes(
+                raw[pos:pos + off_bytes], "big")
+            pos += off_bytes
+            if sz_bytes:
+                self._sizes[i] = int.from_bytes(
+                    raw[pos:pos + sz_bytes], "big")
+                pos += sz_bytes
+
+    def read_full(self, file, item_id: int) -> None:
+        self.read_range(file, item_id, 0, self.num_tiles)
+
+    def set_tile_range(self, tile_x: int, tile_y: int, offset: int,
+                       size: int) -> None:
+        """Record a written tile; rejects field overflow at set time so
+        the encoder fails early (ref: set_tild_tile_range, tiled.cc:471)."""
+        p = self.params
+        if p.offset_field_length < 64 and offset >> p.offset_field_length:
+            raise HeifError(
+                ErrorCode.Encoding_error,
+                message=f"tile offset {offset} does not fit in "
+                    f"{p.offset_field_length}-bit offset field")
+        if 0 < p.size_field_length < 32 and size >> p.size_field_length:
+            raise HeifError(
+                ErrorCode.Encoding_error,
+                message=f"tile size {size} does not fit in "
+                    f"{p.size_field_length}-bit size field")
+        idx = tile_y * p.tiles_h() + tile_x
+        if idx >= self.num_tiles:
+            raise HeifError.usage(msg="tile index out of range")
+        self._offsets[idx] = offset
+        self._sizes[idx] = size
+
+    def serialize(self) -> bytes:
+        """Offset table bytes (ref: write_offset_table, tiled.cc:512);
+        unwritten tiles encode as offset 0 = not available."""
+        p = self.params
+        off_bytes = p.offset_field_length // 8
+        sz_bytes = p.size_field_length // 8
+        out = bytearray()
+        for off, size in zip(self._offsets, self._sizes):
+            if off == TILD_OFFSET_NOT_LOADED:
+                off, size = TILD_OFFSET_NOT_AVAILABLE, 0
+            out += off.to_bytes(off_bytes, "big")
+            if sz_bytes:
+                out += (size & ((1 << p.size_field_length) - 1)).to_bytes(
+                    sz_bytes, "big")
+        return bytes(out)
+
+
+@register_item("tili")
+class ImageItem_Tiled(ImageItem):
+    """(ref: ImageItem_Tiled, tiled.h:148)."""
+
+    def __init__(self, ctx, item_id: int):
+        super().__init__(ctx, item_id)
+        self._header: Optional[TiledHeader] = None
+        self._tilC: Optional[Box_tilC] = None
+        self._unci: Optional[UnciDecoder] = None
+
+    # --------------------------------------------------------------- common
+
+    def _get_tilC(self) -> Box_tilC:
+        if self._tilC is None:
+            self._tilC = self.get_property(Box_tilC)
+            if self._tilC is None:
+                raise HeifError.invalid_input(
+                    msg="'tili' item without tilC property")
+        return self._tilC
+
+    def _get_header(self) -> TiledHeader:
+        if self._header is None:
+            tilC = self._get_tilC()
+            p = tilC.params
+            ispe = self.get_property(Box_ispe)
+            if ispe is not None:
+                p.image_width, p.image_height = ispe.width, ispe.height
+            if p.image_width == 0 or p.image_height == 0:
+                raise HeifError.invalid_input(
+                    msg="'tili' item without image dimensions")
+            self._header = TiledHeader(p, self.ctx.limits)
+        return self._header
+
+    # --------------------------------------------------------------- decode
+
+    def decode_compressed_image(self, options: DecodingOptions,
+                                processed_ids: Set[int]) -> PixelImage:
+        # full-image decode is deliberately unsupported, matching the
+        # reference (tiled.cc:966-971): tili targets images too large to
+        # materialize; callers use the tile API
+        raise HeifError.unsupported(
+            SubError.Unspecified,
+            "'tili' images can only be accessed per tile")
+
+    def get_tiling(self) -> ImageTiling:
+        p = self._get_tilC().params
+        hdr = self._get_header()
+        return ImageTiling(num_columns=p.tiles_h(), num_rows=p.tiles_v(),
+                           tile_width=p.tile_width,
+                           tile_height=p.tile_height,
+                           image_width=hdr.params.image_width,
+                           image_height=hdr.params.image_height,
+                           number_of_extra_dimensions=len(
+                               p.extra_dimensions))
+
+    def _tile_bitstream(self, tx: int, ty: int) -> bytes:
+        """Two ranged reads: table entry (chunked) + tile bytes
+        (ref: append_compressed_tile_data, tiled.cc:978)."""
+        hdr = self._get_header()
+        p = hdr.params
+        idx = ty * p.tiles_h() + tx
+        if tx >= p.tiles_h() or ty >= p.tiles_v():
+            raise HeifError.usage(msg="tile index out of range")
+        if not hdr.is_offset_known(idx):
+            start, end = hdr.range_to_read(idx, _READ_CHUNK_ENTRIES)
+            if start < end:
+                hdr.read_range(self.file, self.item_id, start, end)
+        offset, size = hdr.get_offset(idx), hdr.get_size(idx)
+        if offset == TILD_OFFSET_NOT_AVAILABLE:
+            raise HeifError.invalid_input(SubError.Missing_grid_images,
+                                          f"tile ({tx},{ty}) not available")
+        if offset == TILD_OFFSET_SEE_LOWER_RESOLUTION_LAYER:
+            raise HeifError.unsupported(
+                SubError.Unspecified,
+                "tile refers to lower-resolution pyramid layer")
+        return self.file.get_item_data_range(self.item_id, offset, size)
+
+    def _unci_decoder(self) -> UnciDecoder:
+        if self._unci is None:
+            tilC = self._get_tilC()
+            p = tilC.params
+            self._unci = UnciDecoder(
+                tilC.get_child(Box_uncC), tilC.get_child(Box_cmpd),
+                p.tile_width, p.tile_height,
+                cmpC=tilC.get_child(Box_cmpC),
+                icef=tilC.get_child(Box_icef),
+                limits=self.ctx.limits, device=self.ctx.device)
+        return self._unci
+
+    def decode_tile(self, tile_x: int, tile_y: int,
+                    options: Optional[DecodingOptions] = None) -> PixelImage:
+        """(ref: decode_grid_tile, tiled.cc:1033)."""
+        tilC = self._get_tilC()
+        p = tilC.params
+        data = self._tile_bitstream(tile_x, tile_y)
+        fourcc = p.compression_format
+
+        if fourcc == "unci":
+            return self._unci_decoder().decode(data)
+        if fourcc in _UNPORTED_TILES:
+            raise HeifError.unsupported(
+                SubError.Unsupported_codec,
+                f"tili tiles of {fourcc!r} ({_UNPORTED_TILES[fourcc]}) are "
+                "not supported by the port yet")
+        item_cls = ITEM_REGISTRY.get(fourcc)
+        if item_cls is None or not issubclass(item_cls, CodedImageItem):
+            raise HeifError.unsupported(
+                SubError.Unsupported_codec,
+                f"unsupported tili tile format {fourcc!r}")
+        return item_cls.decoder_cls(self.ctx.device).decode_single_image(
+            tilC.get_child(item_cls.config_box_cls), data,
+            declared_size=(p.tile_width, p.tile_height),
+            limits=self.ctx.limits)

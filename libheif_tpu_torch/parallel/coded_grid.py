@@ -1,20 +1,22 @@
-"""Batched decode of HEVC and AV1 grid tiles.
+"""Batched decode of HEVC, AV1 and JPEG grid tiles.
 
 Counterpart of libheif_tpu/parallel/coded_grid.py:34-61, 202-360, the
 replacement for the reference's per-tile thread pool (reference:
 libheif/image-items/grid.cc:285-453 std::async fan-out):
 
-  1. the entropy decode of every tile runs on the host: HEVC in a thread
-     pool (the C++ parser releases the GIL), giving flat TU arrays; AV1
-     tile after tile (the Python parse holds the GIL), giving each tile's
-     deferred reconstruction jobs;
+  1. the entropy decode of every tile runs on the host: HEVC and JPEG in
+     a thread pool (the C++ parser and scan release the GIL), giving flat
+     TU arrays and coefficient blocks; AV1 tile after tile (the Python
+     parse holds the GIL), giving each tile's deferred reconstruction
+     jobs;
   2. the tiles reconstruct on the device in batches, one batch for each
      group of tiles that agree on their codec's ``device_recon.batch_key``
      (the tiles of a camera's grid all do): one plan, one launch of stage
      A and one of stage B for the whole batch; AV1's in-loop filters then
-     run tile by tile on the device;
-  3. each tile's cropped planes are pasted into the output planes on
-     the device, keeping the tiles' bit depth and chroma.
+     run tile by tile on the device; JPEG tiles reconstruct in one launch
+     of jpeg_dequant_idct, straight into the output planes;
+  3. each HEVC or AV1 tile's cropped planes are pasted into the output
+     planes on the device, keeping the tiles' bit depth and chroma.
 
 The JAX package's batched AV1 path writes 8-bit 4:2:0 output whatever
 the tiles are (coded_grid.py:331-356); this one is held to the JAX
@@ -33,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from ..boxes.meta import Box_clap, Box_imir, Box_irot, Box_ispe
 from ..codecs.av1 import decoder as av1_decoder
 from ..codecs.av1 import device_recon as av1_recon
+from ..codecs.jpeg import decoder as jpeg_decoder
 from ..codecs.hevc.decoder import (check_size, extract_stream,
                                    parse_picture, planes_to_image)
 from ..codecs.hevc.device_recon import (BatchMismatch, batch_key,
@@ -40,7 +43,8 @@ from ..codecs.hevc.device_recon import (BatchMismatch, batch_key,
 from ..core.error import HeifError
 from ..core.trace import span
 from ..image.pixel_image import PixelImage
-from ..items.codec_items import ImageItem_AVIF, ImageItem_HEVC
+from ..items.codec_items import ImageItem_AVIF, ImageItem_HEVC, \
+    ImageItem_JPEG
 
 
 def parse_tile(config_box, data: bytes, declared_size=None, limits=None):
@@ -51,14 +55,16 @@ def parse_tile(config_box, data: bytes, declared_size=None, limits=None):
     return sps, syn, raw
 
 
-def parse_tiles(jobs: Sequence[Tuple], max_workers: Optional[int] = None):
-    """parse_tile over many tiles on a thread pool."""
+def parse_tiles(jobs: Sequence[Tuple], max_workers: Optional[int] = None,
+                parse=parse_tile):
+    """``parse`` (parse_tile by default) over many tiles on a thread
+    pool."""
     n = len(jobs)
     workers = max_workers or min(8, os.cpu_count() or 1, max(1, n))
     if workers <= 1 or n <= 1:
-        return [parse_tile(*j) for j in jobs]
+        return [parse(*j) for j in jobs]
     with ThreadPoolExecutor(max_workers=workers) as ex:
-        return list(ex.map(lambda j: parse_tile(*j), jobs))
+        return list(ex.map(lambda j: parse(*j), jobs))
 
 
 def try_batched_hevc_grid(grid_item, grid, tile_ids,
@@ -196,3 +202,43 @@ def try_batched_av1_grid(grid_item, grid, tile_ids,
                 av1_decoder.finish_frame(seq, fh, dec, pl), seq.bit_depth,
                 ctx.limits)
     return paste_tiles(grid, images, ctx, options)
+
+
+def try_batched_jpeg_grid(grid_item, grid, tile_ids,
+                          options) -> Optional[PixelImage]:
+    """Batched decode of an all-jpeg grid on the context's device: the
+    tiles scan on a thread pool, then one launch of jpeg_dequant_idct
+    writes every tile's planes at its place in the composed planes.
+    Returns None where the batch does not apply (other item types,
+    per-tile transforms or alpha, streams the port refuses, tiles that
+    differ in size, sampling or component count, which raise BatchMismatch
+    inside): the caller then decodes tile by tile."""
+    ctx = grid_item.ctx
+    try:
+        tiles = [ctx.get_item(tid) for tid in tile_ids]
+        if not all(isinstance(t, ImageItem_JPEG) for t in tiles):
+            return None
+        for t in tiles:
+            if t.init_error is not None or t.alpha_item is not None:
+                return None
+            if any(isinstance(p, (Box_irot, Box_imir, Box_clap))
+                   for p in t.properties()):
+                return None
+        if options.cancel is not None and options.cancel():
+            return None
+        jobs = []
+        for t in tiles:
+            ispe = t.get_property(Box_ispe)
+            jobs.append((t.config_box(), t.coded_data(),
+                         (ispe.width, ispe.height) if ispe else None,
+                         ctx.limits))
+        frames = parse_tiles(jobs, parse=jpeg_decoder.parse_item)
+        out = jpeg_decoder.compose(frames, grid.columns, grid.output_width,
+                                   grid.output_height, ctx.device,
+                                   ctx.limits)
+    except (HeifError, jpeg_decoder.BatchMismatch):
+        return None
+    if options.on_progress is not None:
+        for i in range(len(frames)):
+            options.on_progress(i + 1, len(frames))
+    return out

@@ -171,6 +171,7 @@ def test_kernel_build_is_configured_for_hopper():
     srcs = [p.relative_to(REPO).as_posix() for p in _build.LIBRARY.sources()]
     assert srcs == ["libheif_tpu_torch/codecs/av1/csrc/av1_kernels.cu",
                     "libheif_tpu_torch/codecs/hevc/csrc/hevc_kernels.cu",
+                    "libheif_tpu_torch/codecs/jpeg/csrc/jpeg_kernels.cu",
                     "libheif_tpu_torch/codecs/unc/csrc/unc_kernels.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
@@ -179,14 +180,16 @@ def test_kernel_build_is_configured_for_hopper():
         "build/libheif_tpu_torch"
     from libheif_tpu_torch.codecs.av1 import cuda_fast as av1_fast
     from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
+    from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
     from libheif_tpu_torch.codecs.unc import cuda_fast
     assert sorted(cuda_fast.KERNELS) == [
         "planes_ycbcr8_to_rgb", "strided_extract_paste", "tile_yuv_to_rgb"]
     assert sorted(hevc_fast.KERNELS) == ["hevc_dequant_itx",
                                          "hevc_intra_wave"]
     assert sorted(av1_fast.KERNELS) == ["av1_dequant_itx", "av1_intra_wave"]
-    for mod, src in ((cuda_fast, srcs[2]), (hevc_fast, srcs[1]),
-                     (av1_fast, srcs[0])):
+    assert sorted(jpeg_fast.KERNELS) == ["jpeg_dequant_idct"]
+    for mod, src in ((cuda_fast, srcs[3]), (hevc_fast, srcs[1]),
+                     (av1_fast, srcs[0]), (jpeg_fast, srcs[2])):
         text = open(os.path.join(REPO, src)).read()
         for k in mod.KERNELS.values():
             assert f'int {k.symbol}(' in text

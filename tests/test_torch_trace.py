@@ -50,3 +50,25 @@ def test_span_is_a_profiler_range():
         with trace.span("av1.test_range"):
             torch.ones(4).sum()
     assert any(e.name == "av1.test_range" for e in prof.events())
+
+
+def test_spans_from_many_threads_lose_no_update():
+    """Spans ending on several threads at once (a grid's tile parses)
+    all count: more threads than cores, a short switch interval."""
+    import os
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    workers, per = 4 * (os.cpu_count() or 1), 200
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with trace.collect() as spans:
+            def run(_):
+                for _ in range(per):
+                    with trace.span("threaded"):
+                        pass
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                list(ex.map(run, range(workers), timeout=120))
+    finally:
+        sys.setswitchinterval(old)
+    assert spans["threaded"]["count"] == workers * per
