@@ -63,7 +63,10 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    groups) and av1_intra_wave (one launch walking every picture's waves,
    one block a picture) against their plain versions on every small
    stream, a batch whose pictures have different wave counts, the
-   512x512 tiles (stage B on three) and the photo's 48 tiles; decode
+   512x512 tiles (stage B on three), a wave-heavy synthetic case
+   (codecs/av1/wave_cases.py: 64x64, filter-intra, CfL and many 4x4
+   jobs in the same waves, some waves larger than the kernel's shared
+   memory) and the photo's 48 tiles; decode
    every stream on the card, in-loop filters included, and require its
    planes' hashes; write an AVIF phone photo (an 8x6 grid of 48 512x512
    av01 items, 4032x3024 output) and decode it through HeifContext to
@@ -116,7 +119,9 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    parses, plan on the host and on the card, host-to-device copies, the
    four stages, compose, convert, interleave) over REPEATS fresh
    contexts with its device share; the AV1 kernels at the AVIF photo's
-   shapes beside their plain versions and byte bounds, and the photo's
+   shapes beside their plain versions, byte bounds, ptxas resources and
+   stage B's chain bound (waves x one step of av1_wave_probe), and the
+   photo's
    decode twice: the launch-count decode split by part from the decode
    path's own spans (core/trace.py: tile parses, plan on the host, its
    copies and the rest on the card, stages A and B, deblock, CDEF, loop
@@ -141,6 +146,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -162,6 +168,7 @@ from libheif_tpu_torch.codecs.av1 import cuda_fast as av1_fast
 from libheif_tpu_torch.codecs.av1 import decoder as av1_decoder
 from libheif_tpu_torch.codecs.av1 import device_recon as av1_recon
 from libheif_tpu_torch.codecs.av1 import obu as av1_obu
+from libheif_tpu_torch.codecs.av1 import wave_cases as av1_cases
 from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
 from libheif_tpu_torch.codecs.hevc import device_recon
@@ -1844,6 +1851,23 @@ def check_av1_kernels(tally, streams):
         plan = av1_recon.build_plan([av1_parse(e)[2] for e in batch], DEV)
         check_av1_plan(tally, what, plan, waves=not what.startswith(
             "tile") or what in AV1_WAVE_SINGLES)
+    # waves that mix 64x64, filter-intra, CfL and 4x4 jobs (some beyond
+    # the kernel's shared memory at once), against the plain version in
+    # the kernel's order and in the lockstep order
+    case = av1_cases.wave_heavy(seed=SEED, device=DEV)
+    got, ref, lock = (case.buf.clone() for _ in range(3))
+    av1_fast.intra_waves(got, case.groups, case.rows, **case.kw)
+    av1_fast.intra_waves_by_picture_plain(ref, case.groups, case.rows,
+                                          **case.kw)
+    starts = case.rows[:, :, 0].T.tolist()
+    counts = (case.rows[:, :, -1] - case.rows[:, :, 0]).T.tolist()
+    for st, cn in zip(starts, counts):
+        av1_fast.intra_wave_plain(lock, case.groups, st, cn, **case.kw)
+    jobs = sum(g.params.shape[0] for g in case.groups)
+    tally.compare("av1_intra_wave", f"wave-heavy synthetic, {jobs} jobs",
+                  got[:-1], ref[:-1], exact=True)
+    tally.compare("av1_intra_wave", "wave-heavy synthetic, lockstep",
+                  got[:-1], lock[:-1], exact=True)
 
 
 def check_av1_streams(streams):
@@ -2077,6 +2101,38 @@ def av1_wave_work(plan):
     return nbytes, nops
 
 
+def ptxas_resources(kernel):
+    """{"regs", "smem", "stack"} (bytes for the last two) that ptxas
+    reported in this run's build for the entry function whose name holds
+    ``kernel``; each None where the library was not built in this run."""
+    name, found = None, {}
+    for line in _build.LIBRARY.build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$.]+)", line)
+        if m:
+            name = m.group(1)
+        if name is None or kernel not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            found["stack"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            found["smem"] = int(sm.group(1)) if sm else 0
+    return {k: found.get(k) for k in ("regs", "smem", "stack")}
+
+
+def av1_wave_chain_ms(timer, plan):
+    """av1_intra_wave's in-kernel chain bound on a plan: n_waves steps of
+    av1_wave_probe (one block a picture, as the kernel), from a launch of
+    10 x n_waves steps, so the launch itself is amortised."""
+    steps = 10 * plan.n_waves
+    ms = timer([lambda: av1_fast.wave_probe(plan.t, steps, DEV)], n=5)
+    return ms / steps * plan.n_waves
+
+
 def av1_kernel_rows(timer, tally, plan, launches):
     """The AV1 kernels' rows of the {"kernels": ...} line, at the photo's
     shapes: the 48-tile plan's stage A and stage B."""
@@ -2100,9 +2156,11 @@ def av1_kernel_rows(timer, tally, plan, launches):
         "differing_pixels": tally.differing["av1_dequant_itx"],
         "bytes": nbytes, "ops": nops,
         "groups": {f"{av1_recon.KIND_NAMES[g.kind]}{g.sq}": g.n
-                   for g in plan.groups}}
+                   for g in plan.groups},
+        **ptxas_resources("av1_dequant_itx_kernel")}
     nbytes, nops = av1_wave_work(plan)
-    b_ms, b_by = bound(nbytes, nops)
+    b_ms, _ = bound(nbytes, nops)
+    chain_ms = av1_wave_chain_ms(timer, plan)
     buf0, waves = av1_recon.palette_and_waves(plan, res)
     bufs = [buf0.clone() for _ in range(2)]
     rows["av1_intra_wave"] = {
@@ -2116,10 +2174,16 @@ def av1_kernel_rows(timer, tally, plan, launches):
         "predict_waves_ms": timer([lambda: av1_recon.predict_waves(
             plan, res)], n=4),
         "plain_ms": AV1_PLAIN_WAVES_MS.get("photo"),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        # the larger of the in-kernel chain (waves x one probe step) and
+        # the bytes
+        "bound_ms": max(chain_ms, b_ms),
+        "bound_by": "operations" if chain_ms > b_ms else "bytes",
+        "library_ms": None,
         "library_note": "no one PyTorch call computes AV1 intra "
                         "prediction over dependency waves",
+        "chain_bound_ms": chain_ms, "byte_bound_ms": b_ms,
         "waves": plan.n_waves,
+        **ptxas_resources("av1_intra_wave_kernel"),
         "checks": tally.checks["av1_intra_wave"],
         "differing_pixels": tally.differing["av1_intra_wave"],
         "bytes": nbytes, "ops": nops}

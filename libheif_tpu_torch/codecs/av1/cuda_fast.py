@@ -14,6 +14,8 @@ av1_intra_wave   stage B, the ``lax.scan`` over waves          intra_waves
                  (:885-950) with ``predict_normal`` (:606),
                  ``apply_cfl`` (:826) and ``predict_fi``
                  (:850), every picture
+av1_wave_probe   none: a probe of stage B's chain bound, off   wave_probe
+                 the decode path
 ===============  ============================================  ===========
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
@@ -46,6 +48,8 @@ AV1_DEQUANT_ITX = CudaKernel(
 AV1_INTRA_WAVE = CudaKernel(
     "av1_intra_wave", "launch_av1_intra_wave",
     [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I])
+AV1_WAVE_PROBE = CudaKernel(
+    "av1_wave_probe", "launch_av1_wave_probe", [_P, _P, _I, _I])
 
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (AV1_DEQUANT_ITX, AV1_INTRA_WAVE)}
@@ -71,10 +75,14 @@ _SM_OFF = {4: 0, 8: 4, 16: 12, 32: 28, 64: 60}
 
 class ItxGroup(NamedTuple):
     """One job group's stage-A inputs: ``coeffs`` (n, cs, cs) int32
-    quantised levels (cs = min(sq, 32)), ``txp`` (n, 8) int32 scalars."""
+    quantised levels (cs = min(sq, 32)), ``txp`` (n, 8) int32 scalars and
+    ``order`` (n,) int32, the order the kernel visits the jobs in
+    (``job_order``; any permutation gives the same residuals, each at its
+    job's slot)."""
     sq: int
     coeffs: torch.Tensor
     txp: torch.Tensor
+    order: torch.Tensor
 
 
 class WaveGroup(NamedTuple):
@@ -113,22 +121,35 @@ def dequant_itx(groups: Sequence[ItxGroup]) -> List[torch.Tensor]:
         if g.txp.dtype != torch.int32 or tuple(g.txp.shape) != (n, 8):
             raise ValueError(f"txp: expected ({n}, 8) int32, got "
                              f"{tuple(g.txp.shape)} {g.txp.dtype}")
+        if g.order.dtype != torch.int32 or tuple(g.order.shape) != (n,):
+            raise ValueError(f"order: expected ({n},) int32, got "
+                             f"{tuple(g.order.shape)} {g.order.dtype}")
     if not groups:
         return []
     if _on_cpu(*(t for g in groups for t in g[1:])):
         return [dequant_itx_plain(g.sq, g.coeffs, g.txp) for g in groups]
     outs = [torch.empty((g.coeffs.shape[0], g.sq, g.sq), dtype=torch.int32,
                         device=g.coeffs.device) for g in groups]
-    cg = [g.coeffs.contiguous() for g in groups]
-    tg = [g.txp.contiguous() for g in groups]
-    table = (ctypes.c_longlong * (5 * len(groups)))(*(
-        v for g, c, t, o in zip(groups, cg, tg, outs)
-        for v in (c.data_ptr(), t.data_ptr(), o.data_ptr(),
+    keep = [(g.coeffs.contiguous(), g.txp.contiguous(), g.order.contiguous())
+            for g in groups]
+    table = (ctypes.c_longlong * (6 * len(groups)))(*(
+        v for g, (c, t, od), o in zip(groups, keep, outs)
+        for v in (c.data_ptr(), t.data_ptr(), od.data_ptr(), o.data_ptr(),
                   g.coeffs.shape[0], g.sq)))
     AV1_DEQUANT_ITX.launch(max(outs, key=torch.Tensor.numel),
                            ctypes.addressof(table), len(groups),
                            sum(g.coeffs.shape[0] for g in groups))
     return outs
+
+
+def job_order(txp: torch.Tensor) -> torch.Tensor:
+    """(n,) int32: a group's jobs ordered by flags, transform width,
+    height and code (stable), so that the threads of a warp of
+    av1_dequant_itx take the same branches."""
+    t = txp.to(torch.int64)
+    key = ((t[:, TXP_FLAGS] & 3) << 24) | (t[:, TXP_TW] << 16) | \
+        (t[:, TXP_TH] << 8) | (t[:, TXP_CODE] & 0xFF)
+    return torch.argsort(key, stable=True).to(torch.int32)
 
 
 def _wht1(v0, v1, v2, v3):
@@ -244,6 +265,9 @@ def intra_waves(buf: torch.Tensor, groups: Sequence[WaveGroup],
     if not groups:
         return
     gs = [[t.contiguous() for t in g[2:]] for g in groups]
+    for t in gs:                # residuals are read as 16-byte vectors
+        if t[4].data_ptr() % 16:
+            t[4] = t[4].clone()
     table = (ctypes.c_longlong * (7 * len(groups)))(*(
         v for g, t in zip(groups, gs)
         for v in (t[0].data_ptr(), t[1].data_ptr(), t[2].data_ptr(),
@@ -253,6 +277,21 @@ def intra_waves(buf: torch.Tensor, groups: Sequence[WaveGroup],
                           buf.data_ptr(), buf.numel() - 1, bd,
                           int(edge_filter), ssx, ssy, luma_shape[0],
                           luma_shape[1])
+
+
+def wave_probe(pictures: int, steps: int, device) -> None:
+    """av1_wave_probe: ``steps`` dependent steps (a table load, a gather
+    at the loaded index, a store, a barrier) in each of ``pictures``
+    blocks of av1_intra_wave's shape; n_waves of its steps are stage B's
+    in-kernel chain bound.  A measurement of the card only: it raises on
+    the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("av1_wave_probe runs on the card only")
+    tab = torch.arange(0, 2 * pictures, 2, dtype=torch.int32, device=dev)
+    buf = torch.zeros(2 * pictures, dtype=torch.int32, device=dev)
+    AV1_WAVE_PROBE.launch(buf, tab.data_ptr(), buf.data_ptr(), pictures,
+                          steps)
 
 
 def intra_wave_plain(buf, groups, starts, counts, *, bd, edge_filter, ssx,
@@ -613,4 +652,38 @@ def predict_fi_plain(sq: int, top: torch.Tensor, lft: torch.Tensor,
         v = (taps * p7[:, None, :]).sum(2, dtype=torch.int32)
         v = torch.where(v >= 0, (v + 8) >> 4, -((-v + 8) >> 4))
         pb[:, r:r + 2, c:c + 4] = torch.clamp(v, 0, maxv).reshape(k, 2, 4)
+    return pb[:, 1:, 1:]
+
+
+def predict_fi_diagonal_plain(sq: int, top: torch.Tensor, lft: torch.Tensor,
+                              corner: torch.Tensor, fi_mode: torch.Tensor,
+                              *, bd: int) -> torch.Tensor:
+    """predict_fi_plain in the order av1_intra_wave computes it: the 4x2
+    patches along anti-diagonals, every patch (i, j) with i + j = d at
+    step d (a patch reads patches (i-1, j-1), (i-1, j) and (i, j-1)
+    only), 3sq/4 - 1 steps."""
+    maxv = (1 << bd) - 1
+    k = top.shape[0]
+    dev = top.device
+    taps_all = torch.as_tensor(_load()["filter_intra_taps"]) \
+        .to(torch.int32).to(dev)
+    taps = taps_all[torch.clamp(fi_mode, 0, 4).long()]      # (k, 8, 8)
+    pb = torch.zeros((k, sq + 1, sq + 1), dtype=torch.int32, device=dev)
+    pb[:, 0, 0] = corner
+    pb[:, 0, 1:] = top
+    pb[:, 1:, 0] = lft
+    pr, pc = sq // 2, sq // 4
+    zero = torch.zeros((k, 1), dtype=torch.int32, device=dev)
+    for d in range(pr + pc - 1):
+        cells = [(1 + 2 * (d - j), 1 + 4 * j)
+                 for j in range(max(0, d - pr + 1), min(d, pc - 1) + 1)]
+        outs = []
+        for r, c in cells:             # every patch of the step reads first
+            p7 = torch.cat([pb[:, r - 1, c - 1:c + 4], pb[:, r, c - 1:c],
+                            pb[:, r + 1, c - 1:c], zero], 1)
+            v = (taps * p7[:, None, :]).sum(2, dtype=torch.int32)
+            v = torch.where(v >= 0, (v + 8) >> 4, -((-v + 8) >> 4))
+            outs.append(torch.clamp(v, 0, maxv).reshape(k, 2, 4))
+        for (r, c), v in zip(cells, outs):
+            pb[:, r:r + 2, c:c + 4] = v
     return pb[:, 1:, 1:]

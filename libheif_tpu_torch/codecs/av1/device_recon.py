@@ -43,7 +43,7 @@ from ...core.trace import span
 from . import itx as ITX
 from . import tables as T
 from .cuda_fast import (ItxGroup, WaveGroup, PARAM_COLS, dequant_itx,
-                        intra_waves, scatter_indices)
+                        intra_waves, job_order, scatter_indices)
 from ..hevc.device_recon import wave_rows
 from .recon import _edge_filter_strength, _pred_tables, _use_upsample
 from .tile import TileDecoder
@@ -88,6 +88,7 @@ class GroupPlan:
     n: int
     coeffs: torch.Tensor     # (n, cs, cs) int32, cs = min(sq, 32)
     txp: torch.Tensor        # (n, 8) int32 stage-A scalars (cuda_fast)
+    order: torch.Tensor      # (n,) int32 stage A's visiting order
     above: torch.Tensor      # (n, 2sq+7) int32 (fi: the top row, (n, sq))
     left: torch.Tensor       # (n, 2sq+7) int32 (fi: (n, sq))
     corner: torch.Tensor     # (n,) int32 sentinel-coded gather indices
@@ -367,7 +368,8 @@ def build_plan(decs: Sequence[TileDecoder], device=None) -> Av1Plan:
             pal = torch.zeros((0, sq, sq), dtype=torch.int32, device=dev)
         groups.append(GroupPlan(
             kind=kind, sq=sq, n=n, coeffs=cf.to(torch.int32),
-            txp=txp.to(torch.int32), above=above.to(torch.int32),
+            txp=txp.to(torch.int32), order=job_order(txp),
+            above=above.to(torch.int32),
             left=left.to(torch.int32), corner=corner.to(torch.int32),
             params=params.to(torch.int32), pal=pal.to(torch.int32),
             wave_rows=wave_rows(waves_h[sel], tiles_h[sel], n_waves, T_)))
@@ -451,7 +453,7 @@ def residuals(plan: Av1Plan) -> List[torch.Tensor]:
     """Stage A: every group's (n, sq, sq) int32 residuals, one
     av1_dequant_itx launch for the plan."""
     with span("av1.stage_a"):
-        return dequant_itx([ItxGroup(g.sq, g.coeffs, g.txp)
+        return dequant_itx([ItxGroup(g.sq, g.coeffs, g.txp, g.order)
                             for g in plan.groups])
 
 

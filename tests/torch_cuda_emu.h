@@ -4,7 +4,9 @@
 // emu_launch and builds the result).
 //
 // One std::thread per CUDA thread; the blocks of a launch run one after
-// another, so `static` stands for __shared__.  __syncthreads is a per-block
+// another, so `static` stands for __shared__, and a block's dynamic shared
+// memory (`extern __shared__`, rewritten by torch_cuda_emu.py) is a buffer
+// of the launch's size that its threads share.  __syncthreads is a per-block
 // std::barrier; __syncwarp, the ballot and the shuffles meet at a per-warp
 // std::barrier with an exchange array.  Every thread of a warp must reach
 // each warp operation, as the kernels' full-mask calls require on the card.
@@ -38,7 +40,12 @@ inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 using std::max;
 using std::min;
@@ -55,6 +62,12 @@ struct EmuBlock {
 inline thread_local uint3 threadIdx, blockIdx;
 inline thread_local dim3 blockDim, gridDim;
 inline thread_local EmuBlock* emu_block;
+inline thread_local void* emu_dynamic;
+
+template <class T>
+T* emu_dynamic_shared() {
+  return static_cast<T*>(emu_dynamic);
+}
 
 inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
 inline EmuWarp& emu_warp() { return emu_block->warps[threadIdx.x >> 5]; }
@@ -98,9 +111,11 @@ T __ldg(const T* p) {
 }
 
 template <typename... P, typename... A>
-void emu_launch(void (*k)(P...), dim3 grid, dim3 block, A... args) {
+void emu_launch_smem(void (*k)(P...), dim3 grid, dim3 block, size_t smem,
+                     A... args) {
   for (unsigned b = 0; b < grid.x; ++b) {
     EmuBlock blk(static_cast<int>(block.x));
+    std::vector<long long> dyn(smem / sizeof(long long) + 1);
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < block.x; ++t)
       ts.emplace_back([&, t] {
@@ -109,8 +124,14 @@ void emu_launch(void (*k)(P...), dim3 grid, dim3 block, A... args) {
         blockDim = block;
         gridDim = grid;
         emu_block = &blk;
+        emu_dynamic = dyn.data();
         k(args...);
       });
     for (auto& t : ts) t.join();
   }
+}
+
+template <typename... P, typename... A>
+void emu_launch(void (*k)(P...), dim3 grid, dim3 block, A... args) {
+  emu_launch_smem(k, grid, block, 0, args...);
 }

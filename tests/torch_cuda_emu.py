@@ -1,7 +1,10 @@
 """Run a hand-written CUDA source of the port on the CPU.
 
 ``build(cu)`` rewrites every ``kernel<<<grid, block, smem, stream>>>(args)``
-of the .cu file into ``emu_launch(kernel, dim3(grid), dim3(block), args)``,
+of the .cu file into ``emu_launch(kernel, dim3(grid), dim3(block), args)``
+(``emu_launch_smem(..., smem, args)`` where it asks for dynamic shared
+memory) and every ``extern __shared__ T name[];`` into a pointer to the
+block's dynamic shared memory,
 includes ``torch_cuda_emu.h`` (the CUDA built-ins by threads and barriers)
 in place of ``<cuda_runtime.h>``, and compiles it with g++ into a shared
 library under ``tests/_build``.  ``bound(lib)`` makes ``CudaKernel.launch``
@@ -20,6 +23,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -31,7 +35,9 @@ BUILD_DIR = HERE / "_build"
 
 def rewrite_launches(src: str) -> str:
     """``k<<<a, b, ...>>>(args)`` -> ``emu_launch(k, dim3(a), dim3(b),
-    args)``; the launch configuration is split at its top-level commas."""
+    args)``, or ``emu_launch_smem(k, dim3(a), dim3(b), smem, args)`` where
+    the launch's dynamic shared memory ``smem`` is not 0; the launch
+    configuration is split at its top-level commas."""
     out = []
     while "<<<" in src:
         i = src.index("<<<")
@@ -49,8 +55,13 @@ def rewrite_launches(src: str) -> str:
             else:
                 cur += ch
         parts.append(cur)
-        out.append(src[:k] + f"emu_launch({src[k:i]}, dim3({parts[0]}), "
-                   f"dim3({parts[1]}), ")
+        smem = parts[2].strip() if len(parts) > 2 else "0"
+        if smem == "0":
+            out.append(src[:k] + f"emu_launch({src[k:i]}, dim3({parts[0]}), "
+                       f"dim3({parts[1]}), ")
+        else:
+            out.append(src[:k] + f"emu_launch_smem({src[k:i]}, "
+                       f"dim3({parts[0]}), dim3({parts[1]}), {smem}, ")
         src = src[j + 4:]
     return "".join(out) + src
 
@@ -61,6 +72,8 @@ def emulated_source(cu: Path) -> str:
         raise ValueError(f"{cu}: no <cuda_runtime.h> include to replace")
     src = src.replace("#include <cuda_runtime.h>",
                       f'#include "{HEADER}"')
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* \2 = emu_dynamic_shared<\1>();", src)
     return rewrite_launches(src)
 
 
