@@ -81,8 +81,10 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    encoder, with the plane hashes of the JAX decode_jpeg): hold
    jpeg_dequant_idct (one launch for every component plane of a batch)
    against recon_plain on every stream, a batch of the small streams
-   (different tables, sizes and sampling), random int16 coefficients with
-   16-bit tables (int32 wraparound) and the photo's 48 tiles; decode
+   (different tables, sizes and sampling) into whole planes and into
+   views of one plane at odd offsets, cut inside their last blocks (the
+   kernel's byte path), random int16 coefficients with 16-bit tables
+   (int32 wraparound) and the photo's 48 tiles; decode
    every stream on the card and require its planes' hashes (the
    progressive one must raise); write a JPEG phone photo (an 8x6 grid of
    48 512x512 jpeg items, 4032x3024 output) and decode it through
@@ -127,14 +129,18 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    copies and the rest on the card, stages A and B, deblock, CDEF, loop
    restoration, compose, convert, interleave), then once under
    torch.profiler for its device share; jpeg_dequant_idct at the JPEG
-   photo's shapes beside recon_plain, its byte bound and a copy_ of the
-   same bytes (the JPEG photo's decode is timed in phase 4e: REPEATS
-   decodes, the first, the launch-count decode, split by the spans: tile
-   parses and scans, the one reconstruction, compose, convert,
-   interleave; the last under torch.profiler for its device share); and
-   print the numbers;
-7. print the colour kernels' SASS instructions per output pixel and the
-   strided kernel's per output byte (sass_count.py, cuobjdump).
+   photo's shapes beside recon_plain, the kernel alone and the call's
+   table copy from torch.profiler, its byte and int32 bounds and a copy_
+   of the same bytes (the JPEG photo's decode is timed in phase 4e:
+   REPEATS decodes, the first, the launch-count decode, split by the
+   spans: tile parses and scans, the reconstruction's gather, copies and
+   launch, compose, convert, interleave; the last under torch.profiler
+   for its device share); every integer kernel's row holds its byte
+   bound and its int32 bound (SMs x 64 INT32 lanes x clocks.max.sm) and
+   the larger; and print the numbers;
+7. print the colour kernels' SASS instructions per output pixel, the
+   strided kernel's per output byte and the JPEG kernel's per output
+   sample (sass_count.py, cuobjdump).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
@@ -143,10 +149,10 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -173,6 +179,7 @@ from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
 from libheif_tpu_torch.codecs.hevc import device_recon
 from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
+from libheif_tpu_torch.codecs import kernel_timing
 from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
 from libheif_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
 from libheif_tpu_torch.codecs.jpeg import idct as jpeg_idct
@@ -198,6 +205,10 @@ W = H = 4096
 TILES = 8                       # 8x8 grid of 512x512 tiles
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores, same sheet
+# int32 operations: an H100 SM has 64 INT32 lanes against 128 FP32 lanes
+# (Hopper architecture white paper), so the rate is SMs x 64 x the SM
+# clock, read from this card (int32_rate)
+INT32_LANES_PER_SM = 64
 PALLAS = "libheif_tpu/codecs/unc/pallas_fast.py"
 SOURCE = "libheif_tpu_torch/codecs/unc/csrc/unc_kernels.cu"
 KR, KB = get_kr_kb(6)
@@ -586,42 +597,42 @@ def small_input_check(tally):
 
 class DeviceTimer:
     """Device time of a call, from CUDA events around `n` back-to-back
-    calls.  A sleep kernel queued first holds the card while the host
-    queues them, so host overhead between calls is not counted."""
+    calls queued behind a sleep kernel (codecs/kernel_timing.py
+    queued_ms), so host overhead between calls is not counted.  One
+    timed pass: the plain versions launch more kernels a call than the
+    launch queue holds, so the host waits for the card whatever the
+    sleep, and a repeat with a longer one would only run them again."""
 
     def __init__(self):
-        torch.cuda.synchronize()
-        s, e = torch.cuda.Event(True), torch.cuda.Event(True)
-        s.record()
-        torch.cuda._sleep(10_000_000)
-        e.record()
-        e.synchronize()
-        self.cycles_per_ms = 10_000_000 / s.elapsed_time(e)
+        self.cycles_per_ms = kernel_timing.sleep_cycles_per_ms(torch)
 
     def __call__(self, fns, n=20):
-        fns = list(fns)
-        for f in fns:           # warm-up: allocator, first launch
-            f()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            fns[i % len(fns)]()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        s, e = torch.cuda.Event(True), torch.cuda.Event(True)
-        torch.cuda._sleep(int(2 * host_ms * self.cycles_per_ms) + 100_000)
-        s.record()
-        for i in range(n):
-            fns[i % len(fns)]()
-        e.record()
-        e.synchronize()
-        return s.elapsed_time(e) / n
+        return kernel_timing.queued_ms(torch, list(fns), n,
+                                       self.cycles_per_ms, tries=1)
 
 
-def bound(nbytes, nops):
+def bounds(nbytes, nops, ops_per_s=None):
+    """Both bounds of a kernel's work and the one that binds: the bytes
+    over the memory rate and the operations over ``ops_per_s``, the
+    card's rate for their type (None: int32, ``int32_rate``)."""
+    if ops_per_s is None:
+        ops_per_s = int32_rate()[2]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = nops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "byte_bound_ms": t_bytes, "op_bound_ms": t_ops}
+
+
+@functools.lru_cache(maxsize=None)
+def int32_rate():
+    """(SMs, max SM clock in MHz, int32 operations a second) of card 0."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "--id=0"], capture_output=True,
+        text=True, check=True).stdout.strip())
+    return sms, mhz, sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
 def vector_width_sweep(timer, rng, fused_kw, plane_copies):
@@ -746,7 +757,8 @@ def strided_layout_timings(timer):
                          for t in ts]),
             "library_ms": timer([lambda t=t: as_strided_copy(lay, t)
                                  for t in ts]),
-            "bound_ms": bound(nbytes, 0)[0], "bytes": nbytes,
+            "bound_ms": bounds(nbytes, 0, F32_OPS_PER_S)["bound_ms"],
+            "bytes": nbytes,
             "widths": strided_widths(lay, ts[0])}
         del ts, got
     log(f"strided layouts {json.dumps(out)}")
@@ -1570,7 +1582,7 @@ def hevc_kernel_rows(timer, tally, plan, launches):
     def f64_matmul():
         return [torch.matmul(torch.matmul(m.t(), d), m)
                 for m, d in zip(mats, deq)]
-    b_ms, b_by = bound(nbytes, nops)
+    b = bounds(nbytes, nops)
     rows["hevc_dequant_itx"] = {
         "name": "hevc_dequant_itx", "route": "cuda", "source": HEVC_SOURCE,
         "replaces": f"{JNP_RECON}:540",
@@ -1578,7 +1590,7 @@ def hevc_kernel_rows(timer, tally, plan, launches):
         "max_abs_err": tally.max_abs_err["hevc_dequant_itx"],
         "ms": timer([lambda: device_recon.residuals(plan)]),
         "plain_ms": timer([lambda: plain_residuals(plan)], n=3),
-        "bound_ms": b_ms, "bound_by": b_by,
+        **b,
         "library_ms": timer([f64_matmul], n=5),
         "library_call": "float64 torch.matmul, M^T D M per group",
         "checks": tally.checks["hevc_dequant_itx"],
@@ -1592,7 +1604,7 @@ def hevc_kernel_rows(timer, tally, plan, launches):
         n = 1 << g.key[1]
         nbytes += g.n * ((4 * n + 1) * 9 + 4 + n * n * 12)
         nops += g.n * n * n * K2_OPS_PER_SAMPLE
-    b_ms, _ = bound(nbytes, nops)
+    b = bounds(nbytes, nops)
     chain_ms = wave_chain_ms(timer, plan)
     empty_ms = timer([lambda: torch.cuda._sleep(0)], n=500)
     ybuf, cbuf = wave_buffers(plan)
@@ -1610,12 +1622,10 @@ def hevc_kernel_rows(timer, tally, plan, launches):
             lambda: device_recon.predict_waves(plan, waves)], n=1)
             for _ in range(5)])),
         "plain_ms": timer([lambda: plain_waves(plan, waves)], n=1),
-        # the larger of the in-kernel chain (waves x one probe step) and
-        # the bytes
-        "bound_ms": max(chain_ms, b_ms),
-        "bound_by": "operations" if chain_ms > b_ms else "bytes",
+        # the largest of the in-kernel chain (waves x one probe step),
+        # the bytes and the int32 operations
+        **chain_bound(b, chain_ms),
         "library_ms": None,
-        "chain_bound_ms": chain_ms, "byte_bound_ms": b_ms,
         "launch_chain_ms": plan.n_waves * empty_ms,
         "empty_launch_ms": empty_ms, "waves": plan.n_waves,
         "checks": tally.checks["hevc_intra_wave"],
@@ -2105,23 +2115,16 @@ def ptxas_resources(kernel):
     """{"regs", "smem", "stack"} (bytes for the last two) that ptxas
     reported in this run's build for the entry function whose name holds
     ``kernel``; each None where the library was not built in this run."""
-    name, found = None, {}
-    for line in _build.LIBRARY.build_log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([\w$.]+)", line)
-        if m:
-            name = m.group(1)
-        if name is None or kernel not in name:
-            continue
-        m = re.search(r"(\d+) bytes stack frame", line)
-        if m:
-            found["stack"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            found["regs"] = int(m.group(1))
-            sm = re.search(r"(\d+) bytes smem", line)
-            found["smem"] = int(sm.group(1)) if sm else 0
-    return {k: found.get(k) for k in ("regs", "smem", "stack")}
+    return kernel_timing.ptxas_resources(_build.LIBRARY.build_log, kernel)
+
+
+def chain_bound(b, chain_ms):
+    """A wave kernel's bounds: ``b`` (bounds()) with its in-kernel chain,
+    the largest of the three binding ("operations" for the chain)."""
+    out = dict(b, chain_bound_ms=chain_ms)
+    if chain_ms > b["bound_ms"]:
+        out.update(bound_ms=chain_ms, bound_by="operations")
+    return out
 
 
 def av1_wave_chain_ms(timer, plan):
@@ -2139,7 +2142,7 @@ def av1_kernel_rows(timer, tally, plan, launches):
     res = av1_recon.residuals(plan)
     rows = {}
     nbytes, nops = av1_itx_work(plan)
-    b_ms, b_by = bound(nbytes, nops)
+    b = bounds(nbytes, nops)
     rows["av1_dequant_itx"] = {
         "name": "av1_dequant_itx", "route": "cuda", "source": AV1_SOURCE,
         "replaces": f"{AV1_JNP}:548",
@@ -2147,7 +2150,7 @@ def av1_kernel_rows(timer, tally, plan, launches):
         "max_abs_err": tally.max_abs_err["av1_dequant_itx"],
         "ms": timer([lambda: av1_recon.residuals(plan)]),
         "plain_ms": timer([lambda: av1_plain_residuals(plan)], n=2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **b, "library_ms": None,
         "library_note": "no one PyTorch call computes the staged AV1 "
                         "inverse transforms (integer butterflies with "
                         "their intermediate roundings; no integer matmul "
@@ -2159,7 +2162,7 @@ def av1_kernel_rows(timer, tally, plan, launches):
                    for g in plan.groups},
         **ptxas_resources("av1_dequant_itx_kernel")}
     nbytes, nops = av1_wave_work(plan)
-    b_ms, _ = bound(nbytes, nops)
+    b = bounds(nbytes, nops)
     chain_ms = av1_wave_chain_ms(timer, plan)
     buf0, waves = av1_recon.palette_and_waves(plan, res)
     bufs = [buf0.clone() for _ in range(2)]
@@ -2174,14 +2177,12 @@ def av1_kernel_rows(timer, tally, plan, launches):
         "predict_waves_ms": timer([lambda: av1_recon.predict_waves(
             plan, res)], n=4),
         "plain_ms": AV1_PLAIN_WAVES_MS.get("photo"),
-        # the larger of the in-kernel chain (waves x one probe step) and
-        # the bytes
-        "bound_ms": max(chain_ms, b_ms),
-        "bound_by": "operations" if chain_ms > b_ms else "bytes",
+        # the largest of the in-kernel chain (waves x one probe step),
+        # the bytes and the int32 operations
+        **chain_bound(b, chain_ms),
         "library_ms": None,
         "library_note": "no one PyTorch call computes AV1 intra "
                         "prediction over dependency waves",
-        "chain_bound_ms": chain_ms, "byte_bound_ms": b_ms,
         "waves": plan.n_waves,
         **ptxas_resources("av1_intra_wave_kernel"),
         "checks": tally.checks["av1_intra_wave"],
@@ -2234,19 +2235,33 @@ def u8_hashes(img):
             for ch in img.channels()}
 
 
-def jpeg_jobs(frames):
+def jpeg_jobs(frames, shared=False):
     """Every component of ``frames`` as a job on the card writing its
-    whole (blocks_h*8, blocks_w*8) plane: (coefficients, tables, jobs)."""
+    whole (blocks_h*8, blocks_w*8) plane: (coefficients, tables, jobs).
+    With ``shared`` the planes are views of one plane with an odd pitch,
+    side by side at odd offsets, each cut by 5 rows and 3 columns inside
+    its last blocks (the kernel's byte path)."""
     coeffs, quant, jobs = [], [], []
     first = 0
+    comps = [c for f in frames for c in f.components]
+    if shared:
+        plane = torch.zeros((max(c.blocks_h for c in comps) * 8 + 1,
+                             sum(c.blocks_w * 8 + 1 for c in comps) + 3),
+                            dtype=torch.uint8, device=DEV)
+        x = 1
     for frame in frames:
         rows = {}
         for c in frame.components:
             if c.tq not in rows:
                 rows[c.tq] = len(quant)
                 quant.append(frame.quant[c.tq])
-            out = torch.empty((c.blocks_h * 8, c.blocks_w * 8),
-                              dtype=torch.uint8, device=DEV)
+            if shared:
+                h, w = c.blocks_h * 8 - 5, c.blocks_w * 8 - 3
+                out = plane[1:1 + h, x:x + w]
+                x += c.blocks_w * 8 + 1
+            else:
+                out = torch.empty((c.blocks_h * 8, c.blocks_w * 8),
+                                  dtype=torch.uint8, device=DEV)
             jobs.append(jpeg_fast.Job(first, c.blocks_w, c.blocks_h,
                                       rows[c.tq], out))
             coeffs.append(c.coeffs)
@@ -2275,6 +2290,7 @@ def check_jpeg_batch(tally, what, coeffs, quant, jobs):
     e.synchronize()
     JPEG_PLAIN_MS[what] = s.elapsed_time(e)
     got = torch.cat([j.out.reshape(-1) for j in jobs])
+    ref = [r[:j.out.shape[0], :j.out.shape[1]] for r, j in zip(ref, jobs)]
     tally.compare("jpeg_dequant_idct", f"{what}, {len(jobs)} planes",
                   got, torch.cat([r.reshape(-1) for r in ref]), exact=True)
 
@@ -2290,6 +2306,8 @@ def check_jpeg_kernel(tally, streams):
     small = [jpeg_frame(e) for e in good if not e["name"].startswith("tile")]
     check_jpeg_batch(tally, f"batch of {len(small)} streams",
                      *jpeg_jobs(small))
+    check_jpeg_batch(tally, f"batch of {len(small)} streams, odd offsets "
+                     "and crops", *jpeg_jobs(small, shared=True))
     rng = np.random.default_rng(SEED + 8)
     for bh, bw in ((37, 53), (64, 64), (1, 1)):
         coeffs = torch.from_numpy(rng.integers(
@@ -2388,6 +2406,10 @@ def check_jpeg_photo(blob, streams):
     assert spans["jpeg.parse"]["count"] == spans["jpeg.scan"]["count"] == n
     assert spans["jpeg.recon"]["count"] == spans["grid.compose"]["count"] \
         == 1
+    recon = {p: spans[f"jpeg.recon.{p}"]["ms"]
+             for p in ("gather", "copy", "launch")}
+    log(f"jpeg photo recon by part (ms): {json.dumps(recon)} of "
+        f"{spans['jpeg.recon']['ms']}")
     assert launches["jpeg_dequant_idct"] == 1, \
         "jpeg_dequant_idct: not one launch for the photo"
     assert launches["planes_ycbcr8_to_rgb"] == 1
@@ -2606,29 +2628,39 @@ def jpeg_kernel_row(timer, tally, frames, launches):
     shapes (48 tiles, 294,912 blocks, one launch)."""
     sets = [jpeg_jobs(frames) for _ in range(2)]
     blocks = sum(j.blocks_w * j.blocks_h for j in sets[0][2])
-    # coefficients read and samples written once, the tables and the job
-    # table (10 int64 a plane) once
+    # coefficients read and samples written once, the quantisation tables
+    # and the job table (JOB_COLS + 1 int32 a plane) once
+    n_ctas = jpeg_fast.job_table(sets[0][2])[1]
     nbytes = blocks * (128 + 64) + sets[0][1].numel() * 4 + \
-        len(sets[0][2]) * 80
-    b_ms, b_by = bound(nbytes, blocks * 64 * JPEG_OPS_PER_SAMPLE)
+        len(sets[0][2]) * (jpeg_fast.JOB_COLS + 1) * 4
+    nops = blocks * 64 * JPEG_OPS_PER_SAMPLE
+    b = bounds(nbytes, nops)
     srcs = [torch.empty(nbytes // 2, dtype=torch.uint8, device=DEV)
             for _ in range(4)]
     dst = torch.empty_like(srcs[0])
+    # the kernel alone and the call's table copy, from torch.profiler ("ms"
+    # is the call: the copy, the launch and the kernel); None where the
+    # profiler records no device time
+    kernel_ms, table_copy_ms = kernel_timing.kernel_ms(
+        torch, [lambda s=s: jpeg_fast.dequant_idct(*s) for s in sets], 20,
+        "jpeg_dequant_idct")
     row = {
         "name": "jpeg_dequant_idct", "route": "cuda", "source": JPEG_SOURCE,
         "replaces": f"{JPEG_JNP}:500",
         "launches": launches["jpeg_dequant_idct"],
         "max_abs_err": tally.max_abs_err["jpeg_dequant_idct"],
         "ms": timer([lambda s=s: jpeg_fast.dequant_idct(*s) for s in sets]),
+        "kernel_ms": kernel_ms, "table_copy_ms": table_copy_ms,
         "plain_ms": timer([lambda: jpeg_plain(*sets[0])], n=2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **b, "library_ms": None,
         "library_note": "no one PyTorch call computes the islow IDCT with "
                         "its fixed-point roundings and int32 wraparound",
         "copy_ms": timer([lambda s=s: dst.copy_(s) for s in srcs]),
         "checks": tally.checks["jpeg_dequant_idct"],
         "differing_pixels": tally.differing["jpeg_dequant_idct"],
-        "bytes": nbytes, "blocks": blocks,
-        "plain_ms_by_check": JPEG_PLAIN_MS}
+        "bytes": nbytes, "ops": nops, "blocks": blocks, "ctas": n_ctas,
+        "plain_ms_by_check": JPEG_PLAIN_MS,
+        **ptxas_resources("jpeg_dequant_idct_kernel")}
     log(f"jpeg kernel {json.dumps(row)}")
     return {"jpeg_dequant_idct": row}
 
@@ -2655,6 +2687,9 @@ def main():
     # 1. the card
     card = nvidia_smi()
     log(card)
+    sms, mhz, int32_ops_per_s = int32_rate()
+    log(f"int32 rate: {sms} SMs x {INT32_LANES_PER_SM} lanes x {mhz} MHz "
+        f"(clocks.max.sm) = {int32_ops_per_s:.6g} operations/s")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
@@ -2811,14 +2846,14 @@ def main():
             by_path, extra=None):
         ms, plain_ms = timer(fn), timer(plain)
         lib_ms = timer(lib) if lib is not None else None
-        b_ms, b_by = bound(nbytes, nops)
+        b = bounds(nbytes, nops, F32_OPS_PER_S)
         kern[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "also_replaces": also,
             "launches": launches, "launches_by_path": by_path,
             "max_abs_err": tally.max_abs_err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": lib_ms,
             "checks": tally.checks[name],
             "differing_pixels": tally.differing[name],
             "bytes": nbytes, "ops": nops, **(extra or {})}
@@ -2890,7 +2925,7 @@ def main():
     tally.compare("strided_extract_paste", f"planar8 copy case {W}x{H} C=3",
                   cuda_fast.planar8_tiles_to_image(planar[0], **planar_kw),
                   planar_copy(planar[0]), exact=True)
-    planar_bound_ms, _ = bound(2 * 3 * px, 0)
+    planar_bound_ms = bounds(2 * 3 * px, 0, F32_OPS_PER_S)["bound_ms"]
     widths = vector_width_sweep(timer, rng, fused_kw, plane_copies)
     before = cuda_fast.STRIDED_EXTRACT_PASTE.launches
     cuda_fast.planar8_tiles_to_image(planar[0], **planar_kw)
@@ -2977,6 +3012,12 @@ def main():
         log(f"sass {name} {json.dumps(c)}")
         kern[name]["sass_per_pixel" if per == 32 else "sass_per_byte"] = \
             c["per_pixel"]
+    # the JPEG kernel's thread runs its passes once: the whole function
+    # over the samples one thread computes
+    c = sass_count.count(sass, "jpeg_dequant_idct_kernel",
+                         jpeg_fast.SAMPLES_PER_THREAD, whole=True)
+    log(f"sass jpeg_dequant_idct {json.dumps(c)}")
+    kern["jpeg_dequant_idct"]["sass_per_sample"] = c["per_pixel"]
     summary = {
         "card": card, "shape": f"{W}x{H} YCbCr 4:2:0, {TILES}x{TILES} tiles",
         "fused_yuv420_tiles_to_rgb_mps": px / 1e3 / fused_ms,
@@ -3010,6 +3051,7 @@ def main():
         "jpeg_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
                        f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} jpeg tiles of "
                        "512x512", "launches": j_launches, "parts": j_runs},
+        "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
         "phase_s": phase_s, "elapsed_s": time.perf_counter() - t_start}
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))

@@ -18,39 +18,17 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
-import time
+from pathlib import Path
 
 TILES = ("tile512_s0", "tile512_s1", "tile512_s2", "tile512_s3")
 PICTURES = 48
 
-
-def device_ms(torch, fns, n):
-    """Device time of a call: n calls behind a sleep kernel that holds
-    the card while the host queues them."""
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(True), torch.cuda.Event(True)
-    s.record()
-    torch.cuda._sleep(10_000_000)
-    e.record()
-    e.synchronize()
-    cycles_per_ms = 10_000_000 / s.elapsed_time(e)
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        fns[i % len(fns)]()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(2 * host_ms * cycles_per_ms) + 100_000)
-    s.record()
-    for i in range(n):
-        fns[i % len(fns)]()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / n
+# codecs/kernel_timing.py of this script's checkout (the worker imports
+# another checkout's package, which may not have it)
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import kernel_timing as T  # noqa: E402
+del sys.path[0]
 
 
 def worker(root: str) -> dict:
@@ -74,43 +52,16 @@ def worker(root: str) -> dict:
     res = D.residuals(plan)
     buf0, waves = D.palette_and_waves(plan, res)
     bufs = [buf0.clone() for _ in range(2)]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip().splitlines()[0]
     return {
-        "root": root, "card": card, "waves": plan.n_waves,
+        "root": root, "card": T.card(), "waves": plan.n_waves,
         "jobs": sum(g.n for g in plan.groups),
-        "av1_dequant_itx_ms": device_ms(
+        "av1_dequant_itx_ms": T.device_ms(
             torch, [lambda: D.residuals(plan)], 20),
-        "av1_intra_wave_ms": device_ms(
+        "av1_intra_wave_ms": T.device_ms(
             torch, [lambda b=b: F.intra_waves(
                 b, waves, plan.wave_rows, **D.wave_args(plan))
                 for b in bufs], 6)}
 
 
-def main(roots) -> int:
-    runs = []
-    for root in roots:
-        out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker",
-             os.path.abspath(root)], cwd=os.path.abspath(root),
-            capture_output=True, text=True)
-        if out.returncode != 0:
-            print(out.stdout, out.stderr, file=sys.stderr)
-            return out.returncode
-        run = json.loads(out.stdout.strip().splitlines()[-1])
-        print(json.dumps(run), flush=True)
-        runs.append(run)
-    print(json.dumps(runs))
-    return 0
-
-
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--worker"]:
-        print(json.dumps(worker(sys.argv[2])))
-        sys.exit(0)
-    if len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
-        sys.exit(2)
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(T.run(__file__, sys.argv[1:], worker, __doc__))

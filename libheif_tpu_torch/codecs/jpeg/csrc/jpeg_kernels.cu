@@ -1,8 +1,8 @@
 // Hand-written Hopper (sm_90a) kernel of the JPEG reconstruction.
 //
-// The JAX package reconstructs JPEG with one jnp program a component,
-// _recon_program (libheif_tpu/codecs/jpeg/decoder.py:500-528): dequantise
-// with the natural-order table, de-zigzag, the islow IDCT
+// Replaces: the JAX package reconstructs JPEG with one jnp program a
+// component, _recon_program (libheif_tpu/codecs/jpeg/decoder.py:500-528):
+// dequantise with the natural-order table, de-zigzag, the islow IDCT
 // (codecs/jpeg/idct.py idct8x8_islow :79-97, IJG jidctint.c), +128, clip,
 // and reassembly of the blocks into the plane.  It has no Pallas kernel.
 // Here that is one kernel, one launch for every component plane of every
@@ -10,25 +10,62 @@
 //
 //   jpeg_dequant_idct  <- _recon_program + idct8x8_islow
 //
-// Bound: bytes.  A block reads 128 bytes of coefficients and writes 64
-// samples, and does ~30 integer operations a sample, far below the card's
-// operation rate; the 4032x3024 photo's 294,912 blocks move 56.6 MB.
+// Bounds.  Bytes: a block reads 128 bytes of coefficients and writes 64
+// samples; the 4032x3024 photo's 294,912 blocks move 56.6 MB, 0.0169 ms at
+// 3.35 TB/s.  Operations: ~16 int32 operations a sample (the dequantising
+// product, two 1-D butterflies, the clip); an H100 SM has 64 INT32 lanes,
+// so the same photo needs ~0.018 ms at 132 SMs x 64 x 1.98 GHz.  The two
+// are about equal: the kernel has to keep its loads in flight and spend
+// few instructions a sample.
 //
-// Design (a simple, correct first version): eight threads a block, 32
-// blocks a CTA.  A block's eight threads load its 64 zigzag coefficients
-// as eight 16-byte vectors into shared memory, then thread c dequantises
-// and transforms column c (pass 1, descaled by CONST_BITS - PASS1_BITS)
-// into a shared 8x8 work array, and after a warp barrier thread r
-// transforms row r (pass 2, CONST_BITS + PASS1_BITS + 3), adds 128,
-// clips and stores its eight samples.  A job table (one row a component
-// plane: its first work block, first coefficient block, blocks_w,
-// blocks_h, quant table, output address, pitch and the crop) lets the
-// kernel write straight into a composed grid plane at the tile's offset;
-// a CTA finds each block's job by binary search.  The arithmetic is the
-// jnp program's int32 with wraparound: products and sums are formed in
-// uint32 and cast to int32 only for the arithmetic right shift of the
-// descale (16-bit quant tables overflow int32).
+// Design.
+// 1. A CTA (two warps) takes up to kTileBlocks consecutive blocks of one
+//    block row of one job (a component plane): a job's CTAs walk its block
+//    rows, ceil(width / (8 kTileBlocks)) a row.  A warp finds its CTA's
+//    job by a 32-way search of the jobs' first CTAs (two rounds of one
+//    load for up to 1,024 jobs), then loads its job row of 8 int32
+//    (output address, pitch, crop, quantisation row, first block,
+//    blocks_w): one division gives its block row and column.  The
+//    wrapper's tables are 36 bytes a job and nothing a CTA, so their copy
+//    to the card stays short.  Only the coefficient and output addresses
+//    are 64-bit.  Blocks outside the crop get no CTA.  (A persistent grid
+//    that fetched the next tile during this one was no faster on the card;
+//    it needs 80 registers.)
+// 2. The CTA's first act after that is to put all its coefficients in
+//    flight: every lane issues one 16-byte cp.async a pass (four passes,
+//    one commit group each) into shared memory, then loads its
+//    quantisation column and its gather offsets while they land; each
+//    pass waits only for its own group.
+// 3. No __constant__ indexing.  Eight threads a block: thread c
+//    dequantises and transforms column c, so its eight table entries and
+//    eight gather offsets are fixed for the CTA's life and held in
+//    registers, loaded once from global memory (the offsets from
+//    kGather, computed at compile time from kInvZigzag, as two 16-byte
+//    vectors).  The 16-byte chunks of the four blocks of a warp are
+//    XOR-swizzled (0, 2, 5, 7), so the column gathers touch fewer banks
+//    twice than any padding does; the transposed work array (rows of 12
+//    words, blocks of 104, two of them by pass parity) makes the column
+//    pass's 16-byte stores and the row pass's loads free of bank conflicts
+//    and needs one warp barrier a pass fewer.
+// 4. Row-wide stores: thread r packs its row's eight samples into two
+//    words by saturating conversions to [-128, 127] (cvt.pack.sat.s8, two
+//    samples an instruction) and an xor with 0x80 for the +128, and writes
+//    them as one 8-byte store; a warp's four blocks are adjacent, so each
+//    store instruction writes 32 contiguous bytes of each of eight pixel
+//    rows.  Views at an unaligned address or pitch, and tiles that are
+//    short or cut by the crop, take a masked byte path (a separate
+//    function); the choice is made once a CTA.
+// 5. Few instructions a sample: 32-bit indices; the descale's rounding
+//    constant is added once, to tmp0 and tmp1 (all sums wrap modulo 2^32,
+//    so this gives the same bits), folding into the multiply-adds; the
+//    crop and alignment tests are hoisted out of the sample work.  The
+//    arithmetic is the jnp program's int32 with wraparound: products and
+//    sums in uint32, cast to int32 only for the arithmetic right shift
+//    (16-bit quantisation tables overflow int32).
 //
+// ptxas -v (sm_90a, CUDA 12.8): 48 registers at 64 threads, 10,752 bytes
+// of shared memory, a 0-byte stack, no spills.
+
 // The entry point takes the CUDA device index and stream last and returns
 // the cudaError_t of its launch; it allocates nothing and does not
 // synchronise.
@@ -40,23 +77,84 @@
 namespace {
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
-constexpr int kBlocksPerCta = 32;
-constexpr int kThreads = 8 * kBlocksPerCta;
-constexpr int kJobCols = 10;     // JOB_COLS in cuda_fast.py
-
-// job table columns (column 3, blocks_h, only sizes the work)
-constexpr int kWork = 0, kFirst = 1, kBw = 2, kQ = 4, kOut = 5, kPitch = 6,
-              kOw = 7, kOh = 8;
+constexpr int kTileBlocks = 32;  // TILE_BLOCKS in cuda_fast.py
+constexpr int kWarps = 2;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPassBlocks = 4 * kWarps;  // blocks a CTA computes at once
+constexpr int kPasses = kTileBlocks / kPassBlocks;
+constexpr int kJobCols = 8;      // JOB_COLS in cuda_fast.py
+constexpr int kJobVecs = kJobCols / 4;  // int4 loads a job row
+// the transposed work array: a block's column c is row c of 12 words
+constexpr int kWorkRow = 12;
+constexpr int kWorkBlock = 8 * kWorkRow + 8;
 
 constexpr int kConstBits = 13;
 constexpr int kPass1Bits = 2;
+constexpr int kShift1 = kConstBits - kPass1Bits;
+constexpr int kShift2 = kConstBits + kPass1Bits + 3;
 
 // natural position -> zigzag index (tables.py INV_ZIGZAG)
-__constant__ int kInvZigzag[64] = {
+constexpr int kInvZigzag[64] = {
     0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
     3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
     10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
     21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+
+// the XOR swizzle of the 16-byte chunks of the block in warp slot b
+__host__ __device__ constexpr int swizzle(int b) {
+  return (0x7520 >> (4 * b)) & 7;
+}
+
+// v[b][c * 8 + r]: byte offset of the coefficient at (row r, column c) in
+// the swizzled shared copy of the block in warp slot b; a thread loads its
+// eight as two 16-byte vectors, once
+struct alignas(16) GatherOffsets {
+  int v[4][64];
+};
+constexpr GatherOffsets gather_offsets() {
+  GatherOffsets g{};
+  for (int b = 0; b < 4; ++b)
+    for (int c = 0; c < 8; ++c)
+      for (int r = 0; r < 8; ++r) {
+        const int z = kInvZigzag[r * 8 + c];
+        g.v[b][c * 8 + r] = 2 * ((((z >> 3) ^ swizzle(b)) << 3) | (z & 7));
+      }
+  return g;
+}
+__device__ const GatherOffsets kGather = gather_offsets();
+
+#ifndef TORCH_CUDA_EMU  // tests/torch_cuda_emu.h defines these for g++
+// 16 bytes from global to shared memory, asynchronously (L2 only)
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n of this thread's commit groups are still in flight
+// (n a constant once the pass loop is unrolled)
+__device__ __forceinline__ void copy_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+// (c << 16) | sat_s8(a) << 8 | sat_s8(b): two samples saturated to
+// [-128, 127] and packed as bytes above c's low half
+__device__ __forceinline__ unsigned pack_sat_s8(int a, int b, unsigned c) {
+  unsigned d;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+#endif
+static_assert(kPasses <= 4, "copy_async_wait takes at most 3 later groups");
 
 __device__ __forceinline__ int mulw(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) *
@@ -70,21 +168,18 @@ __device__ __forceinline__ int subw(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) -
                           static_cast<unsigned>(b));
 }
-__device__ __forceinline__ int shlw(int a, int n) {
-  return static_cast<int>(static_cast<unsigned>(a) << n);
-}
-// idct.py _descale: (x + 2^(n-1)) >> n, the sum wrapping
-__device__ __forceinline__ int descale(int x, int n) {
-  return addw(x, 1 << (n - 1)) >> n;
-}
 
-// idct.py _idct_1d (jidctint.c pass body), in place on c[0..7]
-__device__ __forceinline__ void idct_1d(int* c, int bits) {
+// idct.py _idct_1d (jidctint.c pass body), in place on c[0..7], each
+// output descaled: (x + 2^(shift-1)) >> shift with the sum wrapping.  The
+// rounding constant rides on tmp0 and tmp1, which every output holds once.
+template <int kShift>
+__device__ __forceinline__ void idct_1d(int* c) {
+  constexpr int kRound = 1 << (kShift - 1);
   int z1 = mulw(addw(c[2], c[6]), 4433);               // FIX_0_541196100
   const int tmp2 = addw(z1, mulw(c[6], -15137));       // FIX_1_847759065
   const int tmp3 = addw(z1, mulw(c[2], 6270));         // FIX_0_765366865
-  const int tmp0 = shlw(addw(c[0], c[4]), kConstBits);
-  const int tmp1 = shlw(subw(c[0], c[4]), kConstBits);
+  const int tmp0 = addw(mulw(addw(c[0], c[4]), 1 << kConstBits), kRound);
+  const int tmp1 = addw(mulw(subw(c[0], c[4]), 1 << kConstBits), kRound);
   const int tmp10 = addw(tmp0, tmp3);
   const int tmp13 = subw(tmp0, tmp3);
   const int tmp11 = addw(tmp1, tmp2);
@@ -107,85 +202,149 @@ __device__ __forceinline__ void idct_1d(int* c, int bits) {
   t1 = addw(addw(t1, z2), z4);
   t2 = addw(addw(t2, z2), z3);
   t3 = addw(addw(t3, z1), z4);
-  c[0] = descale(addw(tmp10, t3), bits);
-  c[1] = descale(addw(tmp11, t2), bits);
-  c[2] = descale(addw(tmp12, t1), bits);
-  c[3] = descale(addw(tmp13, t0), bits);
-  c[4] = descale(subw(tmp13, t0), bits);
-  c[5] = descale(subw(tmp12, t1), bits);
-  c[6] = descale(subw(tmp11, t2), bits);
-  c[7] = descale(subw(tmp10, t3), bits);
+  c[0] = addw(tmp10, t3) >> kShift;
+  c[1] = addw(tmp11, t2) >> kShift;
+  c[2] = addw(tmp12, t1) >> kShift;
+  c[3] = addw(tmp13, t0) >> kShift;
+  c[4] = subw(tmp13, t0) >> kShift;
+  c[5] = subw(tmp12, t1) >> kShift;
+  c[6] = subw(tmp11, t2) >> kShift;
+  c[7] = subw(tmp10, t3) >> kShift;
+}
+
+// four samples before the level shift -> four bytes of clip(v + 128):
+// saturated to [-128, 127], then 0x80 flips each byte to v + 128
+__device__ __forceinline__ unsigned pack4(int a, int b, int c, int d) {
+  return pack_sat_s8(b, a, pack_sat_s8(d, c, 0)) ^ 0x80808080u;
+}
+
+// the masked path: the part of a row of eight samples that lies inside
+// the crop (row y of a plane oh high, columns x.. of one ow wide), a byte
+// at a time, at any alignment
+__device__ __noinline__ void store_masked(uint8_t* out, unsigned lo,
+                                          unsigned hi, int y, int oh, int x,
+                                          int ow) {
+  if (y >= oh) return;
+  const int n = min(8, ow - x);
+  for (int k = 0; k < n; ++k)
+    out[k] = static_cast<uint8_t>((k < 4 ? lo >> (8 * k)
+                                         : hi >> (8 * (k - 4))) & 0xff);
+}
+
+// the job of CTA t: the last whose first CTA is at most t (they ascend
+// from 0), by a 32-way search of the warp: each round its lanes test 32
+// evenly spaced candidates, so ceil(log32(n_jobs)) rounds of one load
+__device__ __forceinline__ int find_job(const int* __restrict__ first_cta,
+                                        int n_jobs, int t, int lane) {
+  int lo = 0, n = n_jobs;
+  while (n > 1) {
+    const int step = (n + 31) >> 5;
+    const unsigned le = __ballot_sync(
+        0xffffffffu,
+        lane * step < n && __ldg(first_cta + lo + lane * step) <= t);
+    const int k = 31 - __clz(le);  // lane 0's candidate, lo, always holds
+    lo += k * step;
+    n = min(step, n - k * step);
+  }
+  return lo;
 }
 
 __global__ void __launch_bounds__(kThreads)
 jpeg_dequant_idct_kernel(const int16_t* __restrict__ coeffs,
                          const int32_t* __restrict__ quant,
-                         const long long* __restrict__ jobs, int n_jobs,
-                         long long n_work) {
-  __shared__ int4 zz_s[kBlocksPerCta][8];
-  __shared__ int ws_s[kBlocksPerCta][8][9];
-  const int lane = threadIdx.x & 7;
-  const int slot = threadIdx.x >> 3;
-  const long long w = static_cast<long long>(blockIdx.x) * kBlocksPerCta +
-                      slot;
-  const bool active = w < n_work;
+                         const int4* __restrict__ jobs,
+                         const int* __restrict__ first_cta, int n_jobs) {
+  __shared__ __align__(16) int16_t coef_s[kTileBlocks][64];
+  // a warp's work array, two of them so that a pass's row reads never
+  // wait for the next pass's column writes
+  __shared__ __align__(16) int work_s[kWarps][2][4 * kWorkBlock];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int slot = lane >> 3;      // the warp's block this lane works on
+  const int c = lane & 7;          // its column (pass 1) and row (pass 2)
 
-  // the job holding work block w: the last row whose kWork <= w
-  int j = 0;
-  if (active) {
-    int lo = 0, hi = n_jobs - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (__ldg(jobs + mid * kJobCols + kWork) <= w)
-        lo = mid;
-      else
-        hi = mid - 1;
-    }
-    j = lo;
+  // the job (the warp's search, then its row), then this CTA's
+  // coefficients in flight before any other work
+  const int j = find_job(first_cta, n_jobs, blockIdx.x, lane);
+  // out lo, out hi, pitch, ow | oh, quant row, first block, blocks_w
+  const int4 job = __ldg(jobs + kJobVecs * j);
+  const int4 job2 = __ldg(jobs + kJobVecs * j + 1);
+  const int per_row = (job.w + 8 * kTileBlocks - 1) / (8 * kTileBlocks);
+  const int t = static_cast<int>(blockIdx.x) - __ldg(first_cta + j);
+  const int by = t / per_row;
+  const int bx0 = (t - by * per_row) * kTileBlocks;
+  const int nb = min(kTileBlocks, (job.w + 7) / 8 - bx0);
+  const int16_t* src = coeffs + c * 8 +
+      static_cast<long long>(job2.z + by * job2.w + bx0) * 64;
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    const int k = p * kPassBlocks + warp * 4 + slot;
+    if (k < nb)
+      copy_async16(&coef_s[k][(c ^ swizzle(slot)) * 8], src + k * 64);
+    copy_async_commit();
   }
-  const long long* job = jobs + j * kJobCols;
-  const long long local = active ? w - __ldg(job + kWork) : 0;
-  const int bw = active ? static_cast<int>(__ldg(job + kBw)) : 1;
-  const long long blk = __ldg(job + kFirst) + local;
-  if (active)
-    zz_s[slot][lane] = __ldg(reinterpret_cast<const int4*>(
-                                 coeffs + blk * 64) + lane);
-  __syncwarp();
 
-  // pass 1: dequantise and transform column `lane`
-  const int16_t* zz = reinterpret_cast<const int16_t*>(zz_s[slot]);
-  const int32_t* q = quant + __ldg(job + kQ) * 64;
-  int v[8];
-  if (active) {
+  // this column's table entries and gather offsets
+  const int oh = job2.x;
+  const int32_t* q = quant + job2.y * 64 + c;
+  int qv[8];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int pos = r * 8 + lane;
-      v[r] = mulw(zz[kInvZigzag[pos]], __ldg(q + pos));
-    }
-    idct_1d(v, kConstBits - kPass1Bits);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) ws_s[slot][r][lane] = v[r];
-  }
-  __syncwarp();
-  if (!active) return;
+  for (int r = 0; r < 8; ++r) qv[r] = __ldg(q + r * 8);
+  const int4 g0 = __ldg(reinterpret_cast<const int4*>(kGather.v[slot]) +
+                        2 * c);
+  const int4 g1 = __ldg(reinterpret_cast<const int4*>(kGather.v[slot]) +
+                        2 * c + 1);
+  const char* blk = reinterpret_cast<const char*>(coef_s[warp * 4 + slot]);
+  const int16_t* gp[8] = {
+      reinterpret_cast<const int16_t*>(blk + g0.x),
+      reinterpret_cast<const int16_t*>(blk + g0.y),
+      reinterpret_cast<const int16_t*>(blk + g0.z),
+      reinterpret_cast<const int16_t*>(blk + g0.w),
+      reinterpret_cast<const int16_t*>(blk + g1.x),
+      reinterpret_cast<const int16_t*>(blk + g1.y),
+      reinterpret_cast<const int16_t*>(blk + g1.z),
+      reinterpret_cast<const int16_t*>(blk + g1.w)};
+  const int y = by * 8 + c;        // this thread's pixel row in pass 2
+  const int x = (bx0 + warp * 4 + slot) * 8;
+  uint8_t* out = reinterpret_cast<uint8_t*>(
+                     (static_cast<unsigned long long>(
+                          static_cast<unsigned>(job.y)) << 32) |
+                     static_cast<unsigned>(job.x)) +
+                 static_cast<long long>(y) * job.z + x;
+  // whole tiles of aligned views take 8-byte stores, the rest bytes
+  const bool fast = ((job.x | job.z) & 7) == 0 && by * 8 + 8 <= oh &&
+                    nb == kTileBlocks && (bx0 + nb) * 8 <= job.w;
 
-  // pass 2: transform row `lane`, level shift, clip, store
 #pragma unroll
-  for (int x = 0; x < 8; ++x) v[x] = ws_s[slot][lane][x];
-  idct_1d(v, kConstBits + kPass1Bits + 3);
-  const int by = static_cast<int>(local / bw);
-  const int bx = static_cast<int>(local - static_cast<long long>(by) * bw);
-  const int y = by * 8 + lane;
-  if (y >= __ldg(job + kOh)) return;
-  const int ow = static_cast<int>(__ldg(job + kOw));
-  uint8_t* out = reinterpret_cast<uint8_t*>(__ldg(job + kOut)) +
-                 y * __ldg(job + kPitch) + bx * 8;
+  for (int p = 0; p < kPasses; ++p) {
+    if (p * kPassBlocks >= nb) continue;           // the same for the CTA
+    copy_async_wait(kPasses - 1 - p);
+    __syncwarp();
+    // pass 1: dequantise and transform column c, store it as row c (a
+    // lane whose block is past the tile's end works on stale data and
+    // stores nothing)
+    int v[8];
 #pragma unroll
-  for (int x = 0; x < 8; ++x) {
-    if (bx * 8 + x < ow) {
-      const int s = addw(v[x], 128);
-      out[x] = static_cast<uint8_t>(s < 0 ? 0 : (s > 255 ? 255 : s));
-    }
+    for (int r = 0; r < 8; ++r)
+      v[r] = mulw(gp[r][p * kPassBlocks * 64], qv[r]);
+    idct_1d<kShift1>(v);
+    int* w = work_s[warp][p & 1] + slot * kWorkBlock;
+    reinterpret_cast<int4*>(w + c * kWorkRow)[0] =
+        make_int4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<int4*>(w + c * kWorkRow)[1] =
+        make_int4(v[4], v[5], v[6], v[7]);
+    __syncwarp();
+    // pass 2: transform row c, level shift, clip, store
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = w[i * kWorkRow + c];
+    idct_1d<kShift2>(v);
+    const unsigned lo = pack4(v[0], v[1], v[2], v[3]);
+    const unsigned hi = pack4(v[4], v[5], v[6], v[7]);
+    uint8_t* o = out + p * kPassBlocks * 8;
+    if (fast)
+      *reinterpret_cast<uint2*>(o) = make_uint2(lo, hi);
+    else if (p * kPassBlocks + warp * 4 + slot < nb)
+      store_masked(o, lo, hi, y, oh, x + p * kPassBlocks * 8, job.w);
   }
 }
 
@@ -194,24 +353,27 @@ jpeg_dequant_idct_kernel(const int16_t* __restrict__ coeffs,
 extern "C" {
 
 // coeffs: (N, 64) int16 zigzag, 16-byte aligned; quant: (Q, 64) int32
-// natural order; jobs: (n_jobs, 10) int64 rows (work start, first block,
-// blocks_w, blocks_h, quant row, output address, pitch, crop width and
-// height, unused), work starts ascending from 0 and n_work their total
+// natural order; table: n_jobs rows of 8 int32 (output address low and
+// high words, pitch, crop width, crop height, quant row, first block,
+// blocks_w), 16-byte aligned, followed by each job's first CTA, ascending
+// from 0; n_ctas: the CTAs of all jobs
 int launch_jpeg_dequant_idct(const void* coeffs, const void* quant,
-                             const void* jobs, int n_jobs, long long n_work,
+                             const void* table, int n_jobs, int n_ctas,
                              int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (n_jobs < 1 || n_work < 1 ||
-      (reinterpret_cast<uintptr_t>(coeffs) & 15) != 0)
+  if (n_jobs < 1 || n_ctas < 1 ||
+      ((reinterpret_cast<uintptr_t>(coeffs) |
+        reinterpret_cast<uintptr_t>(table)) & 15) != 0)
     return kInvalid;
-  const long long ctas = (n_work + kBlocksPerCta - 1) / kBlocksPerCta;
-  if (ctas > 0x7fffffffLL) return kInvalid;
-  jpeg_dequant_idct_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
+  const int4* jobs = static_cast<const int4*>(table);
+  jpeg_dequant_idct_kernel<<<static_cast<unsigned>(n_ctas), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(coeffs),
-      static_cast<const int32_t*>(quant),
-      static_cast<const long long*>(jobs), n_jobs, n_work);
+      static_cast<const int32_t*>(quant), jobs,
+      reinterpret_cast<const int*>(jobs + kJobVecs *
+                                   static_cast<long long>(n_jobs)),
+      n_jobs);
   return static_cast<int>(cudaGetLastError());
 }
 

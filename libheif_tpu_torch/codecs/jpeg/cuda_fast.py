@@ -22,8 +22,9 @@ carries a launch count (``KERNELS[name].launches``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Sequence
+from typing import Dict, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..._build import CudaKernel
@@ -34,11 +35,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 JPEG_DEQUANT_IDCT = CudaKernel(
     "jpeg_dequant_idct", "launch_jpeg_dequant_idct",
-    [_P, _P, _P, _I, ctypes.c_longlong])
+    [_P, _P, _P, _I, _I])
 
 KERNELS: Dict[str, CudaKernel] = {JPEG_DEQUANT_IDCT.name: JPEG_DEQUANT_IDCT}
 
-JOB_COLS = 10           # kJobCols in csrc/jpeg_kernels.cu
+JOB_COLS = 8            # kJobCols in csrc/jpeg_kernels.cu
+TILE_BLOCKS = 32        # kTileBlocks: blocks of one block row a CTA
+# what one thread computes: a row of eight samples in each of kPasses = 4
+SAMPLES_PER_THREAD = 32
 
 
 class Job(NamedTuple):
@@ -79,6 +83,34 @@ def _check(coeffs: torch.Tensor, quant: torch.Tensor,
                              "blocks")
 
 
+def job_table(jobs: Sequence[Job], pin: bool = False
+              ) -> Tuple[torch.Tensor, int]:
+    """The kernel's table in one int32 buffer (pinned where ``pin``) and
+    its CTA count: a row of JOB_COLS a job (output address low and high
+    words, pitch, crop width and height, quantisation row, first block,
+    blocks_w), then each job's first CTA.  A job's CTAs walk the block rows
+    its crop shows, ceil(w / (8·TILE_BLOCKS)) a row, each taking up to
+    TILE_BLOCKS blocks."""
+    meta = np.array([(o.data_ptr(), o.stride(0), o.shape[1], o.shape[0], q,
+                      f, b) for f, b, _, q, o in jobs], dtype=np.int64)
+    if meta[:, 1:].max() >= 1 << 31:
+        raise ValueError("a pitch or block index past the kernel's int32")
+    ow, oh = meta[:, 2], meta[:, 3]
+    count = (oh + 7) // 8 * ((ow + 8 * TILE_BLOCKS - 1) // (8 * TILE_BLOCKS))
+    ends = np.cumsum(count)
+    n, n_ctas = len(jobs), int(ends[-1])
+    if n_ctas >= 1 << 31:
+        raise ValueError("more than 2^31 - 1 CTAs")
+    table = torch.empty(n * (JOB_COLS + 1), dtype=torch.int32,
+                        pin_memory=pin)
+    flat = table.numpy()
+    rows = flat[:n * JOB_COLS].reshape(n, JOB_COLS)
+    rows.view(np.int64)[:, 0] = meta[:, 0]
+    rows[:, 2:] = meta[:, 1:]
+    flat[n * JOB_COLS:] = ends - count
+    return table, n_ctas
+
+
 def dequant_idct(coeffs: torch.Tensor, quant: torch.Tensor,
                  jobs: Sequence[Job]) -> None:
     """Reconstruct every job's plane into its ``out`` view, one launch for
@@ -104,17 +136,11 @@ def dequant_idct(coeffs: torch.Tensor, quant: torch.Tensor,
     if coeffs.data_ptr() % 16:
         coeffs = coeffs.clone()
     quant = quant.contiguous()
-    # the job table goes through pinned memory, so its copy does not wait
-    # for the stream (the CPU-tensor emulation of the tests has no pinning)
-    table = torch.zeros((len(jobs), JOB_COLS), dtype=torch.int64,
-                        pin_memory=coeffs.device.type == "cuda")
-    rows = table.numpy()
-    work = 0
-    for row, j in zip(rows, jobs):
-        h, w = j.out.shape
-        row[:9] = (work, j.first, j.blocks_w, j.blocks_h, j.qidx,
-                   j.out.data_ptr(), j.out.stride(0), w, h)
-        work += j.blocks_w * j.blocks_h
+    if coeffs.shape[0] >= 1 << 31:
+        raise ValueError("more than 2^31 - 1 coefficient blocks")
+    # the table goes through pinned memory, so its copy does not wait for
+    # the stream (the CPU-tensor emulation of the tests has no pinning)
+    table, n_ctas = job_table(jobs, pin=coeffs.device.type == "cuda")
     table_d = table.to(coeffs.device, non_blocking=True)
     JPEG_DEQUANT_IDCT.launch(coeffs, coeffs.data_ptr(), quant.data_ptr(),
-                             table_d.data_ptr(), len(jobs), work)
+                             table_d.data_ptr(), len(jobs), n_ctas)

@@ -532,11 +532,16 @@ def reconstruct(frames: Sequence[JpegFrame],
         dev = jobs[0].out.device
         # gathered into pinned memory on the way to a card, so the copy
         # runs at the link's rate and does not wait for the stream
-        host = torch.empty((first, 64), dtype=torch.int16,
-                           pin_memory=dev.type == "cuda")
-        np.concatenate(coeffs, out=host.numpy())
-        quant_d = torch.from_numpy(np.stack(quant).astype(np.int32)).to(dev)
-        dequant_idct(host.to(dev, non_blocking=True), quant_d, jobs)
+        with span("jpeg.recon.gather"):
+            host = torch.empty((first, 64), dtype=torch.int16,
+                               pin_memory=dev.type == "cuda")
+            np.concatenate(coeffs, out=host.numpy())
+        with span("jpeg.recon.copy"):
+            quant_d = torch.from_numpy(np.stack(quant).astype(np.int32)) \
+                .to(dev)
+            coeffs_d = host.to(dev, non_blocking=True)
+        with span("jpeg.recon.launch"):
+            dequant_idct(coeffs_d, quant_d, jobs)
 
 
 def frame_image(frame: JpegFrame, limits=None) -> PixelImage:

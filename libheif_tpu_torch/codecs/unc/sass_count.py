@@ -1,15 +1,18 @@
 """Instructions per output pixel in a kernel's loop body, read from the
 SASS of the built kernel library.
 
-    python3 -m libheif_tpu_torch.codecs.unc.sass_count LIBRARY.so \\
-        REGEX PIXELS [REGEX PIXELS ...]
+    python3 -m libheif_tpu_torch.codecs.unc.sass_count [--function] \\
+        LIBRARY.so REGEX PIXELS [REGEX PIXELS ...]
 
 For each kernel whose mangled name matches REGEX (the first match), it
 takes the loop body -- the instructions between the target of the
 widest backward branch and that branch -- and divides its instruction
 count by PIXELS, the output pixels one thread computes in one pass of
-that loop.  The count is static: every instruction of the body once,
-both arms of a branch included.  Needs ``cuobjdump`` from the CUDA
+that loop.  With ``--function`` it takes the whole function instead
+(up to its last EXIT; functions it calls are not counted), for a kernel
+whose thread runs its body once: PIXELS is then what one thread
+computes.  The count is static: every instruction once, both arms of a
+branch included, a loop's body once.  Needs ``cuobjdump`` from the CUDA
 toolkit (next to ``nvcc``).
 """
 
@@ -80,14 +83,24 @@ def loop_body(instrs: List[Tuple[int, str, str]]) -> List[Tuple[int, str, str]]:
     return [i for i in instrs if best[0] <= i[0] <= best[1]]
 
 
-def count(sass: str, pattern: str, pixels: int) -> dict:
+def function_body(instrs: List[Tuple[int, str, str]]
+                  ) -> List[Tuple[int, str, str]]:
+    """The instructions up to the last EXIT (not the padding after it)."""
+    last = max(i for i, (_, op, _) in enumerate(instrs)
+               if op.startswith("EXIT"))
+    return instrs[:last + 1]
+
+
+def count(sass: str, pattern: str, pixels: int,
+          whole: bool = False) -> dict:
     """Per-pixel instruction count of the first kernel matching
-    `pattern`, by class."""
+    `pattern`, by class: of its widest loop's body, or with ``whole`` of
+    the whole function."""
     funcs = functions(sass)
     names = [n for n in funcs if re.search(pattern, n)]
     if not names:
         raise ValueError(f"no kernel matches {pattern!r}")
-    body = loop_body(funcs[names[0]])
+    body = (function_body if whole else loop_body)(funcs[names[0]])
     by_class = Counter(_class(op) for _, op, _ in body)
     return {"kernel": names[0], "body_instructions": len(body),
             "pixels_per_pass": pixels,
@@ -105,13 +118,15 @@ def cuobjdump_sass(library: str) -> str:
 
 
 def main(argv: List[str]) -> int:
+    whole = argv[:1] == ["--function"]
+    argv = argv[whole:]
     if len(argv) < 3 or len(argv) % 2 == 0:
         print(__doc__, file=sys.stderr)
         return 2
     import json
     sass = cuobjdump_sass(argv[0])
     for pattern, pixels in zip(argv[1::2], argv[2::2]):
-        print(json.dumps(count(sass, pattern, int(pixels))))
+        print(json.dumps(count(sass, pattern, int(pixels), whole)))
     return 0
 
 

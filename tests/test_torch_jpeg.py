@@ -288,6 +288,50 @@ def test_dequant_idct_checks_its_inputs():
         F.dequant_idct(coeffs, quant, [past])
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_job_table_covers_each_shown_block_once(seed):
+    """The kernel's table for jobs of random sizes and crops: each job's
+    row, and the blocks that each CTA derives from it as the kernel does
+    (its job: the last whose first CTA is at most the CTA's index; its
+    block row and column: a division of its index within the job by the
+    CTAs a row) cover every block the crop shows once, in runs of up to
+    TILE_BLOCKS."""
+    rng = np.random.default_rng(seed)
+    planes = [torch.empty((50, 900), dtype=torch.uint8) for _ in range(2)]
+    jobs, first = [], 0
+    for k in range(40):
+        bh, bw = int(rng.integers(1, 6)), int(rng.integers(1, 100))
+        h = int(rng.integers(1, min(bh * 8, 50) + 1))
+        w = int(rng.integers(1, bw * 8 + 1))
+        x = int(rng.integers(0, 900 - w + 1))
+        jobs.append(F.Job(first, bw, bh, k % 3, planes[k % 2][:h, x:x + w]))
+        first += bh * bw
+    table, n_ctas = F.job_table(jobs)
+    flat = table.numpy()
+    rows = flat[:len(jobs) * F.JOB_COLS].reshape(len(jobs), F.JOB_COLS)
+    first_cta = flat[len(jobs) * F.JOB_COLS:]
+    assert first_cta[0] == 0 and np.all(np.diff(first_cta) > 0)
+    for row, job in zip(rows, jobs):
+        assert row[:2].view(np.int64)[0] == job.out.data_ptr()
+        assert row[2:].tolist() == [job.out.stride(0), job.out.shape[1],
+                                    job.out.shape[0], job.qidx, job.first,
+                                    job.blocks_w]
+    seen = []
+    for cta in range(n_ctas):
+        j = int(np.searchsorted(first_cta, cta, side="right")) - 1
+        ow = int(rows[j, 3])
+        per_row = -(-ow // (8 * F.TILE_BLOCKS))
+        by, k = divmod(cta - int(first_cta[j]), per_row)
+        bx0 = k * F.TILE_BLOCKS
+        nb = min(F.TILE_BLOCKS, -(-ow // 8) - bx0)
+        assert nb >= 1
+        seen += [(j, by, bx0 + i) for i in range(nb)]
+    want = [(j, by, bx) for j, job in enumerate(jobs)
+            for by in range(-(-job.out.shape[0] // 8))
+            for bx in range(-(-job.out.shape[1] // 8))]
+    assert seen == want
+
+
 def test_kernel_constants_match_python():
     src = open(CU).read()
     table = src[src.index("kInvZigzag[64] = {"):]
@@ -295,6 +339,7 @@ def test_kernel_constants_match_python():
             .replace("\n", " ").split(",")]
     assert vals == INV_ZIGZAG.tolist()
     assert f"constexpr int kJobCols = {F.JOB_COLS};" in src
+    assert f"constexpr int kTileBlocks = {F.TILE_BLOCKS};" in src
     for name, v in (("FIX_0_541196100", 4433), ("FIX_1_847759065", 15137),
                     ("FIX_0_765366865", 6270), ("FIX_1_175875602", 9633),
                     ("FIX_0_298631336", 2446), ("FIX_2_053119869", 16819),
@@ -411,6 +456,24 @@ def test_compose_places_tiles_like_copy_into():
         ref.copy_into(tile, tx * 96, ty * 64)
     for ch in ref.channels():
         assert torch.equal(out.plane(ch), ref.plane(ch)), ch
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["single", "grid"])
+def test_recon_span_is_split_by_part(grid):
+    """A CPU decode names the parts of jpeg.recon: the gather into (pinned)
+    host memory, the table and coefficient copies, and the launch, each
+    once a batch and inside jpeg.recon."""
+    from libheif_tpu_torch.core import trace
+    frames = [pdec.parse_jpeg(stream("c422")) for _ in range(4 if grid
+                                                              else 1)]
+    with trace.collect() as spans:
+        if grid:
+            pdec.compose(frames, 2, 150, 100, "cpu")
+        else:
+            pdec.decode_frame(frames[0], "cpu")
+    parts = ("jpeg.recon.gather", "jpeg.recon.copy", "jpeg.recon.launch")
+    assert all(spans[p]["count"] == 1 for p in parts + ("jpeg.recon",))
+    assert sum(spans[p]["ms"] for p in parts) <= spans["jpeg.recon"]["ms"]
 
 
 def test_compose_refuses_a_mixed_batch():

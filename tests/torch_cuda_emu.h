@@ -15,6 +15,7 @@
 #include <barrier>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -25,6 +26,10 @@
 #define __launch_bounds__(...)
 #define __constant__ static
 #define __shared__ static
+#define __noinline__ __attribute__((noinline))
+#define __align__(n) __attribute__((aligned(n)))
+// a kernel source leaves its inline-PTX helpers to this header
+#define TORCH_CUDA_EMU 1
 
 struct dim3 {
   unsigned x, y, z;
@@ -37,6 +42,10 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+struct uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
@@ -108,6 +117,21 @@ inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 template <class T>
 T __ldg(const T* p) {
   return *p;
+}
+// cp.async as the kernels wrap it: the copy happens at once, so commit and
+// wait have nothing to do (the kernel's barrier after the wait still orders
+// the lanes)
+inline void copy_async16(void* smem, const void* gmem) {
+  std::memcpy(smem, gmem, 16);
+}
+inline void copy_async_commit() {}
+inline void copy_async_wait(int) {}
+// cvt.pack.sat.s8.s32.b32 as the kernels wrap it
+inline unsigned pack_sat_s8(int a, int b, unsigned c) {
+  const auto s8 = [](int v) {
+    return static_cast<unsigned>(std::min(std::max(v, -128), 127)) & 0xffu;
+  };
+  return (c << 16) | (s8(a) << 8) | s8(b);
 }
 
 template <typename... P, typename... A>
