@@ -66,16 +66,27 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    512x512 tiles (stage B on three), a wave-heavy synthetic case
    (codecs/av1/wave_cases.py: 64x64, filter-intra, CfL and many 4x4
    jobs in the same waves, some waves larger than the kernel's shared
-   memory) and the photo's 48 tiles; decode
-   every stream on the card, in-loop filters included, and require its
-   planes' hashes; write an AVIF phone photo (an 8x6 grid of 48 512x512
+   memory) and the photo's 48 tiles, and both kernels on the intra
+   block copy streams (libaom's screen-content tools: skipped blocks'
+   copies, transform units with the inter transform sets, lossless) and
+   a 1920x1080 screenshot, and av1_intra_wave on synthetic intrabc waves
+   (wave_cases.ibc_waves: half-sample chroma at 4:2:0, 4:2:2 and 4:4:4,
+   8 and 10 bits, 64x64 copies among 4x4 jobs, sources written by the
+   wave before); decode
+   every stream on the card, in-loop filters and film grain included,
+   and require its planes' hashes (the film-grain streams: libaom's test
+   vectors 1-16, 10-bit, odd sizes, estimated grain, four 512x512
+   tiles); write an AVIF phone photo (an 8x6 grid of 48 512x512
    av01 items, 4032x3024 output) and decode it through HeifContext to
    interleaved RGB, with the launch counts read around it
    (av1_dequant_itx once, av1_intra_wave once, planes_ycbcr8_to_rgb
    once, no strided_extract_paste) and its planes held equal to the
-   single tiles' CPU decodes placed where the grid puts them; decode
-   single-item av01 files (8-bit, 10-bit, 508x500) through the context on
-   the card and on the CPU with 0 samples differing;
+   single tiles' CPU decodes placed where the grid puts them; the same
+   for a grain photo (its 48 tiles the four film-grain tiles in turn,
+   each with its own grain: the av1.grain span once a tile); decode
+   single-item av01 files (8-bit, 10-bit, 508x500, the screenshot, with
+   its launch counts) through the context on the card and on the CPU
+   with 0 samples differing;
 4e. the JPEG phase, on the streams committed in
    libheif_tpu_torch/testdata/jpeg (PIL's libjpeg and the JAX package's
    encoder, with the plane hashes of the JAX decode_jpeg): hold
@@ -1716,6 +1727,14 @@ AV1_JNP = "libheif_tpu/codecs/av1/device_recon.py"
 AV1_MIXED = ("aom-128-q30-c0", "aom-128-q60-c2")   # different wave counts
 # stage B on these tiles alone (the photo's plan holds tile512_s0..s3)
 AV1_WAVE_SINGLES = ("tile512_10bit", "tile508x500")
+# the grain photo's tiles: film grain with overlap off and clipping (1),
+# overlap and clipping (7), neither (12), chroma scaling from luma (15)
+GRAIN_TILES = ("grain-tile512-tv1", "grain-tile512-tv7",
+               "grain-tile512-tv12", "grain-tile512-tv15")
+SCREENSHOT = "ibc-screenshot-1920x1080"
+# synthetic intrabc waves: (ssx, ssy), bit depth
+AV1_IBC_CASES = (((1, 1), 8), ((1, 0), 8), ((0, 0), 8), ((1, 1), 10),
+                 ((1, 0), 10))
 AV1_PLAIN_WAVES_MS = {}
 AV1_PARSED = {}          # stream name -> (seq, fh, TileDecoder), parsed once
 AV1_REPEATS = 2          # the photo's Python parse takes tens of seconds
@@ -1747,10 +1766,12 @@ def av1_parse(e):
 
 def av1_decode_parsed(e, device):
     """A parsed stream's cropped int32 planes on ``device``, in-loop
-    filters included (decode_intra_frame after its parse)."""
+    filters and film grain included (decode_intra_frame after its
+    parse)."""
     seq, fh, dec = av1_parse(e)
     planes = av1_recon.decode_frames_device([dec], device)[0]
-    return av1_decoder.finish_frame(seq, fh, dec, planes)
+    return av1_decoder.maybe_grain(
+        av1_decoder.finish_frame(seq, fh, dec, planes), seq, fh)
 
 
 def av1_hashes(planes):
@@ -1787,12 +1808,12 @@ def add_av01(f, e, hidden=True):
     return item
 
 
-def av1_photo_file(streams):
+def av1_photo_file(streams, tiles=PHOTO_TILES):
     """The AVIF phone photo: 48 hidden av01 items (item i holds stream
-    i mod 4) in a 6x8 grid with a 4032x3024 output."""
+    tiles[i mod 4]) in a 6x8 grid with a 4032x3024 output."""
     f = new_file()
     rows, cols = PHOTO_GRID
-    ids = [add_av01(f, streams[PHOTO_TILES[i % 4]])
+    ids = [add_av01(f, streams[tiles[i % 4]])
            for i in range(rows * cols)]
     grid = f.add_new_item("grid").item_id
     f.append_item_data(grid, ImageGrid(rows, cols, *PHOTO).write(), 1)
@@ -1850,10 +1871,13 @@ def check_av1_plan(tally, what, plan, waves=True):
 
 
 def check_av1_kernels(tally, streams):
-    """Both AV1 kernels on every small stream, on a batch whose pictures
+    """Both AV1 kernels on every small stream but the film-grain ones
+    (grain is a plain-torch output stage: their hashes hold it), the
+    intrabc ones and the screenshot among them, on a batch whose pictures
     have different wave counts and on 512x512 tiles (stage B on three of
     them; the plain wave loop is slow), against their plain versions."""
-    small = [[e] for n, e in streams.items() if not n.startswith("tile")]
+    small = [[e] for n, e in streams.items()
+             if not n.startswith(("tile", "grain"))]
     batches = small + [[streams[n] for n in AV1_MIXED]]
     batches += [[e] for n, e in streams.items() if n.startswith("tile")]
     for batch in batches:
@@ -1878,6 +1902,24 @@ def check_av1_kernels(tally, streams):
                   got[:-1], ref[:-1], exact=True)
     tally.compare("av1_intra_wave", "wave-heavy synthetic, lockstep",
                   got[:-1], lock[:-1], exact=True)
+    # intra block copies among intra jobs, at each subsampling's
+    # half-sample flags
+    for (ssx, ssy), bd in AV1_IBC_CASES:
+        case = av1_cases.ibc_waves(seed=SEED + bd, ssx=ssx, ssy=ssy, bd=bd,
+                                   device=DEV)
+        got, ref, lock = (case.buf.clone() for _ in range(3))
+        av1_fast.intra_waves(got, case.groups, case.rows, **case.kw)
+        av1_fast.intra_waves_by_picture_plain(ref, case.groups, case.rows,
+                                              **case.kw)
+        starts = case.rows[:, :, 0].T.tolist()
+        counts = (case.rows[:, :, -1] - case.rows[:, :, 0]).T.tolist()
+        for st, cn in zip(starts, counts):
+            av1_fast.intra_wave_plain(lock, case.groups, st, cn, **case.kw)
+        what = f"ibc synthetic ss=({ssx},{ssy}) {bd}-bit"
+        tally.compare("av1_intra_wave", what, got[:-1], ref[:-1],
+                      exact=True)
+        tally.compare("av1_intra_wave", f"{what}, lockstep", got[:-1],
+                      lock[:-1], exact=True)
 
 
 def check_av1_streams(streams):
@@ -1902,15 +1944,16 @@ def av1_photo_plan(streams):
                                  for i in range(rows * cols)], DEV)
 
 
-def check_av1_photo(blob, streams, plan):
-    """The AVIF photo through HeifContext: its launches and the wall
+def check_av1_photo(blob, streams, pictures, tiles=PHOTO_TILES,
+                    what="av1 photo"):
+    """An AVIF photo through HeifContext: its launches and the wall
     time of each span of the decode path (core/trace.py), read around the
     decode to interleaved RGB; the YCbCr planes that decode hands to the
     output conversion against the single tiles' decodes on the CPU placed
     where the grid puts them, and its RGB against the plain conversion of
     those planes.  (The photo's Python parse takes about a minute, so one
-    decode serves all four.)  Returns (launches, the decode's times by
-    part, RGB)."""
+    decode serves all four.)  ``pictures``: the plan's or the tiles'
+    count.  Returns (launches, the decode's times by part, RGB)."""
     seen = []
     real_convert = context_mod.convert_image
 
@@ -1929,14 +1972,17 @@ def check_av1_photo(blob, streams, plan):
     finally:
         context_mod.convert_image = real_convert
     parts = {"total_ms": first_ms, "file_parse_ms": file_ms, "spans": spans}
-    log(f"av1 photo launches {launches} (plan: {len(plan.groups)} groups, "
-        f"{plan.n_waves} waves) in {first_ms:.1f} ms, by part "
+    log(f"{what} launches {launches} in {first_ms:.1f} ms, by part "
         f"{json.dumps(parts)}")
+    grain = any(n.startswith("grain") for n in tiles)
     for name in ("av1.parse", "av1.plan", "av1.plan_host", "av1.plan_copies",
                  "av1.stage_a", "av1.stage_b", "av1.deblock", "av1.cdef",
-                 "av1.lr", "grid.compose"):
+                 "grid.compose") + (("av1.grain",) if grain else ("av1.lr",)):
         assert name in spans, f"the photo's decode ran no {name} span"
-    assert spans["av1.parse"]["count"] == plan.t, "not one parse a tile"
+    assert spans["av1.parse"]["count"] == pictures, "not one parse a tile"
+    if grain:
+        assert spans["av1.grain"]["count"] == pictures, \
+            "not one grain pass a tile"
     assert launches["av1_dequant_itx"] == 1, \
         "av1_dequant_itx: not one launch per plan"
     assert launches["av1_intra_wave"] == 1, \
@@ -1954,7 +2000,7 @@ def check_av1_photo(blob, streams, plan):
     assert (img.width, img.height, img.colorspace, img.chroma) == \
         (*PHOTO, Colorspace.YCbCr, Chroma.C420)
     singles = {}
-    for n in PHOTO_TILES:
+    for n in tiles:
         planes = av1_decode_parsed(streams[n], "cpu")
         assert av1_hashes(planes) == streams[n]["sha256"], n
         singles[n] = planes
@@ -1968,9 +2014,9 @@ def check_av1_photo(blob, streams, plan):
             y0, x0 = ty * t, tx * t
             got = img.plane(ch)[y0:y0 + t, x0:x0 + t].cpu()
             h, w = got.shape
-            ref = singles[PHOTO_TILES[i % 4]][key][:h, :w]
+            ref = singles[tiles[i % 4]][key][:h, :w]
             n_diff += int((got.to(torch.int32) != ref).sum())
-    log(f"check av1 photo YCbCr (card) vs the single tiles' CPU decodes "
+    log(f"check {what} YCbCr (card) vs the single tiles' CPU decodes "
         f"placed: differing {n_diff}")
     assert n_diff == 0, "the grid's planes differ from the single tiles"
     try:
@@ -1984,14 +2030,27 @@ def check_av1_photo(blob, streams, plan):
 
 
 def check_av01_files(streams):
-    """Single-item av01 files (an 8-bit tile, the 10-bit tile and the
-    non-8-aligned one) through the context on the card and on the CPU,
-    YCbCr against the manifest, and the 8-bit one's RGB."""
+    """Single-item av01 files (an 8-bit tile, the 10-bit tile, the
+    non-8-aligned one and the intrabc screenshot, its launch counts read
+    around its card decode) through the context on the card and on the
+    CPU, YCbCr against the manifest, and the 8-bit one's RGB.  Returns
+    the files and the screenshot's launches."""
     blobs = {}
-    for name in ("tile512_s0", "tile512_10bit", "tile508x500"):
+    shot = {}
+    for name in ("tile512_s0", "tile512_10bit", "tile508x500", SCREENSHOT):
         e = streams[name]
         blobs[name] = av01_file(e)
-        img = decode_both(f"av01 {name}", blobs[name])
+        if name == SCREENSHOT:
+            with launch_counts() as shot:
+                img = HeifContext.read_from_bytes(blobs[name]) \
+                    .decode_image(None)
+            log(f"av1 screenshot launches {shot}")
+            assert shot["av1_dequant_itx"] == shot["av1_intra_wave"] == 1, \
+                "the screenshot: not one launch of each AV1 kernel"
+            same_image(f"av01 {name}", img, HeifContext.read_from_bytes(
+                blobs[name], device="cpu").decode_image(None))
+        else:
+            img = decode_both(f"av01 {name}", blobs[name])
         ok = av1_hashes({k: img.plane(c).to(torch.int32) for k, c in
                          (("Y", Channel.Y), ("U", Channel.Cb),
                           ("V", Channel.Cr))}) == e["sha256"]
@@ -2000,7 +2059,7 @@ def check_av01_files(streams):
         if name == "tile512_s0":
             decode_both(f"av01 {name} RGB", blobs[name], Colorspace.RGB,
                         Chroma.C444)
-    return blobs
+    return blobs, shot
 
 
 def time_av1_photo(blob, ref, first):
@@ -2067,7 +2126,8 @@ def av1_wave_work(plan):
     those entries point at (sentinels read nothing); hh x ww residuals
     read and samples stored; a CfL job's luma box (its wv x hv clipped
     to the frame, 4, 2 or 1 samples each); and the plan's wave-row table
-    once.  Operations: AV1_OPS_PER_SAMPLE per predicted sample."""
+    once; an intrabc job's scalars, source rectangle, residuals and
+    stores.  Operations: AV1_OPS_PER_SAMPLE per predicted sample."""
     nm = 4 if plan.ssx and plan.ssy else (2 if plan.ssx else 1)
     nbytes = plan.wave_rows.numel() * 4
     nops = 0
@@ -2081,6 +2141,14 @@ def av1_wave_work(plan):
         la = g.above.shape[1]
         r = torch.arange(la, device=p.device)[None, :]
         samples = int((col("hh") * col("ww")).sum())
+        if g.kind == av1_recon.KIND_IBC:
+            # its scalars (dst, pw, hh, ww, source, flags), the source
+            # rectangle with its half-sample neighbours, residuals, stores
+            fy, fx = (col("ibc_half") >> 1) & 1, col("ibc_half") & 1
+            src = int(((col("hh") + fy) * (col("ww") + fx)).sum())
+            nbytes += 4 * (6 * g.n + src + 2 * samples)
+            nops += samples * AV1_OPS_PER_SAMPLE
+            continue
         if g.kind == av1_recon.KIND_FI:
             words = 5 * g.n                  # fi_mode, dst, pw, hh, ww
             use_a = use_l = torch.ones((g.n, la), dtype=torch.bool,
@@ -2136,9 +2204,28 @@ def av1_wave_chain_ms(timer, plan):
     return ms / steps * plan.n_waves
 
 
-def av1_kernel_rows(timer, tally, plan, launches):
+def av1_screenshot_stage_b(timer, streams):
+    """av1_intra_wave on the intrabc screenshot's plan (one picture, one
+    block of the kernel): its waves, jobs by kind and device ms."""
+    plan = av1_recon.build_plan([av1_parse(streams[SCREENSHOT])[2]], DEV)
+    res = av1_recon.residuals(plan)
+    buf0, waves = av1_recon.palette_and_waves(plan, res)
+    bufs = [buf0.clone() for _ in range(2)]
+    out = {"waves": plan.n_waves,
+           "groups": {f"{av1_recon.KIND_NAMES[g.kind]}{g.sq}": g.n
+                      for g in plan.groups},
+           "av1_intra_wave_ms": timer([lambda b=b: av1_fast.intra_waves(
+               b, waves, plan.wave_rows, **av1_recon.wave_args(plan))
+               for b in bufs], n=6),
+           "av1_dequant_itx_ms": timer([lambda: av1_recon.residuals(plan)])}
+    log(f"av1 screenshot stage B {json.dumps(out)}")
+    return out
+
+
+def av1_kernel_rows(timer, tally, plan, launches, by_path, screenshot):
     """The AV1 kernels' rows of the {"kernels": ...} line, at the photo's
-    shapes: the 48-tile plan's stage A and stage B."""
+    shapes: the 48-tile plan's stage A and stage B; beside them each
+    kernel's launches on each AV1 path and stage B on the screenshot."""
     res = av1_recon.residuals(plan)
     rows = {}
     nbytes, nops = av1_itx_work(plan)
@@ -2147,6 +2234,8 @@ def av1_kernel_rows(timer, tally, plan, launches):
         "name": "av1_dequant_itx", "route": "cuda", "source": AV1_SOURCE,
         "replaces": f"{AV1_JNP}:548",
         "launches": launches["av1_dequant_itx"],
+        "launches_by_path": {k: v["av1_dequant_itx"]
+                             for k, v in by_path.items()},
         "max_abs_err": tally.max_abs_err["av1_dequant_itx"],
         "ms": timer([lambda: av1_recon.residuals(plan)]),
         "plain_ms": timer([lambda: av1_plain_residuals(plan)], n=2),
@@ -2169,7 +2258,12 @@ def av1_kernel_rows(timer, tally, plan, launches):
     rows["av1_intra_wave"] = {
         "name": "av1_intra_wave", "route": "cuda", "source": AV1_SOURCE,
         "replaces": f"{AV1_JNP}:885",
+        # intra block copy, which the jnp program lacks: the host engine's
+        "also_replaces": ["libheif_tpu/codecs/av1/tile.py:1826"],
         "launches": launches["av1_intra_wave"],
+        "launches_by_path": {k: v["av1_intra_wave"]
+                             for k, v in by_path.items()},
+        "screenshot": screenshot,
         "max_abs_err": tally.max_abs_err["av1_intra_wave"],
         "ms": timer([lambda b=b: av1_fast.intra_waves(
             b, waves, plan.wave_rows, **av1_recon.wave_args(plan))
@@ -2782,8 +2876,13 @@ def main():
         f"{a_plan_ms:.0f} ms")
     check_av1_plan(tally, f"photo {a_plan.t} tiles", a_plan)
     a_launches, a_first, a_rgb = check_av1_photo(a_photo, a_streams,
-                                                 a_plan)
-    av01_blobs = check_av01_files(a_streams)
+                                                 a_plan.t)
+    g_photo = av1_photo_file(a_streams, GRAIN_TILES)
+    log(f"av1 grain photo file {len(g_photo)} B, tiles {GRAIN_TILES}")
+    g_launches, g_first, _g_rgb = check_av1_photo(
+        g_photo, a_streams, PHOTO_GRID[0] * PHOTO_GRID[1], GRAIN_TILES,
+        "av1 grain photo")
+    av01_blobs, shot_launches = check_av01_files(a_streams)
 
     phase_done("av1")
 
@@ -2982,8 +3081,12 @@ def main():
     hvc1_runs = time_hvc1_single(hvc1_blobs["tile512_s0"])
     photo_device = photo_device_share(photo, photo_runs)
 
-    # the AV1 kernels at the photo's shapes, and its decode part by part
-    kern.update(av1_kernel_rows(timer, tally, a_plan, a_launches))
+    # the AV1 kernels at the photo's shapes, and its decode part by part;
+    # stage B on the intrabc screenshot (one picture: one block)
+    shot = av1_screenshot_stage_b(timer, a_streams)
+    kern.update(av1_kernel_rows(timer, tally, a_plan, a_launches, {
+        "avif_photo": a_launches, "grain_photo": g_launches,
+        "screenshot": shot_launches}, shot))
     a_runs = time_av1_photo(a_photo, a_rgb, a_first)
     av01_single = []
     for _ in range(AV1_REPEATS):
@@ -3048,6 +3151,11 @@ def main():
                       "512x512", "waves": a_plan.n_waves,
                       "launches": a_launches, "parts": a_runs},
         "av1_single_item_total_ms": av01_single,
+        "av1_grain_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
+                            f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} film-grain "
+                            "av01 tiles of 512x512", "tiles": GRAIN_TILES,
+                            "launches": g_launches, "parts": g_first},
+        "av1_screenshot": {"launches": shot_launches, **shot},
         "jpeg_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
                        f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} jpeg tiles of "
                        "512x512", "launches": j_launches, "parts": j_runs},

@@ -13,7 +13,9 @@
 //   av1_intra_wave   <- stage B, the lax.scan over waves (:885-950) with
 //                       predict_normal (:606), apply_cfl (:826) and
 //                       predict_fi (:850), and the scatter into the flat
-//                       sample buffer; every wave of every picture
+//                       sample buffer; every wave of every picture; and
+//                       intra block copy, which the jnp program lacks (the
+//                       host engine's TileDecoder._ibc_copy, tile.py:1826)
 //
 // What bounds them on an H100, and what the design does about it:
 //
@@ -53,6 +55,13 @@
 //        chunk's jobs (a job's (sq, sq) box, by shifts and masks): predict
 //        four samples of a row, add their residuals (one 16-byte load),
 //        clip, store.
+//   An intra block copy job (one transform unit of an intrabc block, or a
+//   piece of a skipped one) takes no slot: phase 1 only writes its record,
+//   and phase 2 reads its quad's source samples (two rows and five columns
+//   at most, with the half-sample flags) straight from the sample buffer,
+//   applies the BILINEAR rounding and the clip, then the residual and the
+//   clip.  Its source was written by earlier waves (device_recon's wave
+//   rule), so it needs no barrier of its own.
 //   The residuals of a thread's first quad are loaded before phase 1,
 //   so that their latency hides behind it.  The last warp, which few jobs
 //   reach, plans the next chunk during phase 1 (prefix sums over the
@@ -76,7 +85,10 @@
 namespace {
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+// the job groups of a launch: stage B scans at most 4 filter-intra, 5
+// normal and 5 intrabc groups (14); stage A also takes 5 palette groups (19)
 constexpr int kMaxGroups = 16;
+constexpr int kMaxItxGroups = 20;
 
 // round(cos(i*pi/128) * 2^12) (itx.py _COSPI)
 __constant__ int kCos[64] = {
@@ -619,7 +631,7 @@ struct ItxGroup {
 };
 
 struct ItxArgs {
-  ItxGroup g[kMaxGroups];
+  ItxGroup g[kMaxItxGroups];
   int n_groups;
 };
 
@@ -877,7 +889,7 @@ av1_dequant_itx_kernel(const ItxArgs a) {
   // (the loop indexes the parameters with constants only)
   ItxGroup G = a.g[0];
 #pragma unroll
-  for (int k = 1; k < kMaxGroups; ++k)
+  for (int k = 1; k < kMaxItxGroups; ++k)
     if (k < a.n_groups && static_cast<int>(blockIdx.x) >= a.g[k].first_block)
       G = a.g[k];
   const long long b = static_cast<long long>(blockIdx.x) - G.first_block;
@@ -906,14 +918,20 @@ enum {
   kPMode, kPWv, kPHv, kPAngle, kPDx, kPDy, kPUpsA, kPUpsL, kPStrA, kPStrL,
   kPNaF, kPNlF, kPCornerF, kPHaveAbove, kPHaveLeft, kPIsCfl, kPCflAlpha,
   kPFiMode, kPDst, kPPw, kPHh, kPWw, kPLy, kPLx, kPBh, kPBw, kPLbase,
-  kNParams
+  kPIbcSrc, kPIbcHalf, kNParams
 };
+static_assert(kNParams <= 32, "a job's parameters are one a lane");
+// a group's job kind (cuda_fast.py WAVE_*)
+enum { kWaveN = 0, kWaveFi = 1, kWaveIbc = 2 };
 enum { kDcPred = 0, kSmoothPred = 9, kSmoothVPred = 10, kSmoothHPred = 11,
        kPaethPred = 12 };
-// a job's record: what phase 2 reads
+// a job's record: what phase 2 reads; an intrabc job keeps its source
+// (the flat index of its rectangle's origin) and half-sample flags in the
+// words of the directional steps, which it has not
 enum {
-  kRFi, kRMode, kRWv, kRHv, kRPa, kRDx, kRDy, kRUpa, kRUpl, kRCfl, kRAlpha,
-  kRAvg, kRDc, kRCorner, kRDst, kRPw, kRHh, kRWw, kRSlot, kRUl, kRec
+  kRKind, kRMode, kRWv, kRHv, kRPa, kRDx, kRDy, kRUpa, kRUpl, kRCfl, kRAlpha,
+  kRAvg, kRDc, kRCorner, kRDst, kRPw, kRHh, kRWw, kRSlot, kRUl, kRec,
+  kRSrc = kRDx, kRHalf = kRDy
 };
 constexpr int kDynWords = kWaveWarps * kScratch + kMaxJobs * kRec + kPool;
 constexpr int kDynBytes = kDynWords * 4;
@@ -962,7 +980,7 @@ struct WaveGroup {
   const int32_t* params;   // (n, kNParams)
   const int32_t* res;      // (n, sq, sq)
   int sq;
-  int fi;
+  int kind;                // kWaveN, kWaveFi, kWaveIbc
 };
 
 struct WaveArgs {
@@ -980,8 +998,13 @@ struct GroupC {
   const int32_t* corner;
   const int32_t* params;
   const int32_t* res;
-  int sq, lsq, fi, slot;   // slot: shared words a job of the group takes
+  int sq, lsq, kind, slot;   // slot: shared words a job of the group takes
 };
+
+// the entries of a job's gather tables (above, left)
+__device__ __forceinline__ int gather_len(const GroupC& G) {
+  return G.kind == kWaveFi ? G.sq : (G.kind == kWaveIbc ? 0 : 2 * G.sq + 7);
+}
 
 // The jobs [c0, c0 + njobs) of wave w, in the wave's order (group by
 // group): per group its first sample, job and slot word in the chunk and
@@ -1096,7 +1119,7 @@ struct JobLoads {
 __device__ __forceinline__ JobLoads load_job(const GroupC& G, int row,
                                              int lane) {
   JobLoads L;
-  const int la = G.fi ? G.sq : 2 * G.sq + 7;
+  const int la = gather_len(G);
   const long long r = row;
   L.pv = lane < kNParams ? __ldg(G.params + r * kNParams + lane) : 0;
 #pragma unroll
@@ -1223,7 +1246,7 @@ __device__ __forceinline__ void prep_normal(const WaveArgs& a,
     }
   }
   if (lane == 0) {
-    rec[kRFi] = 0;
+    rec[kRKind] = kWaveN;
     rec[kRMode] = mode;
     rec[kRWv] = wv;
     rec[kRHv] = hv;
@@ -1294,11 +1317,28 @@ __device__ __forceinline__ void prep_fi(const WaveArgs& a, const GroupC& G,
     __syncwarp();
   }
   if (lane == 0) {
-    rec[kRFi] = 1;
+    rec[kRKind] = kWaveFi;
     rec[kRDst] = dst;
     rec[kRPw] = pw;
     rec[kRHh] = hh;
     rec[kRWw] = ww;
+  }
+}
+
+// Phase 1 of one intra block copy job: its record only.
+__device__ __forceinline__ void prep_ibc(const JobLoads& L, int* rec,
+                                         int lane) {
+  auto P = [&](int c) { return __shfl_sync(0xffffffffu, L.pv, c); };
+  const int dst = P(kPDst), pw = P(kPPw), hh = P(kPHh), ww = P(kPWw);
+  const int src = P(kPIbcSrc), half = P(kPIbcHalf);
+  if (lane == 0) {
+    rec[kRKind] = kWaveIbc;
+    rec[kRDst] = dst;
+    rec[kRPw] = pw;
+    rec[kRHh] = hh;
+    rec[kRWw] = ww;
+    rec[kRSrc] = src;
+    rec[kRHalf] = half;
   }
 }
 
@@ -1312,8 +1352,33 @@ __device__ __forceinline__ void put_quad(const WaveArgs& a, int sq, int lsq,
   const int hh = rec[kRHh], ww = rec[kRWw];
   if (y >= hh || x0 >= ww) return;
   const int maxv = (1 << a.bd) - 1;
+  const int kind = rec[kRKind];
   int pred[4];
-  if (rec[kRFi]) {
+  if (kind == kWaveIbc) {
+    // the BILINEAR convolve of the copy (spec 7.11.3.4, as the host
+    // engine has it): taps 64, 64 at a half sample, else 128, each pass
+    // shifted by 3, then (v + 1024) >> 11 and the clip
+    const int pw = rec[kRPw], half = rec[kRHalf];
+    const int fy = half >> 1, fx = half & 1;
+    const int32_t* s0 =
+        a.buf + rec[kRSrc] + static_cast<long long>(y) * pw + x0;
+    const int32_t* s1 = s0 + fy * pw;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      pred[u] = 0;
+      if (x0 + u < ww) {
+        const int h0 = fx ? (64 * s0[u] + 64 * s0[u + 1]) >> 3
+                          : (128 * s0[u]) >> 3;
+        int v = 128 * h0;
+        if (fy) {
+          const int h1 = fx ? (64 * s1[u] + 64 * s1[u + 1]) >> 3
+                            : (128 * s1[u]) >> 3;
+          v = 64 * h0 + 64 * h1;
+        }
+        pred[u] = clampi((v + (1 << 10)) >> 11, 0, maxv);
+      }
+    }
+  } else if (kind == kWaveFi) {
     const int* row = slot + (1 + y) * (sq + 1) + 1 + x0;
 #pragma unroll
     for (int u = 0; u < 4; ++u) pred[u] = row[u];
@@ -1481,8 +1546,9 @@ __device__ __forceinline__ void prefetch_rows(const GroupC* gc, int lo,
 #ifdef __CUDA_ARCH__
   if (lane >= kMaxGroups || cnt <= 0) return;
   const GroupC& G = gc[lane];
-  const int la = G.fi ? G.sq : 2 * G.sq + 7;
+  const int la = gather_len(G);
   auto fetch = [](const int32_t* p, int words) {
+    if (words <= 0) return;
     for (int k = 0; k < words; k += 32)
       asm volatile("prefetch.global.L2 [%0];" ::"l"(p + k));
     asm volatile("prefetch.global.L2 [%0];" ::"l"(p + words - 1));
@@ -1544,13 +1610,15 @@ av1_intra_wave_kernel(const WaveArgs a) {
         c.params = G.params;
         c.res = G.res;
         c.sq = G.sq;
-        c.fi = G.fi;
+        c.kind = G.kind;
       }
     }
     c.lsq = ilog2(c.sq);
     c.slot = tid >= a.n_groups ? 0
-             : c.fi ? (c.sq + 1) * (c.sq + 1)
-                    : 2 * (4 * c.sq + 10) + (c.sq <= 32 ? c.sq * c.sq : 0);
+             : c.kind == kWaveFi  ? (c.sq + 1) * (c.sq + 1)
+             : c.kind == kWaveIbc ? 0
+                                  : 2 * (4 * c.sq + 10) +
+                                        (c.sq <= 32 ? c.sq * c.sq : 0);
     s_g[tid] = c;
   }
   __syncthreads();
@@ -1598,8 +1666,10 @@ av1_intra_wave_kernel(const WaveArgs a) {
       int* slot = pool + C.obase[g] + j * G.slot;
       int* rec = recs + k * kRec;
       const JobLoads L = load_job(G, C.row0[g] + j, lane);
-      if (G.fi)
+      if (G.kind == kWaveFi)
         prep_fi(a, G, L, rec, slot, lane);
+      else if (G.kind == kWaveIbc)
+        prep_ibc(L, rec, lane);
       else
         prep_normal(a, G, L, rec, slot, scratch + warp * kScratch, lane);
       if (lane == 0) rec[kRSlot] = C.obase[g] + j * G.slot;
@@ -1643,7 +1713,7 @@ int launch_av1_dequant_itx(const long long* groups, int n_groups, int jobs,
                            int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (n_groups < 1 || n_groups > kMaxGroups || jobs < 0) return kInvalid;
+  if (n_groups < 1 || n_groups > kMaxItxGroups || jobs < 0) return kInvalid;
   ItxArgs a{};
   a.n_groups = n_groups;
   long long total = 0, blocks = 0;
@@ -1674,7 +1744,7 @@ int launch_av1_dequant_itx(const long long* groups, int n_groups, int jobs,
 }
 
 // groups: n_groups rows of 7 values (above, left, corner, params, res
-// addresses; sq, filter-intra flag); rows: (n_groups, n_waves,
+// addresses; sq, kind); rows: (n_groups, n_waves,
 // pictures + 1) int32; buf: the flat sample buffer, trash its last index
 int launch_av1_intra_wave(const long long* groups, int n_groups,
                           const void* rows, int n_waves, int pictures,
@@ -1708,11 +1778,13 @@ int launch_av1_intra_wave(const long long* groups, int n_groups,
     g.params = reinterpret_cast<const int32_t*>(v[3]);
     g.res = reinterpret_cast<const int32_t*>(v[4]);
     g.sq = static_cast<int>(v[5]);
-    g.fi = static_cast<int>(v[6]);
+    g.kind = static_cast<int>(v[6]);
     if ((g.sq != 4 && g.sq != 8 && g.sq != 16 && g.sq != 32 && g.sq != 64) ||
         v[4] % 16 != 0)    // residuals read as 16-byte vectors
       return kInvalid;
-    if (g.fi && g.sq > 32) return kInvalid;
+    if (g.kind != kWaveN && g.kind != kWaveFi && g.kind != kWaveIbc)
+      return kInvalid;
+    if (g.kind == kWaveFi && g.sq > 32) return kInvalid;
   }
   e = cudaFuncSetAttribute(av1_intra_wave_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,

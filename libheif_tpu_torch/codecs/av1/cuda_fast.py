@@ -13,7 +13,10 @@ av1_dequant_itx  stage A, ``residuals`` (:548-604), every      dequant_itx
 av1_intra_wave   stage B, the ``lax.scan`` over waves          intra_waves
                  (:885-950) with ``predict_normal`` (:606),
                  ``apply_cfl`` (:826) and ``predict_fi``
-                 (:850), every picture
+                 (:850), every picture; and intra block
+                 copy, which the jnp program lacks (the
+                 host engine's ``TileDecoder._ibc_copy``,
+                 tile.py:1826)
 av1_wave_probe   none: a probe of stage B's chain bound, off   wave_probe
                  the decode path
 ===============  ============================================  ===========
@@ -54,14 +57,25 @@ AV1_WAVE_PROBE = CudaKernel(
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (AV1_DEQUANT_ITX, AV1_INTRA_WAVE)}
 
-MAX_GROUPS = 16         # kMaxGroups in csrc/av1_kernels.cu
+# the job groups a launch takes (kMaxGroups, kMaxItxGroups in
+# csrc/av1_kernels.cu): stage B scans at most 4 filter-intra (4..32), 5
+# normal and 5 intrabc groups (4..64), 14; stage A also takes the 5
+# palette groups, 19
+MAX_GROUPS = 16
+MAX_ITX_GROUPS = 20
+
+# stage B's job kinds (kWave* in csrc/av1_kernels.cu)
+WAVE_N, WAVE_FI, WAVE_IBC = 0, 1, 2
 
 # the per-job scalars of a stage-B row, in the column order the kernel
-# reads them (kP* in csrc/av1_kernels.cu)
+# reads them (kP* in csrc/av1_kernels.cu); an intrabc job's source: the
+# flat index of its rectangle's origin and its half-sample flags fy << 1 |
+# fx
 PARAM_COLS = ("mode", "wv", "hv", "p_angle", "dx", "dy", "ups_a", "ups_l",
               "str_a", "str_l", "na_f", "nl_f", "cornerf", "have_above",
               "have_left", "is_cfl", "cfl_alpha", "fi_mode", "dst", "pw",
-              "hh", "ww", "ly", "lx", "bh", "bw", "lbase")
+              "hh", "ww", "ly", "lx", "bh", "bw", "lbase", "ibc_src",
+              "ibc_half")
 P = {c: i for i, c in enumerate(PARAM_COLS)}
 
 # stage-A scalars per row (txp): dc_q, ac_q, tw, th, transform code
@@ -86,12 +100,13 @@ class ItxGroup(NamedTuple):
 
 
 class WaveGroup(NamedTuple):
-    """One job group's stage-B tables, rows sorted by wave: the
-    sentinel-coded gather indices ``above``/``left`` ((n, 2sq+7) for
-    normal jobs; filter-intra: top row and left column, (n, sq)),
-    ``corner`` (n,), ``params`` (n, len(PARAM_COLS)) int32 and the
-    residuals ``res`` (n, sq, sq) int32."""
-    fi: bool
+    """One job group's stage-B tables, rows sorted by wave: its ``kind``
+    (WAVE_N, WAVE_FI or WAVE_IBC), the sentinel-coded gather indices
+    ``above``/``left`` ((n, 2sq+7) for normal jobs; filter-intra: top row
+    and left column, (n, sq); intrabc: (n, 0)), ``corner`` (n,),
+    ``params`` (n, len(PARAM_COLS)) int32 and the residuals ``res`` (n,
+    sq, sq) int32."""
+    kind: int
     sq: int
     above: torch.Tensor
     left: torch.Tensor
@@ -109,8 +124,9 @@ def dequant_itx(groups: Sequence[ItxGroup]) -> List[torch.Tensor]:
     shifted by the size), the 2:1 prescale, the row transform, its
     rounding and flip, the column transform, its rounding and flip; the
     Walsh-Hadamard path for lossless frames."""
-    if len(groups) > MAX_GROUPS:
-        raise ValueError(f"at most {MAX_GROUPS} groups, got {len(groups)}")
+    if len(groups) > MAX_ITX_GROUPS:
+        raise ValueError(f"at most {MAX_ITX_GROUPS} groups, got "
+                         f"{len(groups)}")
     for g in groups:
         cs = min(g.sq, 32)
         n = g.coeffs.shape[0]
@@ -245,7 +261,10 @@ def intra_waves(buf: torch.Tensor, groups: Sequence[WaveGroup],
                          f"int32, got {tuple(rows.shape)} {rows.dtype}")
     for g in groups:
         n = g.params.shape[0]
-        la = g.sq if g.fi else 2 * g.sq + 7
+        if g.kind not in (WAVE_N, WAVE_FI, WAVE_IBC) or \
+                (g.kind == WAVE_FI and g.sq > 32):
+            raise ValueError(f"group kind {g.kind} of size {g.sq}")
+        la = {WAVE_N: 2 * g.sq + 7, WAVE_FI: g.sq, WAVE_IBC: 0}[g.kind]
         for t, name, shape in ((g.above, "above", (n, la)),
                                (g.left, "left", (n, la)),
                                (g.corner, "corner", (n,)),
@@ -271,7 +290,7 @@ def intra_waves(buf: torch.Tensor, groups: Sequence[WaveGroup],
     table = (ctypes.c_longlong * (7 * len(groups)))(*(
         v for g, t in zip(groups, gs)
         for v in (t[0].data_ptr(), t[1].data_ptr(), t[2].data_ptr(),
-                  t[3].data_ptr(), t[4].data_ptr(), g.sq, int(g.fi))))
+                  t[3].data_ptr(), t[4].data_ptr(), g.sq, int(g.kind))))
     AV1_INTRA_WAVE.launch(buf, ctypes.addressof(table), len(groups),
                           rows.data_ptr(), rows.shape[1], rows.shape[2] - 1,
                           buf.data_ptr(), buf.numel() - 1, bd,
@@ -298,7 +317,8 @@ def intra_wave_plain(buf, groups, starts, counts, *, bd, edge_filter, ssx,
                      ssy, luma_shape):
     """Plain PyTorch version of one wave of av1_intra_wave: the body of
     the jnp wave scan (device_recon.py:909-938), one group after the
-    other, on rows starts[g] .. starts[g] + counts[g] of each group."""
+    other, on rows starts[g] .. starts[g] + counts[g] of each group; an
+    intrabc group's prediction is ``ibc_pred_plain``."""
     maxv = (1 << bd) - 1
     trash = buf.numel() - 1
     for g, st, cn in zip(groups, starts, counts):
@@ -306,7 +326,9 @@ def intra_wave_plain(buf, groups, starts, counts, *, bd, edge_filter, ssx,
             continue
         sl = slice(st, st + cn)
         prm = g.params[sl]
-        if g.fi:
+        if g.kind == WAVE_IBC:
+            pred = ibc_pred_plain(buf, prm, g.sq, bd=bd)
+        elif g.kind == WAVE_FI:
             pred = predict_fi_plain(g.sq, refvals(buf, g.above[sl], bd),
                                     refvals(buf, g.left[sl], bd),
                                     refvals(buf, g.corner[sl], bd),
@@ -322,6 +344,33 @@ def intra_wave_plain(buf, groups, starts, counts, *, bd, edge_filter, ssx,
         rec = torch.clamp(pred + g.res[sl], 0, maxv)
         buf[scatter_indices(prm, g.sq, trash).reshape(-1)] = \
             rec.reshape(-1).to(torch.int32)
+
+
+def ibc_pred_plain(buf: torch.Tensor, prm: torch.Tensor, sq: int, *,
+                   bd: int) -> torch.Tensor:
+    """Intra block copy prediction of k jobs (JAX ``TileDecoder._ibc_copy``,
+    tile.py:1826-1864): each sample of the (hh, ww) rectangle gathered from
+    the source at ``ibc_src`` (row pitch ``pw``) and, with half-sample
+    flags, its right and lower neighbours; the BILINEAR taps (64, 64 at a
+    half sample, else 128) of each pass shifted by 3, then (v + 1024) >> 11
+    and the clip.  Returns (k, sq, sq) int32, 0 outside the rectangle."""
+    p = prm.to(torch.int64)
+    ii = torch.arange(sq * sq, device=prm.device)
+    yy, xx = (ii // sq)[None, :], (ii % sq)[None, :]
+    inside = (yy < p[:, P["hh"], None]) & (xx < p[:, P["ww"], None])
+    pw = p[:, P["pw"], None]
+    fy = (p[:, P["ibc_half"], None] >> 1) & 1
+    fx = p[:, P["ibc_half"], None] & 1
+    src = torch.where(inside, p[:, P["ibc_src"], None] + yy * pw + xx, 0)
+
+    def row(off):
+        a = buf[src + off]
+        b = buf[src + off + fx]
+        return torch.where(fx > 0, (64 * a + 64 * b) >> 3, (128 * a) >> 3)
+    h0, h1 = row(0), row(fy * pw)
+    v = torch.where(fy > 0, 64 * h0 + 64 * h1, 128 * h0)
+    out = torch.clamp((v + (1 << 10)) >> 11, 0, (1 << bd) - 1)
+    return torch.where(inside, out, 0).reshape(-1, sq, sq).to(torch.int32)
 
 
 def scatter_indices(params: torch.Tensor, sq: int, trash: int

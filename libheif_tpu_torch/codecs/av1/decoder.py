@@ -5,9 +5,10 @@ Counterpart of libheif_tpu/codecs/av1/decoder.py (``parse_obus`` :20,
 ``decode_intra_frame_ex`` :116-143; reference:
 libheif/plugins/decoder_dav1d.cc, decoder_aom.cc).  The OBU walk and the
 tile parse run on the host in Python; the reconstruction
-(device_recon) and the in-loop filters (deblock, CDEF, loop
-restoration) run on the decoder's device.  Film grain and intra block
-copy are refused.
+(device_recon, intra block copy included) and the in-loop filters
+(deblock, CDEF, loop restoration) run on the decoder's device, then film
+grain synthesis as an output stage (grain.py; the reference's
+``_maybe_grain`` :146).
 """
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ...core.error import HeifError, SubError
+from ...core.error import HeifError
 from ...core.trace import span
 from ...image.pixel_image import PixelImage, Channel, Colorspace, Chroma
 from . import obu as O
 from .device_recon import decode_frames_device
+from .grain import apply_film_grain
 from .tile import TileDecoder
 
 
@@ -59,18 +61,6 @@ def parse_obus(data: bytes):
     return seq, fh, tiles
 
 
-def check_frame_supported(seq, fh) -> None:
-    """Raise Unsupported, naming the tool, for what the port does not
-    decode: film grain synthesis and intra block copy."""
-    if fh.film_grain is not None:
-        raise HeifError.unsupported(SubError.Unsupported_codec,
-                                    "AV1 film grain not yet supported")
-    if fh.allow_intrabc:
-        raise HeifError.unsupported(
-            SubError.Unsupported_codec,
-            "AV1 intra block copy (allow_intrabc) not yet supported")
-
-
 def parse_frame(data: bytes, limits=None):
     """Host entropy decode of the first (still) frame: OBU walk + tile
     parse into a TileDecoder with deferred reconstruction jobs.  Returns
@@ -81,7 +71,6 @@ def parse_frame(data: bytes, limits=None):
 
 def _parse_frame(data: bytes, limits):
     seq, fh, tiles = parse_obus(data)
-    check_frame_supported(seq, fh)
     if limits is not None:
         limits.check_image_size(fh.frame_width, fh.frame_height)
     w, h = fh.frame_width, fh.frame_height
@@ -139,6 +128,16 @@ def finish_frame(seq, fh, dec, planes: List[torch.Tensor]
             "V": planes[2][:ch, :cw]}
 
 
+def maybe_grain(planes: Dict[str, torch.Tensor], seq, fh
+                ) -> Dict[str, torch.Tensor]:
+    """Film grain synthesis (spec 7.18.3) on a frame's cropped output
+    planes, where its header asks for it (JAX ``_maybe_grain`` :146)."""
+    if fh.film_grain is None:
+        return planes
+    return apply_film_grain(planes, fh.film_grain, seq.bit_depth,
+                            seq.subsampling_x, seq.subsampling_y)
+
+
 def decode_intra_frame(data: bytes, device=None, limits=None
                        ) -> Dict[str, torch.Tensor]:
     """Decode the first (still) frame of a stream of OBUs → its cropped
@@ -151,7 +150,7 @@ def decode_intra_frame_ex(data: bytes, device=None, limits=None):
     """decode_intra_frame, also returning the SequenceHeader."""
     seq, fh, dec = parse_frame(data, limits)
     planes = decode_frames_device([dec], device)[0]
-    return finish_frame(seq, fh, dec, planes), seq
+    return maybe_grain(finish_frame(seq, fh, dec, planes), seq, fh), seq
 
 
 def config_stream(config_box, data: bytes) -> bytes:

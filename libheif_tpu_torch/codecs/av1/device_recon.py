@@ -15,6 +15,20 @@ Palette jobs read no neighbour, so they are a plain scatter before stage
 B, as in the JAX program.  The in-loop filters (deblock.py, cdef.py,
 lr.py) follow on the same device.
 
+Intra block copy (spec §7.11.2-7.11.4), which the JAX device program
+lacks, is a job kind of its own (``KIND_IBC``), held to the JAX host
+engine (``TileDecoder._ibc_copy`` and the ``ibc_add`` branch of
+``_run_job``).  The parse emits, per intrabc block and plane, a copy job
+over the whole block and then an add-only job per transform unit.  The
+plan makes one job of each transform unit, the copy of its rectangle plus
+its residual: a valid displacement's source lies wholly in superblocks
+decoded before the block's (the intrabc delay), so the copy splits along
+the units without changing a sample, and the clip after the copy and the
+clip after the add stay the reference's two clips.  A skipped block has no
+units: its copy splits into pieces of at most 64x64 with no residual.
+Such a job's wave is 1 + the latest wave among the samples of its source
+rectangle, (hh + fy) x (ww + fx) at (py + dy, px + dx) of its plane.
+
 The plan keeps the JAX plan's schedule and gather indices bit for bit:
 the same groups (kind, square bucket) in the same order, rows sorted by
 wave (stable), the sentinel-coded reference indices of ``_ref_indices``
@@ -32,6 +46,7 @@ the 8-bit tables at every depth.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -42,8 +57,10 @@ from ..._build import resolve_device
 from ...core.trace import span
 from . import itx as ITX
 from . import tables as T
-from .cuda_fast import (ItxGroup, WaveGroup, PARAM_COLS, dequant_itx,
-                        intra_waves, job_order, scatter_indices)
+from .cuda_fast import (ItxGroup, WaveGroup, PARAM_COLS, MAX_GROUPS,
+                        MAX_ITX_GROUPS, WAVE_FI, WAVE_IBC, WAVE_N,
+                        dequant_itx, intra_waves, job_order,
+                        scatter_indices)
 from ..hevc.device_recon import wave_rows
 from .recon import _edge_filter_strength, _pred_tables, _use_upsample
 from .tile import TileDecoder
@@ -52,8 +69,12 @@ SENT_BASE_M1 = -1    # base - 1
 SENT_BASE_P1 = -2    # base + 1
 SENT_BASE = -3       # base
 
-KIND_FI, KIND_N, KIND_PAL = 0, 1, 2     # JAX group order "fi" < "n" < "pal"
-KIND_NAMES = {KIND_FI: "fi", KIND_N: "n", KIND_PAL: "pal"}
+# group order: the JAX plan's "fi" < "n" < "pal", then intra block copy
+KIND_FI, KIND_N, KIND_PAL, KIND_IBC = 0, 1, 2, 3
+KIND_NAMES = {KIND_FI: "fi", KIND_N: "n", KIND_PAL: "pal", KIND_IBC: "ibc"}
+# stage B's kind of each scanned group (cuda_fast WAVE_*)
+WAVE_KIND = {KIND_FI: WAVE_FI, KIND_N: WAVE_N, KIND_IBC: WAVE_IBC}
+IBC_PIECE = 64          # a skipped intrabc block's copy, in pieces of this
 
 # tx_type -> (vertical kind, horizontal kind, ud flip, lr flip) as codes
 KIND_CODE = {"D": 0, "A": 1, "I": 2}
@@ -61,7 +82,8 @@ KIND_CODE = {"D": 0, "A": 1, "I": 2}
 # per-job host columns
 _JC = ["t", "plane", "px", "py", "tw", "th", "hh", "ww", "ha", "hl",
        "n_tr", "n_bl", "kind", "sq", "wave", "coff", "ch", "cw", "poff",
-       "dc_q", "ac_q", "tx_type", "eob", "is_cfl"] + \
+       "dc_q", "ac_q", "tx_type", "eob", "is_cfl", "job", "src_y",
+       "src_x"] + \
     [c for c in PARAM_COLS if c not in ("hh", "ww", "is_cfl")]
 _JI = {c: i for i, c in enumerate(_JC)}
 
@@ -89,8 +111,8 @@ class GroupPlan:
     coeffs: torch.Tensor     # (n, cs, cs) int32, cs = min(sq, 32)
     txp: torch.Tensor        # (n, 8) int32 stage-A scalars (cuda_fast)
     order: torch.Tensor      # (n,) int32 stage A's visiting order
-    above: torch.Tensor      # (n, 2sq+7) int32 (fi: the top row, (n, sq))
-    left: torch.Tensor       # (n, 2sq+7) int32 (fi: (n, sq))
+    above: torch.Tensor      # (n, 2sq+7) int32 (fi: the top row, (n, sq);
+    left: torch.Tensor       # (n, 2sq+7) int32  pal, ibc: (n, 0))
     corner: torch.Tensor     # (n,) int32 sentinel-coded gather indices
     params: torch.Tensor     # (n, len(PARAM_COLS)) int32
     pal: torch.Tensor        # (n, sq, sq) int32 palette prediction or empty
@@ -171,6 +193,64 @@ def _reads_max(w2d: List[np.ndarray], job, ssx: int, ssy: int) -> int:
     return best + 1
 
 
+def _ibc_pieces(job):
+    """A skipped intrabc block's copy job as pieces of at most
+    IBC_PIECE x IBC_PIECE, without residual (their visible parts)."""
+    for oy in range(0, job.th, IBC_PIECE):
+        for ox in range(0, job.tw, IBC_PIECE):
+            hh, ww = min(IBC_PIECE, job.hh - oy), min(IBC_PIECE, job.ww - ox)
+            if hh > 0 and ww > 0:
+                yield dataclasses.replace(
+                    job, px=job.px + ox, py=job.py + oy,
+                    tw=min(IBC_PIECE, job.tw - ox),
+                    th=min(IBC_PIECE, job.th - oy), hh=hh, ww=ww, eob=0,
+                    coeffs=None)
+
+
+def plan_jobs(dec: TileDecoder):
+    """A parsed picture's jobs as the plan takes them: (index into
+    dec.jobs, job, intrabc displacement or None), in decode order.  Every
+    job is itself but intrabc's: each add-only job (a transform unit)
+    carries its block's displacement and becomes a copy with residual; a
+    copy job whose block has units is dropped, one without (a skipped
+    block) splits into pieces."""
+    jobs = dec.jobs
+    last, units = {}, {}
+    for i, job in enumerate(jobs):
+        if job.ibc_mv is not None:
+            last[job.plane] = i
+            units[i] = 0
+        elif job.ibc_add:
+            units[last[job.plane]] += job.hh * job.ww
+    for i, n in units.items():
+        if n and n != jobs[i].hh * jobs[i].ww:
+            raise ValueError("intrabc transform units do not tile their "
+                             f"block (job {i})")
+    mv = {}
+    for i, job in enumerate(jobs):
+        if job.ibc_mv is not None:
+            mv[job.plane] = job.ibc_mv
+            if not units[i]:
+                for piece in _ibc_pieces(job):
+                    yield i, piece, job.ibc_mv
+        elif job.ibc_add:
+            yield i, job, mv[job.plane]
+        else:
+            yield i, job, None
+
+
+def ibc_source(job, mv, ssx: int, ssy: int):
+    """The source of an intrabc job (JAX ``TileDecoder._ibc_copy``): the
+    origin (row, col) in its plane and the half-sample flags (fy, fx);
+    luma displacements are full-pel, chroma takes the same displacement at
+    its scale."""
+    offy, offx = mv[0] >> 3, mv[1] >> 3
+    if job.plane == 0:
+        return job.py + offy, job.px + offx, 0, 0
+    return (job.py + (offy >> ssy), job.px + (offx >> ssx), offy & ssy,
+            offx & ssx)
+
+
 def _job_columns(decs: Sequence[TileDecoder], ssx: int, ssy: int,
                  edge_filter: bool):
     """Host pass over every job of the batch, in picture then decode
@@ -190,19 +270,28 @@ def _job_columns(decs: Sequence[TileDecoder], ssx: int, ssy: int,
         deltas = ((q.delta_q_y_dc, 0), (q.delta_q_u_dc, q.delta_q_u_ac),
                   (q.delta_q_v_dc, q.delta_q_v_ac))
         writer = [np.zeros(p.shape, np.int32) for p in dec.planes]
-        for job in dec.jobs:
-            if job.ibc_mv is not None or job.ibc_add:
-                raise ValueError("intra block copy jobs have no device "
-                                 "plan")
+        for j_idx, job, mv in plan_jobs(dec):
             plane = job.plane
             tw, th = job.tw, job.th
-            if job.pal_pred is not None:
+            src_y = src_x = half = 0
+            if mv is not None:
+                kind = KIND_IBC
+                src_y, src_x, fy, fx = ibc_source(job, mv, ssx, ssy)
+                half = fy << 1 | fx
+                y1, x1 = src_y + job.hh + fy, src_x + job.ww + fx
+                ph, pw = writer[plane].shape
+                if src_y < 0 or src_x < 0 or y1 > ph or x1 > pw:
+                    raise ValueError(f"intrabc source of job {j_idx} lies "
+                                     "outside its plane")
+                wave = int(writer[plane][src_y:y1, src_x:x1].max()) + 1
+            elif job.pal_pred is not None:
                 kind = KIND_PAL
             elif plane == 0 and job.fi_mode is not None:
                 kind = KIND_FI
             else:
                 kind = KIND_N
-            wave = _reads_max(writer, job, ssx, ssy)
+            if mv is None:
+                wave = _reads_max(writer, job, ssx, ssy)
             writer[plane][job.py:job.py + job.hh,
                           job.px:job.px + job.ww] = wave
             dc_d, ac_d = deltas[plane]
@@ -262,7 +351,8 @@ def _job_columns(decs: Sequence[TileDecoder], ssx: int, ssy: int,
                 have_above=int(job.have_above),
                 have_left=int(job.have_left),
                 cfl_alpha=job.cfl_alpha if job.is_cfl else 0,
-                fi_mode=job.fi_mode if kind == KIND_FI else 0)
+                fi_mode=job.fi_mode if kind == KIND_FI else 0, job=j_idx,
+                src_y=src_y, src_x=src_x, ibc_half=half)
             rows.append([vals.get(c, 0) for c in _JC])
     cols = np.asarray(rows, np.int64).reshape(-1, len(_JC))
     coeffs = np.concatenate(coeff_parts + [np.zeros(1, np.int32)])
@@ -316,6 +406,7 @@ def build_plan(decs: Sequence[TileDecoder], device=None) -> Av1Plan:
     ph = torch.where(plane == 0, lh, ch_)
     C.update(dst=pbase + C["py"] * pw + C["px"], pw=pw, ph_=ph,
              pbase=pbase, lbase=pic_base,
+             ibc_src=pbase + C["src_y"] * pw + C["src_x"],
              ly=C["py"] << ssy, lx=C["px"] << ssx)
     sy_, sx_ = (2 if ssy else 1), (2 if ssx else 1)
     C["bh"] = torch.minimum(C["th"], torch.clamp(
@@ -352,7 +443,7 @@ def build_plan(decs: Sequence[TileDecoder], device=None) -> Av1Plan:
             above, left, corner = _fi_edge_indices(g, sq, dev)
         elif kind == KIND_N:
             above, left, corner = _ref_indices(g, sq, dev)
-        else:
+        else:                   # palette and intrabc jobs gather nothing
             above = left = torch.zeros((n, 0), dtype=torch.int64,
                                        device=dev)
             corner = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -375,6 +466,12 @@ def build_plan(decs: Sequence[TileDecoder], device=None) -> Av1Plan:
             wave_rows=wave_rows(waves_h[sel], tiles_h[sel], n_waves, T_)))
 
     scan = [g for g in groups if g.kind != KIND_PAL]
+    # at most 4 fi (4..32) + 5 n + 5 pal + 5 ibc (4..64) groups, 14 of them
+    # scanned by stage B
+    if len(groups) > MAX_ITX_GROUPS or len(scan) > MAX_GROUPS:
+        raise ValueError(f"{len(groups)} job groups ({len(scan)} scanned): "
+                         f"the kernels take at most {MAX_ITX_GROUPS} "
+                         f"({MAX_GROUPS})")
     wr = np.stack([g.wave_rows for g in scan]) if scan else \
         np.zeros((0, n_waves, T_ + 1), np.int32)
     return Av1Plan(t=T_, bd=bd, luma_shape=(lh, lw),
@@ -472,7 +569,7 @@ def palette_and_waves(plan: Av1Plan, res: Sequence[torch.Tensor]):
                 buf[scatter_indices(g.params, g.sq, plan.trash)
                     .reshape(-1)] = rec.reshape(-1)
             continue
-        waves.append(WaveGroup(g.kind == KIND_FI, g.sq, g.above, g.left,
+        waves.append(WaveGroup(WAVE_KIND[g.kind], g.sq, g.above, g.left,
                                g.corner, g.params, r))
     return buf, waves
 

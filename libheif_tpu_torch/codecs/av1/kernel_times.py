@@ -10,8 +10,10 @@ chip_smoke.py's photo) and times ``av1_dequant_itx`` (stage A, through
 ``device_recon.residuals``) and ``av1_intra_wave`` (stage B, through
 ``cuda_fast.intra_waves``) with CUDA events around back-to-back calls
 queued behind a sleep kernel, so that host time between calls is not
-counted.  Prints one JSON line a run, with the card's name and power
-limit, then the runs as one JSON list.  Needs a card.
+counted; where ROOT commits the 1920x1080 intrabc screenshot, stage B on
+its plan too (one picture: one block).  Prints one JSON line a run, with
+the card's name and power limit and ptxas's figures for both kernels
+from ROOT's build, then the runs as one JSON list.  Needs a card.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from pathlib import Path
 
 TILES = ("tile512_s0", "tile512_s1", "tile512_s2", "tile512_s3")
 PICTURES = 48
+SCREENSHOT = "ibc-screenshot-1920x1080"
 
 # codecs/kernel_timing.py of this script's checkout (the worker imports
 # another checkout's package, which may not have it)
@@ -49,18 +52,28 @@ def worker(root: str) -> dict:
             parsed[n] = decoder.parse_frame(f.read())[2]
     plan = D.build_plan([parsed[TILES[i % 4]] for i in range(PICTURES)],
                         "cuda")
-    res = D.residuals(plan)
-    buf0, waves = D.palette_and_waves(plan, res)
-    bufs = [buf0.clone() for _ in range(2)]
-    return {
+
+    def stage_b_ms(plan, n):
+        buf0, waves = D.palette_and_waves(plan, D.residuals(plan))
+        bufs = [buf0.clone() for _ in range(2)]
+        return T.device_ms(torch, [lambda b=b: F.intra_waves(
+            b, waves, plan.wave_rows, **D.wave_args(plan))
+            for b in bufs], n)
+    out = {
         "root": root, "card": T.card(), "waves": plan.n_waves,
         "jobs": sum(g.n for g in plan.groups),
         "av1_dequant_itx_ms": T.device_ms(
             torch, [lambda: D.residuals(plan)], 20),
-        "av1_intra_wave_ms": T.device_ms(
-            torch, [lambda b=b: F.intra_waves(
-                b, waves, plan.wave_rows, **D.wave_args(plan))
-                for b in bufs], 6)}
+        "av1_intra_wave_ms": stage_b_ms(plan, 6)}
+    for k in ("av1_dequant_itx", "av1_intra_wave"):
+        out[f"{k}_ptxas"] = T.ptxas_resources(_build.LIBRARY.build_log,
+                                              f"{k}_kernel")
+    if SCREENSHOT in files:
+        with open(os.path.join(data, files[SCREENSHOT]), "rb") as f:
+            shot = D.build_plan([decoder.parse_frame(f.read())[2]], "cuda")
+        out.update(screenshot_waves=shot.n_waves,
+                   screenshot_av1_intra_wave_ms=stage_b_ms(shot, 6))
+    return out
 
 
 if __name__ == "__main__":

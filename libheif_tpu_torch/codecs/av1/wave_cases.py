@@ -3,13 +3,18 @@
 A decoded stream gives whatever waves its encoder made.  To hold
 av1_intra_wave against its plain versions on waves it seldom meets (a
 64x64 luma job among many 4x4 jobs, many 32x32 filter-intra or CfL jobs in
-one wave, waves that overflow the kernel's shared memory), ``synthetic``
+one wave, waves that overflow the kernel's shared memory, intra block
+copies at every subsampling with their half-sample flags), ``synthetic``
 builds the tables of ``cuda_fast.intra_waves`` from a seed: random
 reference samples in a region that no job writes (also the luma plane
 that CfL reads), each job's output in a block of its own, random modes,
 angles, edge-filter and upsampling choices as ``device_recon`` derives
-them, random residuals and visible sizes.  Since no job reads what another
-writes, every order of the jobs gives the same samples.
+them, random residuals and visible sizes, and for an intrabc job a random
+source rectangle in the reference region.  Since no job reads what
+another writes, every order of the jobs gives the same samples; the one
+exception is an ``ibc-prev`` job, whose source is the output block of a
+job of the wave before, so it needs only the waves' order, which every
+version keeps.
 """
 
 from __future__ import annotations
@@ -20,11 +25,17 @@ import numpy as np
 import torch
 
 from . import tables as T
-from .cuda_fast import PARAM_COLS, WaveGroup
+from .cuda_fast import PARAM_COLS, WAVE_FI, WAVE_IBC, WAVE_N, WaveGroup
 from .recon import _edge_filter_strength, _pred_tables, _use_upsample
 from ..hevc.device_recon import wave_rows
 
-KINDS = ("n", "cfl", "fi")    # a normal job, a CfL job, a filter-intra job
+# a normal job, a CfL job, a filter-intra job, an intrabc job (its source
+# in the reference region), one whose source is a job's of the wave before
+KINDS = ("n", "cfl", "fi", "ibc", "ibc-prev")
+_WAVE_KIND = {"n": WAVE_N, "cfl": WAVE_N, "fi": WAVE_FI, "ibc": WAVE_IBC,
+              "ibc-prev": WAVE_IBC}
+# the plan's group order: filter intra, normal, (palette,) intrabc
+_ORDER = {WAVE_FI: 0, WAVE_N: 1, WAVE_IBC: 3}
 _MODES = list(range(13))      # DC .. PAETH (tables.py)
 
 
@@ -70,7 +81,10 @@ def synthetic(pictures: Sequence[Sequence[Sequence[Tuple[str, int, int]]]],
               edge_filter: bool = True, luma: Tuple[int, int] = (96, 96),
               device="cpu") -> Synthetic:
     """``pictures[t][w]``: the jobs of wave w of picture t, each (kind,
-    tw, th) with kind in KINDS (filter intra and CfL at most 32x32)."""
+    tw, th) with kind in KINDS (filter intra and CfL at most 32x32; an
+    intrabc job's half-sample flags drawn from those (ssx, ssy) allow, an
+    ``ibc-prev`` job's source the block of the first job of the same size
+    in the wave before)."""
     rng = np.random.default_rng(seed)
     _sm, dr = _pred_tables()
     lh, lw = luma
@@ -87,6 +101,10 @@ def synthetic(pictures: Sequence[Sequence[Sequence[Tuple[str, int, int]]]],
                 sq = max(tw, th)
                 if kind == "fi":
                     p = dict(fi_mode=int(rng.integers(0, 5)), wv=tw, hv=th)
+                elif kind.startswith("ibc"):
+                    fy = ssy * int(rng.integers(0, 2))
+                    fx = ssx * int(rng.integers(0, 2))
+                    p = dict(wv=tw, hv=th, ibc_half=fy << 1 | fx)
                 else:
                     p = _normal_params(rng, tw, th, edge_filter,
                                        kind == "cfl", dr)
@@ -99,17 +117,29 @@ def synthetic(pictures: Sequence[Sequence[Sequence[Tuple[str, int, int]]]],
                     dst=out, pw=sq, hh=hh, ww=ww, ly=ly, lx=lx, lbase=0,
                     bh=min(th, (lh - ly + sy_ - 1) // sy_),
                     bw=min(tw, (lw - lx + sx_ - 1) // sx_))
+                if kind.startswith("ibc"):
+                    fy, fx = p["ibc_half"] >> 1, p["ibc_half"] & 1
+                    # the rectangle and its half-sample neighbours
+                    p["hh"], p["ww"] = min(hh, sq - fy), min(ww, sq - fx)
+                    span = (p["hh"] + fy - 1) * sq + p["ww"] + fx
+                    if kind == "ibc":
+                        p["ibc_src"] = int(rng.integers(0, ref - span + 1))
+                    else:
+                        p["ibc_src"] = next(
+                            j[3]["dst"] for j in jobs
+                            if j[1] == w - 1 and j[2] == t and
+                            j[0][1] == sq)
                 out += sq * sq
-                jobs.append(((kind == "fi", sq), w, t, p))
+                jobs.append(((_WAVE_KIND[kind], sq), w, t, p))
     buf = np.zeros(out + 1, np.int64)
     buf[:ref] = rng.integers(0, maxv + 1, ref)
-    keys = sorted({k for k, *_ in jobs}, key=lambda k: (not k[0], -k[1]))
+    keys = sorted({k for k, *_ in jobs}, key=lambda k: (_ORDER[k[0]], -k[1]))
     groups, rows = [], []
-    for fi, sq in keys:
-        sel = [j for j in jobs if j[0] == (fi, sq)]
+    for kind, sq in keys:
+        sel = [j for j in jobs if j[0] == (kind, sq)]
         sel.sort(key=lambda j: (j[1], j[2]))       # by wave, then picture
         n = len(sel)
-        la = sq if fi else 2 * sq + 7
+        la = {WAVE_N: 2 * sq + 7, WAVE_FI: sq, WAVE_IBC: 0}[kind]
 
         def indices(shape):
             idx = rng.integers(0, ref, shape)
@@ -121,7 +151,7 @@ def synthetic(pictures: Sequence[Sequence[Sequence[Tuple[str, int, int]]]],
 
         def dev(a):
             return torch.from_numpy(np.asarray(a, np.int32)).to(device)
-        groups.append(WaveGroup(fi, sq, dev(indices((n, la))),
+        groups.append(WaveGroup(kind, sq, dev(indices((n, la))),
                                 dev(indices((n, la))), dev(indices((n,))),
                                 dev(params), dev(res)))
         rows.append(wave_rows(np.array([j[1] for j in sel]),
@@ -136,6 +166,23 @@ def synthetic(pictures: Sequence[Sequence[Sequence[Tuple[str, int, int]]]],
 def mixed_wave(big: int = 1, small: int = 60) -> List[Tuple[str, int, int]]:
     """A wave of ``big`` 64x64 luma jobs among ``small`` 4x4 jobs."""
     return [("n", 64, 64)] * big + [("n", 4, 4)] * small
+
+
+def ibc_waves(seed: int, ssx: int = 1, ssy: int = 1, bd: int = 8,
+              device="cpu") -> Synthetic:
+    """Intra block copies among intra jobs: 64x64 copies among 4x4 jobs,
+    copies of every size at the subsampling's half-sample flags, and
+    copies whose source is the output of the wave before (at every size,
+    the last wave's among 4x4 intra jobs)."""
+    sizes = [(64, 64), (32, 16), (16, 64), (8, 8), (4, 16), (4, 4)]
+    w0 = [("ibc", 64, 64)] * 2 + [("n", 4, 4)] * 60 + \
+        [("n", tw, th) for tw, th in sizes] + [("fi", 8, 8)] * 4
+    w1 = [("ibc", tw, th) for tw, th in sizes] * 3 + \
+        [("ibc-prev", tw, th) for tw, th in sizes] + [("n", 4, 4)] * 20
+    w2 = [("ibc-prev", 4, 4)] * 8 + [("ibc-prev", 64, 64)] + \
+        [("n", 4, 4)] * 30 + [("cfl", 16, 16)] * 2
+    return synthetic([[w0, w1, w2], [w0, w1]], seed=seed, bd=bd, ssx=ssx,
+                     ssy=ssy, luma=(160, 160), device=device)
 
 
 def wave_heavy(seed: int, device="cpu") -> Synthetic:

@@ -198,9 +198,11 @@ def try_batched_av1_grid(grid_item, grid, tile_ids,
             return None
         for i, pl in zip(idx, out):
             seq, fh, dec = parsed[i]
-            images[i] = av1_decoder.planes_to_image(
-                av1_decoder.finish_frame(seq, fh, dec, pl), seq.bit_depth,
-                ctx.limits)
+            # each tile's own film grain (its parameters, size and seed)
+            planes = av1_decoder.maybe_grain(
+                av1_decoder.finish_frame(seq, fh, dec, pl), seq, fh)
+            images[i] = av1_decoder.planes_to_image(planes, seq.bit_depth,
+                                                    ctx.limits)
     return paste_tiles(grid, images, ctx, options)
 
 

@@ -44,7 +44,6 @@ from libheif_tpu.codecs.av1 import obu as jobu  # noqa: E402
 from libheif_tpu_torch.codecs.av1 import cuda_fast as F  # noqa: E402
 from libheif_tpu_torch.codecs.av1 import decoder as tdecoder  # noqa: E402
 from libheif_tpu_torch.codecs.av1 import device_recon as D  # noqa: E402
-from libheif_tpu_torch.core.error import HeifError  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(D.__file__), os.pardir, os.pardir,
                         "testdata", "av1")
@@ -81,6 +80,37 @@ STREAMS = {
     "tile508x500": ("aom", (508, 500), 8, 6, {"q": 45, "cpu": 2}),
 }
 SMALL = [n for n in STREAMS if not n.startswith("tile")]
+
+# film grain (libaom's film-grain test vectors, tests/test_av1_grain.py's
+# content and settings): name -> (size, bits, test vector, options)
+GRAIN_OPTS = {"cpu-used": "6", "_min_q": "30", "_max_q": "30"}
+GRAIN_STREAMS = {
+    **{f"grain-tv{tv}": ((128, 96), 8, tv, {}) for tv in range(1, 17)},
+    **{f"grain-10bit-tv{tv}": ((128, 96), 10, tv, {}) for tv in (2, 7, 12)},
+    **{f"grain-odd-{w}x{h}": ((w, h), 8, 3, {})
+       for w, h in ((100, 67), (133, 61), (33, 33))},
+    "grain-estimated": ((128, 128), 8, None,
+                        {"cpu-used": "3", "denoise-noise-level": "25"}),
+    # the card's grain photo tiles, libaom's every intra tool besides:
+    # overlap off and clipped (1), overlap and clipped (7), neither (12),
+    # chroma scaling from luma (15)
+    **{f"grain-tile512-tv{tv}": ((512, 512), 8, tv,
+                                 {**ALL_TOOLS, "cpu-used": "4",
+                                  "_min_q": "35", "_max_q": "35"})
+       for tv in (1, 7, 12, 15)},
+}
+# intra block copy (libaom's screen-content tools, tests/test_av1_intrabc.py
+# CASES): name -> (size, glyph size, seed, q, cpu-used, gray glyphs)
+IBC_STREAMS = {
+    "ibc-base-192": ((192, 192), 16, 3, "40", "1", False),
+    "ibc-uv-palette-sub8": ((192, 192), 16, 1, "40", "1", False),
+    "ibc-gray-nonsquare": ((256, 192), 16, 5, "40", "1", True),
+    "ibc-gray-dense-q20": ((256, 256), 16, 7, "20", "0", True),
+    "ibc-lossless": ((128, 256), 8, 97, "0", "6", True),
+    # a screenshot of 8-pixel glyphs (with 15-pixel glyphs the JAX host
+    # engine's intrabc parse loses sync: ROADMAP §3)
+    "ibc-screenshot-1920x1080": ((1920, 1080), 8, 11, "40", "4", False),
+}
 
 
 def mixed_planes(w, h, seed, bits=8):
@@ -132,6 +162,30 @@ def make_stream(name: str) -> bytes:
     o["cpu-used"] = str(opts["cpu"])
     o["_min_q"] = o["_max_q"] = str(opts["q"])
     out = av1_oracle.encode(planes, o, usage=0, bit_depth=bits)
+    assert out is not None, "libaom encode failed"
+    return out
+
+
+def make_new_stream(name: str) -> bytes:
+    """A stream of GRAIN_STREAMS or IBC_STREAMS, by libaom."""
+    from tests import av1_oracle
+    if name in GRAIN_STREAMS:
+        from tests.test_av1_grain import _content
+        (w, h), bits, tv, extra = GRAIN_STREAMS[name]
+        planes = mixed_planes(w, h, tv, bits) if w >= 512 else \
+            _content(h, w, 1 << bits)
+        o = dict(GRAIN_OPTS)
+        if tv is not None:
+            o["film-grain-test"] = str(tv)
+        o.update(extra)
+        out = av1_oracle.encode(planes, o, usage=0, bit_depth=bits)
+    else:
+        from tests.test_av1_intrabc import _screen_planes
+        (w, h), ts, seed, q, cpu, gray = IBC_STREAMS[name]
+        out = av1_oracle.encode(
+            _screen_planes(w, h, ts, seed, gray),
+            {"tune-content": "screen", "_min_q": q, "_max_q": q,
+             "cpu-used": cpu}, usage=0)
     assert out is not None, "libaom encode failed"
     return out
 
@@ -527,13 +581,21 @@ def _intrabc_stream():
 
 @pytest.mark.parametrize("make,what", [(_grain_stream, "film grain"),
                                        (_intrabc_stream, "intra block copy")])
-def test_unsupported_tools_raise(make, what):
+def test_former_refusals_decode(make, what):
+    """The two tools the port once refused decode equal to the JAX host
+    engine and to libaom."""
     from tests import av1_oracle
     if not av1_oracle.available():
         pytest.skip("libaom not available")
     data = make()
-    with pytest.raises(HeifError, match=what):
-        tdecoder.decode_intra_frame(data, device="cpu")
+    seq, fh, _tiles = tdecoder.parse_obus(data)
+    assert (fh.film_grain is not None) if what == "film grain" \
+        else fh.allow_intrabc
+    got = port_decode(data)
+    assert_planes_equal(got, jdecoder.decode_intra_frame(data, engine="host"),
+                        what)
+    assert_planes_equal(got, {k: np.asarray(v, np.int64) for k, v in
+                              av1_oracle.decode(data).items()}, what)
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -561,6 +623,8 @@ def test_new_modules_import_no_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['libheif_tpu'] = None; "
             "import libheif_tpu_torch.codecs.av1.decoder, "
+            "libheif_tpu_torch.codecs.av1.grain, "
+            "libheif_tpu_torch.codecs.av1.wave_cases, "
             "libheif_tpu_torch.codecs.av1.cdef, "
             "libheif_tpu_torch.codecs.av1.lr, "
             "libheif_tpu_torch.parallel.coded_grid, "
@@ -592,41 +656,104 @@ def test_kernel_constants_match_tables():
     assert table("kEdgeK") == [0, 16, 0, 0, 0] + sum(_EDGE_KERNELS, [])
     assert table("kFiTaps") == _load()["filter_intra_taps"].ravel().tolist()
 
+    def const(name):
+        return int(re.search(r"\b" + name + r"\s*=\s*(\d+)", src).group(1))
+    assert const("kMaxGroups") == F.MAX_GROUPS
+    assert const("kMaxItxGroups") == F.MAX_ITX_GROUPS
+    assert (const("kWaveN"), const("kWaveFi"), const("kWaveIbc")) == \
+        (F.WAVE_N, F.WAVE_FI, F.WAVE_IBC)
+    # the kernel's parameter columns, in PARAM_COLS's order
+    enum = re.search(r"enum \{\s*(kPMode.*?)\};", src, re.S).group(1)
+    camel = {"p_angle": "Angle", "cornerf": "CornerF"}
+    assert re.findall(r"kP(\w+)", enum) == [
+        camel.get(c, "".join(w.capitalize() for w in c.split("_")))
+        for c in F.PARAM_COLS]
+
 
 # ------------------------------------------------------------ writer
 
-def write_fixtures():
-    """Encode the card's test streams and write them with a manifest of
-    the JAX host engine's plane hashes, and whether the JAX device engine
-    gives the same planes (8-bit streams; at 10 bits it reads the 8-bit
-    dequantiser tables).  ~8 min, mostly the device engine's jit."""
-    os.makedirs(FIXTURES, exist_ok=True)
-    entries = []
-    for name, (kind, (w, h), bits, seed, opts) in STREAMS.items():
-        data = make_stream(name)
-        fn = f"{name}.obu"
-        with open(os.path.join(FIXTURES, fn), "wb") as f:
-            f.write(data)
-        planes = jdecoder.decode_intra_frame(data, engine="host")
-        e = dict(name=name, file=fn, width=w, height=h, bit_depth=bits,
-                 encoder=kind, seed=seed, options=opts,
-                 sha256=plane_hashes(planes))
+def _entry(name: str, data: bytes) -> dict:
+    """A stream's manifest entry: the JAX host engine's plane hashes; for
+    STREAMS at 8 bits whether the JAX device engine gives the same planes
+    (at 10 bits it reads the 8-bit dequantiser tables); for the grain and
+    intrabc streams whether libaom's decode does (the JAX device engine
+    is wrong on intrabc)."""
+    planes = jdecoder.decode_intra_frame(data, engine="host")
+    if name in STREAMS:
+        kind, (w, h), bits, seed, opts = STREAMS[name]
+    elif name in GRAIN_STREAMS:
+        (w, h), bits, tv, extra = GRAIN_STREAMS[name]
+        kind, seed = "aom-grain", tv
+        opts = {k: v for k, v in {**GRAIN_OPTS, **extra}.items()
+                if k not in ALL_TOOLS}
+        if tv is not None:
+            opts["film-grain-test"] = str(tv)
+    else:
+        (w, h), ts, seed, q, cpu, gray = IBC_STREAMS[name]
+        kind, bits = "aom-screen", 8
+        opts = {"tune-content": "screen", "q": q, "cpu-used": cpu,
+                "glyph": ts, "gray": gray}
+    e = dict(name=name, file=f"{name}.obu", width=w, height=h,
+             bit_depth=bits, encoder=kind, seed=seed, options=opts,
+             sha256=plane_hashes(planes))
+    if name in STREAMS:
         if bits == 8:
             dev = jdecoder.decode_intra_frame(data, engine="device")
             e["jax_device_engine_equal"] = all(
                 np.array_equal(dev[k], planes[k]) for k in planes)
-        entries.append(e)
+    else:
+        from tests import av1_oracle
+        ref = av1_oracle.decode(data)
+        e["libaom_equal"] = ref is not None and set(ref) == set(planes) \
+            and all(np.array_equal(np.asarray(ref[k], np.int64),
+                                   np.asarray(planes[k], np.int64))
+                    for k in planes)
+    return e
+
+
+def write_fixtures(only=None):
+    """Encode the card's test streams and write them with a manifest of
+    the JAX host engine's plane hashes (``_entry``).  ``only``: the names
+    to write again or add, every other entry kept byte for byte; else all
+    of them (~10 min, mostly the JAX device engine's jit)."""
+    os.makedirs(FIXTURES, exist_ok=True)
+    every = {**STREAMS, **GRAIN_STREAMS, **IBC_STREAMS}
+    names = list(only) if only else list(every)
+    unknown = [n for n in names if n not in every]
+    if unknown:
+        raise SystemExit(f"unknown streams: {unknown}")
+    path = os.path.join(FIXTURES, "manifest.json")
+    entries = []
+    if only and os.path.exists(path):
+        with open(path) as f:
+            entries = json.load(f)["streams"]
+    at = {e["name"]: i for i, e in enumerate(entries)}
+    for name in names:
+        data = make_stream(name) if name in STREAMS else \
+            make_new_stream(name)
+        with open(os.path.join(FIXTURES, f"{name}.obu"), "wb") as f:
+            f.write(data)
+        e = _entry(name, data)
+        if name in at:
+            entries[at[name]] = e
+        else:
+            at[name] = len(entries)
+            entries.append(e)
         print(name, len(data), flush=True)
     about = ("AV1 streams from the JAX package's Av1IntraEncoder and from "
              "libaom (tests/test_torch_av1.py write_fixtures); sha256 of the "
              "cropped Y, U, V planes as little-endian int32, decoded by the "
              "JAX host engine; jax_device_engine_equal: the JAX device "
-             "engine's planes equal them (8-bit streams)")
-    with open(os.path.join(FIXTURES, "manifest.json"), "w") as f:
+             "engine's planes equal them (8-bit streams); libaom_equal: "
+             "libaom's decode gives them (the film grain and intrabc "
+             "streams)")
+    with open(path, "w") as f:
         json.dump({"about": about, "streams": entries}, f, indent=1)
         f.write("\n")
 
 
 if __name__ == "__main__":
     if "--write-fixtures" in sys.argv:
-        write_fixtures()
+        # --write-fixtures [--only NAME...]
+        rest = sys.argv[sys.argv.index("--write-fixtures") + 1:]
+        write_fixtures(rest[1:] if rest[:1] == ["--only"] else None)

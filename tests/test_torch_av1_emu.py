@@ -6,12 +6,15 @@
 take their CUDA branch on CPU tensors.  Stage A (``av1_dequant_itx``, one
 launch for every job group) and stage B (``av1_intra_wave``, one launch
 walking every picture's waves) must then give the plain versions' samples
-exactly, on the committed streams and on batches of them, on every
-transform size with each kind it allows, and on synthetic waves
+exactly, on the committed streams and on batches of them (the intrabc
+streams among them), on every transform size with each kind it allows
+(the inter sets of intrabc units included), and on synthetic waves
 (``wave_cases``) that mix 64x64 with 4x4 jobs, hold 32x32 filter-intra
-and CfL jobs at each subsampling, run at 10 bits and overflow the wave
-kernel's shared memory.  This checks the kernels' logic without a card;
-the card's own checks are in chip_smoke.py.
+and CfL jobs at each subsampling, run at 10 bits, overflow the wave
+kernel's shared memory, and hold intra block copies at each subsampling
+and 8 and 10 bits (half-sample chroma, 64x64 copies among 4x4 jobs,
+sources written by the wave before).  This checks the kernels' logic
+without a card; the card's own checks are in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ BATCHES = [
     ("aom-photo-128-tx64",), ("aom-128-q40-c1-10bit",),
     ("aom-128-q30-c0", "aom-128-q60-c2"),
     ("aom-128-q30-c0", "aom-128-q45-c1", "aom-128-q60-c2"),
+    # intra block copy: skipped blocks' pieces, units with the inter
+    # transform sets, lossless, and a batch of two
+    ("ibc-base-192",), ("ibc-gray-nonsquare",), ("ibc-gray-dense-q20",),
+    ("ibc-lossless",), ("ibc-base-192", "ibc-uv-palette-sub8"),
 ]
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
@@ -116,6 +123,23 @@ def tx_group(sq, seed, lossless=False):
                       torch.arange(len(rows), dtype=torch.int32))
 
 
+def test_tx_groups_hold_every_transform_type():
+    """Every transform type (the intra sets and intrabc's inter sets) at
+    every size it may take is among tx_group's rows: the test below runs
+    them all."""
+    from libheif_tpu_torch.codecs.av1 import itx as ITX
+    for tw, th in TX_SIZES:
+        sq = max(tw, th)
+        codes = {r[4] for r in tx_group(sq, 0).txp.tolist()
+                 if (r[2], r[3]) == (tw, th)}
+        for tt, (vk, hk, _ud, _lr) in ITX._TX1D.items():
+            if (vk == "A" and th > 16) or (hk == "A" and tw > 16) or \
+                    (vk == "I" and th > 32) or (hk == "I" and tw > 32):
+                continue        # the spec allows no such type at the size
+            code = int(D._tx_codes(torch.tensor([tt]))[0])
+            assert code in codes, (tt, tw, th)
+
+
 @pytest.mark.parametrize("ordered", [False, True], ids=["own", "by_size"])
 def test_emulated_itx_every_size_and_kind(emulated, monkeypatch, ordered):
     groups = [tx_group(sq, 10 + sq) for sq in (64, 32, 16, 8, 4)]
@@ -164,6 +188,28 @@ def test_emulated_waves_synthetic(emulated, monkeypatch, name):
     n0 = F.AV1_INTRA_WAVE.launches
     F.intra_waves(got, case.groups, case.rows, **case.kw)
     assert F.AV1_INTRA_WAVE.launches - n0 == 1
+    assert torch.equal(got[:-1], ref[:-1])
+
+
+@pytest.mark.parametrize("ss,bd", [((1, 1), 8), ((1, 0), 8), ((0, 0), 8),
+                                   ((1, 1), 10), ((1, 0), 10)],
+                         ids=["420", "422", "444", "420-10bit", "422-10bit"])
+def test_emulated_ibc_waves(emulated, monkeypatch, ss, bd):
+    """Intra block copies (wave_cases.ibc_waves) against the plain version
+    in the kernel's order and in the lockstep order."""
+    case = WC.ibc_waves(seed=bd + 2 * ss[0] + ss[1], ssx=ss[0], ssy=ss[1],
+                        bd=bd)
+    ref = case.buf.clone()
+    F.intra_waves_by_picture_plain(ref, case.groups, case.rows, **case.kw)
+    lock = case.buf.clone()
+    F.intra_waves(lock, case.groups, case.rows, **case.kw)
+    assert torch.equal(lock[:-1], ref[:-1])
+    half = torch.cat([g.params[:, F.P["ibc_half"]] for g in case.groups
+                      if g.kind == F.WAVE_IBC])
+    assert bool((half == ss[1] << 1 | ss[0]).any())
+    monkeypatch.setattr(F, "_on_cpu", lambda *t: False)
+    got = case.buf.clone()
+    F.intra_waves(got, case.groups, case.rows, **case.kw)
     assert torch.equal(got[:-1], ref[:-1])
 
 

@@ -60,6 +60,11 @@ def _aom(w, h, bits, seed, q, **extra):
                              bit_depth=bits)
 
 
+def _stream(name):
+    from tests.test_torch_av1 import stream
+    return stream(name)
+
+
 def _add_stream(ctx, data, w, h, bits):
     """An av01 item holding the OBU stream, as the JAX encoder's items
     are written: av1C with the sequence header, ispe."""
@@ -106,6 +111,14 @@ def build(kind):
         ids = [_add_stream(ctx, _aom(64, 64, 10, 20 + i, 40), 64, 64, 10)
                for i in range(4)]
         ctx.set_primary_item(ctx.add_grid_image(ids, 128, 128, 2, 2))
+    elif kind == "single-grain":
+        _add_stream(ctx, _stream("grain-tv4"), 128, 96, 8)
+    elif kind == "grid-grain":
+        # four film-grain tiles, each with its own parameters and seed
+        ids = [_add_stream(ctx, _stream(n), 128, 96, b) for n, b in
+               (("grain-tv1", 8), ("grain-tv7", 8), ("grain-tv15", 8),
+                ("grain-tv12", 8))]
+        ctx.set_primary_item(ctx.add_grid_image(ids, 250, 180, 2, 2))
     elif kind == "grid-edge-filter":
         # tiles 1 and 2 without the intra edge filter: two batches
         ids = [_add_stream(ctx, _aom(
@@ -122,7 +135,7 @@ TARGETS = {
     "rgba": (Colorspace.RGB, Chroma.InterleavedRGBA),
 }
 FILES = ["single", "single-aom", "single-10bit", "grid", "grid-10bit",
-         "grid-edge-filter"]
+         "grid-edge-filter", "single-grain", "grid-grain"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,6 +173,7 @@ def test_decode_image_matches_jax(kind, target):
 
 
 @pytest.mark.parametrize("kind,batches", [("grid", [4]), ("grid-10bit", [4]),
+                                          ("grid-grain", [4]),
                                           ("grid-edge-filter", [2, 2]),
                                           ("single-aom", [1])])
 def test_grid_batches(kind, batches, monkeypatch):
@@ -177,6 +191,25 @@ def test_grid_batches(kind, batches, monkeypatch):
     monkeypatch.setattr(decoder, "decode_frames_device", spy)
     HeifContext.read_from_bytes(build(kind), device="cpu").decode_image(None)
     assert sorted(calls) == batches
+
+
+def test_grain_grid_equals_its_tiles():
+    """A grid of film-grain tiles decodes in one batch, each tile with its
+    own grain, to the tiles' single decodes pasted in place."""
+    from libheif_tpu_torch.codecs.av1 import decoder
+    img = HeifContext.read_from_bytes(build("grid-grain"), device="cpu") \
+        .decode_image(None)
+    names = ("grain-tv1", "grain-tv7", "grain-tv15", "grain-tv12")
+    for i, n in enumerate(names):
+        tile = decoder.decode_intra_frame(_stream(n), device="cpu")
+        ty, tx = divmod(i, 2)
+        for key, ch, sub in (("Y", Channel.Y, 1), ("U", Channel.Cb, 2),
+                             ("V", Channel.Cr, 2)):
+            th, tw = 96 // sub, 128 // sub
+            got = img.np_plane(ch)[ty * th:(ty + 1) * th,
+                                   tx * tw:(tx + 1) * tw]
+            want = tile[key].numpy()[:got.shape[0], :got.shape[1]]
+            assert np.array_equal(got.astype(np.int64), want), (n, key)
 
 
 def test_av1C_property_and_write_back():

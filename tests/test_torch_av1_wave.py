@@ -79,7 +79,8 @@ def test_synthetic_waves_any_order(case):
         s = WC.synthetic([[[("cfl", 16, 16), ("cfl", 4, 8)],
                            [("n", 8, 8)] * 3]], seed=2, ssy=0)
     assert s.rows.shape[0] == len(s.groups)
-    keys = [(not g.fi, -g.sq) for g in s.groups]
+    order = {F.WAVE_FI: 0, F.WAVE_N: 1, F.WAVE_IBC: 3}
+    keys = [(order[g.kind], -g.sq) for g in s.groups]
     assert keys == sorted(keys)
     lock, by_pic = s.buf.clone(), s.buf.clone()
     F.intra_waves(lock, s.groups, s.rows, **s.kw)       # CPU: lockstep
