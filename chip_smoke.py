@@ -40,22 +40,30 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    equal to the generator's with and without the transforms, and the
    single-item file equal to the library path's image;
 4c. the HEVC phase, on the streams committed in
-   libheif_tpu_torch/testdata/hevc (encoded by the JAX package, with the
-   plane hashes of its device engine): hold hevc_dequant_itx (one launch
-   for all TU groups) against its plain version on every TU group of
-   every stream, and hevc_intra_wave (one launch walking every picture's
-   waves, one block a picture) against the plain lockstep wave loop, on
-   every small stream, a batch of two 512x512 tiles, a batch whose
-   pictures have different wave counts, one 512x512 tile and the photo's
-   48 tiles (stage A on the photo's 48 tiles too); decode every stream on the card and require its
-   planes' hashes; write a phone photo's HEIC (an 8x6 grid of 48 512x512
-   hvc1 items, 4032x3024 output) and decode it through HeifContext to
+   libheif_tpu_torch/testdata/hevc (encoded by the JAX package, libx265
+   and test-side header rewrites, with the plane hashes of the JAX
+   device or Python engine, or of libde265 where the manifest names it):
+   hold hevc_dequant_itx (one launch for all TU groups) against its
+   plain version on every TU group of every stream (scaling lists at 8,
+   10 and 12 bits among them), and on synthetic groups with |c| = 32767,
+   factors of 255 and the top QP at 8, 10 and 12 bits, and
+   hevc_intra_wave (one launch walking every picture's waves, one block
+   a picture) against the plain lockstep wave loop, on every small
+   stream (pictures of several slices among them), a batch of two
+   512x512 tiles, a batch whose pictures have different wave counts, one
+   512x512 tile and each photo's 48 tiles (stage A on the photos' 48
+   tiles too); decode every stream on the card and require its planes'
+   hashes; write a phone photo's HEIC (an 8x6 grid of 48 512x512 hvc1
+   items, 4032x3024 output) and decode it through HeifContext to
    interleaved RGB, with the launch counts read around it
    (hevc_dequant_itx once, hevc_intra_wave once, planes_ycbcr8_to_rgb
    once, no strided_extract_paste) and its planes held equal to the
-   single tiles' decodes placed where the grid puts them; decode a
-   single-item hvc1 file and the 10-bit tile through the context on the
-   card and on the CPU with 0 samples differing;
+   single tiles' decodes placed where the grid puts them; the same for a
+   slices photo (tile i the i mod 4-th of: default scaling lists, custom
+   lists, 4 slices, 8 slices with deblocking; one batch, one launch of
+   each HEVC kernel); decode a single-item hvc1 file, the 10-bit tile and
+   the tile of eight slice NALs through the context on the card and on
+   the CPU with 0 samples differing;
 4d. the AV1 phase, on the streams committed in
    libheif_tpu_torch/testdata/av1 (the JAX package's Av1IntraEncoder and
    libaom with every intra tool, 8 and 10 bits, with the plane hashes of
@@ -127,11 +135,13 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    the wave kernel's launch shape and per step one store, the barrier and
    one dependent load), stage B as the decode calls it (predict_waves:
    buffers allocated and zeroed, then the kernel), hevc_intra_wave on one
-   tile beside its chain bound, the plain deblock
-   and SAO stages, and the photo's decode part by part (parse, tile
-   parses, plan on the host and on the card, host-to-device copies, the
-   four stages, compose, convert, interleave) over REPEATS fresh
-   contexts with its device share; the AV1 kernels at the AVIF photo's
+   tile beside its chain bound, stage A on the slices photo and on its
+   two scaling-list tiles alone (per coefficient beside the flat
+   photo's), the plain deblock and SAO stages, and both photos' decode
+   over REPEATS fresh contexts, then once split by part from the decode
+   path's own spans (core/trace.py: tile parses, plan on the host, its
+   copies and tables, stages A to D, compose), with the flat photo's
+   device share; the AV1 kernels at the AVIF photo's
    shapes beside their plain versions, byte bounds, ptxas resources and
    stage B's chain bound (waves x one step of av1_wave_probe), and the
    photo's
@@ -209,7 +219,6 @@ from libheif_tpu_torch.image.pixel_image import (
 from libheif_tpu_torch.items.derived import ImageGrid, ImageOverlay
 from libheif_tpu_torch.items.mask_item import Box_mskC
 from libheif_tpu_torch.items.tiled_item import TiledHeader
-from libheif_tpu_torch.parallel import coded_grid
 
 SEED = 0
 W = H = 4096
@@ -1251,6 +1260,10 @@ JNP_RECON = "libheif_tpu/codecs/hevc/device_recon.py"
 PHOTO = (4032, 3024)
 PHOTO_GRID = (6, 8)                  # rows, columns of 512x512 tiles
 PHOTO_TILES = ("tile512_s0", "tile512_s1", "tile512_s2", "tile512_s3")
+# the slices photo: scaling lists (default, custom) and several slices (4;
+# 8 with deblocking), 8-bit, one batch key
+SLICES_TILES = ("tile512_slists_default", "tile512_slists_custom",
+                "tile512_4slices", "tile512_8slices_deblock")
 K2_BATCH = ("tile512_s0", "tile512_s1")   # the plain wave loop is slow
 K2_SINGLE = "tile512_s2"
 K2_MIXED = ("nxn-dqp-sh", "rqt1-cu32")    # 112 and 12 waves, one key
@@ -1266,15 +1279,27 @@ def hevc_streams():
 
 
 def hevc_nals(e):
-    with open(os.path.join(HEVC_DIR, e["slice"]), "rb") as f:
-        return bytes.fromhex(e["sps"]), bytes.fromhex(e["pps"]), f.read()
+    """(sps, pps, [slice NALs]) of a manifest entry: its "slice" file
+    holds the NAL, its "slices" file each NAL behind a 4-byte length."""
+    if "slices" in e:
+        with open(os.path.join(HEVC_DIR, e["slices"]), "rb") as f:
+            buf = f.read()
+        slices, pos = [], 0
+        while pos < len(buf):
+            n = int.from_bytes(buf[pos:pos + 4], "big")
+            slices.append(buf[pos + 4:pos + 4 + n])
+            pos += 4 + n
+    else:
+        with open(os.path.join(HEVC_DIR, e["slice"]), "rb") as f:
+            slices = [f.read()]
+    return bytes.fromhex(e["sps"]), bytes.fromhex(e["pps"]), slices
 
 
 def hevc_parse(e):
     """(SliceSyntax, raw TUs) of a stream, by the host parser."""
-    sps, pps, sl = hevc_nals(e)
+    sps, pps, slices = hevc_nals(e)
     return hevc_decoder.parse_picture(hevc_headers.parse_sps(sps),
-                                      hevc_headers.parse_pps(pps), [sl])
+                                      hevc_headers.parse_pps(pps), slices)
 
 
 def int32_hashes(planes):
@@ -1285,28 +1310,29 @@ def int32_hashes(planes):
 
 
 def add_hvc1(f, e, hidden=True):
-    """An hvc1 item holding stream ``e``: the slice with a 4-byte length,
-    an hvcC with its SPS and PPS, and ispe."""
-    sps, pps, sl = hevc_nals(e)
+    """An hvc1 item holding stream ``e``: each slice NAL with a 4-byte
+    length, an hvcC with its SPS and PPS, and ispe."""
+    sps, pps, slices = hevc_nals(e)
     cfg = Box_hvcC()
     cfg.general_profile_idc = 1 if e["bit_depth"] == 8 else 2
     cfg.bit_depth_luma = cfg.bit_depth_chroma = e["bit_depth"]
     cfg.add_nal(sps)
     cfg.add_nal(pps)
     item = f.add_new_item("hvc1").item_id
-    f.append_item_data(item, len(sl).to_bytes(4, "big") + sl)
+    f.append_item_data(item, b"".join(len(s).to_bytes(4, "big") + s
+                                      for s in slices))
     f.add_property(item, cfg, True)
     f.add_property(item, Box_ispe(e["width"], e["height"]), False)
     f.get_infe(item).hidden = hidden
     return item
 
 
-def photo_file(streams):
-    """The phone photo: 48 hidden hvc1 items (item i holds stream i mod 4)
-    in a 6x8 grid with a 4032x3024 output."""
+def photo_file(streams, tiles=PHOTO_TILES):
+    """The phone photo: 48 hidden hvc1 items (item i holds stream tiles[i
+    mod 4]) in a 6x8 grid with a 4032x3024 output."""
     f = new_file()
     rows, cols = PHOTO_GRID
-    ids = [add_hvc1(f, streams[PHOTO_TILES[i % 4]])
+    ids = [add_hvc1(f, streams[tiles[i % 4]])
            for i in range(rows * cols)]
     grid = f.add_new_item("grid").item_id
     f.append_item_data(grid, ImageGrid(rows, cols, *PHOTO).write(), 1)
@@ -1340,7 +1366,7 @@ def plain_residuals(plan):
     return [hevc_fast.dequant_itx_plain(
         g.coeffs, g.qp, g.ts, g.tqb,
         hevc_fast.transform_matrix(g.key[0], g.key[1], DEV), log2=g.key[1],
-        bd=plan.bd) for g in plan.groups]
+        bd=plan.bd, mslot=g.mslot, mtab=plan.mtab) for g in plan.groups]
 
 
 def check_residuals(tally, what, plan):
@@ -1367,12 +1393,51 @@ def check_waves(tally, what, plan, waves):
     return ybuf, cbuf
 
 
+def check_extreme_groups(tally):
+    """hevc_dequant_itx on synthetic groups of every size and plane with
+    |c| = 32767, factors of 255 and the top QP at 8, 10 and 12 bits (a
+    product of about 2^41, formed in 64 bits), flat-slot, transform-skip
+    and bypass TUs among them, against its plain version."""
+    rng = np.random.default_rng(SEED)
+    for bd in (8, 10, 12):
+        top = 51 + 6 * (bd - 8)
+        mtab = rng.integers(1, 256, size=(4, 32, 32)).astype(np.uint8)
+        mtab[0], mtab[1] = 16, 255
+        groups = []
+        for log2, luma in ((2, True), (3, True), (4, True), (5, True),
+                           (2, False), (3, False), (4, False)):
+            s, n = 1 << log2, 64
+            c = rng.choice([-32767, 32767, 0, 1], size=(n, s, s))
+            qp = np.full(n, top)
+            qp[::3] = top - 1 - np.arange(len(qp[::3])) % 6
+            slot = np.where(np.arange(n) % 4 == 1, 2, 1)
+            slot[::7] = 0
+            groups.append(hevc_fast.ItxGroup(
+                luma, log2, torch.tensor(c, dtype=torch.int32, device=DEV),
+                torch.tensor(qp, dtype=torch.int32, device=DEV),
+                torch.tensor((rng.random(n) < 0.3) & (s == 4), device=DEV),
+                torch.tensor(rng.random(n) < 0.1, device=DEV),
+                torch.tensor(slot, dtype=torch.int32, device=DEV)))
+        mt = torch.from_numpy(mtab).to(DEV)
+        got = hevc_fast.dequant_itx(groups, bd=bd, mtab=mt)
+        for g, r in zip(groups, got):
+            ref = hevc_fast.dequant_itx_plain(
+                g.coeffs, g.qp, g.ts, g.tqb,
+                hevc_fast.transform_matrix(g.luma, g.log2, DEV),
+                log2=g.log2, bd=bd, mslot=g.mslot, mtab=mt)
+            tally.compare("hevc_dequant_itx",
+                          f"extreme |c|=32767 m=255 qp={top} {bd}-bit "
+                          f"({g.luma}, {g.log2})", r, ref, exact=True)
+
+
 def check_hevc_kernels(tally, streams):
     """hevc_dequant_itx on every group of every stream, and hevc_intra_wave
     on every small stream, on a batch of two 512x512 tiles, on a batch
     whose pictures have different wave counts and on one 512x512 tile,
     against their plain versions on the card; then predict_waves (the
-    decode's call) against the same."""
+    decode's call) against the same.  The small streams include those with
+    scaling lists (stage A's factor slots) and several slices (stage B's
+    waves cut at slice boundaries)."""
     small = [e for n, e in streams.items() if not n.startswith("tile512")]
     batches = [[e] for e in small] + [[streams[n] for n in K2_BATCH]]
     batches += [[streams[n] for n in K2_MIXED]]
@@ -1398,37 +1463,40 @@ def check_hevc_kernels(tally, streams):
 
 def check_hevc_streams(streams):
     """Every stream decoded on the card (decode_intra_picture): its planes
-    hash to the manifest (the JAX package's device engine)."""
+    hash to the manifest (the JAX package's device or Python engine, or
+    libde265 where the entry names it)."""
     for name, e in streams.items():
-        sps, pps, sl = hevc_nals(e)
+        sps, pps, slices = hevc_nals(e)
         planes = hevc_decoder.decode_intra_picture(
-            hevc_headers.parse_sps(sps), hevc_headers.parse_pps(pps), [sl])
+            hevc_headers.parse_sps(sps), hevc_headers.parse_pps(pps), slices)
         assert all(p.device.type == DEV for p in planes), name
         ok = int32_hashes(planes) == e["sha256"]
-        log(f"check hevc stream {name:22s} {e['width']}x{e['height']} "
-            f"{e['bit_depth']}-bit planes vs manifest: "
+        log(f"check hevc stream {name:24s} {e['width']}x{e['height']} "
+            f"{e['bit_depth']}-bit {len(slices)} slice(s) planes vs "
+            f"manifest ({e.get('reference', 'JAX device engine')}): "
             f"{'equal' if ok else 'DIFFERENT'}")
         assert ok, f"{name}: planes differ from the manifest"
 
 
-def photo_plan(streams):
+def photo_plan(streams, tiles=PHOTO_TILES):
     """The plan of the photo's 48 tiles, as the grid path builds it."""
     rows, cols = PHOTO_GRID
-    parsed = [hevc_parse(streams[PHOTO_TILES[i % 4]])
+    parsed = [hevc_parse(streams[tiles[i % 4]])
               for i in range(rows * cols)]
     return device_recon.build_plan([p[0] for p in parsed],
                                    [p[1] for p in parsed], DEV)
 
 
-def check_photo(blob, streams, plan):
+def check_photo(blob, streams, plan, tiles=PHOTO_TILES, what="hevc photo"):
     """The phone photo through HeifContext: its launches (read around the
     decode to interleaved RGB), and its YCbCr planes against the single
     tiles' decodes placed where the grid puts them."""
     with launch_counts() as launches:
         rgb = HeifContext.read_from_bytes(blob).decode_image(
             None, Colorspace.RGB, Chroma.InterleavedRGB)
-    log(f"hevc photo launches {launches} (plan: {len(plan.groups)} "
-        f"groups, {plan.n_waves} waves)")
+    log(f"{what} launches {launches} (plan: {len(plan.groups)} "
+        f"groups, {plan.n_waves} waves, factor slots "
+        f"{0 if plan.mtab is None else plan.mtab.shape[0]})")
     assert launches["hevc_dequant_itx"] == 1, \
         "hevc_dequant_itx: not one launch per plan"
     assert launches["hevc_intra_wave"] == 1, \
@@ -1443,22 +1511,22 @@ def check_photo(blob, streams, plan):
 
     img = HeifContext.read_from_bytes(blob).decode_image(None)
     singles = {}
-    for n in PHOTO_TILES:
-        sps, pps, sl = hevc_nals(streams[n])
+    for n in tiles:
+        sps, pps, slices = hevc_nals(streams[n])
         singles[n] = hevc_decoder.decode_intra_picture(
-            hevc_headers.parse_sps(sps), hevc_headers.parse_pps(pps), [sl])
+            hevc_headers.parse_sps(sps), hevc_headers.parse_pps(pps), slices)
     rows, cols = PHOTO_GRID
     n_diff = 0
     for i in range(rows * cols):
         ty, tx = divmod(i, cols)
         for ch, ref, sub in zip((Channel.Y, Channel.Cb, Channel.Cr),
-                                singles[PHOTO_TILES[i % 4]], (1, 2, 2)):
+                                singles[tiles[i % 4]], (1, 2, 2)):
             t = 512 // sub
             y0, x0 = ty * t, tx * t
             got = img.plane(ch)[y0:y0 + t, x0:x0 + t]
             h, w = got.shape
             n_diff += int((got.to(torch.int32) != ref[:h, :w]).sum())
-    log(f"check hevc photo YCbCr vs the single tiles placed: differing "
+    log(f"check {what} YCbCr vs the single tiles placed: differing "
         f"{n_diff}")
     assert n_diff == 0, "the grid's planes differ from the single tiles"
     try:
@@ -1472,11 +1540,12 @@ def check_photo(blob, streams, plan):
 
 
 def check_hvc1_files(streams):
-    """A single-item hvc1 file and the 10-bit tile, through the context on
-    the card and on the CPU (the plain versions), YCbCr and RGB; their
-    YCbCr against the manifest."""
+    """A single-item hvc1 file, the 10-bit tile and the tile of eight
+    slices (eight NALs in the item), through the context on the card and
+    on the CPU (the plain versions), YCbCr and RGB; their YCbCr against the
+    manifest."""
     blobs = {}
-    for name in ("tile512_s0", "tile512_10bit"):
+    for name in ("tile512_s0", "tile512_10bit", "tile512_8slices_deblock"):
         e = streams[name]
         blobs[name] = hvc1_file(e)
         img = decode_both(f"hvc1 {name}", blobs[name])
@@ -1489,79 +1558,43 @@ def check_hvc1_files(streams):
     return blobs
 
 
-def time_photo(blob, streams):
-    """The photo's decode through the entry point (total), then part by
-    part, in a fresh context each repeat; the parts' result is held equal
-    to the entry point's."""
-    runs = []
-    for _ in range(REPEATS):
-        t = {}
-        t0 = time.perf_counter()
-        ref = HeifContext.read_from_bytes(blob).decode_image(
-            None, Colorspace.RGB, Chroma.InterleavedRGB)
-        t["total_ms"] = ms_since(t0)
+HEVC_SPANS = ("hevc.parse", "hevc.plan", "hevc.plan.host", "hevc.plan.copies",
+              "hevc.plan.tables", "hevc.stage_a", "hevc.stage_b",
+              "hevc.deblock", "grid.compose")
 
+
+def time_photo(blob, what="hevc photo"):
+    """The photo's decode through the entry point: REPEATS runs in a
+    fresh context each (the wall), then one more inside trace.collect(),
+    whose spans split it by part (each span ends in a device sync, so
+    that run's total is a little longer; the tile parses run on several
+    threads, so hevc.parse sums their times).  Every run's RGB equals the
+    first's."""
+    runs, ref = [], None
+    for _ in range(REPEATS):
         t0 = time.perf_counter()
-        ctx = HeifContext.read_from_bytes(blob)
-        t["parse_ms"] = ms_since(t0)
-        grid = ctx.get_item(ctx.primary_item_id)
+        rgb = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        runs.append(ms_since(t0))
+        if ref is None:
+            ref = rgb.plane(Channel.Interleaved)
+        assert torch.equal(rgb.plane(Channel.Interleaved), ref)
+    with trace.collect() as spans:
         t0 = time.perf_counter()
-        jobs = []
-        for i in grid.tile_item_ids():
-            item = ctx.get_item(i)
-            jobs.append((item.config_box(), item.coded_data(), (512, 512),
-                         ctx.limits))
-        t["item_data_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        parsed = coded_grid.parse_tiles(jobs)
-        t["tile_parse_ms"] = ms_since(t0)
-        syns, raws = [p[1] for p in parsed], [p[2] for p in parsed]
-        t0 = time.perf_counter()
-        inp = device_recon.plan_inputs(raws, 512, 512)
-        t["plan_host_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        {k: torch.from_numpy(v).to(DEV) for k, v in inp.items()}
-        t["h2d_ms"] = ms_since(t0)
-        t["h2d_bytes"] = sum(v.nbytes for v in inp.values())
-        t0 = time.perf_counter()
-        device_recon._build_deblock_params(syns, 512, 512, 8)
-        device_recon._build_sao_params(syns, 512, 512)
-        t["filter_params_host_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        plan = device_recon.build_plan(syns, raws, DEV)
-        t["plan_ms"] = ms_since(t0)
-        t["plan_device_ms"] = t["plan_ms"] - t["plan_host_ms"] - \
-            t["h2d_ms"] - t["filter_params_host_ms"]
-        t0 = time.perf_counter()
-        waves = device_recon.residuals(plan)
-        t["k1_stage_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        y, cb, cr = device_recon.predict_waves(plan, waves)
-        t["k2_stage_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        y, cb, cr = device_recon.deblock(plan.deblock, y, cb, cr, 255)
-        t["deblock_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        y, cb, cr = device_recon.sao(plan, y, cb, cr)
-        t["sao_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        img = coded_grid.compose(grid.grid_spec(), [p[0] for p in parsed],
-                                 [(y[i], cb[i], cr[i]) for i in range(len(y))],
-                                 ctx, DecodingOptions())
-        t["compose_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        rgb = convert_image(img, Colorspace.RGB, Chroma.C444)
-        t["convert_ms"] = ms_since(t0)
-        t0 = time.perf_counter()
-        out = convert_image(rgb, Colorspace.RGB, Chroma.InterleavedRGB)
-        t["interleave_ms"] = ms_since(t0)
-        assert torch.equal(out.plane(Channel.Interleaved),
-                           ref.plane(Channel.Interleaved)), \
-            "the parts' result differs from the entry point's"
-        t["mp_per_s"] = PHOTO[0] * PHOTO[1] / 1e3 / t["total_ms"]
-        runs.append(t)
-        log(f"hevc photo {json.dumps(t)}")
-    return runs
+        rgb = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        split_ms = ms_since(t0)
+    assert torch.equal(rgb.plane(Channel.Interleaved), ref)
+    for name in HEVC_SPANS:
+        assert name in spans, f"the {what}'s decode ran no {name} span"
+    assert spans["hevc.parse"]["count"] == PHOTO_GRID[0] * PHOTO_GRID[1]
+    assert spans["hevc.stage_a"]["count"] == spans["hevc.stage_b"]["count"] \
+        == 1, "not one stage A and one stage B per photo"
+    t = {"total_ms": runs,
+         "mp_per_s": [PHOTO[0] * PHOTO[1] / 1e3 / ms for ms in runs],
+         "split_total_ms": split_ms, "spans": spans}
+    log(f"{what} {json.dumps(t)}")
+    return t
 
 
 def time_hvc1_single(blob):
@@ -1575,17 +1608,30 @@ def time_hvc1_single(blob):
     return runs
 
 
-def hevc_kernel_rows(timer, tally, plan, launches):
-    """The kernels' rows of the {"kernels": ...} line, at the photo's
-    shapes: the 48-tile plan's stage A and stage B."""
-    waves = device_recon.residuals(plan)
-    rows = {}
-    # hevc_dequant_itx: coefficients in and residuals out (int32), qp, ts
-    # and tqb, the matrices; two passes of s multiply-adds per sample
+def itx_work(plan):
+    """(bytes, operations, coefficients) of hevc_dequant_itx on a plan:
+    coefficients in and residuals out (int32), qp, ts and tqb, the
+    matrices, and where the plan has scaling lists each TU's slot and the
+    factor table; two passes of s multiply-adds per sample."""
     nbytes = sum(g.n * ((1 << 2 * g.key[1]) * 8 + 6) + (1 << 2 * g.key[1]) * 4
                  for g in plan.groups)
+    if plan.mtab is not None:
+        nbytes += sum(g.n * 4 for g in plan.groups) + plan.mtab.numel()
     nops = sum(g.n * (1 << 2 * g.key[1]) * 4 * (1 << g.key[1])
                for g in plan.groups)
+    coeffs = sum(g.n << (2 * g.key[1]) for g in plan.groups)
+    return nbytes, nops, coeffs
+
+
+def hevc_kernel_rows(timer, tally, plan, launches, s_plan, l_plan,
+                     s_launches):
+    """The kernels' rows of the {"kernels": ...} line, at the photo's
+    shapes: the 48-tile plan's stage A and stage B; stage A also on the
+    slices photo's plan and on a plan of its two scaling-list tiles alone
+    (48, alternating), per coefficient beside the flat photo's."""
+    waves = device_recon.residuals(plan)
+    rows = {}
+    nbytes, nops, coeffs = itx_work(plan)
     mats = [hevc_fast.transform_matrix(g.key[0], g.key[1], DEV).double()
             for g in plan.groups]
     deq = [dequantised(g, plan.bd).double() for g in plan.groups]
@@ -1594,12 +1640,30 @@ def hevc_kernel_rows(timer, tally, plan, launches):
         return [torch.matmul(torch.matmul(m.t(), d), m)
                 for m, d in zip(mats, deq)]
     b = bounds(nbytes, nops)
+    flat_ms = timer([lambda: device_recon.residuals(plan)])
+    other = {}
+    for what, p in (("slices_photo", s_plan), ("lists", l_plan)):
+        nb, no, nc = itx_work(p)
+        ms = timer([lambda p=p: device_recon.residuals(p)])
+        other[what] = {"ms": ms, "ns_per_coefficient": ms * 1e6 / nc,
+                       "coefficients": nc, "bytes": nb, "ops": no,
+                       "factor_slots": 0 if p.mtab is None else
+                       p.mtab.shape[0], **bounds(nb, no)}
+    per_coeff = flat_ms * 1e6 / coeffs
+    other["lists"]["over_flat_per_coefficient"] = \
+        other["lists"]["ns_per_coefficient"] / per_coeff
+    other["slices_photo"]["launches"] = s_launches["hevc_dequant_itx"]
     rows["hevc_dequant_itx"] = {
         "name": "hevc_dequant_itx", "route": "cuda", "source": HEVC_SOURCE,
         "replaces": f"{JNP_RECON}:540",
         "launches": launches["hevc_dequant_itx"],
         "max_abs_err": tally.max_abs_err["hevc_dequant_itx"],
-        "ms": timer([lambda: device_recon.residuals(plan)]),
+        "ms": flat_ms, "ns_per_coefficient": per_coeff,
+        "coefficients": coeffs,
+        "slices_photo": other["slices_photo"], "lists_plan": other["lists"],
+        # the flat plan's instantiation, then the one with scaling lists
+        **ptxas_resources("hevc_dequant_itx_kernelILb0"),
+        "lists_ptxas": ptxas_resources("hevc_dequant_itx_kernelILb1"),
         "plain_ms": timer([lambda: plain_residuals(plan)], n=3),
         **b,
         "library_ms": timer([f64_matmul], n=5),
@@ -1619,6 +1683,8 @@ def hevc_kernel_rows(timer, tally, plan, launches):
     chain_ms = wave_chain_ms(timer, plan)
     empty_ms = timer([lambda: torch.cuda._sleep(0)], n=500)
     ybuf, cbuf = wave_buffers(plan)
+    ybuf2, cbuf2 = wave_buffers(s_plan)
+    waves2 = device_recon.residuals(s_plan)
     rows["hevc_intra_wave"] = {
         "name": "hevc_intra_wave", "route": "cuda", "source": HEVC_SOURCE,
         "replaces": f"{JNP_RECON}:890",
@@ -1641,7 +1707,13 @@ def hevc_kernel_rows(timer, tally, plan, launches):
         "empty_launch_ms": empty_ms, "waves": plan.n_waves,
         "checks": tally.checks["hevc_intra_wave"],
         "differing_pixels": tally.differing["hevc_intra_wave"],
-        "bytes": nbytes, "ops": nops}
+        "bytes": nbytes, "ops": nops,
+        "slices_photo_ms": timer([lambda: hevc_fast.intra_waves(
+            ybuf2, cbuf2, waves2, s_plan.wave_rows, bd=s_plan.bd,
+            strong=s_plan.strong_smoothing)]),
+        "slices_photo_waves": s_plan.n_waves,
+        "slices_photo_launches": s_launches["hevc_intra_wave"],
+        **ptxas_resources("hevc_intra_wave_kernel")}
     log(f"hevc kernels {json.dumps(rows)}")
     return rows
 
@@ -1683,7 +1755,7 @@ def photo_device_share(blob, runs):
     (median of the repeats) for the photo."""
     dev = device_ms(lambda: HeifContext.read_from_bytes(blob).decode_image(
         None, Colorspace.RGB, Chroma.InterleavedRGB))
-    wall = float(np.median([r["total_ms"] for r in runs]))
+    wall = float(np.median(runs["total_ms"]))
     if dev is None:
         dev = "not measured (the profiler recorded no device time)"
     else:
@@ -2570,9 +2642,9 @@ def hvc1_tili_file(streams):
     tilC."""
     tiles = []
     for n in PHOTO_TILES:
-        sps, pps, sl = hevc_nals(streams[n])
+        sps, pps, slices = hevc_nals(streams[n])
         tiles.append(b"".join(len(x).to_bytes(4, "big") + x
-                              for x in (sps, pps, sl)))
+                              for x in (sps, pps, *slices)))
     sps, pps, _ = hevc_nals(streams[PHOTO_TILES[0]])
     cfg = Box_hvcC()
     cfg.general_profile_idc = 1
@@ -2848,6 +2920,7 @@ def main():
     # 4c. HEVC: the kernels, the streams, the phone photo, hvc1 files
     streams = hevc_streams()
     check_hevc_kernels(tally, streams)
+    check_extreme_groups(tally)
     check_hevc_streams(streams)
     photo = photo_file(streams)
     plan = photo_plan(streams)
@@ -2857,6 +2930,17 @@ def main():
     check_waves(tally, f"photo {plan.t} tiles", plan,
                 check_residuals(tally, f"photo {plan.t} tiles", plan))
     photo_launches = check_photo(photo, streams, plan)
+    # the slices photo: scaling lists and several slices, one batch
+    s_photo = photo_file(streams, SLICES_TILES)
+    s_plan = photo_plan(streams, SLICES_TILES)
+    log(f"hevc slices photo file {len(s_photo)} B, {s_plan.t} tiles, "
+        f"{s_plan.n_waves} waves, factor slots {s_plan.mtab.shape[0]}, "
+        f"groups { {str(g.key): g.n for g in s_plan.groups} }")
+    check_waves(tally, f"slices photo {s_plan.t} tiles", s_plan,
+                check_residuals(tally, f"slices photo {s_plan.t} tiles",
+                                s_plan))
+    s_launches = check_photo(s_photo, streams, s_plan, SLICES_TILES,
+                             "hevc slices photo")
     hvc1_blobs = check_hvc1_files(streams)
 
     phase_done("hevc")
@@ -3072,12 +3156,15 @@ def main():
     file_device = file_device_share(blobs, grid_runs, single_runs)
 
     # the HEVC kernels at the photo's shapes, its stages and file path
-    kern.update(hevc_kernel_rows(timer, tally, plan, photo_launches))
+    l_plan = photo_plan(streams, SLICES_TILES[:2] * 2)
+    kern.update(hevc_kernel_rows(timer, tally, plan, photo_launches, s_plan,
+                                 l_plan, s_launches))
     single = hevc_parse(streams[PHOTO_TILES[0]])
     wave_one = wave_single(timer, device_recon.build_plan(
         [single[0]], [single[1]], DEV))
     hevc_stages = stage_ms(timer, plan)
-    photo_runs = time_photo(photo, streams)
+    photo_runs = time_photo(photo)
+    s_photo_runs = time_photo(s_photo, "hevc slices photo")
     hvc1_runs = time_hvc1_single(hvc1_blobs["tile512_s0"])
     photo_device = photo_device_share(photo, photo_runs)
 
@@ -3145,6 +3232,9 @@ def main():
                        "device": photo_device,
                        "stage_device_ms": hevc_stages,
                        "wave_single_tile": wave_one},
+        "hevc_slices_photo": {"tiles": SLICES_TILES,
+                              "waves": s_plan.n_waves,
+                              "launches": s_launches, "runs": s_photo_runs},
         "hevc_single_item_total_ms": hvc1_runs,
         "av1_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
                       f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} av01 tiles of "

@@ -26,10 +26,19 @@
 //   with HEVC's even/odd partial butterfly (HM's partialButterflyInverse),
 //   the coefficients compile-time constants, and the warp stores the rows
 //   as 16-byte vectors.  No block-wide barrier, no matrix in memory, and one
-//   launch for all groups: a block finds its group in a small table.  All
-//   arithmetic is the jnp program's int32: the dequantise product wraps as
-//   XLA's does, and the butterfly adds the same products as the matrix
-//   product, every partial sum below 2^31.
+//   launch for all groups: a block finds its group in a small table.  A TU
+//   of slot 0 (flat scaling) keeps the jnp program's int32 arithmetic: the
+//   dequantise product wraps as XLA's does.  A TU whose picture has
+//   scaling lists reads its factors m[y][x] from its slot of the plan's
+//   (slots, 32, 32) byte table through the read-only path (four factors a
+//   32-bit load, beside its 16-byte coefficient vector) and forms
+//   c*m*levelScale<<(qp/6) in 64 bits, as the JAX Python engine does: up
+//   to 2^15 * 255 * 72 * 2^12, about 2^41.  A plan without lists launches
+//   the flat instantiation, which reads no slot and keeps the registers
+//   of a kernel that knows no lists (one kernel for both cost the flat
+//   plan 8-12% on the H100: 64, then 80 registers).  The butterfly adds
+//   the same products as the matrix product, every partial sum below
+//   2^31.
 //
 // * hevc_intra_wave is bound by the chain of dependent waves, not by bytes:
 //   a TU can only be predicted after the TUs its reference samples come
@@ -138,24 +147,30 @@ __device__ __forceinline__ void idst4(const int* x, int* y) {
   y[3] = 84 * x[0] - 74 * x[1] + 55 * x[2] - 29 * x[3];
 }
 
+constexpr int kMtabSide = 32;   // a scaling-factor slot: (32, 32) bytes
+
 struct ItxGroup {
   const int32_t* coeffs;  // (n, S, S) levels
   const int32_t* qp;      // (n,)
   const uint8_t* ts;      // (n,) transform skip
   const uint8_t* tqb;     // (n,) transquant bypass
+  const int32_t* mslot;   // (n,) scaling-factor slot, 0 = flat
   int32_t* out;           // (n, S, S) residuals
   int n, log2, dst, first_block;
 };
 
 struct ItxArgs {
   ItxGroup g[kMaxGroups];
+  const uint8_t* mtab;    // (slots, 32, 32) m[y][x], or null: all flat
   int n_groups, bd;
 };
 
 // One warp's 32 rows of S x S TUs, from TU tu0 on.  sh: the warp's
-// 32 * (S + 1) words of shared memory.
-template <int S>
-__device__ __forceinline__ void itx_warp(const ItxGroup& G, int32_t* sh,
+// 32 * (S + 1) words of shared memory.  LISTS: the plan has a factor
+// table (mtab), so each TU reads its slot.
+template <int S, bool LISTS>
+__device__ __forceinline__ void itx_warp(const ItxGroup& G,
+                                         const uint8_t* mtab, int32_t* sh,
                                          long long tu0, int bd) {
   constexpr int SS = S * S;
   constexpr int TS = S * (S + 1);   // a TU in shared memory
@@ -185,10 +200,25 @@ __device__ __forceinline__ void itx_warp(const ItxGroup& G, int32_t* sh,
       const int q = G.qp[t];
       const uint32_t scale = static_cast<uint32_t>(kLevelScale[q % 6]
                                                    << (q / 6));
+      const int slot = LISTS ? __ldg(G.mslot + t) : 0;
+      if (slot == 0) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)   // int32 product and sum wrap as in XLA
-        d[j] = clip16(static_cast<int32_t>(
-            static_cast<uint32_t>(c[j]) * scale + rnd1) >> (bs - 4));
+        for (int j = 0; j < 4; ++j)   // int32 product and sum wrap as in XLA
+          d[j] = clip16(static_cast<int32_t>(
+              static_cast<uint32_t>(c[j]) * scale + rnd1) >> (bs - 4));
+      } else {   // m[i][k..k+3], four bytes of the slot's row i
+        const uint32_t m4 = __ldg(reinterpret_cast<const unsigned int*>(
+            mtab + (static_cast<long long>(slot) * kMtabSide + i) *
+                       kMtabSide + k));
+        const long long rnd = 1LL << (bs - 1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const long long v =
+              (static_cast<long long>(c[j]) * ((m4 >> (8 * j)) & 255u) *
+                   scale + rnd) >> bs;
+          d[j] = static_cast<int>(min(max(v, -32768LL), 32767LL));
+        }
+      }
       const bool bypass = G.tqb[t] != 0;
       skip[it] = bypass || (S == 4 && G.ts[t] != 0);
       if (skip[it]) {
@@ -249,6 +279,28 @@ __device__ __forceinline__ void itx_warp(const ItxGroup& G, int32_t* sh,
   }
 }
 
+// warp w of group G: its 32 rows of TUs
+template <bool LISTS>
+__device__ __forceinline__ void itx_dispatch(const ItxGroup& G,
+                                             const ItxArgs& a, int32_t* s,
+                                             long long w) {
+  switch (G.log2) {
+    case 2:
+      if (w * 8 < G.n) itx_warp<4, LISTS>(G, a.mtab, s, w * 8, a.bd);
+      break;
+    case 3:
+      if (w * 4 < G.n) itx_warp<8, LISTS>(G, a.mtab, s, w * 4, a.bd);
+      break;
+    case 4:
+      if (w * 2 < G.n) itx_warp<16, LISTS>(G, a.mtab, s, w * 2, a.bd);
+      break;
+    default:
+      if (w < G.n) itx_warp<32, LISTS>(G, a.mtab, s, w, a.bd);
+      break;
+  }
+}
+
+template <bool LISTS>
 __global__ void __launch_bounds__(kItxThreads)
 hevc_dequant_itx_kernel(const ItxArgs a) {
   __shared__ int32_t sh[kItxWarps][32 * 33];
@@ -262,13 +314,7 @@ hevc_dequant_itx_kernel(const ItxArgs a) {
   const int warp = threadIdx.x >> 5;
   const long long w = static_cast<long long>(blockIdx.x - G.first_block) *
                       kItxWarps + warp;
-  int32_t* s = sh[warp];
-  switch (G.log2) {   // 32 rows of TUs a warp
-    case 2: if (w * 8 < G.n) itx_warp<4>(G, s, w * 8, a.bd); break;
-    case 3: if (w * 4 < G.n) itx_warp<8>(G, s, w * 4, a.bd); break;
-    case 4: if (w * 2 < G.n) itx_warp<16>(G, s, w * 2, a.bd); break;
-    default: if (w < G.n) itx_warp<32>(G, s, w, a.bd); break;
-  }
+  itx_dispatch<LISTS>(G, a, sh[warp], w);
 }
 
 // -------------------------------------------------------- hevc_intra_wave
@@ -557,10 +603,11 @@ hevc_wave_probe_kernel(int32_t* buf, int steps) {
 
 extern "C" {
 
-// groups: n_groups rows of 8 values (coeffs, qp, ts, tqb, out addresses;
-// TUs, log2, DST-VII flag)
+// groups: n_groups rows of 9 values (coeffs, qp, ts, tqb, mslot, out
+// addresses; TUs, log2, DST-VII flag); mtab: the (slots, 32, 32) scaling
+// factors, or null when every slot is 0
 int launch_hevc_dequant_itx(const long long* groups, int n_groups, int bd,
-                            int device, void* stream) {
+                            const void* mtab, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n_groups < 1 || n_groups > kMaxGroups || bd < 8 || bd > 16)
@@ -568,28 +615,33 @@ int launch_hevc_dequant_itx(const long long* groups, int n_groups, int bd,
   ItxArgs a{};
   a.n_groups = n_groups;
   a.bd = bd;
+  a.mtab = static_cast<const uint8_t*>(mtab);
+  if (reinterpret_cast<uintptr_t>(mtab) % 4 != 0) return kInvalid;
   long long blocks = 0;
   for (int k = 0; k < n_groups; ++k) {
-    const long long* v = groups + 8 * k;
+    const long long* v = groups + 9 * k;
     ItxGroup& g = a.g[k];
     g.coeffs = reinterpret_cast<const int32_t*>(v[0]);
     g.qp = reinterpret_cast<const int32_t*>(v[1]);
     g.ts = reinterpret_cast<const uint8_t*>(v[2]);
     g.tqb = reinterpret_cast<const uint8_t*>(v[3]);
-    g.out = reinterpret_cast<int32_t*>(v[4]);
-    g.n = static_cast<int>(v[5]);
-    g.log2 = static_cast<int>(v[6]);
-    g.dst = static_cast<int>(v[7]);
-    if (g.log2 < 2 || g.log2 > 5 || v[5] < 0 || v[5] > (1LL << 30) ||
-        v[0] % 16 != 0 || v[4] % 16 != 0)    // 16-byte vectors
+    g.mslot = reinterpret_cast<const int32_t*>(v[4]);
+    g.out = reinterpret_cast<int32_t*>(v[5]);
+    g.n = static_cast<int>(v[6]);
+    g.log2 = static_cast<int>(v[7]);
+    g.dst = static_cast<int>(v[8]);
+    if (g.log2 < 2 || g.log2 > 5 || v[6] < 0 || v[6] > (1LL << 30) ||
+        v[0] % 16 != 0 || v[5] % 16 != 0)    // 16-byte vectors
       return kInvalid;
     g.first_block = static_cast<int>(blocks);
     const int per_block = kItxWarps * (32 >> g.log2);   // TUs a block
-    blocks += (v[5] + per_block - 1) / per_block;
+    blocks += (v[6] + per_block - 1) / per_block;
   }
   if (blocks > (1LL << 31) - 1) return kInvalid;
   if (blocks == 0) return 0;
-  hevc_dequant_itx_kernel<<<static_cast<unsigned>(blocks), kItxThreads, 0,
+  auto kernel = a.mtab ? hevc_dequant_itx_kernel<true>
+                       : hevc_dequant_itx_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), kItxThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,8 +35,12 @@ class SaoParam:
 class SliceSyntax:
     """Parsed output for one picture.  ``sao_table`` is the parser's
     (pic_height_in_ctbs, pic_width_in_ctbs, 20) int16 SAO record per CTB
-    (types, 3x4 offsets, band positions, luma and chroma edge class), or
-    None when the slice carries no SAO."""
+    (types, 3x4 offsets, band positions, luma and chroma edge class; zero,
+    type 0, in a CTB whose slice carries no SAO), or None when no slice
+    carries SAO.  ``slice_map4`` holds the slice index per 4x4 (JAX
+    ctu.py:157, :296) and ``slice_headers`` each slice's header, so that
+    the filters read the offsets and flags of the slice that holds a
+    sample; ``sh`` is the first slice's."""
 
     def __init__(self, sps: SPS, pps: PPS, sh: SliceHeader):
         self.sps = sps
@@ -54,7 +58,18 @@ class SliceSyntax:
         self.tqb_map = np.zeros((h4, w4), np.uint8)
         self.nonzero_y = np.zeros((h4, w4), np.uint8)    # cbf_luma per 4x4
         self.avail = np.zeros((h4, w4), np.uint8)        # decoded yet
+        self.slice_map4 = np.zeros((h4, w4), np.int16)
+        self.slice_headers: List[SliceHeader] = [sh]
+        n_ctbs = sps.pic_width_in_ctbs * sps.pic_height_in_ctbs
+        self.sao_buf = np.zeros((n_ctbs, 20), np.int16)  # the parser's
         self.sao_table: Optional[np.ndarray] = None
+
+    def slice_field(self, name: str, dtype=np.int32) -> np.ndarray:
+        """A slice header field per 4x4: ``name`` of the slice holding
+        each position, (h4, w4)."""
+        vals = np.asarray([getattr(h, name) for h in self.slice_headers],
+                          dtype)
+        return vals[self.slice_map4]
 
     def sao_param(self, cx: int, cy: int) -> SaoParam:
         """The CTB's parameters in the JAX package's SaoParam form."""

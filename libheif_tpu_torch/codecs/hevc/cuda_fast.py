@@ -24,7 +24,7 @@ a launch count (``KERNELS[name].launches``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,7 +37,7 @@ from .tables import DCT, DST4, INTRA_INV_ANGLE, INTRA_PRED_ANGLE
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 HEVC_DEQUANT_ITX = CudaKernel(
-    "hevc_dequant_itx", "launch_hevc_dequant_itx", [_P, _I, _I])
+    "hevc_dequant_itx", "launch_hevc_dequant_itx", [_P, _I, _I, _P])
 HEVC_INTRA_WAVE = CudaKernel(
     "hevc_intra_wave", "launch_hevc_intra_wave",
     [_P, _I, _P, _I, _I, _P, _P, _I, _I])
@@ -52,6 +52,7 @@ KERNELS: Dict[str, CudaKernel] = {
 
 LEVEL_SCALE = (40, 45, 51, 57, 64, 72)
 MAX_GROUPS = 7          # kMaxGroups in csrc/hevc_kernels.cu
+MTAB_SIDE = 32          # a factor-table slot: (32, 32), the TU's top left
 
 # prediction angles as dense tables indexed by mode 0..34
 ANGLE = np.zeros(35, np.int32)
@@ -75,23 +76,33 @@ def transform_matrix(luma: bool, log2: int, device) -> torch.Tensor:
 class ItxGroup(NamedTuple):
     """One TU group's stage-A inputs: ``coeffs`` (n, s, s) int32 levels,
     ``qp`` (n,) int32, ``ts``/``tqb`` (n,) bool (transform skip,
-    transquant bypass)."""
+    transquant bypass), ``mslot`` (n,) int32: each TU's slot in the plan's
+    scaling-factor table (0: the flat factor 16)."""
     luma: bool
     log2: int
     coeffs: torch.Tensor
     qp: torch.Tensor
     ts: torch.Tensor
     tqb: torch.Tensor
+    mslot: torch.Tensor
 
 
-def dequant_itx(groups: Sequence[ItxGroup], *, bd: int
-                ) -> List[torch.Tensor]:
+def dequant_itx(groups: Sequence[ItxGroup], *, bd: int,
+                mtab: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """Stage A for every TU group of a plan, one launch: each group's
-    (n, s, s) int32 residuals.  Dequantise (flat scaling), clip, the
-    column then the row pass of the inverse DST-VII (luma 4x4) or DCT with
-    HEVC's shifts and clips, transform skip (4x4) and transquant bypass."""
+    (n, s, s) int32 residuals.  Dequantise, clip, the column then the row
+    pass of the inverse DST-VII (luma 4x4) or DCT with HEVC's shifts and
+    clips, transform skip (4x4) and transquant bypass.  ``mtab`` (slots,
+    32, 32) uint8 holds the scaling factors m[y][x] (a TU of side s reads
+    the top left s x s of its slot; slot 0 is the flat 16), or is None
+    when no picture of the plan has scaling lists (every slot then 0)."""
     if len(groups) > MAX_GROUPS:
         raise ValueError(f"at most {MAX_GROUPS} groups, got {len(groups)}")
+    if mtab is not None and (mtab.dtype != torch.uint8 or mtab.dim() != 3
+                             or tuple(mtab.shape[1:]) != (MTAB_SIDE,
+                                                          MTAB_SIDE)):
+        raise ValueError(f"mtab: expected (slots, {MTAB_SIDE}, {MTAB_SIDE})"
+                         f" uint8, got {tuple(mtab.shape)} {mtab.dtype}")
     for g in groups:
         s = 1 << g.log2
         n = g.coeffs.shape[0]
@@ -101,38 +112,45 @@ def dequant_itx(groups: Sequence[ItxGroup], *, bd: int
                              f"{tuple(g.coeffs.shape)} {g.coeffs.dtype}")
         for t, name, dt in ((g.qp, "qp", torch.int32),
                             (g.ts, "ts", torch.bool),
-                            (g.tqb, "tqb", torch.bool)):
+                            (g.tqb, "tqb", torch.bool),
+                            (g.mslot, "mslot", torch.int32)):
             if t.dtype != dt or tuple(t.shape) != (n,):
                 raise ValueError(f"{name}: expected ({n},) {dt}, got "
                                  f"{tuple(t.shape)} {t.dtype}")
     if not groups:
         return []
-    if _on_cpu(*(t for g in groups for t in g[2:])):
+    extra = () if mtab is None else (mtab,)
+    if _on_cpu(*(t for g in groups for t in g[2:]), *extra):
         return [dequant_itx_plain(
             g.coeffs, g.qp, g.ts, g.tqb,
             transform_matrix(g.luma, g.log2, g.coeffs.device), log2=g.log2,
-            bd=bd) for g in groups]
+            bd=bd, mslot=g.mslot, mtab=mtab) for g in groups]
     outs = [torch.empty_like(g.coeffs) for g in groups]
     for t in [g.coeffs for g in groups] + outs:
         if t.data_ptr() % 16:
             raise ValueError("hevc_dequant_itx: coefficients and residuals "
                              "must be 16-byte aligned")
-    table = (ctypes.c_longlong * (8 * len(groups)))(*(
+    table = (ctypes.c_longlong * (9 * len(groups)))(*(
         v for g, o in zip(groups, outs)
         for v in (g.coeffs.data_ptr(), g.qp.data_ptr(), g.ts.data_ptr(),
-                  g.tqb.data_ptr(), o.data_ptr(), g.coeffs.shape[0], g.log2,
-                  int(g.luma and g.log2 == 2))))
+                  g.tqb.data_ptr(), g.mslot.data_ptr(), o.data_ptr(),
+                  g.coeffs.shape[0], g.log2, int(g.luma and g.log2 == 2))))
     HEVC_DEQUANT_ITX.launch(max(outs, key=torch.Tensor.numel),
-                            ctypes.addressof(table), len(groups), bd)
+                            ctypes.addressof(table), len(groups), bd,
+                            0 if mtab is None else mtab.data_ptr())
     return outs
 
 
-def dequant_itx_plain(coeffs, qp, ts, tqb, mat, *, log2, bd, chunk=4096):
+def dequant_itx_plain(coeffs, qp, ts, tqb, mat, *, log2, bd, mslot=None,
+                      mtab=None, chunk=4096):
     """Plain PyTorch version of hevc_dequant_itx: device_recon.py:540-567
     with each int32 matrix product as an int64 broadcast product and sum
     (CUDA has no integer matmul); every sum is below 2^31, so the int32
-    result is exact.  Done ``chunk`` TUs at a time to bound the (N, s, s,
-    s) temporaries."""
+    result is exact.  A TU of slot 0 dequantises with the flat factor in
+    the jnp program's wrapping int32; any other slot (``mslot``, into
+    ``mtab`` as for dequant_itx) as JAX ``recon.dequant`` does, in int64:
+    (c*m*levelScale<<(qp/6) + 2^(bs-1)) >> bs.  Done ``chunk`` TUs at a
+    time to bound the (N, s, s, s) temporaries."""
     s = 1 << log2
     bs = bd + log2 - 5
     dev = coeffs.device
@@ -147,6 +165,16 @@ def dequant_itx_plain(coeffs, qp, ts, tqb, mat, *, log2, bd, chunk=4096):
         # (c*16*scale + 2^(bs-1)) >> bs  ==  (c*scale + 2^(bs-5)) >> (bs-4)
         d = (c * scale[:, None, None] + (1 << (bs - 5))) >> (bs - 4)
         d = torch.clamp(d, -32768, 32767)
+        if mtab is not None:
+            ms = mslot[lo:lo + chunk]
+            lists = ms != 0
+            if bool(lists.any()):
+                m_f = mtab[ms.to(torch.int64), :s, :s].to(torch.int64)
+                dl = (c.to(torch.int64) * m_f
+                      * scale.to(torch.int64)[:, None, None]
+                      + (1 << (bs - 1))) >> bs
+                dl = torch.clamp(dl, -32768, 32767).to(torch.int32)
+                d = torch.where(lists[:, None, None], dl, d)
         # e[n, j, k] = sum_i m[i, j] d[n, i, k]
         e = (d.to(torch.int64)[:, :, None, :] * m[None, :, :, None]).sum(1)
         e = torch.clamp((e + 64) >> 7, -32768, 32767)

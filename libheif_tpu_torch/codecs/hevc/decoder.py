@@ -15,12 +15,14 @@ import numpy as np
 import torch
 
 from ...core.error import HeifError, SubError
+from ...core.trace import span
 from ...boxes.codec_cfg import (emulation_prevention_positions,
                                 remove_emulation_prevention)
 from ...image.pixel_image import PixelImage, Channel, Colorspace, Chroma
 from . import headers as H
+from .ctu import SliceSyntax
 from .device_recon import decode_pictures_device
-from .native_parse import parse_picture_raw
+from .native_parse import parse_slice_raw
 
 
 def split_length_prefixed(data: bytes, length_size: int) -> List[bytes]:
@@ -84,8 +86,8 @@ def check_picture_supported(sps: H.SPS, pps: H.PPS,
                             slice_nals: List[bytes]) -> None:
     """Raise Unsupported, naming the feature, for what the port does not
     decode: HEVC tiles, chroma other than 4:2:0, bit depths other than
-    8/10/12 (equal for luma and chroma), scaling lists, and pictures of
-    more than one slice NAL."""
+    8/10/12 (equal for luma and chroma), and cu_qp_delta in pictures of
+    several slice NALs (``check_slices`` reads the slice headers)."""
     if pps.tiles_enabled:
         raise HeifError.unsupported(SubError.Unsupported_codec,
                                     "HEVC tiles not yet supported")
@@ -98,26 +100,80 @@ def check_picture_supported(sps: H.SPS, pps: H.PPS,
             SubError.Unsupported_bit_depth,
             "bit depth %d/%d not supported (8/10/12-bit equal-depth only)"
             % (sps.bit_depth_luma, sps.bit_depth_chroma))
-    if sps.scaling_list_enabled:
-        raise HeifError.unsupported(SubError.Unsupported_codec,
-                                    "HEVC scaling lists not yet supported")
-    if len(slice_nals) != 1:
+    if not slice_nals:
+        raise HeifError.invalid_input(msg="no slice NAL in the picture")
+    if len(slice_nals) > 1 and pps.cu_qp_delta_enabled:
         raise HeifError.unsupported(
             SubError.Unsupported_codec,
-            f"pictures of {len(slice_nals)} slice NALs not yet supported "
-            "(one slice only)")
+            "cu_qp_delta across several slices not yet supported")
+
+
+def check_slices(sps: H.SPS, pps: H.PPS,
+                 headers: List[H.SliceHeader]) -> None:
+    """The slice headers of a picture of several slices: dependent slice
+    segments, and under WPP a slice segment that starts inside a CTB row,
+    raise Unsupported."""
+    if len(headers) < 2:
+        return
+    if any(h.dependent_slice for h in headers):
+        raise HeifError.unsupported(SubError.Unsupported_codec,
+                                    "dependent slice segments")
+    if pps.entropy_coding_sync_enabled and any(
+            h.segment_address % sps.pic_width_in_ctbs for h in headers[1:]):
+        raise HeifError.unsupported(
+            SubError.Unsupported_codec,
+            "WPP with a slice segment starting inside a CTB row not yet "
+            "supported")
 
 
 def parse_picture(sps: H.SPS, pps: H.PPS, slice_nals: List[bytes]):
-    """Host entropy decode of one intra picture → (SliceSyntax, (cols,
-    coeff_buf, offs)), the input of device_recon."""
+    """Host entropy decode of one intra picture (span hevc.parse) →
+    (SliceSyntax, (cols, coeff_buf, offs)), the input of device_recon."""
+    with span("hevc.parse"):
+        return _parse_picture(sps, pps, slice_nals)
+
+
+def _parse_picture(sps: H.SPS, pps: H.PPS, slice_nals: List[bytes]):
+    """The picture's slice segments, one after the other: each parses
+    its CTBs into the picture's shared maps (the JAX package's
+    ``_parse_multi_slice`` rules: addresses contiguous from 0, every CTB
+    covered, else invalid_input)."""
     check_picture_supported(sps, pps, slice_nals)
-    nal = slice_nals[0]
-    sh = H.parse_slice_header(nal, sps, {pps.pps_id: pps})
-    rbsp = remove_emulation_prevention(nal[2:])
-    subs = _substreams(nal, rbsp, sh.data_offset_bits, sh.entry_point_offsets)
-    syn, cols, coeff, offs = parse_picture_raw(sps, pps, sh, rbsp, subs)
-    return syn, (cols, coeff, offs)
+    headers = [H.parse_slice_header(nal, sps, {pps.pps_id: pps})
+               for nal in slice_nals]
+    check_slices(sps, pps, headers)
+    syn = SliceSyntax(sps, pps, headers[0])
+    syn.slice_headers = headers
+    n_ctbs = sps.pic_width_in_ctbs * sps.pic_height_in_ctbs
+    cols_l, coeff_l, offs_l = [], [], []
+    pos = 0
+    next_ctb = 0
+    for idx, (nal, sh) in enumerate(zip(slice_nals, headers)):
+        start = 0 if sh.first_slice_in_pic else sh.segment_address
+        if start != next_ctb:
+            raise HeifError.invalid_input(
+                msg=f"slice segment address {start}, expected {next_ctb}")
+        rbsp = remove_emulation_prevention(nal[2:])
+        subs = _substreams(nal, rbsp, sh.data_offset_bits,
+                           sh.entry_point_offsets)
+        cols, coeff, offs, last = parse_slice_raw(
+            sps, pps, sh, rbsp, subs, syn, idx, start,
+            one_slice=len(slice_nals) == 1)
+        cols_l.append(cols)
+        coeff_l.append(coeff)
+        offs_l.append(np.where(offs >= 0, offs + pos, -1))
+        pos += len(coeff)
+        next_ctb = last + 1
+        if next_ctb >= n_ctbs and idx + 1 < len(slice_nals):
+            raise HeifError.invalid_input(
+                msg=f"slice {idx + 1} after the picture's last CTB")
+    if next_ctb != n_ctbs:
+        raise HeifError.invalid_input(
+            msg=f"slices cover {next_ctb}/{n_ctbs} CTBs")
+    if len(cols_l) == 1:
+        return syn, (cols_l[0], coeff_l[0], offs_l[0])
+    return syn, (np.concatenate(cols_l), np.concatenate(coeff_l),
+                 np.concatenate(offs_l))
 
 
 def decode_intra_picture(sps: H.SPS, pps: H.PPS, slice_nals: List[bytes],

@@ -6,7 +6,9 @@ device in the JAX program's four stages:
 
   stage A  dequant + inverse transforms   kernel hevc_dequant_itx, one
                                           launch for every TU group
-                                          (size and plane)
+                                          (size and plane); scaling
+                                          lists through per-TU slots of
+                                          one factor table
   stage B  intra prediction + recon       kernel hevc_intra_wave, one
                                           launch: each picture walks its
                                           dependency waves (every TU
@@ -40,9 +42,12 @@ import numpy as np
 import torch
 
 from ..._build import HOST_LIBRARY, resolve_device
+from ...core.trace import span
 from .ctu import SliceSyntax
-from .cuda_fast import ItxGroup, WaveGroup, dequant_itx, intra_waves
+from .cuda_fast import (MTAB_SIDE, ItxGroup, WaveGroup, dequant_itx,
+                        intra_waves)
 from .filters import BETA_TABLE, TC_TABLE
+from .headers import effective_scaling_factors
 from .tables import chroma_qp
 
 # group keys: (is_luma, log2). DST-VII applies to the (True, 2) group.
@@ -75,6 +80,7 @@ class GroupPlan:
     qp: torch.Tensor         # (n,) int32
     ts: torch.Tensor         # (n,) bool   transform skip
     tqb: torch.Tensor        # (n,) bool   transquant bypass
+    mslot: torch.Tensor      # (n,) int32  scaling-factor slot, 0 = flat
     mode: torch.Tensor       # (n,) int32
     ref_idx: torch.Tensor    # (n, 4s+1) int32 flat gather indices
     ref_avail: torch.Tensor  # (n, 4s+1) bool
@@ -102,15 +108,19 @@ class ReconPlan:
     n_waves: int
     groups: List[GroupPlan]
     wave_rows: torch.Tensor    # (G, n_waves, T+1) int32, the groups' tables
+    mtab: Optional[torch.Tensor]   # (slots, 32, 32) uint8; None: all flat
     deblock: Optional[Dict[str, torch.Tensor]]   # None: off everywhere
     sao: Optional[Dict[str, torch.Tensor]]       # None: no CTB uses SAO
     tqb_mask: Optional[torch.Tensor]             # (t, h4, w4) bool
     device: torch.device
 
 
-def plan_waves(cols: np.ndarray, W: int, H: int):
+def plan_waves(cols: np.ndarray, W: int, H: int,
+               slice_map: Optional[np.ndarray] = None):
     """Wave index and reference availability (N, AVAIL_STRIDE) of every
-    TU, by host/hevc_plan.cc."""
+    TU, by host/hevc_plan.cc; ``slice_map`` (the picture's slice index
+    per 4x4, SliceSyntax.slice_map4) makes a sample of another slice
+    unavailable, None means one slice."""
     import ctypes
     fn = HOST_LIBRARY.load().tpuheif_hevc_plan
     fn.restype = ctypes.c_int
@@ -118,25 +128,34 @@ def plan_waves(cols: np.ndarray, W: int, H: int):
     waves = np.zeros(N, np.int32)
     avail = np.zeros((N, AVAIL_STRIDE), np.uint8)
     cols_c = np.ascontiguousarray(cols, np.int32)
+    sm = None if slice_map is None else \
+        np.ascontiguousarray(slice_map, np.int16)
+    if sm is not None and (sm.shape[0] * 4 < H or sm.shape[1] * 4 < W):
+        raise ValueError(f"slice map {sm.shape} smaller than {W}x{H}")
     rc = fn(ctypes.c_void_p(cols_c.ctypes.data), ctypes.c_int64(N),
             ctypes.c_int32(cols_c.shape[1]), ctypes.c_int32(W),
             ctypes.c_int32(H), ctypes.c_void_p(waves.ctypes.data),
-            ctypes.c_void_p(avail.ctypes.data), ctypes.c_int32(AVAIL_STRIDE))
+            ctypes.c_void_p(avail.ctypes.data), ctypes.c_int32(AVAIL_STRIDE),
+            ctypes.c_void_p(None if sm is None else sm.ctypes.data),
+            ctypes.c_int32(0 if sm is None else sm.shape[1]))
     if rc != 0:
         raise RuntimeError(f"tpuheif_hevc_plan failed ({rc})")
     return waves, avail
 
 
-def plan_inputs(raw_tus: Sequence[tuple], W: int, H: int
+def plan_inputs(raw_tus: Sequence[tuple], W: int, H: int,
+                slice_maps: Optional[Sequence] = None
                 ) -> Dict[str, np.ndarray]:
-    """The host part of a plan: the wave planner over each picture, and
+    """The host part of a plan: the wave planner over each picture (with
+    its slice map, if any: ``slice_maps[t]``, None for one slice), and
     the batch's TU columns, picture index, waves, availability (packed to
     bits) and coefficients concatenated into flat arrays, the coefficient
     offsets moved to the joined buffer (which ends with a zero)."""
     cols_l, tile_l, waves_l, avail_l, offs_l, coeff_l = [], [], [], [], [], []
     pos = 0
     for t_idx, (cols, coeff, offs) in enumerate(raw_tus):
-        waves, avail = plan_waves(cols, W, H)
+        waves, avail = plan_waves(
+            cols, W, H, None if slice_maps is None else slice_maps[t_idx])
         cols_l.append(cols)
         tile_l.append(np.full(len(cols), t_idx, np.int32))
         waves_l.append(waves)
@@ -181,16 +200,71 @@ def wave_rows(waves: np.ndarray, tiles: np.ndarray, n_waves: int,
     return out.astype(np.int32)
 
 
+# a picture's ten factor-table slots with scaling lists: matrixId = c_idx
+# 0-2 at 4x4 to 16x16, then luma 32x32
+_SLOT_KEYS = [(lg, c) for lg in (2, 3, 4) for c in (0, 1, 2)] + [(5, 0)]
+
+
+def scaling_slots(syntaxes: Sequence[SliceSyntax]):
+    """The plan's scaling-factor table and each picture's first slot:
+    (mtab (slots, 32, 32) uint8 or None, base (T,) int64).  Slot 0 is the
+    flat 16; each distinct set of ScalingFactor matrices in the batch
+    (effective_scaling_factors) adds ten slots, in _SLOT_KEYS order, each
+    matrix m[y][x] in the top left of its slot.  A picture without lists
+    has base 0; a TU's slot is base + its key's index, or 0."""
+    base = np.zeros(len(syntaxes), np.int64)
+    sets: Dict[bytes, int] = {}
+    tabs = [np.full((1, MTAB_SIDE, MTAB_SIDE), 16, np.uint8)]
+    for t, syn in enumerate(syntaxes):
+        f = effective_scaling_factors(syn.sps, syn.pps)
+        if f is None:
+            continue
+        slots = np.zeros((len(_SLOT_KEYS), MTAB_SIDE, MTAB_SIDE), np.uint8)
+        for i, (lg, c) in enumerate(_SLOT_KEYS):
+            m = np.asarray(f[lg - 2][c])
+            slots[i, :m.shape[0], :m.shape[1]] = m
+        key = slots.tobytes()
+        if key not in sets:
+            sets[key] = 1 + len(_SLOT_KEYS) * (len(tabs) - 1)
+            tabs.append(slots)
+        base[t] = sets[key]
+    if not sets:
+        return None, base
+    return np.concatenate(tabs), base
+
+
+def tu_slots(cols: np.ndarray, tiles: np.ndarray, base: np.ndarray
+             ) -> np.ndarray:
+    """(N,) int32 factor-table slot of each TU row (log2 in column 2,
+    c_idx in column 3) of the pictures ``tiles``, from scaling_slots'
+    ``base``."""
+    key = np.full((6, 3), -1, np.int64)
+    for i, (lg, c) in enumerate(_SLOT_KEYS):
+        key[lg, c] = i
+    k = key[cols[:, 2], cols[:, 3]]
+    b = base[tiles]
+    if ((b > 0) & (k < 0)).any():
+        raise ValueError("a TU size and plane without a scaling list")
+    return np.where(b > 0, b + k, 0).astype(np.int32)
+
+
 def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
                device=None) -> ReconPlan:
     """Wavefront schedule and TU tables for a batch of pictures that agree
     on ``batch_key`` (else BatchMismatch).  raw_tus: per picture (cols,
-    coeff_buf, offs) from native_parse.parse_picture_raw."""
+    coeff_buf, offs) from decoder.parse_picture.  Spans: hevc.plan, split
+    into hevc.plan.host (planner, slots, filter maps), hevc.plan.copies
+    (host to device) and hevc.plan.tables (the groups' tables, built on
+    the device)."""
+    with span("hevc.plan"):
+        return _build_plan(syntaxes, raw_tus, device)
+
+
+def _build_plan(syntaxes, raw_tus, device) -> ReconPlan:
     dev = resolve_device(device)
     sps0 = syntaxes[0].sps
     W, H = sps0.pic_width, sps0.pic_height
     bd = sps0.bit_depth_luma
-    cw, ch = W >> 1, H >> 1
     T = len(syntaxes)
     key = batch_key(sps0)
     for syn in syntaxes:
@@ -198,20 +272,58 @@ def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
             raise BatchMismatch(
                 f"batch pictures must agree on (width, height, bit depth, "
                 f"CTB size, strong smoothing): {batch_key(syn.sps)} vs {key}")
-    y_plane_sz = H * W
-    c_plane_sz = ch * cw
-    trash_y = T * y_plane_sz          # one extra slot at the end
-    trash_c = T * 2 * c_plane_sz
-
-    inp = plan_inputs(raw_tus, W, H)
+    with span("hevc.plan.host"):
+        inp = plan_inputs(raw_tus, W, H, [
+            syn.slice_map4 if len(syn.slice_headers) > 1 else None
+            for syn in syntaxes])
+        mtab, base = scaling_slots(syntaxes)
+        inp["mslot"] = tu_slots(inp["cols"], inp["tile"], base)
+        deblock = _build_deblock_params(syntaxes, W, H, bd)
+        sao, tqb_mask = _build_sao_params(syntaxes, W, H)
     cols, waves, tiles = inp["cols"], inp["waves"], inp["tile"]
     n_waves = int(waves.max()) + 1 if len(waves) else 1
     c_idx, log2c = cols[:, 3], cols[:, 2]
 
-    # device: the columns, coefficients and packed availability, once
-    d = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
+    # device: the columns, coefficients, slots and packed availability,
+    # once
+    with span("hevc.plan.copies"):
+        d = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
     cols_d, tile_d, waves_d = d["cols"], d["tile"], d["waves"]
     avail_bits, offs_d, coeff_d = d["avail_bits"], d["offs"], d["coeff"]
+    with span("hevc.plan.tables"):
+        groups = _group_tables(
+            W, H, T, n_waves, c_idx, log2c, waves, tiles, cols_d, tile_d,
+            waves_d, avail_bits, offs_d, coeff_d, d["mslot"], dev)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    with span("hevc.plan.copies"):
+        return ReconPlan(
+            t=T, width=W, height=H, bd=bd,
+            strong_smoothing=bool(sps0.strong_intra_smoothing),
+            n_waves=n_waves, groups=groups,
+            wave_rows=put(np.stack([g.wave_rows for g in groups])
+                          if groups else
+                          np.zeros((0, n_waves, T + 1), np.int32)),
+            mtab=None if mtab is None else put(mtab),
+            deblock=None if deblock is None else
+            {k: put(v) for k, v in deblock.items()},
+            sao=None if sao is None else
+            {k: put(v) for k, v in sao.items()},
+            tqb_mask=None if tqb_mask is None else put(tqb_mask).bool(),
+            device=dev)
+
+
+def _group_tables(W, H, T, n_waves, c_idx, log2c, waves, tiles, cols_d,
+                  tile_d, waves_d, avail_bits, offs_d, coeff_d, mslot_d,
+                  dev) -> List[GroupPlan]:
+    """Each TU group's tables (GroupPlan), built on the plan's device from
+    the copied columns."""
+    cw, ch = W >> 1, H >> 1
+    y_plane_sz = H * W
+    c_plane_sz = ch * cw
+    trash_y = T * y_plane_sz          # one extra slot at the end
+    trash_c = T * 2 * c_plane_sz
 
     groups: List[GroupPlan] = []
     for key in GROUP_KEYS:
@@ -260,25 +372,10 @@ def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
         groups.append(GroupPlan(
             key=key, n=len(sel), coeffs=cf.to(torch.int32),
             qp=c[:, 5].to(torch.int32), ts=c[:, 6] != 0, tqb=c[:, 7] != 0,
-            mode=c[:, 4].to(torch.int32), ref_idx=ridx.to(torch.int32),
-            ref_avail=av, scat_idx=scat.to(torch.int32), wave_rows=rows))
-
-    deblock = _build_deblock_params(syntaxes, W, H, bd)
-    sao, tqb_mask = _build_sao_params(syntaxes, W, H)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return ReconPlan(
-        t=T, width=W, height=H, bd=bd,
-        strong_smoothing=bool(sps0.strong_intra_smoothing), n_waves=n_waves,
-        groups=groups,
-        wave_rows=put(np.stack([g.wave_rows for g in groups])
-                      if groups else np.zeros((0, n_waves, T + 1), np.int32)),
-        deblock=None if deblock is None else
-        {k: put(v) for k, v in deblock.items()},
-        sao=None if sao is None else {k: put(v) for k, v in sao.items()},
-        tqb_mask=None if tqb_mask is None else put(tqb_mask).bool(),
-        device=dev)
+            mslot=mslot_d[idx], mode=c[:, 4].to(torch.int32),
+            ref_idx=ridx.to(torch.int32), ref_avail=av,
+            scat_idx=scat.to(torch.int32), wave_rows=rows))
+    return groups
 
 
 # ---------------------------------------------------------------- deblock
@@ -290,8 +387,17 @@ def _build_deblock_params(syntaxes, W, H, bd):
     """Per-edge-segment beta/tc/enabled arrays (the filter decisions that
     depend only on the parse maps, not on pixels), vectorised over the
     (segment, edge) lattice; beta and tc scale with the bit depth (spec
-    8.7.2.5.3).  Counterpart of device_recon.py:346-446."""
-    if all(syn.sh.deblocking_filter_disabled for syn in syntaxes):
+    8.7.2.5.3).  Counterpart of device_recon.py:346-446, per slice: each
+    segment takes the offsets and slice_deblocking_filter_disabled_flag of
+    the slice that holds q0, and an edge on a slice boundary is off where
+    that slice's slice_loop_filter_across_slices_enabled_flag is 0 (q0's
+    slice is the later of the two: a slice's left and upper neighbours
+    come before it).  Where a picture has transquant-bypass CUs the maps
+    also carry ``bp_*``/``bq_*``: the segment's p0 or q0 lies in a bypass
+    CU, whose samples the filter leaves as they are (nDp = 0, nDq = 0,
+    spec 8.7.2.5.7)."""
+    if all(h.deblocking_filter_disabled
+           for syn in syntaxes for h in syn.slice_headers):
         return None
     T = len(syntaxes)
     cw, ch = W >> 1, H >> 1
@@ -320,18 +426,37 @@ def _build_deblock_params(syntaxes, W, H, bd):
         ctc_h=np.zeros((T, 2, csh, ceh), np.int32),
         cen_h=np.zeros((T, 2, csh, ceh), bool),
     )
+    bypass = any(syn.tqb_map.any() for syn in syntaxes)
+    if bypass:
+        for k, shape in (("v", (T, sv, ev)), ("h", (T, sh_, eh)),
+                         ("cv", (T, csv, cev)), ("ch", (T, csh, ceh))):
+            out["bp_" + k] = np.zeros(shape, bool)
+            out["bq_" + k] = np.zeros(shape, bool)
 
     for t, syn in enumerate(syntaxes):
-        if syn.sh.deblocking_filter_disabled:
+        multi = len(syn.slice_headers) > 1
+        if not multi and syn.sh.deblocking_filter_disabled:
             continue
-        beta_off = syn.sh.beta_offset_div2 * 2
-        tc_off = syn.sh.tc_offset_div2 * 2
         qp_y = np.asarray(syn.qp_y, np.int32)
         tu4 = np.asarray(syn.tu_log2, np.int32)
         cu4 = np.asarray(syn.cu_log2, np.int32)
+        tqb4 = np.asarray(syn.tqb_map) != 0
+        if multi:       # the fields of the slice holding each 4x4
+            sl4 = np.asarray(syn.slice_map4)
+            off4 = ~syn.slice_field("deblocking_filter_disabled", bool)
+            across4 = syn.slice_field("loop_filter_across_slices", bool)
+            beta_off4 = syn.slice_field("beta_offset_div2") * 2
+            tc_off4 = syn.slice_field("tc_offset_div2") * 2
+
+        def offsets(x, y):
+            """(beta, tc) offsets of q0's slice."""
+            if multi:
+                return beta_off4[y >> 2, x >> 2], tc_off4[y >> 2, x >> 2]
+            return syn.sh.beta_offset_div2 * 2, syn.sh.tc_offset_div2 * 2
 
         def edge_mask(x, y, vertical):
-            """filters.py:_is_block_edge over coordinate arrays."""
+            """filters.py:_is_block_edge over coordinate arrays, and the
+            slice rules of q0's slice."""
             bx, by = x >> 2, y >> 2
             tl = tu4[by, bx]
             cl = cu4[by, bx]
@@ -339,7 +464,17 @@ def _build_deblock_params(syntaxes, W, H, bd):
             pos = x if vertical else y
             is_tu = (pos & ((1 << tl) - 1)) == 0
             is_cu = (cl != 0) & ((pos & ((1 << cl) - 1)) == 0)
-            return is_tu | is_cu
+            if not multi:
+                return is_tu | is_cu
+            px, py = (bx - 1, by) if vertical else (bx, by - 1)
+            same = sl4[by, bx] == sl4[py, px]
+            return (is_tu | is_cu) & off4[by, bx] & (same | across4[by, bx])
+
+        def sides(x, y, vertical):
+            """(p0 in a bypass CU, q0 in a bypass CU)."""
+            bx, by = x >> 2, y >> 2
+            px, py = (bx - 1, by) if vertical else (bx, by - 1)
+            return tqb4[py, px], tqb4[by, bx]
 
         def avg_qp(x, y, vertical):
             if vertical:
@@ -348,9 +483,9 @@ def _build_deblock_params(syntaxes, W, H, bd):
             return (qp_y[(y - 1) >> 2, x >> 2] +
                     qp_y[y >> 2, x >> 2] + 1) >> 1
 
-        for vertical, ne, ns, bkey, tkey, ekey in (
-                (True, ev, sv, "beta_v", "tc_v", "en_v"),
-                (False, eh, sh_, "beta_h", "tc_h", "en_h")):
+        for vertical, ne, ns, bkey, tkey, ekey, side in (
+                (True, ev, sv, "beta_v", "tc_v", "en_v", "v"),
+                (False, eh, sh_, "beta_h", "tc_h", "en_h", "h")):
             if ne == 0:
                 continue
             pos = 8 * (np.arange(ne) + 1)[None, :]       # (1, E)
@@ -360,15 +495,19 @@ def _build_deblock_params(syntaxes, W, H, bd):
             y = np.broadcast_to(y, (ns, ne))
             en = edge_mask(x, y, vertical)
             qp = avg_qp(x, y, vertical)
-            beta = BETA_TABLE[np.clip(qp + beta_off, 0, 51)] << (bd - 8)
-            tc = TC_TABLE[np.clip(qp + 2 + tc_off, 0, 53)] << (bd - 8)
+            boff, toff = offsets(x, y)
+            beta = BETA_TABLE[np.clip(qp + boff, 0, 51)] << (bd - 8)
+            tc = TC_TABLE[np.clip(qp + 2 + toff, 0, 53)] << (bd - 8)
             out[bkey][t] = np.where(en, beta, 0)
             out[tkey][t] = np.where(en, tc, 0)
             out[ekey][t] = en
+            if bypass:
+                out["bp_" + side][t], out["bq_" + side][t] = \
+                    sides(x, y, vertical)
 
-        for vertical, ne, ns, tkey, ekey in (
-                (True, cev, csv, "ctc_v", "cen_v"),
-                (False, ceh, csh, "ctc_h", "cen_h")):
+        for vertical, ne, ns, tkey, ekey, side in (
+                (True, cev, csv, "ctc_v", "cen_v", "cv"),
+                (False, ceh, csh, "ctc_h", "cen_h", "ch")):
             if ne == 0:
                 continue
             pos = 8 * (np.arange(ne) + 1)[None, :]
@@ -378,13 +517,17 @@ def _build_deblock_params(syntaxes, W, H, bd):
             ly = np.broadcast_to(cy, (ns, ne)) << 1
             en = edge_mask(lx, ly, vertical)
             qp_l = avg_qp(lx, ly, vertical)
+            toff = offsets(lx, ly)[1]
             for ci, off in ((0, syn.pps.cb_qp_offset),
                             (1, syn.pps.cr_qp_offset)):
                 qpc = _CHROMA_QP_TABLE[np.clip(qp_l + off, 0, 57)]
-                tc = TC_TABLE[np.clip(qpc + 2 + tc_off, 0, 53)] << (bd - 8)
+                tc = TC_TABLE[np.clip(qpc + 2 + toff, 0, 53)] << (bd - 8)
                 en_c = en & (tc != 0)
                 out[tkey][t, ci] = np.where(en_c, tc, 0)
                 out[ekey][t, ci] = en_c
+            if bypass:
+                out["bp_" + side][t], out["bq_" + side][t] = \
+                    sides(lx, ly, vertical)
     return out
 
 
@@ -393,7 +536,12 @@ def _build_deblock_params(syntaxes, W, H, bd):
 def _build_sao_params(syntaxes, W, H):
     """Per-CTB SAO parameter maps (T, 3, rows, cols) (offsets (T, 3, 4,
     rows, cols)) from the parser's per-CTB records, and the transquant
-    bypass mask (T, h4, w4); counterpart of device_recon.py:451-481."""
+    bypass mask (T, h4, w4); counterpart of device_recon.py:451-481.
+    Where a picture of several slices has a slice after the first with
+    slice_loop_filter_across_slices_enabled_flag 0, the maps also carry
+    ``slice`` (T, h4, w4), the slice index per 4x4, and ``across`` (T,
+    slices) the slices' flags: an edge-offset neighbour in another slice
+    leaves the sample alone when the later slice's flag is 0 (8.7.3)."""
     if not any(syn.sao_table is not None for syn in syntaxes):
         return None, None
     T = len(syntaxes)
@@ -410,6 +558,16 @@ def _build_sao_params(syntaxes, W, H):
                eoc=tab[:, [18, 19, 19]],
                offs=tab[:, 3:15].reshape(T, 3, 4, ncy, ncx),
                ctb=np.int32(ctb))
+    if any(not h.loop_filter_across_slices
+           for syn in syntaxes for h in syn.slice_headers[1:]):
+        h4, w4 = (H + 3) // 4, (W + 3) // 4
+        n = max(len(syn.slice_headers) for syn in syntaxes)
+        sao["slice"] = np.stack([syn.slice_map4[:h4, :w4]
+                                 for syn in syntaxes]).astype(np.int64)
+        sao["across"] = np.ones((T, n), bool)
+        for t, syn in enumerate(syntaxes):
+            sao["across"][t, :len(syn.slice_headers)] = [
+                h.loop_filter_across_slices for h in syn.slice_headers]
     tqb = None
     if any(syn.tqb_map.any() for syn in syntaxes):
         h4 = (H + 3) // 4
@@ -420,11 +578,12 @@ def _build_sao_params(syntaxes, W, H):
 
 # ============================================================== the program
 
-def deblock_luma_pass(plane, beta, tc, en, maxv):
+def deblock_luma_pass(plane, beta, tc, en, maxv, bp=None, bq=None):
     """Vertical-edge luma pass over a (T, H', W') int32 plane
     (device_recon.py:702-793); the horizontal pass is the same on the
     transposed plane.  beta/tc/en: (T, S, E) with S = H'//4 segments, E
-    edges at x = 8(e+1)."""
+    edges at x = 8(e+1); bp/bq (T, S, E) bool, or None: the p or q side
+    of the segment is a transquant-bypass CU and keeps its samples."""
     t_, hh, ww = plane.shape
     E = en.shape[2]
     if E == 0:
@@ -492,23 +651,25 @@ def deblock_luma_pass(plane, beta, tc, en, maxv):
 
     st4 = strong[:, :, None, :]
     a4 = act[:, :, None, :]
+    ap4 = a4 if bp is None else a4 & ~bp[:, :, None, :]
+    aq4 = a4 if bq is None else a4 & ~bq[:, :, None, :]
     out = lines.clone()
-    for col, v in ((1, torch.where(st4, sp2, p2)),
-                   (2, torch.where(st4, sp1, n_p1)),
-                   (3, torch.where(st4, sp0, n_p0)),
-                   (4, torch.where(st4, sq0, n_q0)),
-                   (5, torch.where(st4, sq1, n_q1)),
-                   (6, torch.where(st4, sq2, q2))):
-        out[..., col] = torch.where(a4, torch.clamp(v, 0, maxv),
+    for col, v, on in ((1, torch.where(st4, sp2, p2), ap4),
+                       (2, torch.where(st4, sp1, n_p1), ap4),
+                       (3, torch.where(st4, sp0, n_p0), ap4),
+                       (4, torch.where(st4, sq0, n_q0), aq4),
+                       (5, torch.where(st4, sq1, n_q1), aq4),
+                       (6, torch.where(st4, sq2, q2), aq4)):
+        out[..., col] = torch.where(on, torch.clamp(v, 0, maxv),
                                     lines[..., col])
     res = plane.clone()
     res[:, :, 4:4 + 8 * E] = out.reshape(t_, hh, 8 * E)
     return res
 
 
-def deblock_chroma_pass(plane, tc, en, maxv):
+def deblock_chroma_pass(plane, tc, en, maxv, bp=None, bq=None):
     """Vertical-edge chroma pass (device_recon.py:795-821); tc/en:
-    (T, S, E)."""
+    (T, S, E); bp/bq as for deblock_luma_pass."""
     t_, hh, ww = plane.shape
     E = en.shape[2]
     if E == 0:
@@ -523,17 +684,23 @@ def deblock_chroma_pass(plane, tc, en, maxv):
     tc4 = tc[:, :, None, :]
     delta = torch.clamp((((q0 - p0) * 4) + p1 - q1 + 4) >> 3, -tc4, tc4)
     a4 = en[:, :, None, :]
+    ap4 = a4 if bp is None else a4 & ~bp[:, :, None, :]
+    aq4 = a4 if bq is None else a4 & ~bq[:, :, None, :]
     out = blocks.clone()
-    out[..., 1] = torch.where(a4, torch.clamp(p0 + delta, 0, maxv), p0)
-    out[..., 2] = torch.where(a4, torch.clamp(q0 - delta, 0, maxv), q0)
+    out[..., 1] = torch.where(ap4, torch.clamp(p0 + delta, 0, maxv), p0)
+    out[..., 2] = torch.where(aq4, torch.clamp(q0 - delta, 0, maxv), q0)
     res = src.clone()
     res[:, :, 6:need] = out.reshape(t_, hh, 8 * E)
     return res[:, :, :ww] if padw else res
 
 
-def sao_apply(src, typ, bpos, eoc, offs, ctb_sz, bd):
+def sao_apply(src, typ, bpos, eoc, offs, ctb_sz, bd, slc=None, across=None):
     """SAO of one component (device_recon.py:825-866): src (T, h, w)
-    int32; typ/bpos/eoc (T, ncy, ncx); offs (T, 4, ncy, ncx)."""
+    int32; typ/bpos/eoc (T, ncy, ncx); offs (T, 4, ncy, ncx).  ``slc``
+    (T, h, w) int64 slice index per sample and ``across`` (T, slices)
+    bool, or None: an edge-offset neighbour in another slice whose later
+    slice has slice_loop_filter_across_slices_enabled_flag 0 leaves the
+    sample as it is (spec 8.7.3)."""
     t_, hh, ww = src.shape
     dev = src.device
     maxv = (1 << bd) - 1
@@ -554,9 +721,16 @@ def sao_apply(src, typ, bpos, eoc, offs, ctb_sz, bd):
     yy = torch.arange(hh, device=dev)
     xx = torch.arange(ww, device=dev)
 
-    def shifted(dy, dx):
-        return src[:, torch.clamp(yy + dy, 0, hh - 1)][
+    def shifted(dy, dx, a=src):
+        return a[:, torch.clamp(yy + dy, 0, hh - 1)][
             :, :, torch.clamp(xx + dx, 0, ww - 1)]
+
+    def cut(dy, dx):
+        """The neighbour at (dy, dx) is across a closed slice boundary."""
+        ns = shifted(dy, dx, slc)
+        later = torch.maximum(ns, slc).reshape(t_, -1)
+        return (ns != slc) & ~torch.gather(across, 1, later).reshape(
+            t_, hh, ww)
     eo_d = {0: ((0, -1), (0, 1)), 1: ((-1, 0), (1, 0)),
             2: ((-1, -1), (1, 1)), 3: ((-1, 1), (1, -1))}
     y2, x2 = yy[:, None], xx[None, :]
@@ -568,6 +742,8 @@ def sao_apply(src, typ, bpos, eoc, offs, ctb_sz, bd):
                  (y2 + dy1 >= 0) & (y2 + dy1 < hh) &
                  (x2 + dx0 >= 0) & (x2 + dx0 < ww) &
                  (x2 + dx1 >= 0) & (x2 + dx1 < ww))[None]
+        if slc is not None:
+            valid = valid & ~cut(dy0, dx0) & ~cut(dy1, dx1)
         eidx = 2 + torch.sign(src - n1) + torch.sign(src - n2)
         v = src
         for ei, kq in ((0, 0), (1, 1), (3, 2), (4, 3)):
@@ -583,8 +759,10 @@ def sao_apply(src, typ, bpos, eoc, offs, ctb_sz, bd):
 def residuals(plan: ReconPlan) -> List[WaveGroup]:
     """Stage A: every group's residuals (one hevc_dequant_itx launch for
     the plan), with the tables stage B reads."""
-    res = dequant_itx([ItxGroup(g.key[0], g.key[1], g.coeffs, g.qp, g.ts,
-                                g.tqb) for g in plan.groups], bd=plan.bd)
+    with span("hevc.stage_a"):
+        res = dequant_itx([ItxGroup(g.key[0], g.key[1], g.coeffs, g.qp, g.ts,
+                                    g.tqb, g.mslot) for g in plan.groups],
+                          bd=plan.bd, mtab=plan.mtab)
     return [WaveGroup(g.key[0], g.key[1], g.ref_idx, g.ref_avail, g.mode,
                       g.scat_idx, r) for g, r in zip(plan.groups, res)]
 
@@ -602,8 +780,9 @@ def predict_waves(plan: ReconPlan, waves: Sequence[WaveGroup]):
     ybuf = torch.zeros(T * H * W + 1, dtype=torch.int32, device=plan.device)
     cbuf = torch.zeros(T * 2 * ch * cw + 1, dtype=torch.int32,
                        device=plan.device)
-    intra_waves(ybuf, cbuf, waves, plan.wave_rows, bd=plan.bd,
-                strong=plan.strong_smoothing)
+    with span("hevc.stage_b"):
+        intra_waves(ybuf, cbuf, waves, plan.wave_rows, bd=plan.bd,
+                    strong=plan.strong_smoothing)
     cpl = cbuf[:-1].view(T, 2, ch, cw)
     return ybuf[:-1].view(T, H, W), cpl[:, 0], cpl[:, 1]
 
@@ -613,24 +792,34 @@ def reconstruct(plan: ReconPlan):
     (T, H/2, W/2)) int32 on the plan's device."""
     y, cb, cr = predict_waves(plan, residuals(plan))
     if plan.deblock is not None:
-        y, cb, cr = deblock(plan.deblock, y, cb, cr, (1 << plan.bd) - 1)
+        with span("hevc.deblock"):
+            y, cb, cr = deblock(plan.deblock, y, cb, cr, (1 << plan.bd) - 1)
     if plan.sao is not None:
-        y, cb, cr = sao(plan, y, cb, cr)
+        with span("hevc.sao"):
+            y, cb, cr = sao(plan, y, cb, cr)
     return y, cb, cr
 
 
 def deblock(db, y, cb, cr, maxv):
     """Stage C: vertical edges, then horizontal ones on the transposed
-    planes (device_recon.py:933-952)."""
-    y = deblock_luma_pass(y, db["beta_v"], db["tc_v"], db["en_v"], maxv)
-    cb = deblock_chroma_pass(cb, db["ctc_v"][:, 0], db["cen_v"][:, 0], maxv)
-    cr = deblock_chroma_pass(cr, db["ctc_v"][:, 1], db["cen_v"][:, 1], maxv)
+    planes (device_recon.py:933-952); bypass CUs keep their samples where
+    the maps carry ``bp_*``/``bq_*``."""
+    def sides(k):
+        return db.get("bp_" + k), db.get("bq_" + k)
+    y = deblock_luma_pass(y, db["beta_v"], db["tc_v"], db["en_v"], maxv,
+                          *sides("v"))
+    cb = deblock_chroma_pass(cb, db["ctc_v"][:, 0], db["cen_v"][:, 0], maxv,
+                             *sides("cv"))
+    cr = deblock_chroma_pass(cr, db["ctc_v"][:, 1], db["cen_v"][:, 1], maxv,
+                             *sides("cv"))
     y = deblock_luma_pass(y.transpose(1, 2), db["beta_h"], db["tc_h"],
-                          db["en_h"], maxv).transpose(1, 2)
+                          db["en_h"], maxv, *sides("h")).transpose(1, 2)
     cb = deblock_chroma_pass(cb.transpose(1, 2), db["ctc_h"][:, 0],
-                             db["cen_h"][:, 0], maxv).transpose(1, 2)
+                             db["cen_h"][:, 0], maxv,
+                             *sides("ch")).transpose(1, 2)
     cr = deblock_chroma_pass(cr.transpose(1, 2), db["ctc_h"][:, 1],
-                             db["cen_h"][:, 1], maxv).transpose(1, 2)
+                             db["cen_h"][:, 1], maxv,
+                             *sides("ch")).transpose(1, 2)
     return y.contiguous(), cb.contiguous(), cr.contiguous()
 
 
@@ -639,8 +828,14 @@ def sao(plan, y, cb, cr):
     samples as they were."""
     s = plan.sao
     ctb = int(s["ctb"])
+    slc = [None, None]
+    if "slice" in s:
+        sl = s["slice"].repeat_interleave(4, dim=1) \
+            .repeat_interleave(4, dim=2)[:, :plan.height, :plan.width]
+        slc = [sl, sl[:, ::2, ::2].contiguous()]
     out = [sao_apply(p, s["typ"][:, c], s["bpos"][:, c], s["eoc"][:, c],
-                     s["offs"][:, c], ctb if c == 0 else ctb >> 1, plan.bd)
+                     s["offs"][:, c], ctb if c == 0 else ctb >> 1, plan.bd,
+                     slc[min(c, 1)], s.get("across"))
            for c, p in enumerate((y, cb, cr))]
     if plan.tqb_mask is not None:
         my = plan.tqb_mask.repeat_interleave(4, dim=1) \

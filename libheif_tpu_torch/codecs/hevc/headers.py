@@ -2,8 +2,9 @@
 
 Counterpart of libheif_tpu/codecs/hevc/headers.py:18-635: full SPS
 (§7.3.2.2), PPS (§7.3.2.3) and slice segment header (§7.3.6) parsing.
-The scaling-list syntax is parsed so that such streams read correctly;
-the decoder then refuses them (``decoder.check_picture_supported``).
+The scaling lists are parsed and turned into the ScalingFactor matrices
+in effect (``effective_scaling_factors``, JAX headers.py:258-303,
+:636-649).
 """
 
 from __future__ import annotations
@@ -254,6 +255,72 @@ def _default_scaling(size_id: int, matrix_id: int, intra_diag,
         return [16] * 16
     return list(intra_diag if matrix_id < 3 else inter_diag)
 
+
+
+def build_scaling_factors(parsed):
+    """ScalingFactor derivation (spec 7.4.5) → factors[log2 - 2], a list of
+    6 (n, n) int32 arrays indexed [y][x]; ``parsed`` = (lists, dcs) from
+    _scaling_list_data, or None for the all-default matrices."""
+    import numpy as np
+    from .tables import (diag_scan, DEFAULT_SCALING_INTRA_DIAG,
+                         DEFAULT_SCALING_INTER_DIAG)
+    if parsed is None:
+        lists = [[_default_scaling(s, m, DEFAULT_SCALING_INTRA_DIAG,
+                                   DEFAULT_SCALING_INTER_DIAG)
+                  for m in range(6)] for s in range(4)]
+        dcs = [[16] * 6 for _ in range(4)]
+    else:
+        lists = [list(row) for row in parsed[0]]
+        dcs = [list(row) for row in parsed[1]]
+        # size 3 carries only matrix ids 0 and 3; mirror for lookup
+        for m in (1, 2):
+            if lists[3][m] is None and lists[3][0] is not None:
+                lists[3][m] = lists[3][0]
+                dcs[3][m] = dcs[3][0]
+            if lists[3][m + 3] is None and lists[3][3] is not None:
+                lists[3][m + 3] = lists[3][3]
+                dcs[3][m + 3] = dcs[3][3]
+    out = []
+    for size_id in range(4):
+        n = 4 << size_id
+        base = 4 if size_id == 0 else 8
+        scan = diag_scan(base)
+        mats = []
+        for matrix_id in range(6):
+            lst = lists[size_id][matrix_id]
+            if lst is None:
+                lst = _default_scaling(size_id, matrix_id,
+                                       DEFAULT_SCALING_INTRA_DIAG,
+                                       DEFAULT_SCALING_INTER_DIAG)
+            m8 = np.zeros((base, base), np.int32)
+            for i, v in enumerate(lst):
+                m8[int(scan[i][1]), int(scan[i][0])] = v
+            if size_id <= 1:
+                mat = m8
+            else:
+                rep = n // base
+                mat = np.repeat(np.repeat(m8, rep, 0), rep, 1)
+                mat[0, 0] = dcs[size_id][matrix_id]
+            mats.append(mat)
+        out.append(mats)
+    return out
+
+
+def effective_scaling_factors(sps, pps):
+    """ScalingFactor matrices in effect (spec 7.4.5 precedence: PPS data,
+    then SPS data, then the defaults), or None when scaling lists are off.
+    Cached on the SPS, keyed on the parsed list objects themselves (held
+    by the cache, so a new PPS can never meet a stale entry)."""
+    if not sps.scaling_list_enabled:
+        return None
+    parsed = pps.scaling_parsed if pps.scaling_parsed is not None \
+        else sps.scaling_parsed
+    cached = getattr(sps, "_sf_cache", None)
+    if cached is not None and cached[0] is parsed:
+        return cached[1]
+    f = build_scaling_factors(parsed)
+    sps._sf_cache = (parsed, f)
+    return f
 
 
 def _short_term_rps(br: BitReader, idx: int, rps_list: List[ShortTermRPS],

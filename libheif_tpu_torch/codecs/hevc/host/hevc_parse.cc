@@ -9,6 +9,17 @@
 // Interface: one C ABI entry point (and its WPP variant), flat buffers,
 // caller-allocated numpy arrays.  Context-model layout and initial
 // states are computed in Python (tables.py, cabac.py) and passed in.
+//
+// The port extends the copy to pictures of several slices: one call
+// parses one independent slice segment, from its first CTB (params
+// P_START_CTB) to its end_of_slice_segment_flag, into the picture's
+// shared maps, and claims its CTBs in the slice map (P_SLICE_IDX).  A
+// neighbour in another slice is unavailable (spec 6.4.1): is_avail, the
+// split_cu_flag contexts and MPM derivation through it, and the SAO merge
+// candidates (7.3.8.3).  The caller starts each call from that slice's
+// context states, QP and chroma QP offsets.  Under WPP a row's contexts
+// come from CTB 1 of the row above only where that CTB is in the same
+// segment.
 
 #include <cstdint>
 #include <cstdlib>
@@ -178,6 +189,8 @@ enum ParamIdx {
   P_N_CTB_ROWS,
   P_BIT_DEPTH_LUMA,
   P_BIT_DEPTH_CHROMA,
+  P_START_CTB,      // the slice segment's first CTB (raster address)
+  P_SLICE_IDX,      // its index in the picture, written to the slice map
   N_PARAMS
 };
 
@@ -367,6 +380,8 @@ struct Parser {
   uint8_t *intra_mode_y, *intra_mode_c, *ct_depth, *cu_log2_map,
       *tu_log2_map, *tqb_map, *nonzero_y, *avail;
   int16_t* qp_y;
+  int16_t* slice_map = nullptr;   // slice index per 4x4 (null: one slice)
+  int64_t last_ctb = -1;          // the slice segment's last CTB
   int32_t w4, h4;
   int32_t* tu_meta;           // 10 int32 per TU
   int64_t tu_cap;
@@ -420,7 +435,24 @@ struct Parser {
 
   bool is_avail(int x, int y) const {
     if (!inside_pic(x, y)) return false;
-    return avail[(int64_t)(y >> 2) * w4 + (x >> 2)] != 0;
+    const int64_t i = (int64_t)(y >> 2) * w4 + (x >> 2);
+    return avail[i] != 0 && (!slice_map || slice_map[i] == P[P_SLICE_IDX]);
+  }
+
+  // CTB (cx, cy) belongs to this slice (its CTBs are claimed before they
+  // are parsed, so an earlier CTB of the slice is claimed too)
+  bool same_slice_ctb(int cx, int cy) const {
+    if (!slice_map) return true;
+    const int c4 = 1 << (P[P_LOG2_CTB] - 2);
+    return slice_map[(int64_t)cy * c4 * w4 + (int64_t)cx * c4] ==
+           P[P_SLICE_IDX];
+  }
+
+  void claim_ctb(int cx, int cy) {
+    if (!slice_map) return;
+    const int c4 = 1 << (P[P_LOG2_CTB] - 2);
+    fill_map<int16_t>(slice_map, cx * c4, cy * c4, c4, c4,
+                      (int16_t)P[P_SLICE_IDX]);
   }
 
   int ctx(int family, int inc = 0) const { return fam[family] + inc; }
@@ -623,14 +655,14 @@ struct Parser {
     int16_t* me = sao_buf + ((int64_t)cy * n_cols + cx) * 20;
     memset(me, 0, 20 * sizeof(int16_t));
     bool merge = false;
-    if (cx > 0) {
+    if (cx > 0 && same_slice_ctb(cx - 1, cy)) {
       if (dec.decode_bin(ctx(F_SAO_MERGE))) {
         memcpy(me, sao_buf + ((int64_t)cy * n_cols + cx - 1) * 20,
                20 * sizeof(int16_t));
         merge = true;
       }
     }
-    if (!merge && cy > 0) {
+    if (!merge && cy > 0 && same_slice_ctb(cx, cy - 1)) {
       if (dec.decode_bin(ctx(F_SAO_MERGE))) {
         memcpy(me, sao_buf + ((int64_t)(cy - 1) * n_cols + cx) * 20,
                20 * sizeof(int16_t));
@@ -1290,8 +1322,21 @@ struct Parser {
       return err.code;
     }
 
-    for (int row = 0; row < n_rows; row++) {
-      if (wpp && row > 0) {
+    const int64_t n_ctbs = (int64_t)n_cols * n_rows;
+    const int64_t start = P[P_START_CTB];
+    if (start < 0 || start >= n_ctbs) {
+      fail(1, "slice segment address out of range");
+      return err.code;
+    }
+    // the slice segment: CTBs from its address to its
+    // end_of_slice_segment_flag (or the picture's last CTB).  Under WPP
+    // each CTB row after the segment's first starts a substream, from the
+    // contexts saved after CTB 1 of the row above where that CTB is in
+    // this segment (spec 9.3.1: the above-right CTB available), else
+    // from the initial states
+    for (int64_t idx = start; idx < n_ctbs; idx++) {
+      const int col = (int)(idx % n_cols), row = (int)(idx / n_cols);
+      if (wpp && col == 0 && idx != start) {
         sub_idx++;
         if (sub_idx >= n_sub) {
           fail(1, "missing WPP entry point");
@@ -1304,6 +1349,7 @@ struct Parser {
           p_state.assign(init_p_state, init_p_state + n_ctx);
           val_mps.assign(init_val_mps, init_val_mps + n_ctx);
         }
+        have_saved = false;
         dec.pos = substreams[2 * sub_idx] * 8;
         dec.end = substreams[2 * sub_idx + 1];
         dec.p_state = p_state.data();
@@ -1314,34 +1360,42 @@ struct Parser {
         }
         pending_qp_reset = true;
       }
-
-      for (int col = 0; col < n_cols; col++) {
-        int x0 = col * ctb, y0 = row * ctb;
-        if (P[P_SAO_ENABLED] && (P[P_SH_SAO_LUMA] || P[P_SH_SAO_CHROMA]))
-          parse_sao(col, row);
-        coding_quadtree(x0, y0, P[P_LOG2_CTB], 0);
-        if (err.code) return err.code;
-        if (wpp && col == 1) {
-          saved_p = p_state;
-          saved_m = val_mps;
-          have_saved = true;
-        }
-        int end = dec.decode_terminate();
-        bool is_last = (row == n_rows - 1 && col == n_cols - 1);
-        if (end && !is_last) {
-          fail(1, "premature end_of_slice");
-          return err.code;
-        }
+      claim_ctb(col, row);
+      if (P[P_SAO_ENABLED] && (P[P_SH_SAO_LUMA] || P[P_SH_SAO_CHROMA]))
+        parse_sao(col, row);
+      coding_quadtree(col * ctb, row * ctb, P[P_LOG2_CTB], 0);
+      if (err.code) return err.code;
+      if (wpp && col == 1) {
+        saved_p = p_state;
+        saved_m = val_mps;
+        have_saved = true;
       }
-      publish_row(row);
+      const int end = dec.decode_terminate();
+      if (col == n_cols - 1) publish_row(row);
+      if (end || idx == n_ctbs - 1) {
+        last_ctb = idx;
+        break;
+      }
     }
-
-    if (!P[P_CU_QP_DELTA_ENABLED]) {
-      // uniform QP (ctu.py _finalize_qgs)
-      for (int64_t i = 0; i < (int64_t)w4 * h4; i++)
-        qp_y[i] = (int16_t)P[P_SH_QP];
-    }
+    fill_slice_qp(start);
     return 0;
+  }
+
+  // without cu_qp_delta, QpY is the slice's QP (ctu.py _finalize_qgs):
+  // the whole map for the picture's first slice, the CTBs from `start`
+  // to last_ctb for a later one
+  void fill_slice_qp(int64_t start) {
+    if (P[P_CU_QP_DELTA_ENABLED]) return;
+    const int16_t qp = (int16_t)P[P_SH_QP];
+    if (start == 0) {
+      for (int64_t i = 0; i < (int64_t)w4 * h4; i++) qp_y[i] = qp;
+      return;
+    }
+    const int n_cols = P[P_N_CTB_COLS];
+    const int c4 = 1 << (P[P_LOG2_CTB] - 2);
+    for (int64_t idx = start; idx <= last_ctb; idx++)
+      fill_map<int16_t>(qp_y, (int)(idx % n_cols) * c4,
+                        (int)(idx / n_cols) * c4, c4, c4, qp);
   }
 };
 
@@ -1358,6 +1412,7 @@ int tpuheif_hevc_parse_slice(
     int32_t n_sub, uint8_t* intra_mode_y, uint8_t* intra_mode_c,
     uint8_t* ct_depth, uint8_t* cu_log2_map, uint8_t* tu_log2_map,
     int16_t* qp_y, uint8_t* tqb_map, uint8_t* nonzero_y, uint8_t* avail,
+    int16_t* slice_map,
     int32_t w4, int32_t h4, int32_t* tu_meta, int64_t tu_cap,
     int32_t* coeff_buf, int64_t coeff_cap, int16_t* sao_buf,
     int64_t* out_counts, char* err_msg, int32_t err_cap,
@@ -1381,6 +1436,7 @@ int tpuheif_hevc_parse_slice(
   ps.tqb_map = tqb_map;
   ps.nonzero_y = nonzero_y;
   ps.avail = avail;
+  ps.slice_map = slice_map;
   ps.w4 = w4;
   ps.h4 = h4;
   ps.tu_meta = tu_meta;
@@ -1407,6 +1463,7 @@ int tpuheif_hevc_parse_slice(
   }
   out_counts[0] = ps.n_tus;
   out_counts[1] = ps.n_coeff;
+  out_counts[2] = ps.last_ctb;
   if (rc && err_msg && err_cap > 0) {
     snprintf(err_msg, err_cap, "%s", ps.err.msg);
   }
@@ -1428,11 +1485,18 @@ int tpuheif_hevc_parse_slice_wpp(
     int32_t n_sub, uint8_t* intra_mode_y, uint8_t* intra_mode_c,
     uint8_t* ct_depth, uint8_t* cu_log2_map, uint8_t* tu_log2_map,
     int16_t* qp_y, uint8_t* tqb_map, uint8_t* nonzero_y, uint8_t* avail,
+    int16_t* slice_map,
     int32_t w4, int32_t h4, int32_t* tu_meta, int64_t tu_cap,
     int32_t* coeff_buf, int64_t coeff_cap, int16_t* sao_buf,
     int64_t* out_counts, char* err_msg, int32_t err_cap,
     int64_t* row_tu_counts, int64_t* rows_done, int32_t n_workers) {
   int n_rows = params[P_N_CTB_ROWS];
+  if (params[P_START_CTB] != 0 || params[P_SLICE_IDX] != 0) {
+    // the workers parse whole rows of a picture of one slice
+    if (err_msg && err_cap > 0)
+      snprintf(err_msg, err_cap, "threaded WPP parse of a slice segment");
+    return 1;
+  }
   if (n_workers < 2 || n_rows < 2 || !params[P_WPP] ||
       params[P_CU_QP_DELTA_ENABLED] || n_sub < n_rows) {
     // fall back to the serial engine
@@ -1440,7 +1504,8 @@ int tpuheif_hevc_parse_slice_wpp(
         rbsp, rbsp_len, params, family_offsets, init_p_state,
         init_val_mps, n_ctx, substreams, n_sub, intra_mode_y,
         intra_mode_c, ct_depth, cu_log2_map, tu_log2_map, qp_y, tqb_map,
-        nonzero_y, avail, w4, h4, tu_meta, tu_cap, coeff_buf, coeff_cap,
+        nonzero_y, avail, slice_map, w4, h4, tu_meta, tu_cap, coeff_buf,
+        coeff_cap,
         sao_buf, out_counts, err_msg, err_cap, row_tu_counts, rows_done);
   }
   if (n_workers > n_rows) n_workers = n_rows;
@@ -1536,6 +1601,7 @@ int tpuheif_hevc_parse_slice_wpp(
     if (workers[w]->n_coeff > max_coeff) max_coeff = workers[w]->n_coeff;
   out_counts[0] = total_tus;
   out_counts[1] = max_coeff;
+  out_counts[2] = (int64_t)n_rows * params[P_N_CTB_COLS] - 1;
   for (int w = 0; w < n_workers; w++) delete workers[w];
   return rc;
 }

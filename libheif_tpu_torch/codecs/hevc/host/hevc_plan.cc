@@ -5,7 +5,10 @@
 //   - the dependency wave index (1 + max wave of any TU whose samples
 //     this TU's available reference samples were written by), and
 //   - the availability of each of its 4n+1 reference samples under the
-//     z-order progressive availability rule (H.265 §6.4.1).
+//     z-order progressive availability rule (H.265 §6.4.1); in a picture
+//     of several slices a sample of another slice is unavailable too
+//     (slice_map: the slice index per 4x4, as the JAX package's
+//     recon.py _sample_available reads it).
 // device_recon.build_plan turns both into the per-group tables of the
 // device program.
 
@@ -20,7 +23,9 @@ extern "C" int tpuheif_hevc_plan(
     int32_t W, int32_t H,
     int32_t* waves_out,       // (n_tus,)
     uint8_t* avail_out,       // (n_tus, avail_stride)
-    int32_t avail_stride) {
+    int32_t avail_stride,
+    const int16_t* slice_map,  // (rows, slice_stride) per 4x4, or null
+    int32_t slice_stride) {
   const int cw = W >> 1, ch = H >> 1;
   const int w4 = (W + 3) / 4, h4 = (H + 3) / 4;
   std::vector<uint8_t> avail4((size_t)w4 * h4, 0);
@@ -38,6 +43,8 @@ extern "C" int tpuheif_hevc_plan(
     int32_t* wr = (c == 0) ? wr_y.data() : wr_c[c - 1].data();
     const int L = 4 * n + 1;
     if (L > avail_stride) return 1;
+    const int slice =
+        slice_map ? slice_map[(size_t)(y >> 2) * slice_stride + (x >> 2)] : 0;
     uint8_t* av = avail_out + t * avail_stride;
     int wave = 0;
     for (int i = 0; i < L; ++i) {
@@ -55,7 +62,10 @@ extern "C" int tpuheif_hevc_plan(
       bool ok = sx >= 0 && sy >= 0 && sx < pw && sy < ph;
       if (ok) {
         const int lx = c ? (sx << 1) : sx, ly = c ? (sy << 1) : sy;
-        ok = avail4[(size_t)(ly >> 2) * w4 + (lx >> 2)] != 0;
+        ok = avail4[(size_t)(ly >> 2) * w4 + (lx >> 2)] != 0 &&
+             (!slice_map ||
+              slice_map[(size_t)(ly >> 2) * slice_stride + (lx >> 2)] ==
+                  slice);
       }
       av[i] = ok ? 1 : 0;
       if (ok) {

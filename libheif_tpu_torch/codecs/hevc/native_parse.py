@@ -35,7 +35,7 @@ _FAMILIES = [
 
 _P = ctypes.c_void_p
 _ARGS = ([_P, ctypes.c_int64, _P, _P, _P, _P, ctypes.c_int32, _P,
-          ctypes.c_int32] + [_P] * 9 + [ctypes.c_int32, ctypes.c_int32,
+          ctypes.c_int32] + [_P] * 10 + [ctypes.c_int32, ctypes.c_int32,
                                         _P, ctypes.c_int64, _P,
                                         ctypes.c_int64, _P, _P, _P,
                                         ctypes.c_int32, _P, _P])
@@ -50,7 +50,8 @@ def _entry(name: str):
     return fn
 
 
-def _params_array(sps: SPS, pps: PPS, sh: SliceHeader) -> np.ndarray:
+def _params_array(sps: SPS, pps: PPS, sh: SliceHeader, start_ctb: int = 0,
+                  slice_idx: int = 0) -> np.ndarray:
     pcm = 0
     if sps.pcm_enabled:
         pcm = 1 | (sps.log2_min_pcm_cb_size << 8) | \
@@ -69,37 +70,47 @@ def _params_array(sps: SPS, pps: PPS, sh: SliceHeader) -> np.ndarray:
         sh.qp, int(sh.sao_luma), int(sh.sao_chroma),
         sh.cb_qp_offset, sh.cr_qp_offset,
         sps.pic_width_in_ctbs, sps.pic_height_in_ctbs,
-        sps.bit_depth_luma, sps.bit_depth_chroma,
+        sps.bit_depth_luma, sps.bit_depth_chroma, start_ctb, slice_idx,
     ]
     return np.asarray(vals, dtype=np.int32)
 
 
-def _alloc_parse_bufs(sps: SPS, pps: PPS, sh: SliceHeader):
-    """Scratch buffers the C++ parser fills."""
-    out = SliceSyntax(sps, pps, sh)
-    n_ctbs = sps.pic_width_in_ctbs * sps.pic_height_in_ctbs
+def _alloc_parse_bufs(sps: SPS, n_workers: int = 1):
+    """Scratch buffers the C++ parser fills for one slice segment.  The
+    threaded WPP parse gives each of its ``n_workers`` an equal segment
+    of them for its rows (every n_workers-th CTB row), so each segment
+    holds the worst case of that many rows."""
+    w4 = (sps.pic_width + 63) // 4 + 16
+    h4 = (sps.pic_height + 63) // 4 + 16
     # worst-case TU count: every 4x4 luma position + chroma entries
-    tu_cap = 2 * out.w4 * out.h4 + 64
+    tu_cap = 2 * w4 * h4 + 64
     coeff_cap = 2 * sps.pic_width * sps.pic_height + 4096
+    if n_workers > 1:
+        rows = -(-sps.pic_height_in_ctbs // n_workers)
+        c4 = sps.ctb_size // 4
+        tu_cap = n_workers * (2 * w4 * c4 * rows + 64)
+        coeff_cap = n_workers * (2 * sps.pic_width * sps.ctb_size * rows
+                                 + 4096)
     tu_meta = np.empty((tu_cap, 10), dtype=np.int32)
     coeff_buf = np.empty(coeff_cap, dtype=np.int32)
-    sao_buf = np.zeros((n_ctbs, 20), dtype=np.int16)
-    counts = np.zeros(2, dtype=np.int64)
-    return out, tu_meta, coeff_buf, sao_buf, counts
+    counts = np.zeros(3, dtype=np.int64)
+    return tu_meta, coeff_buf, counts
 
 
 def _parse_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
-               substreams: List[Tuple[int, int]]):
-    """Run the C++ parser; returns (syntax, tu_meta, n_tus, coeff_buf,
-    sao_buf)."""
-    out, tu_meta, coeff_buf, sao_buf, counts = _alloc_parse_bufs(sps, pps,
-                                                                 sh)
+               substreams: List[Tuple[int, int]], out: SliceSyntax,
+               slice_idx: int = 0, start_ctb: int = 0,
+               one_slice: bool = True):
+    """Run the C++ parser on one slice segment, from CTB ``start_ctb`` to
+    its end, into the picture's maps and SAO records in ``out``; returns
+    (tu_meta, n_tus, coeff_buf, last CTB).  ``one_slice``: the segment is
+    the whole picture, which the threaded WPP parse needs."""
     ctx = ContextModels(0, sh.qp)
     fam = np.asarray([ContextModels.LAYOUT[n][0] for n in _FAMILIES],
                      dtype=np.int32)
     init_p = np.asarray(ctx.p_state, dtype=np.uint8)
     init_m = np.asarray(ctx.val_mps, dtype=np.uint8)
-    params = _params_array(sps, pps, sh)
+    params = _params_array(sps, pps, sh, start_ctb, slice_idx)
     subs = np.asarray([v for se in substreams for v in se], dtype=np.int64)
     rbsp_arr = np.frombuffer(rbsp, dtype=np.uint8)
     err = ctypes.create_string_buffer(200)
@@ -115,45 +126,46 @@ def _parse_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
     extra = ()
     name = "tpuheif_hevc_parse_slice"
     if n_workers > 1 and pps.entropy_coding_sync_enabled and \
-            not pps.cu_qp_delta_enabled and \
+            not pps.cu_qp_delta_enabled and one_slice and \
             len(substreams) >= sps.pic_height_in_ctbs:
         name += "_wpp"
         extra = (n_workers,)
+    tu_meta, coeff_buf, counts = _alloc_parse_bufs(
+        sps, extra[0] if extra else 1)
 
     ptr = [a.ctypes.data for a in (
         rbsp_arr, params, fam, init_p, init_m, subs, out.intra_mode_y,
         out.intra_mode_c, out.ct_depth, out.cu_log2, out.tu_log2, out.qp_y,
-        out.tqb_map, out.nonzero_y, out.avail, tu_meta, coeff_buf, sao_buf,
-        counts)]
+        out.tqb_map, out.nonzero_y, out.avail, out.slice_map4, tu_meta,
+        coeff_buf, out.sao_buf, counts)]
+    if one_slice:       # no slice map to test or claim: slice 0 everywhere
+        ptr[15] = None
     rc = _entry(name)(
         ptr[0], len(rbsp), ptr[1], ptr[2], ptr[3], ptr[4], len(init_p),
-        ptr[5], len(substreams), *ptr[6:15], out.w4, out.h4,
-        ptr[15], tu_meta.shape[0], ptr[16], coeff_buf.shape[0], ptr[17],
-        ptr[18], err, len(err), None, None, *extra)
+        ptr[5], len(substreams), *ptr[6:16], out.w4, out.h4,
+        ptr[16], tu_meta.shape[0], ptr[17], coeff_buf.shape[0], ptr[18],
+        ptr[19], err, len(err), None, None, *extra)
     if rc == 2:
         raise HeifError.unsupported(SubError.Unsupported_codec,
                                     err.value.decode() or "unsupported")
     if rc != 0:
         raise HeifError.invalid_input(
             msg=err.value.decode() or "HEVC slice parse failed")
-    return out, tu_meta, int(counts[0]), coeff_buf, sao_buf
+    return tu_meta, int(counts[0]), coeff_buf, int(counts[2])
 
 
-def _unpack_sao(out: SliceSyntax, sao_buf, sps: SPS, sh: SliceHeader):
-    """Keep the parser's per-CTB SAO records as (rows, cols, 20)."""
-    if sps.sample_adaptive_offset_enabled and (sh.sao_luma or sh.sao_chroma):
-        out.sao_table = sao_buf.reshape(sps.pic_height_in_ctbs,
-                                        sps.pic_width_in_ctbs, 20)
-
-
-def parse_picture_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
-                      substreams: List[Tuple[int, int]]):
-    """Parse one slice for the device reconstruction: returns (SliceSyntax
-    with maps and SAO, cols (N, 8) int32 [x y log2 c mode qp ts tqb],
-    coeff_buf, offs (N,) int64 offsets into coeff_buf, -1 = no
-    residual)."""
-    out, tu_meta, n_tus, coeff_buf, sao_buf = _parse_raw(
-        sps, pps, sh, rbsp, substreams)
+def parse_slice_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
+                    substreams: List[Tuple[int, int]], out: SliceSyntax,
+                    slice_idx: int = 0, start_ctb: int = 0,
+                    one_slice: bool = True):
+    """Parse one slice segment for the device reconstruction into the
+    picture's ``out`` (decoder.parse_picture walks a picture's segments):
+    returns (cols (N, 8) int32 [x y log2 c mode qp ts tqb], coeff_buf,
+    offs (N,) int64 offsets into coeff_buf, -1 = no residual, the
+    segment's last CTB)."""
+    tu_meta, n_tus, coeff_buf, last_ctb = _parse_raw(
+        sps, pps, sh, rbsp, substreams, out, slice_idx, start_ctb,
+        one_slice)
     cols = np.ascontiguousarray(
         tu_meta[:n_tus][:, [0, 1, 2, 3, 4, 5, 7, 8]], np.int32)
     offs = tu_meta[:n_tus, 9].astype(np.int64)
@@ -163,5 +175,8 @@ def parse_picture_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
     used = int((offs[has] + (1 << (2 * cols[has, 2].astype(np.int64)))
                 ).max()) if has.any() else 0
     coeff_buf = np.ascontiguousarray(coeff_buf[:used])
-    _unpack_sao(out, sao_buf, sps, sh)
-    return out, cols, coeff_buf, offs
+    if sps.sample_adaptive_offset_enabled and (sh.sao_luma or sh.sao_chroma):
+        out.sao_table = out.sao_buf.reshape(sps.pic_height_in_ctbs,
+                                            sps.pic_width_in_ctbs, 20)
+    return cols, coeff_buf, offs, last_ctb
+

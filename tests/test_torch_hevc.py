@@ -381,16 +381,56 @@ def test_kernel_constants_match_tables():
 
 # ---------------------------------------------------------- what is refused
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(qp=26, scaling_lists="default"), "scaling lists"),
-    (dict(qp=26, num_slices=2), "slice")])
-def test_unsupported_streams_raise(kw, what):
+def _two_slices():
+    """A picture of two slices: (sps, pps, slice NALs)."""
+    img = make_image(96, 64, 7, False)
+    enc = IntraEncoder(96, 64, EncParams(qp=26, num_slices=2))
+    slices, (sps, pps) = enc.encode_slices(img)
+    return sps, pps, slices
+
+
+@pytest.mark.parametrize("kw,n", [
+    (dict(qp=26, scaling_lists="default"), 1),
+    (dict(qp=26, num_slices=2), 2)], ids=["scaling lists", "slices"])
+def test_formerly_refused_streams_decode(kw, n):
+    """Scaling lists and pictures of several slices decode, equal to the
+    JAX Python engine (tests/test_torch_hevc_slices.py holds every such
+    stream to libde265 too)."""
     w, h = 96, 64
     img = make_image(w, h, 7, False)
-    enc = IntraEncoder(w, h, EncParams(**kw))
-    slices, (sps, pps) = enc.encode_slices(img)
+    slices, (sps, pps) = IntraEncoder(w, h, EncParams(**kw)).encode_slices(
+        img)
+    assert len(slices) == n
+    assert_planes_equal(port_decode(sps, pps, slices),
+                        jax_decode(sps, pps, slices, "python"))
+
+
+@pytest.mark.parametrize("what", [
+    "dependent slice segments", "cu_qp_delta across several slices",
+    "WPP with a slice segment starting inside a CTB row"])
+def test_unsupported_streams_raise(what):
+    """The multi-slice combinations no committed stream exercises raise
+    Unsupported naming them: dependent slice segments, cu_qp_delta in a
+    picture of several slices, and under WPP a slice that starts inside a
+    CTB row."""
+    from tests import hevc_rewrite
+    sps, pps, slices = _two_slices()
+    jsps, jpps = JH.parse_sps(sps), JH.parse_pps(pps)
+    if what.startswith("WPP"):
+        new = hevc_rewrite.write_pps(jpps, entropy_coding_sync_enabled=True)
+        slices = [hevc_rewrite.rewrite_slice(
+            s, jsps, jpps, JH.parse_pps(new),
+            **({} if i == 0 else {"segment_address": 1}))
+            for i, s in enumerate(slices)]
+    elif what.startswith("dependent"):
+        new = hevc_rewrite.write_pps(jpps,
+                                     dependent_slice_segments_enabled=True)
+        slices = [slices[0], hevc_rewrite.rewrite_slice(
+            slices[1], jsps, jpps, JH.parse_pps(new), dependent_slice=True)]
+    else:
+        new = hevc_rewrite.write_pps(jpps, cu_qp_delta_enabled=True)
     with pytest.raises(HeifError, match=what) as e:
-        decode_intra_picture(PH.parse_sps(sps), PH.parse_pps(pps), slices,
+        decode_intra_picture(PH.parse_sps(sps), PH.parse_pps(new), slices,
                              device="cpu")
     assert e.value.code == ErrorCode.Unsupported_feature
 
@@ -413,15 +453,29 @@ def test_default_device_needs_cuda(monkeypatch):
 
 # ------------------------------------------------------------- fixtures
 
-def write_fixtures():
+def write_fixtures(only=None):
     """Encode the card's test streams and write them with a manifest of
-    the JAX device engine's plane hashes."""
+    their plane hashes: the streams of FLAT (and TILES) decoded by the JAX
+    device engine, those of tests/test_torch_hevc_slices.py (scaling
+    lists, several slices, the spec cases, lossless CUs) by the JAX Python
+    engine or, where it breaks the spec or raises, libde265, whose
+    agreement every new entry records.  ``only``: names to write anew; the
+    other entries and files stay as they are."""
+    from tests import test_torch_hevc_slices as slices_mod
     os.makedirs(FIXTURES, exist_ok=True)
+    path = os.path.join(FIXTURES, "manifest.json")
+    old = {}
+    if only is not None:
+        with open(path) as f:
+            old = {e["name"]: e for e in json.load(f)["streams"]}
     jobs = [(name, dict(qp=qp, bit_depth=bd, **X265LIKE), (512, 512), sm,
              seed) for name, seed, sm, qp, bd in TILES]
     jobs += [(name, kw, size, sm, 7) for name, kw, size, sm in STREAMS]
     streams = []
     for name, kw, size, smooth, seed in jobs:
+        if only is not None and name not in only:
+            streams.append(old[name])
+            continue
         sps, pps, sl = encode(kw, size, smooth, seed)
         planes = jax_decode(sps, pps, [sl], "device")
         fname = f"{name}.hevc"
@@ -433,16 +487,57 @@ def write_fixtures():
             params=kw, sps=sps.hex(), pps=pps.hex(), slice=fname,
             sha256=plane_hashes(planes)))
         print(name, size, len(sl), "bytes", flush=True)
-    with open(os.path.join(FIXTURES, "manifest.json"), "w") as f:
-        json.dump({"about": "HEVC intra streams from the JAX package's "
-                   "IntraEncoder (tests/test_torch_hevc.py write_fixtures)"
-                   "; sha256 of the uncropped Y, Cb, Cr planes as "
-                   "little-endian int32, decoded by its device engine",
+    names = [n for n in slices_mod.NEW_STREAMS
+             if only is None or n in only]
+    made = {e["name"]: (e, sl) for e, sl in
+            slices_mod.fixture_entries(names)}
+    for name in slices_mod.NEW_STREAMS:
+        if name not in made:
+            streams.append(old[name])
+            continue
+        entry, sl = made[name]
+        fname = f"{name}.hevc"
+        if len(sl) == 1:
+            entry["slice"] = fname
+            with open(os.path.join(FIXTURES, fname), "wb") as f:
+                f.write(sl[0])
+        else:
+            entry["slices"] = fname
+            slices_mod.write_slices(os.path.join(FIXTURES, fname), sl)
+        streams.append(entry)
+    with open(path, "w") as f:
+        json.dump({"about": "HEVC intra streams (tests/test_torch_hevc.py "
+                   "write_fixtures): the JAX package's IntraEncoder, "
+                   "libx265 and test-side header rewrites "
+                   "(tests/test_torch_hevc_slices.py); sha256 of the "
+                   "uncropped Y, Cb, Cr planes as little-endian int32, "
+                   "decoded by the JAX device engine, or by the engine "
+                   "named in 'reference'; a file named in 'slices' holds "
+                   "the picture's slice NALs with 4-byte lengths",
                    "streams": streams}, f, indent=1)
 
 
-if __name__ == "__main__":
-    if sys.argv[1:] == ["--write-fixtures"]:
-        write_fixtures()
+def fixture_nals(entry, root=FIXTURES):
+    """(sps, pps, [slice NALs]) of a manifest entry."""
+    if "slices" in entry:
+        from tests.test_torch_hevc_slices import read_slices
+        slices = read_slices(os.path.join(root, entry["slices"]))
     else:
-        sys.exit("usage: python -m tests.test_torch_hevc --write-fixtures")
+        with open(os.path.join(root, entry["slice"]), "rb") as f:
+            slices = [f.read()]
+    return bytes.fromhex(entry["sps"]), bytes.fromhex(entry["pps"]), slices
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--write-fixtures"]:
+        rest = sys.argv[2:]
+        if rest[:1] == ["--only"]:
+            write_fixtures(set(rest[1:]))
+        elif not rest:
+            write_fixtures()
+        else:
+            sys.exit("usage: python -m tests.test_torch_hevc "
+                     "--write-fixtures [--only NAME ...]")
+    else:
+        sys.exit("usage: python -m tests.test_torch_hevc --write-fixtures "
+                 "[--only NAME ...]")

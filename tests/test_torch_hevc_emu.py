@@ -16,12 +16,15 @@ import json
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
 from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder, device_recon, headers
+from tests.test_torch_hevc import fixture_nals
 from tests import torch_cuda_emu
+from tests.test_torch_hevc_slices import synthetic_group
 
 FIXTURES = os.path.join(os.path.dirname(hevc_fast.__file__), os.pardir,
                         os.pardir, "testdata", "hevc")
@@ -30,12 +33,21 @@ SOURCE = os.path.join(os.path.dirname(hevc_fast.__file__), "csrc",
 
 # single pictures: 4x4 to 32x32 TUs, strong smoothing, transform skip and
 # delta qp, 10 and 12 bits; batches: two pictures of different wave
-# counts (112 and 12 waves), and three of one size
+# counts (112 and 12 waves), and three of one size.  Then scaling lists
+# (default and custom, 8 to 12 bits: factor slots in stage A) and several
+# slices (availability cut at slice boundaries: other waves in stage B),
+# and a batch of flat, default and custom pictures (three slot sets)
 BATCHES = [
     ("auto-qp26",), ("nxn-dqp-sh",), ("strongsmooth",), ("chromamodes",),
     ("big-ctb-auto",), ("x265full-smooth",), ("dqp-big-varcu",),
     ("10bit-x265full",), ("12bit-x265like",),
     ("nxn-dqp-sh", "rqt1-cu32"), ("sao", "deblock-smooth", "chromamodes"),
+    ("slists-default-8bit",), ("slists-custom-8bit",),
+    ("slists-default-10bit",), ("slists-custom-10bit",),
+    ("slists-default-12bit",), ("slists-custom-12bit",),
+    ("ms-8slices",), ("ms-slices-nxn",), ("x265-2slices-sao-wpp",),
+    ("mr-noacross",), ("bypass-deblock-sao",),
+    ("ms-2slices", "ms-slices-slists", "ms-slices-rqt"),
 ]
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
@@ -57,12 +69,9 @@ def plan_of(names):
     man = streams()
     syns, raws = [], []
     for n in names:
-        e = man[n]
-        with open(os.path.join(FIXTURES, e["slice"]), "rb") as f:
-            sl = f.read()
-        syn, raw = decoder.parse_picture(
-            headers.parse_sps(bytes.fromhex(e["sps"])),
-            headers.parse_pps(bytes.fromhex(e["pps"])), [sl])
+        sps, pps, slices = fixture_nals(man[n], FIXTURES)
+        syn, raw = decoder.parse_picture(headers.parse_sps(sps),
+                                         headers.parse_pps(pps), slices)
         syns.append(syn)
         raws.append(raw)
     return device_recon.build_plan(syns, raws, "cpu")
@@ -95,6 +104,30 @@ def test_emulated_kernels_match_plain(emulated, monkeypatch, names):
     assert hevc_fast.HEVC_INTRA_WAVE.launches - b0 == 1
     assert torch.equal(y[:-1], y_ref[:-1]), "stage B, luma"
     assert torch.equal(c[:-1], c_ref[:-1]), "stage B, chroma"
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_emulated_dequant_extreme_group(emulated, monkeypatch, bd):
+    """hevc_dequant_itx on synthetic groups of every size with |c| =
+    32767, m = 255 and the top QP (a 64-bit product), some transform-skip
+    and bypass TUs and flat slots among them: equal to the plain
+    version."""
+    rng = np.random.default_rng(bd)
+    groups = []
+    mtab = None
+    for log2, luma in ((2, True), (3, True), (4, True), (5, True),
+                       (2, False), (3, False), (4, False)):
+        c, qp, ts, tqb, mslot, mt, _ = synthetic_group(
+            rng, log2, luma, bd, 40 if log2 < 5 else 9, True)
+        mtab = torch.from_numpy(mt) if mtab is None else mtab
+        t = torch.from_numpy
+        groups.append(hevc_fast.ItxGroup(luma, log2, t(c), t(qp), t(ts),
+                                         t(tqb), t(mslot)))
+    ref = hevc_fast.dequant_itx(groups, bd=bd, mtab=mtab)
+    monkeypatch.setattr(hevc_fast, "_on_cpu", lambda *t: False)
+    got = hevc_fast.dequant_itx(groups, bd=bd, mtab=mtab)
+    for g, a, b in zip(groups, got, ref):
+        assert torch.equal(a, b), (g.log2, g.luma)
 
 
 def test_launch_rewrite():
