@@ -95,7 +95,8 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    single-item av01 files (8-bit, 10-bit, 508x500, the screenshot, with
    its launch counts) through the context on the card and on the CPU
    with 0 samples differing;
-4e. the JPEG phase, on the streams committed in
+4e. the JPEG phase (run before 4d, so that its photo's profiler
+   session is the process's first), on the streams committed in
    libheif_tpu_torch/testdata/jpeg (PIL's libjpeg and the JAX package's
    encoder, with the plane hashes of the JAX decode_jpeg): hold
    jpeg_dequant_idct (one launch for every component plane of a batch)
@@ -118,6 +119,23 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    (every tile through decode_tile, strided_extract_paste once a tile,
    each equal to the payload), a tili of the four hvc1 tiles and 8- and
    16-bit mski masks;
+4f. the colour phase: at 4096x4096 on the card, through convert_image,
+   each of the six colour ops the JAX package runs as jnp programs --
+   ChromaResample up (bilinear), down by average and by sharp-yuv,
+   RGBToYCbCr in full and limited range, RGBToMono, MonoToYCbCr,
+   FlattenAlpha solid and checkerboard -- and BayerToRGB on a 16-bit
+   RGGB unci file (a cpat property) decoded through HeifContext
+   (strided_extract_paste once, then BayerToRGB), and a chain through
+   planes_ycbcr8_to_rgb (YCbCr 4:2:0 with alpha flattened to RGB: the
+   kernel once, held to the plain path on the card): each against the
+   same call on the CPU (0 samples differing for the integer ops, the
+   colour contract for the f32 ones), its median time of REPEATS calls
+   beside its byte bound (bytes read and written / 3.35 TB/s), one CPU
+   call's time and the device operations a call issues (torch.profiler);
+   then a file with Exif, XMP, a region item (every geometry kind, a
+   referenced mask) and a text item, read on the card's context through
+   read_from_bytes and through read_from_reader (a CallbackReader), with
+   the same answers from both;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -143,13 +161,13 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    copies and tables, stages A to D, compose), with the flat photo's
    device share; the AV1 kernels at the AVIF photo's
    shapes beside their plain versions, byte bounds, ptxas resources and
-   stage B's chain bound (waves x one step of av1_wave_probe), and the
-   photo's
-   decode twice: the launch-count decode split by part from the decode
-   path's own spans (core/trace.py: tile parses, plan on the host, its
-   copies and the rest on the card, stages A and B, deblock, CDEF, loop
-   restoration, compose, convert, interleave), then once under
-   torch.profiler for its device share; jpeg_dequant_idct at the JPEG
+   stage B's chain bound (waves x one step of av1_wave_probe), stage B
+   on the intrabc screenshot beside its byte bound (the photo's one
+   decode, in phase 4d, runs under torch.profiler: its launch counts,
+   its split by the decode path's own spans -- core/trace.py: tile
+   parses, plan on the host, its copies and the rest on the card, stages
+   A and B, deblock, CDEF, loop restoration, compose, convert,
+   interleave -- and its device share); jpeg_dequant_idct at the JPEG
    photo's shapes beside recon_plain, the kernel alone and the call's
    table copy from torch.profiler, its byte and int32 bounds and a copy_
    of the same bytes (the JPEG photo's decode is timed in phase 4e:
@@ -189,8 +207,8 @@ from libheif_tpu_torch.boxes.meta import (
     Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe)
 from libheif_tpu_torch.boxes.tild import Box_tilC, TiledImageParameters
 from libheif_tpu_torch.boxes.unc import (
-    Box_uncC, Box_cmpd, CmpdComponent, UncCComponent, InterleaveMode,
-    SamplingMode)
+    Box_uncC, Box_cmpd, Box_cpat, CmpdComponent, UncCComponent,
+    InterleaveMode, SamplingMode)
 from libheif_tpu_torch.codecs.av1 import cuda_fast as av1_fast
 from libheif_tpu_torch.codecs.av1 import decoder as av1_decoder
 from libheif_tpu_torch.codecs.av1 import device_recon as av1_recon
@@ -211,6 +229,7 @@ from libheif_tpu_torch.codecs.unc.layout import (
 from libheif_tpu_torch.color import convert_image, get_kr_kb
 from libheif_tpu_torch.color.ops import ColorConversionOptions, YCbCrToRGB
 from libheif_tpu_torch.core import trace
+from libheif_tpu_torch.core.bitstream import ByteWriter
 from libheif_tpu_torch.core.error import HeifError
 from libheif_tpu_torch.core.fourcc import fourcc
 from libheif_tpu_torch.core.fraction import Fraction
@@ -218,6 +237,7 @@ from libheif_tpu_torch.image.pixel_image import (
     Channel, Colorspace, Chroma, PixelImage)
 from libheif_tpu_torch.items.derived import ImageGrid, ImageOverlay
 from libheif_tpu_torch.items.mask_item import Box_mskC
+from libheif_tpu_torch.io.reader import CallbackReader
 from libheif_tpu_torch.items.tiled_item import TiledHeader
 
 SEED = 0
@@ -1093,39 +1113,45 @@ def ms_since(t0):
     return (time.perf_counter() - t0) * 1e3
 
 
-def device_ms(fn):
+def device_ms(fn, attempts=2):
     """Device time of what ``fn`` runs, from the device events of
     torch.profiler: kernels and copies apart, and the kernels with the
-    most time.  None when the profiler records no device event."""
+    most time.  A profiler session in this process sometimes records no
+    device event at all; then ``fn`` runs again under a new session, up
+    to ``attempts`` runs in all.  None when none recorded
+    one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-    copies_us = 0.0
-    kernels = {}
-    events = prof.events()
-    # a record_function range (core/trace.py spans) is mirrored on the
-    # device timeline under its own name: it is not device work
-    ranges = {e.name for e in events if e.device_type != DeviceType.CUDA}
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.name in ranges:
-            continue
-        us = e.time_range.elapsed_us()
-        if e.name.startswith(("Memcpy", "Memset")):
-            copies_us += us
-        else:
-            n, t = kernels.get(e.name[:70], (0, 0.0))
-            kernels[e.name[:70]] = (n + 1, t + us)
-    if not kernels:
-        return None
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
-    return {"kernels_ms": sum(t for _, t in kernels.values()) / 1e3,
-            "copies_ms": copies_us / 1e3,
-            "top": [{"name": k, "count": n, "ms": t / 1e3}
-                    for k, (n, t) in top[:10]]}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        copies_us = 0.0
+        kernels = {}
+        events = prof.events()
+        # a record_function range (core/trace.py spans) is mirrored on the
+        # device timeline under its own name: it is not device work
+        ranges = {e.name for e in events if e.device_type != DeviceType.CUDA}
+        for e in events:
+            if e.device_type != DeviceType.CUDA or e.name in ranges:
+                continue
+            us = e.time_range.elapsed_us()
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies_us += us
+            else:
+                n, t = kernels.get(e.name[:70], (0, 0.0))
+                kernels[e.name[:70]] = (n + 1, t + us)
+        if kernels:
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+            return {"kernels_ms": sum(t for _, t in kernels.values()) / 1e3,
+                    "copies_ms": copies_us / 1e3, "attempt": attempt,
+                    "top": [{"name": k, "count": n, "ms": t / 1e3}
+                            for k, (n, t) in top[:10]]}
+        log(f"device_ms: profiler session {attempt} of {attempts} "
+            "recorded no device event")
+    return None
 
 
 def time_grid_file(blob):
@@ -2017,23 +2043,26 @@ def av1_photo_plan(streams):
 
 
 def check_av1_photo(blob, streams, pictures, tiles=PHOTO_TILES,
-                    what="av1 photo"):
+                    what="av1 photo", profile=False):
     """An AVIF photo through HeifContext: its launches and the wall
     time of each span of the decode path (core/trace.py), read around the
-    decode to interleaved RGB; the YCbCr planes that decode hands to the
-    output conversion against the single tiles' decodes on the CPU placed
-    where the grid puts them, and its RGB against the plain conversion of
-    those planes.  (The photo's Python parse takes about a minute, so one
-    decode serves all four.)  ``pictures``: the plan's or the tiles'
-    count.  Returns (launches, the decode's times by part, RGB)."""
+    decode to interleaved RGB, and with ``profile`` the card's kernel and
+    copy time over that wall (torch.profiler around the same decode); the
+    YCbCr planes that decode hands to the output conversion against the
+    single tiles' decodes on the CPU placed where the grid puts them, and
+    its RGB against the plain conversion of those planes.  (The photo's
+    Python parse takes about a minute, so one decode serves all of it.)
+    ``pictures``: the plan's or the tiles' count.  Returns (launches, the
+    decode's times by part, RGB)."""
     seen = []
     real_convert = context_mod.convert_image
+    out = {}
 
     def convert(img, *args, **kw):
         seen.append(img)
         return real_convert(img, *args, **kw)
-    context_mod.convert_image = convert
-    try:
+
+    def decode():
         with launch_counts() as launches, trace.collect() as spans:
             t0 = time.perf_counter()
             ctx = HeifContext.read_from_bytes(blob)
@@ -2041,10 +2070,27 @@ def check_av1_photo(blob, streams, pictures, tiles=PHOTO_TILES,
             rgb = ctx.decode_image(None, Colorspace.RGB,
                                    Chroma.InterleavedRGB)
             first_ms = ms_since(t0)
+        out.update(launches=launches, rgb=rgb, parts={
+            "total_ms": first_ms, "file_parse_ms": file_ms,
+            "spans": spans})
+    context_mod.convert_image = convert
+    try:
+        # one session only: a second would cost another minute's decode
+        dev = device_ms(decode, attempts=1) if profile else decode()
     finally:
         context_mod.convert_image = real_convert
-    parts = {"total_ms": first_ms, "file_parse_ms": file_ms, "spans": spans}
-    log(f"{what} launches {launches} in {first_ms:.1f} ms, by part "
+    launches, rgb, parts = out["launches"], out["rgb"], out["parts"]
+    spans = parts["spans"]
+    if profile:
+        if dev is None:
+            dev = "not measured (the profiler recorded no device time)"
+        else:
+            dev["kernel_share"] = dev["kernels_ms"] / parts["total_ms"]
+            dev["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / \
+                parts["total_ms"]
+        parts["device"] = dev
+        parts["mp_per_s"] = PHOTO[0] * PHOTO[1] / 1e3 / parts["total_ms"]
+    log(f"{what} launches {launches} in {parts['total_ms']:.1f} ms, by part "
         f"{json.dumps(parts)}")
     grain = any(n.startswith("grain") for n in tiles)
     for name in ("av1.parse", "av1.plan", "av1.plan_host", "av1.plan_copies",
@@ -2132,36 +2178,6 @@ def check_av01_files(streams):
             decode_both(f"av01 {name} RGB", blobs[name], Colorspace.RGB,
                         Chroma.C444)
     return blobs, shot
-
-
-def time_av1_photo(blob, ref, first):
-    """The photo's second decode through the entry point, under
-    torch.profiler: its total beside the first decode's (``first``, the
-    launch-count decode split by part), its RGB equal to the first's, and
-    the card's kernel and copy time over its own total."""
-    out = {}
-
-    def decode():
-        t0 = time.perf_counter()
-        out["rgb"] = HeifContext.read_from_bytes(blob).decode_image(
-            None, Colorspace.RGB, Chroma.InterleavedRGB)
-        out["ms"] = ms_since(t0)
-    dev = device_ms(decode)
-    assert torch.equal(out["rgb"].plane(Channel.Interleaved),
-                       ref.plane(Channel.Interleaved)), \
-        "the second decode differs from the first"
-    totals = [first["total_ms"], out["ms"]]
-    t = {"total_ms": totals,
-         "mp_per_s": [PHOTO[0] * PHOTO[1] / 1e3 / ms for ms in totals],
-         "by_part": first}
-    if dev is None:
-        dev = "not measured (the profiler recorded no device time)"
-    else:
-        dev["kernel_share"] = dev["kernels_ms"] / out["ms"]
-        dev["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / out["ms"]
-    t["device"] = dev
-    log(f"av1 photo {json.dumps(t)}")
-    return t
 
 
 def av1_itx_work(plan):
@@ -2278,14 +2294,17 @@ def av1_wave_chain_ms(timer, plan):
 
 def av1_screenshot_stage_b(timer, streams):
     """av1_intra_wave on the intrabc screenshot's plan (one picture, one
-    block of the kernel): its waves, jobs by kind and device ms."""
+    block of the kernel): its waves, jobs by kind, bytes and operations
+    (av1_wave_work) with their bounds, and device ms."""
     plan = av1_recon.build_plan([av1_parse(streams[SCREENSHOT])[2]], DEV)
     res = av1_recon.residuals(plan)
     buf0, waves = av1_recon.palette_and_waves(plan, res)
     bufs = [buf0.clone() for _ in range(2)]
+    nbytes, nops = av1_wave_work(plan)
     out = {"waves": plan.n_waves,
            "groups": {f"{av1_recon.KIND_NAMES[g.kind]}{g.sq}": g.n
                       for g in plan.groups},
+           "bytes": nbytes, "ops": nops, **bounds(nbytes, nops),
            "av1_intra_wave_ms": timer([lambda b=b: av1_fast.intra_waves(
                b, waves, plan.wave_rows, **av1_recon.wave_args(plan))
                for b in bufs], n=6),
@@ -2833,6 +2852,429 @@ def jpeg_kernel_row(timer, tally, frames, launches):
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------------------------------------ colour
+# The colour phase: the six colour ops that the JAX package runs as jnp
+# programs (libheif_tpu/color/ops.py), plain torch on the card, each
+# through convert_image at 4096x4096 and held to the same call on the CPU;
+# a 16-bit Bayer unci file through HeifContext; a chain through the
+# planes_ycbcr8_to_rgb kernel; and a file with Exif, XMP, region and text
+# items read through bytes and through a streaming reader.
+
+COLOUR_SIDE = 4096
+COLOUR_JNP = "libheif_tpu/color/ops.py"
+
+
+def colour_planes(kind, bits, seed):
+    """Random COLOUR_SIDE^2 numpy planes of ``kind`` (ycc420, ycc444,
+    ycc420a, rgb, rgba, mono) and the image's colorspace and chroma."""
+    n = COLOUR_SIDE
+    rng = np.random.default_rng(seed)
+    dt = np.uint8 if bits <= 8 else np.uint16
+
+    def plane(h, w):
+        return rng.integers(0, 1 << bits, (h, w), dtype=dt)
+    if kind.startswith("ycc"):
+        c = n // 2 if kind.startswith("ycc420") else n
+        planes = {Channel.Y: plane(n, n), Channel.Cb: plane(c, c),
+                  Channel.Cr: plane(c, c)}
+        space = (Colorspace.YCbCr,
+                 Chroma.C420 if kind.startswith("ycc420") else Chroma.C444)
+    elif kind.startswith("rgb"):
+        planes = {ch: plane(n, n) for ch in (Channel.R, Channel.G, Channel.B)}
+        space = (Colorspace.RGB, Chroma.C444)
+    else:
+        planes = {Channel.Y: plane(n, n)}
+        space = (Colorspace.Monochrome, Chroma.Monochrome)
+    if kind.endswith("a"):
+        planes[Channel.Alpha] = plane(n, n)
+    return planes, space
+
+
+def colour_image(planes, space, bits, device):
+    img = PixelImage(COLOUR_SIDE, COLOUR_SIDE, *space)
+    for ch, a in planes.items():
+        img.set_plane(ch, torch.from_numpy(a).to(device), bits)
+    return img
+
+
+def colour_compare(what, got, ref, exact):
+    """A colour result on the card against the same call on the CPU:
+    0 differing samples where ``exact``, else the colour contract (at
+    most 1 LSB on fewer than 1% of the samples)."""
+    assert (got.width, got.height, got.colorspace, got.chroma,
+            got.channels()) == (ref.width, ref.height, ref.colorspace,
+                                ref.chroma, ref.channels()), what
+    n = total = err = 0
+    for ch in ref.channels():
+        assert got.plane(ch).device.type == DEV, f"{what} {ch}"
+        assert got.bit_depth(ch) == ref.bit_depth(ch), f"{what} {ch}"
+        a, b = got.np_plane(ch), ref.np_plane(ch)
+        assert a.dtype == b.dtype and a.shape == b.shape, f"{what} {ch}"
+        d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        n += int(np.count_nonzero(d))
+        err = max(err, int(d.max(initial=0)))
+        total += a.size
+    log(f"check colour {what:44s} card vs CPU max_abs_err {err} "
+        f"differing {n} of {total}")
+    if exact:
+        assert n == 0, f"{what}: the card differs from the CPU"
+    else:
+        assert err <= 1 and n < 0.01 * total, \
+            f"{what}: beyond 1 LSB on 1% of the samples"
+    return {"max_abs_err": err, "differing": n, "samples": total}
+
+
+def median_ms(fn, n=REPEATS):
+    """The median wall of ``n`` calls, each between two synchronises."""
+    runs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        runs.append(ms_since(t0))
+    return float(np.median(runs))
+
+
+def launches_per_call(calls):
+    """Device operations (kernels, memsets and copies) each of ``calls``
+    (name -> fn) issues, from one torch.profiler session: spin kernels
+    (torch.cuda._sleep) go on the stream between the calls and after the
+    last, and the operations between two runs of spins in stream order
+    are the call's, whatever the offset between the host's and the
+    card's clocks.  The session misses the card's first operations (in
+    one run, three spins and part of the first call), so a spin of ~25
+    ms and 32 short ones open it.  None for every call when the profiler
+    records no device event or not every boundary."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(50_000_000)
+        for _ in range(32):
+            torch.cuda._sleep(1000)
+        for fn in calls.values():
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    cpu_names = {e.name for e in prof.events()
+                 if e.device_type != DeviceType.CUDA}
+    ops = [name for _, name in sorted(
+        (e.time_range.start, e.name) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.name not in cpu_names)]
+    counts, n = [], None        # n: operations since the last run of spins
+    for name in ops:
+        if "spin_kernel" in name:
+            if n:
+                counts.append(n)
+            n = 0
+        elif n is not None:
+            n += 1
+    log(f"colour launches: {len(ops)} device operations recorded, "
+        f"{len(counts)} segments between spins for {len(calls)} calls")
+    if len(counts) != len(calls):
+        log("colour launches: " + " | ".join(
+            "spin" if "spin_kernel" in o else o[:24] for o in ops))
+        return {name: None for name in calls}
+    return dict(zip(calls, counts))
+
+
+def bayer_file(bits=16):
+    """A COLOUR_SIDE^2 RGGB filter-array unci item (one tile) with its
+    cpat: cmpd holds the filter-array component and plane-less R, G, B
+    reference components, as the JAX package's writer lays them out."""
+    n = COLOUR_SIDE
+    uncC, cmpd = make_boxes([(0, bits)], [11, 4, 5, 6])
+    cpat = Box_cpat()
+    cpat.pattern_width = cpat.pattern_height = 2
+    cpat.components = [1, 2, 2, 3]             # R G / G B
+    cpat.component_gains = [1.0] * 4
+    plane = np.random.default_rng(SEED + 5).integers(
+        0, 1 << bits, (n, n), dtype=np.uint16)
+    f = new_file()
+    item = add_unci(f, n, n, (uncC, cmpd), plane.astype(">u2").tobytes(),
+                    [(cpat, False)], hidden=False)
+    f.set_primary_item(item)
+    return f.write()
+
+
+# (name, op, input kind, bits, convert_image arguments, options, exact,
+# bytes the op must move: its input planes read once, its new output
+# planes written once; a plane passed through by reference moves none)
+_P = COLOUR_SIDE * COLOUR_SIDE
+_Q = _P // 4
+COLOUR_CASES = [
+    ("ChromaResample up 4:2:0->4:4:4 bilinear", "ChromaResample",
+     "ycc420", 8, (Colorspace.YCbCr, Chroma.C444), {}, True,
+     2 * _Q + 2 * _P),
+    ("ChromaResample down average 4:4:4->4:2:0", "ChromaResample",
+     "ycc444", 8, (Colorspace.YCbCr, Chroma.C420), {}, True,
+     2 * _P + 2 * _Q),
+    ("ChromaResample down sharp-yuv 4:4:4->4:2:0", "ChromaResample",
+     "ycc444", 8, (Colorspace.YCbCr, Chroma.C420),
+     dict(chroma_downsampling="sharp-yuv"), False, 2 * _P + 2 * _Q),
+    ("RGBToYCbCr 4:2:0 full range", "RGBToYCbCr", "rgb", 8,
+     (Colorspace.YCbCr, Chroma.C420), {}, False, 3 * _P + _P + 2 * _Q),
+    ("RGBToYCbCr 4:2:0 limited range", "RGBToYCbCr", "rgb", 8,
+     (Colorspace.YCbCr, Chroma.C420, "limited"), {}, False,
+     3 * _P + _P + 2 * _Q),
+    ("RGBToMono", "RGBToMono", "rgb", 8,
+     (Colorspace.Monochrome, Chroma.Monochrome), {}, False, 3 * _P + _P),
+    ("MonoToYCbCr 4:2:0", "MonoToYCbCr", "mono", 8,
+     (Colorspace.YCbCr, Chroma.C420), {}, True, _Q),
+    ("FlattenAlpha solid", "FlattenAlpha", "rgba", 8,
+     (Colorspace.RGB, Chroma.C444, "no-alpha"),
+     dict(alpha_composition_mode="solid-color"), True, 4 * _P + 3 * _P),
+    ("FlattenAlpha checkerboard", "FlattenAlpha", "rgba", 8,
+     (Colorspace.RGB, Chroma.C444, "no-alpha"),
+     dict(alpha_composition_mode="checkerboard"), True, 4 * _P + 3 * _P),
+]
+
+
+def colour_call(img, target, options, device=None):
+    """convert_image of ``img`` to ``target`` ((colorspace, chroma) and
+    "limited" or "no-alpha") on ``device`` (None: the card), as a call."""
+    colorspace, chroma, *flag = target
+    kw = {}
+    if flag == ["limited"]:
+        kw["target_full_range"] = False
+    if flag == ["no-alpha"]:
+        kw["target_has_alpha"] = False
+    return lambda: convert_image(
+        img, colorspace, chroma,
+        options=ColorConversionOptions(**options), device=device, **kw)
+
+
+def cpu_run(img, target, options):
+    """The same convert_image call on the CPU, once: (its result, its
+    wall ms, the ops of the chain it ran, from their core/trace.py
+    spans)."""
+    with trace.collect() as spans:
+        t0 = time.perf_counter()
+        out = colour_call(img, target, options, "cpu")()
+        ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, [n[6:] for n in spans if n.startswith("color.")]
+
+
+def colour_row(name, op, nbytes, card_fn, cpu_ms, check):
+    """One op's numbers: the card's median of REPEATS calls beside its
+    byte bound, and the CPU call's time."""
+    card_ms = median_ms(card_fn)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"name": name, "op": op,
+            "replaces": f"{COLOUR_JNP}:{COLOUR_JNP_LINES[op]}",
+            "ms": card_ms, "bound_ms": bound_ms, "bytes": nbytes,
+            "share_of_bound": bound_ms / card_ms, "cpu_plain_ms": cpu_ms,
+            **check}
+
+
+# the JAX ops' lines in libheif_tpu/color/ops.py
+COLOUR_JNP_LINES = {"ChromaResample": 396, "RGBToYCbCr": 282,
+                    "RGBToMono": 584, "MonoToYCbCr": 362,
+                    "FlattenAlpha": 508, "BayerToRGB": 615,
+                    "YCbCrToRGB": 175}
+
+
+def check_colour_ops(tally):
+    """Phase 4f: each case of COLOUR_CASES, the Bayer file and the chain
+    through planes_ycbcr8_to_rgb: the ops the chain ran, the card's
+    result against the CPU's, the card's median time beside the byte
+    bound, one CPU call's time and the device operations a call issues.
+    Returns the rows."""
+    rows, calls = [], {}
+    for i, (name, op, kind, bits, target, options, exact, nbytes) in \
+            enumerate(COLOUR_CASES):
+        planes, space = colour_planes(kind, bits, SEED + 10 + i)
+        card = colour_call(colour_image(planes, space, bits, DEV), target,
+                           options)
+        cpu_img = colour_image(planes, space, bits, "cpu")
+        got = card()
+        ref, cpu_ms, ops_run = cpu_run(cpu_img, target, options)
+        assert ops_run == [op], f"{name}: the chain ran {ops_run}"
+        rows.append(colour_row(name, op, nbytes, card, cpu_ms,
+                               colour_compare(name, got, ref, exact)))
+        calls[name] = card
+        del planes, cpu_img, got, ref
+
+    # the Bayer file through HeifContext: unci extraction, then BayerToRGB
+    blob = bayer_file()
+    with launch_counts() as bayer_launches:
+        got = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.C444)
+    log(f"colour bayer file launches {bayer_launches}")
+    assert bayer_launches["strided_extract_paste"] == 1, \
+        "the Bayer item did not decode through strided_extract_paste"
+    ref = HeifContext.read_from_bytes(blob, device="cpu").decode_image(
+        None, Colorspace.RGB, Chroma.C444)
+    check = colour_compare("Bayer RGGB 16-bit file -> RGB", got, ref, True)
+    raw = HeifContext.read_from_bytes(blob).decode_image(None)
+    raw_cpu = HeifContext.read_from_bytes(blob, device="cpu").decode_image(
+        None)
+    assert raw.bayer_pattern.channels == [Channel.R, Channel.G, Channel.G,
+                                          Channel.B]
+    target = (Colorspace.RGB, Chroma.C444)
+    bayer = colour_call(raw, target, {})
+    _, cpu_ms, ops_run = cpu_run(raw_cpu, target, {})
+    assert ops_run == ["BayerToRGB"], ops_run
+    row = colour_row("BayerToRGB RGGB 16-bit", "BayerToRGB", 2 * _P + 6 * _P,
+                     bayer, cpu_ms, check)
+    row["file_ms"] = median_ms(lambda: HeifContext.read_from_bytes(blob)
+                               .decode_image(None, Colorspace.RGB,
+                                             Chroma.C444))
+    row["file_launches"] = bayer_launches
+    rows.append(row)
+    calls[row["name"]] = bayer
+    del got, ref, raw_cpu
+
+    # a chain through the planes_ycbcr8_to_rgb kernel: YCbCr 4:2:0 with
+    # alpha, flattened onto white, to RGB
+    name = "YCbCrToRGB + FlattenAlpha (kernel chain)"
+    planes, space = colour_planes("ycc420a", 8, SEED + 30)
+    img = colour_image(planes, space, 8, DEV)
+    cpu_img = colour_image(planes, space, 8, "cpu")
+    target = (Colorspace.RGB, Chroma.C444, "no-alpha")
+    options = dict(alpha_composition_mode="solid-color")
+    chain = colour_call(img, target, options)
+    with launch_counts() as chain_launches:
+        got = chain()
+    log(f"colour chain launches {chain_launches}")
+    assert chain_launches["planes_ycbcr8_to_rgb"] == 1, \
+        "the chain did not launch planes_ycbcr8_to_rgb once"
+    try:
+        YCbCrToRGB.USE_KERNEL = False        # the plain path on the card
+        plain = chain()
+    finally:
+        YCbCrToRGB.USE_KERNEL = None
+    for ch in (Channel.R, Channel.G, Channel.B):
+        tally.compare("planes_ycbcr8_to_rgb", f"colour chain {ch}",
+                      got.plane(ch), plain.plane(ch), exact=True)
+    ref, cpu_ms, ops_run = cpu_run(cpu_img, target, options)
+    assert ops_run == ["YCbCrToRGB", "FlattenAlpha"], ops_run
+    row = colour_row(name, "YCbCrToRGB", 2 * _P + 2 * _Q + 3 * _P, chain,
+                     cpu_ms, colour_compare(name, got, ref, False))
+    row["launches_by_kernel"] = chain_launches
+    rows.append(row)
+    calls[name] = chain
+    del planes, img, cpu_img, got, ref, plain
+
+    counts = launches_per_call(calls)
+    for r in rows:
+        r["launches_per_call"] = counts.get(r["name"])
+    card = nvidia_smi()
+    for r in rows:
+        log(f"colour op {r['name']:44s} {r['ms']:.4f} ms, byte bound "
+            f"{r['bound_ms']:.4f} ms ({100 * r['share_of_bound']:.2f}%), "
+            f"{r['launches_per_call']} device operations a call, CPU "
+            f"{r['cpu_plain_ms']:.1f} ms; {card}")
+    return rows
+
+
+# the metadata file's Exif payload (past its 4-byte offset), XMP and text
+EXIF = b"MM\x00*\x00\x00\x00\x08" + bytes(range(24))
+XMP = b'<x:xmpmeta xmlns:x="adobe:ns:meta/"><rdf:RDF/></x:xmpmeta>'
+TEXT = "caption: a 64x64 test image"
+
+
+def region_payload():
+    """An rgan payload in 16-bit fields (version 0, flags 0; ISO 23008-12
+    6.10): a point, a rectangle, an ellipse, a polygon, a polyline and a
+    referenced mask, in a 640x480 reference space."""
+    w = ByteWriter()
+    w.write8(0)
+    w.write8(0)
+    w.write16(640)
+    w.write16(480)
+    w.write8(6)
+    for code, fields in ((0, (10, -5)), (1, (1, 2, 100, 50)),
+                         (2, (320, 240, 100, 60)),
+                         (3, (3, 0, 0, 10, 0, 5, 9)),
+                         (6, (2, 1, 1, 2, 2)), (4, (4, 6, 16, 8))):
+        w.write8(code)
+        for v in fields:
+            w.write16(v & 0xFFFF)
+    return w.data()
+
+
+def metadata_file():
+    """A 64x64 RGB unci image with an Exif item (4-byte TIFF offset 0),
+    an XMP item, a region item whose mask geometry names an mski item,
+    and a text item, each linked to the image by cdsc."""
+    f = new_file()
+    image = add_unci(f, 64, 64, rgb8(), payload(64, 64, rgb8(), 40),
+                     hidden=False)
+    f.set_primary_item(image)
+    mask = f.add_new_item("mski")
+    f.append_item_data(mask.item_id, bytes(range(128)))
+    f.add_property(mask.item_id, Box_ispe(16, 8), False)
+    f.add_property(mask.item_id, Box_mskC(8), True)
+    mask.hidden = True
+    items = {}
+    for kind, data, content in (
+            ("Exif", (0).to_bytes(4, "big") + EXIF, ""),
+            ("mime", XMP, "application/rdf+xml"),
+            ("rgan", region_payload(), ""),
+            ("txti", TEXT.encode("utf-8"), "text/plain")):
+        infe = f.add_new_item(kind)
+        infe.content_type = content
+        infe.hidden = True
+        f.append_item_data(infe.item_id, data)
+        f.add_reference("cdsc", infe.item_id, [image])
+        items[kind] = infe.item_id
+    f.add_reference("mask", items["rgan"], [mask.item_id])
+    return f.write(), image, mask.item_id
+
+
+def metadata_answers(ctx, image):
+    regions = ctx.get_region_items(image)
+    return {
+        "blocks": [(b["item_type"], b["content_type"], bytes(b["data"]))
+                   for b in ctx.get_metadata_blocks(image)],
+        "exif": ctx.get_exif(image), "xmp": ctx.get_xmp(image),
+        "regions": [(r.reference_width, r.reference_height,
+                     [sorted(vars(g).items()) for g in r.regions])
+                    for r in regions],
+        "texts": [t.text for t in ctx.get_text_items(image)]}
+
+
+def check_metadata_file():
+    """The metadata file read on a device=None context through
+    read_from_bytes and through read_from_reader (a CallbackReader that
+    counts the bytes it hands out): the same answers, the expected Exif,
+    XMP, regions and text, the same decode, and an open that fetched only
+    the structural boxes."""
+    blob, image, mask = metadata_file()
+    fetched = []
+
+    def read(start, size):
+        fetched.append(size)
+        return blob[start:start + size]
+    by_bytes = HeifContext.read_from_bytes(blob)
+    by_reader = HeifContext.read_from_reader(
+        CallbackReader(read=read, file_size=lambda: len(blob)))
+    opened = sum(fetched)
+    a, b = metadata_answers(by_bytes, image), metadata_answers(by_reader,
+                                                               image)
+    assert a == b, "read_from_reader answers differently"
+    assert a["exif"] == EXIF and a["xmp"] == XMP and a["texts"] == [TEXT]
+    (rw, rh, geoms), = a["regions"]
+    kinds = [dict(g)["kind"] for g in geoms]
+    assert (rw, rh) == (640, 480) and kinds == [
+        "point", "rect", "ellipse", "polygon", "polyline",
+        "referenced_mask"], kinds
+    assert dict(geoms[1])["width"] == 100 and dict(geoms[0])["y"] == -5
+    assert dict(geoms[5])["mask_item_id"] == mask
+    same_image("metadata file: reader vs bytes",
+               by_reader.decode_image(None, Colorspace.RGB, Chroma.C444),
+               by_bytes.decode_image(None, Colorspace.RGB, Chroma.C444))
+    log(f"check metadata file {len(blob)} B: bytes and reader agree "
+        f"(Exif {len(a['exif'])} B, XMP {len(a['xmp'])} B, "
+        f"{len(kinds)} regions, {len(a['texts'])} text); the reader's "
+        f"open fetched {opened} B")
+    return {"file_bytes": len(blob), "open_fetched_bytes": opened}
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -2849,6 +3291,7 @@ def main():
 
     def phase_done(name):
         phase_s[name] = time.perf_counter() - t_start
+        log(f"phase {name} done at {phase_s[name]:.1f} s")
 
     # 1. the card
     card = nvidia_smi()
@@ -2945,6 +3388,20 @@ def main():
 
     phase_done("hevc")
 
+    # 4e. JPEG (before 4d: its photo's profiler session is the process's
+    # first; later sessions of that decode have recorded no device
+    # event): the kernel, the streams, the JPEG photo, jpeg/mini/tili/mski
+    j_streams = jpeg_streams()
+    j_frames = check_jpeg_kernel(tally, j_streams)
+    check_jpeg_streams(j_streams)
+    j_photo = jpeg_photo_file(j_streams)
+    log(f"jpeg photo file {len(j_photo)} B, {len(j_frames)} tiles")
+    j_launches, j_first, j_rgb = check_jpeg_photo(j_photo, j_streams)
+    j_runs = time_jpeg_photo(j_photo, j_rgb, j_first)
+    check_jpeg_files(j_streams, streams, data)
+
+    phase_done("jpeg")
+
     # 4d. AV1: the kernels, the streams, the AVIF photo, av01 files
     a_streams = av1_streams()
     check_av1_kernels(tally, a_streams)
@@ -2959,8 +3416,9 @@ def main():
         f"{a_plan.n_waves} waves, groups {a_groups}, plan "
         f"{a_plan_ms:.0f} ms")
     check_av1_plan(tally, f"photo {a_plan.t} tiles", a_plan)
-    a_launches, a_first, a_rgb = check_av1_photo(a_photo, a_streams,
-                                                 a_plan.t)
+    # one decode under the profiler: launches, spans and the card's share
+    a_launches, a_first, _a_rgb = check_av1_photo(a_photo, a_streams,
+                                                  a_plan.t, profile=True)
     g_photo = av1_photo_file(a_streams, GRAIN_TILES)
     log(f"av1 grain photo file {len(g_photo)} B, tiles {GRAIN_TILES}")
     g_launches, g_first, _g_rgb = check_av1_photo(
@@ -2970,19 +3428,12 @@ def main():
 
     phase_done("av1")
 
-    # 4e. JPEG: the kernel, the streams, the JPEG photo, jpeg/mini/tili/mski
-    j_streams = jpeg_streams()
-    j_frames = check_jpeg_kernel(tally, j_streams)
-    check_jpeg_streams(j_streams)
-    j_photo = jpeg_photo_file(j_streams)
-    log(f"jpeg photo file {len(j_photo)} B, {len(j_frames)} tiles")
-    j_launches, j_first, j_rgb = check_jpeg_photo(j_photo, j_streams)
-    # timed here: the process's first profiler session records the card
-    # (a later one recorded no device event in one run)
-    j_runs = time_jpeg_photo(j_photo, j_rgb, j_first)
-    check_jpeg_files(j_streams, streams, data)
+    # 4f. colour: the six colour ops at 4096x4096, a Bayer file, a chain
+    # through planes_ycbcr8_to_rgb, and the read-side metadata calls
+    colour_rows = check_colour_ops(tally)
+    metadata = check_metadata_file()
 
-    phase_done("jpeg")
+    phase_done("colour")
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -3174,7 +3625,6 @@ def main():
     kern.update(av1_kernel_rows(timer, tally, a_plan, a_launches, {
         "avif_photo": a_launches, "grain_photo": g_launches,
         "screenshot": shot_launches}, shot))
-    a_runs = time_av1_photo(a_photo, a_rgb, a_first)
     av01_single = []
     for _ in range(AV1_REPEATS):
         t0 = time.perf_counter()
@@ -3239,7 +3689,7 @@ def main():
         "av1_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
                       f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} av01 tiles of "
                       "512x512", "waves": a_plan.n_waves,
-                      "launches": a_launches, "parts": a_runs},
+                      "launches": a_launches, "parts": a_first},
         "av1_single_item_total_ms": av01_single,
         "av1_grain_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
                             f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} film-grain "
@@ -3249,6 +3699,7 @@ def main():
         "jpeg_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
                        f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} jpeg tiles of "
                        "512x512", "launches": j_launches, "parts": j_runs},
+        "colour_ops": colour_rows, "metadata_file": metadata,
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
         "phase_s": phase_s, "elapsed_s": time.perf_counter() - t_start}
     log("summary " + json.dumps(summary))

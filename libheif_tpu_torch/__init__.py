@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of libheif_tpu: HEIF files with unci, hvc1 (HEVC
-intra), av01 (AV1 intra), jpeg, grid, iden, overlay, tili and mski
-images, mini files, their transforms and alpha, and the colour
-conversion.
+"""PyTorch/CUDA port of libheif_tpu: HEIF files with unci (Bayer ones
+too), hvc1 (HEVC intra), av01 (AV1 intra), jpeg, grid, iden, overlay,
+tili and mski images, mini files, their transforms and alpha, the colour
+conversion, and the read-side metadata (Exif, XMP, region and text
+items), from bytes, a path or a streaming reader.
 
 The package mirrors the module names of ``libheif_tpu`` so each part can
 be read beside its counterpart, but it imports nothing from it and never

@@ -4,15 +4,19 @@ Counterpart of libheif_tpu/color/ops.py (reference:
 libheif/color-conversion/ — yuv2rgb.cc, monochrome.cc, alpha.cc,
 hdr_sdr.cc, rgb2rgb.cc; op registry colorconversion.cc:225-269).
 ``ALL_OPS`` lists the JAX package's 13 ops in its order and with its
-costs, so the pipeline search picks the same chain.  Seven are ported
-(YCbCrToRGB, MonoToRGB, BitDepthConvert, DropAlpha, AddAlpha and the two
-interleave ops); the other six keep their state transitions for the
-search and are marked ``ported = False``, and a conversion whose chain
-needs one raises Unsupported_color_conversion naming it.
+costs, so the pipeline search picks the same chain.  Every op runs as
+torch on the image's device (YCbCrToRGB through the planes_ycbcr8_to_rgb
+kernel where it can); none moves planes to the host.
 
 Arithmetic is float32 with the JAX package's operation order and
 rounding (half to even, as jnp.round; the JAX module's docstring says
-half away from zero, its code does not).
+half away from zero, its code does not).  Divisions by a scalar go
+through ``cuda_fast.true_div``; nothing here reaches a matmul or a
+convolution, so TF32 never applies.  The integer stages (MonoToYCbCr,
+FlattenAlpha, ChromaResample by nearest, bilinear up and average down,
+BayerToRGB) are exact against the JAX ops: BayerToRGB takes its box sums
+in int32, which equals the JAX f32 convolution wherever that sum stays
+below 2**24 (every pattern up to 8x8 at 16 bits).
 """
 
 from __future__ import annotations
@@ -21,21 +25,24 @@ from typing import List, Optional
 
 import torch
 
+from ..core.error import HeifError, SubError
 from ..image.pixel_image import (
-    PixelImage, Channel, Colorspace, Chroma, _moved)
+    PixelImage, Channel, Colorspace, Chroma, _moved, subsampled_size)
 from ..codecs.unc import cuda_fast
 from .nclx import get_kr_kb
 from .state import ColorState
 
 
 class ColorConversionOptions:
-    """(ref: heif_color_conversion_options, heif_color.h).  The ported
-    ops read chroma upsampling; the alpha composition mode selects
-    between DropAlpha and FlattenAlpha in the search.  Downsampling and
-    the composition backgrounds wait with the ops that read them."""
+    """(ref: heif_color_conversion_options, heif_color.h).  The alpha
+    composition mode selects between DropAlpha and FlattenAlpha in the
+    search; backgrounds are 16-bit (R, G, B), shifted to the image's
+    depth by FlattenAlpha."""
 
     NEAREST = "nearest-neighbor"
     BILINEAR = "bilinear"
+    AVERAGE = "average"
+    SHARP_YUV = "sharp-yuv"
 
     # alpha composition modes (ref: heif_alpha_composition_mode,
     # heif_color.h:74)
@@ -44,9 +51,17 @@ class ColorConversionOptions:
     ALPHA_CHECKERBOARD = "checkerboard"
 
     def __init__(self, chroma_upsampling: str = BILINEAR,
-                 alpha_composition_mode: str = ALPHA_NONE):
+                 chroma_downsampling: str = AVERAGE,
+                 alpha_composition_mode: str = ALPHA_NONE,
+                 background_rgb=(0xFFFF, 0xFFFF, 0xFFFF),
+                 secondary_background_rgb=(0x6666, 0x6666, 0x6666),
+                 checkerboard_square_size: int = 16):
         self.chroma_upsampling = chroma_upsampling
+        self.chroma_downsampling = chroma_downsampling
         self.alpha_composition_mode = alpha_composition_mode
+        self.background_rgb = background_rgb
+        self.secondary_background_rgb = secondary_background_rgb
+        self.checkerboard_square_size = checkerboard_square_size
 
 
 def _round_clip(x: torch.Tensor, maxval: int) -> torch.Tensor:
@@ -92,6 +107,58 @@ def _upsample(plane: torch.Tensor, out_h: int, out_w: int,
     return af
 
 
+def _downsample(plane_f32: torch.Tensor, factor_x: int, factor_y: int,
+                method: str) -> torch.Tensor:
+    """Chroma downsampling by integer factors (average or nearest); the
+    average pads the plane by edge replication to whole blocks."""
+    a = plane_f32
+    h, w = a.shape
+    if factor_x == 1 and factor_y == 1:
+        return a
+    if method == ColorConversionOptions.NEAREST:
+        return a[::factor_y, ::factor_x]
+    hh = h + (-h) % factor_y
+    ww = w + (-w) % factor_x
+    if (hh, ww) != (h, w):
+        ys = torch.clamp(torch.arange(hh, device=a.device), max=h - 1)
+        xs = torch.clamp(torch.arange(ww, device=a.device), max=w - 1)
+        a = a[ys[:, None], xs[None, :]]
+    return a.reshape(hh // factor_y, factor_y, ww // factor_x,
+                     factor_x).mean(dim=(1, 3))
+
+
+def _sharp_downsample(plane_f32: torch.Tensor, th: int, tw: int,
+                      iters: int = 4) -> torch.Tensor:
+    """'Sharp' chroma downsampling (ref: rgb2yuv_sharp.cc): Richardson
+    iterations on min ||upsample(C_sub) - C||^2, each a bilinear upsample,
+    the residual and its average."""
+    a = plane_f32
+    h, w = a.shape
+    fx = max(1, round(w / tw))
+    fy = max(1, round(h / th))
+    sub = _downsample(a, fx, fy, ColorConversionOptions.AVERAGE)[:th, :tw]
+    for _ in range(iters):
+        up = _upsample(sub, h, w, ColorConversionOptions.BILINEAR)
+        sub = sub + _downsample(a - up, fx, fy,
+                                ColorConversionOptions.AVERAGE)[:th, :tw]
+    return sub
+
+
+def _box_sum(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """Zero-padded centred (kh, kw) box sum of an int32 plane, exact, as
+    separable shifted adds."""
+    h, w = x.shape
+    rh, rw = kh // 2, kw // 2
+    p = torch.nn.functional.pad(x, (rw, rw, rh, rh))
+    rows = p[:, :w].clone()
+    for j in range(1, kw):
+        rows += p[:, j:j + w]
+    out = rows[:h].clone()
+    for i in range(1, kh):
+        out += rows[i:i + h]
+    return out
+
+
 def _device(img: PixelImage) -> torch.device:
     return next(iter(img.planes.values())).device
 
@@ -100,7 +167,6 @@ class ColorOp:
     """Base op (ref: ColorConversionOperation colorconversion.h:78)."""
 
     cost = 4
-    ported = True
 
     def enabled(self, options: Optional[ColorConversionOptions]) -> bool:
         """Whether this op participates in pipeline search under the
@@ -226,10 +292,10 @@ class YCbCrToRGB(ColorOp):
 
 
 class RGBToYCbCr(ColorOp):
-    """(ref: rgb2yuv.cc Op_RGB_to_YCbCr).  Not ported yet."""
+    """(ref: rgb2yuv.cc Op_RGB_to_YCbCr): the forward H.273 matrix in
+    f32, then chroma downsampling."""
 
     cost = 6
-    ported = False
 
     def output_state(self, inp, target):
         if inp.colorspace != Colorspace.RGB or inp.chroma not in (
@@ -243,6 +309,42 @@ class RGBToYCbCr(ColorOp):
         return inp.with_(colorspace=Colorspace.YCbCr, chroma=chroma,
                          matrix_coefficients=mc,
                          full_range=target.full_range)
+
+    def apply(self, img, inp, outp, options):
+        bits = inp.bits_per_pixel
+        maxval = (1 << bits) - 1
+        r = img.plane(Channel.R).to(torch.float32)
+        g = img.plane(Channel.G).to(torch.float32)
+        b = img.plane(Channel.B).to(torch.float32)
+
+        kr, kb = get_kr_kb(outp.matrix_coefficients, outp.color_primaries)
+        yf = kr * r + (1 - kr - kb) * g + kb * b
+        cbf = cuda_fast.true_div(b - yf, 2 * (1 - kb))
+        crf = cuda_fast.true_div(r - yf, 2 * (1 - kr))
+        half = float(1 << (bits - 1))
+        if outp.full_range:
+            y = yf
+            cb = cbf + half
+            cr = crf + half
+        else:
+            y = yf * (219.0 / 255.0) + (16 << (bits - 8))
+            cb = cbf * (224.0 / 255.0) + half
+            cr = crf * (224.0 / 255.0) + half
+
+        fx = 2 if outp.chroma in (Chroma.C420, Chroma.C422) else 1
+        fy = 2 if outp.chroma == Chroma.C420 else 1
+        cb = _downsample(cb, fx, fy, options.chroma_downsampling)
+        cr = _downsample(cr, fx, fy, options.chroma_downsampling)
+
+        out = self._base_output(img, outp)
+        dt = _out_dtype(bits)
+        out.set_plane(Channel.Y, _round_clip(y, maxval).to(dt), bits)
+        out.set_plane(Channel.Cb, _round_clip(cb, maxval).to(dt), bits)
+        out.set_plane(Channel.Cr, _round_clip(cr, maxval).to(dt), bits)
+        if img.has_channel(Channel.Alpha):
+            out.set_plane(Channel.Alpha, img.plane(Channel.Alpha),
+                          img.bit_depth(Channel.Alpha))
+        return out
 
 
 class MonoToRGB(ColorOp):
@@ -270,10 +372,10 @@ class MonoToRGB(ColorOp):
 
 
 class MonoToYCbCr(ColorOp):
-    """(ref: monochrome.cc Op_mono_to_YCbCr420).  Not ported yet."""
+    """(ref: monochrome.cc Op_mono_to_YCbCr420): Y as it is, mid-grey
+    chroma at the target's subsampled size."""
 
     cost = 2
-    ported = False
 
     def output_state(self, inp, target):
         if inp.colorspace != Colorspace.Monochrome:
@@ -284,13 +386,28 @@ class MonoToYCbCr(ColorOp):
             Chroma.C420, Chroma.C422, Chroma.C444) else Chroma.C420
         return inp.with_(colorspace=Colorspace.YCbCr, chroma=chroma)
 
+    def apply(self, img, inp, outp, options):
+        out = self._base_output(img, outp)
+        y = img.plane(Channel.Y)
+        bits = img.bit_depth(Channel.Y)
+        out.set_plane(Channel.Y, y, bits)
+        cw, chh = subsampled_size(img.width, img.height, Channel.Cb,
+                                  outp.chroma)
+        c = torch.full((chh, cw), 1 << (bits - 1), dtype=_out_dtype(bits),
+                       device=y.device)
+        out.set_plane(Channel.Cb, c, bits)
+        out.set_plane(Channel.Cr, c, bits)
+        if img.has_channel(Channel.Alpha):
+            out.set_plane(Channel.Alpha, img.plane(Channel.Alpha),
+                          img.bit_depth(Channel.Alpha))
+        return out
+
 
 class ChromaResample(ColorOp):
-    """YCbCr chroma format change (ref: chroma_sampling.cc ops).  Not
-    ported yet."""
+    """YCbCr chroma format change (ref: chroma_sampling.cc ops): up by
+    ``chroma_upsampling``, down by nearest, average or sharp-yuv."""
 
     cost = 4
-    ported = False
 
     def output_state(self, inp, target):
         if inp.colorspace != Colorspace.YCbCr:
@@ -301,6 +418,35 @@ class ChromaResample(ColorOp):
                 target.chroma not in (Chroma.C420, Chroma.C422, Chroma.C444):
             return None
         return inp.with_(chroma=target.chroma)
+
+    def apply(self, img, inp, outp, options):
+        out = self._base_output(img, outp)
+        bits = img.bit_depth(Channel.Y)
+        maxval = (1 << bits) - 1
+        dt = _out_dtype(bits)
+        out.set_plane(Channel.Y, img.plane(Channel.Y), bits)
+        tw, th = subsampled_size(img.width, img.height, Channel.Cb,
+                                 outp.chroma)
+        for ch in (Channel.Cb, Channel.Cr):
+            a = img.plane(ch)
+            h, w = a.shape
+            if tw >= w and th >= h:
+                res = _upsample(a, th, tw, options.chroma_upsampling)
+            elif options.chroma_downsampling == \
+                    ColorConversionOptions.SHARP_YUV:
+                res = _sharp_downsample(a.to(torch.float32), th, tw)
+            else:
+                fx = max(1, round(w / tw))
+                fy = max(1, round(h / th))
+                res = _downsample(a.to(torch.float32), fx, fy,
+                                  options.chroma_downsampling)[:th, :tw]
+            # nearest upsampling keeps the plane's integer dtype
+            out.set_plane(ch, _round_clip(res.to(torch.float32),
+                                          maxval).to(dt), bits)
+        if img.has_channel(Channel.Alpha):
+            out.set_plane(Channel.Alpha, img.plane(Channel.Alpha),
+                          img.bit_depth(Channel.Alpha))
+        return out
 
 
 class BitDepthConvert(ColorOp):
@@ -372,10 +518,14 @@ class DropAlpha(ColorOp):
 
 class FlattenAlpha(ColorOp):
     """Composite the alpha plane over a background and drop it
-    (ref: alpha.cc Op_flatten_alpha_plane).  Not ported yet."""
+    (ref: alpha.cc Op_flatten_alpha_plane): solid-color or checkerboard
+    composition, RGB 4:4:4 input.
+
+    out = (c*a + bkg*(a_max - a)) >> alpha_bits in int64 (c*a reaches
+    65535**2 at 16 bits), with the 16-bit background shifted to the
+    image's depth; the planes stay on their device."""
 
     cost = 2
-    ported = False
 
     def enabled(self, options):
         return options is not None and options.alpha_composition_mode != \
@@ -387,6 +537,34 @@ class FlattenAlpha(ColorOp):
         if inp.colorspace != Colorspace.RGB or inp.chroma != Chroma.C444:
             return None
         return inp.with_(has_alpha=False)
+
+    def apply(self, img, inp, outp, options):
+        bits = img.bit_depth(Channel.R)
+        abits = img.bit_depth(Channel.Alpha)
+        amax = (1 << abits) - 1
+        a = img.plane(Channel.Alpha).to(torch.int64)
+        h, w = a.shape
+        checker = (options.alpha_composition_mode ==
+                   ColorConversionOptions.ALPHA_CHECKERBOARD and
+                   options.checkerboard_square_size > 0)
+        if checker:
+            s = options.checkerboard_square_size
+            yy = torch.arange(h, device=a.device)[:, None] // s
+            xx = torch.arange(w, device=a.device)[None, :] // s
+            parity = (yy + xx) & 1
+        out = self._base_output(img, outp)
+        dt = _out_dtype(bits)
+        for i, ch in enumerate((Channel.R, Channel.G, Channel.B)):
+            c = img.plane(ch).to(torch.int64)
+            bkg = options.background_rgb[i] >> (16 - bits)
+            if checker:
+                bkg2 = options.secondary_background_rgb[i] >> (16 - bits)
+                # parity-0 (top-left) square gets the SECONDARY
+                # background (ref: alpha.cc `bkg = parity ? bkg1 : bkg2`)
+                bkg = torch.where(parity == 0, bkg2, bkg)
+            res = (c * a + bkg * (amax - a)) >> abits
+            out.set_plane(ch, res.to(dt), bits)
+        return out
 
 
 class AddAlpha(ColorOp):
@@ -414,11 +592,10 @@ class AddAlpha(ColorOp):
 
 
 class RGBToMono(ColorOp):
-    """RGB → monochrome via luma (used for mask/aux encode paths).  Not
-    ported yet."""
+    """RGB → monochrome via luma, matrix 6 (used for mask/aux encode
+    paths)."""
 
     cost = 6
-    ported = False
 
     def output_state(self, inp, target):
         if inp.colorspace != Colorspace.RGB:
@@ -428,13 +605,36 @@ class RGBToMono(ColorOp):
         return inp.with_(colorspace=Colorspace.Monochrome,
                          chroma=Chroma.Monochrome)
 
+    def apply(self, img, inp, outp, options):
+        bits = inp.bits_per_pixel
+        maxval = (1 << bits) - 1
+        r = img.plane(Channel.R).to(torch.float32)
+        g = img.plane(Channel.G).to(torch.float32)
+        b = img.plane(Channel.B).to(torch.float32)
+        kr, kb = get_kr_kb(6, inp.color_primaries)
+        y = kr * r + (1 - kr - kb) * g + kb * b
+        out = self._base_output(img, outp)
+        out.set_plane(Channel.Y, _round_clip(y, maxval).to(_out_dtype(bits)),
+                      bits)
+        if img.has_channel(Channel.Alpha):
+            out.set_plane(Channel.Alpha, img.plane(Channel.Alpha),
+                          img.bit_depth(Channel.Alpha))
+        return out
+
 
 class BayerToRGB(ColorOp):
     """CFA mosaic → RGB bilinear demosaic (ref: bayer_bilinear.cc
-    Op_bayer_bilinear_to_RGB24_32).  Not ported yet."""
+    Op_bayer_bilinear_to_RGB24_32).
+
+    For each pixel and missing channel, the mean of every same-channel
+    cell within a (2·ph−1)×(2·pw−1) window, border pixels counting only
+    in-image cells; native cells pass through.  Per channel: a 0/1 mask
+    tiled from the pattern, num and den as exact int32 box sums of
+    plane·mask and mask, then num / max(den, 1) in f32 (not a
+    convolution: cuDNN's default TF32 would round 12- and 16-bit
+    samples)."""
 
     cost = 11   # SpeedCosts_Unoptimized in the reference
-    ported = False
 
     def output_state(self, inp, target):
         if inp.colorspace != Colorspace.FilterArray:
@@ -442,6 +642,44 @@ class BayerToRGB(ColorOp):
         if target.colorspace not in (Colorspace.RGB, Colorspace.Undefined):
             return None
         return inp.with_(colorspace=Colorspace.RGB, chroma=Chroma.C444)
+
+    def apply(self, img, inp, outp, options):
+        pattern = img.bayer_pattern
+        if pattern is None:
+            raise HeifError.invalid_input(
+                SubError.Unspecified,
+                "filter-array image carries no CFA pattern (cpat)")
+        ph, pw = pattern.pattern_height, pattern.pattern_width
+        cells = pattern.channels
+        if any(c not in (Channel.R, Channel.G, Channel.B) for c in cells):
+            raise HeifError.unsupported(
+                SubError.Unsupported_data_version,
+                "Bayer pattern contains component types that we "
+                "currently cannot convert to RGB")
+        bits = img.bit_depth(Channel.FilterArray)
+        maxval = (1 << bits) - 1
+        a = img.plane(Channel.FilterArray).to(torch.int32)
+        h, w = a.shape
+        dev = a.device
+        # tile per-channel masks over the image
+        yy = torch.arange(h, device=dev) % ph
+        xx = torch.arange(w, device=dev) % pw
+        cell_ch = torch.tensor(
+            [{Channel.R: 0, Channel.G: 1, Channel.B: 2}[c] for c in cells],
+            dtype=torch.int32, device=dev)
+        pix_ch = cell_ch[yy[:, None] * pw + xx[None, :]]    # (h, w)
+
+        kh, kw = 2 * ph - 1, 2 * pw - 1
+        out = self._base_output(img, outp)
+        dt = _out_dtype(bits)
+        for ci, ch in enumerate((Channel.R, Channel.G, Channel.B)):
+            mask = pix_ch == ci
+            m32 = mask.to(torch.int32)
+            num = _box_sum(a * m32, kh, kw).to(torch.float32)
+            den = torch.clamp(_box_sum(m32, kh, kw), min=1).to(torch.float32)
+            plane = torch.where(mask, a.to(torch.float32), num / den)
+            out.set_plane(ch, _round_clip(plane, maxval).to(dt), bits)
+        return out
 
 
 class PlanarToInterleavedRGB(ColorOp):

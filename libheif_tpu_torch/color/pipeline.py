@@ -4,8 +4,7 @@ Counterpart of libheif_tpu/color/pipeline.py (reference:
 libheif/color-conversion/colorconversion.{h,cc} — ColorConversionPipeline
 colorconversion.h:103, Dijkstra search colorconversion.cc:302), over this
 package's own ``ALL_OPS``: the JAX package's ops, in its order and with
-its costs, so both packages pick the same chain.  A chain that needs an
-op this package has not ported yet raises before any op runs.
+its costs, so both packages pick the same chain.
 """
 
 from __future__ import annotations
@@ -87,12 +86,6 @@ def convert_image(img: PixelImage,
         raise HeifError.unsupported(
             SubError.Unsupported_color_conversion,
             f"no conversion from {inp} to {target}")
-    missing = [type(op).__name__ for op, _ in chain if not op.ported]
-    if missing:
-        raise HeifError.unsupported(
-            SubError.Unsupported_color_conversion,
-            f"the conversion from {inp} to {target} needs "
-            f"{', '.join(missing)}, not ported yet")
     state = inp
     for op, out_state in chain:
         with span(f"color.{type(op).__name__}"):

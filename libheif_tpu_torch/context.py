@@ -6,8 +6,11 @@ interpret_heif_file_images context.cc:584, decode orchestration
 context.cc:1425).  A context lives on one device, ``None`` meaning CUDA
 (which raises without a card; pass ``device="cpu"`` for the CPU): every
 item decodes onto it and every decoded plane stays on it, through the
-composition, the transforms and the output conversion.  There is no
-encode or write API yet; ``HeifFile`` has the write side.
+composition, the transforms and the output conversion.  A file is read
+from a path, from bytes or through a streaming reader
+(``read_from_reader``); the metadata, region and text items attached to
+an image are host data.  There is no encode or write API yet;
+``HeifFile`` has the write side.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from .color.ops import ColorConversionOptions
 from .items import (
     ImageItem, ImageItem_Error, DecodingOptions, ImageTiling, alloc_item,
 )
+from .items.region_item import RegionItem
+from .items.text_item import TextItem
 
 
 class HeifContext:
@@ -53,6 +58,18 @@ class HeifContext:
                         device=None) -> "HeifContext":
         ctx = HeifContext(limits, device)
         ctx.file = HeifFile.from_bytes(data, ctx.limits)
+        ctx._interpret()
+        return ctx
+
+    @staticmethod
+    def read_from_reader(reader, limits: Optional[SecurityLimits] = None,
+                         device=None) -> "HeifContext":
+        """Progressive open over a streaming reader (io/reader.py):
+        structural boxes only; item and tile reads request exact byte
+        ranges on demand (ref: heif_context_read_from_reader + heif_reader
+        v2, heif_context.h:164-231)."""
+        ctx = HeifContext(limits, device)
+        ctx.file = HeifFile.from_reader(reader, ctx.limits)
         ctx._interpret()
         return ctx
 
@@ -214,3 +231,66 @@ class HeifContext:
 
     def get_image_tiling(self, item_id: int) -> ImageTiling:
         return self.get_item(item_id).get_tiling()
+
+    # -------------------------------------------------------------- metadata
+
+    def get_metadata_blocks(self, item_id: int,
+                            type_filter: str = "") -> List[dict]:
+        """The metadata items linked to an image by 'cdsc' (and a mini
+        file's inline Exif/XMP), each with its ``data`` as bytes."""
+        item = self.get_item(item_id)
+        out = []
+        for md in item.metadata:
+            if type_filter and md["item_type"] != type_filter:
+                continue
+            entry = dict(md)
+            if "data" not in entry:  # mini items carry data inline
+                entry["data"] = bytes(self.file.get_item_data(md["item_id"]))
+            out.append(entry)
+        return out
+
+    def get_exif(self, item_id: int) -> Optional[bytes]:
+        """Exif payload with the 4-byte TIFF-offset header stripped
+        (ref: heif_metadata.h exif access)."""
+        for md in self.get_metadata_blocks(item_id, "Exif"):
+            data = md["data"]
+            if len(data) >= 4:
+                offset = int.from_bytes(data[:4], "big")
+                if 4 + offset <= len(data):
+                    return data[4 + offset:]
+            return data
+        return None
+
+    def get_xmp(self, item_id: int) -> Optional[bytes]:
+        for md in self.get_metadata_blocks(item_id, "mime"):
+            if md.get("content_type") in ("application/rdf+xml",):
+                return md["data"]
+        return None
+
+    def get_region_items(self, image_id: int) -> List[RegionItem]:
+        """Region annotations attached to an image via 'cdsc'; a
+        referenced mask geometry takes the next id of the region item's
+        'mask' references (ref: heif_image_handle_get_list_of_region_
+        item_ids)."""
+        out = []
+        for ref in self.file.get_references_to(image_id, "cdsc"):
+            rid = ref.from_item_id
+            if self.file.get_infe(rid).item_type == "rgan":
+                ri = RegionItem.parse(rid, self.file.get_item_data(rid))
+                mask_ids = []
+                for mref in self.file.get_references_from(rid, "mask"):
+                    mask_ids.extend(mref.to_item_ids)
+                for g in ri.regions:
+                    if g.kind == "referenced_mask" and mask_ids:
+                        g.mask_item_id = mask_ids.pop(0)
+                out.append(ri)
+        return out
+
+    def get_text_items(self, image_id: int) -> List[TextItem]:
+        """Text annotations attached via 'cdsc' (ref: text.h:31)."""
+        out = []
+        for ref in self.file.get_references_to(image_id, "cdsc"):
+            tid = ref.from_item_id
+            if self.file.get_infe(tid).item_type == "txti":
+                out.append(TextItem.parse(tid, self.file.get_item_data(tid)))
+        return out

@@ -4,12 +4,15 @@ Counterpart of libheif_tpu/file/heif_file.py (reference: libheif/file.{h,cc}
 — HeifFile file.h:60; top-level parse of FileLayout::read
 file_layout.cc:38), trimmed to still-image files with a ``meta`` box or a
 ``mini`` box (whose items the context makes, items/mini_item.py): no
-``moov`` or streaming reader yet.  The file is parsed over an in-memory
-buffer; mdat payloads are never copied at parse time, and the data of an
-item stored in one extent of the file is returned as a memoryview of the
-file buffer, so a large unci payload reaches the decoder without a host
-copy.  ``get_item_data_range`` reads part of an item's data (a tili
-item's offset table and tiles).
+``moov``.  A file is parsed over an in-memory buffer, or over a
+streaming reader (``from_reader``: only the structural boxes are
+fetched, and item data by the byte ranges of its extents when it is
+read).  mdat payloads are never copied at parse time, and the data of an
+item stored in one extent of an in-memory file is returned as a
+memoryview of the file buffer, so a large unci payload reaches the
+decoder without a host copy.  ``get_item_data_range`` reads part of an
+item's data (a tili item's offset table and tiles), and
+``get_item_data_view`` gives a lazy view over it (an unci tile).
 
 The write side lays out items without an encoder: add items, append
 their data, attach properties and references, then :meth:`write`.
@@ -30,6 +33,8 @@ from ..boxes.meta import (
     Box_iprp, Box_ipco, Box_ipma, Box_iref, Box_idat, Box_mdat, IlocItem,
     IlocExtent,
 )
+from ..io.reader import GrowStatus
+from .file_layout import FileLayout
 
 ItemData = Union[bytes, memoryview]
 
@@ -42,6 +47,7 @@ class HeifFile:
     def __init__(self, limits: Optional[SecurityLimits] = None):
         self.limits = limits or SecurityLimits()
         self.buffer: Optional[memoryview] = None  # whole-file bytes (read path)
+        self.reader = None    # StreamReader of a file opened by from_reader
         self.top_boxes: List[Box] = []
         self.ftyp: Optional[Box_ftyp] = None
         self.meta: Optional[Box_meta] = None
@@ -80,15 +86,40 @@ class HeifFile:
         hf._read(data)
         return hf
 
-    def _fetch(self, start: int, length: int) -> memoryview:
-        """A range of the file buffer, without a copy."""
-        if self.buffer is None:
-            raise HeifError.invalid_input(SubError.No_item_data,
-                                          "no file buffer")
-        if start + length > len(self.buffer):
-            raise HeifError.eof(
-                f"file range [{start}+{length}] beyond file end")
-        return self.buffer[start:start + length]
+    @staticmethod
+    def from_reader(reader, limits: Optional[SecurityLimits] = None) -> "HeifFile":
+        """Progressive open over a streaming reader (io/reader.py): only
+        the structural boxes are fetched; item data stays with the
+        reader until a read requests its byte ranges (ref:
+        FileLayout::read file_layout.cc:38 + heif_reader v2,
+        heif_context.h:164-231)."""
+        hf = HeifFile(limits)
+        layout = FileLayout()
+        layout.read(reader, hf.limits)
+        hf.reader = reader
+        hf.top_boxes = list(layout.boxes)
+        hf._wire_top_boxes()
+        return hf
+
+    def _fetch(self, start: int, length: int) -> ItemData:
+        """A range of the file: a view of the buffer, without a copy, or
+        the reader's bytes for that range."""
+        if self.buffer is not None:
+            if start + length > len(self.buffer):
+                raise HeifError.eof(
+                    f"file range [{start}+{length}] beyond file end")
+            return self.buffer[start:start + length]
+        if self.reader is not None:
+            if self.reader.request_range(start, start + length) != \
+                    GrowStatus.SIZE_REACHED:
+                raise HeifError.eof(
+                    f"file range [{start}+{length}] beyond file end")
+            return self.reader.read(start, length)
+        raise HeifError.invalid_input(SubError.No_item_data,
+                                      "no file buffer or reader")
+
+    def _has_input(self) -> bool:
+        return self.buffer is not None or self.reader is not None
 
     def _read(self, data: bytes) -> None:
         self.buffer = memoryview(data)
@@ -100,7 +131,9 @@ class HeifFile:
             if r.remaining() < 8:
                 break  # trailing garbage smaller than a header — ignore
             self.top_boxes.append(read_box(r, self.limits, 0))
+        self._wire_top_boxes()
 
+    def _wire_top_boxes(self) -> None:
         # --- locate top-level boxes (ref: FileLayout::read file_layout.cc:90)
         for b in self.top_boxes:
             if isinstance(b, Box_ftyp) and self.ftyp is None:
@@ -214,6 +247,17 @@ class HeifFile:
                     f"iloc construction method {method}")
         return parts[0] if len(parts) == 1 else b"".join(parts)
 
+    def get_item_data_view(self, item_id: int) -> "ItemDataView":
+        """A lazy view over an item's data: its length, and slices read
+        through ``get_item_data_range`` — the random access behind an
+        unci tile's decode over a streaming reader (ref: heif_reader v2
+        request_range + unc_codec.h:56 tile access)."""
+        it = self.iloc.find_item(item_id) if self.iloc else None
+        if it is None:
+            raise HeifError.invalid_input(SubError.No_item_data,
+                                          f"item {item_id} has no iloc entry")
+        return ItemDataView(self, item_id, sum(e.length for e in it.extents))
+
     def get_item_data_range(self, item_id: int, offset: int,
                             size: int) -> bytes:
         """``size`` bytes of an item's data from ``offset``, read from the
@@ -324,7 +368,7 @@ class HeifFile:
                          construction_method: int = 0) -> None:
         """Append payload bytes for an item (ref: HeifFile::append_iloc_data
         file.h:232).  Method-0 offsets are mdat-relative until patched."""
-        if self.buffer is not None:
+        if self._has_input():
             self._materialize_read_extents()
         it = self.iloc.find_item(item_id)
         if it is None:
@@ -385,7 +429,7 @@ class HeifFile:
         (ref: HeifContext::write context.cc:382 + Box_iloc patching)."""
         if self.meta is None:
             raise HeifError.usage(msg="no meta box to write")
-        if self.buffer is not None:
+        if self._has_input():
             self._materialize_read_extents()
         w = ByteWriter()
         if self.iref is not None and not self.iref.references and \
@@ -405,3 +449,23 @@ class HeifFile:
             16 if len(mdat_payload) + 8 > 0xFFFFFFFF else 8)
         self.iloc.patch_iloc_offsets(w, payload_start)
         return w.data()
+
+
+class ItemDataView:
+    """An item's data, read lazily: ``len()`` and slices (each slice one
+    ``get_item_data_range`` call, bytes)."""
+
+    def __init__(self, file: HeifFile, item_id: int, total: int):
+        self._file = file
+        self._item_id = item_id
+        self._total = total
+
+    def __len__(self) -> int:
+        return self._total
+
+    def __getitem__(self, key: slice) -> bytes:
+        start, stop, step = key.indices(self._total)
+        if step != 1:
+            raise ValueError("an item data view is read in contiguous ranges")
+        return self._file.get_item_data_range(self._item_id, start,
+                                              max(0, stop - start))

@@ -59,6 +59,25 @@ class Chroma:
     InterleavedRGBA = "interleaved RGBA"
 
 
+class BayerPattern:
+    """CFA mosaic pattern: pattern_height×pattern_width grid of channel
+    names + per-cell gains (ref: BayerPattern image_description.h:59,
+    Box_cpat unc_boxes.h)."""
+
+    def __init__(self, pattern_width: int, pattern_height: int,
+                 channels, gains=None):
+        self.pattern_width = pattern_width
+        self.pattern_height = pattern_height
+        self.channels = list(channels)       # row-major, len w*h
+        self.gains = list(gains) if gains is not None \
+            else [1.0] * (pattern_width * pattern_height)
+
+    @staticmethod
+    def rggb():
+        return BayerPattern(2, 2, [Channel.R, Channel.G,
+                                   Channel.G, Channel.B])
+
+
 # component type id (cmpd) → channel name (ref: unc_codec.cc
 # map_uncompressed_component_to_channel)
 COMPONENT_TYPE_TO_CHANNEL = {
@@ -142,6 +161,9 @@ class PixelImage:
         self.color_profile_nclx = None   # set by the decode pipeline
         self.color_profile_icc: Optional[bytes] = None
         self.warnings: List[DecodeWarning] = []
+        # CFA mosaic pattern of a FilterArray image: BayerPattern or None
+        # (ref: BayerPattern image_description.h:59, cpat unc_boxes.h)
+        self.bayer_pattern: Optional[BayerPattern] = None
 
     # ---------------------------------------------------------------- planes
 
@@ -309,6 +331,7 @@ class PixelImage:
         out.color_profile_nclx = self.color_profile_nclx
         out.color_profile_icc = self.color_profile_icc
         out.warnings = list(self.warnings)
+        out.bayer_pattern = self.bayer_pattern
         return out
 
     # ------------------------------------------------------------- placement

@@ -2,8 +2,8 @@
 
 Counterpart of libheif_tpu/items/unci_item.py (reference:
 libheif/image-items/unc_image.{h,cc} — unc_image.h:41).  Each item keeps
-one UnciDecoder, built on first use on the context's device.  Attaching
-a ``cpat`` Bayer pattern waits for the port of BayerToRGB.
+one UnciDecoder, built on first use on the context's device.  A ``cpat``
+property becomes the image's BayerPattern, which BayerToRGB reads.
 """
 
 from __future__ import annotations
@@ -12,9 +12,10 @@ from typing import Optional, Set
 
 from ..core.error import HeifError, SubError
 from ..boxes.meta import Box_ispe
-from ..boxes.unc import Box_uncC, Box_cmpd, Box_cmpC, Box_icef
+from ..boxes.unc import Box_uncC, Box_cmpd, Box_cmpC, Box_icef, Box_cpat
 from ..codecs.unc import UnciDecoder
-from ..image.pixel_image import PixelImage
+from ..image.pixel_image import (
+    BayerPattern, COMPONENT_TYPE_TO_CHANNEL, PixelImage)
 from .item import ImageItem, ImageTiling, register_item, DecodingOptions
 
 
@@ -43,7 +44,33 @@ class ImageItem_unci(ImageItem):
     def decode_compressed_image(self, options: DecodingOptions,
                                 processed_ids: Set[int]) -> PixelImage:
         dec = self._get_decoder()
-        return dec.decode(self.file.get_item_data(self.item_id))
+        img = dec.decode(self.file.get_item_data(self.item_id))
+        self._attach_bayer_pattern(img)
+        return img
+
+    def _attach_bayer_pattern(self, img: PixelImage) -> None:
+        """Resolve a cpat property into a per-cell channel pattern on
+        the image (ref: unc_codec.cc:294-330 — cpat cmpd-index →
+        component mapping feeding Op_bayer_bilinear_to_RGB24_32)."""
+        cpat = self.get_property(Box_cpat)
+        if cpat is None:
+            return
+        cmpd = self.get_property(Box_cmpd)
+        if cmpd is None:
+            return
+        channels = []
+        for idx in cpat.components:
+            if idx >= len(cmpd.components):
+                raise HeifError.invalid_input(
+                    SubError.Invalid_parameter_value,
+                    f"cpat component index {idx} out of cmpd range")
+            ctype = cmpd.components[idx].component_type
+            channels.append(COMPONENT_TYPE_TO_CHANNEL.get(ctype, ""))
+        img.bayer_pattern = BayerPattern(
+            pattern_width=cpat.pattern_width,
+            pattern_height=cpat.pattern_height,
+            channels=channels,
+            gains=list(cpat.component_gains))
 
     def get_tiling(self) -> ImageTiling:
         lay = self._get_decoder().layout
@@ -55,5 +82,5 @@ class ImageItem_unci(ImageItem):
     def decode_tile(self, tile_x: int, tile_y: int,
                     options: Optional[DecodingOptions] = None) -> PixelImage:
         dec = self._get_decoder()
-        return dec.decode_tile(self.file.get_item_data(self.item_id),
+        return dec.decode_tile(self.file.get_item_data_view(self.item_id),
                                tile_x, tile_y)

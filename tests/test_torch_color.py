@@ -22,14 +22,16 @@ from libheif_tpu.color.nclx import (  # noqa: E402
     NclxProfile as JNclx, get_kr_kb)
 from libheif_tpu.color.state import ColorState as JColorState  # noqa: E402
 from libheif_tpu.image.pixel_image import (  # noqa: E402
-    PixelImage as JPixelImage, Colorspace, Chroma, Channel)
+    BayerPattern as JBayerPattern, PixelImage as JPixelImage, Colorspace,
+    Chroma, Channel, subsampled_size as jsubsampled_size)
 
 from libheif_tpu_torch.codecs.unc import cuda_fast, kernels  # noqa: E402
 from libheif_tpu_torch.color import ops, pipeline  # noqa: E402
 from libheif_tpu_torch.color.nclx import NclxProfile  # noqa: E402
 from libheif_tpu_torch.color.state import ColorState  # noqa: E402
 from libheif_tpu_torch.core.error import HeifError, SubError  # noqa: E402
-from libheif_tpu_torch.image.pixel_image import from_numpy_planes  # noqa: E402
+from libheif_tpu_torch.image.pixel_image import (  # noqa: E402
+    BayerPattern, PixelImage, from_numpy_planes)
 
 SUB = {Chroma.C420: (2, 2), Chroma.C422: (2, 1), Chroma.C444: (1, 1)}
 KR, KB = get_kr_kb(6)
@@ -403,18 +405,6 @@ def test_convert_image_chain_and_pixels(chroma, bits):
         _assert_lsb_contract(np.asarray(ref.plane(ch)), got.np_plane(ch), ch)
 
 
-def test_unported_conversion_raises():
-    planes = _planes(8, 8, Chroma.C444, seed=1)
-    rgb = {Channel.R: planes[Channel.Y], Channel.G: planes[Channel.Cb],
-           Channel.B: planes[Channel.Cr]}
-    img = from_numpy_planes(rgb, {c: 8 for c in rgb}, Colorspace.RGB,
-                            Chroma.C444, device="cpu")
-    with pytest.raises(HeifError) as e:
-        pipeline.convert_image(img, Colorspace.YCbCr, Chroma.C420,
-                               device="cpu")
-    assert e.value.subcode == SubError.Unsupported_color_conversion
-
-
 # ---------------------------------- the ops of the output conversion, chains
 
 CHAIN_INPUTS = {
@@ -479,9 +469,7 @@ def _chain_names(chain):
 @pytest.mark.parametrize("inp", list(CHAIN_INPUTS))
 def test_chain_matches_jax(inp, target, mode):
     """The port's Dijkstra search picks the JAX chain, op by op and state
-    by state, for every (input, target) of the matrix, also where the
-    chain runs through an op that is not ported yet (convert_image then
-    refuses it, test_unported_op_is_named)."""
+    by state, for every (input, target) of the matrix."""
     (jin, jt), (pin, pt) = _states(CHAIN_INPUTS[inp], CHAIN_TARGETS[target])
     jopts = jops.ColorConversionOptions(
         alpha_composition_mode=CHAIN_OPTIONS[mode])
@@ -495,8 +483,87 @@ def test_chain_matches_jax(inp, target, mode):
                                           for _, s in jchain]
 
 
-UNPORTED = ["RGBToYCbCr", "MonoToYCbCr", "ChromaResample", "FlattenAlpha",
-            "RGBToMono", "BayerToRGB"]
+F32_OPS = {"YCbCrToRGB", "RGBToYCbCr", "RGBToMono"}
+
+
+def _chain_image(state, w=67, h=45, seed=0):
+    """A JAX and a port image in ``state`` (a CHAIN_INPUTS entry) with
+    random samples; a filter-array image carries an RGGB pattern."""
+    rng = np.random.default_rng(seed)
+    bits = state.get("bits_per_pixel", 8)
+    dt = np.uint8 if bits <= 8 else np.uint16
+    cs, chroma = state["colorspace"], state["chroma"]
+    if chroma == Chroma.InterleavedRGBA:
+        names = [Channel.Interleaved]
+    elif cs == Colorspace.YCbCr:
+        names = [Channel.Y, Channel.Cb, Channel.Cr]
+    elif cs == Colorspace.RGB:
+        names = [Channel.R, Channel.G, Channel.B]
+    elif cs == Colorspace.FilterArray:
+        names = [Channel.FilterArray]
+    else:
+        names = [Channel.Y]
+    if state.get("has_alpha") and chroma != Chroma.InterleavedRGBA:
+        names.append(Channel.Alpha)
+    planes = {}
+    for ch in names:
+        pw, ph = jsubsampled_size(w, h, ch, chroma)
+        if ch == Channel.Interleaved:
+            pw *= 4
+        planes[ch] = rng.integers(0, 1 << bits, (ph, pw), dtype=dt)
+    jimg = JPixelImage(w, h, cs, chroma)
+    pimg = PixelImage(w, h, cs, chroma)
+    for ch, a in planes.items():
+        jimg.set_plane(ch, a, bits)
+        pimg.set_plane(ch, torch.from_numpy(a), bits)
+    if cs == Colorspace.FilterArray:
+        jimg.bayer_pattern = JBayerPattern.rggb()
+        pimg.bayer_pattern = BayerPattern.rggb()
+    return jimg, pimg
+
+
+@pytest.mark.parametrize("mode", list(CHAIN_OPTIONS))
+@pytest.mark.parametrize("target", list(CHAIN_TARGETS))
+@pytest.mark.parametrize("inp", list(CHAIN_INPUTS))
+def test_convert_image_matches_jax(inp, target, mode):
+    """convert_image end to end against the JAX convert_image for every
+    (input, target, alpha mode) of the matrix: the same chain, output
+    state, planes and depths; exact unless the chain runs an f32 matrix
+    (then the colour contract).  Where the JAX package finds no chain,
+    the port raises too."""
+    jimg, pimg = _chain_image(CHAIN_INPUTS[inp], seed=len(inp + target))
+    t = CHAIN_TARGETS[target]
+    kw = dict(target_has_alpha=t.get("has_alpha"),
+              target_bits=t.get("bits_per_pixel", 0))
+    args = (t.get("colorspace", Colorspace.Undefined),
+            t.get("chroma", Chroma.Undefined))
+    jopts = jops.ColorConversionOptions(
+        alpha_composition_mode=CHAIN_OPTIONS[mode])
+    popts = ops.ColorConversionOptions(
+        alpha_composition_mode=CHAIN_OPTIONS[mode])
+    try:
+        ref = jpipeline.convert_image(jimg, *args, options=jopts, **kw)
+    except Exception as e:
+        with pytest.raises(HeifError) as perr:
+            pipeline.convert_image(pimg, *args, options=popts,
+                                   device="cpu", **kw)
+        assert perr.value.subcode.name == e.subcode.name
+        return
+    got = pipeline.convert_image(pimg, *args, options=popts, device="cpu",
+                                 **kw)
+    (_, _), (pin, pt) = _states(CHAIN_INPUTS[inp], t)
+    names = _chain_names(pipeline.find_pipeline(pin, pt, popts))
+    assert (got.colorspace, got.chroma) == (ref.colorspace, ref.chroma)
+    assert got.channels() == ref.channels()
+    for ch in ref.channels():
+        want = np.asarray(ref.plane(ch))
+        assert got.bit_depth(ch) == ref.bit_depth(ch), ch
+        assert got.np_plane(ch).dtype == want.dtype, ch
+        if F32_OPS.isdisjoint(names):
+            np.testing.assert_array_equal(got.np_plane(ch), want,
+                                          err_msg=f"{ch} {names}")
+        else:
+            _assert_lsb_contract(want, got.np_plane(ch), f"{ch} {names}")
 
 
 def test_all_ops_in_jax_order():
@@ -504,8 +571,6 @@ def test_all_ops_in_jax_order():
         [type(op).__name__ for op in jops.ALL_OPS]
     assert [op.cost for op in ops.ALL_OPS] == \
         [op.cost for op in jops.ALL_OPS]
-    assert sorted(type(op).__name__ for op in ops.ALL_OPS
-                  if not op.ported) == sorted(UNPORTED)
 
 
 def _rgb_image(w, h, bits, alpha_bits=None, seed=0):
@@ -590,28 +655,3 @@ def test_output_ops_match_jax(case):
         assert got.bit_depth(ch) == ref.bit_depth(ch), ch
         assert got.np_plane(ch).dtype == want.dtype, ch
         np.testing.assert_array_equal(got.np_plane(ch), want, err_msg=ch)
-
-
-@pytest.mark.parametrize("request_", [
-    (Colorspace.YCbCr, Chroma.C420, "RGBToYCbCr"),
-    (Colorspace.Monochrome, Chroma.Monochrome, "RGBToMono"),
-], ids=["RGBToYCbCr", "RGBToMono"])
-def test_unported_op_is_named(request_):
-    colorspace, chroma, name = request_
-    planes, bit_map = _rgb_image(8, 8, 8)
-    _, pimg = _pair(planes, bit_map, Colorspace.RGB, Chroma.C444)
-    with pytest.raises(HeifError) as e:
-        pipeline.convert_image(pimg, colorspace, chroma, device="cpu")
-    assert e.value.subcode == SubError.Unsupported_color_conversion
-    assert name in str(e.value)
-
-
-def test_flatten_alpha_is_named():
-    planes, bit_map = _rgb_image(8, 8, 8, alpha_bits=8)
-    _, pimg = _pair(planes, bit_map, Colorspace.RGB, Chroma.C444)
-    with pytest.raises(HeifError) as e:
-        pipeline.convert_image(
-            pimg, Colorspace.RGB, Chroma.C444, target_has_alpha=False,
-            options=ops.ColorConversionOptions(
-                alpha_composition_mode="solid-color"), device="cpu")
-    assert "FlattenAlpha" in str(e.value)

@@ -35,6 +35,7 @@ from libheif_tpu.codecs.hevc.native_parse import (  # noqa: E402
     parse_picture_raw as jparse_raw)
 from libheif_tpu.boxes.codec_cfg import (  # noqa: E402
     remove_emulation_prevention as jremove_epb)
+from tests import jax_native  # noqa: E402
 from tests.hevc_difftest import make_image, CONFIGS  # noqa: E402
 
 from libheif_tpu_torch import decode_intra_picture  # noqa: E402
@@ -78,6 +79,13 @@ def encode(kw, size, smooth, seed=7):
 def port_decode(sps, pps, slices):
     return [p.numpy() for p in decode_intra_picture(
         PH.parse_sps(sps), PH.parse_pps(pps), slices, device="cpu")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native_library():
+    """The JAX native engine is the oracle of several tests here: load it
+    first (tests/jax_native.py)."""
+    jax_native.ensure_loaded()
 
 
 @pytest.fixture(autouse=True)

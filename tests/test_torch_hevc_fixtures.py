@@ -13,8 +13,8 @@ torch = pytest.importorskip("torch")
 
 from tests import hevc_oracle  # noqa: E402
 from tests.test_torch_hevc import (  # noqa: E402,F401
-    FIXTURES, fixture_nals, jax_decode, plane_hashes, port_decode,
-    serial_native_engine)
+    FIXTURES, fixture_nals, jax_decode, jax_native_library, plane_hashes,
+    port_decode, serial_native_engine)
 
 
 def load_manifest():

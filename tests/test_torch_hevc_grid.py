@@ -28,7 +28,8 @@ from libheif_tpu.image.pixel_image import (  # noqa: E402
     PixelImage as JPixelImage, Channel, Colorspace, Chroma)
 from libheif_tpu.items.derived import ImageGrid as JImageGrid  # noqa: E402
 from tests.hevc_difftest import make_image  # noqa: E402
-from tests.test_torch_hevc import serial_native_engine  # noqa: E402,F401
+from tests.test_torch_hevc import (  # noqa: E402,F401
+    jax_native_library, serial_native_engine)
 
 from libheif_tpu_torch import HeifContext  # noqa: E402
 from libheif_tpu_torch.codecs.hevc import (  # noqa: E402

@@ -40,6 +40,7 @@ from libheif_tpu_torch.codecs.jpeg import idct as pidct  # noqa: E402
 from libheif_tpu_torch.codecs.jpeg.tables import (  # noqa: E402
     INV_ZIGZAG, ZIGZAG)
 from libheif_tpu_torch.core.error import HeifError  # noqa: E402
+from tests import jax_native  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "libheif_tpu_torch", "testdata", "jpeg")
@@ -65,6 +66,13 @@ STREAMS = {
 }
 SMALL = [n for n in STREAMS if not n.startswith("tile")]
 DECODABLE = [n for n in STREAMS if n != "progressive"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native_library():
+    """The JAX scan's native form is the oracle of the ``cxx`` cases and
+    of the streams' warnings: load it first (tests/jax_native.py)."""
+    jax_native.ensure_loaded()
 
 
 def smooth_rgb(w, h, seed):
