@@ -136,6 +136,27 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    referenced mask) and a text item, read on the card's context through
    read_from_bytes and through read_from_reader (a CallbackReader), with
    the same answers from both;
+4g. the mesh phase (libheif_tpu_torch/parallel), over every card
+   (make_mesh()) and over a virtual mesh of 4 members on card 0 (that
+   card repeated; the split, the member launches and the gather are the
+   code that runs over several cards): (a) the 4096x4096 unci item of
+   phase 4 through sharded_unci_decode with and without convert_to_rgb,
+   strided_extract_paste (and planes_ycbcr8_to_rgb) once for each member
+   with tile rows, every gathered plane equal to UnciDecoder.decode, to
+   the plain strided path and to numpy, the RGB equal to the colour
+   kernel's plain version and within the colour contract of the JAX
+   pipeline's formula (libheif_tpu/parallel/grid_decode.py:39-61); (b)
+   the HEVC photo of phase 4c through HeifContext with
+   DecodingOptions(mesh=...), hevc_dequant_itx and hevc_intra_wave once
+   for each member with tiles, planes equal to the unsharded decode, and
+   both kernels against their plain versions on each member's plan; (c)
+   decode_grid_host_sharded on the photo written to a file, 4 virtual
+   hosts over the virtual mesh, equal to the context decode; (d) the
+   analog of __graft_entry__.dryrun_multichip over every card (it prints
+   the count and the mesh shape); with more than one card, a launch on
+   the last one leaves the current device as it was.  Every phase ends
+   with the current device as it began.  Each sharded decode's wall
+   times print beside the unsharded one's;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -183,6 +204,8 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
+``python3 chip_smoke.py --mesh-only`` runs the build and phase 4g alone
+(on a machine with several cards, the cards' mesh spans all of them).
 """
 
 from __future__ import annotations
@@ -194,6 +217,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -239,6 +263,10 @@ from libheif_tpu_torch.items.derived import ImageGrid, ImageOverlay
 from libheif_tpu_torch.items.mask_item import Box_mskC
 from libheif_tpu_torch.io.reader import CallbackReader
 from libheif_tpu_torch.items.tiled_item import TiledHeader
+from libheif_tpu_torch.parallel import (
+    coded_grid, make_mesh, sharded_unci_decode)
+from libheif_tpu_torch.parallel.host_sharding import decode_grid_host_sharded
+from libheif_tpu_torch.parallel.mesh import chunk_bounds
 
 SEED = 0
 W = H = 4096
@@ -823,7 +851,7 @@ def launch_counts():
         k.launches = 0
     try:
         yield counts
-        torch.cuda.synchronize()
+        sync_all()
         counts.update({n: k.launches for n, k in ALL_KERNELS.items()})
     finally:
         kernels.assemble_tile_buffers = assemble
@@ -1377,9 +1405,9 @@ def hvc1_file(e):
 def plain_waves(plan, waves):
     """predict_waves with the plain version of hevc_intra_wave."""
     T, W, H = plan.t, plan.width, plan.height
-    ybuf = torch.zeros(T * H * W + 1, dtype=torch.int32, device=DEV)
+    ybuf = torch.zeros(T * H * W + 1, dtype=torch.int32, device=plan.device)
     cbuf = torch.zeros(T * 2 * (H >> 1) * (W >> 1) + 1, dtype=torch.int32,
-                       device=DEV)
+                       device=plan.device)
     for w in range(plan.n_waves):
         hevc_fast.intra_wave_plain(
             ybuf, cbuf, waves, [int(g.starts[w]) for g in plan.groups],
@@ -1391,7 +1419,8 @@ def plain_waves(plan, waves):
 def plain_residuals(plan):
     return [hevc_fast.dequant_itx_plain(
         g.coeffs, g.qp, g.ts, g.tqb,
-        hevc_fast.transform_matrix(g.key[0], g.key[1], DEV), log2=g.key[1],
+        hevc_fast.transform_matrix(g.key[0], g.key[1], plan.device),
+        log2=g.key[1],
         bd=plan.bd, mslot=g.mslot, mtab=plan.mtab) for g in plan.groups]
 
 
@@ -1749,9 +1778,10 @@ def wave_buffers(plan):
     slot).  The wave kernel writes every sample before it reads it, so a
     timing loop reuses them."""
     T, H, W = plan.t, plan.height, plan.width
-    return (torch.zeros(T * H * W + 1, dtype=torch.int32, device=DEV),
+    return (torch.zeros(T * H * W + 1, dtype=torch.int32,
+                        device=plan.device),
             torch.zeros(T * 2 * (H >> 1) * (W >> 1) + 1, dtype=torch.int32,
-                        device=DEV))
+                        device=plan.device))
 
 
 def wave_chain_ms(timer, plan):
@@ -3275,11 +3305,336 @@ def check_metadata_file():
     return {"file_bytes": len(blob), "open_fetched_bytes": opened}
 
 
+# --------------------------------------------------------------------- mesh
+# Phase 4g: tile-parallel and sharded decode (libheif_tpu_torch/parallel)
+# over every card, and over a virtual mesh of MESH_VIRTUAL members on card
+# 0: that card repeated, so that the split, the member launches and the
+# gather run the code they run over several cards.
+
+MESH_VIRTUAL = 4
+MESH_REPEATS = 5
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_meshes():
+    return {"cards": make_mesh(),
+            f"virtual{MESH_VIRTUAL}": make_mesh(MESH_VIRTUAL,
+                                                device="cuda:0")}
+
+
+def walls_ms(fn, n=MESH_REPEATS):
+    """Wall times of ``n`` calls after an untimed one (a card's first
+    launch of a kernel loads its module), each ended by a sync of every
+    card."""
+    fn()
+    sync_all()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def np_rgb_nearest(y, cb, cr):
+    """The JAX sharded pipeline's conversion (libheif_tpu/parallel/
+    grid_decode.py:39-61) of 8-bit planes in numpy: matrix 6, full range,
+    chroma repeated, f32."""
+    f = np.float32
+    ry, rx = y.shape[0] // cb.shape[0], y.shape[1] // cb.shape[1]
+    y = y.astype(f)
+    cb = cb.astype(f).repeat(ry, 0).repeat(rx, 1)
+    cr = cr.astype(f).repeat(ry, 0).repeat(rx, 1)
+    r = y + f(2 * (1 - KR)) * (cr - f(128))
+    b = y + f(2 * (1 - KB)) * (cb - f(128))
+    g = (y - f(KR) * r - f(KB) * b) / f(1 - KR - KB)
+    return {ch: np.clip(np.round(c), 0, 255).astype(np.uint8)
+            for ch, c in (("R", r), ("G", g), ("B", b))}
+
+
+def members_with(n, mesh):
+    """Members of ``mesh`` that get some of ``n`` rows or tiles."""
+    return sum(hi > lo for lo, hi in chunk_bounds(n, mesh.size))
+
+
+def check_mesh_unci(tally, uncC, cmpd, data, ref_planes):
+    """(a) the 4096x4096 8-bit 4:2:0 unci item (8 tile rows) through
+    sharded_unci_decode over each mesh, with and without convert_to_rgb:
+    strided_extract_paste (and planes_ycbcr8_to_rgb) once for each member
+    with tile rows; every gathered plane equal to UnciDecoder.decode, to
+    the plain strided path and to numpy; the RGB equal to the kernel's
+    plain version on the card and within the colour contract of the JAX
+    pipeline's formula in numpy.  Walls beside the unsharded decode's."""
+    dec = UnciDecoder(uncC, cmpd, W, H, device=DEV)
+    lay = dec.layout
+    whole = dec.decode(data)
+    plain = cuda_fast.fused_strided_decode_plain(
+        lay, kernels.payload_tiles(lay, data, DEV))
+    np_rgb = np_rgb_nearest(*ref_planes)
+    out = {"walls_ms": {"unsharded_decode": walls_ms(
+        lambda: dec.decode(data))}, "launches": {}, "gather_ms": {}}
+    for name, mesh in phase_meshes().items():
+        members = members_with(lay.tile_rows, mesh)
+        for rgb in (False, True):
+            what = f"{name}{' rgb' if rgb else ''}"
+            with launch_counts() as launches:
+                planes = sharded_unci_decode(dec, data, mesh=mesh,
+                                             convert_to_rgb=rgb)
+            log(f"mesh unci {what}: {members} members with tile rows, "
+                f"launches {launches}")
+            assert launches["strided_extract_paste"] == members, \
+                f"mesh unci {what}: not one strided launch a member"
+            assert launches["planes_ycbcr8_to_rgb"] == (members if rgb
+                                                         else 0)
+            assert launches["assemble_tile_buffers"] == 0
+            out["launches"][what] = launches
+            for ch, p in planes.items():
+                assert len(p.shards) == members and all(
+                    s.device == d for s, d in zip(p.shards, p.devices))
+            t0 = time.perf_counter()
+            got = {ch: p.gather(DEV) for ch, p in planes.items()}
+            out["gather_ms"][what] = ms_since(t0)
+            if not rgb:
+                for ch, ref in zip((Channel.Y, Channel.Cb, Channel.Cr),
+                                   ref_planes):
+                    tally.compare("strided_extract_paste",
+                                  f"mesh {what} {ch} vs decode", got[ch],
+                                  whole.plane(ch), exact=True)
+                    tally.compare("strided_extract_paste",
+                                  f"mesh {what} {ch} vs plain", got[ch],
+                                  plain[ch], exact=True)
+                    assert np.array_equal(got[ch].cpu().numpy(), ref), \
+                        f"mesh {what} {ch} vs numpy"
+                continue
+            kernel_plain = cuda_fast.ycbcr8_planes_to_rgb_plain(
+                whole.plane(Channel.Y), whole.plane(Channel.Cb),
+                whole.plane(Channel.Cr), kr=float(KR), kb=float(KB),
+                full_range=True, upsampling=cuda_fast.NEAREST)
+            for i, ch in enumerate("RGB"):
+                tally.compare("planes_ycbcr8_to_rgb",
+                              f"mesh {what} {ch} vs plain", got[ch],
+                              kernel_plain[i], exact=True)
+                tally.compare("planes_ycbcr8_to_rgb",
+                              f"mesh {what} {ch} vs JAX formula", got[ch],
+                              torch.from_numpy(np_rgb[ch]).to(DEV),
+                              exact=False)
+            out["walls_ms"][what] = walls_ms(
+                lambda: sharded_unci_decode(dec, data, mesh=mesh,
+                                            convert_to_rgb=True))
+        out["walls_ms"][name] = walls_ms(
+            lambda: sharded_unci_decode(dec, data, mesh=mesh))
+    out["walls_ms"]["unsharded_decode_convert"] = walls_ms(
+        lambda: convert_image(dec.decode(data), Colorspace.RGB,
+                              Chroma.C444))
+    log(f"mesh unci walls ms {json.dumps(out['walls_ms'])}")
+    return out
+
+
+def photo_tiles_parsed(blob):
+    """(SPS, syntax, raw TUs) of the photo's tiles, in grid order."""
+    hf = HeifFile.from_bytes(blob)
+    ids = hf.get_references_from(hf.primary_item_id,
+                                 "dimg")[0].to_item_ids
+    return coded_grid.parse_tiles([(hf.get_property(i, Box_hvcC),
+                                    hf.get_item_data(i)) for i in ids])
+
+
+def check_mesh_hevc(tally, blob):
+    """(b) the HEVC photo through HeifContext with DecodingOptions(mesh=)
+    over each mesh: one plan a member, so hevc_dequant_itx and
+    hevc_intra_wave once a member with tiles; planes equal to the
+    unsharded decode; each member's plan (its chunk of the photo's 48
+    tiles, on its device) holds both kernels against their plain
+    versions.  Walls beside the unsharded decode's."""
+    ref = HeifContext.read_from_bytes(blob).decode_image(None)
+    parsed = photo_tiles_parsed(blob)
+    n = len(parsed)
+    out = {"walls_ms": {"unsharded": walls_ms(
+        lambda: HeifContext.read_from_bytes(blob).decode_image(None),
+        REPEATS)}, "launches": {}}
+    for name, mesh in phase_meshes().items():
+        members = members_with(n, mesh)
+        opts = DecodingOptions(mesh=mesh)
+        with launch_counts() as launches:
+            img = HeifContext.read_from_bytes(blob).decode_image(
+                None, options=opts)
+        log(f"mesh hevc photo {name}: {members} members with tiles, "
+            f"launches {launches}")
+        for k in ("hevc_dequant_itx", "hevc_intra_wave"):
+            assert launches[k] == members, f"{k}: not once a member"
+        out["launches"][name] = launches
+        for ch in (Channel.Y, Channel.Cb, Channel.Cr):
+            assert img.plane(ch).device == ref.plane(ch).device
+            n_diff = int((img.plane(ch) != ref.plane(ch)).sum())
+            log(f"check mesh hevc photo {name} {ch} vs unsharded: "
+                f"differing {n_diff}")
+            assert n_diff == 0, f"mesh hevc photo {name} {ch} differs"
+        for k, (dev, (lo, hi)) in enumerate(zip(
+                mesh.members(), chunk_bounds(n, mesh.size))):
+            if hi == lo:
+                continue
+            plan = device_recon.build_plan([p[1] for p in parsed[lo:hi]],
+                                           [p[2] for p in parsed[lo:hi]],
+                                           dev)
+            what = f"mesh {name} member {k} tiles {lo}-{hi - 1}"
+            check_waves(tally, what, plan,
+                        check_residuals(tally, what, plan))
+        out["walls_ms"][name] = walls_ms(
+            lambda: HeifContext.read_from_bytes(blob).decode_image(
+                None, options=opts), REPEATS)
+    log(f"mesh hevc photo walls ms {json.dumps(out['walls_ms'])}")
+    return out, ref
+
+
+def host_sharded_image(planes, grid, sps):
+    """The grid's (Y, Cb, Cr) from decode_grid_host_sharded's tile
+    planes, each cropped and pasted where the grid puts it."""
+    tw, th = sps.cropped_size
+    gw, gh = grid.output_width, grid.output_height
+    out = []
+    for c, sub in enumerate((1, 2, 2)):
+        plane = torch.zeros(((gh + sub - 1) // sub, (gw + sub - 1) // sub),
+                            dtype=torch.int32, device=DEV)
+        for idx, pl in enumerate(planes):
+            ty, tx = divmod(idx, grid.columns)
+            p = hevc_decoder.crop_to_conformance(sps, *pl)[c].to(DEV)
+            y0, x0 = ty * th // sub, tx * tw // sub
+            h = min(p.shape[0], plane.shape[0] - y0)
+            w = min(p.shape[1], plane.shape[1] - x0)
+            plane[y0:y0 + h, x0:x0 + w] = p[:h, :w]
+        out.append(plane)
+    return out
+
+
+def check_host_sharded(blob, ref, mesh, n_hosts, what):
+    """decode_grid_host_sharded on the photo written to a file: each of
+    ``n_hosts`` virtual hosts range-reads and parses its chunk of tiles,
+    then the tiles reconstruct over ``mesh``; equal to the context's
+    decode ``ref``."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "photo.heic")
+        with open(path, "wb") as f:
+            f.write(blob)
+        t0 = time.perf_counter()
+        planes, grid, sps = decode_grid_host_sharded(path, n_hosts,
+                                                     mesh=mesh)
+        ms = ms_since(t0)
+    for c, got in zip((Channel.Y, Channel.Cb, Channel.Cr),
+                      host_sharded_image(planes, grid, sps)):
+        n_diff = int((got != ref.plane(c).to(torch.int32)).sum())
+        log(f"check host-sharded {what} {c} vs context decode: "
+            f"differing {n_diff}")
+        assert n_diff == 0, f"host-sharded {what} {c} differs"
+    return ms
+
+
+def dryrun_multichip(blob):
+    """(d) the analog of __graft_entry__.dryrun_multichip over every card:
+    an unci pipeline with one tile row a card and convert_to_rgb, the
+    photo's first max(2, cards) HEVC tiles through decode_tiles_device,
+    and the photo host-sharded over the cards; each against the same work
+    on card 0 alone."""
+    mesh = make_mesh()
+    n = mesh.size
+    log(f"dryrun multichip: {n} card(s), mesh shape {mesh.shape} "
+        f"axes {mesh.axis_names}")
+    uncC, cmpd = ycc420(64, 16 * n, (1, n))
+    data = payload(64, 16 * n, (uncC, cmpd), SEED + 14)
+    dec = UnciDecoder(uncC, cmpd, 64, 16 * n, device=DEV)
+    planes = sharded_unci_decode(dec, data, mesh=mesh, convert_to_rgb=True)
+    r = planes["R"].gather(DEV)
+    assert tuple(r.shape) == (16 * n, 64) and len(planes["R"].shards) == n
+    whole = dec.decode(data)
+    ref = np_rgb_nearest(*(whole.np_plane(c) for c in
+                           (Channel.Y, Channel.Cb, Channel.Cr)))["R"]
+    d = np.abs(r.cpu().numpy().astype(int) - ref.astype(int))
+    assert d.max() <= 1 and (d > 0).sum() < 0.01 * d.size
+    parsed = photo_tiles_parsed(blob)[:max(2, n)]
+    syn, raw = [p[1] for p in parsed], [p[2] for p in parsed]
+    tiles = coded_grid.decode_tiles_device(syn, raw, mesh)
+    alone = coded_grid.decode_tiles_device(syn, raw, device=DEV)
+    assert len(tiles) == len(parsed) and tiles[0][0].shape == (512, 512)
+    for a, b in zip(tiles, alone):
+        assert all(torch.equal(x.to(DEV), y) for x, y in zip(a, b))
+    img = HeifContext.read_from_bytes(blob).decode_image(None)
+    check_host_sharded(blob, img, mesh, n, f"over {n} card(s)")
+    return {"cards": n, "mesh_shape": list(mesh.shape)}
+
+
+def check_last_card_launch():
+    """A launch on the last card leaves the caller's current device as it
+    was (KernelEntry.launch restores it)."""
+    n = torch.cuda.device_count()
+    before = torch.cuda.current_device()
+    uncC, cmpd = ycc420(64, 32, (1, 2))
+    dec = UnciDecoder(uncC, cmpd, 64, 32, device=f"cuda:{n - 1}")
+    dec.decode(payload(64, 32, (uncC, cmpd), SEED + 15))
+    torch.cuda.synchronize(n - 1)
+    after = torch.cuda.current_device()
+    log(f"launch on cuda:{n - 1}: current device {before} before, "
+        f"{after} after")
+    assert after == before, "a launch changed the current device"
+
+
+def check_mesh(tally, uncC, cmpd, data, ref_planes, photo):
+    """Phase 4g: (a) to (d) and the launch device."""
+    t0 = time.perf_counter()
+    sync_all()          # every card's context made before anything is timed
+    card = nvidia_smi()
+    unci = check_mesh_unci(tally, uncC, cmpd, data, ref_planes)
+    hevc, ref = check_mesh_hevc(tally, photo)
+    host_ms = check_host_sharded(photo, ref, make_mesh(
+        MESH_VIRTUAL, device="cuda:0"), MESH_VIRTUAL,
+        f"{MESH_VIRTUAL} hosts over virtual{MESH_VIRTUAL}")
+    dry = dryrun_multichip(photo)
+    if torch.cuda.device_count() > 1:
+        check_last_card_launch()
+    out = {"card": card, "unci": unci, "hevc_photo": hevc,
+           "host_sharded_ms": host_ms, "dryrun": dry,
+           "seconds": time.perf_counter() - t0}
+    log(f"mesh phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
          "--id=0"], capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+def mesh_only():
+    """``python3 chip_smoke.py --mesh-only``: the build and phase 4g
+    alone, on every card present (a machine with several cards runs the
+    cards' mesh over all of them); the same last line as ``main``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    log(nvidia_smi())
+    device0 = torch.cuda.current_device()
+    _build.LIBRARY.load()
+    log(f"built {_build.LIBRARY.path} in {time.perf_counter() - t0:.1f} s")
+    uncC, cmpd = ycc420(W, H, (TILES, TILES))
+    data = np.random.default_rng(SEED).integers(
+        0, 256, W * H * 3 // 2, dtype=np.uint8).tobytes()
+    tally = Tally()
+    mesh = check_mesh(tally, uncC, cmpd, data,
+                      np_planes(data, TILES, W // TILES, H // TILES),
+                      photo_file(hevc_streams()))
+    assert torch.cuda.current_device() == device0, \
+        "the mesh phase left another current device"
+    log("summary " + json.dumps({"mesh": mesh, "checks": tally.checks,
+                                 "elapsed_s": time.perf_counter() - t0}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def main():
@@ -3289,9 +3644,14 @@ def main():
     t_start = time.perf_counter()
     phase_s = {}        # seconds since the start at the end of each phase
 
+    device0 = torch.cuda.current_device()
+
     def phase_done(name):
         phase_s[name] = time.perf_counter() - t_start
         log(f"phase {name} done at {phase_s[name]:.1f} s")
+        assert torch.cuda.current_device() == device0, \
+            f"phase {name} left the current device at " \
+            f"{torch.cuda.current_device()}, not {device0}"
 
     # 1. the card
     card = nvidia_smi()
@@ -3434,6 +3794,13 @@ def main():
     metadata = check_metadata_file()
 
     phase_done("colour")
+
+    # 4g. tile-parallel and sharded decode over every card and over a
+    # virtual mesh of card 0
+    mesh = check_mesh(tally, uncC, cmpd, data,
+                      np_planes(data, TILES, W // TILES, H // TILES), photo)
+
+    phase_done("mesh")
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -3700,8 +4067,18 @@ def main():
                        f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} jpeg tiles of "
                        "512x512", "launches": j_launches, "parts": j_runs},
         "colour_ops": colour_rows, "metadata_file": metadata,
+        "mesh": mesh,
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
         "phase_s": phase_s, "elapsed_s": time.perf_counter() - t_start}
+    # launches of the mesh paths (phase 4g), per kernel and path
+    for name in ("strided_extract_paste", "planes_ycbcr8_to_rgb"):
+        kern[name]["mesh_launches"] = {
+            f"unci {what}": c[name]
+            for what, c in mesh["unci"]["launches"].items()}
+    for name in ("hevc_dequant_itx", "hevc_intra_wave"):
+        kern[name]["mesh_launches"] = {
+            f"hevc photo {what}": c[name]
+            for what, c in mesh["hevc_photo"]["launches"].items()}
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -3711,4 +4088,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_only() if sys.argv[1:] == ["--mesh-only"] else main())

@@ -196,7 +196,8 @@ class CudaKernel:
     def launch(self, out: torch.Tensor, *args) -> None:
         """Launch on ``out``'s device and current stream; ``args`` are the
         entry point's arguments before (device, stream).  An empty
-        ``out`` leaves nothing to compute, so nothing is launched."""
+        ``out`` leaves nothing to compute, so nothing is launched.  The
+        caller's current device is the same after the launch as before."""
         if out.numel() == 0:
             return
         fn = self._function()
@@ -204,7 +205,10 @@ class CudaKernel:
         index = device.index if device.index is not None \
             else torch.cuda.current_device()
         stream = torch.cuda.current_stream(index).cuda_stream
-        err = fn(*args, index, stream)
+        # the entry point sets ``index`` as the calling thread's device and
+        # leaves it so; the context restores the caller's
+        with torch.cuda.device(index):
+            err = fn(*args, index, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed with cudaError_t {err}")

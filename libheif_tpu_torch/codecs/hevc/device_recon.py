@@ -110,7 +110,8 @@ class ReconPlan:
     wave_rows: torch.Tensor    # (G, n_waves, T+1) int32, the groups' tables
     mtab: Optional[torch.Tensor]   # (slots, 32, 32) uint8; None: all flat
     deblock: Optional[Dict[str, torch.Tensor]]   # None: off everywhere
-    sao: Optional[Dict[str, torch.Tensor]]       # None: no CTB uses SAO
+    # None: no CTB uses SAO; the maps on the device, "ctb" an int
+    sao: Optional[Dict[str, object]]
     tqb_mask: Optional[torch.Tensor]             # (t, h4, w4) bool
     device: torch.device
 
@@ -308,8 +309,10 @@ def _build_plan(syntaxes, raw_tus, device) -> ReconPlan:
             mtab=None if mtab is None else put(mtab),
             deblock=None if deblock is None else
             {k: put(v) for k, v in deblock.items()},
+            # the CTB size stays on the host: stage D reads it, and a
+            # read from the device would wait for the plan's launches
             sao=None if sao is None else
-            {k: put(v) for k, v in sao.items()},
+            {k: int(v) if k == "ctb" else put(v) for k, v in sao.items()},
             tqb_mask=None if tqb_mask is None else put(tqb_mask).bool(),
             device=dev)
 

@@ -56,10 +56,12 @@ class DecodingOptions:
     """(ref: heif_decoding_options v10, heif_decoding.h:63-158).
 
     The JAX package's ``prefer_device_grid`` has no counterpart: an hvc1
-    grid always decodes as one batch on the context's device.  Its
-    ``mesh`` (sharded decode) waits for the multi-card slice, and its
-    ``decoder_id`` (which codec plugin decodes a coded item) for a second
-    decoder of one format."""
+    grid always decodes in batches on the device.  ``mesh``
+    (parallel/mesh.py ``make_mesh``) shards an hvc1 grid's tiles over its
+    members (parallel/coded_grid.py decode_tiles_device); None decodes
+    them on the context's device.  The JAX ``decoder_id`` (which codec
+    plugin decodes a coded item) waits for a second decoder of one
+    format."""
 
     ignore_transformations: bool = False
     convert_hdr_to_8bit: bool = False
@@ -76,6 +78,9 @@ class DecodingOptions:
     # analog of heif_context_set_max_decoding_threads, context.h:72);
     # None = use the owning context's max_decoding_threads
     max_decoding_threads: Optional[int] = None
+    # a DeviceMesh (parallel/mesh.py) over which an hvc1 grid's tiles
+    # decode; None = one batch on the context's device
+    mesh: Optional[object] = None
 
 
 def alloc_item(ctx, item_id: int, item_type: str) -> "ImageItem":

@@ -22,8 +22,14 @@ The JAX package's batched AV1 path writes 8-bit 4:2:0 output whatever
 the tiles are (coded_grid.py:331-356); this one is held to the JAX
 tile-by-tile decode instead.
 
-The JAX package's mesh sharding of the tile batch (decode_tiles_device)
-is not ported yet.
+With ``DecodingOptions.mesh`` an HEVC grid's tiles split over the mesh's
+members in contiguous chunks (decode_tiles_device, JAX :145-199): each
+member plans and reconstructs its chunk on its own device, and the
+composed planes are gathered on the context's device.  JAX pads the
+batch and unifies the chunks' plans so that one shard_map program
+serves every device; here each member launches its own plan, so
+neither is needed.  AV1 and JPEG grids keep their single batch, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from ..core.trace import span
 from ..image.pixel_image import PixelImage
 from ..items.codec_items import ImageItem_AVIF, ImageItem_HEVC, \
     ImageItem_JPEG
+from .mesh import DeviceMesh, chunk_bounds
 
 
 def parse_tile(config_box, data: bytes, declared_size=None, limits=None):
@@ -67,6 +74,34 @@ def parse_tiles(jobs: Sequence[Tuple], max_workers: Optional[int] = None,
         return list(ex.map(lambda j: parse(*j), jobs))
 
 
+def decode_tiles_device(syntaxes, raw_tus, mesh: Optional[DeviceMesh] = None,
+                        device=None) -> List[Tuple]:
+    """Device reconstruction of parsed hvc1 tiles: the uncropped (Y, Cb,
+    Cr) int32 planes of each tile, in order.  Without a mesh the tiles
+    decode on ``device`` (None means CUDA); with one, member k of the
+    ``mesh.size`` members takes the k-th contiguous chunk of ceil(T /
+    size) tiles (fewer or none at the end) and decodes it on its device,
+    where its tiles' planes stay.  Each device decodes its tiles as one
+    batch per group that agrees on ``batch_key``; a plan that still
+    mixes keys raises BatchMismatch."""
+    t = len(syntaxes)
+    if mesh is None:
+        work = [(device, (0, t))]
+    else:
+        work = list(zip(mesh.members(), chunk_bounds(t, mesh.size)))
+    planes: List = [None] * t
+    for dev, (lo, hi) in work:
+        groups: Dict[tuple, List[int]] = {}
+        for i in range(lo, hi):
+            groups.setdefault(batch_key(syntaxes[i].sps), []).append(i)
+        for idx in groups.values():
+            out = decode_pictures_device([syntaxes[i] for i in idx],
+                                         [raw_tus[i] for i in idx], dev)
+            for i, pl in zip(idx, out):
+                planes[i] = pl
+    return planes
+
+
 def try_batched_hevc_grid(grid_item, grid, tile_ids,
                           options) -> Optional[PixelImage]:
     """Batched decode of an all-hvc1 grid, composed on the context's
@@ -74,7 +109,8 @@ def try_batched_hevc_grid(grid_item, grid, tile_ids,
     types, per-tile transforms or alpha, streams the port refuses, tiles
     of different size or depth): the caller then decodes tile by tile.
     Tiles that differ in another field a plan takes batch-wide (CTB size,
-    strong smoothing) decode as separate batches."""
+    strong smoothing) decode as separate batches.  ``options.mesh``
+    shards the tiles over a mesh (decode_tiles_device)."""
     ctx = grid_item.ctx
     try:
         tiles = [ctx.get_item(tid) for tid in tile_ids]
@@ -103,20 +139,14 @@ def try_batched_hevc_grid(grid_item, grid, tile_ids,
            (sps0.cropped_size, sps0.bit_depth_luma) for p in parsed):
         return None
     # one batch per group of tiles that agree on what a plan takes
-    # batch-wide (a phone photo's tiles make one group)
-    groups: Dict[tuple, List[int]] = {}
-    for i, p in enumerate(parsed):
-        groups.setdefault(batch_key(p[0]), []).append(i)
-    planes: List = [None] * len(parsed)
-    for idx in groups.values():
-        try:
-            out = decode_pictures_device([parsed[i][1] for i in idx],
-                                         [parsed[i][2] for i in idx],
-                                         ctx.device)
-        except BatchMismatch:
-            return None
-        for i, pl in zip(idx, out):
-            planes[i] = pl
+    # batch-wide (a phone photo's tiles make one group), on each member
+    try:
+        planes = decode_tiles_device([p[1] for p in parsed],
+                                     [p[2] for p in parsed], options.mesh,
+                                     ctx.device)
+    except BatchMismatch:
+        return None
+    planes = [tuple(x.to(ctx.device) for x in pl) for pl in planes]
     return compose(grid, [p[0] for p in parsed], planes, ctx, options)
 
 
