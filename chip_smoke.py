@@ -90,8 +90,9 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    (av1_dequant_itx once, av1_intra_wave once, planes_ycbcr8_to_rgb
    once, no strided_extract_paste) and its planes held equal to the
    single tiles' CPU decodes placed where the grid puts them; the same
-   for a grain photo (its 48 tiles the four film-grain tiles in turn,
-   each with its own grain: the av1.grain span once a tile); decode
+   for a grain photo (a 4x2 grid, 2000x1000 output, its 8 tiles the
+   four film-grain tiles in turn, each with its own grain: the av1.grain
+   span once a tile); decode
    single-item av01 files (8-bit, 10-bit, 508x500, the screenshot, with
    its launch counts) through the context on the card and on the CPU
    with 0 samples differing;
@@ -157,6 +158,30 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    the last one leaves the current device as it was.  Every phase ends
    with the current device as it began.  Each sharded decode's wall
    times print beside the unsharded one's;
+4h. the sequence phase, on the msf1 files committed in
+   libheif_tpu_torch/testdata/seq (the JAX package's track writer; hvc1
+   streams of its SequenceEncoder and of libx265, with libde265's plane
+   hashes for each frame in output order): open each 1920x1080 9-frame
+   B-pyramid sequence (the JAX encoder's, with TMVP and deblocking; and
+   libx265's, with intra CUs, AMP and SAO in its P and B pictures)
+   through HeifContext, decode every frame in output order with
+   decode_next_image and convert it to interleaved RGB, each frame equal
+   to its hashes, with the launch counts read around it
+   (hevc_inter_pred once a P or B picture, planes_ycbcr8_to_rgb once a
+   frame, both intra kernels); then random access by decode_sample
+   (restarts at the IDR), and one more in-order pass frame by frame
+   inside trace.collect() for the split by span (hevc.parse: the C++
+   parser of the IDR and, as hevc.parse.inter, the Python parser of P
+   and B pictures; hevc.mc,
+   stages A and B, the inter residuals, deblock, SAO); hold
+   hevc_inter_pred against its plain version on synthetic PU tables
+   (codecs/hevc/inter_cases.py: every PU shape and fractional phase, uni
+   and bi, vectors beyond every edge, 8, 10 and 12 bits) and on P and B
+   pictures' PU tables and DPB, stage A's inter groups and, on pictures
+   with intra CUs, both intra kernels against theirs; then the uncv track, each
+   frame on the card (strided_extract_paste once a frame) and on the
+   CPU with 0 samples differing and equal to its hashes.  Each frame's
+   ms and the phase's seconds print;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -197,7 +222,10 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    launch, compose, convert, interleave; the last under torch.profiler
    for its device share); every integer kernel's row holds its byte
    bound and its int32 bound (SMs x 64 INT32 lanes x clocks.max.sm) and
-   the larger; and print the numbers;
+   the larger; hevc_inter_pred at the largest P or B picture of the
+   libx265 sequence beside its plain version and its bounds (the
+   reference samples its jobs need, each once, the job table and the
+   predicted samples; the filters' taps); and print the numbers;
 7. print the colour kernels' SASS instructions per output pixel, the
    strided kernel's per output byte and the JPEG kernel's per output
    sample (sass_count.py, cuobjdump).
@@ -205,7 +233,9 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 ``python3 chip_smoke.py --mesh-only`` runs the build and phase 4g alone
-(on a machine with several cards, the cards' mesh spans all of them).
+(on a machine with several cards, the cards' mesh spans all of them);
+``python3 chip_smoke.py --sequences-only`` the build, phase 4h and
+hevc_inter_pred's row.
 """
 
 from __future__ import annotations
@@ -242,6 +272,7 @@ from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
 from libheif_tpu_torch.codecs.hevc import device_recon
 from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
+from libheif_tpu_torch.codecs.hevc import inter_cases
 from libheif_tpu_torch.codecs import kernel_timing
 from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
 from libheif_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
@@ -1859,6 +1890,11 @@ AV1_WAVE_SINGLES = ("tile512_10bit", "tile508x500")
 # overlap and clipping (7), neither (12), chroma scaling from luma (15)
 GRAIN_TILES = ("grain-tile512-tv1", "grain-tile512-tv7",
                "grain-tile512-tv12", "grain-tile512-tv15")
+# the grain photo's grid (rows, columns) and output: each grain stream
+# twice, the last row and column cut (its Python parses ~8 s, against
+# ~50 s for a 48-tile grid)
+GRAIN_GRID = (2, 4)
+GRAIN_PHOTO = (2000, 1000)
 SCREENSHOT = "ibc-screenshot-1920x1080"
 # synthetic intrabc waves: (ssx, ssy), bit depth
 AV1_IBC_CASES = (((1, 1), 8), ((1, 0), 8), ((0, 0), 8), ((1, 1), 10),
@@ -1936,16 +1972,18 @@ def add_av01(f, e, hidden=True):
     return item
 
 
-def av1_photo_file(streams, tiles=PHOTO_TILES):
+def av1_photo_file(streams, tiles=PHOTO_TILES, grid_shape=PHOTO_GRID,
+                   size=PHOTO):
     """The AVIF phone photo: 48 hidden av01 items (item i holds stream
-    tiles[i mod 4]) in a 6x8 grid with a 4032x3024 output."""
+    tiles[i mod 4]) in a 6x8 grid with a 4032x3024 output (or another
+    ``grid_shape`` (rows, columns) and output ``size``)."""
     f = new_file()
-    rows, cols = PHOTO_GRID
+    rows, cols = grid_shape
     ids = [add_av01(f, streams[tiles[i % 4]])
            for i in range(rows * cols)]
     grid = f.add_new_item("grid").item_id
-    f.append_item_data(grid, ImageGrid(rows, cols, *PHOTO).write(), 1)
-    f.add_property(grid, Box_ispe(*PHOTO), False)
+    f.append_item_data(grid, ImageGrid(rows, cols, *size).write(), 1)
+    f.add_property(grid, Box_ispe(*size), False)
     f.add_reference("dimg", grid, ids)
     f.set_primary_item(grid)
     return f.write()
@@ -2073,7 +2111,8 @@ def av1_photo_plan(streams):
 
 
 def check_av1_photo(blob, streams, pictures, tiles=PHOTO_TILES,
-                    what="av1 photo", profile=False):
+                    what="av1 photo", profile=False, grid_shape=PHOTO_GRID,
+                    size=PHOTO):
     """An AVIF photo through HeifContext: its launches and the wall
     time of each span of the decode path (core/trace.py), read around the
     decode to interleaved RGB, and with ``profile`` the card's kernel and
@@ -2082,8 +2121,9 @@ def check_av1_photo(blob, streams, pictures, tiles=PHOTO_TILES,
     single tiles' decodes on the CPU placed where the grid puts them, and
     its RGB against the plain conversion of those planes.  (The photo's
     Python parse takes about a minute, so one decode serves all of it.)
-    ``pictures``: the plan's or the tiles' count.  Returns (launches, the
-    decode's times by part, RGB)."""
+    ``pictures``: the plan's or the tiles' count; ``grid_shape`` and
+    ``size`` as for av1_photo_file.  Returns (launches, the decode's times
+    by part, RGB)."""
     seen = []
     real_convert = context_mod.convert_image
     out = {}
@@ -2119,7 +2159,7 @@ def check_av1_photo(blob, streams, pictures, tiles=PHOTO_TILES,
             dev["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / \
                 parts["total_ms"]
         parts["device"] = dev
-        parts["mp_per_s"] = PHOTO[0] * PHOTO[1] / 1e3 / parts["total_ms"]
+        parts["mp_per_s"] = size[0] * size[1] / 1e3 / parts["total_ms"]
     log(f"{what} launches {launches} in {parts['total_ms']:.1f} ms, by part "
         f"{json.dumps(parts)}")
     grain = any(n.startswith("grain") for n in tiles)
@@ -2140,19 +2180,19 @@ def check_av1_photo(blob, streams, pictures, tiles=PHOTO_TILES,
     assert launches["tile_yuv_to_rgb"] == 0
     assert launches["hevc_dequant_itx"] == launches["hevc_intra_wave"] == 0
     inter = rgb.plane(Channel.Interleaved)
-    assert (rgb.width, rgb.height) == PHOTO and inter.dtype == torch.uint8 \
-        and tuple(inter.shape) == (PHOTO[1], PHOTO[0] * 3) \
+    assert (rgb.width, rgb.height) == size and inter.dtype == torch.uint8 \
+        and tuple(inter.shape) == (size[1], size[0] * 3) \
         and inter.device.type == DEV
 
     img, = seen
     assert (img.width, img.height, img.colorspace, img.chroma) == \
-        (*PHOTO, Colorspace.YCbCr, Chroma.C420)
+        (*size, Colorspace.YCbCr, Chroma.C420)
     singles = {}
     for n in tiles:
         planes = av1_decode_parsed(streams[n], "cpu")
         assert av1_hashes(planes) == streams[n]["sha256"], n
         singles[n] = planes
-    rows, cols = PHOTO_GRID
+    rows, cols = grid_shape
     n_diff = 0
     for i in range(rows * cols):
         ty, tx = divmod(i, cols)
@@ -3601,11 +3641,334 @@ def check_mesh(tally, uncC, cmpd, data, ref_planes, photo):
     return out
 
 
+# ---------------------------------------------------------------- sequences
+# Phase 4h: image sequences (msf1) committed in libheif_tpu_torch/testdata/
+# seq, opened through HeifContext and decoded track by track on the card.
+
+SEQ_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "libheif_tpu_torch", "testdata", "seq")
+# the 1920x1080 B pyramids (JAX SequenceEncoder; libx265 with intra CUs,
+# AMP and SAO in P and B pictures), each frame's decode_sample order
+# after the in-order pass (random access: a restart at the IDR each)
+SEQ_STREAMS = {"bpyr-1920x1080": (6, 3), "x265-1920x1080": (7,)}
+SEQ_UNCV = "uncv-256x256"
+SEQ_SPANS = ("hevc.parse", "hevc.parse.inter", "hevc.plan", "hevc.mc",
+             "hevc.stage_a", "hevc.residual", "hevc.stage_b", "hevc.deblock")
+INTER_REPLACES = "libheif_tpu/codecs/hevc/recon.py:86"
+INTER_ALSO = ["libheif_tpu/codecs/hevc/recon.py:78",
+              "libheif_tpu/codecs/hevc/recon.py:113",
+              "libheif_tpu/codecs/hevc/recon.py:140",
+              "libheif_tpu/codecs/hevc/recon.py:148",
+              "libheif_tpu/codecs/hevc/recon.py:405"]
+
+
+def seq_streams():
+    with open(os.path.join(SEQ_DIR, "manifest.json")) as f:
+        return {e["name"]: e for e in json.load(f)["streams"]}
+
+
+def seq_blob(e):
+    with open(os.path.join(SEQ_DIR, e["file"]), "rb") as f:
+        return f.read()
+
+
+def frame_hashes(img):
+    return int32_hashes([img.plane(c).to(torch.int32)
+                         for c in (Channel.Y, Channel.Cb, Channel.Cr)])
+
+
+@contextlib.contextmanager
+def inter_capture():
+    """While inside, each P or B picture's plan and the DPB it reads are
+    kept (the DPB cloned before the picture's motion compensation): the
+    dict yielded maps "plans" to [(plan, ydpb, cdpb)]."""
+    real = device_recon.inter_predict
+    out = {"plans": []}
+
+    def spy(plan, ydpb, cdpb, bufs):
+        out["plans"].append((plan, ydpb.clone(), cdpb.clone()))
+        return real(plan, ydpb, cdpb, bufs)
+    device_recon.inter_predict = spy
+    try:
+        yield out
+    finally:
+        device_recon.inter_predict = real
+
+
+def decode_track_frames(t, e, convert=True):
+    """Every frame of track ``t`` in output order (decode_next_image),
+    each to interleaved RGB too, held to the manifest's hashes; the wall
+    ms of each frame (decode and conversion, ending in a sync)."""
+    ms = []
+    for i in range(e["frames"]):
+        t0 = time.perf_counter()
+        img = t.decode_next_image()
+        rgb = convert_image(img, Colorspace.RGB, Chroma.InterleavedRGB) \
+            if convert else None
+        ms.append(ms_since(t0))
+        assert frame_hashes(img) == e["sha256"][i], \
+            f"{e['name']} frame {i} differs from the manifest"
+        if rgb is not None:
+            p = rgb.plane(Channel.Interleaved)
+            assert p.shape[0] == img.height and \
+                p.numel() == 3 * img.width * img.height, tuple(p.shape)
+    assert t.decode_next_image() is None
+    return ms
+
+
+def check_inter_plan(tally, what, plan, ydpb, cdpb):
+    """hevc_inter_pred against its plain version on a P or B picture's
+    plan (its PU jobs and the DPB it read), stage A's inter groups
+    against theirs, and, where the picture has intra CUs, both intra
+    kernels on its intra groups."""
+    ip = plan.inter
+    bufs = []
+    for fn in (hevc_fast.inter_pred, hevc_fast.inter_pred_plain):
+        y, c = device_recon.buffers(plan)
+        fn(ip.jobs, ydpb, cdpb, y, c, bd=plan.bd)
+        bufs.append((y, c))
+    tally.compare("hevc_inter_pred", f"{what} luma, {len(ip.jobs)} jobs",
+                  bufs[0][0][:-1], bufs[1][0][:-1], exact=True)
+    tally.compare("hevc_inter_pred", f"{what} chroma", bufs[0][1][:-1],
+                  bufs[1][1][:-1], exact=True)
+    res = hevc_fast.dequant_itx(ip.groups, bd=plan.bd, mtab=ip.mtab)
+    for g, r in zip(ip.groups, res):
+        ref = hevc_fast.dequant_itx_plain(
+            g.coeffs, g.qp, g.ts, g.tqb, hevc_fast.transform_matrix(
+                g.luma, g.log2, plan.device, g.inter),
+            log2=g.log2, bd=plan.bd, mslot=g.mslot, mtab=ip.mtab)
+        tally.compare("hevc_dequant_itx", f"{what} inter "
+                      f"{(g.luma, g.log2)} n={g.coeffs.shape[0]}", r, ref,
+                      exact=True)
+    if plan.groups:
+        check_waves(tally, f"{what} intra CUs", plan,
+                    check_residuals(tally, f"{what} intra CUs", plan))
+
+
+def check_sequence(tally, name, order):
+    """One 1920x1080 sequence through HeifContext on the card: every frame
+    in output order with its RGB conversion (the launch counts read
+    around it: hevc_inter_pred once a P or B picture), random access
+    (``order``), then once more in order frame by frame inside
+    trace.collect() for the split by span; the kernels on its P and B
+    pictures' plans against their plain versions."""
+    e = seq_streams()[name]
+    blob = seq_blob(e)
+    n = e["frames"]
+    t = HeifContext.read_from_bytes(blob).tracks[0]
+    assert (t.coding, t.num_samples, t.width, t.height) == \
+        ("hvc1", n, e["width"], e["height"])
+    with inter_capture() as cap, launch_counts() as launches:
+        frame_ms = decode_track_frames(t, e)
+    log(f"sequence {name} launches {launches}")
+    assert launches["hevc_inter_pred"] == n - 1, \
+        f"{name}: not one hevc_inter_pred launch a P or B picture"
+    assert launches["planes_ycbcr8_to_rgb"] == n
+    for k in ("hevc_dequant_itx", "hevc_intra_wave"):
+        assert launches[k] > 0, f"{name}: no {k} launch"
+    assert launches["strided_extract_paste"] == 0
+    random_ms = []
+    for i in order:
+        t0 = time.perf_counter()
+        img = t.decode_sample(i)
+        random_ms.append(ms_since(t0))
+        assert frame_hashes(img) == e["sha256"][i], \
+            f"{name}: random access to frame {i} differs"
+    t = HeifContext.read_from_bytes(blob).tracks[0]
+    split = []
+    for i in range(n):
+        with trace.collect() as spans:
+            t0 = time.perf_counter()
+            img = t.decode_next_image()
+            total = ms_since(t0)
+        assert frame_hashes(img) == e["sha256"][i]
+        split.append({"total_ms": total, "spans": spans})
+    for s in SEQ_SPANS:
+        assert any(s in f["spans"] for f in split), f"{name}: no {s} span"
+    plans = cap["plans"]
+    big = max(range(len(plans)), key=lambda k: len(plans[k][0].inter.jobs))
+    for k in sorted({0, big}):
+        check_inter_plan(tally, f"seq {name} P/B picture {k + 1}",
+                         *plans[k])
+    intra_cus = sum(bool(p[0].groups) for p in plans)
+    out = {"frames": n, "frame_ms": frame_ms, "random_order": list(order),
+           "random_ms": random_ms, "launches": launches,
+           "pb_pictures_with_intra_cus": intra_cus, "split": split,
+           "jobs": [len(p[0].inter.jobs) for p in plans]}
+    log(f"sequence {name} frame ms {frame_ms} random ms {random_ms}")
+    log(f"sequence {name} split {json.dumps(split)}")
+    return out, plans[big]
+
+
+def check_uncv_track(tally):
+    """The uncv track through HeifContext on the card and on the CPU: each
+    frame strided_extract_paste once, equal on both and to the
+    manifest."""
+    e = seq_streams()[SEQ_UNCV]
+    blob = seq_blob(e)
+    t = HeifContext.read_from_bytes(blob).tracks[0]
+    cpu = HeifContext.read_from_bytes(blob, device="cpu").tracks[0]
+    assert t.coding == "uncv"
+    with launch_counts() as launches:
+        imgs = [t.decode_sample(i) for i in range(e["frames"])]
+    assert launches["strided_extract_paste"] == e["frames"], launches
+    for i, img in enumerate(imgs):
+        ref = cpu.decode_sample(i)
+        for c in (Channel.Y, Channel.Cb, Channel.Cr):
+            tally.compare("strided_extract_paste",
+                          f"uncv track frame {i} {c} card vs CPU",
+                          img.plane(c).cpu(), ref.plane(c), exact=True)
+        assert frame_hashes(img) == e["sha256"][i]
+    log(f"uncv track {SEQ_UNCV} launches {launches}")
+    return launches
+
+
+def check_inter_cases(tally):
+    """hevc_inter_pred against its plain version on
+    codecs/hevc/inter_cases.synthetic (every PU shape, every chroma and
+    luma phase, uni and bi, one picture in both lists, vectors beyond
+    every edge) at 8, 10 and 12 bits, and on one PU of the whole picture
+    reaching far outside it in both lists."""
+    W_, H_ = 256, 192
+    for bd in (8, 10, 12):
+        jobs, ydpb, cdpb = inter_cases.synthetic(W_, H_, bd, bd, DEV)
+        whole = torch.from_numpy(hevc_fast.inter_jobs(np.array(
+            [[0, 0, W_, H_, 1, -8 * W_ - 3, 8 * H_ + 5, 2, 8 * W_ + 7,
+              -8 * H_]], np.int32))).to(DEV)
+        for what, j in (("partition", jobs), ("whole picture", whole)):
+            bufs = []
+            for fn in (hevc_fast.inter_pred, hevc_fast.inter_pred_plain):
+                y = torch.zeros(W_ * H_, dtype=torch.int32, device=DEV)
+                c = torch.zeros(2 * (W_ // 2) * (H_ // 2), dtype=torch.int32,
+                                device=DEV)
+                fn(j, ydpb, cdpb, y, c, bd=bd)
+                bufs.append((y, c))
+            for k, plane in ((0, "luma"), (1, "chroma")):
+                tally.compare("hevc_inter_pred",
+                              f"synthetic {what} {bd}-bit {plane}, "
+                              f"{len(j)} jobs", bufs[0][k], bufs[1][k],
+                              exact=True)
+
+
+def check_sequences(tally):
+    """Phase 4h: the synthetic motion cases, both 1920x1080 sequences and
+    the uncv track."""
+    check_inter_cases(tally)
+    out, captured = {}, {}
+    for name, order in SEQ_STREAMS.items():
+        t0 = time.perf_counter()
+        out[name], captured[name] = check_sequence(tally, name, order)
+        out[name]["seconds"] = time.perf_counter() - t0
+    out["uncv_launches"] = check_uncv_track(tally)
+    return out, captured
+
+
+def inter_work(plan, slots):
+    """(bytes, operations) hevc_inter_pred needs for a plan: each
+    reference sample its jobs read (the windows their filters need,
+    clamped to the picture, each sample once a slot), the job table, each
+    output sample written once (int32); 2 operations a filter tap of the
+    passes a phase needs, and 3 a sample for the weighting."""
+    j = plan.inter.jobs.to(torch.int64)
+    H, W = plan.height, plan.width
+    reads, ops = 0, 0
+    for luma in (True, False):
+        K, fb = (8, 2) if luma else (4, 3)
+        pw, ph = (W, H) if luma else (W >> 1, H >> 1)
+        bx, by = (j[:, 0], j[:, 1]) if luma else (j[:, 0] >> 1, j[:, 1] >> 1)
+        bw = j[:, 2] if luma else torch.clamp(j[:, 2] >> 1, min=1)
+        bh = j[:, 3] if luma else torch.clamp(j[:, 3] >> 1, min=1)
+        side = hevc_fast.INTER_SIDE if luma else hevc_fast.INTER_SIDE // 2
+        r = torch.arange(side + K - 1, device=j.device)
+        planes = 1 if luma else 2
+        mask = torch.zeros((slots, ph, pw), dtype=torch.bool,
+                           device=j.device)
+        for l in (0, 1):
+            slot, mvx, mvy = j[:, 4 + 3 * l], j[:, 5 + 3 * l], j[:, 6 + 3 * l]
+            use = slot >= 0
+            fx, fy = (mvx & ((1 << fb) - 1)) != 0, (mvy & ((1 << fb) - 1)) != 0
+            ew = bw + torch.where(fx, K - 1, 0)
+            eh = bh + torch.where(fy, K - 1, 0)
+            x0 = bx + (mvx >> fb) - torch.where(fx, K // 2 - 1, 0)
+            y0 = by + (mvy >> fb) - torch.where(fy, K // 2 - 1, 0)
+            ys = torch.clamp(y0[:, None] + r[None], 0, ph - 1)
+            xs = torch.clamp(x0[:, None] + r[None], 0, pw - 1)
+            ok = use[:, None, None] & (r[None, :, None] < eh[:, None, None]) \
+                & (r[None, None, :] < ew[:, None, None])
+            idx = (torch.clamp(slot, min=0)[:, None, None] * ph
+                   + ys[:, :, None]) * pw + xs[:, None, :]
+            mask.view(-1)[idx[ok]] = True
+            taps = (fx * eh * bw + fy * bh * bw) * 2 * K
+            ops += planes * int((taps * use).sum())
+        reads += planes * int(mask.sum())
+        ops += planes * 3 * int((bw * bh).sum())
+    out_samples = int((j[:, 2] * j[:, 3]).sum()) + 2 * int(
+        (torch.clamp(j[:, 2] >> 1, min=1) * torch.clamp(j[:, 3] >> 1, min=1))
+        .sum())
+    nbytes = 4 * reads + 4 * out_samples + j.numel() * 4
+    return nbytes, ops
+
+
+def inter_pred_row(timer, tally, captured, launches):
+    """hevc_inter_pred's row: the largest P or B picture of the x265
+    sequence (the kernel, its plain version, its bounds)."""
+    plan, ydpb, cdpb = captured
+    ip = plan.inter
+    bufs = [device_recon.buffers(plan) for _ in range(2)]
+    nbytes, nops = inter_work(plan, ydpb.shape[0])
+    b = bounds(nbytes, nops)
+    ms = timer([lambda b_=b_: hevc_fast.inter_pred(
+        ip.jobs, ydpb, cdpb, *b_, bd=plan.bd) for b_ in bufs])
+    plain_ms = timer([lambda: hevc_fast.inter_pred_plain(
+        ip.jobs, ydpb, cdpb, *bufs[0], bd=plan.bd)], n=3)
+    row = {"name": "hevc_inter_pred", "route": "cuda",
+           "source": HEVC_SOURCE, "replaces": INTER_REPLACES,
+           "also_replaces": INTER_ALSO, "launches": launches,
+           "max_abs_err": tally.max_abs_err["hevc_inter_pred"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+           "bound_by": b["bound_by"], "library_ms": None,
+           "checks": tally.checks["hevc_inter_pred"],
+           "differing_pixels": tally.differing["hevc_inter_pred"],
+           "bytes": nbytes, "ops": nops, "byte_bound_ms": b["byte_bound_ms"],
+           "op_bound_ms": b["op_bound_ms"], "jobs": len(ip.jobs),
+           "picture": f"{plan.width}x{plan.height}"}
+    log(f"hevc_inter_pred row {json.dumps(row)}")
+    return row
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
          "--id=0"], capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+def sequences_only():
+    """``python3 chip_smoke.py --sequences-only``: the build, phase 4h and
+    hevc_inter_pred's row alone, on card 0; the same last two lines as
+    ``main`` (the kernels line holding that row only)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    log(nvidia_smi())
+    _build.LIBRARY.load()
+    log(f"built {_build.LIBRARY.path} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.LIBRARY.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("ptxas:", line.strip())
+    tally = Tally()
+    seq, captured = check_sequences(tally)
+    row = inter_pred_row(
+        DeviceTimer(), tally, captured["x265-1920x1080"],
+        sum(seq[n]["launches"]["hevc_inter_pred"] for n in SEQ_STREAMS))
+    log("summary " + json.dumps({"sequences": seq, "checks": tally.checks,
+                                 "elapsed_s": time.perf_counter() - t0}))
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def mesh_only():
@@ -3779,11 +4142,11 @@ def main():
     # one decode under the profiler: launches, spans and the card's share
     a_launches, a_first, _a_rgb = check_av1_photo(a_photo, a_streams,
                                                   a_plan.t, profile=True)
-    g_photo = av1_photo_file(a_streams, GRAIN_TILES)
+    g_photo = av1_photo_file(a_streams, GRAIN_TILES, GRAIN_GRID, GRAIN_PHOTO)
     log(f"av1 grain photo file {len(g_photo)} B, tiles {GRAIN_TILES}")
     g_launches, g_first, _g_rgb = check_av1_photo(
-        g_photo, a_streams, PHOTO_GRID[0] * PHOTO_GRID[1], GRAIN_TILES,
-        "av1 grain photo")
+        g_photo, a_streams, GRAIN_GRID[0] * GRAIN_GRID[1], GRAIN_TILES,
+        "av1 grain photo", grid_shape=GRAIN_GRID, size=GRAIN_PHOTO)
     av01_blobs, shot_launches = check_av01_files(a_streams)
 
     phase_done("av1")
@@ -3801,6 +4164,16 @@ def main():
                       np_planes(data, TILES, W // TILES, H // TILES), photo)
 
     phase_done("mesh")
+
+    # 4h. image sequences: the 1920x1080 sequences through HeifContext's
+    # tracks (in order, random access, split by span), the kernels on their
+    # P and B pictures' plans, and the uncv track
+    t0 = time.perf_counter()
+    seq, seq_captured = check_sequences(tally)
+    seq["seconds"] = time.perf_counter() - t0
+    log(f"phase 4h (sequences) took {seq['seconds']:.1f} s")
+
+    phase_done("sequences")
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -3986,6 +4359,14 @@ def main():
     hvc1_runs = time_hvc1_single(hvc1_blobs["tile512_s0"])
     photo_device = photo_device_share(photo, photo_runs)
 
+    # hevc_inter_pred at the largest P or B picture of the x265 sequence
+    kern["hevc_inter_pred"] = inter_pred_row(
+        timer, tally, seq_captured["x265-1920x1080"],
+        sum(seq[n]["launches"]["hevc_inter_pred"] for n in SEQ_STREAMS))
+    kern["hevc_inter_pred"]["launches_by_path"] = {
+        f"sequence {n} in order": seq[n]["launches"]["hevc_inter_pred"]
+        for n in SEQ_STREAMS}
+
     # the AV1 kernels at the photo's shapes, and its decode part by part;
     # stage B on the intrabc screenshot (one picture: one block)
     shot = av1_screenshot_stage_b(timer, a_streams)
@@ -4058,8 +4439,8 @@ def main():
                       "512x512", "waves": a_plan.n_waves,
                       "launches": a_launches, "parts": a_first},
         "av1_single_item_total_ms": av01_single,
-        "av1_grain_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
-                            f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} film-grain "
+        "av1_grain_photo": {"shape": f"{GRAIN_PHOTO[0]}x{GRAIN_PHOTO[1]} "
+                            f"from {GRAIN_GRID[0]}x{GRAIN_GRID[1]} film-grain "
                             "av01 tiles of 512x512", "tiles": GRAIN_TILES,
                             "launches": g_launches, "parts": g_first},
         "av1_screenshot": {"launches": shot_launches, **shot},
@@ -4067,7 +4448,7 @@ def main():
                        f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} jpeg tiles of "
                        "512x512", "launches": j_launches, "parts": j_runs},
         "colour_ops": colour_rows, "metadata_file": metadata,
-        "mesh": mesh,
+        "mesh": mesh, "sequences": seq,
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
         "phase_s": phase_s, "elapsed_s": time.perf_counter() - t_start}
     # launches of the mesh paths (phase 4g), per kernel and path
@@ -4079,6 +4460,8 @@ def main():
         kern[name]["mesh_launches"] = {
             f"hevc photo {what}": c[name]
             for what, c in mesh["hevc_photo"]["launches"].items()}
+        kern[name]["sequence_launches"] = {
+            n: seq[n]["launches"][name] for n in SEQ_STREAMS}
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -4088,4 +4471,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_only() if sys.argv[1:] == ["--mesh-only"] else main())
+    sys.exit(mesh_only() if sys.argv[1:] == ["--mesh-only"] else
+             sequences_only() if sys.argv[1:] == ["--sequences-only"] else
+             main())

@@ -7,6 +7,7 @@ from . import unc  # noqa: F401  (registers cmpd/uncC/cmpC/icef)
 from . import codec_cfg  # noqa: F401  (registers hvcC, av1C, jpgC)
 from . import mini  # noqa: F401  (registers mini)
 from . import tild  # noqa: F401  (registers tilC)
+from . import seq  # noqa: F401  (registers the moov/trak/stbl family)
 
 __all__ = [
     "Box", "FullBox", "BoxHeader", "Box_other", "Box_Error",

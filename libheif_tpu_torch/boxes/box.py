@@ -100,9 +100,19 @@ class Box:
                 raise HeifError.security(
                     f"more than {cap} child boxes in '{self.box_type}'")
 
-    def get_child(self, cls) -> Optional["Box"]:
-        """The first child box of type ``cls`` (ref: Box::get_child_box)."""
-        return next((c for c in self.children if isinstance(c, cls)), None)
+    def get_child(self, key, required: bool = False) -> Optional["Box"]:
+        """The first child box of class ``key``, or of box type ``key``
+        when it is a four-character string (ref: Box::get_child_box);
+        None, or with ``required`` invalid_input, when there is none."""
+        c = next((c for c in self.children if _box_matches(c, key)), None)
+        if c is None and required:
+            raise HeifError.invalid_input(
+                msg=f"required child '{key}' missing in '{self.box_type}'")
+        return c
+
+    def get_children(self, key) -> List["Box"]:
+        """Every child box of class or box type ``key``."""
+        return [c for c in self.children if _box_matches(c, key)]
 
     # ---------------------------------------------------------------- write
 
@@ -285,3 +295,8 @@ def read_all_boxes(data: bytes, limits: Optional[SecurityLimits] = None) -> List
         boxes.append(read_box(r, limits, 0))
     return boxes
 
+
+def _box_matches(box: Box, key) -> bool:
+    if isinstance(key, str):
+        return box.box_type == key
+    return isinstance(box, key)

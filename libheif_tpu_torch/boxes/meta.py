@@ -942,3 +942,71 @@ class Box_mdat(Box):
 
     def dump_fields(self) -> List[str]:
         return [f"{self.data_size or len(self.payload)} data bytes"]
+
+
+# --------------------------------------------------------------------------
+# TAI timestamps (ISO/IEC 23001-17 Amd: 'taic' clock info of a track's
+# sample entry; per-sample timestamp packets in 'stai' aux info)
+# --------------------------------------------------------------------------
+
+@dataclass
+class TaiClockInfo:
+    """heif_tai_clock_info equivalent (ref: heif_tai_timestamps.h)."""
+    time_uncertainty: int = 0xFFFFFFFFFFFFFFFF    # unknown
+    clock_resolution: int = 0
+    clock_drift_rate: int = 0x7FFFFFFF            # unknown
+    clock_type: int = 0
+
+
+@dataclass
+class TaiTimestampPacket:
+    """heif_tai_timestamp_packet equivalent."""
+    tai_timestamp: int = 0        # ns since TAI epoch 1958-01-01
+    synchronization_state: bool = False
+    timestamp_generation_failure: bool = False
+    timestamp_is_modified: bool = False
+
+    def to_bytes(self) -> bytes:
+        status = ((0x80 if self.synchronization_state else 0) |
+                  (0x40 if self.timestamp_generation_failure else 0) |
+                  (0x20 if self.timestamp_is_modified else 0))
+        return self.tai_timestamp.to_bytes(8, "big") + bytes([status])
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "TaiTimestampPacket":
+        if len(data) < 9:
+            raise HeifError.invalid_input(msg="TAI timestamp packet too short")
+        status = data[8]
+        return cls(tai_timestamp=int.from_bytes(data[:8], "big"),
+                   synchronization_state=bool(status & 0x80),
+                   timestamp_generation_failure=bool(status & 0x40),
+                   timestamp_is_modified=bool(status & 0x20))
+
+
+@register_box("taic")
+class Box_taic(FullBox):
+    """TAI clock information (ref: box.h:1812)."""
+
+    def __init__(self, info: Optional[TaiClockInfo] = None):
+        super().__init__()
+        self.info = info or TaiClockInfo()
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.info = TaiClockInfo(
+            time_uncertainty=r.read64(),
+            clock_resolution=r.read32(),
+            clock_drift_rate=r.read32s(),
+            clock_type=r.read8() >> 6)
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        w.write64(self.info.time_uncertainty)
+        w.write32(self.info.clock_resolution)
+        w.write32s(self.info.clock_drift_rate)
+        w.write8((self.info.clock_type & 3) << 6)
+
+    def dump_fields(self) -> List[str]:
+        return [f"time_uncertainty: {self.info.time_uncertainty}",
+                f"clock_resolution: {self.info.clock_resolution}",
+                f"clock_drift_rate: {self.info.clock_drift_rate}",
+                f"clock_type: {self.info.clock_type}"]

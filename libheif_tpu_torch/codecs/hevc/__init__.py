@@ -1,6 +1,9 @@
-"""HEVC (hvc1) still-image decode: the C++ parser on the host, the
-reconstruction on the device (device_recon, kernels in cuda_fast)."""
+"""HEVC (hvc1) decode: stills and sequences.  Intra pictures parse in the
+C++ parser, P and B pictures in the Python slice parser, on the host; the
+reconstruction runs on the device (device_recon, kernels in cuda_fast)."""
 
-from .decoder import HevcDecoder, decode_intra_picture
+from .decoder import (HevcDecoder, HevcSequenceSession, SequenceDecoder,
+                      decode_intra_picture)
 
-__all__ = ["HevcDecoder", "decode_intra_picture"]
+__all__ = ["HevcDecoder", "HevcSequenceSession", "SequenceDecoder",
+           "decode_intra_picture"]

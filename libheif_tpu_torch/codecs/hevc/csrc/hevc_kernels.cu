@@ -12,6 +12,10 @@
 //                        predict (:571-698) and the scatter into the flat
 //                        sample buffers; every wave of every picture
 //
+//   hevc_inter_pred   <- no TPU kernel: the JAX package's host numpy motion
+//                        compensation of P and B pictures (recon.py
+//                        :78-166, :405-436); every PU of a picture
+//
 // Stages C and D (deblocking, SAO) stay plain PyTorch.
 //
 // What bounds them on an H100, and what the design does about it:
@@ -599,6 +603,169 @@ hevc_wave_probe_kernel(int32_t* buf, int steps) {
   }
 }
 
+
+// ------------------------------------------------------------ inter pred
+
+// hevc_inter_pred: the motion-compensated prediction of every PU of one
+// P or B picture (the JAX package's host numpy MC, recon.py _gather :78,
+// mc_luma_14 :86, mc_chroma_14 :113, weight_uni :140, weight_bi :148,
+// _mc_pu :405-436).  One block a job: a sub-block of at most 16x16 luma
+// samples of one PU (the wrapper cuts PUs into such jobs; each output
+// sample depends only on its position and the PU's motion), one thread a
+// sample.  For each list the block loads the (16+7)^2 luma window of its
+// reference into shared memory, clamping every coordinate to the
+// uncropped picture, filters the window's rows with the 8-tap filter of
+// the horizontal phase, then each thread the column of its sample with
+// the vertical phase's, keeping HEVC's 14-bit intermediates; the two
+// chroma planes follow with the 4-tap filters on (8+3)^2 windows.  Then
+// default weighting, uni or bi, clipped to the bit depth.  The
+// reference pictures are slots of the DPB's (slots, H, W) and (slots, 2,
+// H/2, W/2) int32 tensors; the output is the picture's own flat sample
+// buffers, which stage B later reads.  Bytes bound it: each job reads its
+// windows (up to 2 x (529 + 2 x 121) samples) and writes 384 samples.
+
+constexpr int kInterJobCols = 10;    // x y w h slot0 mv0x mv0y slot1 mv1x mv1y
+constexpr int kInterSide = 16;       // luma job side; chroma 8
+constexpr int kInterThreads = kInterSide * kInterSide;
+
+__constant__ int kLumaTaps[4][8] = {
+    {0, 0, 0, 64, 0, 0, 0, 0},
+    {-1, 4, -10, 58, 17, -5, 1, 0},
+    {-1, 4, -11, 40, 40, -11, 4, -1},
+    {0, 1, -5, 17, 58, -10, 4, -1}};
+__constant__ int kChromaTaps[8][4] = {
+    {0, 64, 0, 0},   {-2, 58, 10, -2}, {-4, 54, 16, -2}, {-6, 46, 28, -4},
+    {-4, 36, 36, -4}, {-4, 28, 46, -6}, {-2, 16, 54, -4}, {-2, 10, 58, -2}};
+
+template <int K>
+__device__ __forceinline__ int inter_tap(int phase, int k) {
+  return K == 8 ? kLumaTaps[phase][k] : kChromaTaps[phase][k];
+}
+
+__device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// The 14-bit prediction of sample (tid / B, tid % B) of a BxB block at
+// (bx, by) of one plane (pw x ph) of reference `ref`, motion (mvx, mvy) in
+// units of 1 / 2^FB sample; returned to threads tid < B*B (0 to the rest).
+// Every thread of the block calls it: it holds three barriers.
+template <int K, int B, int FB>
+__device__ int inter_predict14(const int32_t* __restrict__ ref, int pw,
+                               int ph, int bx, int by, int mvx, int mvy,
+                               int shift1, int shift3, int* win, int* hp) {
+  constexpr int P = K / 2 - 1;       // taps before the sample
+  constexpr int S = B + K - 1;       // window side
+  const int tid = threadIdx.x;
+  const int xi = bx + (mvx >> FB), yi = by + (mvy >> FB);
+  const int fx = mvx & ((1 << FB) - 1), fy = mvy & ((1 << FB) - 1);
+  for (int i = tid; i < S * S; i += blockDim.x) {
+    const int sy = clamp_int(yi - P + i / S, 0, ph - 1);
+    const int sx = clamp_int(xi - P + i % S, 0, pw - 1);
+    win[i] = ref[static_cast<size_t>(sy) * pw + sx];
+  }
+  __syncthreads();
+  for (int i = tid; i < S * B; i += blockDim.x) {
+    const int r = i / B, c = i % B;
+    int s = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) s += inter_tap<K>(fx, k) * win[r * S + c + k];
+    hp[i] = s >> shift1;
+  }
+  __syncthreads();
+  int v = 0;
+  if (tid < B * B) {
+    const int r = tid / B, c = tid % B;
+    if (fx == 0 && fy == 0) {
+      v = win[(r + P) * S + c + P] << shift3;
+    } else if (fy == 0) {
+      v = hp[(r + P) * B + c];
+    } else if (fx == 0) {
+      int s = 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        s += inter_tap<K>(fy, k) * win[(r + k) * S + c + P];
+      v = s >> shift1;
+    } else {
+      int s = 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        s += inter_tap<K>(fy, k) * hp[(r + k) * B + c];
+      v = s >> 6;
+    }
+  }
+  __syncthreads();                   // win and hp are reused next
+  return v;
+}
+
+// default weighted sample prediction (spec 8.5.4.3.2)
+__device__ __forceinline__ int inter_weight(const int* v, bool bi, int l,
+                                            int bd) {
+  const int maxv = (1 << bd) - 1;
+  if (bi) {
+    const int sh = 15 - bd;
+    return clamp_int((v[0] + v[1] + (1 << (sh - 1))) >> sh, 0, maxv);
+  }
+  const int sh = 14 - bd;
+  return clamp_int((v[l] + (1 << (sh - 1))) >> sh, 0, maxv);
+}
+
+struct InterArgs {
+  const int32_t* jobs;
+  const int32_t* ydpb;
+  const int32_t* cdpb;
+  int32_t* ybuf;
+  int32_t* cbuf;
+  int W, H, bd;
+};
+
+__global__ void __launch_bounds__(kInterThreads)
+    hevc_inter_pred_kernel(InterArgs a) {
+  __shared__ int win[(kInterSide + 7) * (kInterSide + 7)];
+  __shared__ int hp[(kInterSide + 7) * kInterSide];
+  const int32_t* jb = a.jobs + static_cast<size_t>(blockIdx.x) * kInterJobCols;
+  const int x = jb[0], y = jb[1], w = jb[2], h = jb[3];
+  const int slot[2] = {jb[4], jb[7]};
+  const int mvx[2] = {jb[5], jb[8]};
+  const int mvy[2] = {jb[6], jb[9]};
+  const int shift1 = a.bd - 8, shift3 = 14 - a.bd;
+  const bool bi = slot[0] >= 0 && slot[1] >= 0;
+  const int uni = slot[0] >= 0 ? 0 : 1;
+  const int tid = threadIdx.x;
+  const size_t ysz = static_cast<size_t>(a.W) * a.H;
+  int v[2] = {0, 0};
+  for (int l = 0; l < 2; ++l)        // slot[l] is the same in every thread
+    if (slot[l] >= 0)
+      v[l] = inter_predict14<8, kInterSide, 2>(
+          a.ydpb + slot[l] * ysz, a.W, a.H, x, y, mvx[l], mvy[l], shift1,
+          shift3, win, hp);
+  {
+    const int r = tid / kInterSide, c = tid % kInterSide;
+    if (r < h && c < w && y + r < a.H && x + c < a.W)
+      a.ybuf[static_cast<size_t>(y + r) * a.W + x + c] =
+          inter_weight(v, bi, uni, a.bd);
+  }
+  constexpr int CS = kInterSide / 2;
+  const int cw = a.W >> 1, ch = a.H >> 1;
+  const size_t csz = static_cast<size_t>(cw) * ch;
+  const int cx = x >> 1, cy = y >> 1;
+  const int wc = w >> 1 > 1 ? w >> 1 : 1, hc = h >> 1 > 1 ? h >> 1 : 1;
+  for (int p = 0; p < 2; ++p) {
+    int u[2] = {0, 0};
+    for (int l = 0; l < 2; ++l)
+      if (slot[l] >= 0)
+        u[l] = inter_predict14<4, CS, 3>(
+            a.cdpb + (static_cast<size_t>(slot[l]) * 2 + p) * csz, cw, ch,
+            cx, cy, mvx[l], mvy[l], shift1, shift3, win, hp);
+    if (tid < CS * CS) {
+      const int r = tid / CS, c = tid % CS;
+      if (r < hc && c < wc && cy + r < ch && cx + c < cw)
+        a.cbuf[p * csz + static_cast<size_t>(cy + r) * cw + cx + c] =
+            inter_weight(u, bi, uni, a.bd);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -693,6 +860,32 @@ int launch_hevc_wave_probe(void* buf, int pictures, int steps, int device,
   hevc_wave_probe_kernel<<<pictures, kWaveWarps * 32, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(buf), steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// jobs: (n_jobs, 10) int32 rows x, y, w, h (a luma sub-block of at most
+// 16x16 of one PU), then per list the DPB slot (-1: list unused) and the
+// quarter-sample motion vector; ydpb (slots, H, W) and cdpb (slots, 2,
+// H/2, W/2) int32; ybuf/cbuf the picture's flat (H*W, 2*H/2*W/2) buffers
+int launch_hevc_inter_pred(const void* jobs, int n_jobs, const void* ydpb,
+                           const void* cdpb, int W, int H, int bd,
+                           void* ybuf, void* cbuf, int device,
+                           void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_jobs < 0 || W < 8 || H < 8 || bd < 8 || bd > 12) return kInvalid;
+  if (n_jobs == 0) return 0;
+  InterArgs a{};
+  a.jobs = static_cast<const int32_t*>(jobs);
+  a.ydpb = static_cast<const int32_t*>(ydpb);
+  a.cdpb = static_cast<const int32_t*>(cdpb);
+  a.ybuf = static_cast<int32_t*>(ybuf);
+  a.cbuf = static_cast<int32_t*>(cbuf);
+  a.W = W;
+  a.H = H;
+  a.bd = bd;
+  hevc_inter_pred_kernel<<<n_jobs, kInterThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

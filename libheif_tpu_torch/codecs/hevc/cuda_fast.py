@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernels of the HEVC intra reconstruction, and their
-plain PyTorch versions.
+"""Hand-written CUDA kernels of the HEVC reconstruction, and their plain
+PyTorch versions.
 
 Two stages of the JAX package's jnp device program
 (libheif_tpu/codecs/hevc/device_recon.py ``_build_program``) are kernels
-in ``csrc/hevc_kernels.cu``, each one launch for a whole plan:
+in ``csrc/hevc_kernels.cu``, each one launch for a whole plan, and so is
+the motion compensation of P and B pictures, which the JAX package runs
+in numpy on the host (recon.py):
 
 =================  ==========================================  ===========
 kernel             replaces                                    wrapper
@@ -13,6 +15,10 @@ hevc_dequant_itx   stage A, ``residuals`` (:540-567), every    dequant_itx
 hevc_intra_wave    stage B, ``predict`` + scatter, the whole   intra_waves
                    ``lax.scan`` over waves (:571-698,
                    :890-927), every picture
+hevc_inter_pred    recon.py ``_gather`` :78, ``mc_luma_14``    inter_pred
+                   :86, ``mc_chroma_14`` :113, ``weight_uni``
+                   :140, ``weight_bi`` :148, ``_mc_pu``
+                   :405-436: every PU of a picture
 =================  ==========================================  ===========
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
@@ -47,8 +53,12 @@ HEVC_INTRA_WAVE = CudaKernel(
 HEVC_WAVE_PROBE = CudaKernel(
     "hevc_wave_probe", "launch_hevc_wave_probe", [_P, _I, _I])
 
+HEVC_INTER_PRED = CudaKernel(
+    "hevc_inter_pred", "launch_hevc_inter_pred",
+    [_P, _I, _P, _P, _I, _I, _I, _P, _P])
+
 KERNELS: Dict[str, CudaKernel] = {
-    k.name: k for k in (HEVC_DEQUANT_ITX, HEVC_INTRA_WAVE)}
+    k.name: k for k in (HEVC_DEQUANT_ITX, HEVC_INTRA_WAVE, HEVC_INTER_PRED)}
 
 LEVEL_SCALE = (40, 45, 51, 57, 64, 72)
 MAX_GROUPS = 7          # kMaxGroups in csrc/hevc_kernels.cu
@@ -63,11 +73,13 @@ for _m in range(2, 35):
         INV_ANGLE[_m] = INTRA_INV_ANGLE[INTRA_PRED_ANGLE[_m]]
 
 
-def transform_matrix(luma: bool, log2: int, device) -> torch.Tensor:
+def transform_matrix(luma: bool, log2: int, device,
+                     inter: bool = False) -> torch.Tensor:
     """The (s, s) int32 inverse-transform matrix of a TU group: DST-VII
-    for luma 4x4, else the DCT of its size (the plain version's operand;
-    the kernel has the coefficients as constants)."""
-    m = DST4 if (luma and log2 == 2) else DCT[1 << log2]
+    for intra luma 4x4, else the DCT of its size (an ``inter`` luma 4x4
+    too); the plain version's operand, the kernel has the coefficients as
+    constants."""
+    m = DST4 if (luma and log2 == 2 and not inter) else DCT[1 << log2]
     return torch.as_tensor(np.asarray(m, np.int32), device=device)
 
 
@@ -77,7 +89,9 @@ class ItxGroup(NamedTuple):
     """One TU group's stage-A inputs: ``coeffs`` (n, s, s) int32 levels,
     ``qp`` (n,) int32, ``ts``/``tqb`` (n,) bool (transform skip,
     transquant bypass), ``mslot`` (n,) int32: each TU's slot in the plan's
-    scaling-factor table (0: the flat factor 16)."""
+    scaling-factor table (0: the flat factor 16).  ``inter``: the TUs of
+    inter CUs, whose 4x4 luma transform is the DCT, not the DST-VII
+    (H.265 §8.6.4.2)."""
     luma: bool
     log2: int
     coeffs: torch.Tensor
@@ -85,6 +99,12 @@ class ItxGroup(NamedTuple):
     ts: torch.Tensor
     tqb: torch.Tensor
     mslot: torch.Tensor
+    inter: bool = False
+
+    @property
+    def dst(self) -> bool:
+        """The group's transform is the DST-VII."""
+        return self.luma and self.log2 == 2 and not self.inter
 
 
 def dequant_itx(groups: Sequence[ItxGroup], *, bd: int,
@@ -120,10 +140,12 @@ def dequant_itx(groups: Sequence[ItxGroup], *, bd: int,
     if not groups:
         return []
     extra = () if mtab is None else (mtab,)
-    if _on_cpu(*(t for g in groups for t in g[2:]), *extra):
+    if _on_cpu(*(t for g in groups
+                 for t in (g.coeffs, g.qp, g.ts, g.tqb, g.mslot)), *extra):
         return [dequant_itx_plain(
             g.coeffs, g.qp, g.ts, g.tqb,
-            transform_matrix(g.luma, g.log2, g.coeffs.device), log2=g.log2,
+            transform_matrix(g.luma, g.log2, g.coeffs.device, g.inter),
+            log2=g.log2,
             bd=bd, mslot=g.mslot, mtab=mtab) for g in groups]
     outs = [torch.empty_like(g.coeffs) for g in groups]
     for t in [g.coeffs for g in groups] + outs:
@@ -134,7 +156,7 @@ def dequant_itx(groups: Sequence[ItxGroup], *, bd: int,
         v for g, o in zip(groups, outs)
         for v in (g.coeffs.data_ptr(), g.qp.data_ptr(), g.ts.data_ptr(),
                   g.tqb.data_ptr(), g.mslot.data_ptr(), o.data_ptr(),
-                  g.coeffs.shape[0], g.log2, int(g.luma and g.log2 == 2))))
+                  g.coeffs.shape[0], g.log2, int(g.dst))))
     HEVC_DEQUANT_ITX.launch(max(outs, key=torch.Tensor.numel),
                             ctypes.addressof(table), len(groups), bd,
                             0 if mtab is None else mtab.data_ptr())
@@ -402,3 +424,165 @@ def predict_plain(luma: bool, log2: int, refs: torch.Tensor,
     return torch.where((mode == INTRA_PLANAR)[:, None, None], planar,
                        torch.where((mode == INTRA_DC)[:, None, None], dcp,
                                    ang)).to(torch.int32)
+
+
+# ---------------------------------------------------------- hevc_inter_pred
+
+INTER_SIDE = 16          # kInterSide: a job's luma side at most
+INTER_JOB_COLS = 10      # x y w h slot0 mv0x mv0y slot1 mv1x mv1y
+
+# HEVC's interpolation filters (spec 8.5.4.2.2.1/2.2.2, recon.py _QFILT,
+# _CFILT); phase 0 copies
+LUMA_TAPS = np.array([[0, 0, 0, 64, 0, 0, 0, 0],
+                      [-1, 4, -10, 58, 17, -5, 1, 0],
+                      [-1, 4, -11, 40, 40, -11, 4, -1],
+                      [0, 1, -5, 17, 58, -10, 4, -1]], np.int64)
+CHROMA_TAPS = np.array([[0, 64, 0, 0], [-2, 58, 10, -2], [-4, 54, 16, -2],
+                        [-6, 46, 28, -4], [-4, 36, 36, -4], [-4, 28, 46, -6],
+                        [-2, 16, 54, -4], [-2, 10, 58, -2]], np.int64)
+
+
+def inter_jobs(pus: np.ndarray) -> np.ndarray:
+    """PU rows (n, 10) int32 [x y w h slot0 mv0x mv0y slot1 mv1x mv1y]
+    → hevc_inter_pred's jobs: each PU cut into sub-blocks of at most
+    INTER_SIDE x INTER_SIDE luma samples (the same columns; each output
+    sample depends only on its position and its PU's motion)."""
+    pus = np.asarray(pus, np.int32).reshape(-1, INTER_JOB_COLS)
+    if not len(pus):
+        return pus
+    nx = -(-pus[:, 2] // INTER_SIDE)
+    ny = -(-pus[:, 3] // INTER_SIDE)
+    cnt = nx * ny
+    rep = np.repeat(np.arange(len(pus)), cnt)
+    k = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    jx = (k % nx[rep]) * INTER_SIDE
+    jy = (k // nx[rep]) * INTER_SIDE
+    jobs = pus[rep].copy()
+    jobs[:, 0] += jx
+    jobs[:, 1] += jy
+    jobs[:, 2] = np.minimum(pus[rep, 2] - jx, INTER_SIDE)
+    jobs[:, 3] = np.minimum(pus[rep, 3] - jy, INTER_SIDE)
+    return np.ascontiguousarray(jobs, np.int32)
+
+
+def inter_pred(jobs: torch.Tensor, ydpb: torch.Tensor, cdpb: torch.Tensor,
+               ybuf: torch.Tensor, cbuf: torch.Tensor, *, bd: int) -> None:
+    """Motion-compensated prediction of one picture, in place, one launch:
+    for every job (a row of ``jobs`` (n, 10) int32 from inter_jobs) the
+    luma prediction with the 8-tap quarter-sample filter and the chroma
+    prediction (4:2:0, at x>>1, y>>1, size max(w>>1, 1)) with the 4-tap
+    eighth-sample filter, at HEVC's 14-bit intermediate precision, then
+    default weighting (uni or bi), written into the picture's flat int32
+    buffers ``ybuf`` (at least H*W) and ``cbuf`` (at least 2*(H/2)*(W/2),
+    Cb then Cr).  References are DPB slots: ``ydpb`` (slots, H, W) and
+    ``cdpb`` (slots, 2, H/2, W/2) int32, read with every coordinate
+    clamped to the uncropped picture; slot -1 leaves a list unused."""
+    if jobs.dtype != torch.int32 or jobs.dim() != 2 or \
+            jobs.shape[1] != INTER_JOB_COLS:
+        raise ValueError(f"jobs: expected (N, {INTER_JOB_COLS}) int32, got "
+                         f"{tuple(jobs.shape)} {jobs.dtype}")
+    if ydpb.dim() != 3 or cdpb.dim() != 4 or cdpb.shape[1] != 2:
+        raise ValueError("ydpb (slots, H, W), cdpb (slots, 2, H/2, W/2)")
+    S, H, W = ydpb.shape
+    if tuple(cdpb.shape) != (S, 2, H >> 1, W >> 1):
+        raise ValueError(f"cdpb {tuple(cdpb.shape)} does not match ydpb "
+                         f"{tuple(ydpb.shape)}")
+    for t, name in ((ydpb, "ydpb"), (cdpb, "cdpb"), (ybuf, "ybuf"),
+                    (cbuf, "cbuf")):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous int32 tensor")
+    if ybuf.numel() < H * W or cbuf.numel() < 2 * (H >> 1) * (W >> 1):
+        raise ValueError("ybuf/cbuf smaller than the picture")
+    if not 8 <= bd <= 12:
+        raise ValueError(f"bit depth {bd} outside 8..12")
+    if _on_cpu(jobs, ydpb, cdpb, ybuf, cbuf):
+        inter_pred_plain(jobs, ydpb, cdpb, ybuf, cbuf, bd=bd)
+        return
+    jobs = jobs.contiguous()
+    HEVC_INTER_PRED.launch(jobs, jobs.data_ptr(), jobs.shape[0],
+                           ydpb.data_ptr(), cdpb.data_ptr(), W, H, bd,
+                           ybuf.data_ptr(), cbuf.data_ptr())
+
+
+def predict14_plain(ref: torch.Tensor, slot, bx, by, mvx, mvy, *,
+                    taps: np.ndarray, frac_bits: int, side: int,
+                    bd: int) -> torch.Tensor:
+    """The 14-bit prediction (n, side, side) int64 of n blocks of one
+    plane (recon.py mc_luma_14 / mc_chroma_14): ``ref`` (slots, h, w), the
+    block at (bx, by), motion (mvx, mvy) in units of 2^-frac_bits sample;
+    every reference coordinate clamped to the plane (recon.py _gather)."""
+    dev = ref.device
+    K = taps.shape[1]
+    P = K // 2 - 1
+    S = side + K - 1
+    _, ph, pw = ref.shape
+    xi, yi = bx + (mvx >> frac_bits), by + (mvy >> frac_bits)
+    fx, fy = mvx & ((1 << frac_bits) - 1), mvy & ((1 << frac_bits) - 1)
+    off = torch.arange(S, device=dev) - P
+    rows = torch.clamp(yi[:, None] + off[None], 0, ph - 1)
+    cols = torch.clamp(xi[:, None] + off[None], 0, pw - 1)
+    win = ref[slot[:, None, None], rows[:, :, None], cols[:, None, :]] \
+        .to(torch.int64)                                   # (n, S, S)
+    t = torch.as_tensor(taps, device=dev)
+    tx, ty = t[fx], t[fy]                                  # (n, K)
+    shift1, shift3 = bd - 8, 14 - bd
+    hp = sum(tx[:, k, None, None] * win[:, :, k:k + side]
+             for k in range(K)) >> shift1                  # (n, S, side)
+    full = win[:, P:P + side, P:P + side] << shift3
+    h_only = hp[:, P:P + side]
+    v_only = sum(ty[:, k, None, None] * win[:, k:k + side, P:P + side]
+                 for k in range(K)) >> shift1
+    hv = sum(ty[:, k, None, None] * hp[:, k:k + side]
+             for k in range(K)) >> 6
+    fx0 = (fx == 0)[:, None, None]
+    fy0 = (fy == 0)[:, None, None]
+    return torch.where(fx0 & fy0, full, torch.where(
+        fy0, h_only, torch.where(fx0, v_only, hv)))
+
+
+def weight_plain(v0: torch.Tensor, v1: torch.Tensor, use0: torch.Tensor,
+                 use1: torch.Tensor, bd: int) -> torch.Tensor:
+    """Default weighted sample prediction (recon.py weight_uni, weight_bi)
+    of two lists' 14-bit predictions; ``use0``/``use1`` (n,) bool."""
+    maxv = (1 << bd) - 1
+    su, sb = 14 - bd, 15 - bd
+    uni = torch.where(use0[:, None, None], v0, v1)
+    wu = torch.clamp((uni + (1 << (su - 1))) >> su, 0, maxv)
+    wb = torch.clamp((v0 + v1 + (1 << (sb - 1))) >> sb, 0, maxv)
+    return torch.where((use0 & use1)[:, None, None], wb, wu)
+
+
+def inter_pred_plain(jobs, ydpb, cdpb, ybuf, cbuf, *, bd: int,
+                     chunk: int = 4096) -> None:
+    """Plain PyTorch version of hevc_inter_pred (recon.py _mc_pu over the
+    jobs), ``chunk`` jobs at a time; arguments as for inter_pred."""
+    S, H, W = ydpb.shape
+    cw, ch = W >> 1, H >> 1
+    dev = ydpb.device
+    for lo in range(0, jobs.shape[0], chunk):
+        j = jobs[lo:lo + chunk].to(dev, torch.int64)
+        x, y, w, h = j[:, 0], j[:, 1], j[:, 2], j[:, 3]
+        s0, s1 = j[:, 4], j[:, 7]
+        use0, use1 = s0 >= 0, s1 >= 0
+        for plane in range(3):
+            luma = plane == 0
+            side = INTER_SIDE if luma else INTER_SIDE // 2
+            ref = ydpb if luma else cdpb[:, plane - 1]
+            bx, by = (x, y) if luma else (x >> 1, y >> 1)
+            bw = w if luma else torch.clamp(w >> 1, min=1)
+            bh = h if luma else torch.clamp(h >> 1, min=1)
+            kw = dict(taps=LUMA_TAPS if luma else CHROMA_TAPS,
+                      frac_bits=2 if luma else 3, side=side, bd=bd)
+            v = [predict14_plain(ref, torch.clamp(s, min=0), bx, by,
+                                 j[:, 5 + 3 * l], j[:, 6 + 3 * l], **kw)
+                 for l, s in ((0, s0), (1, s1))]
+            pred = weight_plain(v[0], v[1], use0, use1, bd)
+            pw, ph = (W, H) if luma else (cw, ch)
+            r = torch.arange(side, device=dev)
+            yy = by[:, None, None] + r[None, :, None]
+            xx = bx[:, None, None] + r[None, None, :]
+            ok = (r[None, :, None] < bh[:, None, None]) & \
+                (r[None, None, :] < bw[:, None, None]) & (yy < ph) & (xx < pw)
+            base = 0 if luma else (plane - 1) * ch * cw
+            buf = ybuf if luma else cbuf
+            buf[(base + yy * pw + xx)[ok]] = pred[ok].to(torch.int32)

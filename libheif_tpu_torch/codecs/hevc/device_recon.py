@@ -1,8 +1,12 @@
-"""HEVC intra reconstruction on the device, for a batch of pictures.
+"""HEVC reconstruction on the device, for a batch of intra pictures or
+one P or B picture.
 
-Counterpart of libheif_tpu/codecs/hevc/device_recon.py.  Entropy decoding
-stays on the host (native_parse); everything after it runs on the plan's
-device in the JAX program's four stages:
+Counterpart of libheif_tpu/codecs/hevc/device_recon.py (intra) and of
+the host reconstruction of P and B pictures (recon.py
+IntraReconstructor.run with references, filters.py Deblocker).  Entropy
+decoding stays on the host (native_parse, or ctu.SliceParser for P and
+B pictures); everything after it runs on the plan's device in the JAX
+program's four stages:
 
   stage A  dequant + inverse transforms   kernel hevc_dequant_itx, one
                                           launch for every TU group
@@ -25,6 +29,17 @@ tiles of a grid decode as one batch; the JAX program walks their waves in
 lockstep, the kernel each picture's on its own (a TU reads samples of its
 own picture only), and the plain version in lockstep.
 
+A P or B picture adds three steps before stage B (``InterPlan``): kernel
+hevc_inter_pred predicts every PU from the DPB's reference slots into the
+picture's buffers (span hevc.mc), stage A's second launch gives the inter
+TUs' residuals (the DCT at 4x4 luma too), and a plain scatter adds them
+and clips (span hevc.residual).  Stage B then runs the intra TUs only: the
+planner counts every 4x4 of an inter CU as reconstructed before wave 0,
+as the JAX reconstructor's CU-order walk (recon.py:438-454) has an intra
+TU read its inter neighbours after their residual.  Stage C takes the
+motion rule of the boundary strength and the prediction-block edges
+(filters.py ``_bs`` :82-115, ``_is_block_edge`` :40).
+
 The plan differs from the JAX one in what jit forced on it: its tables
 carry no padding (rows ``[:n]`` and waves ``[:n_waves]`` equal the JAX
 tables), and each group's rows of a (wave, picture) come from a
@@ -45,7 +60,7 @@ from ..._build import HOST_LIBRARY, resolve_device
 from ...core.trace import span
 from .ctu import SliceSyntax
 from .cuda_fast import (MTAB_SIDE, ItxGroup, WaveGroup, dequant_itx,
-                        intra_waves)
+                        inter_jobs, inter_pred, intra_waves)
 from .filters import BETA_TABLE, TC_TABLE
 from .headers import effective_scaling_factors
 from .tables import chroma_qp
@@ -99,6 +114,19 @@ class GroupPlan:
 
 
 @dataclass
+class InterPlan:
+    """The inter part of a P or B picture's plan: ``jobs`` (n, 10) int32
+    hevc_inter_pred's jobs on the plan's device, the inter TUs' stage-A
+    groups (``inter`` set) with each group's flat scatter indices ``scat``
+    (n, s*s) into the luma or chroma buffer, and their scaling-factor
+    table ``mtab`` (the inter matrices), or None."""
+    jobs: torch.Tensor
+    groups: List[ItxGroup]
+    scat: List[torch.Tensor]
+    mtab: Optional[torch.Tensor]
+
+
+@dataclass
 class ReconPlan:
     t: int                          # batch (picture) count
     width: int
@@ -114,6 +142,7 @@ class ReconPlan:
     sao: Optional[Dict[str, object]]
     tqb_mask: Optional[torch.Tensor]             # (t, h4, w4) bool
     device: torch.device
+    inter: Optional[InterPlan] = None    # a P or B picture's (batch of 1)
 
 
 def plan_waves(cols: np.ndarray, W: int, H: int,
@@ -151,12 +180,18 @@ def plan_inputs(raw_tus: Sequence[tuple], W: int, H: int,
     its slice map, if any: ``slice_maps[t]``, None for one slice), and
     the batch's TU columns, picture index, waves, availability (packed to
     bits) and coefficients concatenated into flat arrays, the coefficient
-    offsets moved to the joined buffer (which ends with a zero)."""
+    offsets moved to the joined buffer (which ends with a zero).  The
+    rows of inter CUs (mode -1, ``inter_split``) take part in the
+    planning and are then dropped."""
     cols_l, tile_l, waves_l, avail_l, offs_l, coeff_l = [], [], [], [], [], []
     pos = 0
     for t_idx, (cols, coeff, offs) in enumerate(raw_tus):
         waves, avail = plan_waves(
             cols, W, H, None if slice_maps is None else slice_maps[t_idx])
+        keep = cols[:, 4] >= 0          # inter CU rows (mode -1) go
+        if not keep.all():
+            cols, offs = cols[keep], offs[keep]
+            waves, avail = waves[keep], avail[keep]
         cols_l.append(cols)
         tile_l.append(np.full(len(cols), t_idx, np.int32))
         waves_l.append(waves)
@@ -202,16 +237,17 @@ def wave_rows(waves: np.ndarray, tiles: np.ndarray, n_waves: int,
 
 
 # a picture's ten factor-table slots with scaling lists: matrixId = c_idx
-# 0-2 at 4x4 to 16x16, then luma 32x32
+# 0-2 at 4x4 to 16x16, then luma 32x32 (of an inter TU: matrixId c_idx + 3)
 _SLOT_KEYS = [(lg, c) for lg in (2, 3, 4) for c in (0, 1, 2)] + [(5, 0)]
 
 
-def scaling_slots(syntaxes: Sequence[SliceSyntax]):
+def scaling_slots(syntaxes: Sequence[SliceSyntax], inter: bool = False):
     """The plan's scaling-factor table and each picture's first slot:
     (mtab (slots, 32, 32) uint8 or None, base (T,) int64).  Slot 0 is the
     flat 16; each distinct set of ScalingFactor matrices in the batch
     (effective_scaling_factors) adds ten slots, in _SLOT_KEYS order, each
-    matrix m[y][x] in the top left of its slot.  A picture without lists
+    matrix m[y][x] in the top left of its slot: the intra matrices, or
+    with ``inter`` the inter ones (matrixId + 3).  A picture without lists
     has base 0; a TU's slot is base + its key's index, or 0."""
     base = np.zeros(len(syntaxes), np.int64)
     sets: Dict[bytes, int] = {}
@@ -222,7 +258,7 @@ def scaling_slots(syntaxes: Sequence[SliceSyntax]):
             continue
         slots = np.zeros((len(_SLOT_KEYS), MTAB_SIDE, MTAB_SIDE), np.uint8)
         for i, (lg, c) in enumerate(_SLOT_KEYS):
-            m = np.asarray(f[lg - 2][c])
+            m = np.asarray(f[lg - 2][c + 3 * inter])
             slots[i, :m.shape[0], :m.shape[1]] = m
         key = slots.tobytes()
         if key not in sets:
@@ -249,19 +285,59 @@ def tu_slots(cols: np.ndarray, tiles: np.ndarray, base: np.ndarray
     return np.where(b > 0, b + k, 0).astype(np.int32)
 
 
+def inter_split(syn: SliceSyntax, raw: tuple):
+    """A P or B picture's TUs (raw, the Python parser's in the C++
+    parser's columns, ctu.raw_tus) in two parts: the planner's rows in
+    decode order, each intra CU's TUs and, in place of each inter CU's,
+    one row for the CU (x, y, its log2, luma, mode -1, no residual); and
+    the inter CUs' TUs (their residuals, added before stage B)."""
+    cols, coeff, offs = raw
+    rows, marks, inter = [], [], []
+    for cu in syn.cus:
+        if cu.inter:
+            rows.append(-1 - len(marks))
+            marks.append((cu.x, cu.y, cu.log2, 0, -1, 0, 0, 0))
+            inter.extend(range(cu.tu_start, cu.tu_end))
+        else:
+            rows.extend(range(cu.tu_start, cu.tu_end))
+    rows = np.asarray(rows, np.int64)
+    marks = np.asarray(marks, np.int32).reshape(-1, cols.shape[1])
+    src = np.concatenate([cols, marks])
+    pick = np.where(rows >= 0, rows, len(cols) - 1 - rows)
+    o = np.concatenate([offs, np.full(len(marks), -1, np.int64)])
+    inter = np.asarray(inter, np.int64)
+    return ((np.ascontiguousarray(src[pick], np.int32), coeff, o[pick]),
+            (np.ascontiguousarray(cols[inter], np.int32), coeff,
+             offs[inter]))
+
+
+def pu_table(syn: SliceSyntax, slots_l0: Sequence[int],
+             slots_l1: Sequence[int]) -> np.ndarray:
+    """Every PU of a P or B picture as a row (n, 10) int32 [x y w h slot0
+    mv0x mv0y slot1 mv1x mv1y]: the DPB slot of each list's reference
+    (``slots_l0[ref_idx]``), -1 for an unused list."""
+    rows = [(pu.x, pu.y, pu.w, pu.h,
+             slots_l0[pu.ref_idx] if pu.ref_idx >= 0 else -1, *pu.mv,
+             slots_l1[pu.ref_idx1] if pu.ref_idx1 >= 0 else -1, *pu.mv1)
+            for cu in syn.cus if cu.inter for pu in cu.pus]
+    return np.asarray(rows, np.int32).reshape(-1, 10)
+
+
 def build_plan(syntaxes: Sequence[SliceSyntax], raw_tus: Sequence[tuple],
-               device=None) -> ReconPlan:
+               device=None, ref_slots=None) -> ReconPlan:
     """Wavefront schedule and TU tables for a batch of pictures that agree
     on ``batch_key`` (else BatchMismatch).  raw_tus: per picture (cols,
-    coeff_buf, offs) from decoder.parse_picture.  Spans: hevc.plan, split
-    into hevc.plan.host (planner, slots, filter maps), hevc.plan.copies
-    (host to device) and hevc.plan.tables (the groups' tables, built on
-    the device)."""
+    coeff_buf, offs) from decoder.parse_picture, or for a P or B picture
+    (a batch of one) from ctu.raw_tus, with ``ref_slots`` (the DPB slot of
+    each entry of list 0, of list 1).  Spans: hevc.plan, split into
+    hevc.plan.host (planner, slots, filter maps), hevc.plan.copies (host
+    to device) and hevc.plan.tables (the groups' tables, built on the
+    device)."""
     with span("hevc.plan"):
-        return _build_plan(syntaxes, raw_tus, device)
+        return _build_plan(syntaxes, raw_tus, device, ref_slots)
 
 
-def _build_plan(syntaxes, raw_tus, device) -> ReconPlan:
+def _build_plan(syntaxes, raw_tus, device, ref_slots=None) -> ReconPlan:
     dev = resolve_device(device)
     sps0 = syntaxes[0].sps
     W, H = sps0.pic_width, sps0.pic_height
@@ -273,6 +349,16 @@ def _build_plan(syntaxes, raw_tus, device) -> ReconPlan:
             raise BatchMismatch(
                 f"batch pictures must agree on (width, height, bit depth, "
                 f"CTB size, strong smoothing): {batch_key(syn.sps)} vs {key}")
+    inter = None
+    if any(syn.has_inter for syn in syntaxes):
+        if T != 1 or ref_slots is None:
+            raise ValueError("a P or B picture plans alone, with the DPB "
+                             "slots of its references")
+        with span("hevc.plan.host"):
+            raw0, raw_inter = inter_split(syntaxes[0], raw_tus[0])
+            raw_tus = [raw0]
+            jobs = inter_jobs(pu_table(syntaxes[0], *ref_slots))
+        inter = _inter_plan(syntaxes[0], raw_inter, jobs, W, H, dev)
     with span("hevc.plan.host"):
         inp = plan_inputs(raw_tus, W, H, [
             syn.slice_map4 if len(syn.slice_headers) > 1 else None
@@ -314,7 +400,52 @@ def _build_plan(syntaxes, raw_tus, device) -> ReconPlan:
             sao=None if sao is None else
             {k: int(v) if k == "ctb" else put(v) for k, v in sao.items()},
             tqb_mask=None if tqb_mask is None else put(tqb_mask).bool(),
-            device=dev)
+            device=dev, inter=inter)
+
+
+def _inter_plan(syn, raw, jobs, W, H, dev) -> InterPlan:
+    """The inter TUs' stage-A groups (by plane and size, in decode order)
+    and scatter indices, and the PU jobs, on ``dev``."""
+    cols, coeff, offs = raw
+    with span("hevc.plan.host"):
+        mtab, base = scaling_slots([syn], inter=True)
+        mslot = tu_slots(cols, np.zeros(len(cols), np.int64), base)
+    with span("hevc.plan.copies"):
+        jobs_d = torch.from_numpy(jobs).to(dev)
+        coeff_d = torch.from_numpy(
+            np.concatenate([coeff, np.zeros(1, np.int32)])).to(dev)
+        mtab_d = None if mtab is None else torch.from_numpy(mtab).to(dev)
+    cw, ch = W >> 1, H >> 1
+    groups, scat = [], []
+    with span("hevc.plan.tables"):
+        for luma, lg in GROUP_KEYS:
+            sel = np.nonzero(((cols[:, 3] == 0) == luma) &
+                             (cols[:, 2] == lg))[0]
+            if len(sel) == 0:
+                continue
+            s = 1 << lg
+            c = torch.from_numpy(cols[sel].astype(np.int64)).to(dev)
+            off = torch.from_numpy(offs[sel]).to(dev)
+            ii = torch.arange(s * s, device=dev)
+            cf = coeff_d[torch.where(off >= 0, off, 0)[:, None] + ii[None]]
+            cf = torch.where((off >= 0)[:, None], cf, 0).reshape(-1, s, s)
+            if luma:
+                px, py, pw, ph, base = c[:, 0], c[:, 1], W, H, 0
+            else:
+                px, py, pw, ph = c[:, 0] >> 1, c[:, 1] >> 1, cw, ch
+                base = (c[:, 3] - 1) * ch * cw
+            sx = px[:, None] + (ii % s)[None]
+            sy = py[:, None] + (ii // s)[None]
+            trash = H * W if luma else 2 * ch * cw
+            idx = torch.where((sx < pw) & (sy < ph),
+                              (base if luma else base[:, None]) + sy * pw
+                              + sx, trash)
+            groups.append(ItxGroup(
+                luma, lg, cf.to(torch.int32).contiguous(),
+                c[:, 5].to(torch.int32), c[:, 6] != 0, c[:, 7] != 0,
+                torch.from_numpy(mslot[sel]).to(dev), inter=True))
+            scat.append(idx.reshape(-1))
+    return InterPlan(jobs=jobs_d, groups=groups, scat=scat, mtab=mtab_d)
 
 
 def _group_tables(W, H, T, n_waves, c_idx, log2c, waves, tiles, cols_d,
@@ -398,7 +529,10 @@ def _build_deblock_params(syntaxes, W, H, bd):
     come before it).  Where a picture has transquant-bypass CUs the maps
     also carry ``bp_*``/``bq_*``: the segment's p0 or q0 lies in a bypass
     CU, whose samples the filter leaves as they are (nDp = 0, nDq = 0,
-    spec 8.7.2.5.7)."""
+    spec 8.7.2.5.7).  In a P or B picture the prediction-block edges are
+    edges too, and a segment's boundary strength follows the motion rule
+    (``boundary_strength``): tc comes from qp + 2(bS - 1), bS 0 leaves
+    the segment alone, and chroma filters bS 2 only."""
     if all(h.deblocking_filter_disabled
            for syn in syntaxes for h in syn.slice_headers):
         return None
@@ -457,9 +591,11 @@ def _build_deblock_params(syntaxes, W, H, bd):
                 return beta_off4[y >> 2, x >> 2], tc_off4[y >> 2, x >> 2]
             return syn.sh.beta_offset_div2 * 2, syn.sh.tc_offset_div2 * 2
 
-        def edge_mask(x, y, vertical):
-            """filters.py:_is_block_edge over coordinate arrays, and the
-            slice rules of q0's slice."""
+        inter = syn.has_inter
+
+        def tu_edge(x, y, vertical):
+            """filters.py:_is_tu_edge over coordinate arrays: a TU or CU
+            boundary."""
             bx, by = x >> 2, y >> 2
             tl = tu4[by, bx]
             cl = cu4[by, bx]
@@ -467,11 +603,29 @@ def _build_deblock_params(syntaxes, W, H, bd):
             pos = x if vertical else y
             is_tu = (pos & ((1 << tl) - 1)) == 0
             is_cu = (cl != 0) & ((pos & ((1 << cl) - 1)) == 0)
+            return is_tu | is_cu
+
+        def bs_of(x, y, vertical):
+            """Boundary strength of each segment: 2 in an intra picture."""
+            if not inter:
+                return np.full(x.shape, 2, np.int32)
+            return boundary_strength(syn, x, y, vertical,
+                                     tu_edge(x, y, vertical))
+
+        def edge_mask(x, y, vertical):
+            """filters.py:_is_block_edge over coordinate arrays (with the
+            prediction-block edges of a P or B picture), and the slice
+            rules of q0's slice."""
+            bx, by = x >> 2, y >> 2
+            edge = tu_edge(x, y, vertical)
+            if inter:
+                pu = syn.pu_vedge if vertical else syn.pu_hedge
+                edge = edge | (pu[by, bx] != 0)
             if not multi:
-                return is_tu | is_cu
+                return edge
             px, py = (bx - 1, by) if vertical else (bx, by - 1)
             same = sl4[by, bx] == sl4[py, px]
-            return (is_tu | is_cu) & off4[by, bx] & (same | across4[by, bx])
+            return edge & off4[by, bx] & (same | across4[by, bx])
 
         def sides(x, y, vertical):
             """(p0 in a bypass CU, q0 in a bypass CU)."""
@@ -496,11 +650,13 @@ def _build_deblock_params(syntaxes, W, H, bd):
             x, y = (pos, seg) if vertical else (seg, pos)
             x = np.broadcast_to(x, (ns, ne))
             y = np.broadcast_to(y, (ns, ne))
-            en = edge_mask(x, y, vertical)
+            bs = bs_of(x, y, vertical)
+            en = edge_mask(x, y, vertical) & (bs > 0)
             qp = avg_qp(x, y, vertical)
             boff, toff = offsets(x, y)
             beta = BETA_TABLE[np.clip(qp + boff, 0, 51)] << (bd - 8)
-            tc = TC_TABLE[np.clip(qp + 2 + toff, 0, 53)] << (bd - 8)
+            tc = TC_TABLE[np.clip(qp + 2 * (bs - 1) + toff, 0, 53)] \
+                << (bd - 8)
             out[bkey][t] = np.where(en, beta, 0)
             out[tkey][t] = np.where(en, tc, 0)
             out[ekey][t] = en
@@ -518,7 +674,7 @@ def _build_deblock_params(syntaxes, W, H, bd):
             cx, cy = (pos, seg) if vertical else (seg, pos)
             lx = np.broadcast_to(cx, (ns, ne)) << 1
             ly = np.broadcast_to(cy, (ns, ne)) << 1
-            en = edge_mask(lx, ly, vertical)
+            en = edge_mask(lx, ly, vertical) & (bs_of(lx, ly, vertical) == 2)
             qp_l = avg_qp(lx, ly, vertical)
             toff = offsets(lx, ly)[1]
             for ci, off in ((0, syn.pps.cb_qp_offset),
@@ -532,6 +688,55 @@ def _build_deblock_params(syntaxes, W, H, bd):
                 out["bp_" + side][t], out["bq_" + side][t] = \
                     sides(lx, ly, vertical)
     return out
+
+
+def boundary_strength(syn: SliceSyntax, x, y, vertical: bool,
+                      tu_edge) -> np.ndarray:
+    """Boundary strength (spec 8.7.2.4; filters.py ``_bs`` :82-115) of
+    the edge segments at luma (x, y) of a P or B picture, vectorised:
+    2 where p0 or q0 is intra; else 1 on a TU edge (``tu_edge``) where
+    either side has coded luma coefficients; else the motion rule
+    (``_block_motion`` :66, ``_mv_far`` :79): 1 for a different number of
+    motion vectors or other reference pictures, or a pair of vectors
+    |dmv| >= 4 quarter samples apart (both pairings tried where both
+    vectors point into one picture), else 0."""
+    bx, by = x >> 2, y >> 2
+    px, py = (bx - 1, by) if vertical else (bx, by - 1)
+
+    def motion(yy, xx):
+        """(count, first used (poc, mv), second (poc, mv)) per block; the
+        first is list 0's where used, else list 1's."""
+        out = []
+        for refs, pocs, mvs in ((syn.ref_l0, syn.ref_pocs_l0, syn.mv_l0),
+                                (syn.ref_l1, syn.ref_pocs_l1, syn.mv_l1)):
+            r = refs[yy, xx].astype(np.int64)
+            tab = np.asarray(list(pocs) + [-1], np.int64)
+            poc = tab[np.where((r >= 0) & (r < len(pocs)), r, len(pocs))]
+            out.append((r >= 0, poc, mvs[yy, xx]))
+        (u0, p0, m0), (u1, p1, m1) = out
+        first_p = np.where(u0, p0, p1)
+        first_m = np.where(u0[..., None], m0, m1)
+        return u0.astype(np.int32) + u1, (first_p, first_m), (p1, m1)
+
+    def far(a, b):
+        return (np.abs(a - b) >= 4).any(-1)
+
+    np_, (pa, ma), (pb, mb) = motion(py, px)
+    nq, (qa, na), (qb, nb) = motion(by, bx)
+    one = np.where(pa != qa, 1, far(ma, na))
+    same_set = (np.minimum(pa, pb) == np.minimum(qa, qb)) & \
+        (np.maximum(pa, pb) == np.maximum(qa, qb))
+    paired = np.where(qa == pa, far(ma, na) | far(mb, nb),
+                      far(ma, nb) | far(mb, na))
+    straight = ~(far(ma, na) | far(mb, nb))
+    crossed = ~(far(ma, nb) | far(mb, na))
+    two = np.where(~same_set, 1, np.where(
+        pa != pb, paired, ~(straight | crossed)))
+    mot = np.where(np_ != nq, 1, np.where(np_ == 1, one, two))
+    intra = (syn.pred_inter[py, px] == 0) | (syn.pred_inter[by, bx] == 0)
+    coded = tu_edge & ((syn.nonzero_y[py, px] != 0) |
+                       (syn.nonzero_y[by, bx] != 0))
+    return np.where(intra, 2, np.where(coded, 1, mot)).astype(np.int32)
 
 
 # -------------------------------------------------------------------- sao
@@ -770,19 +975,44 @@ def residuals(plan: ReconPlan) -> List[WaveGroup]:
                       g.scat_idx, r) for g, r in zip(plan.groups, res)]
 
 
-def predict_waves(plan: ReconPlan, waves: Sequence[WaveGroup]):
-    """Stage B: one hevc_intra_wave launch for the plan → (Y (T, H, W),
-    Cb, Cr (T, H/2, W/2)) int32, views of the flat buffers.
-
-    The buffers keep the JAX program's layout: T·H·W + 1 luma and
+def buffers(plan: ReconPlan):
+    """The plan's flat sample buffers, zeroed: T·H·W + 1 luma and
     T·2·ch·cw + 1 chroma samples, the last one a trash slot that takes
-    the writes of samples outside the picture.  The waves update them in
-    place, each picture's one after the other."""
+    the writes of samples outside the picture (the JAX program's
+    layout)."""
+    T, W, H = plan.t, plan.width, plan.height
+    return (torch.zeros(T * H * W + 1, dtype=torch.int32, device=plan.device),
+            torch.zeros(T * 2 * (H >> 1) * (W >> 1) + 1, dtype=torch.int32,
+                        device=plan.device))
+
+
+def inter_predict(plan: ReconPlan, ydpb: torch.Tensor, cdpb: torch.Tensor,
+                  bufs) -> None:
+    """A P or B picture's steps before stage B, into ``bufs`` (buffers):
+    hevc_inter_pred over every PU from the DPB tensors (span hevc.mc),
+    the inter TUs' residuals (stage A's second hevc_dequant_itx launch),
+    added and clipped in place (span hevc.residual)."""
+    ip = plan.inter
+    ybuf, cbuf = bufs
+    with span("hevc.mc"):
+        inter_pred(ip.jobs, ydpb, cdpb, ybuf, cbuf, bd=plan.bd)
+    with span("hevc.stage_a"):
+        res = dequant_itx(ip.groups, bd=plan.bd, mtab=ip.mtab)
+    maxv = (1 << plan.bd) - 1
+    with span("hevc.residual"):
+        for g, idx, r in zip(ip.groups, ip.scat, res):
+            buf = ybuf if g.luma else cbuf
+            buf[idx] = torch.clamp(buf[idx] + r.reshape(-1), 0, maxv)
+
+
+def predict_waves(plan: ReconPlan, waves: Sequence[WaveGroup], bufs=None):
+    """Stage B: one hevc_intra_wave launch for the plan → (Y (T, H, W),
+    Cb, Cr (T, H/2, W/2)) int32, views of the flat buffers (``bufs``, or
+    new ones from ``buffers``), which the waves update in place, each
+    picture's one after the other."""
     T, W, H = plan.t, plan.width, plan.height
     cw, ch = W >> 1, H >> 1
-    ybuf = torch.zeros(T * H * W + 1, dtype=torch.int32, device=plan.device)
-    cbuf = torch.zeros(T * 2 * ch * cw + 1, dtype=torch.int32,
-                       device=plan.device)
+    ybuf, cbuf = buffers(plan) if bufs is None else bufs
     with span("hevc.stage_b"):
         intra_waves(ybuf, cbuf, waves, plan.wave_rows, bd=plan.bd,
                     strong=plan.strong_smoothing)
@@ -790,10 +1020,15 @@ def predict_waves(plan: ReconPlan, waves: Sequence[WaveGroup]):
     return ybuf[:-1].view(T, H, W), cpl[:, 0], cpl[:, 1]
 
 
-def reconstruct(plan: ReconPlan):
+def reconstruct(plan: ReconPlan, dpb=None):
     """Stages A-D for the plan's batch: (Y (T, H, W), Cb, Cr
-    (T, H/2, W/2)) int32 on the plan's device."""
-    y, cb, cr = predict_waves(plan, residuals(plan))
+    (T, H/2, W/2)) int32 on the plan's device.  A P or B picture's plan
+    reads its references from ``dpb`` = (ydpb, cdpb), the DPB's slot
+    tensors."""
+    bufs = buffers(plan)
+    if plan.inter is not None:
+        inter_predict(plan, *dpb, bufs)
+    y, cb, cr = predict_waves(plan, residuals(plan), bufs)
     if plan.deblock is not None:
         with span("hevc.deblock"):
             y, cb, cr = deblock(plan.deblock, y, cb, cr, (1 << plan.bd) - 1)

@@ -11,6 +11,12 @@
 //     recon.py _sample_available reads it).
 // device_recon.build_plan turns both into the per-group tables of the
 // device program.
+//
+// In a P or B picture a row of mode -1 stands for an inter CU (x, y, its
+// log2 size): its samples are predicted and reconstructed before wave 0
+// (the motion compensation and the inter residuals run first), so it
+// marks its 4x4s available as the walk reaches it in decode order and
+// its samples as written by wave -1; its own wave is -1.
 
 #include <algorithm>
 #include <cstdint>
@@ -38,6 +44,24 @@ extern "C" int tpuheif_hevc_plan(
     const int32_t* m = tu_meta + t * stride;
     const int x = m[0], y = m[1], log2 = m[2], c = m[3];
     const int n = 1 << log2;
+    if (m[4] < 0) {                   // an inter CU
+      if (c != 0 || x < 0 || y < 0 || log2 < 3 || log2 > 6) return 2;
+      const int hh = std::min(n, H - y), ww = std::min(n, W - x);
+      for (int r = 0; r < hh; ++r)
+        std::fill(wr_y.data() + (size_t)(y + r) * W + x,
+                  wr_y.data() + (size_t)(y + r) * W + x + ww, -1);
+      for (int k = 0; k < 2; ++k)
+        for (int r = 0; r < (hh >> 1); ++r)
+          std::fill(wr_c[k].data() + (size_t)((y >> 1) + r) * cw + (x >> 1),
+                    wr_c[k].data() + (size_t)((y >> 1) + r) * cw + (x >> 1) +
+                        (ww >> 1),
+                    -1);
+      for (int by = y >> 2; by < (y + hh + 3) >> 2; ++by)
+        std::fill(avail4.begin() + (size_t)by * w4 + (x >> 2),
+                  avail4.begin() + (size_t)by * w4 + ((x + ww + 3) >> 2), 1);
+      waves_out[t] = -1;
+      continue;
+    }
     const int px = c ? (x >> 1) : x, py = c ? (y >> 1) : y;
     const int pw = c ? cw : W, ph = c ? ch : H;
     int32_t* wr = (c == 0) ? wr_y.data() : wr_c[c - 1].data();

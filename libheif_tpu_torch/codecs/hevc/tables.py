@@ -1,16 +1,54 @@
-"""H.265 constant tables (ITU-T H.265 spec values).
+"""HEVC tables.
 
-Counterpart of libheif_tpu/codecs/hevc/tables.py, trimmed to what the
-port uses: the context-variable initialization values that
-``cabac.ContextModels`` turns into the C++ parser's initial states (spec
-§9.3.2.2), the intra prediction angles (Table 8-5) and inverse angles,
-the transform matrices (§8.6.4), the chroma QP mapping (Table 8-10), and
-the default scaling lists that the scaling-list syntax needs.
+Counterpart of libheif_tpu/codecs/hevc/tables.py, whole: the CABAC engine
+tables (spec §9.3.4.3, Tables 9-46/9-47/9-48), the context-variable
+initialization values of the intra and inter syntax (spec §9.3.2.2,
+initType 0/1/2 rows), the intra prediction angles (Table 8-5) and inverse
+angles, the transform matrices (§8.6.4), the chroma QP mapping (Table
+8-10), the scans (§6.5.3) and the default scaling lists.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# --------------------------------------------------------------------------
+# CABAC state machine (spec Table 9-46, 9-47)
+# --------------------------------------------------------------------------
+
+RANGE_TAB_LPS = np.array([
+    [128, 176, 208, 240], [128, 167, 197, 227], [128, 158, 187, 216],
+    [123, 150, 178, 205], [116, 142, 169, 195], [111, 135, 160, 185],
+    [105, 128, 152, 175], [100, 122, 144, 166], [95, 116, 137, 158],
+    [90, 110, 130, 150], [85, 104, 123, 142], [81, 99, 117, 135],
+    [77, 94, 111, 128], [73, 89, 105, 122], [69, 85, 100, 116],
+    [66, 80, 95, 110], [62, 76, 90, 104], [59, 72, 86, 99],
+    [56, 69, 81, 94], [53, 65, 77, 89], [51, 62, 73, 85],
+    [48, 59, 69, 80], [46, 56, 66, 76], [43, 53, 63, 72],
+    [41, 50, 59, 69], [39, 48, 56, 65], [37, 45, 54, 62],
+    [35, 43, 51, 59], [33, 41, 48, 56], [32, 39, 46, 53],
+    [30, 37, 43, 50], [29, 35, 41, 48], [27, 33, 39, 45],
+    [26, 31, 37, 43], [24, 30, 35, 41], [23, 28, 33, 39],
+    [22, 27, 32, 37], [21, 26, 30, 35], [20, 24, 29, 33],
+    [19, 23, 27, 31], [18, 22, 26, 30], [17, 21, 25, 28],
+    [16, 20, 23, 27], [15, 19, 22, 25], [14, 18, 21, 24],
+    [14, 17, 20, 23], [13, 16, 19, 22], [12, 15, 18, 21],
+    [12, 14, 17, 20], [11, 14, 16, 19], [11, 13, 15, 18],
+    [10, 12, 15, 17], [10, 12, 14, 16], [9, 11, 13, 15],
+    [9, 11, 12, 14], [8, 10, 12, 14], [8, 9, 11, 13],
+    [7, 9, 11, 12], [7, 9, 10, 12], [7, 8, 10, 11],
+    [6, 8, 9, 11], [6, 7, 9, 10], [6, 7, 8, 9],
+    [2, 2, 2, 2]], dtype=np.uint8)
+
+TRANS_IDX_LPS = np.array([
+    0, 0, 1, 2, 2, 4, 4, 5, 6, 7, 8, 9, 9, 11, 11, 12, 13, 13, 15, 15,
+    16, 16, 18, 18, 19, 19, 21, 21, 22, 22, 23, 24, 24, 25, 26, 26, 27,
+    27, 28, 29, 29, 30, 30, 30, 31, 32, 32, 33, 33, 33, 34, 34, 35, 35,
+    35, 36, 36, 36, 37, 37, 37, 38, 38, 63], dtype=np.uint8)
+
+TRANS_IDX_MPS = np.minimum(np.arange(64) + 1, 62).astype(np.uint8)
+TRANS_IDX_MPS[62] = 62
+TRANS_IDX_MPS[63] = 63
 
 # --------------------------------------------------------------------------
 # Context initialization values [initType 0 (I), 1 (P), 2 (B)]
@@ -207,7 +245,7 @@ def chroma_qp(qp_i: int) -> int:
 
 
 # --------------------------------------------------------------------------
-# Scan order (spec §6.5.3) of the coded scaling lists
+# Scan orders (spec §6.5.3): 4x4 sub-block scans
 # --------------------------------------------------------------------------
 
 def diag_scan(size: int) -> np.ndarray:
@@ -244,6 +282,24 @@ _DEF_SCALING_INTER_RASTER = np.array([
 def _to_diag(raster8):
     return [int(raster8[y * 8 + x]) for (x, y) in diag_scan(8)]
 
+
+DEFAULT_SCALING_INTRA_DIAG = None   # filled below (diag_scan defined)
+DEFAULT_SCALING_INTER_DIAG = None
+
+
+def horiz_scan(size: int) -> np.ndarray:
+    return np.array([(x, y) for y in range(size) for x in range(size)],
+                    dtype=np.int32)
+
+
+def vert_scan(size: int) -> np.ndarray:
+    return np.array([(x, y) for x in range(size) for y in range(size)],
+                    dtype=np.int32)
+
+
+SCAN_DIAG4 = diag_scan(4)
+SCAN_HORIZ4 = horiz_scan(4)
+SCAN_VERT4 = vert_scan(4)
 
 DEFAULT_SCALING_INTRA_DIAG = _to_diag(_DEF_SCALING_INTRA_RASTER)
 DEFAULT_SCALING_INTER_DIAG = _to_diag(_DEF_SCALING_INTER_RASTER)

@@ -9,7 +9,9 @@ item decodes onto it and every decoded plane stays on it, through the
 composition, the transforms and the output conversion.  A file is read
 from a path, from bytes or through a streaming reader
 (``read_from_reader``); the metadata, region and text items attached to
-an image are host data.  There is no encode or write API yet;
+an image are host data.  An image sequence's tracks (``tracks``,
+``get_track``, ``has_sequence``, JAX context.py:76-110) decode their
+samples on the same device.  There is no encode or write API yet;
 ``HeifFile`` has the write side.
 """
 
@@ -41,6 +43,7 @@ class HeifContext:
         self.file: Optional[HeifFile] = None
         self.items: Dict[int, ImageItem] = {}
         self.primary_id: Optional[int] = None
+        self._tracks = None             # made at first use (``tracks``)
         self.max_decoding_threads = 4  # ref: context.h:72 (CPU grid tiles)
 
     # ================================================================ read
@@ -143,6 +146,44 @@ class HeifContext:
         into real boxes; the items are made directly)."""
         from .items.mini_item import make_mini_items
         make_mini_items(self)
+
+    # ============================================================ sequences
+
+    @property
+    def tracks(self):
+        """The sequence tracks, decoding on the context's device (ref:
+        heif_context_number_of_sequence_tracks /
+        interpret_heif_file_sequences context.cc:2044)."""
+        if self._tracks is None:
+            from .sequences import interpret_tracks
+            self._tracks = interpret_tracks(self.file, self.device) \
+                if self.file is not None else []
+        return self._tracks
+
+    def get_track(self, track_id: int):
+        """The track of ``track_id``, or None."""
+        return next((t for t in self.tracks if t.track_id == track_id),
+                    None)
+
+    def has_sequence(self) -> bool:
+        """(ref: heif_context_has_sequence)."""
+        return len(self.tracks) > 0
+
+    def sequence_timescale(self) -> int:
+        """mvhd timescale; without one the writer's default, 90000, as
+        the JAX package answers (ref: heif_context_get_sequence_timescale)."""
+        mvhd = self._mvhd()
+        return mvhd.timescale if mvhd is not None else 90000
+
+    def sequence_duration(self) -> int:
+        """mvhd duration in movie units
+        (ref: heif_context_get_sequence_duration)."""
+        mvhd = self._mvhd()
+        return mvhd.duration if mvhd is not None else 0
+
+    def _mvhd(self):
+        moov = self.file.top_level_box("moov") if self.file else None
+        return moov.get_child("mvhd") if moov is not None else None
 
     # ---------------------------------------------------------------- query
 

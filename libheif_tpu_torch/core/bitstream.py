@@ -22,6 +22,7 @@ _U32 = struct.Struct(">I")
 _I16 = struct.Struct(">h")
 _I32 = struct.Struct(">i")
 _U64 = struct.Struct(">Q")
+_I64 = struct.Struct(">q")
 
 
 class ByteReader:
@@ -110,6 +111,16 @@ class ByteReader:
         self.pos += 8
         return v
 
+    def read64s(self) -> int:
+        self._need(8)
+        v = _I64.unpack_from(self._buf, self.pos)[0]
+        self.pos += 8
+        return v
+
+    def skip(self, n: int) -> None:
+        self._need(n)
+        self.pos += n
+
     def read_uint(self, nbytes: int) -> int:
         """Read an unsigned big-endian integer of 0/1/2/3/4/8 bytes.
 
@@ -131,6 +142,9 @@ class ByteReader:
 
     def read_remaining(self) -> bytes:
         return self.read_bytes(self.remaining())
+
+    def read_fixed_string(self, n: int) -> str:
+        return self.read_bytes(n).decode("utf-8", errors="replace")
 
     def read_string(self) -> str:
         """NUL-terminated UTF-8 string (ref: BitstreamRange::read_string)."""
@@ -263,6 +277,9 @@ class ByteWriter:
     def write32s(self, v: int) -> None:
         self._data += _I32.pack(v)
 
+    def write64(self, v: int) -> None:
+        self._data += _U64.pack(v & 0xFFFFFFFFFFFFFFFF)
+
     def write_uint(self, v: int, nbytes: int) -> None:
         if nbytes:
             self._data += int(v).to_bytes(nbytes, "big")
@@ -273,6 +290,10 @@ class ByteWriter:
     def write_string(self, s: str) -> None:
         """NUL-terminated UTF-8."""
         self._data += s.encode("utf-8") + b"\x00"
+
+    def write_fixed_string(self, s: str, n: int) -> None:
+        b = s.encode("utf-8")[:n]
+        self._data += b + b"\x00" * (n - len(b))
 
     def insert(self, at: int, b: bytes) -> None:
         self._data[at:at] = b

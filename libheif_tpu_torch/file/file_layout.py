@@ -4,10 +4,10 @@ Counterpart of libheif_tpu/file/file_layout.py (reference:
 libheif/file_layout.{h,cc} — FileLayout::read file_layout.cc:38).
 Top-level box headers are fetched 8 bytes at a time (16 for a large
 size); the structural boxes of a still (ftyp/meta/mini) are
-range-requested and parsed in full, while mdat payloads (and a moov,
-which the port does not read) are never fetched — only their
-[offset, size) extents are recorded so item reads later request
-exactly the byte ranges they need.
+and of a sequence (moov) are range-requested and parsed in full, while
+mdat payloads are never fetched — only their [offset, size) extents are
+recorded so item and sample reads later request exactly the byte ranges
+they need.
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ from ..boxes.box import Box, read_box
 from ..io.reader import GrowStatus, StreamReader
 
 # Boxes parsed eagerly during layout read; everything else (mdat, free,
-# moov, unknown top-level boxes) is recorded as a lazy extent.
-_EAGER_TOP_LEVEL = {"ftyp", "meta", "mini"}
+# unknown top-level boxes) is recorded as a lazy extent.
+_EAGER_TOP_LEVEL = {"ftyp", "meta", "mini", "moov"}
 
 
 @dataclass

@@ -23,6 +23,9 @@ import libheif_tpu_torch  # noqa: E402
 from libheif_tpu_torch.boxes import read_all_boxes  # noqa: E402
 from libheif_tpu_torch.boxes.unc import Box_uncC, Box_cmpd  # noqa: E402
 from libheif_tpu_torch.codecs.unc import UnciDecoder, kernels  # noqa: E402
+from libheif_tpu_torch.codecs.hevc import (  # noqa: E402
+    HevcDecoder, SequenceDecoder)
+from libheif_tpu_torch.sequences.track import interpret_tracks  # noqa: E402
 from libheif_tpu_torch.color import convert_image  # noqa: E402
 from libheif_tpu_torch.image.pixel_image import (  # noqa: E402
     PixelImage, from_numpy_planes)
@@ -142,7 +145,39 @@ def _entry_points():
             Chroma.Monochrome),
         "to_device": lambda: img.to_device(),
         "resolve_device": lambda: libheif_tpu_torch.resolve_device(),
+        "SequenceDecoder": lambda: SequenceDecoder(*_sequence_headers()),
+        "start_sequence": lambda: HevcDecoder().start_sequence(
+            _sequence_hvcC()),
+        "interpret_tracks": lambda: interpret_tracks(_sequence_file()),
     }
+
+
+def _sequence_file():
+    """A committed sequence (tests/test_torch_hevc_inter.py), parsed."""
+    from libheif_tpu_torch.file import HeifFile
+    return HeifFile.from_file(os.path.join(
+        REPO, "libheif_tpu_torch", "testdata", "seq", "ipp-deblock.heif"))
+
+
+def _sequence_hvcC():
+    """The hvcC of a committed sequence."""
+    from libheif_tpu_torch.boxes.codec_cfg import Box_hvcC
+    stack = [_sequence_file().moov]
+    while stack:
+        b = stack.pop()
+        if isinstance(b, Box_hvcC):
+            return b
+        stack += getattr(b, "children", [])
+    raise AssertionError("no hvcC")
+
+
+def _sequence_headers():
+    from libheif_tpu_torch.codecs.hevc import headers
+    nals = _sequence_hvcC().get_header_nals()
+    return (next(headers.parse_sps(n) for n in nals
+                 if headers.nal_type(n) == headers.NAL_SPS),
+            next(headers.parse_pps(n) for n in nals
+                 if headers.nal_type(n) == headers.NAL_PPS))
 
 
 @pytest.mark.parametrize("entry", list(_entry_points()))
@@ -185,6 +220,7 @@ def test_kernel_build_is_configured_for_hopper():
     assert sorted(cuda_fast.KERNELS) == [
         "planes_ycbcr8_to_rgb", "strided_extract_paste", "tile_yuv_to_rgb"]
     assert sorted(hevc_fast.KERNELS) == ["hevc_dequant_itx",
+                                         "hevc_inter_pred",
                                          "hevc_intra_wave"]
     assert sorted(av1_fast.KERNELS) == ["av1_dequant_itx", "av1_intra_wave"]
     assert sorted(jpeg_fast.KERNELS) == ["jpeg_dequant_idct"]
