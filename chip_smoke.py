@@ -176,7 +176,9 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    stages A and B, the inter residuals, deblock, SAO); hold
    hevc_inter_pred against its plain version on synthetic PU tables
    (codecs/hevc/inter_cases.py: every PU shape and fractional phase, uni
-   and bi, vectors beyond every edge, 8, 10 and 12 bits) and on P and B
+   and bi, vectors beyond every edge, 8, 10 and 12 bits; and a 3840x2160
+   8-bit stress picture with local motion: vectors within 64 samples,
+   every phase pair, three PUs in four bi) and on P and B
    pictures' PU tables and DPB, stage A's inter groups and, on pictures
    with intra CUs, both intra kernels against theirs; then the uncv track, each
    frame on the card (strided_extract_paste once a frame) and on the
@@ -225,7 +227,8 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    the larger; hevc_inter_pred at the largest P or B picture of the
    libx265 sequence beside its plain version and its bounds (the
    reference samples its jobs need, each once, the job table and the
-   predicted samples; the filters' taps); and print the numbers;
+   predicted samples; the filters' taps), and on the stress picture
+   beside its bounds; and print the numbers;
 7. print the colour kernels' SASS instructions per output pixel, the
    strided kernel's per output byte and the JPEG kernel's per output
    sample (sass_count.py, cuobjdump).
@@ -3651,6 +3654,9 @@ SEQ_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # AMP and SAO in P and B pictures), each frame's decode_sample order
 # after the in-order pass (random access: a restart at the IDR each)
 SEQ_STREAMS = {"bpyr-1920x1080": (6, 3), "x265-1920x1080": (7,)}
+# hevc_inter_pred's stress picture: (W, H, bit depth, reference slots,
+# seed) of inter_cases.synthetic with local motion
+INTER_STRESS = (3840, 2160, 8, 3, 16)
 SEQ_UNCV = "uncv-256x256"
 SEQ_SPANS = ("hevc.parse", "hevc.parse.inter", "hevc.plan", "hevc.mc",
              "hevc.stage_a", "hevc.residual", "hevc.stage_b", "hevc.deblock")
@@ -3823,54 +3829,74 @@ def check_uncv_track(tally):
     return launches
 
 
+def inter_buffers(W_, H_):
+    """A W_ x H_ picture's flat luma and chroma sample buffers."""
+    return (torch.zeros(W_ * H_, dtype=torch.int32, device=DEV),
+            torch.zeros(2 * (W_ // 2) * (H_ // 2), dtype=torch.int32,
+                        device=DEV))
+
+
+def check_inter_jobs(tally, what, jobs, ydpb, cdpb, bd):
+    """hevc_inter_pred against its plain version on one job table."""
+    H_, W_ = ydpb.shape[1:]
+    bufs = []
+    for fn in (hevc_fast.inter_pred, hevc_fast.inter_pred_plain):
+        y, c = inter_buffers(W_, H_)
+        fn(jobs, ydpb, cdpb, y, c, bd=bd)
+        bufs.append((y, c))
+    for k, plane in ((0, "luma"), (1, "chroma")):
+        tally.compare("hevc_inter_pred", f"{what} {bd}-bit {plane}, "
+                      f"{len(jobs)} jobs", bufs[0][k], bufs[1][k],
+                      exact=True)
+
+
 def check_inter_cases(tally):
     """hevc_inter_pred against its plain version on
     codecs/hevc/inter_cases.synthetic (every PU shape, every chroma and
     luma phase, uni and bi, one picture in both lists, vectors beyond
-    every edge) at 8, 10 and 12 bits, and on one PU of the whole picture
-    reaching far outside it in both lists."""
+    every edge) at 8, 10 and 12 bits, on one PU of the whole picture
+    reaching far outside it in both lists, and on the stress picture
+    (INTER_STRESS: local motion over a partition); returns the stress
+    picture's (jobs, ydpb, cdpb)."""
     W_, H_ = 256, 192
     for bd in (8, 10, 12):
         jobs, ydpb, cdpb = inter_cases.synthetic(W_, H_, bd, bd, DEV)
         whole = torch.from_numpy(hevc_fast.inter_jobs(np.array(
             [[0, 0, W_, H_, 1, -8 * W_ - 3, 8 * H_ + 5, 2, 8 * W_ + 7,
               -8 * H_]], np.int32))).to(DEV)
-        for what, j in (("partition", jobs), ("whole picture", whole)):
-            bufs = []
-            for fn in (hevc_fast.inter_pred, hevc_fast.inter_pred_plain):
-                y = torch.zeros(W_ * H_, dtype=torch.int32, device=DEV)
-                c = torch.zeros(2 * (W_ // 2) * (H_ // 2), dtype=torch.int32,
-                                device=DEV)
-                fn(j, ydpb, cdpb, y, c, bd=bd)
-                bufs.append((y, c))
-            for k, plane in ((0, "luma"), (1, "chroma")):
-                tally.compare("hevc_inter_pred",
-                              f"synthetic {what} {bd}-bit {plane}, "
-                              f"{len(j)} jobs", bufs[0][k], bufs[1][k],
-                              exact=True)
+        check_inter_jobs(tally, "synthetic partition", jobs, ydpb, cdpb, bd)
+        check_inter_jobs(tally, "synthetic whole picture", whole, ydpb,
+                         cdpb, bd)
+    W_, H_, bd, refs, seed = INTER_STRESS
+    stress = inter_cases.synthetic(W_, H_, bd, seed, DEV, refs=refs,
+                                   motion="local")
+    check_inter_jobs(tally, f"stress {W_}x{H_} local motion", *stress, bd)
+    return stress
 
 
 def check_sequences(tally):
     """Phase 4h: the synthetic motion cases, both 1920x1080 sequences and
-    the uncv track."""
-    check_inter_cases(tally)
-    out, captured = {}, {}
+    the uncv track; returns (its numbers, the x265 sequence's captured
+    plans by name, the stress picture's inputs)."""
+    t0 = time.perf_counter()
+    stress = check_inter_cases(tally)
+    out, captured = {"inter_cases_seconds": time.perf_counter() - t0}, {}
     for name, order in SEQ_STREAMS.items():
         t0 = time.perf_counter()
         out[name], captured[name] = check_sequence(tally, name, order)
         out[name]["seconds"] = time.perf_counter() - t0
     out["uncv_launches"] = check_uncv_track(tally)
-    return out, captured
+    return out, captured, stress
 
 
-def inter_work(plan, slots):
-    """(bytes, operations) hevc_inter_pred needs for a plan: each
-    reference sample its jobs read (the windows their filters need,
-    clamped to the picture, each sample once a slot), the job table, each
-    output sample written once (int32); 2 operations a filter tap of the
-    passes a phase needs, and 3 a sample for the weighting."""
-    j = plan.inter.jobs.to(torch.int64)
-    H, W = plan.height, plan.width
+def inter_work(jobs, W, H, slots):
+    """(bytes, operations) hevc_inter_pred needs for a job table over a
+    W x H picture: each reference sample its jobs read (the windows their
+    filters need, clamped to the picture, each sample once a slot), the
+    job table, each output sample written once (int32); 2 operations a
+    filter tap of the passes a phase needs, and 3 a sample for the
+    weighting."""
+    j = jobs.to(torch.int64)
     reads, ops = 0, 0
     for luma in (True, False):
         K, fb = (8, 2) if luma else (4, 3)
@@ -3909,18 +3935,27 @@ def inter_work(plan, slots):
     return nbytes, ops
 
 
-def inter_pred_row(timer, tally, captured, launches):
+def inter_pred_row(timer, tally, captured, launches, stress):
     """hevc_inter_pred's row: the largest P or B picture of the x265
-    sequence (the kernel, its plain version, its bounds)."""
+    sequence (the kernel, its plain version, its bounds), and the stress
+    picture (the kernel and its bounds)."""
     plan, ydpb, cdpb = captured
     ip = plan.inter
     bufs = [device_recon.buffers(plan) for _ in range(2)]
-    nbytes, nops = inter_work(plan, ydpb.shape[0])
+    nbytes, nops = inter_work(ip.jobs, plan.width, plan.height,
+                              ydpb.shape[0])
     b = bounds(nbytes, nops)
     ms = timer([lambda b_=b_: hevc_fast.inter_pred(
         ip.jobs, ydpb, cdpb, *b_, bd=plan.bd) for b_ in bufs])
     plain_ms = timer([lambda: hevc_fast.inter_pred_plain(
         ip.jobs, ydpb, cdpb, *bufs[0], bd=plan.bd)], n=3)
+    s_jobs, s_ydpb, s_cdpb = stress
+    s_w, s_h, s_bd = INTER_STRESS[:3]
+    s_bytes, s_ops = inter_work(s_jobs, s_w, s_h, s_ydpb.shape[0])
+    s_b = bounds(s_bytes, s_ops)
+    s_bufs = [inter_buffers(s_w, s_h) for _ in range(2)]
+    s_ms = timer([lambda b_=b_: hevc_fast.inter_pred(
+        s_jobs, s_ydpb, s_cdpb, *b_, bd=s_bd) for b_ in s_bufs])
     row = {"name": "hevc_inter_pred", "route": "cuda",
            "source": HEVC_SOURCE, "replaces": INTER_REPLACES,
            "also_replaces": INTER_ALSO, "launches": launches,
@@ -3931,7 +3966,9 @@ def inter_pred_row(timer, tally, captured, launches):
            "differing_pixels": tally.differing["hevc_inter_pred"],
            "bytes": nbytes, "ops": nops, "byte_bound_ms": b["byte_bound_ms"],
            "op_bound_ms": b["op_bound_ms"], "jobs": len(ip.jobs),
-           "picture": f"{plan.width}x{plan.height}"}
+           "picture": f"{plan.width}x{plan.height}",
+           "stress": {"picture": f"{s_w}x{s_h}", "jobs": len(s_jobs),
+                      "ms": s_ms, "bytes": s_bytes, "ops": s_ops, **s_b}}
     log(f"hevc_inter_pred row {json.dumps(row)}")
     return row
 
@@ -3958,10 +3995,11 @@ def sequences_only():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("ptxas:", line.strip())
     tally = Tally()
-    seq, captured = check_sequences(tally)
+    seq, captured, stress = check_sequences(tally)
     row = inter_pred_row(
         DeviceTimer(), tally, captured["x265-1920x1080"],
-        sum(seq[n]["launches"]["hevc_inter_pred"] for n in SEQ_STREAMS))
+        sum(seq[n]["launches"]["hevc_inter_pred"] for n in SEQ_STREAMS),
+        stress)
     log("summary " + json.dumps({"sequences": seq, "checks": tally.checks,
                                  "elapsed_s": time.perf_counter() - t0}))
     print(json.dumps({"kernels": [row]}))
@@ -4169,7 +4207,7 @@ def main():
     # tracks (in order, random access, split by span), the kernels on their
     # P and B pictures' plans, and the uncv track
     t0 = time.perf_counter()
-    seq, seq_captured = check_sequences(tally)
+    seq, seq_captured, inter_stress = check_sequences(tally)
     seq["seconds"] = time.perf_counter() - t0
     log(f"phase 4h (sequences) took {seq['seconds']:.1f} s")
 
@@ -4362,7 +4400,8 @@ def main():
     # hevc_inter_pred at the largest P or B picture of the x265 sequence
     kern["hevc_inter_pred"] = inter_pred_row(
         timer, tally, seq_captured["x265-1920x1080"],
-        sum(seq[n]["launches"]["hevc_inter_pred"] for n in SEQ_STREAMS))
+        sum(seq[n]["launches"]["hevc_inter_pred"] for n in SEQ_STREAMS),
+        inter_stress)
     kern["hevc_inter_pred"]["launches_by_path"] = {
         f"sequence {n} in order": seq[n]["launches"]["hevc_inter_pred"]
         for n in SEQ_STREAMS}

@@ -609,24 +609,65 @@ hevc_wave_probe_kernel(int32_t* buf, int steps) {
 // hevc_inter_pred: the motion-compensated prediction of every PU of one
 // P or B picture (the JAX package's host numpy MC, recon.py _gather :78,
 // mc_luma_14 :86, mc_chroma_14 :113, weight_uni :140, weight_bi :148,
-// _mc_pu :405-436).  One block a job: a sub-block of at most 16x16 luma
-// samples of one PU (the wrapper cuts PUs into such jobs; each output
-// sample depends only on its position and the PU's motion), one thread a
-// sample.  For each list the block loads the (16+7)^2 luma window of its
-// reference into shared memory, clamping every coordinate to the
-// uncropped picture, filters the window's rows with the 8-tap filter of
-// the horizontal phase, then each thread the column of its sample with
-// the vertical phase's, keeping HEVC's 14-bit intermediates; the two
-// chroma planes follow with the 4-tap filters on (8+3)^2 windows.  Then
-// default weighting, uni or bi, clipped to the bit depth.  The
-// reference pictures are slots of the DPB's (slots, H, W) and (slots, 2,
+// _mc_pu :405-436).  A job is a sub-block of at most 16x16 luma samples
+// of one PU (the wrapper cuts PUs into such jobs; each output sample
+// depends only on its position and the PU's motion): the luma samples
+// with the 8-tap quarter-sample filter, the two chroma planes' (4:2:0)
+// with the 4-tap eighth-sample one, at HEVC's 14-bit intermediate
+// precision, every reference coordinate clamped to the uncropped
+// picture, then default uni or bi weighting clipped to the bit depth.
+// The references are slots of the DPB's (slots, H, W) and (slots, 2,
 // H/2, W/2) int32 tensors; the output is the picture's own flat sample
-// buffers, which stage B later reads.  Bytes bound it: each job reads its
-// windows (up to 2 x (529 + 2 x 121) samples) and writes 384 samples.
+// buffers, which stage B later reads.
+//
+// Bytes bound it: a picture of mostly whole-sample motion reads about
+// one reference sample an output sample and writes each output once,
+// and fractional motion adds at most ~40 operations a sample.  What
+// keeps a kernel from that bound is each job's chain of dependent
+// copies, barriers and filters, so the design keeps many jobs resident
+// and each chain short:
+//
+// * One warp a job, kInterWarps warps a block, a grid-stride walk over
+//   the job table sized to the card's resident blocks (32 warps an SM),
+//   the next job's row loaded while the current one runs.  No block
+//   barrier: the warps of a block share nothing.
+// * One memory round trip a job: before any arithmetic the warp starts
+//   cp.async copies of every window of the job (both lists, luma and
+//   both chroma planes), each with only the rows and columns its phase
+//   needs (B+K-1 along an axis with a fractional phase, B along one
+//   without), then one wait and one __syncwarp.  A window inside the
+//   picture is copied in the widest vectors its first column allows (16
+//   bytes, else 8 or 4), one across an edge a clamped sample at a time;
+//   each lane copies one column of vectors down the rows, a few
+//   instructions a copy.  Every window lands in one layout (rows of 24
+//   words luma, 12 chroma), which the filters read as 16-byte vectors
+//   without bank conflicts.
+// * Only the passes the phase needs, in registers: an integer vector is
+//   a copy shifted by 14 - bd, one fractional phase one pass, both a
+//   horizontal pass written over the window in place (rows of one
+//   __syncwarp round each), then the vertical one.  A lane computes 4
+//   adjacent columns of 2 luma rows and of 1 chroma row, keeps both
+//   lists' 14-bit values in registers, weights once, and stores luma as
+//   int4 and chroma as int2 (single samples where a row is ragged or
+//   unaligned, none outside the picture).
+//
+// Measured on the H100 (PERF.md): a 1920x1080 B picture of whole-sample
+// motion runs at about two thirds of its byte bound; a 3840x2160 one
+// with every phase and mostly 8x4/4x8 PUs at about a fifth, held by the
+// per-warp chain of a job's round trip and its filters (a small PU
+// leaves most of its warp's lanes idle).
 
 constexpr int kInterJobCols = 10;    // x y w h slot0 mv0x mv0y slot1 mv1x mv1y
 constexpr int kInterSide = 16;       // luma job side; chroma 8
-constexpr int kInterThreads = kInterSide * kInterSide;
+constexpr int kInterWarps = 8;       // jobs a block at a time
+constexpr int kInterYStride = 24;    // words a luma window row (16 + 7)
+constexpr int kInterCStride = 12;    // words a chroma window row (8 + 3)
+constexpr int kInterYWin = (kInterSide + 7) * kInterYStride;
+constexpr int kInterCWin = (kInterSide / 2 + 3) * kInterCStride;
+constexpr int kInterListWords = kInterYWin + 2 * kInterCWin;
+constexpr int kInterSmem =           // bytes a block: both lists a warp
+    static_cast<int>(sizeof(int)) * 2 * kInterListWords * kInterWarps;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __constant__ int kLumaTaps[4][8] = {
     {0, 0, 0, 64, 0, 0, 0, 0},
@@ -638,76 +679,300 @@ __constant__ int kChromaTaps[8][4] = {
     {-4, 36, 36, -4}, {-4, 28, 46, -6}, {-2, 16, 54, -4}, {-2, 10, 58, -2}};
 
 template <int K>
-__device__ __forceinline__ int inter_tap(int phase, int k) {
-  return K == 8 ? kLumaTaps[phase][k] : kChromaTaps[phase][k];
+__device__ __forceinline__ void inter_taps(int phase, int* t) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    t[k] = K == 8 ? kLumaTaps[phase][k] : kChromaTaps[phase][k];
 }
 
 __device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// The 14-bit prediction of sample (tid / B, tid % B) of a BxB block at
-// (bx, by) of one plane (pw x ph) of reference `ref`, motion (mvx, mvy) in
-// units of 1 / 2^FB sample; returned to threads tid < B*B (0 to the rest).
-// Every thread of the block calls it: it holds three barriers.
-template <int K, int B, int FB>
-__device__ int inter_predict14(const int32_t* __restrict__ ref, int pw,
-                               int ph, int bx, int by, int mvx, int mvy,
-                               int shift1, int shift3, int* win, int* hp) {
+#ifndef TORCH_CUDA_EMU  // tests/torch_cuda_emu.h defines these for g++
+// 4 or 2 samples to an aligned global address in one instruction (nvcc
+// split a plain int4 store behind an alignment test into four)
+__device__ __forceinline__ void store_global_v4(int32_t* p, int a, int b,
+                                                int c, int d) {
+  asm volatile("st.global.v4.s32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ void store_global_v2(int32_t* p, int a, int b) {
+  asm volatile("st.global.v2.s32 [%0], {%1, %2};\n" ::"l"(p), "r"(a),
+               "r"(b)
+               : "memory");
+}
+// 16, 8 or 4 bytes from global to shared memory, asynchronously
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+// every copy this thread started has landed
+__device__ __forceinline__ void copy_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+#endif
+
+// A window of one plane: ew x eh samples from (x0, y0), phases fx, fy.
+struct InterWin {
+  int x0, y0, ew, eh, fx, fy;
+};
+
+// The window of a b x bh block at (bx, by) moved by (mvx, mvy) in units
+// of 1 / 2^FB sample, for a K-tap filter: the taps' reach only along an
+// axis with a fractional phase.
+template <int K, int FB>
+__device__ __forceinline__ InterWin inter_win(int bx, int by, int bw, int bh,
+                                              int mvx, int mvy) {
   constexpr int P = K / 2 - 1;       // taps before the sample
-  constexpr int S = B + K - 1;       // window side
-  const int tid = threadIdx.x;
-  const int xi = bx + (mvx >> FB), yi = by + (mvy >> FB);
-  const int fx = mvx & ((1 << FB) - 1), fy = mvy & ((1 << FB) - 1);
-  for (int i = tid; i < S * S; i += blockDim.x) {
-    const int sy = clamp_int(yi - P + i / S, 0, ph - 1);
-    const int sx = clamp_int(xi - P + i % S, 0, pw - 1);
-    win[i] = ref[static_cast<size_t>(sy) * pw + sx];
-  }
-  __syncthreads();
-  for (int i = tid; i < S * B; i += blockDim.x) {
-    const int r = i / B, c = i % B;
-    int s = 0;
-#pragma unroll
-    for (int k = 0; k < K; ++k) s += inter_tap<K>(fx, k) * win[r * S + c + k];
-    hp[i] = s >> shift1;
-  }
-  __syncthreads();
-  int v = 0;
-  if (tid < B * B) {
-    const int r = tid / B, c = tid % B;
-    if (fx == 0 && fy == 0) {
-      v = win[(r + P) * S + c + P] << shift3;
-    } else if (fy == 0) {
-      v = hp[(r + P) * B + c];
-    } else if (fx == 0) {
-      int s = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        s += inter_tap<K>(fy, k) * win[(r + k) * S + c + P];
-      v = s >> shift1;
-    } else {
-      int s = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        s += inter_tap<K>(fy, k) * hp[(r + k) * B + c];
-      v = s >> 6;
-    }
-  }
-  __syncthreads();                   // win and hp are reused next
-  return v;
+  InterWin g;
+  g.fx = mvx & ((1 << FB) - 1);
+  g.fy = mvy & ((1 << FB) - 1);
+  g.x0 = bx + (mvx >> FB) - (g.fx ? P : 0);
+  g.y0 = by + (mvy >> FB) - (g.fy ? P : 0);
+  g.ew = bw + (g.fx ? K - 1 : 0);
+  g.eh = bh + (g.fy ? K - 1 : 0);
+  return g;
 }
 
-// default weighted sample prediction (spec 8.5.4.3.2)
-__device__ __forceinline__ int inter_weight(const int* v, bool bi, int l,
+// The copies of the rows [r, eh) of a window, every (32 >> pl)-th one,
+// by one lane: V samples a copy from `src` (row 0 of the lane's column)
+// to `dst` (rows S words apart).
+template <int V, int S>
+__device__ __forceinline__ void inter_rows_copy(const int32_t* src,
+                                                size_t pw, int* dst, int r,
+                                                int eh, int pl) {
+  const int step = 32 >> pl;
+  src += r * pw;
+  dst += r * S;
+  for (; r < eh; r += step, src += step * pw, dst += step * S) {
+    if (V == 4)
+      copy_async16(dst, src);
+    else if (V == 2)
+      copy_async8(dst, src);
+    else
+      copy_async4(dst, src);
+  }
+}
+
+// Start the copies of window g of plane `ref` (pw x ph; `rows16`: its
+// rows start 16-byte aligned) into `win` (rows of S words, 16-byte
+// aligned), spread over the warp's lanes: 2^pl lanes a row, each one
+// column of copies.  A window inside the picture goes in aligned vectors
+// of 4, 2 or 1 samples (the last one of a row may reach into the row's
+// padding in `win`, never past the picture's row: x0 and pw are
+// multiples of it); one across an edge sample by sample, each
+// coordinate clamped.  The caller waits.
+template <int S>
+__device__ __forceinline__ void inter_window_copy(const int32_t* ref, int pw,
+                                                  int ph, const InterWin& g,
+                                                  bool rows16, int* win,
+                                                  int lane) {
+  const bool inside =
+      g.x0 >= 0 && g.y0 >= 0 && g.x0 + g.ew <= pw && g.y0 + g.eh <= ph;
+  const int vl = inside && rows16 ? ((g.x0 & 3) == 0 ? 2 : (~g.x0 & 1))
+                                  : 0;
+  const int per_row = (g.ew + (1 << vl) - 1) >> vl;
+  const int pl = per_row <= 1 ? 0 : 32 - __clz(per_row - 1);
+  const int q = lane & ((1 << pl) - 1);
+  if (q >= per_row) return;
+  const int c = q << vl, r = lane >> pl;
+  int* dst = win + c;
+  if (!inside) {
+    const int sx = clamp_int(g.x0 + c, 0, pw - 1);
+    for (int k = r; k < g.eh; k += 32 >> pl)
+      copy_async4(dst + k * S, ref + static_cast<size_t>(clamp_int(
+                                         g.y0 + k, 0, ph - 1)) * pw + sx);
+    return;
+  }
+  const int32_t* src = ref + static_cast<size_t>(g.y0) * pw + g.x0 + c;
+  if (vl == 2)
+    inter_rows_copy<4, S>(src, pw, dst, r, g.eh, pl);
+  else if (vl == 1)
+    inter_rows_copy<2, S>(src, pw, dst, r, g.eh, pl);
+  else
+    inter_rows_copy<1, S>(src, pw, dst, r, g.eh, pl);
+}
+
+// 4 words from a 16-byte aligned shared address
+__device__ __forceinline__ void lds4(const int* p, int* o) {
+  const int4 q = *reinterpret_cast<const int4*>(p);
+  o[0] = q.x;
+  o[1] = q.y;
+  o[2] = q.z;
+  o[3] = q.w;
+}
+
+// The K-tap horizontal filter of 4 adjacent samples whose taps start at
+// `row` (16-byte aligned), each sum shifted right by sh.
+template <int K>
+__device__ __forceinline__ void inter_h4(const int* row, const int* t, int sh,
+                                         int* o) {
+  constexpr int NV = (K + 6) / 4;    // vectors holding the K + 3 inputs
+  int a[4 * NV];
+#pragma unroll
+  for (int q = 0; q < NV; ++q) lds4(row + 4 * q, a + 4 * q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int s = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) s += t[k] * a[j + k];
+    o[j] = s >> sh;
+  }
+}
+
+// The K-tap vertical filter of R rows of 4 adjacent samples whose taps
+// start at `col` (16-byte aligned, rows S words apart), each sum shifted
+// right by sh; o holds R groups of 4.
+template <int K, int R, int S>
+__device__ __forceinline__ void inter_v4(const int* col, const int* t, int sh,
+                                         int* o) {
+  int a[R + K - 1][4];
+#pragma unroll
+  for (int k = 0; k < R + K - 1; ++k) lds4(col + k * S, a[k]);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int s = 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) s += t[k] * a[i + k][j];
+      o[4 * i + j] = s >> sh;
+    }
+}
+
+// The horizontal pass of a window with both phases, written over the
+// window in place: rows 0..eh-1, 2^cs groups of 4 outputs a row, by L
+// lanes (l their index; L a multiple of 2^cs, so a round takes whole
+// rows).  Each round reads its rows, meets at a __syncwarp, then writes
+// them, so every lane of the warp runs the same number of rounds.
+template <int K, int S, int L>
+__device__ __forceinline__ void inter_h_in_place(int* win, int eh, int cs,
+                                                 const int* t, int sh, int l) {
+  const int n = eh << cs;
+  for (int base = 0; base < n; base += L) {
+    const int i = base + l;
+    const int r = i >> cs, c = 4 * (i & ((1 << cs) - 1));
+    int o[4];
+    if (i < n) inter_h4<K>(win + r * S + c, t, sh, o);
+    __syncwarp();
+    if (i < n)
+      *reinterpret_cast<int4*>(win + r * S + c) =
+          make_int4(o[0], o[1], o[2], o[3]);
+  }
+  __syncwarp();
+}
+
+// The 14-bit luma prediction of a lane's 8 samples (rows 2rg and 2rg+1,
+// columns 4cg..4cg+3 of the job) from its window `win` (g), the job bw
+// samples wide.  Warp-uniform: every lane calls it with the same g.
+__device__ __forceinline__ void inter_luma14(int* win, const InterWin& g,
+                                             int bw, int shift1, int shift3,
+                                             int lane, int* v) {
+  constexpr int S = kInterYStride;
+  const int* at = win + 2 * (lane >> 2) * S + 4 * (lane & 3);
+  int t[8];
+  if (!g.fx && !g.fy) {
+    lds4(at, v);
+    lds4(at + S, v + 4);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] <<= shift3;
+  } else if (!g.fy) {
+    inter_taps<8>(g.fx, t);
+    inter_h4<8>(at, t, shift1, v);
+    inter_h4<8>(at + S, t, shift1, v + 4);
+  } else if (!g.fx) {
+    inter_taps<8>(g.fy, t);
+    inter_v4<8, 2, S>(at, t, shift1, v);
+  } else {
+    inter_taps<8>(g.fx, t);
+    inter_h_in_place<8, S, 32>(win, g.eh, bw <= 4 ? 0 : (bw <= 8 ? 1 : 2), t,
+                               shift1, lane);
+    inter_taps<8>(g.fy, t);
+    inter_v4<8, 2, S>(at, t, 6, v);
+  }
+}
+
+// The 14-bit chroma prediction of a lane's 4 samples (plane lane >> 4,
+// row (lane >> 1) & 7, columns 4 (lane & 1)..+3) from the list's two
+// chroma windows (`win`, the second kInterCWin words on), bw samples
+// wide.  Warp-uniform as inter_luma14.
+__device__ __forceinline__ void inter_chroma14(int* win, const InterWin& g,
+                                               int bw, int shift1, int shift3,
+                                               int lane, int* u) {
+  constexpr int S = kInterCStride;
+  int* plane = win + (lane >> 4) * kInterCWin;
+  const int* at = plane + ((lane >> 1) & 7) * S + 4 * (lane & 1);
+  int t[4];
+  if (!g.fx && !g.fy) {
+    lds4(at, u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) u[k] <<= shift3;
+  } else if (!g.fy) {
+    inter_taps<4>(g.fx, t);
+    inter_h4<4>(at, t, shift1, u);
+  } else if (!g.fx) {
+    inter_taps<4>(g.fy, t);
+    inter_v4<4, 1, S>(at, t, shift1, u);
+  } else {
+    inter_taps<4>(g.fx, t);
+    inter_h_in_place<4, S, 16>(plane, g.eh, bw <= 4 ? 0 : 1, t, shift1,
+                               lane & 15);
+    inter_taps<4>(g.fy, t);
+    inter_v4<4, 1, S>(at, t, 6, u);
+  }
+}
+
+// default weighted sample prediction (spec 8.5.4.3.2) of the lists'
+// 14-bit values: both (bi), else list 1's (l1) or list 0's
+__device__ __forceinline__ int inter_weight(int v0, int v1, bool bi, bool l1,
                                             int bd) {
   const int maxv = (1 << bd) - 1;
   if (bi) {
     const int sh = 15 - bd;
-    return clamp_int((v[0] + v[1] + (1 << (sh - 1))) >> sh, 0, maxv);
+    return clamp_int((v0 + v1 + (1 << (sh - 1))) >> sh, 0, maxv);
   }
   const int sh = 14 - bd;
-  return clamp_int((v[l] + (1 << (sh - 1))) >> sh, 0, maxv);
+  return clamp_int(((l1 ? v1 : v0) + (1 << (sh - 1))) >> sh, 0, maxv);
+}
+
+// Store 4 adjacent samples at dst, the first at column c of a row whose
+// samples c < n exist (n: the fewer of the block's and the picture's
+// remaining columns): one V-sample vector at a time where whole and
+// aligned, single samples otherwise.
+template <int V>
+__device__ __forceinline__ void inter_store4(int32_t* dst, int c, int n,
+                                             const int* o) {
+#pragma unroll
+  for (int q = 0; q < 4; q += V) {
+    int32_t* p = dst + q;
+    if (c + q + V <= n &&
+        reinterpret_cast<uintptr_t>(p) % (sizeof(int32_t) * V) == 0) {
+      if (V == 4)
+        store_global_v4(p, o[0], o[1], o[2], o[3]);
+      else
+        store_global_v2(p, o[q], o[q + 1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (c + q + k < n) p[k] = o[q + k];
+    }
+  }
 }
 
 struct InterArgs {
@@ -716,53 +981,167 @@ struct InterArgs {
   const int32_t* cdpb;
   int32_t* ybuf;
   int32_t* cbuf;
-  int W, H, bd;
+  int n, W, H, bd;
 };
 
-__global__ void __launch_bounds__(kInterThreads)
-    hevc_inter_pred_kernel(InterArgs a) {
-  __shared__ int win[(kInterSide + 7) * (kInterSide + 7)];
-  __shared__ int hp[(kInterSide + 7) * kInterSide];
-  const int32_t* jb = a.jobs + static_cast<size_t>(blockIdx.x) * kInterJobCols;
-  const int x = jb[0], y = jb[1], w = jb[2], h = jb[3];
-  const int slot[2] = {jb[4], jb[7]};
-  const int mvx[2] = {jb[5], jb[8]};
-  const int mvy[2] = {jb[6], jb[9]};
-  const int shift1 = a.bd - 8, shift3 = 14 - a.bd;
-  const bool bi = slot[0] >= 0 && slot[1] >= 0;
-  const int uni = slot[0] >= 0 ? 0 : 1;
-  const int tid = threadIdx.x;
-  const size_t ysz = static_cast<size_t>(a.W) * a.H;
-  int v[2] = {0, 0};
-  for (int l = 0; l < 2; ++l)        // slot[l] is the same in every thread
-    if (slot[l] >= 0)
-      v[l] = inter_predict14<8, kInterSide, 2>(
-          a.ydpb + slot[l] * ysz, a.W, a.H, x, y, mvx[l], mvy[l], shift1,
-          shift3, win, hp);
-  {
-    const int r = tid / kInterSide, c = tid % kInterSide;
-    if (r < h && c < w && y + r < a.H && x + c < a.W)
-      a.ybuf[static_cast<size_t>(y + r) * a.W + x + c] =
-          inter_weight(v, bi, uni, a.bd);
+// A job's columns, from the lane k < 10 that holds column k of its row.
+struct InterJob {
+  int x, y, w, h, slot[2], mvx[2], mvy[2];
+  __device__ __forceinline__ bool bi() const {
+    return slot[0] >= 0 && slot[1] >= 0;
   }
-  constexpr int CS = kInterSide / 2;
-  const int cw = a.W >> 1, ch = a.H >> 1;
-  const size_t csz = static_cast<size_t>(cw) * ch;
-  const int cx = x >> 1, cy = y >> 1;
-  const int wc = w >> 1 > 1 ? w >> 1 : 1, hc = h >> 1 > 1 ? h >> 1 : 1;
-  for (int p = 0; p < 2; ++p) {
-    int u[2] = {0, 0};
+};
+
+__device__ __forceinline__ InterJob inter_job(int col) {
+  int f[kInterJobCols];
+#pragma unroll
+  for (int k = 0; k < kInterJobCols; ++k)
+    f[k] = __shfl_sync(kFullMask, col, k);
+  InterJob b;
+  b.x = f[0];
+  b.y = f[1];
+  b.w = f[2];
+  b.h = f[3];
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    b.slot[l] = f[4 + 3 * l];
+    b.mvx[l] = f[5 + 3 * l];
+    b.mvy[l] = f[6 + 3 * l];
+  }
+  return b;
+}
+
+// The geometry a warp's jobs share: the planes, their sizes, and whether
+// their rows start 16-byte aligned.
+struct InterPlanes {
+  int cw, ch;
+  size_t ysz, csz;
+  bool yrows16, crows16;
+};
+
+__device__ __forceinline__ void inter_luma_win(const InterJob& b, int l,
+                                               InterWin& g) {
+  g = inter_win<8, 2>(b.x, b.y, b.w, b.h, b.mvx[l], b.mvy[l]);
+}
+
+__device__ __forceinline__ void inter_chroma_win(const InterJob& b, int l,
+                                                 InterWin& g) {
+  const int wc = b.w >> 1 > 1 ? b.w >> 1 : 1, hc = b.h >> 1 > 1 ? b.h >> 1 : 1;
+  g = inter_win<4, 3>(b.x >> 1, b.y >> 1, wc, hc, b.mvx[l], b.mvy[l]);
+}
+
+// Start the copies of every window of job b (both lists, luma and both
+// chroma planes; list l's into the l-th kInterListWords words of the
+// warp's buffer `mine`).
+__device__ __forceinline__ void inter_copy_windows(const InterArgs& a,
+                                                   const InterPlanes& pl,
+                                                   const InterJob& b,
+                                                   int* mine, int lane) {
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    if (b.slot[l] < 0) continue;
+    int* lw = mine + l * kInterListWords;
+    InterWin g;
+    inter_luma_win(b, l, g);
+    inter_window_copy<kInterYStride>(a.ydpb + b.slot[l] * pl.ysz, a.W, a.H,
+                                     g, pl.yrows16, lw, lane);
+    inter_chroma_win(b, l, g);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      inter_window_copy<kInterCStride>(
+          a.cdpb + (static_cast<size_t>(b.slot[l]) * 2 + p) * pl.csz, pl.cw,
+          pl.ch, g, pl.crows16, lw + kInterYWin + p * kInterCWin, lane);
+  }
+}
+
+// Filter, weight and store job b from its windows (landed).
+__device__ __forceinline__ void inter_predict(const InterArgs& a,
+                                              const InterPlanes& pl,
+                                              const InterJob& b, int* mine,
+                                              int lane) {
+  const int shift1 = a.bd - 8, shift3 = 14 - a.bd;
+  const bool bi = b.bi(), l1 = b.slot[0] < 0;
+  {
+    int v[2][8] = {};
+#pragma unroll
     for (int l = 0; l < 2; ++l)
-      if (slot[l] >= 0)
-        u[l] = inter_predict14<4, CS, 3>(
-            a.cdpb + (static_cast<size_t>(slot[l]) * 2 + p) * csz, cw, ch,
-            cx, cy, mvx[l], mvy[l], shift1, shift3, win, hp);
-    if (tid < CS * CS) {
-      const int r = tid / CS, c = tid % CS;
-      if (r < hc && c < wc && cy + r < ch && cx + c < cw)
-        a.cbuf[p * csz + static_cast<size_t>(cy + r) * cw + cx + c] =
-            inter_weight(u, bi, uni, a.bd);
+      if (b.slot[l] >= 0) {
+        InterWin g;
+        inter_luma_win(b, l, g);
+        inter_luma14(mine + l * kInterListWords, g, b.w, shift1, shift3,
+                     lane, v[l]);
+      }
+    const int c = 4 * (lane & 3);
+    const int n = min(b.w, a.W - b.x);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 2 * (lane >> 2) + i;
+      if (r >= b.h || b.y + r >= a.H) continue;
+      int o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        o[k] = inter_weight(v[0][4 * i + k], v[1][4 * i + k], bi, l1, a.bd);
+      inter_store4<4>(
+          a.ybuf + static_cast<size_t>(b.y + r) * a.W + b.x + c, c, n, o);
     }
+  }
+  {
+    const int cx = b.x >> 1, cy = b.y >> 1;
+    const int wc = b.w >> 1 > 1 ? b.w >> 1 : 1, hc = b.h >> 1 > 1 ? b.h >> 1 : 1;
+    int u[2][4] = {};
+#pragma unroll
+    for (int l = 0; l < 2; ++l)
+      if (b.slot[l] >= 0) {
+        InterWin g;
+        inter_chroma_win(b, l, g);
+        inter_chroma14(mine + l * kInterListWords + kInterYWin, g, wc,
+                       shift1, shift3, lane, u[l]);
+      }
+    const int p = lane >> 4, r = (lane >> 1) & 7, c = 4 * (lane & 1);
+    if (r < hc && cy + r < pl.ch) {
+      int o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        o[k] = inter_weight(u[0][k], u[1][k], bi, l1, a.bd);
+      inter_store4<2>(a.cbuf + p * pl.csz +
+                          static_cast<size_t>(cy + r) * pl.cw + cx + c,
+                      c, min(wc, pl.cw - cx), o);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kInterWarps * 32, 4)
+    hevc_inter_pred_kernel(InterArgs a) {
+  extern __shared__ int4 inter_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* const mine = reinterpret_cast<int*>(inter_smem) +
+                    warp * 2 * kInterListWords;
+  InterPlanes pl;
+  pl.cw = a.W >> 1;
+  pl.ch = a.H >> 1;
+  pl.ysz = static_cast<size_t>(a.W) * a.H;
+  pl.csz = static_cast<size_t>(pl.cw) * pl.ch;
+  pl.yrows16 = a.W % 4 == 0 && reinterpret_cast<uintptr_t>(a.ydpb) % 16 == 0;
+  pl.crows16 =
+      pl.cw % 4 == 0 && reinterpret_cast<uintptr_t>(a.cdpb) % 16 == 0;
+  const int step = gridDim.x * kInterWarps;
+  // lane k < 10 holds column k of the job's row; the next one's is loaded
+  // while this one runs
+  int j = blockIdx.x * kInterWarps + warp;
+  int col = j < a.n && lane < kInterJobCols
+                ? __ldg(a.jobs + static_cast<size_t>(j) * kInterJobCols + lane)
+                : 0;
+  for (; j < a.n; j += step) {            // warp-uniform
+    const InterJob b = inter_job(col);
+    const int jn = j + step;
+    col = jn < a.n && lane < kInterJobCols
+              ? __ldg(a.jobs + static_cast<size_t>(jn) * kInterJobCols + lane)
+              : 0;
+    inter_copy_windows(a, pl, b, mine, lane);
+    copy_async_wait_all();
+    __syncwarp();
+    inter_predict(a, pl, b, mine, lane);
+    __syncwarp();                         // the windows are refilled next
   }
 }
 
@@ -875,17 +1254,38 @@ int launch_hevc_inter_pred(const void* jobs, int n_jobs, const void* ydpb,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n_jobs < 0 || W < 8 || H < 8 || bd < 8 || bd > 12) return kInvalid;
   if (n_jobs == 0) return 0;
+  // the blocks the card holds at once, found once a device
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return kInvalid;
+  auto kernel = hevc_inter_pred_kernel;
+  if (resident[device] == 0) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kInterSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kInterWarps * 32, kInterSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    resident[device] = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
   InterArgs a{};
   a.jobs = static_cast<const int32_t*>(jobs);
   a.ydpb = static_cast<const int32_t*>(ydpb);
   a.cdpb = static_cast<const int32_t*>(cdpb);
   a.ybuf = static_cast<int32_t*>(ybuf);
   a.cbuf = static_cast<int32_t*>(cbuf);
+  a.n = n_jobs;
   a.W = W;
   a.H = H;
   a.bd = bd;
-  hevc_inter_pred_kernel<<<n_jobs, kInterThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(a);
+  const int need = (n_jobs + kInterWarps - 1) / kInterWarps;
+  const int blocks = need < resident[device] ? need : resident[device];
+  kernel<<<blocks, kInterWarps * 32, kInterSmem,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -526,6 +526,42 @@ def test_inter_pred_plain_matches_recon(bd):
         np.testing.assert_array_equal(c[1], ref[2], str(pu))
 
 
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_inter_pred_plain_matches_recon_local_motion(bd):
+    """inter_pred's plain version against the JAX numpy MC (recon.py
+    mc_luma_14, mc_chroma_14, weight_uni, weight_bi through _mc_pu) on
+    inter_cases' local motion at 64x48: a partition of the picture,
+    vectors within 64 samples, every phase pair, three PUs in four bi,
+    all PUs in one launch and in one JAX reconstructor."""
+    W, H = 64, 48
+    jobs, ydpb, cdpb = inter_cases.synthetic(W, H, bd, 50 + bd, "cpu",
+                                             motion="local")
+    rng = np.random.default_rng(50 + bd)
+    rng.integers(0, 1 << bd, (3, H, W))                 # the planes' draws
+    rng.integers(0, 1 << bd, (3, 2, H // 2, W // 2))
+    pus = inter_cases.partition(W, H, rng)
+    rows = inter_cases.pu_rows(pus, inter_cases.local_motion(len(pus), rng))
+    assert torch.equal(jobs, torch.from_numpy(hcf.inter_jobs(rows)))
+    may_bi = rows[:, 2] + rows[:, 3] != 12       # 8x4 and 4x8 stay uni
+    assert ((rows[:, 4] >= 0) & (rows[:, 7] >= 0))[may_bi].mean() > 0.5
+    yb = torch.zeros(H * W, dtype=torch.int32)
+    cb = torch.zeros(2 * (H // 2) * (W // 2), dtype=torch.int32)
+    hcf.inter_pred(jobs, ydpb, cdpb, yb, cb, bd=bd)
+    rc = jrecon.IntraReconstructor.__new__(jrecon.IntraReconstructor)
+    rc.bd = bd
+    y, c = ydpb.numpy(), cdpb.numpy()
+    rc.refs = rc.refs_l1 = [(y[s], c[s, 0], c[s, 1]) for s in range(3)]
+    rc.planes = [np.zeros((H, W), np.int32),
+                 np.zeros((H // 2, W // 2), np.int32),
+                 np.zeros((H // 2, W // 2), np.int32)]
+    for x, y_, w, h, r0, m0x, m0y, r1, m1x, m1y in rows.tolist():
+        rc._mc_pu(JPU(x, y_, w, h, (m0x, m0y), r0, (m1x, m1y), r1))
+    cpl = cb.view(2, H // 2, W // 2).numpy()
+    np.testing.assert_array_equal(yb.view(H, W).numpy(), rc.planes[0])
+    np.testing.assert_array_equal(cpl[0], rc.planes[1])
+    np.testing.assert_array_equal(cpl[1], rc.planes[2])
+
+
 def test_inter_jobs_cut_pus():
     """inter_jobs cuts a PU into jobs of at most 16x16 covering it."""
     rows = np.array([[0, 0, 64, 48, 0, 5, -3, -1, 0, 0],

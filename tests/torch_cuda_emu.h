@@ -12,6 +12,7 @@
 // each warp operation, as the kernels' full-mask calls require on the card.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstdlib>
@@ -42,20 +43,45 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+struct int2 {
+  int x, y;
+};
+inline int2 make_int2(int a, int b) { return {a, b}; }
 struct uint2 {
   unsigned x, y;
 };
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorMisalignedAddress = 716
+};
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// the emulated card: 2 SMs holding one block each, so that a kernel which
+// walks its work with a grid-stride loop sized to the resident blocks
+// takes several rounds
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
+                                                          size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+// the first fault of the launches since the last cudaGetLastError, which
+// returns and clears it
+inline std::atomic<int> emu_error{cudaSuccess};
+inline cudaError_t cudaGetLastError() { return emu_error.exchange(0); }
 using std::max;
 using std::min;
 
@@ -120,12 +146,48 @@ T __ldg(const T* p) {
 }
 // cp.async as the kernels wrap it: the copy happens at once, so commit and
 // wait have nothing to do (the kernel's barrier after the wait still orders
-// the lanes)
+// the lanes); an address not aligned to the copy's size faults, as on the
+// card
+template <int N>
+inline void emu_copy_async(void* smem, const void* gmem) {
+  if (reinterpret_cast<uintptr_t>(smem) % N ||
+      reinterpret_cast<uintptr_t>(gmem) % N) {
+    int ok = cudaSuccess;
+    emu_error.compare_exchange_strong(ok, cudaErrorMisalignedAddress);
+    return;
+  }
+  std::memcpy(smem, gmem, N);
+}
 inline void copy_async16(void* smem, const void* gmem) {
-  std::memcpy(smem, gmem, 16);
+  emu_copy_async<16>(smem, gmem);
+}
+inline void copy_async8(void* smem, const void* gmem) {
+  emu_copy_async<8>(smem, gmem);
+}
+inline void copy_async4(void* smem, const void* gmem) {
+  emu_copy_async<4>(smem, gmem);
 }
 inline void copy_async_commit() {}
 inline void copy_async_wait(int) {}
+inline void copy_async_wait_all() {}
+// st.global.v4 / .v2 as the kernels wrap them; unaligned faults
+template <int N>
+inline void emu_store_vector(int32_t* p, const int* v) {
+  if (reinterpret_cast<uintptr_t>(p) % (4 * N)) {
+    int ok = cudaSuccess;
+    emu_error.compare_exchange_strong(ok, cudaErrorMisalignedAddress);
+    return;
+  }
+  std::memcpy(p, v, 4 * N);
+}
+inline void store_global_v4(int32_t* p, int a, int b, int c, int d) {
+  const int v[4] = {a, b, c, d};
+  emu_store_vector<4>(p, v);
+}
+inline void store_global_v2(int32_t* p, int a, int b) {
+  const int v[2] = {a, b};
+  emu_store_vector<2>(p, v);
+}
 // cvt.pack.sat.s8.s32.b32 as the kernels wrap it
 inline unsigned pack_sat_s8(int a, int b, unsigned c) {
   const auto s8 = [](int v) {
@@ -139,7 +201,10 @@ void emu_launch_smem(void (*k)(P...), dim3 grid, dim3 block, size_t smem,
                      A... args) {
   for (unsigned b = 0; b < grid.x; ++b) {
     EmuBlock blk(static_cast<int>(block.x));
-    std::vector<long long> dyn(smem / sizeof(long long) + 1);
+    struct alignas(16) Chunk {
+      char b[16];
+    };
+    std::vector<Chunk> dyn(smem / sizeof(Chunk) + 1);
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < block.x; ++t)
       ts.emplace_back([&, t] {
