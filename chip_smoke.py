@@ -74,7 +74,8 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    512x512 tiles (stage B on three), a wave-heavy synthetic case
    (codecs/av1/wave_cases.py: 64x64, filter-intra, CfL and many 4x4
    jobs in the same waves, some waves larger than the kernel's shared
-   memory) and the photo's 48 tiles, and both kernels on the intra
+   memory) and a 48-tile AVIF photo's plan (the four photo streams'
+   cached parses, 12 times each), and both kernels on the intra
    block copy streams (libaom's screen-content tools: skipped blocks'
    copies, transform units with the inter transform sets, lossless) and
    a 1920x1080 screenshot, and av1_intra_wave on synthetic intrabc waves
@@ -84,8 +85,8 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    every stream on the card, in-loop filters and film grain included,
    and require its planes' hashes (the film-grain streams: libaom's test
    vectors 1-16, 10-bit, odd sizes, estimated grain, four 512x512
-   tiles); write an AVIF phone photo (an 8x6 grid of 48 512x512
-   av01 items, 4032x3024 output) and decode it through HeifContext to
+   tiles); write an AVIF photo (a 2x2 grid of the four 512x512 photo
+   streams, 1000x1000 output) and decode it through HeifContext to
    interleaved RGB, with the launch counts read around it
    (av1_dequant_itx once, av1_intra_wave once, planes_ycbcr8_to_rgb
    once, no strided_extract_paste) and its planes held equal to the
@@ -184,6 +185,28 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    frame on the card (strided_extract_paste once a frame) and on the
    CPU with 0 samples differing and equal to its hashes.  Each frame's
    ms and the phase's seconds print;
+4i. the encode phase, through HeifContext(...).new_file() /
+   encode_image / write on the card: the HEVC photo's decoded 4032x3024
+   4:2:0 planes with a synthetic 8-bit alpha gradient as jpeg items at
+   quality 50 and 90 (launches read around it: jpeg_fdct_quant once for
+   the image and once for its alpha, nothing else), each file equal to
+   the same encode on the CPU, decoded through read_from_bytes on the
+   card (jpeg_dequant_idct) equal to its CPU decode, with its PSNR
+   against the source; jpeg_fdct_quant against fdct_quant_plain (0
+   coefficients differing) on the photo's planes and alpha, 509x301
+   images at every sampling and planes at odd offsets and pitches of one
+   buffer; the flagship 4096x4096 4:2:0 image as unci items in 8x8 tiles
+   (zlib over the whole payload through encode_image, and zlib a tile
+   through UnciEncoder and HeifFile), each equal to the CPU encode's and
+   read back on the card whole (strided_extract_paste once) and tile by
+   tile (once a tile), equal to the source; 8- and 16-bit mski masks;
+   the intra mode search, plan_modes_device on the photo's luma (launches:
+   hevc_mode_search once a block size), and hevc_mode_search against
+   mode_search_plain on that luma and on flat and noise planes at n = 8,
+   16 and 32 under the near-tie rule (a different mode only where the
+   two modes' float64 costs are within 1e-4; the count prints); and
+   encode_jpeg's wall at 4032x3024 split by its spans (jpeg.encode.fdct,
+   .copy, .entropy, .write);
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -207,7 +230,7 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    over REPEATS fresh contexts, then once split by part from the decode
    path's own spans (core/trace.py: tile parses, plan on the host, its
    copies and tables, stages A to D, compose), with the flat photo's
-   device share; the AV1 kernels at the AVIF photo's
+   device share; the AV1 kernels at the 48-tile AVIF plan's
    shapes beside their plain versions, byte bounds, ptxas resources and
    stage B's chain bound (waves x one step of av1_wave_probe), stage B
    on the intrabc screenshot beside its byte bound (the photo's one
@@ -228,7 +251,13 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    libx265 sequence beside its plain version and its bounds (the
    reference samples its jobs need, each once, the job table and the
    predicted samples; the filters' taps), and on the stress picture
-   beside its bounds; and print the numbers;
+   beside its bounds; jpeg_fdct_quant at the photo's three planes and
+   hevc_mode_search at the photo's luma (n = 8, and by size) beside their
+   plain versions, their byte bounds and their operation bounds (int32
+   for the FDCT; FP32 lanes x clock for the search, counting the taps
+   and butterflies it needs), ptxas resources and, for the search, the
+   dense prediction product as one torch.matmul (a partial yardstick);
+   and print the numbers;
 7. print the colour kernels' SASS instructions per output pixel, the
    strided kernel's per output byte and the JPEG kernel's per output
    sample (sass_count.py, cuobjdump).
@@ -238,7 +267,8 @@ The line before the last is {"kernels": [...]}; the last line is
 ``python3 chip_smoke.py --mesh-only`` runs the build and phase 4g alone
 (on a machine with several cards, the cards' mesh spans all of them);
 ``python3 chip_smoke.py --sequences-only`` the build, phase 4h and
-hevc_inter_pred's row.
+hevc_inter_pred's row; ``python3 chip_smoke.py --encode-only`` the build,
+phase 4i and the two encode kernels' rows.
 """
 
 from __future__ import annotations
@@ -256,7 +286,8 @@ import time
 import numpy as np
 import torch
 
-from libheif_tpu_torch import DecodingOptions, HeifContext, HeifFile, _build
+from libheif_tpu_torch import (
+    DecodingOptions, EncodingOptions, HeifContext, HeifFile, _build)
 from libheif_tpu_torch import context as context_mod
 from libheif_tpu_torch.boxes import read_all_boxes
 from libheif_tpu_torch.boxes.codec_cfg import Box_av1C, Box_hvcC, Box_jpgC
@@ -273,15 +304,17 @@ from libheif_tpu_torch.codecs.av1 import obu as av1_obu
 from libheif_tpu_torch.codecs.av1 import wave_cases as av1_cases
 from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
+from libheif_tpu_torch.codecs.hevc import device_modes
 from libheif_tpu_torch.codecs.hevc import device_recon
 from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
 from libheif_tpu_torch.codecs.hevc import inter_cases
 from libheif_tpu_torch.codecs import kernel_timing
 from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
 from libheif_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
+from libheif_tpu_torch.codecs.jpeg import encoder as jpeg_encoder
 from libheif_tpu_torch.codecs.jpeg import idct as jpeg_idct
 from libheif_tpu_torch.codecs.unc import (
-    UnciDecoder, cuda_fast, kernels, sass_count)
+    UnciDecoder, UnciEncoder, cuda_fast, kernels, sass_count)
 from libheif_tpu_torch.codecs.unc.layout import (
     ComponentView, UncLayout, compute_layout)
 from libheif_tpu_torch.color import convert_image, get_kr_kb
@@ -1898,6 +1931,13 @@ GRAIN_TILES = ("grain-tile512-tv1", "grain-tile512-tv7",
 # ~50 s for a 48-tile grid)
 GRAIN_GRID = (2, 4)
 GRAIN_PHOTO = (2000, 1000)
+# the grid and output of the AVIF photo that HeifContext decodes: the four
+# photo streams once each, the last row and column cut (its Python parses
+# ~9 s, against ~102 s for the 48 tiles of the HEVC and JPEG photos' 6x8
+# grid); the AV1 kernels' checks and rows keep the 48-tile plan, built from
+# the four streams' cached parses (av1_photo_plan)
+AV1_PHOTO_GRID = (2, 2)
+AV1_PHOTO = (1000, 1000)
 SCREENSHOT = "ibc-screenshot-1920x1080"
 # synthetic intrabc waves: (ssx, ssy), bit depth
 AV1_IBC_CASES = (((1, 1), 8), ((1, 0), 8), ((0, 0), 8), ((1, 1), 10),
@@ -1975,10 +2015,10 @@ def add_av01(f, e, hidden=True):
     return item
 
 
-def av1_photo_file(streams, tiles=PHOTO_TILES, grid_shape=PHOTO_GRID,
-                   size=PHOTO):
-    """The AVIF phone photo: 48 hidden av01 items (item i holds stream
-    tiles[i mod 4]) in a 6x8 grid with a 4032x3024 output (or another
+def av1_photo_file(streams, tiles=PHOTO_TILES, grid_shape=AV1_PHOTO_GRID,
+                   size=AV1_PHOTO):
+    """The AVIF photo: 4 hidden av01 items (item i holds stream tiles[i
+    mod 4]) in a 2x2 grid with a 1000x1000 output (or another
     ``grid_shape`` (rows, columns) and output ``size``)."""
     f = new_file()
     rows, cols = grid_shape
@@ -2106,16 +2146,17 @@ def check_av1_streams(streams):
 
 
 def av1_photo_plan(streams):
-    """The plan of the photo's 48 tiles, as the grid path builds it (tile
-    i holding stream i mod 4)."""
+    """The plan of a 48-tile AVIF photo (PHOTO_GRID, tile i holding stream
+    i mod 4), as the grid path builds it, from the streams' cached parses:
+    the AV1 kernels' checks and rows run at this plan's shapes."""
     rows, cols = PHOTO_GRID
     return av1_recon.build_plan([av1_parse(streams[PHOTO_TILES[i % 4]])[2]
                                  for i in range(rows * cols)], DEV)
 
 
 def check_av1_photo(blob, streams, pictures, tiles=PHOTO_TILES,
-                    what="av1 photo", profile=False, grid_shape=PHOTO_GRID,
-                    size=PHOTO):
+                    what="av1 photo", profile=False,
+                    grid_shape=AV1_PHOTO_GRID, size=AV1_PHOTO):
     """An AVIF photo through HeifContext: its launches and the wall
     time of each span of the decode path (core/trace.py), read around the
     decode to interleaved RGB, and with ``profile`` the card's kernel and
@@ -2387,8 +2428,8 @@ def av1_screenshot_stage_b(timer, streams):
 
 
 def av1_kernel_rows(timer, tally, plan, launches, by_path, screenshot):
-    """The AV1 kernels' rows of the {"kernels": ...} line, at the photo's
-    shapes: the 48-tile plan's stage A and stage B; beside them each
+    """The AV1 kernels' rows of the {"kernels": ...} line, at the AVIF
+    photo's shapes: its plan's stage A and stage B; beside them each
     kernel's launches on each AV1 path and stage B on the screenshot."""
     res = av1_recon.residuals(plan)
     rows = {}
@@ -3973,6 +4014,472 @@ def inter_pred_row(timer, tally, captured, launches, stress):
     return row
 
 
+# ------------------------------------------------------------------ encode
+# Phase 4i: still-image encode through HeifContext on the card -- the
+# HEVC photo's planes with an alpha gradient as jpeg items (the FDCT and
+# quantiser on the card, jpeg_fdct_quant once an item), the flagship as
+# unci items in 8x8 tiles, masks as mski items, each file equal to the
+# same encode on the CPU and read back through the main path; the kernel
+# against its plain version; the intra mode search (hevc_mode_search, one
+# launch a block size) on the photo's luma and synthetic planes, against
+# its plain version under the near-tie rule.
+
+ENC_JNP = "libheif_tpu/codecs/jpeg/encoder.py"
+MODES_JNP = "libheif_tpu/codecs/hevc/device_modes.py"
+ENC_QUALITIES = (50, 90)
+# int32 operations a sample that jpeg_fdct_quant's function needs: the two
+# 1-D islow passes (59 operations for eight samples each, 14.75 a sample),
+# the level shift (1) and the quantiser (abs, add, negate, select and a
+# division by a reciprocal, one multiply-high: 5)
+FDCT_OPS_PER_SAMPLE = 20.75
+FP32_LANES_PER_SM = 128      # Hopper architecture white paper
+MODE_SIZES = (3, 4, 5)
+NEAR_TIE = 1e-4              # relative float64 cost gap of a near tie
+SYNTH_SIDE = 1024            # the synthetic mode-search planes
+
+
+def fp32_rate():
+    """FP32 operations a second of card 0: SMs x 128 lanes x the SM
+    clock (clocks.max.sm)."""
+    sms, mhz, _ = int32_rate()
+    return sms * FP32_LANES_PER_SM * mhz * 1e6
+
+
+def alpha_gradient(w, h, bits=8):
+    """A diagonal gradient over the full range, on the card."""
+    y = torch.arange(h, device=DEV, dtype=torch.int64)[:, None]
+    x = torch.arange(w, device=DEV, dtype=torch.int64)[None, :]
+    top = (1 << bits) - 1
+    g = (x * top // max(w - 1, 1) + y * top // max(h - 1, 1)) // 2
+    return g.to(torch.uint8 if bits <= 8 else torch.uint16)
+
+
+def image_of(planes, space, chroma, bits=8):
+    """A PixelImage over ``planes`` {channel: 2-D tensor}."""
+    main = planes.get(Channel.Y)
+    h, w = main.shape
+    img = PixelImage(w, h, space, chroma)
+    for ch, p in planes.items():
+        img.set_plane(ch, p, bits)
+    return img
+
+
+def cpu_copy(img):
+    """The same image with every plane copied to the CPU."""
+    out = PixelImage(img.width, img.height, img.colorspace, img.chroma)
+    for ch in img.channels():
+        out.set_plane(ch, img.plane(ch).cpu(), img.bit_depth(ch))
+    out.bayer_pattern = img.bayer_pattern
+    return out
+
+
+def encode_file(img, fmt, options=None, device=None):
+    """One image through new_file, encode_image and write on ``device``
+    (None: the card); (file bytes, item id)."""
+    ctx = HeifContext(device=device)
+    ctx.new_file()
+    iid = ctx.encode_image(img, fmt, options)
+    return ctx.write(), iid
+
+
+def psnr(a, b, peak=255.0):
+    d = a.to(torch.float64) - b.to(torch.float64)
+    mse = float((d * d).mean())
+    return float("inf") if mse == 0 else 10 * np.log10(peak * peak / mse)
+
+
+def planes_differing(a, b, channels):
+    """Samples that differ between two decodes, by channel."""
+    return {ch: int((a.plane(ch).cpu().to(torch.int32) !=
+                     b.plane(ch).cpu().to(torch.int32)).sum())
+            for ch in channels}
+
+
+def check_jpeg_encode(src):
+    """The photo with its alpha as a jpeg item at each quality: launches
+    read around new_file / encode_image / write (jpeg_fdct_quant once for
+    the image and once for its alpha, nothing else), the file equal to the
+    CPU encode's, its decode on the card (jpeg_dequant_idct) equal to its
+    decode on the CPU, and its PSNR against the source."""
+    chans = (Channel.Y, Channel.Cb, Channel.Cr, Channel.Alpha)
+    src_cpu = cpu_copy(src)
+    out = {}
+    for q in ENC_QUALITIES:
+        opts = EncodingOptions(quality=q)
+        with launch_counts() as launches:
+            t0 = time.perf_counter()
+            blob, iid = encode_file(src, "jpeg", opts)
+            card_ms = ms_since(t0)
+        assert launches["jpeg_fdct_quant"] == 2, \
+            f"jpeg_fdct_quant: {launches['jpeg_fdct_quant']} launches for " \
+            "an image and its alpha"
+        others = {k: v for k, v in launches.items()
+                  if v and k != "jpeg_fdct_quant"}
+        assert not others, f"the jpeg encode ran {others}"
+        t0 = time.perf_counter()
+        cpu_blob, _ = encode_file(src_cpu, "jpeg", opts, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        assert blob == cpu_blob, f"q{q}: the card's file differs from the " \
+            "CPU encode's"
+        with launch_counts() as dec_launches:
+            card = HeifContext.read_from_bytes(blob).decode_image(None)
+        assert dec_launches["jpeg_dequant_idct"] == 2, dec_launches
+        cpu = HeifContext.read_from_bytes(blob, device="cpu") \
+            .decode_image(None)
+        diff = planes_differing(card, cpu, chans)
+        assert not any(diff.values()), f"q{q}: card vs CPU decode {diff}"
+        quality = {ch: psnr(card.plane(ch), src.plane(ch)) for ch in chans}
+        out[q] = {"bytes": len(blob), "launches": launches,
+                  "decode_launches": dec_launches, "card_ms": card_ms,
+                  "cpu_ms": cpu_ms, "psnr_db": quality,
+                  "card_vs_cpu_decode_differing": diff}
+        log(f"check jpeg encode q{q} {src.width}x{src.height} + alpha: "
+            f"{len(blob)} B, equal to the CPU encode's, card decode equal "
+            f"to the CPU decode, PSNR {json.dumps(quality)}, card "
+            f"{card_ms:.1f} ms, CPU {cpu_ms:.1f} ms")
+    return out
+
+
+def fdct_plain(jobs, quant):
+    return torch.cat([jpeg_idct.fdct_quant_plain(
+        jpeg_fast.padded_blocks(j), quant[j.qidx]) for j in jobs])
+
+
+def sampled_image(w, h, chroma, seed):
+    """Random 8-bit YCbCr (or monochrome) planes on the card."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    if chroma == "mono":
+        return image_of({Channel.Y: torch.randint(
+            0, 256, (h, w), generator=g, device=DEV, dtype=torch.uint8)},
+            Colorspace.Monochrome, Chroma.Monochrome)
+    sx, sy = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}[chroma]
+    cw, ch = -(-w // sx), -(-h // sy)
+    planes = {Channel.Y: (h, w), Channel.Cb: (ch, cw), Channel.Cr: (ch, cw)}
+    return image_of({c: torch.randint(0, 256, s, generator=g, device=DEV,
+                                      dtype=torch.uint8)
+                     for c, s in planes.items()}, Colorspace.YCbCr,
+                    {"444": Chroma.C444, "422": Chroma.C422,
+                     "420": Chroma.C420}[chroma])
+
+
+def check_fdct_kernel(tally, src, alpha_img):
+    """jpeg_fdct_quant against fdct_quant_plain on the card, 0
+    coefficients differing: the photo's three planes and its alpha,
+    509x301 images at every sampling, and planes at odd offsets and
+    pitches of one buffer with four tables.  Returns the photo's jobs and
+    tables for the timing row."""
+    quant = jpeg_encoder.quant_tables(90, 2, DEV)
+    photo_jobs = jpeg_encoder.component_jobs(src)[0]
+    cases = [("photo YCbCr 4:2:0", photo_jobs, quant),
+             ("photo alpha", jpeg_encoder.component_jobs(alpha_img)[0],
+              quant[:1])]
+    for i, chroma in enumerate(("444", "422", "420", "mono")):
+        img = sampled_image(509, 301, chroma, SEED + i)
+        jobs = jpeg_encoder.component_jobs(img)[0]
+        cases.append((f"509x301 {chroma}", jobs, quant[:min(len(jobs), 2)]))
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 7)
+    buf = torch.randint(0, 256, (700, 1531), generator=g, device=DEV,
+                        dtype=torch.uint8)
+    views = [buf[1:302, 3:512], buf[303:454, 1:256], buf[455:456, 7:8],
+             buf[457:700:2, 513:1530], buf[3:300, 1001:1002]]
+    four = torch.randint(1, 256, (4, 64), generator=g, device=DEV,
+                         dtype=torch.int32)
+    cases.append(("views at odd offsets of one buffer", [
+        jpeg_fast.FdctJob(v, -(-v.shape[1] // 8), -(-v.shape[0] // 8), k % 4)
+        for k, v in enumerate(views)], four))
+    for what, jobs, q in cases:
+        tally.compare("jpeg_fdct_quant", what, jpeg_fast.fdct_quant(jobs, q),
+                      fdct_plain(jobs, q), exact=True)
+    return photo_jobs, quant
+
+
+def check_unci_encode(img):
+    """The flagship 4096x4096 4:2:0 image (the main path's decode) as unci
+    items in 8x8 tiles: through encode_image with zlib over the whole
+    payload, and through UnciEncoder with zlib a tile (icef) written with
+    HeifFile; each file equal to the CPU encode's and read back through
+    HeifContext on the card, the whole image (strided_extract_paste once)
+    and every tile by decode_tile (strided_extract_paste once a tile),
+    equal to the source."""
+    chans = (Channel.Y, Channel.Cb, Channel.Cr)
+    img_cpu = cpu_copy(img)
+    out = {}
+    opts = EncodingOptions(tile_cols=TILES, tile_rows=TILES,
+                           compression="zlib")
+    t0 = time.perf_counter()
+    whole, iid = encode_file(img, "unci", opts)
+    out["whole_card_ms"] = (time.perf_counter() - t0) * 1e3
+    assert whole == encode_file(img_cpu, "unci", opts, device="cpu")[0], \
+        "unci (zlib whole): the card's file differs from the CPU encode's"
+    enc = UnciEncoder(TILES, TILES, "zlib", compress_per_tile=True)
+    t0 = time.perf_counter()
+    data, cmpd, uncC, cmpC, icef = enc.encode(img)
+    out["per_tile_card_ms"] = (time.perf_counter() - t0) * 1e3
+    ref = enc.encode(img_cpu)
+    assert data == ref[0], "unci (zlib a tile): payload differs from the CPU's"
+    for a, b in zip((cmpd, uncC, cmpC, icef), ref[1:]):
+        wa, wb = ByteWriter(), ByteWriter()
+        a.write(wa)
+        b.write(wb)
+        assert wa.data() == wb.data(), "unci boxes differ from the CPU's"
+    f = new_file()
+    tiled_id = add_unci(f, W, H, (uncC, cmpd), data,
+                        [(cmpC, True), (icef, True)], hidden=False)
+    f.set_primary_item(tiled_id)
+    per_tile = f.write()
+    for what, blob, item in (("zlib whole", whole, iid),
+                             ("zlib a tile", per_tile, tiled_id)):
+        ctx = HeifContext.read_from_bytes(blob)
+        with launch_counts() as launches:
+            back = ctx.decode_image(item)
+        assert launches["strided_extract_paste"] == 1, launches
+        for ch in chans:
+            assert torch.equal(back.plane(ch), img.plane(ch)), (what, ch)
+        tw, th = W // TILES, H // TILES
+        with launch_counts() as tile_launches:
+            tiles = [(tx, ty, ctx.decode_tile(item, tx, ty))
+                     for ty in range(TILES) for tx in range(TILES)]
+        assert tile_launches["strided_extract_paste"] == TILES * TILES, \
+            tile_launches
+        for tx, ty, t in tiles:
+            for ch, sub in zip(chans, (1, 2, 2)):
+                x0, y0 = tx * tw // sub, ty * th // sub
+                want = img.plane(ch)[y0:y0 + th // sub, x0:x0 + tw // sub]
+                assert torch.equal(t.plane(ch), want), (what, tx, ty, ch)
+        out[what] = {"bytes": len(blob), "decode_launches": launches,
+                     "tile_launches": tile_launches}
+        log(f"check unci encode {what} {W}x{H} 8x8 tiles: {len(blob)} B "
+            f"equal to the CPU encode's; decode and 64 tiles equal to the "
+            f"source, launches {launches['strided_extract_paste']} and "
+            f"{tile_launches['strided_extract_paste']}")
+    return out
+
+
+def check_mski_encode(w, h):
+    """8- and 16-bit masks (a gradient) as mski items: the file equal to
+    the CPU encode's, its decode on the card equal to the source."""
+    out = {}
+    for bits in (8, 16):
+        mask = image_of({Channel.Y: alpha_gradient(w, h, bits)},
+                        Colorspace.Monochrome, Chroma.Monochrome, bits)
+        blob, iid = encode_file(mask, "mski")
+        assert blob == encode_file(cpu_copy(mask), "mski",
+                                   device="cpu")[0], f"mski {bits}-bit"
+        back = HeifContext.read_from_bytes(blob).decode_image(iid)
+        assert back.bit_depth(Channel.Y) == bits
+        assert torch.equal(back.plane(Channel.Y).to(torch.int32),
+                           mask.plane(Channel.Y).to(torch.int32)), bits
+        out[bits] = len(blob)
+        log(f"check mski encode {bits}-bit {w}x{h}: {len(blob)} B equal to "
+            "the CPU encode's, decode equal to the source")
+    return out
+
+
+def search_planes(luma):
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 11)
+    return {"photo luma": luma,
+            "flat": torch.full((SYNTH_SIDE, SYNTH_SIDE), 97, device=DEV,
+                               dtype=torch.uint8),
+            "noise": torch.randint(0, 256, (SYNTH_SIDE, SYNTH_SIDE),
+                                   generator=g, device=DEV,
+                                   dtype=torch.uint8)}
+
+
+def check_mode_search(tally, luma):
+    """The mode search: plan_modes_device on the photo's luma with the
+    launch counts read around it (hevc_mode_search once a size, nothing
+    else), then hevc_mode_search against mode_search_plain on the photo's
+    luma and on flat and noise planes at every size.  Where the modes
+    differ, both modes' costs are recomputed in float64 on the card and
+    must be within NEAR_TIE of the larger; the count prints.  The least
+    costs' largest difference is the row's max_abs_err."""
+    with launch_counts() as launches:
+        maps = device_modes.plan_modes_device(luma)
+    assert launches["hevc_mode_search"] == len(MODE_SIZES), launches
+    others = {k: v for k, v in launches.items()
+              if v and k != "hevc_mode_search"}
+    assert not others, f"plan_modes_device ran {others}"
+    out = {"launches": launches, "cases": []}
+    for name, y in search_planes(luma).items():
+        for lg in MODE_SIZES:
+            b, r, (gh, gw) = device_modes.extract_blocks(y, lg)
+            modes, costs = hevc_fast.mode_search(b, r, lg)
+            pm, pc = hevc_fast.mode_search_plain(b, r, lg)
+            torch.cuda.synchronize()
+            if name == "photo luma":
+                assert torch.equal(maps[lg].reshape(-1), modes), \
+                    "plan_modes_device differs from mode_search"
+            idx = torch.nonzero(modes != pm).reshape(-1)
+            worst = 0.0
+            if idx.numel():
+                ca = device_modes.mode_costs(b[idx], r[idx], lg, modes[idx])
+                cb = device_modes.mode_costs(b[idx], r[idx], lg, pm[idx])
+                worst = float(((ca - cb).abs() / torch.clamp(
+                    torch.maximum(ca, cb), min=1e-300)).max())
+            cost_err = float((costs - pc).abs().max())
+            case = {"plane": name, "log2": lg, "blocks": b.shape[0],
+                    "near_tie_disagreements": int(idx.numel()),
+                    "worst_relative_gap": worst,
+                    "least_cost_max_abs_diff": cost_err}
+            out["cases"].append(case)
+            log(f"check hevc_mode_search {name} {y.shape[1]}x{y.shape[0]} "
+                f"log2 {lg}: {b.shape[0]} blocks, {idx.numel()} near-tie "
+                f"disagreements (worst gap {worst:.3g}), least costs within "
+                f"{cost_err:.3g}")
+            assert worst <= NEAR_TIE, f"{name} log2 {lg}: modes differ by " \
+                f"{worst:.3g} of their cost"
+            tally.max_abs_err["hevc_mode_search"] = max(
+                tally.max_abs_err["hevc_mode_search"], cost_err)
+            tally.checks["hevc_mode_search"] += 1
+            tally.differing["hevc_mode_search"] += int(idx.numel())
+    return out
+
+
+def time_jpeg_encode(img):
+    """encode_jpeg at the photo's size (YCbCr 4:2:0, q 90) REPEATS times,
+    each split by its spans (jpeg.encode.fdct, .copy, .entropy, .write)."""
+    runs = []
+    for _ in range(REPEATS):
+        with trace.collect() as spans:
+            t0 = time.perf_counter()
+            jpeg_encoder.encode_jpeg(img, 90)
+            total = ms_since(t0)
+        runs.append({"total_ms": total, "spans": dict(spans)})
+    for name in ("jpeg.encode.fdct", "jpeg.encode.copy",
+                 "jpeg.encode.entropy", "jpeg.encode.write"):
+        assert all(name in r["spans"] for r in runs), f"no {name} span"
+    log(f"jpeg encode {img.width}x{img.height} {json.dumps(runs)}")
+    return runs
+
+
+def check_encode(tally, photo, flagship):
+    """Phase 4i.  ``photo``: the HEVC photo's file; ``flagship``: the
+    main path's decoded 4096x4096 image."""
+    src_ycc = HeifContext.read_from_bytes(photo).decode_image(None)
+    assert (src_ycc.width, src_ycc.height, src_ycc.chroma) == \
+        (*PHOTO, Chroma.C420)
+    planes = {ch: src_ycc.plane(ch).to(torch.uint8)
+              for ch in (Channel.Y, Channel.Cb, Channel.Cr)}
+    ycc = image_of(planes, Colorspace.YCbCr, Chroma.C420)
+    alpha = alpha_gradient(*PHOTO)
+    src = image_of({**planes, Channel.Alpha: alpha}, Colorspace.YCbCr,
+                   Chroma.C420)
+    alpha_img = image_of({Channel.Y: alpha}, Colorspace.Monochrome,
+                         Chroma.Monochrome)
+    out = {"jpeg": check_jpeg_encode(src)}
+    photo_jobs, quant = check_fdct_kernel(tally, ycc, alpha_img)
+    out["unci"] = check_unci_encode(flagship)
+    out["mski"] = check_mski_encode(*PHOTO)
+    out["mode_search"] = check_mode_search(tally, planes[Channel.Y])
+    out["encode_timing"] = time_jpeg_encode(ycc)
+    return out, ycc, planes[Channel.Y]
+
+
+def jpeg_fdct_row(timer, tally, ycc, launches):
+    """jpeg_fdct_quant's row at the photo's shapes (its three planes,
+    q 90, one launch): the kernel, the plain version, the bounds."""
+    quant = jpeg_encoder.quant_tables(90, 2, DEV)
+    sets = [jpeg_encoder.component_jobs(ycc)[0]]
+    sets.append([j._replace(plane=j.plane.clone()) for j in sets[0]])
+    blocks = sum(j.blocks_w * j.blocks_h for j in sets[0])
+    # the planes read once, the coefficients written once, the tables and
+    # the job table once
+    nbytes = sum(j.plane.numel() for j in sets[0]) + blocks * 128 + \
+        quant.numel() * 4 + len(sets[0]) * jpeg_fast.FQ_JOB_COLS * 4
+    nops = blocks * 64 * FDCT_OPS_PER_SAMPLE
+    b = bounds(nbytes, nops)
+    kernel_ms, table_copy_ms = kernel_timing.kernel_ms(
+        torch, [lambda s=s: jpeg_fast.fdct_quant(s, quant) for s in sets],
+        20, "jpeg_fdct_quant")
+    row = {
+        "name": "jpeg_fdct_quant", "route": "cuda", "source": JPEG_SOURCE,
+        "replaces": f"{ENC_JNP}:45",
+        "also_replaces": [f"{ENC_JNP}:74",
+                          "libheif_tpu/codecs/jpeg/idct.py:100"],
+        "launches": launches,
+        "max_abs_err": tally.max_abs_err["jpeg_fdct_quant"],
+        "ms": timer([lambda s=s: jpeg_fast.fdct_quant(s, quant)
+                     for s in sets]),
+        "kernel_ms": kernel_ms, "table_copy_ms": table_copy_ms,
+        "plain_ms": timer([lambda: fdct_plain(sets[0], quant)], n=2),
+        **b, "library_ms": None,
+        "library_note": "no one PyTorch call computes the islow FDCT with "
+                        "its fixed-point roundings and the JPEG quantiser",
+        "checks": tally.checks["jpeg_fdct_quant"],
+        "differing_coefficients": tally.differing["jpeg_fdct_quant"],
+        "bytes": nbytes, "ops": nops, "blocks": blocks,
+        **ptxas_resources("jpeg_fdct_quant_kernel")}
+    log(f"jpeg fdct kernel {json.dumps(row)}")
+    return row
+
+
+def mode_search_work(n_blocks, log2):
+    """(bytes, FP32 operations) of hevc_mode_search on n_blocks blocks:
+    the samples and references read once, a mode and a cost written, the
+    tap tables read once; per block the non-zero taps' multiply-adds of
+    every mode but DC, DC's 2n adds, and per mode n^2 residuals,
+    2 n^2 log2(n) butterfly adds and n^2 absolute sums."""
+    n = 1 << log2
+    idx, w = hevc_fast.mode_taps(log2)
+    taps = int((w != 0).sum())
+    nbytes = n_blocks * ((n * n + 4 * n + 1) * 4 + 8) + idx.nbytes + w.nbytes
+    per_block = taps + 2 * n + len(device_modes.MODES) * (
+        n * n + 2 * n * n * log2 + n * n)
+    return nbytes, n_blocks * per_block
+
+
+def mode_search_row(timer, tally, luma, launches):
+    """hevc_mode_search's row at the photo's luma, n = 8 (190,512 blocks):
+    the kernel, the plain version, the bounds (bytes; FP32 lanes x clock),
+    and the other sizes; the dense prediction product alone as one
+    torch.matmul (TF32 off) is a partial yardstick."""
+    by_size = {}
+    for lg in MODE_SIZES:
+        blk, ref, _ = device_modes.extract_blocks(luma, lg)
+        sets = [(blk, ref), (blk.clone(), ref.clone())]
+        nbytes, nops = mode_search_work(blk.shape[0], lg)
+        b = bounds(nbytes, nops, fp32_rate())
+        n = 1 << lg
+        W = torch.from_numpy(device_modes.all_weights(lg).reshape(
+            -1, 4 * n + 1)).to(DEV)
+        with hevc_fast._no_tf32():
+            partial = timer([lambda r=r: torch.matmul(r, W.T)
+                             for _, r in sets], n=5)
+        by_size[lg] = {
+            "blocks": blk.shape[0],
+            "ms": timer([lambda s=s: hevc_fast.mode_search(*s, lg)
+                         for s in sets]),
+            "plain_ms": timer([lambda: hevc_fast.mode_search_plain(
+                blk, ref, lg)], n=2),
+            **b, "bytes": nbytes, "ops": nops,
+            "partial_yardstick_dense_prediction_matmul_ms": partial}
+        del sets
+    top = by_size[MODE_SIZES[0]]
+    row = {
+        "name": "hevc_mode_search", "route": "cuda",
+        "source": HEVC_SOURCE, "replaces": f"{MODES_JNP}:161",
+        "also_replaces": [f"{MODES_JNP}:183"],
+        "launches": launches,
+        "max_abs_err": tally.max_abs_err["hevc_mode_search"],
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "byte_bound_ms": top["byte_bound_ms"],
+        "op_bound_ms": top["op_bound_ms"], "library_ms": None,
+        "library_note": "no one PyTorch call does the search; the dense "
+                        "prediction product alone (one torch.matmul, TF32 "
+                        "off) is a partial yardstick, by size",
+        "checks": tally.checks["hevc_mode_search"],
+        "near_tie_disagreements": tally.differing["hevc_mode_search"],
+        "max_abs_err_is": "the least costs' largest difference",
+        "by_size": by_size, "fp32_ops_per_s": fp32_rate(),
+        **ptxas_resources("hevc_mode_search_kernel")}
+    log(f"hevc mode search kernel {json.dumps(row)}")
+    return row
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -3980,62 +4487,80 @@ def nvidia_smi():
     return out.stdout.strip()
 
 
-def sequences_only():
-    """``python3 chip_smoke.py --sequences-only``: the build, phase 4h and
-    hevc_inter_pred's row alone, on card 0; the same last two lines as
-    ``main`` (the kernels line holding that row only)."""
-    if not torch.cuda.is_available():
-        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
-        return 1
+def build_library():
+    """Build (or load) every kernel, logging the time and ptxas's lines."""
     t0 = time.perf_counter()
-    log(nvidia_smi())
     _build.LIBRARY.load()
     log(f"built {_build.LIBRARY.path} in {time.perf_counter() - t0:.1f} s")
     for line in _build.LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("ptxas:", line.strip())
-    tally = Tally()
-    seq, captured, stress = check_sequences(tally)
-    row = inter_pred_row(
-        DeviceTimer(), tally, captured["x265-1920x1080"],
-        sum(seq[n]["launches"]["hevc_inter_pred"] for n in SEQ_STREAMS),
-        stress)
-    log("summary " + json.dumps({"sequences": seq, "checks": tally.checks,
-                                 "elapsed_s": time.perf_counter() - t0}))
-    print(json.dumps({"kernels": [row]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
-def mesh_only():
-    """``python3 chip_smoke.py --mesh-only``: the build and phase 4g
-    alone, on every card present (a machine with several cards runs the
-    cards' mesh over all of them); the same last line as ``main``."""
+def flagship_input():
+    """The flagship unci item's uncC, cmpd and random payload."""
+    uncC, cmpd = ycc420(W, H, (TILES, TILES))
+    data = np.random.default_rng(SEED).integers(
+        0, 256, W * H * 3 // 2, dtype=np.uint8).tobytes()
+    return uncC, cmpd, data
+
+
+def run_alone(what, body):
+    """One phase alone (``python3 chip_smoke.py --<what>-only``): the card's
+    line and the build, then ``body(tally)`` -> (its summary, its kernel
+    rows or None), then the same last lines as ``main`` (the kernels line,
+    where there are rows, holding those rows only)."""
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
     log(nvidia_smi())
     device0 = torch.cuda.current_device()
-    _build.LIBRARY.load()
-    log(f"built {_build.LIBRARY.path} in {time.perf_counter() - t0:.1f} s")
-    uncC, cmpd = ycc420(W, H, (TILES, TILES))
-    data = np.random.default_rng(SEED).integers(
-        0, 256, W * H * 3 // 2, dtype=np.uint8).tobytes()
+    build_library()
     tally = Tally()
-    mesh = check_mesh(tally, uncC, cmpd, data,
-                      np_planes(data, TILES, W // TILES, H // TILES),
-                      photo_file(hevc_streams()))
+    summary, rows = body(tally)
     assert torch.cuda.current_device() == device0, \
-        "the mesh phase left another current device"
-    log("summary " + json.dumps({"mesh": mesh, "checks": tally.checks,
+        f"phase {what} left another current device"
+    log("summary " + json.dumps({what: summary, "checks": tally.checks,
                                  "elapsed_s": time.perf_counter() - t0}))
+    if rows is not None:
+        print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def encode_alone(tally):
+    """Phase 4i and its kernels' rows, on card 0."""
+    uncC, cmpd, data = flagship_input()
+    _, flagship, _ = decode_and_convert(uncC, cmpd, W, H, data)
+    enc, ycc, luma = check_encode(tally, photo_file(hevc_streams()),
+                                  flagship)
+    timer = DeviceTimer()
+    return enc, [
+        jpeg_fdct_row(timer, tally, ycc, sum(
+            r["launches"]["jpeg_fdct_quant"] for r in enc["jpeg"].values())),
+        mode_search_row(timer, tally, luma,
+                        enc["mode_search"]["launches"]["hevc_mode_search"])]
+
+
+def sequences_alone(tally):
+    """Phase 4h and hevc_inter_pred's row, on card 0."""
+    seq, captured, stress = check_sequences(tally)
+    return seq, [inter_pred_row(
+        DeviceTimer(), tally, captured["x265-1920x1080"],
+        sum(seq[n]["launches"]["hevc_inter_pred"] for n in SEQ_STREAMS),
+        stress)]
+
+
+def mesh_alone(tally):
+    """Phase 4g on every card present (a machine with several cards runs
+    the cards' mesh over all of them)."""
+    uncC, cmpd, data = flagship_input()
+    return check_mesh(tally, uncC, cmpd, data,
+                      np_planes(data, TILES, W // TILES, H // TILES),
+                      photo_file(hevc_streams())), None
 
 
 def main():
@@ -4048,8 +4573,10 @@ def main():
     device0 = torch.cuda.current_device()
 
     def phase_done(name):
+        last = max(phase_s.values(), default=0.0)
         phase_s[name] = time.perf_counter() - t_start
-        log(f"phase {name} done at {phase_s[name]:.1f} s")
+        log(f"phase {name} done at {phase_s[name]:.1f} s, took "
+            f"{phase_s[name] - last:.1f} s")
         assert torch.cuda.current_device() == device0, \
             f"phase {name} left the current device at " \
             f"{torch.cuda.current_device()}, not {device0}"
@@ -4064,12 +4591,7 @@ def main():
         f"python {sys.version.split()[0]}")
 
     # 2. build
-    t0 = time.perf_counter()
-    _build.LIBRARY.load()
-    log(f"built {_build.LIBRARY.path} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.LIBRARY.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("ptxas:", line.strip())
+    build_library()
 
     phase_done("build")
 
@@ -4173,13 +4695,14 @@ def main():
     a_plan_ms = ms_since(t0)
     a_groups = {f"{av1_recon.KIND_NAMES[g.kind]}{g.sq}": g.n
                 for g in a_plan.groups}
-    log(f"av1 photo file {len(a_photo)} B, {a_plan.t} tiles, "
-        f"{a_plan.n_waves} waves, groups {a_groups}, plan "
-        f"{a_plan_ms:.0f} ms")
+    log(f"av1 photo file {len(a_photo)} B, {AV1_PHOTO_GRID} tiles; "
+        f"kernel plan {a_plan.t} tiles, {a_plan.n_waves} waves, groups "
+        f"{a_groups}, plan {a_plan_ms:.0f} ms")
     check_av1_plan(tally, f"photo {a_plan.t} tiles", a_plan)
     # one decode under the profiler: launches, spans and the card's share
-    a_launches, a_first, _a_rgb = check_av1_photo(a_photo, a_streams,
-                                                  a_plan.t, profile=True)
+    a_launches, a_first, _a_rgb = check_av1_photo(
+        a_photo, a_streams, AV1_PHOTO_GRID[0] * AV1_PHOTO_GRID[1],
+        profile=True)
     g_photo = av1_photo_file(a_streams, GRAIN_TILES, GRAIN_GRID, GRAIN_PHOTO)
     log(f"av1 grain photo file {len(g_photo)} B, tiles {GRAIN_TILES}")
     g_launches, g_first, _g_rgb = check_av1_photo(
@@ -4212,6 +4735,13 @@ def main():
     log(f"phase 4h (sequences) took {seq['seconds']:.1f} s")
 
     phase_done("sequences")
+
+    # 4i. still-image encode through HeifContext on the card: jpeg items of
+    # the HEVC photo with alpha, unci items of the flagship, mski masks;
+    # the FDCT kernel against its plain version; the intra mode search
+    enc, enc_ycc, enc_luma = check_encode(tally, photo, img)
+
+    phase_done("encode")
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -4422,6 +4952,15 @@ def main():
 
     # the JPEG kernel at the photo's shapes, and its decode part by part
     kern.update(jpeg_kernel_row(timer, tally, j_frames, j_launches))
+    # the encode side's kernels at the photo's shapes
+    kern["jpeg_fdct_quant"] = jpeg_fdct_row(timer, tally, enc_ycc, sum(
+        r["launches"]["jpeg_fdct_quant"] for r in enc["jpeg"].values()))
+    kern["jpeg_fdct_quant"]["launches_by_path"] = {
+        f"jpeg encode q{q} with alpha": r["launches"]["jpeg_fdct_quant"]
+        for q, r in enc["jpeg"].items()}
+    kern["hevc_mode_search"] = mode_search_row(
+        timer, tally, enc_luma,
+        enc["mode_search"]["launches"]["hevc_mode_search"])
     log(f"file single total ms {[r['total_ms'] for r in single_runs]} "
         f"beside the library path {e2e_ms} ms")
 
@@ -4473,10 +5012,11 @@ def main():
                               "waves": s_plan.n_waves,
                               "launches": s_launches, "runs": s_photo_runs},
         "hevc_single_item_total_ms": hvc1_runs,
-        "av1_photo": {"shape": f"{PHOTO[0]}x{PHOTO[1]} from "
-                      f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} av01 tiles of "
-                      "512x512", "waves": a_plan.n_waves,
-                      "launches": a_launches, "parts": a_first},
+        "av1_photo": {"shape": f"{AV1_PHOTO[0]}x{AV1_PHOTO[1]} from "
+                      f"{AV1_PHOTO_GRID[0]}x{AV1_PHOTO_GRID[1]} av01 tiles "
+                      "of 512x512", "launches": a_launches, "parts": a_first},
+        "av1_kernel_plan": {"tiles": a_plan.t, "waves": a_plan.n_waves,
+                            "groups": a_groups},
         "av1_single_item_total_ms": av01_single,
         "av1_grain_photo": {"shape": f"{GRAIN_PHOTO[0]}x{GRAIN_PHOTO[1]} "
                             f"from {GRAIN_GRID[0]}x{GRAIN_GRID[1]} film-grain "
@@ -4487,7 +5027,7 @@ def main():
                        f"{PHOTO_GRID[0]}x{PHOTO_GRID[1]} jpeg tiles of "
                        "512x512", "launches": j_launches, "parts": j_runs},
         "colour_ops": colour_rows, "metadata_file": metadata,
-        "mesh": mesh, "sequences": seq,
+        "mesh": mesh, "sequences": seq, "encode": enc,
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
         "phase_s": phase_s, "elapsed_s": time.perf_counter() - t_start}
     # launches of the mesh paths (phase 4g), per kernel and path
@@ -4510,6 +5050,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_only() if sys.argv[1:] == ["--mesh-only"] else
-             sequences_only() if sys.argv[1:] == ["--sequences-only"] else
-             main())
+    ALONE = {"--mesh-only": ("mesh", mesh_alone),
+             "--sequences-only": ("sequences", sequences_alone),
+             "--encode-only": ("encode", encode_alone)}
+    alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
+    sys.exit(run_alone(*alone) if alone else main())

@@ -2,7 +2,9 @@
 too), hvc1 (HEVC intra), av01 (AV1 intra), jpeg, grid, iden, overlay,
 tili and mski images, mini files, their transforms and alpha, the colour
 conversion, and the read-side metadata (Exif, XMP, region and text
-items), from bytes, a path or a streaming reader.
+items), from bytes, a path or a streaming reader; and still-image files
+written with unci, mski and jpeg items (``HeifContext.new_file``,
+``encode_image``, ``write``).
 
 The package mirrors the module names of ``libheif_tpu`` so each part can
 be read beside its counterpart, but it imports nothing from it and never
@@ -20,6 +22,7 @@ from .codecs.hevc import decode_intra_picture
 from .context import HeifContext
 from .file import HeifFile
 from .items import DecodingOptions
+from .option_types import EncodingOptions
 
 __all__ = ["resolve_device", "HeifContext", "HeifFile", "DecodingOptions",
-           "decode_intra_picture"]
+           "EncodingOptions", "decode_intra_picture"]

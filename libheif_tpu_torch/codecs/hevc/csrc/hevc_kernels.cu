@@ -16,6 +16,11 @@
 //                        compensation of P and B pictures (recon.py
 //                        :78-166, :405-436); every PU of a picture
 //
+//   hevc_mode_search  <- the encoder's open-loop intra mode search, the jnp
+//                        program device_modes.py _jitted_search :161-180
+//                        (notes at the end of this file); every block of
+//                        one size
+//
 // Stages C and D (deblocking, SAO) stay plain PyTorch.
 //
 // What bounds them on an H100, and what the design does about it:
@@ -1286,6 +1291,211 @@ int launch_hevc_inter_pred(const void* jobs, int n_jobs, const void* ydpb,
   const int blocks = need < resident[device] ? need : resident[device];
   kernel<<<blocks, kInterWarps * 32, kInterSmem,
            static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------ mode search
+//
+// hevc_mode_search <- device_modes.py _jitted_search :161-180: for every
+// n x n block (n = 8, 16, 32) and each of the 35 intra modes, the open-loop
+// prediction from the block's 4n+1 reference samples, the residual, its
+// 2-D Hadamard transform, the sum of absolute values / n (equal to the jnp
+// program's H/sqrt(n) R H/sqrt(n)), and the first mode of least cost.
+//
+// The jnp program multiplies by the dense (35, n^2, 4n+1) weight array
+// (18.5 MB at n = 32); here each predicted sample takes the non-zero taps
+// of that array's row (device_modes.weight_matrix), at most four for planar
+// and the angular modes, read from a (35, n^2) table of (index, weight)
+// quadruples that the wrapper builds once per size; DC is the mean of its
+// 2n references, once per block.
+//
+// Bounds (the 4032x3024 luma, n = 8, 190,512 blocks): bytes, the blocks and
+// references read once and a mode and cost written, 75.5 MB, 0.0225 ms at
+// 3.35 TB/s; FP32 operations, per block the non-zero taps' multiply-adds,
+// and per mode n^2 residuals, 2 n^2 log2(n) butterfly adds and n^2
+// absolute sums, about 22,000 a block, 4.2 billion in all, 0.126 ms at 132
+// SMs x 128 FP32 lanes x 1.98 GHz.  The operations bind.
+//
+// Design (a simple first kernel).  A CTA of 256 threads holds 1,024 samples
+// in shared memory: 16 blocks at n = 8, 4 at n = 16, one at n = 32, each
+// thread four consecutive samples of one block, with the blocks' references
+// and a work array.  For each mode a thread writes its samples' residuals;
+// the Hadamard transform runs along the rows, then the columns, as
+// butterflies in shared memory (two a thread a stage, a barrier between
+// stages); each block's threads sum their |values| by a tree in shared
+// memory; the block's first thread keeps the running least cost and its
+// mode (strict <, the first on ties, as argmin).  It writes the mode (int32)
+// and the least cost (f32, for the checks).  Each mode costs a CTA twelve
+// barriers at n = 8 (sixteen at 16, twenty at 32), 420-700 in all.
+//
+// What holds it (codecs/hevc/mode_search_profile.py, variants with one part
+// left out, on an H100 80GB HBM3 at 700 W): at n = 8 the tap tables' reads
+// from global memory (32 bytes a sample a mode) take about half the time
+// and the butterflies 29%; at n = 16 and 32 the butterflies take 52% and
+// 77%, their column stages 4- to 16-way bank-conflicted (stride n); the
+// barriers and the tree sum about 5% each.
+//
+// ptxas -v (sm_90a, CUDA 12.8): 44 registers at n = 8, 52 at 16 and 32,
+// 9,744-11,392 bytes of shared memory, a 0-byte stack, no spills.
+
+namespace {
+
+constexpr int kMsThreads = 256;
+constexpr int kMsSamples = 1024;       // samples a CTA: kMsThreads x 4
+constexpr int kMsModes = 35;
+
+template <int kLog2>
+__global__ void __launch_bounds__(kMsThreads) hevc_mode_search_kernel(
+    const float* __restrict__ blocks, const float* __restrict__ refs,
+    int n_blocks, const int4* __restrict__ tap_idx,
+    const float4* __restrict__ tap_w, int* __restrict__ modes,
+    float* __restrict__ costs) {
+  constexpr int n = 1 << kLog2;
+  constexpr int nn = n * n;
+  constexpr int n_ref = 4 * n + 1;
+  constexpr int corner = 2 * n;
+  constexpr int kBlocks = kMsSamples / nn;       // blocks a CTA
+  constexpr int kTpb = nn / 4;                   // threads a block
+  __shared__ float src_s[kMsSamples];
+  __shared__ float work_s[kMsSamples];
+  __shared__ float ref_s[kBlocks * n_ref];
+  __shared__ float red_s[kMsThreads];
+  __shared__ float dc_s[kBlocks];
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kBlocks;
+  const int n_here = min(kBlocks, n_blocks - b0);
+  for (int i = tid; i < kMsSamples; i += kMsThreads)
+    src_s[i] = i < n_here * nn
+                   ? blocks[static_cast<long long>(b0) * nn + i] : 0.f;
+  for (int i = tid; i < kBlocks * n_ref; i += kMsThreads)
+    ref_s[i] = i < n_here * n_ref
+                   ? refs[static_cast<long long>(b0) * n_ref + i] : 0.f;
+  __syncthreads();
+  if (tid < kBlocks) {
+    // DC: the left n and the top n references, / 2n (weight_matrix mode 1)
+    const float* r = ref_s + tid * n_ref;
+    float s = 0.f;
+    for (int i = corner - n; i < corner; ++i) s += r[i];
+    for (int i = corner + 1; i <= corner + n; ++i) s += r[i];
+    dc_s[tid] = s * (1.f / (2 * n));
+  }
+  __syncthreads();
+  const int blk = tid / kTpb;                    // this thread's block
+  const int lt = tid - blk * kTpb;               // its place in the block
+  const float* ref = ref_s + blk * n_ref;
+  float best = 3.402823466e38f;
+  int best_mode = 0;
+  for (int m = 0; m < kMsModes; ++m) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int s = tid * 4 + q;
+      const int j = s - blk * nn;
+      float pred;
+      if (m == 1) {
+        pred = dc_s[blk];
+      } else {
+        const int4 ix = tap_idx[m * nn + j];
+        const float4 w = tap_w[m * nn + j];
+        pred = w.x * ref[ix.x];
+        pred += w.y * ref[ix.y];
+        pred += w.z * ref[ix.z];
+        pred += w.w * ref[ix.w];
+      }
+      work_s[s] = pred - src_s[s];
+    }
+    __syncthreads();
+    // rows: 512 butterfly pairs a stage, pair p in row p / (n/2)
+#pragma unroll
+    for (int h = 1; h < n; h <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int p = tid + k * kMsThreads;
+        const int row = p / (n / 2), kk = p - row * (n / 2);
+        const int i = row * n + (kk / h) * 2 * h + (kk % h);
+        const float a = work_s[i], b = work_s[i + h];
+        work_s[i] = a + b;
+        work_s[i + h] = a - b;
+      }
+      __syncthreads();
+    }
+    // columns: column c of block b, pairs along the rows (stride n)
+#pragma unroll
+    for (int h = 1; h < n; h <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int p = tid + k * kMsThreads;
+        const int col = p / (n / 2), kk = p - col * (n / 2);
+        const int b = col / n, c = col - b * n;
+        const int i = b * nn + ((kk / h) * 2 * h + (kk % h)) * n + c;
+        const float a = work_s[i], bb = work_s[i + h * n];
+        work_s[i] = a + bb;
+        work_s[i + h * n] = a - bb;
+      }
+      __syncthreads();
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc += fabsf(work_s[tid * 4 + q]);
+    red_s[tid] = acc;
+    __syncthreads();
+#pragma unroll
+    for (int st = kTpb / 2; st > 0; st >>= 1) {
+      if (lt < st) red_s[tid] += red_s[tid + st];
+      __syncthreads();
+    }
+    if (lt == 0) {
+      const float cost = red_s[tid] * (1.f / n);
+      if (cost < best) {
+        best = cost;
+        best_mode = m;
+      }
+    }
+  }
+  if (lt == 0 && blk < n_here) {
+    modes[b0 + blk] = best_mode;
+    costs[b0 + blk] = best;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// blocks: (n_blocks, n^2) f32; refs: (n_blocks, 4n+1) f32; tap_idx, tap_w:
+// (35, n^2) int4 / float4 (16-byte aligned), the non-zero taps of each
+// predicted sample, padded with weight 0; modes: (n_blocks,) int32; costs:
+// (n_blocks,) f32; log2: 3, 4 or 5
+int launch_hevc_mode_search(const void* blocks, const void* refs,
+                            int n_blocks, int log2, const void* tap_idx,
+                            const void* tap_w, void* modes, void* costs,
+                            int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_blocks < 1 || log2 < 3 || log2 > 5 ||
+      ((reinterpret_cast<uintptr_t>(tap_idx) |
+        reinterpret_cast<uintptr_t>(tap_w)) & 15) != 0)
+    return kInvalid;
+  const int per_cta = kMsSamples >> (2 * log2);
+  const unsigned ctas = static_cast<unsigned>((n_blocks + per_cta - 1) /
+                                              per_cta);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(blocks);
+  const float* r = static_cast<const float*>(refs);
+  const int4* ti = static_cast<const int4*>(tap_idx);
+  const float4* tw = static_cast<const float4*>(tap_w);
+  int* mo = static_cast<int*>(modes);
+  float* co = static_cast<float*>(costs);
+  if (log2 == 3)
+    hevc_mode_search_kernel<3><<<ctas, kMsThreads, 0, st>>>(
+        b, r, n_blocks, ti, tw, mo, co);
+  else if (log2 == 4)
+    hevc_mode_search_kernel<4><<<ctas, kMsThreads, 0, st>>>(
+        b, r, n_blocks, ti, tw, mo, co);
+  else
+    hevc_mode_search_kernel<5><<<ctas, kMsThreads, 0, st>>>(
+        b, r, n_blocks, ti, tw, mo, co);
   return static_cast<int>(cudaGetLastError());
 }
 

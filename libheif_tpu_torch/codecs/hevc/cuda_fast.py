@@ -19,17 +19,23 @@ hevc_inter_pred    recon.py ``_gather`` :78, ``mc_luma_14``    inter_pred
                    :86, ``mc_chroma_14`` :113, ``weight_uni``
                    :140, ``weight_bi`` :148, ``_mc_pu``
                    :405-436: every PU of a picture
+hevc_mode_search   the encoder's intra mode search,            mode_search
+                   device_modes.py ``_jitted_search``
+                   :161-180: every block of one size
 =================  ==========================================  ===========
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
 tensors it runs the plain version beside it, which repeats the jnp
-program's int32 arithmetic operation by operation.  Every kernel carries
-a launch count (``KERNELS[name].launches``).
+program's int32 arithmetic operation by operation (the mode search's, its
+float32 products, with TF32 off).  Every kernel carries a launch count
+(``KERNELS[name].launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from functools import lru_cache
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -57,8 +63,13 @@ HEVC_INTER_PRED = CudaKernel(
     "hevc_inter_pred", "launch_hevc_inter_pred",
     [_P, _I, _P, _P, _I, _I, _I, _P, _P])
 
+HEVC_MODE_SEARCH = CudaKernel(
+    "hevc_mode_search", "launch_hevc_mode_search",
+    [_P, _P, _I, _I, _P, _P, _P, _P])
+
 KERNELS: Dict[str, CudaKernel] = {
-    k.name: k for k in (HEVC_DEQUANT_ITX, HEVC_INTRA_WAVE, HEVC_INTER_PRED)}
+    k.name: k for k in (HEVC_DEQUANT_ITX, HEVC_INTRA_WAVE, HEVC_INTER_PRED,
+                        HEVC_MODE_SEARCH)}
 
 LEVEL_SCALE = (40, 45, 51, 57, 64, 72)
 MAX_GROUPS = 7          # kMaxGroups in csrc/hevc_kernels.cu
@@ -586,3 +597,124 @@ def inter_pred_plain(jobs, ydpb, cdpb, ybuf, cbuf, *, bd: int,
             base = 0 if luma else (plane - 1) * ch * cw
             buf = ybuf if luma else cbuf
             buf[(base + yy * pw + xx)[ok]] = pred[ok].to(torch.int32)
+
+
+# ------------------------------------------------------------ mode search
+
+MODE_TAPS = 4           # taps a predicted sample in hevc_mode_search
+# the plain search's (chunk, 35, n^2) float32 intermediates: 2^28 bytes each
+PLAIN_CHUNK_BYTES = 1 << 28
+
+
+@lru_cache(maxsize=None)
+def mode_taps(log2: int):
+    """The non-zero taps of every predicted sample of every mode but DC,
+    from ``device_modes.weight_matrix``: (35, n^2, 4) int32 reference
+    indices and float32 weights, in ascending index order, padded with
+    weight 0.  DC's rows are left empty: the kernel takes the mean of the
+    references that its weight matrix names (checked here)."""
+    from .device_modes import MODES, weight_matrix
+    n = 1 << log2
+    idx = np.zeros((len(MODES), n * n, MODE_TAPS), np.int32)
+    w = np.zeros((len(MODES), n * n, MODE_TAPS), np.float32)
+    for m in MODES:
+        W = weight_matrix(m, log2)
+        if m == 1:
+            corner = 2 * n
+            want = np.zeros(4 * n + 1, np.float32)
+            want[corner - n:corner] = want[corner + 1:corner + n + 1] = \
+                1.0 / (2 * n)
+            assert (W == want[None, :]).all(), "DC is not the mean"
+            continue
+        for j in range(n * n):
+            nz = np.nonzero(W[j])[0]
+            assert len(nz) <= MODE_TAPS, (m, log2, j)
+            idx[m, j, :len(nz)] = nz
+            w[m, j, :len(nz)] = W[j, nz]
+    return idx, w
+
+
+_TAPS_ON: Dict[tuple, tuple] = {}
+
+
+def _taps_on(log2: int, device: torch.device):
+    key = (log2, str(device))
+    if key not in _TAPS_ON:
+        idx, w = mode_taps(log2)
+        _TAPS_ON[key] = (torch.from_numpy(idx).to(device),
+                         torch.from_numpy(w).to(device))
+    return _TAPS_ON[key]
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _check_search(blocks: torch.Tensor, refs: torch.Tensor, log2: int):
+    n = 1 << log2
+    if log2 not in (3, 4, 5):
+        raise ValueError(f"log2 {log2}: the search takes 8, 16 and 32")
+    if blocks.dtype != torch.float32 or blocks.dim() != 2 or \
+            blocks.shape[1] != n * n:
+        raise ValueError(f"blocks: expected (N, {n * n}) float32, got "
+                         f"{tuple(blocks.shape)} {blocks.dtype}")
+    if refs.dtype != torch.float32 or \
+            tuple(refs.shape) != (blocks.shape[0], 4 * n + 1):
+        raise ValueError(f"refs: expected ({blocks.shape[0]}, {4 * n + 1}) "
+                         f"float32, got {tuple(refs.shape)} {refs.dtype}")
+
+
+def mode_search_plain(blocks: torch.Tensor, refs: torch.Tensor, log2: int):
+    """``_jitted_search`` in torch float32 with TF32 off, in chunks of
+    blocks: every mode's prediction as the dense weight product, the
+    residual, H/sqrt(n) R H/sqrt(n), the sum of absolute values, the first
+    least.  Returns (modes (N,) int32, least costs (N,) float32)."""
+    from .device_modes import all_weights, hadamard
+    _check_search(blocks, refs, log2)
+    n = 1 << log2
+    dev = blocks.device
+    W = torch.from_numpy(all_weights(log2)).to(dev)
+    H = torch.from_numpy(hadamard(n) / np.sqrt(n)).to(torch.float32).to(dev)
+    chunk = max(1, PLAIN_CHUNK_BYTES // (4 * W.shape[0] * n * n))
+    modes, costs = [], []
+    with _no_tf32():
+        for i in range(0, blocks.shape[0], chunk):
+            b, r = blocks[i:i + chunk], refs[i:i + chunk]
+            preds = torch.einsum("nk,mjk->nmj", r, W)
+            res = (preds - b[:, None, :]).reshape(b.shape[0], -1, n, n)
+            t = torch.einsum("ij,nmjk,kl->nmil", H, res, H)
+            cost = t.abs().sum(dim=(2, 3))
+            best = torch.argmin(cost, dim=1)
+            modes.append(best.to(torch.int32))
+            costs.append(cost.gather(1, best[:, None])[:, 0])
+    if not modes:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.float32, device=dev))
+    return torch.cat(modes), torch.cat(costs)
+
+
+def mode_search(blocks: torch.Tensor, refs: torch.Tensor, log2: int):
+    """The first mode of least SATD of every n x n block (n = 2^log2) from
+    its samples and 4n+1 references (``device_modes.extract_blocks``), one
+    launch: (modes (N,) int32, least costs (N,) float32)."""
+    _check_search(blocks, refs, log2)
+    if _on_cpu(blocks.contiguous(), refs.contiguous()):
+        return mode_search_plain(blocks, refs, log2)
+    blocks, refs = blocks.contiguous(), refs.contiguous()
+    n_blocks = blocks.shape[0]
+    if n_blocks >= 1 << 31:
+        raise ValueError("more than 2^31 - 1 blocks")
+    tap_idx, tap_w = _taps_on(log2, blocks.device)
+    modes = torch.empty(n_blocks, dtype=torch.int32, device=blocks.device)
+    costs = torch.empty(n_blocks, dtype=torch.float32, device=blocks.device)
+    HEVC_MODE_SEARCH.launch(modes, blocks.data_ptr(), refs.data_ptr(),
+                            n_blocks, log2, tap_idx.data_ptr(),
+                            tap_w.data_ptr(), modes.data_ptr(),
+                            costs.data_ptr())
+    return modes, costs

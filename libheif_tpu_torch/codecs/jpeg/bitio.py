@@ -1,10 +1,11 @@
 """JPEG entropy-layer bit input and canonical Huffman tables.
 
-Counterpart of libheif_tpu/codecs/jpeg/bitio.py, decode side (T.81
-Annex C/F): the port's Python scan reads with these, and it is the plain
-reference of the C++ scan (host/jpeg_scan.cc), which builds its own
-lookup tables.  The Huffman table uses a 16-bit lookahead, so each symbol
-is one table lookup.  The bit writer waits for the encoder.
+Counterpart of libheif_tpu/codecs/jpeg/bitio.py (T.81 Annex C/F): the
+port's Python scan reads with these, and it is the plain reference of the
+C++ scan (host/jpeg_scan.cc), which builds its own lookup tables.  The
+Huffman table uses a 16-bit lookahead, so each symbol is one table
+lookup.  ``BitWriter`` (:147-174) is the encoder's, used by the Python
+scan emission that the tests hold the C++ encode scan to.
 """
 
 from __future__ import annotations
@@ -143,3 +144,33 @@ def extend(value: int, size: int) -> int:
     if value < (1 << (size - 1)):
         return value - (1 << size) + 1
     return value
+
+
+class BitWriter:
+    """MSB-first bit writer with 0xFF byte stuffing (encoder side)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = 0
+        self.nbits = 0
+
+    def put_bits(self, value: int, n: int):
+        if n == 0:
+            return
+        self.acc = (self.acc << n) | (value & ((1 << n) - 1))
+        self.nbits += n
+        while self.nbits >= 8:
+            b = (self.acc >> (self.nbits - 8)) & 0xFF
+            self.out.append(b)
+            if b == 0xFF:
+                self.out.append(0x00)
+            self.nbits -= 8
+        self.acc &= (1 << self.nbits) - 1
+
+    def pad_to_byte(self):
+        """Pad with 1-bits to byte boundary (T.81 F.1.2.3)."""
+        if self.nbits:
+            self.put_bits((1 << (8 - self.nbits)) - 1, 8 - self.nbits)
+
+    def getvalue(self) -> bytes:
+        return bytes(self.out)

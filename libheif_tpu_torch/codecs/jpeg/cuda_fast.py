@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernel of the JPEG reconstruction, and its plain
-PyTorch version.
+"""Hand-written CUDA kernels of the JPEG reconstruction and of the
+encoder's forward DCT and quantiser, and their plain PyTorch versions.
 
 The JAX package's jnp ``_recon_program``
 (libheif_tpu/codecs/jpeg/decoder.py:500-528, with ``idct8x8_islow``,
-codecs/jpeg/idct.py:79-97) is one kernel in ``csrc/jpeg_kernels.cu``:
+codecs/jpeg/idct.py:79-97) and its encoder's ``_fdct_quant_program``
+(codecs/jpeg/encoder.py:45-84, with ``fdct8x8_islow``, idct.py:100-154)
+are kernels in ``csrc/jpeg_kernels.cu``:
 
 =================  ==========================================  ============
 kernel             replaces                                    wrapper
@@ -11,12 +13,16 @@ kernel             replaces                                    wrapper
 jpeg_dequant_idct  ``_recon_program``: dequantise, de-zigzag,  dequant_idct
                    islow IDCT, +128, clip, reassembly; every
                    component plane of every tile of a batch
+jpeg_fdct_quant    ``_fdct_quant_program``: edge padding,      fdct_quant
+                   level shift, islow FDCT, quantise, zigzag;
+                   every component plane of an image
 =================  ==========================================  ============
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
-tensors it runs the plain version (``idct.recon_plain``), which repeats
-the jnp program's int32 arithmetic with its wraparound.  The kernel
-carries a launch count (``KERNELS[name].launches``).
+tensors it runs the plain version (``idct.recon_plain``,
+``idct.fdct_quant_plain``), which repeats the jnp program's int32
+arithmetic.  Each kernel carries a launch count
+(``KERNELS[name].launches``).
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 
 from ..._build import CudaKernel
 from ..unc.cuda_fast import _on_cpu
-from .idct import recon_plain
+from .idct import fdct_quant_plain, recon_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -37,7 +43,12 @@ JPEG_DEQUANT_IDCT = CudaKernel(
     "jpeg_dequant_idct", "launch_jpeg_dequant_idct",
     [_P, _P, _P, _I, _I])
 
-KERNELS: Dict[str, CudaKernel] = {JPEG_DEQUANT_IDCT.name: JPEG_DEQUANT_IDCT}
+JPEG_FDCT_QUANT = CudaKernel(
+    "jpeg_fdct_quant", "launch_jpeg_fdct_quant",
+    [_P, _I, _I, _P, _I, _P])
+
+KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (JPEG_DEQUANT_IDCT,
+                                                      JPEG_FDCT_QUANT)}
 
 JOB_COLS = 8            # kJobCols in csrc/jpeg_kernels.cu
 TILE_BLOCKS = 32        # kTileBlocks: blocks of one block row a CTA
@@ -144,3 +155,104 @@ def dequant_idct(coeffs: torch.Tensor, quant: torch.Tensor,
     table_d = table.to(coeffs.device, non_blocking=True)
     JPEG_DEQUANT_IDCT.launch(coeffs, coeffs.data_ptr(), quant.data_ptr(),
                              table_d.data_ptr(), len(jobs), n_ctas)
+
+
+# ------------------------------------------------------------- encode side
+
+FQ_JOB_COLS = 10        # kFqJobCols in csrc/jpeg_kernels.cu
+FQ_BLOCKS = 8           # kFqBlocks: 8x8 blocks a CTA, eight threads each
+FQ_MAX_TABLES = 4
+
+
+class FdctJob(NamedTuple):
+    """One component plane of an encode: a uint8 (h, w) view with unit
+    column stride, coded as ``blocks_h`` x ``blocks_w`` blocks (the MCU
+    grid's, which may reach past the plane: the samples beyond it repeat
+    its last row and column) with row ``qidx`` of the quantisation
+    tables."""
+    plane: torch.Tensor
+    blocks_w: int
+    blocks_h: int
+    qidx: int
+
+
+def padded_blocks(job: FdctJob) -> torch.Tensor:
+    """The job's level-shifted (blocks_h·blocks_w, 8, 8) int32 blocks in
+    row-major block order, the plane edge-replicated to the block grid
+    (the JAX encoder.py's ``_pad_to`` and ``_blocks_of``) by clamped
+    indices."""
+    p = job.plane
+    h, w = p.shape
+    ys = torch.clamp(torch.arange(job.blocks_h * 8, device=p.device),
+                     max=h - 1)
+    xs = torch.clamp(torch.arange(job.blocks_w * 8, device=p.device),
+                     max=w - 1)
+    padded = p[ys[:, None], xs[None, :]].to(torch.int32) - 128
+    return padded.reshape(job.blocks_h, 8, job.blocks_w, 8) \
+        .permute(0, 2, 1, 3).reshape(-1, 8, 8)
+
+
+def _check_fdct(jobs: Sequence[FdctJob], quant: torch.Tensor) -> None:
+    if quant.dtype != torch.int32 or quant.dim() != 2 or \
+            quant.shape[1] != 64 or not 1 <= quant.shape[0] <= FQ_MAX_TABLES:
+        raise ValueError(f"quant: expected (Q <= {FQ_MAX_TABLES}, 64) int32, "
+                         f"got {tuple(quant.shape)} {quant.dtype}")
+    if not jobs:
+        raise ValueError("no plane to encode")
+    for j in jobs:
+        h, w = j.plane.shape
+        if j.plane.dtype != torch.uint8 or \
+                (w > 1 and j.plane.stride(1) != 1) or h < 1 or w < 1:
+            raise ValueError("plane: expected a non-empty uint8 view with "
+                             "unit column stride")
+        if j.plane.device != quant.device:
+            raise ValueError(f"plane on {j.plane.device}, tables on "
+                             f"{quant.device}")
+        if j.blocks_w < 1 or j.blocks_h < 1 or \
+                not 0 <= j.qidx < quant.shape[0]:
+            raise ValueError(f"job {j[1:]}: no blocks or no table")
+
+
+def fdct_table(jobs: Sequence[FdctJob], pin: bool = False
+               ) -> Tuple[torch.Tensor, int]:
+    """The kernel's job table (pinned where ``pin``) and the block count:
+    a row of FQ_JOB_COLS int32 a job (plane address low and high words,
+    pitch, width, height, blocks_w, blocks_h, table, first output block,
+    unused); job i's blocks follow job i-1's in the output."""
+    counts = np.array([j.blocks_w * j.blocks_h for j in jobs], np.int64)
+    firsts = np.cumsum(counts) - counts
+    n_blocks = int(counts.sum())
+    if n_blocks >= 1 << 31:
+        raise ValueError("more than 2^31 - 1 blocks")
+    meta = np.array([(j.plane.data_ptr(), j.plane.stride(0),
+                      j.plane.shape[1], j.plane.shape[0], j.blocks_w,
+                      j.blocks_h, j.qidx, f)
+                     for j, f in zip(jobs, firsts)], dtype=np.int64)
+    if meta[:, 1:].max() >= 1 << 31:
+        raise ValueError("a pitch or size past the kernel's int32")
+    table = torch.zeros(len(jobs) * FQ_JOB_COLS, dtype=torch.int32,
+                        pin_memory=pin)
+    rows = table.numpy().reshape(len(jobs), FQ_JOB_COLS)
+    rows.view(np.int64)[:, 0] = meta[:, 0]
+    rows[:, 2:9] = meta[:, 1:]
+    return table, n_blocks
+
+
+def fdct_quant(jobs: Sequence[FdctJob], quant: torch.Tensor) -> torch.Tensor:
+    """Every job's quantised coefficients, one launch for all of them:
+    (sum of the jobs' blocks, 64) int16 in zigzag order, job after job,
+    each block the ×8 islow FDCT of its level-shifted samples divided by
+    8·Q with rounding half away from zero.  ``quant``: (Q, 64) int32
+    natural-order tables, every entry in 1..4,095 (the kernel divides by
+    exact reciprocals within that range; 8-bit tables hold 1..255)."""
+    _check_fdct(jobs, quant)
+    if _on_cpu(quant.contiguous()):
+        return torch.cat([fdct_quant_plain(padded_blocks(j), quant[j.qidx])
+                          for j in jobs])
+    quant = quant.contiguous()
+    table, n_blocks = fdct_table(jobs, pin=quant.device.type == "cuda")
+    table_d = table.to(quant.device, non_blocking=True)
+    out = torch.empty((n_blocks, 64), dtype=torch.int16, device=quant.device)
+    JPEG_FDCT_QUANT.launch(out, table_d.data_ptr(), len(jobs), n_blocks,
+                           quant.data_ptr(), quant.shape[0], out.data_ptr())
+    return out

@@ -1,13 +1,14 @@
-// JPEG baseline entropy-scan decoder (host C++).
+// JPEG baseline entropy scans, decode and encode (host C++).
 //
-// A copy of the scan part of libheif_tpu/native/src/jpeg_scan.cc
-// (tpuheif_jpeg_decode_scan_impl :312, tpuheif_jpeg_decode_scan :435): the
-// serial Huffman chain of one sequential scan into zigzag int16
-// coefficients.  Its semantics are those of the Python scan of
-// codecs/jpeg/decoder.py, which stays as the plain reference.  The host
-// reconstruction, the fused scan and reconstruction and the encoder of
-// the original are left out: the dequantisation and IDCT run on the card
-// (csrc/jpeg_kernels.cu).
+// A copy of the scan parts of libheif_tpu/native/src/jpeg_scan.cc
+// (tpuheif_jpeg_decode_scan_impl :312, tpuheif_jpeg_decode_scan :435; the
+// encode scan tpuheif_jpeg_encode_scan :865-955, at the end of this file):
+// the serial Huffman chain of one sequential scan, between zigzag int16
+// coefficients and entropy-coded bytes.  Their semantics are those of the
+// Python scans of codecs/jpeg/decoder.py and encoder.py, which stay as the
+// plain references.  The host reconstruction, the fused scan and
+// reconstruction and the host forward DCT of the original are left out:
+// the DCTs run on the card (csrc/jpeg_kernels.cu).
 //
 // C ABI only; driven from Python via ctypes (native_scan.py), which
 // releases the GIL during the call, so the tiles of a grid scan on a
@@ -447,6 +448,188 @@ int tpuheif_jpeg_decode_scan(
       comp_blocks_h, comp_dc_tbl, comp_ac_tbl, comp_coeffs, dc_bits,
       dc_vals, dc_nvals, ac_bits, ac_vals, ac_nvals, interleaved, mcus_w,
       total_mcus, restart_interval, exhausted_out);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------- encoder
+//
+// A copy of the encode scan of libheif_tpu/native/src/jpeg_scan.cc
+// (EncTable, StuffWriter, bitsize and tpuheif_jpeg_encode_scan :787-955):
+// the Huffman emission of one sequential scan from zigzag int16
+// coefficients.  The Python emission of codecs/jpeg/encoder.py
+// (_entropy_encode) is its plain reference.
+
+namespace {
+
+struct EncTable {
+  uint32_t code[256];
+  uint8_t len[256];
+
+  void build(const uint8_t bits[16], const uint8_t* vals, int nvals) {
+    std::memset(len, 0, sizeof(len));
+    int codev = 0, k = 0;
+    for (int ln = 1; ln <= 16; ++ln) {
+      for (int i = 0; i < bits[ln - 1] && k < nvals; ++i, ++k) {
+        code[vals[k]] = codev;
+        len[vals[k]] = static_cast<uint8_t>(ln);
+        ++codev;
+      }
+      codev <<= 1;
+    }
+  }
+};
+
+struct StuffWriter {
+  uint8_t* out;
+  size_t cap;
+  size_t n = 0;
+  uint64_t acc = 0;
+  int nbits = 0;
+  bool overflow = false;
+
+  inline void flush32() {
+    uint32_t b4 = static_cast<uint32_t>(acc >> (nbits - 32));
+    nbits -= 32;
+    if (n + 8 > cap) { overflow = true; return; }
+    // any 0xFF byte? (haszero(b4 ^ ~0) SWAR)
+    uint32_t inv = b4 ^ 0xFFFFFFFFu;
+    if (((inv - 0x01010101u) & ~inv & 0x80808080u) == 0) {
+      out[n] = static_cast<uint8_t>(b4 >> 24);
+      out[n + 1] = static_cast<uint8_t>(b4 >> 16);
+      out[n + 2] = static_cast<uint8_t>(b4 >> 8);
+      out[n + 3] = static_cast<uint8_t>(b4);
+      n += 4;
+      return;
+    }
+    for (int i = 3; i >= 0; --i) {
+      uint8_t b = static_cast<uint8_t>(b4 >> (8 * i));
+      out[n++] = b;
+      if (b == 0xFF) out[n++] = 0x00;
+    }
+  }
+
+  // len <= 31; bits must already be masked to len
+  inline void put(uint32_t bits, int len) {
+    if (overflow) return;
+    acc = (acc << len) | bits;
+    nbits += len;
+    if (nbits >= 32) flush32();
+  }
+  inline void pad() {
+    while (nbits >= 8) {
+      if (overflow) return;
+      uint8_t b = static_cast<uint8_t>(acc >> (nbits - 8));
+      nbits -= 8;
+      if (n + 2 > cap) { overflow = true; return; }
+      out[n++] = b;
+      if (b == 0xFF) out[n++] = 0x00;
+    }
+    if (nbits) {
+      uint32_t fill = (1u << (8 - nbits)) - 1;
+      acc = (acc << (8 - nbits)) | fill;
+      nbits = 8;
+      uint8_t b = static_cast<uint8_t>(acc);
+      nbits = 0;
+      if (n + 2 > cap) { overflow = true; return; }
+      out[n++] = b;
+      if (b == 0xFF) out[n++] = 0x00;
+    }
+  }
+};
+
+inline int bitsize(int v) {
+  unsigned a = v < 0 ? -v : v;
+  return a ? 32 - __builtin_clz(a) : 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Emit one interleaved (or single-component) sequential scan.
+// coeffs: per-component (N,64) zigzag-quantized int16.
+// dc/ac tables: 16 bit-counts + values per slot id in comp_dc/ac_tbl.
+// Returns the entropy byte count written to `out` (with FF stuffing),
+// or -1 if out_cap was too small.
+int64_t tpuheif_jpeg_encode_scan(
+    int ncomp, const int* comp_h, const int* comp_v,
+    const int* comp_blocks_w, const int* comp_blocks_h,
+    const int* comp_dc_tbl, const int* comp_ac_tbl,
+    const int16_t** comp_coeffs,
+    const uint8_t* dc_bits, const uint8_t* dc_vals, const int* dc_nvals,
+    const uint8_t* ac_bits, const uint8_t* ac_vals, const int* ac_nvals,
+    int interleaved, int mcus_w, int mcus_h,
+    uint8_t* out, int64_t out_cap) {
+  EncTable dc_t[4], ac_t[4];
+  for (int i = 0; i < 4; ++i) {
+    if (dc_nvals[i] > 0)
+      dc_t[i].build(dc_bits + 16 * i, dc_vals + 256 * i, dc_nvals[i]);
+    if (ac_nvals[i] > 0)
+      ac_t[i].build(ac_bits + 16 * i, ac_vals + 256 * i, ac_nvals[i]);
+  }
+  StuffWriter w{out, static_cast<size_t>(out_cap)};
+  int preds[16] = {0};
+
+  auto encode_block = [&](int ci, const int16_t* blk) {
+    EncTable& dt = dc_t[comp_dc_tbl[ci]];
+    EncTable& at = ac_t[comp_ac_tbl[ci]];
+    int dc = blk[0];
+    int diff = dc - preds[ci];
+    preds[ci] = dc;
+    int s = bitsize(diff);
+    // fused (code, value) emission: one put per coefficient
+    uint32_t vb = s ? ((static_cast<uint32_t>(
+                           diff < 0 ? diff + (1 << s) - 1 : diff)) &
+                       ((1u << s) - 1))
+                    : 0;
+    w.put((dt.code[s] << s) | vb, dt.len[s] + s);
+    int last = 0;
+    for (int k = 63; k >= 1; --k) {
+      if (blk[k]) { last = k; break; }
+    }
+    int run = 0;
+    for (int k = 1; k <= last; ++k) {
+      int v = blk[k];
+      if (v == 0) { ++run; continue; }
+      while (run > 15) {
+        w.put(at.code[0xF0], at.len[0xF0]);
+        run -= 16;
+      }
+      s = bitsize(v);
+      int rs = (run << 4) | s;
+      vb = (static_cast<uint32_t>(v < 0 ? v + (1 << s) - 1 : v)) &
+           ((1u << s) - 1);
+      w.put((at.code[rs] << s) | vb, at.len[rs] + s);
+      run = 0;
+    }
+    if (last < 63) w.put(at.code[0x00], at.len[0x00]);
+  };
+
+  if (!interleaved) {
+    int nb = comp_blocks_w[0] * comp_blocks_h[0];
+    for (int i = 0; i < nb; ++i)
+      encode_block(0, comp_coeffs[0] + static_cast<size_t>(i) * 64);
+  } else {
+    for (int my = 0; my < mcus_h; ++my) {
+      for (int mx = 0; mx < mcus_w; ++mx) {
+        for (int ci = 0; ci < ncomp; ++ci) {
+          for (int by = 0; by < comp_v[ci]; ++by) {
+            for (int bx = 0; bx < comp_h[ci]; ++bx) {
+              int idx = (my * comp_v[ci] + by) * comp_blocks_w[ci] +
+                        (mx * comp_h[ci] + bx);
+              encode_block(ci, comp_coeffs[ci] +
+                                   static_cast<size_t>(idx) * 64);
+            }
+          }
+        }
+        if (w.overflow) return -1;
+      }
+    }
+  }
+  w.pad();
+  if (w.overflow) return -1;
+  return static_cast<int64_t>(w.n);
 }
 
 }  // extern "C"

@@ -1,9 +1,14 @@
-"""ctypes bridge to the C++ JPEG scan (host/jpeg_scan.cc).
+"""ctypes bridge to the C++ JPEG scans (host/jpeg_scan.cc).
 
-Counterpart of the native branch of libheif_tpu/codecs/jpeg/decoder.py
+Counterpart of the native branches of libheif_tpu/codecs/jpeg/decoder.py
 (``_decode_scan_entropy_native`` :324-426), without its fused host
 reconstruction: the scan fills each component's zigzag int16
-coefficients, and the reconstruction runs on the decoder's device.  The
+coefficients, and the reconstruction runs on the decoder's device; and of
+encoder.py (``_entropy_encode_native`` :258-298): ``encode_scan`` emits
+the Huffman-coded scan of the coefficients that the forward DCT made on
+the encoder's device, and raises where the C++ scan fails (the JAX
+package falls back to its Python emission there; the port keeps that
+emission, ``encoder._entropy_encode``, as the tests' reference only).  The
 library builds at first use (``_build.JPEG_HOST_LIBRARY``) and a failed
 build raises.  ctypes releases the GIL for the call, so the tiles of a
 grid scan in parallel on a thread pool.
@@ -84,3 +89,52 @@ def decode_scan(entropy, comps: Sequence, huff_dc, huff_ac,
                   int(interleaved), mcus_w, total_mcus, restart_interval,
                   ctypes.byref(exhausted))
     return rc, bool(exhausted.value)
+
+
+_ENC_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _P, ctypes.c_int64]
+# the most bytes a block can take: a 16-bit DC code with 11 bits of value
+# and 63 AC codes of 16 bits with 10 bits of value, every byte stuffed
+_MAX_BLOCK_BYTES = 2 * (27 + 63 * 26 + 7) // 8
+
+
+def _encode_entry():
+    fn = JPEG_HOST_LIBRARY.load().tpuheif_jpeg_encode_scan
+    if fn.argtypes is None:
+        fn.argtypes = _ENC_ARGS
+        fn.restype = ctypes.c_int64
+    return fn
+
+
+def encode_scan(plans: Sequence, mcus_w: int, mcus_h: int) -> bytes:
+    """The entropy-coded bytes of one sequential scan (stuffed, padded to
+    a byte with 1-bits), of each plan's ``blocks`` ((blocks_h·blocks_w,
+    64) int16 zigzag numpy arrays) with its ``dc_table``/``ac_table``:
+    interleaved MCUs for several components, block order for one.  The
+    first component takes table slot 0, the others slot 1."""
+    n = len(plans)
+
+    def ints(vals):
+        return np.ascontiguousarray(vals, np.int32)
+    slots = ints([0 if i == 0 else 1 for i in range(n)])
+    blocks = [np.ascontiguousarray(p.blocks, np.int16) for p in plans]
+    for p, b in zip(plans, blocks):
+        if b.shape != (p.blocks_w * p.blocks_h, 64):
+            raise ValueError(f"coefficients {b.shape} for a "
+                             f"{p.blocks_h}x{p.blocks_w} block grid")
+    ptrs = np.asarray([b.ctypes.data for b in blocks], np.uint64)
+    dc_bits, dc_vals, dc_n = _table_arrays(
+        {int(s): p.dc_table for s, p in zip(slots, plans)})
+    ac_bits, ac_vals, ac_n = _table_arrays(
+        {int(s): p.ac_table for s, p in zip(slots, plans)})
+    cap = sum(b.shape[0] for b in blocks) * _MAX_BLOCK_BYTES + 4096
+    out = np.empty(cap, np.uint8)
+    arrays = (ints([p.h for p in plans]), ints([p.v for p in plans]),
+              ints([p.blocks_w for p in plans]),
+              ints([p.blocks_h for p in plans]), slots, slots, ptrs,
+              dc_bits, dc_vals, dc_n, ac_bits, ac_vals, ac_n)
+    rc = _encode_entry()(n, *(a.ctypes.data for a in arrays), int(n > 1),
+                         mcus_w, mcus_h, out.ctypes.data, cap)
+    if rc < 0:
+        raise RuntimeError(f"the C++ JPEG encode scan failed ({rc})")
+    return out[:rc].tobytes()

@@ -1,3 +1,3 @@
-from .codec import UnciDecoder
+from .codec import UnciDecoder, UnciEncoder
 
-__all__ = ["UnciDecoder"]
+__all__ = ["UnciDecoder", "UnciEncoder"]

@@ -1,20 +1,23 @@
-"""ISO 23001-17 uncompressed codec: decode orchestration on torch.
+"""ISO 23001-17 uncompressed codec: decode and encode orchestration on
+torch.
 
 Counterpart of libheif_tpu/codecs/unc/codec.py (reference:
 libheif/codecs/uncompressed/unc_codec.{h,cc} — decode_uncompressed_image
 unc_codec.h:52, decode_uncompressed_image_tile unc_codec.h:56) plus the
-generic-compression handling (cmpC/icef, unc_decoder.cc:200-282).
+generic-compression handling (cmpC/icef, unc_decoder.cc:200-282), and its
+encoder (``_compress`` :67, ``UnciEncoder`` :242-348).
 
-Host side: layout computation, zlib/deflate decompression, tile buffer
+Host side: layout computation, zlib/deflate (de)compression, tile buffer
 assembly (skipped on CUDA for the byte-aligned layouts, whose strided
 kernel reads the payload in place).  Device side: the extraction in
-kernels.py.  Encoding stays with the JAX package for now.
+kernels.py, and on the encode side the packing of each tile's samples
+(``pack_samples``), which the host receives in one copy a tile.
 """
 
 from __future__ import annotations
 
 import zlib
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,9 +26,12 @@ from ..._build import resolve_device
 from ...core.error import HeifError, SubError
 from ...core.limits import SecurityLimits
 from ...boxes.unc import (
-    Box_uncC, Box_cmpd, Box_cmpC, Box_icef, CmpdComponent, CompressedUnitType,
+    Box_uncC, Box_cmpd, Box_cmpC, Box_icef, CmpdComponent, CompressedUnitInfo,
+    CompressedUnitType, InterleaveMode, SamplingMode, UncCComponent,
 )
-from ...image.pixel_image import PixelImage, subsampled_size
+from ...image.pixel_image import (
+    PixelImage, Channel, Colorspace, Chroma, subsampled_size,
+)
 from .layout import compute_layout, UncLayout
 from . import cuda_fast, kernels
 
@@ -44,6 +50,19 @@ def _decompress(method: str, data: bytes) -> bytes:
         raise HeifError.invalid_input(
             SubError.Decompression_invalid_data,
             f"corrupt {method} stream: {e}") from e
+
+
+def _compress(method: str, data: bytes) -> bytes:
+    """(ref: compression.h — zlib/deflate; brotli is not part of this
+    package yet)."""
+    if method == "zlib":
+        return zlib.compress(data)
+    if method == "defl":
+        co = zlib.compressobj(wbits=-15)
+        return co.compress(data) + co.flush()
+    raise HeifError.unsupported(
+        SubError.Unsupported_generic_compression_method,
+        f"generic compression method {method!r}")
 
 
 class UnciDecoder:
@@ -186,3 +205,137 @@ def _implied_cmpd_for_profile(uncC: Box_uncC) -> Box_cmpd:
     else:
         types = [1, 2, 3]  # YCbCr family
     return Box_cmpd([CmpdComponent(t) for t in types])
+
+
+
+# --------------------------------------------------------------------------
+# Encoder
+# --------------------------------------------------------------------------
+
+_CHANNEL_TO_COMPONENT_TYPE = {
+    Channel.Y: 1, Channel.Cb: 2, Channel.Cr: 3,
+    Channel.R: 4, Channel.G: 5, Channel.B: 6,
+    Channel.Alpha: 7, Channel.Depth: 8, Channel.Disparity: 9,
+    Channel.FilterArray: 11,
+}
+_MONO_COMPONENT_TYPE = 0
+
+
+def pack_samples(plane: torch.Tensor, depth: int) -> torch.Tensor:
+    """A plane's samples as a flat uint8 tensor on its device, row after
+    row: one byte a sample (the low byte) to 8 bits, else a big-endian
+    16-bit word (the low 16 bits), as the JAX package's ``astype(np.uint8)``
+    and ``astype(">u2")`` write them."""
+    if depth <= 8 and plane.dtype == torch.uint8:
+        return plane.reshape(-1)
+    v = plane.to(torch.int32)
+    if depth <= 8:
+        return (v & 0xFF).to(torch.uint8).reshape(-1)
+    return torch.stack(((v >> 8) & 0xFF, v & 0xFF), dim=-1) \
+        .to(torch.uint8).reshape(-1)
+
+
+class UnciEncoder:
+    """unci encoder: component-interleave output
+    (ref: unc_encoder_component_interleave.cc; encode path
+    unc_image.cc:312 tile-wise append).
+
+    Produces cmpd/uncC property boxes plus the raw sample stream.
+    Supports 8/16-bit planes, mono/RGB(A)/YCbCr 444/422/420, tiling,
+    and optional generic compression.  Each tile's samples are packed on
+    the device its planes lie on and copied to the host once.  A plane of
+    10 to 14 bits is written as 16-bit words under a ``uncC`` that declares
+    its bit depth, as the JAX package writes it (a reader of the standard
+    expects packed samples there; ROADMAP §3 D), so that the two packages'
+    files stay equal byte for byte.
+    """
+
+    def __init__(self, tile_cols: int = 1, tile_rows: int = 1,
+                 compression: Optional[str] = None,
+                 compress_per_tile: bool = False):
+        self.tile_cols = tile_cols
+        self.tile_rows = tile_rows
+        self.compression = compression
+        self.compress_per_tile = compress_per_tile
+
+    def _channel_order(self, img: PixelImage) -> List[str]:
+        if img.colorspace == Colorspace.RGB:
+            order = [Channel.R, Channel.G, Channel.B]
+        elif img.colorspace == Colorspace.YCbCr:
+            order = [Channel.Y, Channel.Cb, Channel.Cr]
+        elif img.colorspace == Colorspace.Monochrome:
+            order = [Channel.Y]
+        else:
+            order = [c for c in img.channels() if c != Channel.Alpha]
+        if img.has_channel(Channel.Alpha):
+            order.append(Channel.Alpha)
+        return [c for c in order if img.has_channel(c)]
+
+    def make_boxes(self, img: PixelImage):
+        """Build (cmpd, uncC) for the image."""
+        order = self._channel_order(img)
+        cmpd = Box_cmpd()
+        uncC = Box_uncC()
+        for ch in order:
+            if img.colorspace == Colorspace.Monochrome and ch == Channel.Y:
+                ctype = _MONO_COMPONENT_TYPE
+            else:
+                ctype = _CHANNEL_TO_COMPONENT_TYPE[ch]
+            cmpd.components.append(CmpdComponent(ctype))
+            depth = img.bit_depth(ch)
+            uncC.components.append(
+                UncCComponent(len(cmpd.components) - 1, depth, 0, 0))
+        if img.chroma == Chroma.C422:
+            uncC.sampling_type = SamplingMode.s422
+        elif img.chroma == Chroma.C420:
+            uncC.sampling_type = SamplingMode.s420
+        uncC.interleave_type = InterleaveMode.component
+        uncC.num_tile_cols = self.tile_cols
+        uncC.num_tile_rows = self.tile_rows
+        return cmpd, uncC
+
+    def encode_tile(self, img: PixelImage) -> bytes:
+        """Serialize one tile's planes in component-interleave order,
+        big-endian samples, rows byte-aligned: packed on the planes'
+        device, then one copy to the host."""
+        return torch.cat([pack_samples(img.plane(ch), img.bit_depth(ch))
+                          for ch in self._channel_order(img)]) \
+            .cpu().numpy().tobytes()
+
+    def encode(self, img: PixelImage):
+        """Encode a full (possibly tiled) image.
+
+        Returns (data, cmpd, uncC, cmpC, icef) — compression boxes are
+        None when no generic compression is requested.
+        """
+        cmpd, uncC = self.make_boxes(img)
+        tw = img.width // self.tile_cols
+        th = img.height // self.tile_rows
+        if tw * self.tile_cols != img.width or th * self.tile_rows != img.height:
+            raise HeifError.usage(SubError.Invalid_parameter_value,
+                                  "image size not divisible by tile grid")
+        tiles = []
+        for ty in range(self.tile_rows):
+            for tx in range(self.tile_cols):
+                tile_img = img.crop(tx * tw, ty * th, tw, th)
+                tiles.append(self.encode_tile(tile_img))
+
+        cmpC = icef = None
+        if self.compression:
+            cmpC = Box_cmpC()
+            cmpC.compression_type = self.compression
+            if self.compress_per_tile and len(tiles) > 1:
+                cmpC.compressed_unit_type = CompressedUnitType.tile
+                icef = Box_icef()
+                comp_tiles = [_compress(self.compression, t) for t in tiles]
+                off = 0
+                for c in comp_tiles:
+                    icef.unit_infos.append(CompressedUnitInfo(off, len(c)))
+                    off += len(c)
+                data = b"".join(comp_tiles)
+            else:
+                cmpC.compressed_unit_type = CompressedUnitType.whole_image
+                data = _compress(self.compression, b"".join(tiles))
+        else:
+            data = b"".join(tiles)
+        return data, cmpd, uncC, cmpC, icef

@@ -27,6 +27,16 @@ class NclxProfile:
                            colr.matrix_coefficients,
                            colr.full_range_flag)
 
+    def to_colr_box(self):
+        from ..boxes.meta import Box_colr
+        b = Box_colr()
+        b.colour_type = "nclx"
+        b.colour_primaries = self.color_primaries
+        b.transfer_characteristics = self.transfer_characteristics
+        b.matrix_coefficients = self.matrix_coefficients
+        b.full_range_flag = self.full_range_flag
+        return b
+
 
 # H.273 Table 2 colour primaries: (rx, ry, gx, gy, bx, by, wx, wy)
 # (ref: nclx.cc get_colour_primaries table)

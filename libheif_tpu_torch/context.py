@@ -1,18 +1,25 @@
 """HeifContext: the semantic image model over a parsed file.
 
-Counterpart of libheif_tpu/context.py, read side only (reference:
-libheif/context.{h,cc} — HeifContext context.h:65,
-interpret_heif_file_images context.cc:584, decode orchestration
-context.cc:1425).  A context lives on one device, ``None`` meaning CUDA
-(which raises without a card; pass ``device="cpu"`` for the CPU): every
-item decodes onto it and every decoded plane stays on it, through the
-composition, the transforms and the output conversion.  A file is read
-from a path, from bytes or through a streaming reader
-(``read_from_reader``); the metadata, region and text items attached to
-an image are host data.  An image sequence's tracks (``tracks``,
-``get_track``, ``has_sequence``, JAX context.py:76-110) decode their
-samples on the same device.  There is no encode or write API yet;
-``HeifFile`` has the write side.
+Counterpart of libheif_tpu/context.py (reference: libheif/context.{h,cc}
+— HeifContext context.h:65, interpret_heif_file_images context.cc:584,
+decode orchestration context.cc:1425, encode_image context.cc:1600).  A
+context lives on one device, ``None`` meaning CUDA (which raises without
+a card; pass ``device="cpu"`` for the CPU): every item decodes onto it and
+every decoded plane stays on it, through the composition, the transforms
+and the output conversion.  A file is read from a path, from bytes or
+through a streaming reader (``read_from_reader``); the metadata, region
+and text items attached to an image are host data.  An image sequence's
+tracks (``tracks``, ``get_track``, ``has_sequence``, JAX
+context.py:76-110) decode their samples on the same device.
+
+The write side makes still-image files: ``new_file``, ``encode_image``
+for ``unci``, ``mski`` and the registered encoders (``jpeg``; HEVC and AV1
+have none yet and raise ``Unsupported_codec``), each image's alpha as a
+hidden aux item, ``set_primary_item``, ``write`` and ``write_to_file``
+(JAX context.py:400-552, :738-805).  An encode runs on the context's
+device: planes that lie elsewhere are copied there first.  The JAX
+writers of tracks, region and text items, thumbnails and metadata items
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,18 +27,25 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 from ._build import resolve_device
+from .brands import compute_brands
 from .core.error import HeifError, ErrorCode, SubError
 from .core.limits import SecurityLimits
 from .file import HeifFile
-from .boxes.meta import Box_auxC
-from .image.pixel_image import PixelImage, Colorspace, Chroma
+from .boxes.meta import Box_auxC, Box_colr, Box_ispe, Box_pixi
+from .boxes.unc import Box_cpat, CmpdComponent
+from .codecs import registry
+from .codecs.unc import UnciEncoder
+from .codecs.unc.codec import pack_samples
+from .image.pixel_image import PixelImage, Channel, Colorspace, Chroma
 from .color import convert_image
 from .color.ops import ColorConversionOptions
 from .items import (
     ImageItem, ImageItem_Error, DecodingOptions, ImageTiling, alloc_item,
 )
+from .items.mask_item import Box_mskC
 from .items.region_item import RegionItem
 from .items.text_item import TextItem
+from .option_types import EncodingOptions
 
 
 class HeifContext:
@@ -335,3 +349,213 @@ class HeifContext:
             if self.file.get_infe(tid).item_type == "txti":
                 out.append(TextItem.parse(tid, self.file.get_item_data(tid)))
         return out
+
+    # ================================================================ encode
+
+    def new_file(self, major_brand: str = "mif1") -> None:
+        self.file = HeifFile(self.limits)
+        self.file.init_for_writing(major_brand, ["mif1", "heic", "miaf"])
+
+    def encode_image(self, img: PixelImage, fmt: str = "unci",
+                     options: Optional[EncodingOptions] = None) -> int:
+        """Encode an image as a new item on the context's device; returns
+        the item id (ref: HeifContext::encode_image context.cc:1600)."""
+        options = options or EncodingOptions()
+        if self.file is None:
+            self.new_file()
+        img = self._on_device(img)
+
+        if fmt == "unci":
+            item_id = self._encode_unci(img, options)
+        elif fmt == "mski":
+            item_id = self._encode_mask(img, options)
+        else:
+            enc = registry.get_encoder(fmt)
+            if enc is None:
+                raise HeifError.unsupported(
+                    SubError.Unsupported_codec,
+                    f"no encoder available for format {fmt!r}")
+            item_id = self._encode_coded(img, enc, fmt, options)
+
+        # alpha channel → separate aux item (ref: context.cc:1669-1708)
+        if img.has_channel(Channel.Alpha) and options.save_alpha_channel and \
+                fmt != "mski":
+            alpha_id = self._encode_alpha_aux(img, fmt, options)
+            self.file.add_reference("auxl", alpha_id, [item_id])
+            self.file.get_infe(alpha_id).hidden = True
+            if img.premultiplied_alpha:
+                self.file.add_reference("prem", item_id, [alpha_id])
+
+        if self.primary_id is None:
+            self.set_primary_item(item_id)
+        return item_id
+
+    def _on_device(self, img: PixelImage) -> PixelImage:
+        """``img``, or where a plane lies on another device than the
+        context's, a copy of it with every plane on the context's device
+        (the caller's image is left as it is)."""
+        if all(p.device == self.device for p in img.planes.values()):
+            return img
+        out = img._like(img.width, img.height)
+        for ch, p in img.planes.items():
+            out.planes[ch] = p.to(self.device)
+            out.plane_info[ch] = img.plane_info[ch]
+        return out
+
+    def _register_encoded_item(self, item_type: str) -> int:
+        infe = self.file.add_new_item(item_type)
+        item = alloc_item(self, infe.item_id, item_type)
+        self.items[infe.item_id] = item
+        return infe.item_id
+
+    def _add_common_props(self, item_id: int, img: PixelImage,
+                          options: EncodingOptions) -> None:
+        self.file.add_property(item_id, Box_ispe(img.width, img.height), False)
+        bits = [img.bit_depth(c) for c in img.channels()
+                if c != Channel.Alpha]
+        if bits:
+            self.file.add_property(item_id, Box_pixi(bits), False)
+        nclx = options.output_nclx or img.color_profile_nclx
+        if nclx is not None:
+            self.file.add_property(item_id, nclx.to_colr_box(), False)
+        if img.color_profile_icc:
+            b = Box_colr()
+            b.colour_type = "prof"
+            b.icc_profile = img.color_profile_icc
+            self.file.add_property(item_id, b, False)
+
+    def _encode_unci(self, img: PixelImage, options: EncodingOptions) -> int:
+        enc = UnciEncoder(options.tile_cols, options.tile_rows,
+                          compression=options.compression)
+        data, cmpd, uncC, cmpC, icef = enc.encode(img)
+        item_id = self._register_encoded_item("unci")
+        self.file.append_item_data(item_id, data)
+        self._add_common_props(item_id, img, options)
+        cpat = self._make_cpat_property(img, cmpd)
+        self.file.add_property(item_id, cmpd, False)
+        self.file.add_property(item_id, uncC, True)
+        if cpat is not None:
+            self.file.add_property(item_id, cpat, False)
+        if cmpC is not None:
+            self.file.add_property(item_id, cmpC, True)
+        if icef is not None:
+            self.file.add_property(item_id, icef, True)
+        return item_id
+
+    def _make_cpat_property(self, img: PixelImage, cmpd):
+        """Resolve an image's Bayer pattern into reference cmpd
+        components + a cpat box (ref: heif_image_set_bayer_pattern →
+        encoder cpat resolution, unc_encoder.cc; plane-less 'bayer
+        reference components', heif_image.h:174)."""
+        pattern = img.bayer_pattern
+        if pattern is None or not img.has_channel(Channel.FilterArray):
+            return None
+        chan_to_type = {Channel.R: 4, Channel.G: 5, Channel.B: 6,
+                        Channel.Y: 1}
+        # append one plane-less reference component per distinct channel
+        type_to_idx = {}
+        for i, comp in enumerate(cmpd.components):
+            type_to_idx.setdefault(comp.component_type, i)
+        indices = []
+        for ch in pattern.channels:
+            ctype = chan_to_type.get(ch)
+            if ctype is None:
+                raise HeifError.usage(
+                    msg=f"Bayer pattern cell {ch!r} has no component type")
+            if ctype not in type_to_idx:
+                type_to_idx[ctype] = len(cmpd.components)
+                cmpd.components.append(CmpdComponent(ctype))
+            indices.append(type_to_idx[ctype])
+        cpat = Box_cpat()
+        cpat.pattern_width = pattern.pattern_width
+        cpat.pattern_height = pattern.pattern_height
+        cpat.components = indices
+        cpat.component_gains = list(pattern.gains)
+        return cpat
+
+    def _encode_mask(self, img: PixelImage, options: EncodingOptions) -> int:
+        if img.colorspace != Colorspace.Monochrome:
+            raise HeifError.unsupported(
+                SubError.Unsupported_image_type,
+                "mask encoding requires monochrome input")
+        bpp = img.bit_depth(Channel.Y)
+        # 16-bit masks as big-endian words, any other depth one byte a
+        # sample (the JAX writer's astype(">u2") and astype(np.uint8))
+        data = pack_samples(img.plane(Channel.Y),
+                            16 if bpp == 16 else 8).cpu().numpy().tobytes()
+        item_id = self._register_encoded_item("mski")
+        self.file.append_item_data(item_id, data)
+        self._add_common_props(item_id, img, options)
+        self.file.add_property(item_id, Box_mskC(bpp), True)
+        return item_id
+
+    def _encode_coded(self, img, enc, fmt: str, options) -> int:
+        data, config_box, extra = enc.encode_single_image(img, options)
+        item_type = {"hevc": "hvc1", "av1": "av01", "vvc": "vvc1",
+                     "avc": "avc1", "jpeg": "jpeg",
+                     "jpeg2000": "j2k1", "htj2k": "j2k1"}.get(fmt, fmt)
+        item_id = self._register_encoded_item(item_type)
+        self.file.append_item_data(item_id, data)
+        self._add_common_props(item_id, img, options)
+        if config_box is not None:
+            self.file.add_property(item_id, config_box, True)
+        for prop, essential in (extra or []):
+            self.file.add_property(item_id, prop, essential)
+        return item_id
+
+    def _encode_alpha_aux(self, img: PixelImage, fmt: str,
+                          options: EncodingOptions) -> int:
+        alpha = PixelImage(img.width, img.height, Colorspace.Monochrome,
+                           Chroma.Monochrome, self.limits)
+        alpha.set_plane(Channel.Y, img.plane(Channel.Alpha),
+                        img.bit_depth(Channel.Alpha))
+        opts2 = EncodingOptions(**{**options.__dict__,
+                                   "save_alpha_channel": False})
+        if fmt == "unci":
+            alpha_id = self._encode_unci(alpha, opts2)
+        else:
+            # encode the alpha plane with the same coded codec
+            # (ref: context.cc:1669 encode_image recursion)
+            alpha_id = self._encode_coded(alpha, registry.get_encoder(fmt),
+                                          fmt, opts2)
+        self.file.add_property(
+            alpha_id, Box_auxC("urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"),
+            False)
+        return alpha_id
+
+    # ================================================================ write
+
+    def set_primary_item(self, item_id: int) -> None:
+        self.primary_id = item_id
+        self.file.set_primary_item(item_id)
+        for i, item in self.items.items():
+            item.is_primary = (i == item_id)
+
+    def write(self) -> bytes:
+        """The file's bytes; a file made by ``new_file`` gets its ftyp
+        from its content first (ref: HeifContext::write context.cc:382)."""
+        if self.file is None:
+            raise HeifError.usage(msg="no file to write: call new_file or "
+                                      "encode an image first")
+        self._finalize_brands()
+        return self.file.write()
+
+    def _finalize_brands(self) -> None:
+        """Recompute ftyp from content (ref: brands.cc write path)."""
+        f = self.file
+        if not f.created_for_writing or f.ftyp is None:
+            return      # read-mode file: preserve original brands
+        item_types = []
+        primary_type = None
+        for iid in f.item_ids:
+            t = f.get_infe(iid).item_type
+            item_types.append(t)
+            if self.primary_id == iid:
+                primary_type = t
+        major, compat = compute_brands(item_types, primary_type)
+        f.ftyp.major_brand = major
+        f.ftyp.compatible_brands = compat
+
+    def write_to_file(self, path: str) -> None:
+        with open(path, "wb") as f:
+            f.write(self.write())

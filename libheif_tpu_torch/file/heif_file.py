@@ -72,6 +72,7 @@ class HeifFile:
         # write side: item data waiting for the mdat that write() lays out
         self._mdat_parts: List[ItemData] = []
         self._mdat_size = 0
+        self.created_for_writing = False   # set by init_for_writing
 
     # ================================================================ read
 
@@ -120,6 +121,25 @@ class HeifFile:
             return self.reader.read(start, length)
         raise HeifError.invalid_input(SubError.No_item_data,
                                       "no file buffer or reader")
+
+    def _fetch_method0(self, it: IlocItem, start: int,
+                       length: int) -> ItemData:
+        """A construction-method-0 range of an item: from the file, or for
+        an item written into this file, from the mdat ``write`` will lay
+        out (its offsets are mdat-relative until then), so that a context
+        can decode what it encoded."""
+        if not it.mdat_relative:
+            return self._fetch(start, length)
+        if start + length > self._mdat_size:
+            raise HeifError.eof(f"pending-mdat extent [{start}+{length}] "
+                                "out of range")
+        out, pos = [], 0
+        for part in self._mdat_parts:
+            lo, hi = max(start, pos), min(start + length, pos + len(part))
+            if lo < hi:
+                out.append(part[lo - pos:hi - pos])
+            pos += len(part)
+        return out[0] if len(out) == 1 else b"".join(out)
 
     def _has_input(self) -> bool:
         return self.buffer is not None or self.reader is not None
@@ -255,7 +275,7 @@ class HeifFile:
             start = it.base_offset + ext.offset
             length = ext.length
             if method == 0:
-                parts.append(self._fetch(start, length))
+                parts.append(self._fetch_method0(it, start, length))
             elif method == 1:
                 if self.idat is None:
                     raise HeifError.invalid_input(SubError.No_idat_box)
@@ -303,7 +323,7 @@ class HeifFile:
             src = it.base_offset + ext.offset + (lo - ext_start)
             length = hi - lo
             if method == 0:
-                parts.append(self._fetch(src, length))
+                parts.append(self._fetch_method0(it, src, length))
             elif method == 1:
                 if self.idat is None:
                     raise HeifError.invalid_input(SubError.No_idat_box)
@@ -361,6 +381,7 @@ class HeifFile:
                          compatible: Optional[List[str]] = None) -> None:
         """Create the empty box skeleton for a new file
         (ref: HeifFile::new_empty_file)."""
+        self.created_for_writing = True
         self.ftyp = Box_ftyp(major_brand, 0, compatible or
                              ["mif1", "heic", "miaf"])
         self.meta = Box_meta()
@@ -470,6 +491,11 @@ class HeifFile:
             16 if len(mdat_payload) + 8 > 0xFFFFFFFF else 8)
         self.iloc.patch_iloc_offsets(w, payload_start)
         return w.data()
+
+    def write_to_file(self, path: str) -> None:
+        data = self.write()
+        with open(path, "wb") as f:
+            f.write(data)
 
 
 class ItemDataView:

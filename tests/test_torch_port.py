@@ -221,9 +221,11 @@ def test_kernel_build_is_configured_for_hopper():
         "planes_ycbcr8_to_rgb", "strided_extract_paste", "tile_yuv_to_rgb"]
     assert sorted(hevc_fast.KERNELS) == ["hevc_dequant_itx",
                                          "hevc_inter_pred",
-                                         "hevc_intra_wave"]
+                                         "hevc_intra_wave",
+                                         "hevc_mode_search"]
     assert sorted(av1_fast.KERNELS) == ["av1_dequant_itx", "av1_intra_wave"]
-    assert sorted(jpeg_fast.KERNELS) == ["jpeg_dequant_idct"]
+    assert sorted(jpeg_fast.KERNELS) == ["jpeg_dequant_idct",
+                                         "jpeg_fdct_quant"]
     for mod, src in ((cuda_fast, srcs[3]), (hevc_fast, srcs[1]),
                      (av1_fast, srcs[0]), (jpeg_fast, srcs[2])):
         text = open(os.path.join(REPO, src)).read()

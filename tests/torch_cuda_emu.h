@@ -12,6 +12,7 @@
 // each warp operation, as the kernels' full-mask calls require on the card.
 #pragma once
 #include <algorithm>
+#include <cmath>
 #include <atomic>
 #include <barrier>
 #include <cstdint>
@@ -43,6 +44,12 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+struct float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
 struct int2 {
   int x, y;
 };
@@ -140,6 +147,9 @@ inline int __shfl_up_sync(unsigned, int v, unsigned d) {
 }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
+}
 template <class T>
 T __ldg(const T* p) {
   return *p;
