@@ -204,7 +204,9 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    hevc_mode_search once a block size), and hevc_mode_search against
    mode_search_plain on that luma and on flat and noise planes at n = 8,
    16 and 32 under the near-tie rule (a different mode only where the
-   two modes' float64 costs are within 1e-4; the count prints); and
+   two modes' float64 costs are within 1e-4; the count prints), and on
+   blocks that are each mode's own prediction (both find every mode, at
+   cost 0); and
    encode_jpeg's wall at 4032x3024 split by its spans (jpeg.encode.fdct,
    .copy, .entropy, .write);
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
@@ -4029,9 +4031,10 @@ MODES_JNP = "libheif_tpu/codecs/hevc/device_modes.py"
 ENC_QUALITIES = (50, 90)
 # int32 operations a sample that jpeg_fdct_quant's function needs: the two
 # 1-D islow passes (59 operations for eight samples each, 14.75 a sample),
-# the level shift (1) and the quantiser (abs, add, negate, select and a
-# division by a reciprocal, one multiply-high: 5)
-FDCT_OPS_PER_SAMPLE = 20.75
+# the level shift (one a row, on the row pass's DC term: 1/8) and the
+# quantiser (abs, add, negate, select and a division by a reciprocal, one
+# multiply-high: 5)
+FDCT_OPS_PER_SAMPLE = 19.875
 FP32_LANES_PER_SM = 128      # Hopper architecture white paper
 MODE_SIZES = (3, 4, 5)
 NEAR_TIE = 1e-4              # relative float64 cost gap of a near tie
@@ -4335,7 +4338,39 @@ def check_mode_search(tally, luma):
                 tally.max_abs_err["hevc_mode_search"], cost_err)
             tally.checks["hevc_mode_search"] += 1
             tally.differing["hevc_mode_search"] += int(idx.numel())
+    for lg in MODE_SIZES:
+        b, r, want = each_mode_case(lg)
+        modes, costs = hevc_fast.mode_search(b, r, lg)
+        pm, pc = hevc_fast.mode_search_plain(b, r, lg)
+        wrong = int((modes != want).sum()) + int((pm != want).sum())
+        worst = float(torch.maximum(costs.abs().max(), pc.abs().max()))
+        out["cases"].append({"plane": "each mode's own prediction",
+                             "log2": lg, "blocks": b.shape[0],
+                             "wrong_modes": wrong, "largest_cost": worst})
+        log(f"check hevc_mode_search each mode's own prediction log2 {lg}: "
+            f"{b.shape[0]} blocks, {wrong} modes not found, costs at most "
+            f"{worst:.3g}")
+        assert wrong == 0 and worst == 0, f"log2 {lg}: a mode's own " \
+            f"prediction not found at cost 0 ({wrong}, {worst})"
+        tally.checks["hevc_mode_search"] += 1
     return out
+
+
+def each_mode_case(lg, per_mode=3):
+    """Blocks that are each mode's own prediction: for m = 0..34,
+    ``per_mode`` blocks ``weight_matrix(m) @ refs`` of random 8-bit
+    references (exact in float32: the weights are multiples of 1/64), on
+    the card; (blocks, refs, the modes)."""
+    n = 1 << lg
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 13 + lg)
+    modes = torch.arange(len(device_modes.MODES), device=DEV,
+                         dtype=torch.int32).repeat_interleave(per_mode)
+    refs = torch.randint(0, 256, (modes.numel(), 4 * n + 1), generator=g,
+                         device=DEV).to(torch.float64)
+    W = torch.from_numpy(device_modes.all_weights(lg)).to(DEV, torch.float64)
+    blocks = torch.bmm(W[modes.long()], refs[:, :, None])[:, :, 0]
+    return blocks.to(torch.float32), refs.to(torch.float32), modes
 
 
 def time_jpeg_encode(img):
@@ -4388,7 +4423,7 @@ def jpeg_fdct_row(timer, tally, ycc, launches):
     # the planes read once, the coefficients written once, the tables and
     # the job table once
     nbytes = sum(j.plane.numel() for j in sets[0]) + blocks * 128 + \
-        quant.numel() * 4 + len(sets[0]) * jpeg_fast.FQ_JOB_COLS * 4
+        quant.numel() * 4 + len(sets[0]) * (jpeg_fast.FQ_JOB_COLS + 1) * 4
     nops = blocks * 64 * FDCT_OPS_PER_SAMPLE
     b = bounds(nbytes, nops)
     kernel_ms, table_copy_ms = kernel_timing.kernel_ms(
@@ -4418,16 +4453,18 @@ def jpeg_fdct_row(timer, tally, ycc, launches):
 
 def mode_search_work(n_blocks, log2):
     """(bytes, FP32 operations) of hevc_mode_search on n_blocks blocks:
-    the samples and references read once, a mode and a cost written, the
-    tap tables read once; per block the non-zero taps' multiply-adds of
-    every mode but DC, DC's 2n adds, and per mode n^2 residuals,
-    2 n^2 log2(n) butterfly adds and n^2 absolute sums."""
+    the samples and references read once, a mode and a cost written; per
+    block the non-zero taps' multiply-adds of every mode but DC (the
+    residual folded into the first tap's), DC's 2n adds (its residual
+    shifts one Hadamard coefficient), and per mode the butterflies but the
+    last column stage, (2 log2(n) - 1) n^2 adds, and that stage with the
+    absolute sum as one max and one add a pair (|a + b| + |a - b| =
+    2 max(|a|, |b|)): 2 n^2 log2(n) a mode."""
     n = 1 << log2
-    idx, w = hevc_fast.mode_taps(log2)
+    _, w = hevc_fast.mode_taps(log2)
     taps = int((w != 0).sum())
-    nbytes = n_blocks * ((n * n + 4 * n + 1) * 4 + 8) + idx.nbytes + w.nbytes
-    per_block = taps + 2 * n + len(device_modes.MODES) * (
-        n * n + 2 * n * n * log2 + n * n)
+    nbytes = n_blocks * ((n * n + 4 * n + 1) * 4 + 8)
+    per_block = taps + 2 * n + len(device_modes.MODES) * 2 * n * n * log2
     return nbytes, n_blocks * per_block
 
 
@@ -4455,7 +4492,8 @@ def mode_search_row(timer, tally, luma, launches):
             "plain_ms": timer([lambda: hevc_fast.mode_search_plain(
                 blk, ref, lg)], n=2),
             **b, "bytes": nbytes, "ops": nops,
-            "partial_yardstick_dense_prediction_matmul_ms": partial}
+            "partial_yardstick_dense_prediction_matmul_ms": partial,
+            **ptxas_resources(f"hevc_mode_search_kernelILi{lg}E")}
         del sets
     top = by_size[MODE_SIZES[0]]
     row = {

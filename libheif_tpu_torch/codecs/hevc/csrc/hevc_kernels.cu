@@ -1304,158 +1304,246 @@ int launch_hevc_inter_pred(const void* jobs, int n_jobs, const void* ydpb,
 // 2-D Hadamard transform, the sum of absolute values / n (equal to the jnp
 // program's H/sqrt(n) R H/sqrt(n)), and the first mode of least cost.
 //
-// The jnp program multiplies by the dense (35, n^2, 4n+1) weight array
-// (18.5 MB at n = 32); here each predicted sample takes the non-zero taps
-// of that array's row (device_modes.weight_matrix), at most four for planar
-// and the angular modes, read from a (35, n^2) table of (index, weight)
-// quadruples that the wrapper builds once per size; DC is the mean of its
-// 2n references, once per block.
-//
 // Bounds (the 4032x3024 luma, n = 8, 190,512 blocks): bytes, the blocks and
 // references read once and a mode and cost written, 75.5 MB, 0.0225 ms at
-// 3.35 TB/s; FP32 operations, per block the non-zero taps' multiply-adds,
-// and per mode n^2 residuals, 2 n^2 log2(n) butterfly adds and n^2
-// absolute sums, about 22,000 a block, 4.2 billion in all, 0.126 ms at 132
-// SMs x 128 FP32 lanes x 1.98 GHz.  The operations bind.
+// 3.35 TB/s; FP32 operations, per block the non-zero taps of
+// device_modes.weight_matrix (the residual folded into the first tap's
+// multiply-add) and DC's 2n adds, and per mode 2 n^2 log2(n): the
+// butterflies but the last column stage, and that stage with the absolute
+// sum as one max and one add a pair (|a + b| + |a - b| = 2 max(|a|, |b|)),
+// 17,600 a block, 3.35 billion in all, 0.100 ms at 132 SMs x 128 FP32
+// lanes x 1.98 GHz (0.126 and 0.150 ms at n = 16 and 32).  The operations
+// bind, so the design spends few instructions beyond them and keeps every
+// operand in registers or shared memory without bank conflicts.
 //
-// Design (a simple first kernel).  A CTA of 256 threads holds 1,024 samples
-// in shared memory: 16 blocks at n = 8, 4 at n = 16, one at n = 32, each
-// thread four consecutive samples of one block, with the blocks' references
-// and a work array.  For each mode a thread writes its samples' residuals;
-// the Hadamard transform runs along the rows, then the columns, as
-// butterflies in shared memory (two a thread a stage, a barrier between
-// stages); each block's threads sum their |values| by a tree in shared
-// memory; the block's first thread keeps the running least cost and its
-// mode (strict <, the first on ties, as argmin).  It writes the mode (int32)
-// and the least cost (f32, for the checks).  Each mode costs a CTA twelve
-// barriers at n = 8 (sixteen at 16, twenty at 32), 420-700 in all.
+// Design.
+// 1. A warp a group of blocks, a lane a row: n lanes hold one block (four
+//    blocks a warp at n = 8, two at 16, one at 32), lane r its row r and
+//    its column r of the source samples in registers.  Warps share nothing,
+//    so the kernel has no __syncthreads; a CTA is kMsWarps warps.
+// 2. No tap tables.  A mode's taps are computed from the mode and the
+//    row, as weight_matrix defines them.  Each block keeps its two extended
+//    main references in shared memory, E[n + j] = ext[j] for j in [-n, 2n]:
+//    the top one (corner and top row, refs[2n + j]) for the vertical modes
+//    18-34 and the left one (refs[2n - j]) for the horizontal modes 2-17,
+//    written once a block; a mode with a negative angle rewrites only the
+//    part j < 0, one sample a lane, projected from the other side by
+//    kInvAngle.  Row r of a vertical mode is iIdx = ((r+1) angle) >> 5 and
+//    f = ((r+1) angle) & 31 into E: n + 1 consecutive loads and two FFMAs a
+//    sample for the prediction less the source, weights (32 - f) / 32 and
+//    f / 32 (f = 0: one tap, the second weight 0 over a padded 0).  A
+//    horizontal mode is the same on the transposed block, since
+//    sum |H R^T H| = sum |H R H|: lane r predicts column r from the left
+//    reference and subtracts the source's column r.  Planar is
+//    ((n-1-x) L[y] + (x+1) T[n] + (n-1-y) T[x] + (y+1) L[n]) / 2n, DC the
+//    mean of the 2n references (a shuffle sum, once a block).  The angles
+//    come from the constant bank (kIntraAngle, kInvAngle), one uniform load
+//    a mode.  For 8-bit samples every prediction and residual is exact in
+//    FP32, as the jnp program's are.
+// 3. The Hadamard transform in registers: each lane runs the row
+//    butterflies on its n values, writes them to a per-block shared array
+//    of stride n + 1, reads back its column and runs the column
+//    butterflies, then sums |values| and reduces over the block's lanes by
+//    __shfl_xor_sync (every lane gets the same sum).  The column stage by
+//    the transpose costs 2n shared accesses a lane a mode; by shuffles it
+//    would cost n log2(n) (24 / 64 / 160 at n = 8 / 16 / 32), or n/2
+//    log2(n) exchanging half the values a stage plus n selects a stage.
+//    Shuffles and shared accesses both issue at 32 lanes a clock an SM, so
+//    the transpose (16 / 32 / 64) is the cheaper at every n.  Stride n + 1,
+//    the blocks of a warp 72 / 272 words apart, and the references' rows
+//    MsLayout::kE words apart (= n mod 32) make every access free of bank
+//    conflicts.  A mode takes two __syncwarp and no CTA barrier: one after
+//    the negative angles' writes and before the transposed writes, one
+//    between the transposed writes and reads.
+// 4. The modes run 0, 1, 2-17, 18-34, mode order, and a lower cost
+//    replaces the best only when strictly lower: argmin's first mode of
+//    least cost (the flat plane's every mode ties at 0: mode 0 wins).
+// 5. FP32 on the CUDA cores, no tensor cores: the near-tie rule of the
+//    checks is on f32 costs.
 //
-// What holds it (codecs/hevc/mode_search_profile.py, variants with one part
-// left out, on an H100 80GB HBM3 at 700 W): at n = 8 the tap tables' reads
-// from global memory (32 bytes a sample a mode) take about half the time
-// and the butterflies 29%; at n = 16 and 32 the butterflies take 52% and
-// 77%, their column stages 4- to 16-way bank-conflicted (stride n); the
-// barriers and the tree sum about 5% each.
-//
-// ptxas -v (sm_90a, CUDA 12.8): 44 registers at n = 8, 52 at 16 and 32,
-// 9,744-11,392 bytes of shared memory, a 0-byte stack, no spills.
+// Measured (codecs/hevc/mode_search_profile.py on an H100 80GB HBM3 at a
+// 700 W power limit, the 4032x3024 luma's blocks): 0.2480 / 0.2590 /
+// 0.3075 ms at n = 8 / 16 / 32, 40% / 49% / 49% of the FP32 bound, 15x /
+// 21x / 39x the first form (256 threads a CTA, tap tables read from
+// device memory a sample a mode, butterflies in shared memory with a CTA
+// barrier a stage); the mode loop 134 / 258 / 527 SASS instructions a lane
+// a mode, about 16.5 a sample a mode; ptxas 48 / 64 / 128 registers, no
+// spills.  Leaving a part out saves: the transposed array 18-22% of the
+// time, the prediction's loads and multiply-adds 12-19%, the butterflies
+// 9-25%, the shuffle sum 4-7%, the __syncwarp calls under 1%.
 
 namespace {
 
-constexpr int kMsThreads = 256;
-constexpr int kMsSamples = 1024;       // samples a CTA: kMsThreads x 4
+constexpr int kMsWarps = 4;                    // warps a CTA
+constexpr int kMsThreads = 32 * kMsWarps;
 constexpr int kMsModes = 35;
+
+template <int n>
+struct MsLayout {
+  static constexpr int kBlocks = 32 / n;       // blocks a warp
+  // an extended reference, >= 3n + 2 words, = n mod 32
+  static constexpr int kE = ((2 * n + 2 + 31) / 32) * 32 + n;
+  static constexpr int kT = n * (n + 1);       // a block's transposed rows
+};
+
+// the 1-D Hadamard transform of v[0..n-1] in place (Sylvester order), its
+// butterfly stages of span below kStop
+template <int n, int kStop = n>
+__device__ __forceinline__ void ms_fwht(float* v) {
+#pragma unroll
+  for (int h = 1; h < kStop; h <<= 1) {
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      if ((i & h) == 0) {
+        const float a = v[i], b = v[i + h];
+        v[i] = a + b;
+        v[i + h] = a - b;
+      }
+    }
+  }
+}
+
+// sum |H R H| / n of the block whose row r (or column r: the sum is the
+// same) this lane holds in v, through the block's transposed array t; the
+// caller's __syncwarp orders t's writes after the last mode's reads.  The
+// last column stage is folded into the sum: |a + b| + |a - b| =
+// 2 max(|a|, |b|), two instructions a pair instead of four.
+template <int n>
+__device__ __forceinline__ float ms_satd(float* v, float* t, int r) {
+  ms_fwht<n>(v);
+#pragma unroll
+  for (int c = 0; c < n; ++c) t[r * (n + 1) + c] = v[c];
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < n; ++c) v[c] = t[c * (n + 1) + r];
+  ms_fwht<n, n / 2>(v);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < n / 2; ++c) s += fmaxf(fabsf(v[c]), fabsf(v[c + n / 2]));
+#pragma unroll
+  for (int o = n / 2; o > 0; o >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s * (2.f / n);
+}
+
+__device__ __forceinline__ void ms_keep(float cost, int m, float& best,
+                                        int& best_mode) {
+  if (cost < best) {   // strict: the first mode of least cost
+    best = cost;
+    best_mode = m;
+  }
+}
+
+// angular mode m on the main reference em (the side one es): lane r
+// predicts row r of the vertical modes, column r of the horizontal ones,
+// less src (the source's row or column r)
+template <int n>
+__device__ __forceinline__ void ms_angular(int m, float* em, const float* es,
+                                           const float* src, float* t,
+                                           int r, float& best,
+                                           int& best_mode) {
+  const int angle = kIntraAngle[m];
+  if (angle < 0) {
+    // ext[j] for j < 0: the side reference at (j invAngle + 128) >> 8
+    const int j = -1 - r;
+    if (j >= ((n * angle) >> 5)) {
+      const int idx = (j * kInvAngle[m] + 128) >> 8;
+      em[n + j] = es[n + min(idx, 2 * n)];
+    }
+  }
+  __syncwarp();
+  const int p = (r + 1) * angle;
+  const int f = p & 31;
+  const float w1 = static_cast<float>(f) * (1.f / 32);
+  const float w0 = static_cast<float>(32 - f) * (1.f / 32);
+  const float* e = em + n + (p >> 5) + 1;
+  float v[n];
+  float e0 = e[0];
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    const float e1 = e[i + 1];
+    v[i] = __fmaf_rn(w1, e1, __fmaf_rn(w0, e0, -src[i]));
+    e0 = e1;
+  }
+  ms_keep(ms_satd<n>(v, t, r), m, best, best_mode);
+}
 
 template <int kLog2>
 __global__ void __launch_bounds__(kMsThreads) hevc_mode_search_kernel(
     const float* __restrict__ blocks, const float* __restrict__ refs,
-    int n_blocks, const int4* __restrict__ tap_idx,
-    const float4* __restrict__ tap_w, int* __restrict__ modes,
-    float* __restrict__ costs) {
+    int n_blocks, int* __restrict__ modes, float* __restrict__ costs) {
   constexpr int n = 1 << kLog2;
-  constexpr int nn = n * n;
-  constexpr int n_ref = 4 * n + 1;
-  constexpr int corner = 2 * n;
-  constexpr int kBlocks = kMsSamples / nn;       // blocks a CTA
-  constexpr int kTpb = nn / 4;                   // threads a block
-  __shared__ float src_s[kMsSamples];
-  __shared__ float work_s[kMsSamples];
-  __shared__ float ref_s[kBlocks * n_ref];
-  __shared__ float red_s[kMsThreads];
-  __shared__ float dc_s[kBlocks];
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kBlocks;
-  const int n_here = min(kBlocks, n_blocks - b0);
-  for (int i = tid; i < kMsSamples; i += kMsThreads)
-    src_s[i] = i < n_here * nn
-                   ? blocks[static_cast<long long>(b0) * nn + i] : 0.f;
-  for (int i = tid; i < kBlocks * n_ref; i += kMsThreads)
-    ref_s[i] = i < n_here * n_ref
-                   ? refs[static_cast<long long>(b0) * n_ref + i] : 0.f;
-  __syncthreads();
-  if (tid < kBlocks) {
-    // DC: the left n and the top n references, / 2n (weight_matrix mode 1)
-    const float* r = ref_s + tid * n_ref;
-    float s = 0.f;
-    for (int i = corner - n; i < corner; ++i) s += r[i];
-    for (int i = corner + 1; i <= corner + n; ++i) s += r[i];
-    dc_s[tid] = s * (1.f / (2 * n));
+  using L = MsLayout<n>;
+  __shared__ float ev_s[kMsWarps][L::kBlocks][L::kE];   // top: modes 18-34
+  __shared__ float eh_s[kMsWarps][L::kBlocks][L::kE];   // left: modes 2-17
+  __shared__ float t_s[kMsWarps][L::kBlocks * L::kT];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * kMsWarps + warp) * L::kBlocks;
+  if (first >= n_blocks) return;               // the whole warp
+  const int slot = lane >> kLog2;              // the warp's block
+  const int r = lane & (n - 1);                // its row (column) here
+  const int g = min(first + slot, n_blocks - 1);
+  float* ev = ev_s[warp][slot];
+  float* eh = eh_s[warp][slot];
+  float* t = t_s[warp] + slot * L::kT;
+  float row[n], col[n];
+  const float* b = blocks + static_cast<long long>(g) * (n * n);
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    row[i] = __ldg(b + r * n + i);
+    col[i] = __ldg(b + i * n + r);
   }
-  __syncthreads();
-  const int blk = tid / kTpb;                    // this thread's block
-  const int lt = tid - blk * kTpb;               // its place in the block
-  const float* ref = ref_s + blk * n_ref;
-  float best = 3.402823466e38f;
+  // ev[n + j] = refs[2n + j], eh[n + j] = refs[2n - j], j in [0, 2n]
+  const float* rf = refs + static_cast<long long>(g) * (4 * n + 1);
+#pragma unroll
+  for (int k = r; k <= 4 * n; k += n) {
+    const float x = __ldg(rf + k);
+    if (k >= 2 * n) ev[k - n] = x;
+    if (k <= 2 * n) eh[3 * n - k] = x;
+  }
+  if (r == 0) {                                // read with weight 0 only
+    ev[3 * n + 1] = 0.f;
+    eh[3 * n + 1] = 0.f;
+  }
+  __syncwarp();
+  float v[n];
+  // planar: left L[i] = eh[n + 1 + i], top T[i] = ev[n + 1 + i]
+  {
+    const float ly = eh[n + 1 + r], ln = eh[2 * n + 1], tn = ev[2 * n + 1];
+    const float base = static_cast<float>(n - 1) * ly + tn +
+                       static_cast<float>(r + 1) * ln;
+    const float d = tn - ly;
+    const float cy = static_cast<float>(n - 1 - r);
+#pragma unroll
+    for (int x = 0; x < n; ++x)
+      v[x] = __fmaf_rn(
+          __fmaf_rn(cy, ev[n + 1 + x],
+                    __fmaf_rn(static_cast<float>(x), d, base)),
+          1.f / (2 * n), -row[x]);
+  }
+  float best = ms_satd<n>(v, t, r);
   int best_mode = 0;
-  for (int m = 0; m < kMsModes; ++m) {
+  // DC: the mean of left[0..n-1] and top[0..n-1]
+  {
+    float dc = eh[n + 1 + r] + ev[n + 1 + r];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int s = tid * 4 + q;
-      const int j = s - blk * nn;
-      float pred;
-      if (m == 1) {
-        pred = dc_s[blk];
-      } else {
-        const int4 ix = tap_idx[m * nn + j];
-        const float4 w = tap_w[m * nn + j];
-        pred = w.x * ref[ix.x];
-        pred += w.y * ref[ix.y];
-        pred += w.z * ref[ix.z];
-        pred += w.w * ref[ix.w];
-      }
-      work_s[s] = pred - src_s[s];
-    }
-    __syncthreads();
-    // rows: 512 butterfly pairs a stage, pair p in row p / (n/2)
+    for (int o = n / 2; o > 0; o >>= 1)
+      dc += __shfl_xor_sync(0xffffffffu, dc, o);
+    dc *= 1.f / (2 * n);
 #pragma unroll
-    for (int h = 1; h < n; h <<= 1) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int p = tid + k * kMsThreads;
-        const int row = p / (n / 2), kk = p - row * (n / 2);
-        const int i = row * n + (kk / h) * 2 * h + (kk % h);
-        const float a = work_s[i], b = work_s[i + h];
-        work_s[i] = a + b;
-        work_s[i + h] = a - b;
-      }
-      __syncthreads();
-    }
-    // columns: column c of block b, pairs along the rows (stride n)
-#pragma unroll
-    for (int h = 1; h < n; h <<= 1) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int p = tid + k * kMsThreads;
-        const int col = p / (n / 2), kk = p - col * (n / 2);
-        const int b = col / n, c = col - b * n;
-        const int i = b * nn + ((kk / h) * 2 * h + (kk % h)) * n + c;
-        const float a = work_s[i], bb = work_s[i + h * n];
-        work_s[i] = a + bb;
-        work_s[i + h * n] = a - bb;
-      }
-      __syncthreads();
-    }
-    float acc = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc += fabsf(work_s[tid * 4 + q]);
-    red_s[tid] = acc;
-    __syncthreads();
-#pragma unroll
-    for (int st = kTpb / 2; st > 0; st >>= 1) {
-      if (lt < st) red_s[tid] += red_s[tid + st];
-      __syncthreads();
-    }
-    if (lt == 0) {
-      const float cost = red_s[tid] * (1.f / n);
-      if (cost < best) {
-        best = cost;
-        best_mode = m;
-      }
-    }
+    for (int x = 0; x < n; ++x) v[x] = dc - row[x];
   }
-  if (lt == 0 && blk < n_here) {
-    modes[b0 + blk] = best_mode;
-    costs[b0 + blk] = best;
+  __syncwarp();
+  ms_keep(ms_satd<n>(v, t, r), 1, best, best_mode);
+#pragma unroll 1
+  for (int m = 2; m < 18; ++m)
+    ms_angular<n>(m, eh, ev, col, t, r, best, best_mode);
+#pragma unroll 1
+  for (int m = 18; m < kMsModes; ++m)
+    ms_angular<n>(m, ev, eh, row, t, r, best, best_mode);
+  if (r == 0 && first + slot < n_blocks) {
+    modes[first + slot] = best_mode;
+    costs[first + slot] = best;
   }
 }
 
@@ -1463,39 +1551,31 @@ __global__ void __launch_bounds__(kMsThreads) hevc_mode_search_kernel(
 
 extern "C" {
 
-// blocks: (n_blocks, n^2) f32; refs: (n_blocks, 4n+1) f32; tap_idx, tap_w:
-// (35, n^2) int4 / float4 (16-byte aligned), the non-zero taps of each
-// predicted sample, padded with weight 0; modes: (n_blocks,) int32; costs:
-// (n_blocks,) f32; log2: 3, 4 or 5
+// blocks: (n_blocks, n^2) f32; refs: (n_blocks, 4n+1) f32; modes:
+// (n_blocks,) int32; costs: (n_blocks,) f32; log2: 3, 4 or 5
 int launch_hevc_mode_search(const void* blocks, const void* refs,
-                            int n_blocks, int log2, const void* tap_idx,
-                            const void* tap_w, void* modes, void* costs,
+                            int n_blocks, int log2, void* modes, void* costs,
                             int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (n_blocks < 1 || log2 < 3 || log2 > 5 ||
-      ((reinterpret_cast<uintptr_t>(tap_idx) |
-        reinterpret_cast<uintptr_t>(tap_w)) & 15) != 0)
-    return kInvalid;
-  const int per_cta = kMsSamples >> (2 * log2);
+  if (n_blocks < 1 || log2 < 3 || log2 > 5) return kInvalid;
+  const int per_cta = kMsWarps * (32 >> log2);
   const unsigned ctas = static_cast<unsigned>((n_blocks + per_cta - 1) /
                                               per_cta);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(blocks);
   const float* r = static_cast<const float*>(refs);
-  const int4* ti = static_cast<const int4*>(tap_idx);
-  const float4* tw = static_cast<const float4*>(tap_w);
   int* mo = static_cast<int*>(modes);
   float* co = static_cast<float*>(costs);
   if (log2 == 3)
-    hevc_mode_search_kernel<3><<<ctas, kMsThreads, 0, st>>>(
-        b, r, n_blocks, ti, tw, mo, co);
+    hevc_mode_search_kernel<3><<<ctas, kMsThreads, 0, st>>>(b, r, n_blocks,
+                                                            mo, co);
   else if (log2 == 4)
-    hevc_mode_search_kernel<4><<<ctas, kMsThreads, 0, st>>>(
-        b, r, n_blocks, ti, tw, mo, co);
+    hevc_mode_search_kernel<4><<<ctas, kMsThreads, 0, st>>>(b, r, n_blocks,
+                                                            mo, co);
   else
-    hevc_mode_search_kernel<5><<<ctas, kMsThreads, 0, st>>>(
-        b, r, n_blocks, ti, tw, mo, co);
+    hevc_mode_search_kernel<5><<<ctas, kMsThreads, 0, st>>>(b, r, n_blocks,
+                                                            mo, co);
   return static_cast<int>(cudaGetLastError());
 }
 

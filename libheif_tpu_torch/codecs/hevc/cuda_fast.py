@@ -65,7 +65,7 @@ HEVC_INTER_PRED = CudaKernel(
 
 HEVC_MODE_SEARCH = CudaKernel(
     "hevc_mode_search", "launch_hevc_mode_search",
-    [_P, _P, _I, _I, _P, _P, _P, _P])
+    [_P, _P, _I, _I, _P, _P])
 
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (HEVC_DEQUANT_ITX, HEVC_INTRA_WAVE, HEVC_INTER_PRED,
@@ -601,7 +601,7 @@ def inter_pred_plain(jobs, ydpb, cdpb, ybuf, cbuf, *, bd: int,
 
 # ------------------------------------------------------------ mode search
 
-MODE_TAPS = 4           # taps a predicted sample in hevc_mode_search
+MODE_TAPS = 4           # the most taps a predicted sample has
 # the plain search's (chunk, 35, n^2) float32 intermediates: 2^28 bytes each
 PLAIN_CHUNK_BYTES = 1 << 28
 
@@ -611,8 +611,10 @@ def mode_taps(log2: int):
     """The non-zero taps of every predicted sample of every mode but DC,
     from ``device_modes.weight_matrix``: (35, n^2, 4) int32 reference
     indices and float32 weights, in ascending index order, padded with
-    weight 0.  DC's rows are left empty: the kernel takes the mean of the
-    references that its weight matrix names (checked here)."""
+    weight 0.  DC's rows are left empty: its weight matrix is the mean of
+    2n references (checked here).  hevc_mode_search computes these taps
+    from the mode and the sample's place; this table checks that no
+    sample has more than four and counts the function's multiply-adds."""
     from .device_modes import MODES, weight_matrix
     n = 1 << log2
     idx = np.zeros((len(MODES), n * n, MODE_TAPS), np.int32)
@@ -632,18 +634,6 @@ def mode_taps(log2: int):
             idx[m, j, :len(nz)] = nz
             w[m, j, :len(nz)] = W[j, nz]
     return idx, w
-
-
-_TAPS_ON: Dict[tuple, tuple] = {}
-
-
-def _taps_on(log2: int, device: torch.device):
-    key = (log2, str(device))
-    if key not in _TAPS_ON:
-        idx, w = mode_taps(log2)
-        _TAPS_ON[key] = (torch.from_numpy(idx).to(device),
-                         torch.from_numpy(w).to(device))
-    return _TAPS_ON[key]
 
 
 @contextlib.contextmanager
@@ -710,11 +700,9 @@ def mode_search(blocks: torch.Tensor, refs: torch.Tensor, log2: int):
     n_blocks = blocks.shape[0]
     if n_blocks >= 1 << 31:
         raise ValueError("more than 2^31 - 1 blocks")
-    tap_idx, tap_w = _taps_on(log2, blocks.device)
     modes = torch.empty(n_blocks, dtype=torch.int32, device=blocks.device)
     costs = torch.empty(n_blocks, dtype=torch.float32, device=blocks.device)
     HEVC_MODE_SEARCH.launch(modes, blocks.data_ptr(), refs.data_ptr(),
-                            n_blocks, log2, tap_idx.data_ptr(),
-                            tap_w.data_ptr(), modes.data_ptr(),
+                            n_blocks, log2, modes.data_ptr(),
                             costs.data_ptr())
     return modes, costs

@@ -363,73 +363,127 @@ jpeg_dequant_idct_kernel(const int16_t* __restrict__ coeffs,
 // coefficients: the 4032x3024 4:2:0 photo's 285,768 blocks move 54.9 MB,
 // 0.0164 ms at 3.35 TB/s.  Operations: the two 1-D passes take 59 int32
 // operations each for eight samples (14.75 a sample), the level shift one
-// a sample and the quantiser five (abs, add, multiply-high, negate,
-// select): 20.75 a sample, 0.0227 ms for the photo at 132 SMs x 64 INT32
-// lanes x 1.98 GHz.  The function is bound by its operations.
+// a row (on the row pass's DC term, 1/8 a sample) and the quantiser five
+// (abs, add, multiply-high, negate, select): 19.875 a sample, 0.0217 ms
+// for the photo at 132 SMs x 64 INT32 lanes x 1.98 GHz.  The function is bound by its operations, so the
+// kernel has to spend few instructions beyond them and few on memory.
 //
-// Design (simple, a first kernel).  A CTA of 64 threads takes kFqBlocks = 8
-// consecutive blocks of the output a round, eight threads a block, and
-// walks the output in a grid-stride loop sized to the CTAs the card holds
-// at once, so that its table set-up is paid once a CTA.  The set-up turns
-// each quantiser step q = 8 Q into q / 2 and a reciprocal m = (2^32 - 1) /
-// q + 1 in shared memory: for 0 <= x < 2^17, __umulhi(x, m) is x / q
-// exactly (m q - 2^32 lies in [0, q), so x m / 2^32 exceeds x / q by less
-// than x / 2^32 < 2^-15 <= 1 / q, which cannot carry x / q, whose fraction
-// is at most 1 - 1 / q, past an integer), for q <= 2^15, i.e. Q <= 4,095;
-// the coefficients' magnitudes stay at most 2^16 and q / 2 at most 16,380,
-// so every x does.  A block finds its job (a component plane) by a binary
-// search of the jobs' first output blocks.  Pass 1: thread r reads row r
-// of its block straight from the uint8 plane, with the coordinates clamped
-// to the plane (the edge replication of the JAX encoder.py's _pad_to,
-// without a padded copy), and runs the row butterfly; pass 2: thread c
-// runs column c's butterfly from shared memory, quantises and writes the
-// eight coefficients to their zigzag places in shared memory; then each
-// thread stores 16 contiguous bytes of its block's 128.  A block's eight
-// threads lie in one warp, so the passes meet at warp barriers.
+// Design.
+// 1. One job a CTA tile.  A CTA of kFqWarps warps takes a tile of one job
+//    (a component plane), kFqTileW blocks across by kFqTileH block rows,
+//    each warp 8 x 4 of them, a thread a whole block.  The job table gives
+//    each job its first CTA; a warp finds its CTA's job by one 32-wide
+//    ballot over the jobs' first CTAs (a round for each 32 jobs), and the
+//    tile's place is the CTA's index less that first CTA, one division a
+//    CTA by the job's tiles across.  No search or division a block.
+// 2. Wide loads.  A thread loads each of its block's eight rows as one
+//    8-byte word, straight into registers: a warp's load instruction reads
+//    four 64-byte runs of one pixel row each, whole 32-byte sectors, and
+//    nothing passes through shared memory.  Blocks that reach past the
+//    plane (the MCU grid's padding, odd 4:2:0 chroma) or a view whose
+//    address or pitch is not a multiple of 8 take a byte path with clamped
+//    coordinates (the edge replication of the JAX encoder.py's _pad_to,
+//    without a padded copy); the choice is a thread's, so an edge costs
+//    only its own warps and views at odd offsets go through the same
+//    launch.
+// 3. Both passes and the quantiser in registers: the row pass on the 64
+//    samples, the column pass, then each coefficient's quantisation, all
+//    at compile-time register indices; the level shift is folded into the
+//    DC term of the row pass (-8 x 128 before its shift: the other outputs
+//    are differences).  The zigzag reorder is a compile-time pairing of
+//    the 64 coefficients into 32 words (fq_zigzag, one byte_perm a word):
+//    no table is read for it.
+// 4. Coalesced stores.  A thread's 128 bytes of coefficients go to shared
+//    memory as eight 16-byte vectors (kFqOutRow = 36 words a block, free
+//    of bank conflicts), and the warp writes its 32 blocks four whole
+//    blocks (512 contiguous bytes) a store instruction.  Storing each
+//    thread's 128 bytes straight to device memory made every store
+//    instruction touch 32 separate lines, and held the kernel at the
+//    first form's time (codecs/jpeg/kernel_times.py).  kFqMinCtas caps the
+//    registers so that six CTAs share an SM.
+// 5. The exact reciprocal quantiser: the CTA's first 64 threads turn the
+//    job's quantiser steps q = 8 Q into q / 2 and m = (2^32 - 1) / q + 1 in
+//    shared memory while the tile's loads are in flight.  For 0 <= x <
+//    2^17, __umulhi(x, m) is x / q exactly (m q - 2^32 lies in [0, q), so
+//    x m / 2^32 exceeds x / q by less than x / 2^32 < 2^-15 <= 1 / q, which
+//    cannot carry x / q, whose fraction is at most 1 - 1 / q, past an
+//    integer), for q <= 2^15, i.e. Q <= 4,095; the coefficients' magnitudes
+//    stay at most 2^16 and q / 2 at most 16,380, so every x does.  A
+//    coefficient's q / 2 and m are broadcast loads at a compile-time place.
 //
-// ptxas -v (sm_90a): chip_smoke.py's kernels line gives the registers and
-// shared memory.
+// Measured (codecs/jpeg/kernel_times.py on an H100 80GB HBM3 at a 700 W
+// power limit, the photo's three planes): the kernel alone 0.0253 ms, 86%
+// of the op bound (the first form, a thread a row, a binary search and a
+// division a block, byte loads and a global zigzag table: 0.0464 ms); the
+// call with its table copy 0.0290 ms; 29.3 SASS instructions a sample;
+// ptxas 80 registers, 18,944 bytes of shared memory, 36 bytes of spill
+// stores and 20 of spill loads (a 24-byte stack frame): still faster than
+// the same kernel at 95 registers without spills, five CTAs an SM
+// (0.0254 against 0.0262 ms in one call).
 
-constexpr int kFqJobCols = 10;   // FQ_JOB_COLS in cuda_fast.py
-constexpr int kFqBlocks = 8;     // FQ_BLOCKS: blocks a CTA
-constexpr int kFqThreads = 8 * kFqBlocks;
+constexpr int kFqJobCols = 12;   // FQ_JOB_COLS in cuda_fast.py
+constexpr int kFqWarps = 4;
+constexpr int kFqThreads = 32 * kFqWarps;
+constexpr int kFqTileW = 8;              // FQ_TILE_W: blocks across a tile
+constexpr int kFqTileH = 4 * kFqWarps;   // FQ_TILE_H: block rows a tile
+constexpr int kFqMinCtas = 6;            // resident an SM: <= 85 registers
 constexpr int kFqMaxTables = 4;
-constexpr int kFqMaxDevices = 64;
+constexpr int kLevelDc = 8 * 128;        // the level shift's sum in a row
+constexpr int kFqOutRow = 36;            // words a block in out_s
 
-// natural position -> zigzag index (tables.py INV_ZIGZAG)
-__device__ const unsigned char kFqInvZigzag[64] = {
-    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
-    3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
-    10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
-    21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+// zigzag index -> natural position (tables.py ZIGZAG)
+__host__ __device__ constexpr int fq_zigzag(int z) {
+  constexpr int zz[64] = {
+      0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+      12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+      35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+      58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+  return zz[z];
+}
+static_assert(fq_zigzag(2) == 8 && fq_zigzag(63) == 63, "ZIGZAG");
+
+#ifndef TORCH_CUDA_EMU  // tests/torch_cuda_emu.h defines these for g++
+// eight bytes at an 8-byte aligned global address, read-only path
+__device__ __forceinline__ uint2 load_global_v2u(const uint8_t* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+// 16 bytes to an aligned global address in one instruction
+__device__ __forceinline__ void store_global_v4(int32_t* p, int a, int b,
+                                                int c, int d) {
+  asm volatile("st.global.v4.s32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+#endif
 
 __device__ __forceinline__ int fq_descale(int x, int n) {
   return (x + (1 << (n - 1))) >> n;
 }
 
-// idct.py _fdct_1d (jfdctint.c pass body) in place on v[0..7]; the row
-// pass (kFirst) keeps kPass1Bits of headroom.  8-bit samples keep every
-// product and sum far inside int32.
-template <bool kFirst>
+// idct.py _fdct_1d (jfdctint.c pass body) in place on v[0], v[s], ...,
+// v[7s]; the row pass (kFirst) keeps kPass1Bits of headroom and takes
+// unshifted samples, the level shift applied to its DC output alone.
+// 8-bit samples keep every product and sum far inside int32.
+template <bool kFirst, int s>
 __device__ __forceinline__ void fdct_1d(int* v) {
-  const int tmp0 = v[0] + v[7], tmp7 = v[0] - v[7];
-  const int tmp1 = v[1] + v[6], tmp6 = v[1] - v[6];
-  const int tmp2 = v[2] + v[5], tmp5 = v[2] - v[5];
-  const int tmp3 = v[3] + v[4], tmp4 = v[3] - v[4];
+  const int tmp0 = v[0] + v[7 * s], tmp7 = v[0] - v[7 * s];
+  const int tmp1 = v[s] + v[6 * s], tmp6 = v[s] - v[6 * s];
+  const int tmp2 = v[2 * s] + v[5 * s], tmp5 = v[2 * s] - v[5 * s];
+  const int tmp3 = v[3 * s] + v[4 * s], tmp4 = v[3 * s] - v[4 * s];
   const int tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
   const int tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
   constexpr int sh = kFirst ? kConstBits - kPass1Bits
                             : kConstBits + kPass1Bits;
   if (kFirst) {
-    v[0] = (tmp10 + tmp11) << kPass1Bits;
-    v[4] = (tmp10 - tmp11) << kPass1Bits;
+    v[0] = (tmp10 + tmp11 - kLevelDc) << kPass1Bits;
+    v[4 * s] = (tmp10 - tmp11) << kPass1Bits;
   } else {
     v[0] = fq_descale(tmp10 + tmp11, kPass1Bits);
-    v[4] = fq_descale(tmp10 - tmp11, kPass1Bits);
+    v[4 * s] = fq_descale(tmp10 - tmp11, kPass1Bits);
   }
   int z1 = (tmp12 + tmp13) * 4433;                     // FIX_0_541196100
-  v[2] = fq_descale(z1 + tmp13 * 6270, sh);           // FIX_0_765366865
-  v[6] = fq_descale(z1 + tmp12 * -15137, sh);         // FIX_1_847759065
+  v[2 * s] = fq_descale(z1 + tmp13 * 6270, sh);       // FIX_0_765366865
+  v[6 * s] = fq_descale(z1 + tmp12 * -15137, sh);     // FIX_1_847759065
   z1 = tmp4 + tmp7;
   int z2 = tmp5 + tmp6;
   int z3 = tmp4 + tmp6;
@@ -443,86 +497,140 @@ __device__ __forceinline__ void fdct_1d(int* v) {
   z2 = z2 * -20995;                                    // FIX_2_562915447
   z3 = z3 * -16069 + z5;                               // FIX_1_961570560
   z4 = z4 * -3196 + z5;                                // FIX_0_390180644
-  v[7] = fq_descale(t4 + z1 + z3, sh);
-  v[5] = fq_descale(t5 + z2 + z4, sh);
-  v[3] = fq_descale(t6 + z2 + z3, sh);
-  v[1] = fq_descale(t7 + z1 + z4, sh);
+  v[7 * s] = fq_descale(t4 + z1 + z3, sh);
+  v[5 * s] = fq_descale(t5 + z2 + z4, sh);
+  v[3 * s] = fq_descale(t6 + z2 + z3, sh);
+  v[s] = fq_descale(t7 + z1 + z4, sh);
+}
+
+// o[w] = coefficients 2w and 2w + 1 of the zigzag order, as int16 halves
+template <int w>
+__device__ __forceinline__ void fq_pack(const int* c, unsigned* o) {
+  constexpr int a = fq_zigzag(2 * w), b = fq_zigzag(2 * w + 1);
+  o[w] = __byte_perm(static_cast<unsigned>(c[a]), static_cast<unsigned>(c[b]),
+                     0x5410);
+  if constexpr (w + 1 < 32) fq_pack<w + 1>(c, o);
 }
 
 // jobs: n_jobs rows of kFqJobCols int32 (plane address low and high words,
 // pitch, width, height, blocks_w, blocks_h, table, first output block,
-// unused), ascending by first output block; quant: (n_tables, 64) int32
-// natural order, 1 <= Q <= 4,095; out: (n_blocks, 64) int16 zigzag
-__global__ void __launch_bounds__(kFqThreads) jpeg_fdct_quant_kernel(
-    const int32_t* __restrict__ jobs, int n_jobs, int n_blocks,
-    const int32_t* __restrict__ quant, int n_tables,
+// tiles across, 0, 0), then each job's first CTA, ascending from 0; quant:
+// (n_tables, 64) int32 natural order, 1 <= Q <= 4,095; out: (n_blocks, 64)
+// int16 zigzag, 16-byte aligned
+__global__ void __launch_bounds__(kFqThreads, kFqMinCtas)
+    jpeg_fdct_quant_kernel(
+    const int4* __restrict__ jobs, const int* __restrict__ first_cta,
+    int n_jobs, const int32_t* __restrict__ quant,
     int16_t* __restrict__ out) {
-  __shared__ int half_s[kFqMaxTables * 64];        // 4 Q
-  __shared__ unsigned recip_s[kFqMaxTables * 64];  // of 8 Q
-  __shared__ int ws_s[kFqBlocks][8][9];
-  __shared__ __align__(16) int16_t out_s[kFqBlocks][64];
-  for (int i = threadIdx.x; i < n_tables * 64; i += kFqThreads) {
-    const int q = quant[i];
-    half_s[i] = q * 4;
-    recip_s[i] = 0xffffffffu / static_cast<unsigned>(q * 8) + 1u;
+  __shared__ int half_s[64];                 // 4 Q
+  __shared__ unsigned recip_s[64];           // of 8 Q
+  // each thread's 32 words of coefficients, kFqOutRow words apart (its
+  // 16-byte accesses free of bank conflicts), for the coalesced stores
+  __shared__ __align__(16) unsigned out_s[kFqWarps][32][kFqOutRow];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cta = static_cast<int>(blockIdx.x);
+  // the CTA's job: the last whose first CTA is <= cta (first CTAs ascend,
+  // so those form a prefix)
+  int job = 0;
+  for (int base = 0; base < n_jobs; base += 32) {
+    const int i = base + lane;
+    const unsigned le =
+        __ballot_sync(0xffffffffu, i < n_jobs && __ldg(first_cta + i) <= cta);
+    if (le != 0) job = base + 31 - __clz(le);
+    if (le != 0xffffffffu) break;
+  }
+  const int4 j0 = __ldg(jobs + 3 * job), j1 = __ldg(jobs + 3 * job + 1),
+             j2 = __ldg(jobs + 3 * job + 2);
+  const unsigned long long addr =
+      (static_cast<unsigned long long>(static_cast<unsigned>(j0.y)) << 32) |
+      static_cast<unsigned>(j0.x);
+  const uint8_t* plane = reinterpret_cast<const uint8_t*>(addr);
+  const int pitch = j0.z, w = j0.w, h = j1.x;
+  const int t = cta - __ldg(first_cta + job);
+  const int ty = t / j2.y, tx = t - ty * j2.y;          // j2.y: tiles across
+  const int bx = tx * kFqTileW + (lane & 7);
+  const int by = ty * kFqTileH + warp * 4 + (lane >> 3);
+  const bool live = bx < j1.y && by < j1.z;
+  const bool fast = live && ((addr | static_cast<unsigned>(pitch)) & 7) == 0 &&
+                    bx * 8 + 8 <= w && by * 8 + 8 <= h;
+  uint2 rows[8];
+  if (fast) {
+    const uint8_t* p = plane + static_cast<long long>(by * 8) * pitch + bx * 8;
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      rows[r] = load_global_v2u(p + static_cast<long long>(r) * pitch);
+  }
+  if (threadIdx.x < 64) {
+    const int q = __ldg(quant + j1.w * 64 + threadIdx.x);
+    half_s[threadIdx.x] = q * 4;
+    recip_s[threadIdx.x] = 0xffffffffu / static_cast<unsigned>(q * 8) + 1u;
   }
   __syncthreads();                    // the tables are in shared memory
-  const int slot = threadIdx.x >> 3;
-  const int r = threadIdx.x & 7;
-  for (int first = blockIdx.x * kFqBlocks; first < n_blocks;
-       first += gridDim.x * kFqBlocks) {
-    const int g = first + slot;
-    const bool live = g < n_blocks;
-    const int32_t* job = jobs;
-    if (live) {
-      int lo = 0, hi = n_jobs - 1;    // the last job whose first <= g
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (jobs[mid * kFqJobCols + 8] <= g) lo = mid; else hi = mid - 1;
-      }
-      job = jobs + lo * kFqJobCols;
-      const int k = g - job[8];
-      const int by = k / job[5];
-      const int bx = k - by * job[5];
-      // pass 1: row r of the block, coordinates clamped to the plane
-      const uint8_t* plane = reinterpret_cast<const uint8_t*>(
-          (static_cast<unsigned long long>(static_cast<unsigned>(job[1]))
-           << 32) | static_cast<unsigned>(job[0]));
-      const int y = min(by * 8 + r, job[4] - 1);
-      const uint8_t* row = plane + static_cast<long long>(y) * job[2];
-      int v[8];
+  if (live) {
+    int v[64];
+    if (fast) {
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
-        v[c] = static_cast<int>(row[min(bx * 8 + c, job[3] - 1)]) - 128;
-      fdct_1d<true>(v);
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) ws_s[slot][r][c] = v[c];
-    }
-    __syncwarp();
-    if (live) {
-      // pass 2: column r, quantised, each coefficient to its zigzag place
-      int v[8];
+        for (int c = 0; c < 4; ++c) {
+          v[r * 8 + c] =
+              static_cast<int>(__byte_perm(rows[r].x, 0, 0x4440 + c));
+          v[r * 8 + 4 + c] =
+              static_cast<int>(__byte_perm(rows[r].y, 0, 0x4440 + c));
+        }
+    } else {
+      // the clamped byte path: coordinates past the plane repeat its edge
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = ws_s[slot][i][r];
-      fdct_1d<false>(v);
-      const int t = job[7] * 64 + r;
+      for (int r = 0; r < 8; ++r) {
+        const uint8_t* row =
+            plane + static_cast<long long>(min(by * 8 + r, h - 1)) * pitch;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int c = v[k];
-        const int mag = static_cast<int>(__umulhi(
-            static_cast<unsigned>((c < 0 ? -c : c) + half_s[t + k * 8]),
-            recip_s[t + k * 8]));
-        out_s[slot][kFqInvZigzag[k * 8 + r]] =
-            static_cast<int16_t>(c < 0 ? -mag : mag);
+        for (int c = 0; c < 8; ++c)
+          v[r * 8 + c] = static_cast<int>(row[min(bx * 8 + c, w - 1)]);
       }
     }
-    __syncwarp();
-    if (live)
-      reinterpret_cast<int4*>(out + static_cast<long long>(g) * 64)[r] =
-          reinterpret_cast<const int4*>(out_s[slot])[r];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) fdct_1d<true, 1>(v + r * 8);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) fdct_1d<false, 8>(v + c);
+    // quantise: |c| + 4Q over 8Q by the reciprocal, the sign restored
+#pragma unroll
+    for (int k = 0; k < 64; ++k) {
+      const int c = v[k];
+      const int mag = static_cast<int>(
+          __umulhi(static_cast<unsigned>((c < 0 ? -c : c) + half_s[k]),
+                   recip_s[k]));
+      v[k] = c < 0 ? -mag : mag;
+    }
+    unsigned o[32];
+    fq_pack<0>(v, o);
+    int4* mine = reinterpret_cast<int4*>(out_s[warp][lane]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      mine[i] = make_int4(static_cast<int>(o[4 * i]),
+                          static_cast<int>(o[4 * i + 1]),
+                          static_cast<int>(o[4 * i + 2]),
+                          static_cast<int>(o[4 * i + 3]));
+  }
+  __syncwarp();
+  // the warp's 32 blocks out, four whole blocks of one block row (512
+  // contiguous bytes) a store instruction
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int slot = 4 * i + (lane >> 3), part = lane & 7;
+    const int sx = tx * kFqTileW + (slot & 7);
+    const int sy = ty * kFqTileH + warp * 4 + (slot >> 3);
+    if (sx < j1.y && sy < j1.z) {
+      const int4 q = reinterpret_cast<const int4*>(out_s[warp][slot])[part];
+      store_global_v4(
+          reinterpret_cast<int32_t*>(
+              out + (static_cast<long long>(j2.x) +
+                     static_cast<long long>(sy) * j1.y + sx) * 64) +
+              4 * part,
+          q.x, q.y, q.z, q.w);
+    }
   }
 }
-
 }  // namespace
 
 extern "C" {
@@ -553,38 +661,26 @@ int launch_jpeg_dequant_idct(const void* coeffs, const void* quant,
 }
 
 
-// table: n_jobs rows of 10 int32 (FQ_JOB_COLS), 8-byte aligned, ascending
-// by first output block, the first 0; quant: (n_tables, 64) int32 natural
-// order, 1 <= n_tables <= 4, every Q in 1..4,095; out: (n_blocks, 64)
-// int16, 16-byte aligned
-int launch_jpeg_fdct_quant(const void* table, int n_jobs, int n_blocks,
+// table: n_jobs rows of 12 int32 (FQ_JOB_COLS), 16-byte aligned, then
+// each job's first CTA, ascending from 0; n_ctas: the CTAs of all jobs;
+// quant: (n_tables, 64) int32 natural order, 1 <= n_tables <= 4, every Q
+// in 1..4,095; out: (n_blocks, 64) int16, 16-byte aligned
+int launch_jpeg_fdct_quant(const void* table, int n_jobs, int n_ctas,
                            const void* quant, int n_tables, void* out,
                            int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (n_jobs < 1 || n_blocks < 1 || n_tables < 1 ||
-      n_tables > kFqMaxTables ||
-      ((reinterpret_cast<uintptr_t>(out) & 15) |
-       (reinterpret_cast<uintptr_t>(table) & 7)) != 0)
+  if (n_jobs < 1 || n_ctas < 1 || n_tables < 1 || n_tables > kFqMaxTables ||
+      ((reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(table)) & 15) != 0)
     return kInvalid;
-  static int resident[kFqMaxDevices];  // CTAs the card holds at once
-  if (device < 0 || device >= kFqMaxDevices) return kInvalid;
-  if (resident[device] == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, jpeg_fdct_quant_kernel, kFqThreads, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    resident[device] = sms * per_sm > 0 ? sms * per_sm : 1;
-  }
-  const int need = (n_blocks + kFqBlocks - 1) / kFqBlocks;
-  const unsigned ctas =
-      static_cast<unsigned>(need < resident[device] ? need : resident[device]);
-  jpeg_fdct_quant_kernel<<<ctas, kFqThreads, 0,
+  const int4* jobs = static_cast<const int4*>(table);
+  jpeg_fdct_quant_kernel<<<static_cast<unsigned>(n_ctas), kFqThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), n_jobs, n_blocks,
-      static_cast<const int32_t*>(quant), n_tables,
+      jobs,
+      reinterpret_cast<const int*>(jobs + (kFqJobCols / 4) *
+                                   static_cast<long long>(n_jobs)),
+      n_jobs, static_cast<const int32_t*>(quant),
       static_cast<int16_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

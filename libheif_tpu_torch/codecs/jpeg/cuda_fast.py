@@ -159,8 +159,9 @@ def dequant_idct(coeffs: torch.Tensor, quant: torch.Tensor,
 
 # ------------------------------------------------------------- encode side
 
-FQ_JOB_COLS = 10        # kFqJobCols in csrc/jpeg_kernels.cu
-FQ_BLOCKS = 8           # kFqBlocks: 8x8 blocks a CTA, eight threads each
+FQ_JOB_COLS = 12        # kFqJobCols in csrc/jpeg_kernels.cu
+FQ_TILE_W = 8           # kFqTileW: blocks across a CTA's tile, a thread each
+FQ_TILE_H = 16          # kFqTileH: block rows a CTA's tile
 FQ_MAX_TABLES = 4
 
 
@@ -214,28 +215,38 @@ def _check_fdct(jobs: Sequence[FdctJob], quant: torch.Tensor) -> None:
 
 
 def fdct_table(jobs: Sequence[FdctJob], pin: bool = False
-               ) -> Tuple[torch.Tensor, int]:
-    """The kernel's job table (pinned where ``pin``) and the block count:
-    a row of FQ_JOB_COLS int32 a job (plane address low and high words,
-    pitch, width, height, blocks_w, blocks_h, table, first output block,
-    unused); job i's blocks follow job i-1's in the output."""
+               ) -> Tuple[torch.Tensor, int, int]:
+    """The kernel's job table (pinned where ``pin``), the block count and
+    the CTA count: a row of FQ_JOB_COLS int32 a job (plane address low and
+    high words, pitch, width, height, blocks_w, blocks_h, table, first
+    output block, tiles across, 0, 0), then each job's first CTA.  Job
+    i's blocks follow job i-1's in the output; a CTA takes a tile of
+    FQ_TILE_W x FQ_TILE_H blocks of one job, the tiles of a job in row
+    order."""
     counts = np.array([j.blocks_w * j.blocks_h for j in jobs], np.int64)
     firsts = np.cumsum(counts) - counts
     n_blocks = int(counts.sum())
     if n_blocks >= 1 << 31:
         raise ValueError("more than 2^31 - 1 blocks")
+    tiles_w = np.array([-(-j.blocks_w // FQ_TILE_W) for j in jobs], np.int64)
+    tiles = tiles_w * [-(-j.blocks_h // FQ_TILE_H) for j in jobs]
+    first_cta = np.cumsum(tiles) - tiles
+    n_ctas = int(tiles.sum())
     meta = np.array([(j.plane.data_ptr(), j.plane.stride(0),
                       j.plane.shape[1], j.plane.shape[0], j.blocks_w,
-                      j.blocks_h, j.qidx, f)
-                     for j, f in zip(jobs, firsts)], dtype=np.int64)
-    if meta[:, 1:].max() >= 1 << 31:
+                      j.blocks_h, j.qidx, f, tw)
+                     for j, f, tw in zip(jobs, firsts, tiles_w)],
+                    dtype=np.int64)
+    if meta[:, 1:].max() >= 1 << 31 or n_ctas >= 1 << 31:
         raise ValueError("a pitch or size past the kernel's int32")
-    table = torch.zeros(len(jobs) * FQ_JOB_COLS, dtype=torch.int32,
+    n = len(jobs)
+    table = torch.zeros(n * (FQ_JOB_COLS + 1), dtype=torch.int32,
                         pin_memory=pin)
-    rows = table.numpy().reshape(len(jobs), FQ_JOB_COLS)
+    rows = table.numpy()[:n * FQ_JOB_COLS].reshape(n, FQ_JOB_COLS)
     rows.view(np.int64)[:, 0] = meta[:, 0]
-    rows[:, 2:9] = meta[:, 1:]
-    return table, n_blocks
+    rows[:, 2:10] = meta[:, 1:]
+    table.numpy()[n * FQ_JOB_COLS:] = first_cta
+    return table, n_blocks, n_ctas
 
 
 def fdct_quant(jobs: Sequence[FdctJob], quant: torch.Tensor) -> torch.Tensor:
@@ -250,9 +261,10 @@ def fdct_quant(jobs: Sequence[FdctJob], quant: torch.Tensor) -> torch.Tensor:
         return torch.cat([fdct_quant_plain(padded_blocks(j), quant[j.qidx])
                           for j in jobs])
     quant = quant.contiguous()
-    table, n_blocks = fdct_table(jobs, pin=quant.device.type == "cuda")
+    table, n_blocks, n_ctas = fdct_table(jobs,
+                                         pin=quant.device.type == "cuda")
     table_d = table.to(quant.device, non_blocking=True)
     out = torch.empty((n_blocks, 64), dtype=torch.int16, device=quant.device)
-    JPEG_FDCT_QUANT.launch(out, table_d.data_ptr(), len(jobs), n_blocks,
+    JPEG_FDCT_QUANT.launch(out, table_d.data_ptr(), len(jobs), n_ctas,
                            quant.data_ptr(), quant.shape[0], out.data_ptr())
     return out

@@ -1,4 +1,4 @@
-"""Time the JPEG reconstruction kernel of several checkouts on one card.
+"""Time the JPEG kernels of several checkouts on one card.
 
     python libheif_tpu_torch/codecs/jpeg/kernel_times.py ROOT [ROOT ...]
 
@@ -31,6 +31,7 @@ from pathlib import Path
 
 TILES = ("tile512_s0", "tile512_s1", "tile512_s2", "tile512_s3")
 PICTURES = 48
+PHOTO = (4032, 3024)        # the encode's photo, 4:2:0
 
 # codecs/kernel_timing.py of this script's checkout (the worker imports
 # another checkout's package, which may not have it)
@@ -67,13 +68,55 @@ def photo_batch(torch, np, F, decoder, root):
             torch.from_numpy(np.stack(quant).astype(np.int32)).cuda(), jobs)
 
 
+def fdct_photo(torch, np, F, encoder, dev="cuda"):
+    """The photo's three planes as jobs on ``dev`` (4:2:0: the luma two
+    blocks an MCU across and down, each chroma plane one), and the q 90
+    tables."""
+    g = np.random.default_rng(0)
+    w, h = PHOTO
+    mcu_w, mcu_h = -(-w // 16), -(-h // 16)
+    jobs = []
+    for k, (pw, ph, s) in enumerate(((w, h, 2), (w // 2, h // 2, 1),
+                                     (w // 2, h // 2, 1))):
+        plane = torch.from_numpy(g.integers(0, 256, (ph, pw),
+                                            dtype=np.uint8)).to(dev)
+        jobs.append(F.FdctJob(plane, mcu_w * s, mcu_h * s, min(k, 1)))
+    return jobs, encoder.quant_tables(90, 2, dev)
+
+
+def fdct_times(torch, np, F, encoder, idct, sass, path, build_log):
+    """jpeg_fdct_quant at the photo (module doc), ``fdct_*`` keys."""
+    sets = [fdct_photo(torch, np, F, encoder) for _ in range(2)]
+    jobs, quant = sets[0]
+    got = F.fdct_quant(jobs, quant)
+    want = torch.cat([idct.fdct_quant_plain(F.padded_blocks(j),
+                                            quant[j.qidx]) for j in jobs])
+    differing = int((got != want).sum())
+    assert differing == 0, f"{differing} coefficients differ"
+    fns = [lambda s=s: F.fdct_quant(*s) for s in sets]
+    kernel, copies = T.kernel_ms(torch, fns, 20, "jpeg_fdct_quant")
+    # a thread of the earlier kernel computed one row of one block, of
+    # this one a whole block
+    per_thread = 64 if hasattr(F, "FQ_TILE_W") else 8
+    count = sass.count(sass.cuobjdump_sass(path), "jpeg_fdct_quant_kernel",
+                       per_thread, whole=True)
+    return {"fdct_blocks": sum(j.blocks_w * j.blocks_h for j in jobs),
+            "fdct_differing_coefficients": differing,
+            "fdct_ms": T.device_ms(torch, fns, 50),
+            "fdct_kernel_ms": kernel, "fdct_table_copy_ms": copies,
+            "fdct_sass_per_sample": count["per_pixel"],
+            "fdct_samples_per_thread": per_thread,
+            **{f"fdct_{k}": v for k, v in T.ptxas_resources(
+                build_log, "jpeg_fdct_quant_kernel").items()}}
+
+
 def worker(root: str) -> dict:
     sys.path[0] = root            # not this file's directory: ROOT's package
     import numpy as np
     import torch
     from libheif_tpu_torch import _build
     from libheif_tpu_torch.codecs.jpeg import cuda_fast as F
-    from libheif_tpu_torch.codecs.jpeg import decoder
+    from libheif_tpu_torch.codecs.jpeg import decoder, encoder
     from libheif_tpu_torch.codecs.jpeg import idct
 
     _build.LIBRARY.load()
@@ -110,7 +153,9 @@ def worker(root: str) -> dict:
         "sass_instructions": count["body_instructions"],
         "samples_per_thread": per_thread,
         **T.ptxas_resources(_build.LIBRARY.build_log,
-                            "jpeg_dequant_idct_kernel")}
+                            "jpeg_dequant_idct_kernel"),
+        **fdct_times(torch, np, F, encoder, idct, sass,
+                     str(_build.LIBRARY.path), _build.LIBRARY.build_log)}
 
 
 if __name__ == "__main__":

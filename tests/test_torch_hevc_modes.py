@@ -8,8 +8,10 @@ with the JAX ``plan_modes_device`` under the near-tie rule: the two may
 choose different modes only where the chosen modes' costs, recomputed in
 float64 from the same blocks, references and weights, differ by at most
 1e-4 of the larger (the two sum in different orders).  The count of such
-blocks is printed.  The kernel's taps (``cuda_fast.mode_taps``) hold the
-weight matrices' non-zeros.
+blocks is printed.  The taps table (``cuda_fast.mode_taps``) holds the
+weight matrices' non-zeros, at most four a sample.  A block set to a
+mode's own prediction (``each_mode_case``) is found by the JAX search,
+the plain search and ``plan_modes_device``'s, for every mode.
 """
 
 from __future__ import annotations
@@ -153,6 +155,40 @@ def test_sizes_larger_than_the_plane_are_skipped():
     assert P.plan_modes_device(y, sizes=(5,), device="cpu") == {}
 
 
+def each_mode_case(log2, per_mode=3, seed=35):
+    """Blocks that are each mode's own prediction: for m = 0..34,
+    ``per_mode`` blocks ``weight_matrix(m) @ refs`` of random 8-bit
+    references from ``seed`` (exact in float32: the weights are multiples
+    of 1/64).  Returns (blocks (35 per_mode, n^2), refs (35 per_mode,
+    4n+1), the modes), float32 and int32 numpy arrays."""
+    n = 1 << log2
+    rng = np.random.default_rng(seed + log2)
+    refs = rng.integers(0, 256, (len(P.MODES) * per_mode, 4 * n + 1))
+    modes = np.repeat(np.arange(len(P.MODES), dtype=np.int32), per_mode)
+    blocks = np.stack([P.weight_matrix(int(m), log2).astype(np.float64)
+                       @ r for m, r in zip(modes, refs)])
+    return blocks.astype(np.float32), refs.astype(np.float32), modes
+
+
+@pytest.mark.parametrize("log2", [3, 4, 5])
+def test_each_mode_wins_its_own_prediction(log2):
+    """Each mode's prediction (negative angles with projected side
+    references, horizontal modes, planar, DC) is chosen by the JAX
+    ``_jitted_search``, the port's ``mode_search_plain`` and the search
+    ``plan_modes_device`` runs (``mode_search``; on the CPU its plain
+    version), at cost 0."""
+    blocks, refs, want = each_mode_case(log2)
+    np.testing.assert_array_equal(
+        np.asarray(J._jitted_search(log2)(blocks, refs)), want)
+    b, r = torch.from_numpy(blocks), torch.from_numpy(refs)
+    modes, costs = F.mode_search_plain(b, r, log2)
+    np.testing.assert_array_equal(modes.numpy(), want)
+    assert (costs == 0).all()
+    modes, costs = F.mode_search(b, r, log2)
+    np.testing.assert_array_equal(modes.numpy(), want)
+    assert (costs == 0).all()
+
+
 def test_mode_search_plain_costs():
     """The plain search returns each block's least cost, equal to the
     float64 recomputation of its mode within float32 rounding."""
@@ -173,3 +209,13 @@ def test_mode_search_refusals():
         F.mode_search(b.double(), r, 3)
     with pytest.raises(ValueError):
         F.mode_search(b, r[:, :32], 3)
+
+
+def test_profile_bank_model():
+    """codecs/hevc/mode_search_profile.py's bank-conflict model of the
+    kernel's shared accesses gives one wavefront each at every n."""
+    from libheif_tpu_torch.codecs.hevc import mode_search_profile as M
+    for lg in (3, 4, 5):
+        model = M.conflicts(lg)
+        assert model.pop("blocks a warp") == 32 >> lg
+        assert set(model.values()) == {1}, (lg, model)

@@ -8,7 +8,10 @@ tests/test_torch_hevc_modes.py (a different mode only where the two
 modes' float64 costs are within 1e-4 of each other) and its least costs
 within float32 rounding, at n = 8, 16 and 32: on the reference test's
 sinusoid-and-noise plane, a flat plane (every mode ties: the first wins),
-a ramp, noise, and block counts that leave the last CTA partly empty.
+a ramp, noise, and block counts that leave the last CTA partly empty;
+and blocks that are each mode's own prediction, which the kernel must
+find at cost 0 (every angle, projected side references, the transposed
+horizontal path, planar, DC).
 This checks the kernel's logic without a card; the card's own checks are
 in chip_smoke.py.
 """
@@ -25,7 +28,7 @@ import torch
 from libheif_tpu_torch.codecs.hevc import cuda_fast as F
 from libheif_tpu_torch.codecs.hevc import device_modes as P
 from tests import torch_cuda_emu
-from tests.test_torch_hevc_modes import near_tie_count, plane
+from tests.test_torch_hevc_modes import each_mode_case, near_tie_count, plane
 
 SOURCE = os.path.join(os.path.dirname(F.__file__), "csrc", "hevc_kernels.cu")
 
@@ -71,3 +74,16 @@ def test_emulated_search_matches_plain(emulated, monkeypatch, log2, kind, w,
     assert torch.allclose(costs, ref_costs, rtol=1e-5, atol=1e-3)
     if kind == "flat":
         assert (modes == 0).all() and (costs == 0).all()
+
+
+@pytest.mark.parametrize("log2", [3, 4, 5])
+def test_emulated_each_mode_wins_its_own_prediction(emulated, monkeypatch,
+                                                    log2):
+    blocks, refs, want = each_mode_case(log2)
+    monkeypatch.setattr(F, "_on_cpu", lambda *t: False)
+    before = F.HEVC_MODE_SEARCH.launches
+    modes, costs = F.mode_search(torch.from_numpy(blocks),
+                                 torch.from_numpy(refs), log2)
+    assert F.HEVC_MODE_SEARCH.launches - before == 1
+    np.testing.assert_array_equal(modes.numpy(), want)
+    assert (costs == 0).all()

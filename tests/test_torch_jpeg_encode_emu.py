@@ -6,7 +6,13 @@ take its CUDA branch on CPU tensors.  One launch must then give
 ``fdct_quant_plain``'s coefficients exactly: for images at odd sizes in
 every sampling (the MCU grid reaching past the planes, the samples there
 the planes' clamped edges), for views at odd offsets and pitches of one
-buffer, and for block counts that leave the last CTA partly empty.  The
+buffer, aligned and misaligned views side by side, planes of one and two
+CTA tiles (FQ_TILE_W x FQ_TILE_H blocks) and one tile plus or minus a
+block or a sample, last tiles partly inside the plane, many jobs of
+different sizes in one launch (more than one 32-wide round of the job
+lookup), and block counts that leave the last tile partly empty.  The
+emulated 8-byte loads fault at a misaligned address, so a view that
+cannot take them must take the byte path.  The
 JPEG bytes that ``encode_jpeg`` writes from the kernel's coefficients
 equal those of the plain path.  This checks the kernel's logic without a
 card; the card's own checks are in chip_smoke.py.
@@ -131,7 +137,8 @@ def test_emulated_views_of_one_buffer(emulated, monkeypatch, x, pitch):
 
 @pytest.mark.parametrize("n_blocks", [1, 7, 8, 9, 61])
 def test_emulated_partial_last_cta(emulated, monkeypatch, n_blocks):
-    """Block counts that leave the last CTA of FQ_BLOCKS partly empty."""
+    """Block counts that leave the last CTA tile (FQ_TILE_W blocks
+    across) partly empty."""
     rng = np.random.default_rng(n_blocks)
     plane = torch.from_numpy(rng.integers(0, 256, (8, 8 * n_blocks),
                                           dtype=np.uint8))
@@ -139,6 +146,109 @@ def test_emulated_partial_last_cta(emulated, monkeypatch, n_blocks):
     jobs = [F.FdctJob(plane, n_blocks, 1, 0)]
     got = launched(monkeypatch, lambda: F.fdct_quant(jobs, quant))
     assert torch.equal(got, plain(jobs, quant))
+
+
+TILE_PX = (8 * F.FQ_TILE_W, 8 * F.FQ_TILE_H)   # a CTA tile, in samples
+TILE_SIDES = {"one tile": (1, 0), "two tiles": (2, 0),
+              "-1 block": (1, -8), "+1 block": (1, 8),
+              "-1 sample": (1, -1), "+1 sample": (1, 1)}
+
+
+def aligned_plane(rng, w, h):
+    """An (h, w) uint8 view at an aligned address with a pitch that is a
+    multiple of 8 (the kernel's wide loads may take its whole blocks)."""
+    pitch = -(-w // 8) * 8 + 8
+    return torch.from_numpy(rng.integers(0, 256, (h, pitch),
+                                         dtype=np.uint8))[:, :w]
+
+
+@pytest.mark.parametrize("axis", ["width", "height"])
+@pytest.mark.parametrize("side", list(TILE_SIDES))
+def test_emulated_tile_sides(emulated, monkeypatch, axis, side):
+    """A plane one or two CTA tiles wide (or high), or one tile plus or
+    minus a block or a sample, the other side a tile and a half; the
+    block grid that of the plane, and one block wider and higher (whole
+    blocks past the plane)."""
+    tiles, extra = TILE_SIDES[side]
+    k = 0 if axis == "width" else 1
+    dims = [TILE_PX[0] * 3 // 2, TILE_PX[1] * 3 // 2]
+    dims[k] = TILE_PX[k] * tiles + extra
+    w, h = dims
+    rng = np.random.default_rng(w * 1000 + h)
+    plane = aligned_plane(rng, w, h)
+    quant = torch.from_numpy(rng.integers(1, 256, (2, 64)).astype(np.int32))
+    jobs = [F.FdctJob(plane, -(-w // 8), -(-h // 8), 0),
+            F.FdctJob(plane, -(-w // 8) + 1, -(-h // 8) + 1, 1)]
+    got = launched(monkeypatch, lambda: F.fdct_quant(jobs, quant))
+    assert torch.equal(got, plain(jobs, quant))
+
+
+def test_emulated_last_tile_partly_inside(emulated, monkeypatch):
+    """The last tile across and down holds blocks inside the plane, blocks
+    cut by its edge and blocks wholly past it (an MCU grid wider than
+    the plane), beside a job whose last tile is cut only by the grid."""
+    rng = np.random.default_rng(7)
+    plane = aligned_plane(rng, TILE_PX[0] + 37, TILE_PX[1] + 22)
+    quant = torch.from_numpy(rng.integers(1, 256, (1, 64)).astype(np.int32))
+    h, w = plane.shape
+    jobs = [F.FdctJob(plane, -(-w // 8) + 2, -(-h // 8) + 1, 0),
+            F.FdctJob(plane[:, :TILE_PX[0] + 24], F.FQ_TILE_W + 3,
+                      F.FQ_TILE_H + 1, 0)]
+    got = launched(monkeypatch, lambda: F.fdct_quant(jobs, quant))
+    assert torch.equal(got, plain(jobs, quant))
+
+
+@pytest.mark.parametrize("n_jobs", [3, 40])
+def test_emulated_jobs_of_different_sizes(emulated, monkeypatch, n_jobs):
+    """Jobs from one block to several tiles, with all four tables, in one
+    launch; 40 jobs take two rounds of the 32-wide job lookup."""
+    rng = np.random.default_rng(n_jobs)
+    quant = torch.from_numpy(rng.integers(1, 256, (4, 64)).astype(np.int32))
+    jobs = []
+    for i in range(n_jobs):
+        w, h = (int(rng.integers(1, 3 * TILE_PX[0])),
+                int(rng.integers(1, 2 * TILE_PX[1])))
+        if i % 3 == 0:
+            w, h = 1 + i % 8, 1 + i % 5
+        jobs.append(F.FdctJob(aligned_plane(rng, w, h), -(-w // 8),
+                              -(-h // 8), i % 4))
+    got = launched(monkeypatch, lambda: F.fdct_quant(jobs, quant))
+    assert torch.equal(got, plain(jobs, quant))
+
+
+def test_emulated_aligned_and_misaligned_views(emulated, monkeypatch):
+    """Views of one buffer whose pitch is a multiple of 8, at aligned
+    offsets (the wide loads) and at odd ones (the byte path), and every
+    second row of it, several tiles each, in one launch."""
+    rng = np.random.default_rng(136)
+    buf = torch.from_numpy(rng.integers(0, 256, (300, 136), dtype=np.uint8))
+    quant = torch.from_numpy(rng.integers(1, 256, (4, 64)).astype(np.int32))
+    views = [buf[0:140, 0:72], buf[2:150, 8:136], buf[5:100, 4:100],
+             buf[150:300:2, 0:128], buf[1:60, 1:70], buf[160:298, 64:128]]
+    jobs = [F.FdctJob(v, -(-v.shape[1] // 8), -(-v.shape[0] // 8), k % 4)
+            for k, v in enumerate(views)]
+    got = launched(monkeypatch, lambda: F.fdct_quant(jobs, quant))
+    assert torch.equal(got, plain(jobs, quant))
+
+
+def test_fdct_table_tiles():
+    """The job table: each job's tiles across, its first output block and
+    its first CTA, the tiles of all jobs counted once."""
+    planes = [torch.zeros((h, w), dtype=torch.uint8)
+              for w, h in ((64, 128), (65, 129), (8, 8), (300, 20))]
+    jobs = [F.FdctJob(p, -(-p.shape[1] // 8), -(-p.shape[0] // 8), 0)
+            for p in planes]
+    table, n_blocks, n_ctas = F.fdct_table(jobs)
+    n = len(jobs)
+    rows = table.numpy()[:n * F.FQ_JOB_COLS].reshape(n, F.FQ_JOB_COLS)
+    tiles_w = [-(-j.blocks_w // F.FQ_TILE_W) for j in jobs]
+    tiles = [tw * -(-j.blocks_h // F.FQ_TILE_H)
+             for tw, j in zip(tiles_w, jobs)]
+    assert tiles == [1, 4, 1, 5]
+    assert list(rows[:, 9]) == tiles_w
+    assert list(rows[:, 8]) == [0, 128, 128 + 153, 128 + 153 + 1]
+    assert list(table.numpy()[n * F.FQ_JOB_COLS:]) == [0, 1, 5, 6]
+    assert n_ctas == 11 and n_blocks == 128 + 153 + 1 + 38 * 3
 
 
 def test_emulated_every_quantiser_step(emulated, monkeypatch):

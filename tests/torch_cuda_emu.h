@@ -140,6 +140,14 @@ inline int __shfl_sync(unsigned, int v, int src) {
 inline int __shfl_xor_sync(unsigned, int v, int m) {
   return static_cast<int>(emu_exchange(v, (threadIdx.x & 31) ^ m));
 }
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  int bits;
+  std::memcpy(&bits, &v, 4);
+  bits = static_cast<int>(emu_exchange(bits, (threadIdx.x & 31) ^ m));
+  float r;
+  std::memcpy(&r, &bits, 4);
+  return r;
+}
 inline int __shfl_up_sync(unsigned, int v, unsigned d) {
   const int lane = threadIdx.x & 31;
   const int src = lane - static_cast<int>(d);
@@ -150,6 +158,18 @@ inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
 }
+// byte i of the result is byte (s >> 4i) & 7 of the eight bytes {y, x}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long b =
+      (static_cast<unsigned long long>(y) << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= static_cast<unsigned>((b >> (8 * ((s >> (4 * i)) & 7))) & 0xffu)
+         << (8 * i);
+  return r;
+}
+// one rounding, as the card's FFMA
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 template <class T>
 T __ldg(const T* p) {
   return *p;
@@ -197,6 +217,18 @@ inline void store_global_v4(int32_t* p, int a, int b, int c, int d) {
 inline void store_global_v2(int32_t* p, int a, int b) {
   const int v[2] = {a, b};
   emu_store_vector<2>(p, v);
+}
+// ld.global.nc.v2.u32 of eight bytes as the kernels wrap it; an address
+// not 8-byte aligned faults (the load returns zeros), as on the card
+inline uint2 load_global_v2u(const uint8_t* p) {
+  if (reinterpret_cast<uintptr_t>(p) % 8) {
+    int ok = cudaSuccess;
+    emu_error.compare_exchange_strong(ok, cudaErrorMisalignedAddress);
+    return {0u, 0u};
+  }
+  uint2 v;
+  std::memcpy(&v, p, 8);
+  return v;
 }
 // cvt.pack.sat.s8.s32.b32 as the kernels wrap it
 inline unsigned pack_sat_s8(int a, int b, unsigned c) {
