@@ -302,12 +302,14 @@ from libheif_tpu_torch.boxes.unc import (
 from libheif_tpu_torch.codecs.av1 import cuda_fast as av1_fast
 from libheif_tpu_torch.codecs.av1 import decoder as av1_decoder
 from libheif_tpu_torch.codecs.av1 import device_recon as av1_recon
+from libheif_tpu_torch.codecs.av1 import encoder as av1_encoder
 from libheif_tpu_torch.codecs.av1 import obu as av1_obu
 from libheif_tpu_torch.codecs.av1 import wave_cases as av1_cases
 from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
 from libheif_tpu_torch.codecs.hevc import device_modes
 from libheif_tpu_torch.codecs.hevc import device_recon
+from libheif_tpu_torch.codecs.hevc import encoder as hevc_encoder
 from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
 from libheif_tpu_torch.codecs.hevc import inter_cases
 from libheif_tpu_torch.codecs import kernel_timing
@@ -4390,6 +4392,301 @@ def time_jpeg_encode(img):
     return runs
 
 
+# the HEVC and AV1 encoders (host code; the mode search is hevc_mode_search)
+CROP = 512                   # the mode="device" and AV1 crops of the photo
+CROP_AT = (1024, 1536)       # (row, column) of the crops in the photo's luma
+CROP10 = 256                 # the 10-bit HEVC crop
+# the lossless AV1 crop: the Python encoder codes lossless pictures in 4x4
+# transform blocks, about 200 s for a 512x512 crop on a CPU
+CROP_LOSSLESS = 128
+HEVC_ENC_SPANS = ("hevc.encode", "hevc.encode.copy", "hevc.encode.native",
+                  "hevc.encode.write")
+AV1_ENC_SPANS = ("av1.encode", "av1.encode.copy", "av1.encode.tile")
+YCC = (Channel.Y, Channel.Cb, Channel.Cr)
+
+
+@contextlib.contextmanager
+def encoders_made(cls):
+    """While inside, each ``cls.encode`` call (IntraEncoder,
+    Av1IntraEncoder) appends its encoder, whose ``recon`` then holds its
+    closed-loop reconstruction, to the list yielded."""
+    real = cls.encode
+    made = []
+
+    def spy(self, *args):
+        out = real(self, *args)
+        made.append(self)
+        return out
+    cls.encode = spy
+    try:
+        yield made
+    finally:
+        cls.encode = real
+
+
+def recon_differing(planes, recon, names):
+    """Samples of decoded planes (tensors, cropped or not) that differ from
+    an encoder's reconstruction (uncropped numpy) cropped to their size."""
+    out = {}
+    for name, p, r in zip(names, planes, recon):
+        p = p.cpu().to(torch.int64)
+        want = torch.from_numpy(np.asarray(r, np.int64))
+        assert want.shape[0] >= p.shape[0] and want.shape[1] >= p.shape[1], \
+            f"{name}: reconstruction {tuple(want.shape)} < {tuple(p.shape)}"
+        out[name] = int((p != want[:p.shape[0], :p.shape[1]]).sum())
+    return out
+
+
+def photo_crop(planes, side, at=None):
+    """A side x side YCbCr 4:2:0 crop of the photo's planes (views on the
+    card) at luma position ``at`` (None: CROP_AT)."""
+    oy, ox = at or CROP_AT
+    crop = {Channel.Y: planes[Channel.Y][oy:oy + side, ox:ox + side]}
+    for ch in (Channel.Cb, Channel.Cr):
+        crop[ch] = planes[ch][oy // 2:(oy + side) // 2,
+                              ox // 2:(ox + side) // 2]
+    return crop
+
+
+def check_hevc_photo_encode(src):
+    """The photo with its alpha as hvc1 items at each quality (the
+    registry path, the C++ encoder on the host), through new_file /
+    encode_image / write: the file equal to the CPU encode's, decoded on
+    the card (hevc_dequant_itx, hevc_intra_wave) equal to the encoder's
+    reconstruction cropped to 4032x3024 (alpha too), its PSNR; the encode
+    wall and its spans."""
+    src_cpu = cpu_copy(src)
+    out = {}
+    for q in ENC_QUALITIES:
+        opts = EncodingOptions(quality=q)
+        with encoders_made(hevc_encoder.IntraEncoder) as encs, \
+                launch_counts() as launches, trace.collect() as spans:
+            t0 = time.perf_counter()
+            blob, _ = encode_file(src, "hevc", opts)
+            card_ms = ms_since(t0)
+        assert len(encs) == 2, f"{len(encs)} encodes for an image + alpha"
+        for name in HEVC_ENC_SPANS:
+            assert spans.get(name, {}).get("count") == 2, f"span {name}"
+        ran = {k: v for k, v in launches.items() if v}
+        assert not ran, f"the hevc registry encode launched {ran}"
+        t0 = time.perf_counter()
+        cpu_blob, _ = encode_file(src_cpu, "hevc", opts, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        assert blob == cpu_blob, f"q{q}: the card's hevc file differs from " \
+            "the CPU encode's"
+        with launch_counts() as dec_launches:
+            card = HeifContext.read_from_bytes(blob).decode_image(None)
+        for k in ("hevc_dequant_itx", "hevc_intra_wave"):
+            assert dec_launches[k] > 0, f"the hevc decode did not launch {k}"
+        assert (card.width, card.height) == PHOTO
+        diff = recon_differing([card.plane(ch) for ch in YCC],
+                               encs[0].recon, YCC)
+        diff.update(recon_differing([card.plane(Channel.Alpha)],
+                                    encs[1].recon[:1], [Channel.Alpha]))
+        assert not any(diff.values()), \
+            f"hevc q{q}: decode vs the encoder's reconstruction {diff}"
+        quality = {ch: psnr(card.plane(ch), src.plane(ch))
+                   for ch in YCC + (Channel.Alpha,)}
+        out[q] = {"bytes": len(blob), "launches": launches,
+                  "decode_launches": dec_launches, "card_ms": card_ms,
+                  "cpu_ms": cpu_ms, "spans": dict(spans), "psnr_db": quality,
+                  "decode_vs_recon_differing": diff}
+        log(f"check hevc encode q{q} {src.width}x{src.height} + alpha: "
+            f"{len(blob)} B, equal to the CPU encode's, card decode equal to "
+            f"the encoder's reconstruction {diff}, PSNR "
+            f"{json.dumps(quality)}, card {card_ms:.1f} ms, CPU "
+            f"{cpu_ms:.1f} ms, spans {json.dumps(spans)}")
+    return out
+
+
+def decode_stream_on_card(cfg, nals):
+    """An HEVC picture decoded on the card from its parameter sets and
+    slice NALs: its uncropped planes and the launches it made."""
+    sps = hevc_headers.parse_sps(cfg[0])
+    pps = hevc_headers.parse_pps(cfg[1])
+    with launch_counts() as launches:
+        planes = hevc_decoder.decode_intra_picture(sps, pps, nals)
+    for k in ("hevc_dequant_itx", "hevc_intra_wave"):
+        assert launches[k] > 0, f"the hevc decode did not launch {k}"
+    return planes, launches
+
+
+def check_device_mode_encode(tally, crop):
+    """IntraEncoder(mode="device") on a CROP x CROP crop of the photo, the
+    Python loop: hevc_mode_search launched once a block size and nothing
+    else; its maps against mode_search_plain on the same luma (a different
+    mode only on a near tie, each named: block row, column, the kernel's
+    and the plain search's mode); the stream decoded on the card equal to
+    enc.recon; the same encoder given the plain maps writes the same
+    bytes where no tie changed a mode."""
+    img = image_of(crop, Colorspace.YCbCr, Chroma.C420)
+    params = hevc_encoder.EncParams(qp=30, mode="device")
+    enc = hevc_encoder.IntraEncoder(CROP, CROP, params)
+    with launch_counts() as launches, trace.collect() as spans:
+        t0 = time.perf_counter()
+        nal, cfg = enc.encode(img)
+        wall_ms = ms_since(t0)
+    assert launches["hevc_mode_search"] == len(MODE_SIZES), launches
+    others = {k: v for k, v in launches.items()
+              if v and k != "hevc_mode_search"}
+    assert not others, f"the mode='device' encode ran {others}"
+    for name in ("hevc.encode", "hevc.encode.modes", "hevc.encode.copy",
+                 "hevc.encode.loop", "hevc.encode.write"):
+        assert name in spans, f"no {name} span"
+    luma = crop[Channel.Y]
+    plain, ties = {}, {}
+    for lg in MODE_SIZES:
+        b, r, (gh, gw) = device_modes.extract_blocks(luma, lg)
+        pm, _ = hevc_fast.mode_search_plain(b, r, lg)
+        got = torch.from_numpy(enc._device_plan[lg].reshape(-1)).to(DEV)
+        idx = torch.nonzero(got != pm).reshape(-1)
+        if idx.numel():
+            ca = device_modes.mode_costs(b[idx], r[idx], lg, got[idx])
+            cb = device_modes.mode_costs(b[idx], r[idx], lg, pm[idx])
+            worst = float(((ca - cb).abs() / torch.clamp(
+                torch.maximum(ca, cb), min=1e-300)).max())
+            assert worst <= NEAR_TIE, f"log2 {lg}: the encoder's modes " \
+                f"differ from the plain search's by {worst:.3g} of the cost"
+        ties[lg] = [(i // gw, i % gw, int(got[i]), int(pm[i]))
+                    for i in idx.tolist()]
+        plain[lg] = pm.reshape(gh, gw)
+        tally.checks["hevc_mode_search"] += 1
+        tally.differing["hevc_mode_search"] += int(idx.numel())
+    planes, dec_launches = decode_stream_on_card(cfg, [nal])
+    diff = recon_differing(planes, enc.recon, YCC)
+    assert not any(diff.values()), \
+        f"mode='device': decode vs enc.recon {diff}"
+    real = hevc_encoder.plan_modes_device
+    hevc_encoder.plan_modes_device = lambda y, device=None: plain
+    try:
+        nal_plain, _ = hevc_encoder.IntraEncoder(CROP, CROP, params) \
+            .encode(img)
+    finally:
+        hevc_encoder.plan_modes_device = real
+    n_ties = sum(len(t) for t in ties.values())
+    same = nal_plain == nal
+    assert same or n_ties, "with no tie, the plain maps gave other bytes"
+    out = {"shape": f"{CROP}x{CROP} at {CROP_AT}", "qp": 30,
+           "bytes": len(nal), "launches": launches,
+           "decode_launches": dec_launches, "wall_ms": wall_ms,
+           "spans": dict(spans), "near_ties": ties,
+           "plain_maps_same_bytes": same,
+           "decode_vs_recon_differing": diff}
+    log(f"check hevc encode mode=device {CROP}x{CROP}: hevc_mode_search "
+        f"{launches['hevc_mode_search']} launches, near ties "
+        f"{json.dumps(ties)}, decode equal to enc.recon, plain maps' bytes "
+        f"{'equal' if same else 'differ (ties)'}, {wall_ms:.0f} ms, spans "
+        f"{json.dumps(spans)}")
+    return out
+
+
+def check_ten_bit_encode(crop):
+    """A CROP10 x CROP10 crop at 10 bits (the samples << 2, the low bits
+    from the seed; uint16 planes) through IntraEncoder, the Python loop:
+    decoded on the card equal to enc.recon."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 17)
+    ten = {ch: ((p.to(torch.int32) << 2) | torch.randint(
+        0, 4, tuple(p.shape), generator=g, device=DEV, dtype=torch.int32))
+        .to(torch.uint16)
+        for ch, p in photo_crop(crop, CROP10, (0, 0)).items()}
+    img = image_of(ten, Colorspace.YCbCr, Chroma.C420, bits=10)
+    enc = hevc_encoder.IntraEncoder(
+        CROP10, CROP10, hevc_encoder.EncParams(qp=30, bit_depth=10))
+    with trace.collect() as spans:
+        t0 = time.perf_counter()
+        nal, cfg = enc.encode(img)
+        wall_ms = ms_since(t0)
+    assert "hevc.encode.loop" in spans, "the 10-bit encode left the loop"
+    planes, dec_launches = decode_stream_on_card(cfg, [nal])
+    diff = recon_differing(planes, enc.recon, YCC)
+    assert not any(diff.values()), f"10-bit: decode vs enc.recon {diff}"
+    log(f"check hevc encode 10-bit {CROP10}x{CROP10}: {len(nal)} B, decode "
+        f"equal to enc.recon, {wall_ms:.0f} ms")
+    return {"shape": f"{CROP10}x{CROP10}", "bytes": len(nal),
+            "decode_launches": dec_launches, "wall_ms": wall_ms,
+            "spans": dict(spans), "decode_vs_recon_differing": diff}
+
+
+def check_av1_encode(crop):
+    """The crop as an av01 item at quality 50, and a CROP_LOSSLESS crop of
+    it lossless, through encode_image / write: each file equal to the CPU
+    encode's, decoded on the card (av1_dequant_itx, av1_intra_wave) equal
+    to the encoder's reconstruction, the lossless one equal to the
+    source."""
+    out = {}
+    for name, opts, planes in (
+            ("q50", EncodingOptions(quality=50), crop),
+            ("lossless", EncodingOptions(lossless=True),
+             photo_crop(crop, CROP_LOSSLESS, (0, 0)))):
+        img = image_of(planes, Colorspace.YCbCr, Chroma.C420)
+        img_cpu = cpu_copy(img)
+        with encoders_made(av1_encoder.Av1IntraEncoder) as encs, \
+                launch_counts() as launches, trace.collect() as spans:
+            t0 = time.perf_counter()
+            blob, _ = encode_file(img, "av1", opts)
+            card_ms = ms_since(t0)
+        assert len(encs) == 1
+        for span in AV1_ENC_SPANS:
+            assert span in spans, f"no {span} span"
+        ran = {k: v for k, v in launches.items() if v}
+        assert not ran, f"the av1 encode launched {ran}"
+        t0 = time.perf_counter()
+        cpu_blob, _ = encode_file(img_cpu, "av1", opts, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        assert blob == cpu_blob, f"av1 {name}: the card's file differs " \
+            "from the CPU encode's"
+        with launch_counts() as dec_launches:
+            card = HeifContext.read_from_bytes(blob).decode_image(None)
+        for k in ("av1_dequant_itx", "av1_intra_wave"):
+            assert dec_launches[k] > 0, f"the av1 decode did not launch {k}"
+        got = [card.plane(ch) for ch in YCC]
+        diff = recon_differing(got, encs[0].recon, YCC)
+        assert not any(diff.values()), \
+            f"av1 {name}: decode vs the encoder's reconstruction {diff}"
+        if name == "lossless":
+            src_diff = recon_differing(got, [img_cpu.plane(ch).numpy()
+                                             for ch in YCC], YCC)
+            assert not any(src_diff.values()), \
+                f"av1 lossless: decode vs the source {src_diff}"
+        quality = {ch: psnr(card.plane(ch), img.plane(ch)) for ch in YCC}
+        out[name] = {"shape": f"{img.width}x{img.height}",
+                     "bytes": len(blob), "decode_launches": dec_launches,
+                     "card_ms": card_ms, "cpu_ms": cpu_ms,
+                     "spans": dict(spans), "psnr_db": quality,
+                     "decode_vs_recon_differing": diff}
+        log(f"check av1 encode {name} {img.width}x{img.height}: "
+            f"{len(blob)} B, equal to the CPU encode's, card decode equal to "
+            f"the encoder's reconstruction, PSNR {json.dumps(quality)}, card "
+            f"{card_ms:.0f} ms, CPU {cpu_ms:.0f} ms, spans "
+            f"{json.dumps(spans)}")
+    return out
+
+
+def check_hevc_av1_encode(tally, src, planes):
+    """The HEVC and AV1 encoders: the photo (with alpha) through the HEVC
+    registry path, mode="device" and AV1 on a crop, 10-bit HEVC on a
+    smaller one."""
+    crop = photo_crop(planes, CROP)
+    return {"hevc": check_hevc_photo_encode(src),
+            "hevc_device_mode": check_device_mode_encode(tally, crop),
+            "hevc_10bit": check_ten_bit_encode(crop),
+            "av1": check_av1_encode(crop)}
+
+
+def encode_round_trips(enc, name):
+    """``name``'s launches in phase 4i's decodes of what the HEVC and AV1
+    encoders wrote, by file or stream."""
+    out = {f"hevc q{q}": r["decode_launches"][name]
+           for q, r in enc["hevc"].items()}
+    out["hevc mode=device"] = \
+        enc["hevc_device_mode"]["decode_launches"][name]
+    out["hevc 10-bit"] = enc["hevc_10bit"]["decode_launches"][name]
+    out.update({f"av1 {k}": r["decode_launches"][name]
+                for k, r in enc["av1"].items()})
+    return out
+
+
 def check_encode(tally, photo, flagship):
     """Phase 4i.  ``photo``: the HEVC photo's file; ``flagship``: the
     main path's decoded 4096x4096 image."""
@@ -4410,6 +4707,7 @@ def check_encode(tally, photo, flagship):
     out["mski"] = check_mski_encode(*PHOTO)
     out["mode_search"] = check_mode_search(tally, planes[Channel.Y])
     out["encode_timing"] = time_jpeg_encode(ycc)
+    out.update(check_hevc_av1_encode(tally, src, planes))
     return out, ycc, planes[Channel.Y]
 
 
@@ -4468,7 +4766,16 @@ def mode_search_work(n_blocks, log2):
     return nbytes, n_blocks * per_block
 
 
-def mode_search_row(timer, tally, luma, launches):
+def mode_search_launches(enc):
+    """hevc_mode_search's launches in phase 4i, by path: plan_modes_device
+    on the photo's luma, and IntraEncoder(mode="device") on the crop."""
+    return {"plan_modes_device photo luma":
+            enc["mode_search"]["launches"]["hevc_mode_search"],
+            "IntraEncoder mode=device crop":
+            enc["hevc_device_mode"]["launches"]["hevc_mode_search"]}
+
+
+def mode_search_row(timer, tally, luma, by_path):
     """hevc_mode_search's row at the photo's luma, n = 8 (190,512 blocks):
     the kernel, the plain version, the bounds (bytes; FP32 lanes x clock),
     and the other sizes; the dense prediction product alone as one
@@ -4500,7 +4807,7 @@ def mode_search_row(timer, tally, luma, launches):
         "name": "hevc_mode_search", "route": "cuda",
         "source": HEVC_SOURCE, "replaces": f"{MODES_JNP}:161",
         "also_replaces": [f"{MODES_JNP}:183"],
-        "launches": launches,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": tally.max_abs_err["hevc_mode_search"],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -4579,8 +4886,7 @@ def encode_alone(tally):
     return enc, [
         jpeg_fdct_row(timer, tally, ycc, sum(
             r["launches"]["jpeg_fdct_quant"] for r in enc["jpeg"].values())),
-        mode_search_row(timer, tally, luma,
-                        enc["mode_search"]["launches"]["hevc_mode_search"])]
+        mode_search_row(timer, tally, luma, mode_search_launches(enc))]
 
 
 def sequences_alone(tally):
@@ -4997,8 +5303,7 @@ def main():
         f"jpeg encode q{q} with alpha": r["launches"]["jpeg_fdct_quant"]
         for q, r in enc["jpeg"].items()}
     kern["hevc_mode_search"] = mode_search_row(
-        timer, tally, enc_luma,
-        enc["mode_search"]["launches"]["hevc_mode_search"])
+        timer, tally, enc_luma, mode_search_launches(enc))
     log(f"file single total ms {[r['total_ms'] for r in single_runs]} "
         f"beside the library path {e2e_ms} ms")
 
@@ -5079,6 +5384,11 @@ def main():
             for what, c in mesh["hevc_photo"]["launches"].items()}
         kern[name]["sequence_launches"] = {
             n: seq[n]["launches"][name] for n in SEQ_STREAMS}
+    # launches of the decodes of the encoded files and streams (phase 4i)
+    for name in ("hevc_dequant_itx", "hevc_intra_wave", "av1_dequant_itx",
+                 "av1_intra_wave"):
+        kern[name]["encode_round_trip_launches"] = encode_round_trips(
+            enc, name)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": list(kern.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,10 @@ The CUDA sources under ``codecs/*/csrc/`` are compiled at first use by
 ``nvcc`` (one process per source, all started together) and linked into
 one shared library with a plain C interface, written to
 ``build/libheif_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``.  The host C++ of the HEVC parser (``codecs/hevc/host/``) and
-of the JPEG scan (``codecs/jpeg/host/``) is built the same way by the
-system C++ compiler, one library each, on every machine that decodes
-that codec, the CPU included.  Each library's file name carries a hash
+``ctypes``.  The host C++ of the HEVC parser and encoder
+(``codecs/hevc/host/``) and of the JPEG scan (``codecs/jpeg/host/``) is
+built the same way by the system C++ compiler, one library each, on every
+machine that decodes or encodes that codec, the CPU included.  Each library's file name carries a hash
 of its sources and flags (and, for the host library, of the CPU it is
 tuned for), so an edited source is rebuilt and a stale library is never
 loaded.  A build or launch failure raises; nothing falls back.
@@ -143,8 +143,8 @@ class _CudaLibrary(_Library):
 
 
 class _HostLibrary(_Library):
-    """A codec's host C++ (``what``: the HEVC parser and wave planner, the
-    JPEG scan), built by ``c++``."""
+    """A codec's host C++ (``what``: the HEVC parser, wave planner and
+    encoder, the JPEG scan), built by ``c++``."""
 
     def __init__(self, stem: str, pattern: str, key: bytes, what: str):
         super().__init__(stem, pattern, key)
@@ -163,7 +163,7 @@ LIBRARY = _CudaLibrary("kernels", "codecs/*/csrc/*.cu",
                        " ".join(NVCC_FLAGS).encode())
 HOST_LIBRARY = _HostLibrary("hevc_host", "codecs/hevc/host/*.cc",
                             " ".join(HOST_CXX_FLAGS).encode() + _cpu_id(),
-                            "HEVC parser")
+                            "HEVC parser and encoder")
 JPEG_HOST_LIBRARY = _HostLibrary("jpeg_host", "codecs/jpeg/host/*.cc",
                                  " ".join(HOST_CXX_FLAGS).encode() +
                                  _cpu_id(), "JPEG scan")

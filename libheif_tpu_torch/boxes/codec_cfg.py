@@ -1,7 +1,8 @@
-"""The HEVC, AV1 and JPEG codec configuration boxes (hvcC, av1C, jpgC)
-and NAL emulation prevention.
+"""The HEVC, AV1 and JPEG codec configuration boxes (hvcC, av1C, jpgC),
+NAL emulation prevention, and the head of an HEVC SPS that fills an
+encoder's hvcC (``parse_hevc_sps``, ``hvcC_from_sps``).
 
-Counterpart of libheif_tpu/boxes/codec_cfg.py:26-192, :294-345 and
+Counterpart of libheif_tpu/boxes/codec_cfg.py:26-290, :294-345 and
 :595-607, trimmed to HEVC, AV1 and JPEG (reference:
 libheif/codecs/hevc_boxes.{h,cc} Box_hvcC hevc_boxes.h:35,
 avif_boxes.cc:36 Box_av1C, jpeg_boxes.h:32 Box_jpgC).
@@ -10,11 +11,11 @@ avif_boxes.cc:36 Box_av1C, jpeg_boxes.h:32 Box_jpgC).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
-from ..core.bitstream import ByteReader, ByteWriter
+from ..core.bitstream import BitReader, ByteReader, ByteWriter
 from ..core.error import HeifError, SubError
 from ..core.limits import SecurityLimits
 from .box import Box, register_box
@@ -250,3 +251,98 @@ def remove_emulation_prevention(nal: bytes) -> bytes:
     mask = np.ones(len(a), bool)
     mask[np.asarray(pos, np.int64)] = False
     return a[mask].tobytes()
+
+
+@dataclass
+class HevcSpsSummary:
+    """Fields of an H.265 SPS needed for configuration and security checks
+    (ref: parse_sps_for_hvcC_configuration, hevc_boxes.cc:609+)."""
+
+    video_parameter_set_id: int = 0
+    max_sub_layers: int = 1
+    profile_space: int = 0
+    tier_flag: int = 0
+    profile_idc: int = 0
+    profile_compatibility_flags: int = 0
+    constraint_indicator_flags: int = 0
+    level_idc: int = 0
+    seq_parameter_set_id: int = 0
+    chroma_format_idc: int = 1
+    separate_colour_plane: bool = False
+    pic_width_in_luma_samples: int = 0
+    pic_height_in_luma_samples: int = 0
+    conformance_window: Tuple[int, int, int, int] = (0, 0, 0, 0)  # l,r,t,b
+    bit_depth_luma: int = 8
+    bit_depth_chroma: int = 8
+
+    @property
+    def cropped_size(self) -> Tuple[int, int]:
+        sub_w = 2 if self.chroma_format_idc in (1, 2) else 1
+        sub_h = 2 if self.chroma_format_idc == 1 else 1
+        l, rr, t, b = self.conformance_window
+        return (self.pic_width_in_luma_samples - sub_w * (l + rr),
+                self.pic_height_in_luma_samples - sub_h * (t + b))
+
+
+def parse_hevc_sps(nal: bytes) -> HevcSpsSummary:
+    """Parse the head of an H.265 SPS NAL (incl. 2-byte NAL header).
+
+    Implements ITU-T H.265 §7.3.2.2.1 up to the conformance window and
+    bit depths — everything hvcC configuration and the decoded-size
+    security check need (ref: hevc_boxes.cc:609, hevc_dec.cc:54).
+    """
+    if len(nal) < 3:
+        raise HeifError.invalid_input(msg="SPS NAL too short")
+    rbsp = remove_emulation_prevention(nal[2:])  # skip NAL header
+    br = BitReader(rbsp)
+    s = HevcSpsSummary()
+    s.video_parameter_set_id = br.read_bits(4)
+    s.max_sub_layers = br.read_bits(3) + 1
+    temporal_id_nesting = br.read_bits(1)  # noqa: F841
+    # profile_tier_level(1, max_sub_layers-1)
+    s.profile_space = br.read_bits(2)
+    s.tier_flag = br.read_bits(1)
+    s.profile_idc = br.read_bits(5)
+    s.profile_compatibility_flags = br.read_bits(32)
+    s.constraint_indicator_flags = (br.read_bits(32) << 16) | br.read_bits(16)
+    s.level_idc = br.read_bits(8)
+    sub_layer_profile_present = []
+    sub_layer_level_present = []
+    for _ in range(s.max_sub_layers - 1):
+        sub_layer_profile_present.append(br.read_bits(1))
+        sub_layer_level_present.append(br.read_bits(1))
+    if s.max_sub_layers > 1:
+        br.skip_bits(2 * (8 - (s.max_sub_layers - 1)))
+    for i in range(s.max_sub_layers - 1):
+        if sub_layer_profile_present[i]:
+            br.skip_bits(2 + 1 + 5 + 32 + 48)
+        if sub_layer_level_present[i]:
+            br.skip_bits(8)
+    s.seq_parameter_set_id = br.read_ue()
+    s.chroma_format_idc = br.read_ue()
+    if s.chroma_format_idc == 3:
+        s.separate_colour_plane = bool(br.read_bits(1))
+    s.pic_width_in_luma_samples = br.read_ue()
+    s.pic_height_in_luma_samples = br.read_ue()
+    if br.read_bits(1):  # conformance_window_flag
+        s.conformance_window = (br.read_ue(), br.read_ue(),
+                                br.read_ue(), br.read_ue())
+    s.bit_depth_luma = br.read_ue() + 8
+    s.bit_depth_chroma = br.read_ue() + 8
+    return s
+
+
+def hvcC_from_sps(sps: HevcSpsSummary) -> Box_hvcC:
+    """Fill hvcC profile/level fields from a parsed SPS
+    (ref: Box_hvcC configuration from SPS, hevc.cc:123-213)."""
+    c = Box_hvcC()
+    c.general_profile_space = sps.profile_space
+    c.general_tier_flag = sps.tier_flag
+    c.general_profile_idc = sps.profile_idc
+    c.general_profile_compatibility_flags = sps.profile_compatibility_flags
+    c.general_constraint_indicator_flags = sps.constraint_indicator_flags
+    c.general_level_idc = sps.level_idc
+    c.chroma_format = sps.chroma_format_idc
+    c.bit_depth_luma = sps.bit_depth_luma
+    c.bit_depth_chroma = sps.bit_depth_chroma
+    return c

@@ -4,8 +4,9 @@ Counterpart of libheif_tpu/codecs/hevc/native_parse.py:23-248.  The
 parser is the port's only one: it builds at first use
 (``_build.HOST_LIBRARY``) and a failed build raises.  Its output stays in
 flat form, the TU columns and coefficient buffer that
-``device_recon.build_plan`` consumes; the port builds no TU objects and
-has no host reconstruction engine.
+``device_recon.build_plan`` consumes; the decoder builds no TU objects
+and reconstructs on the device.  ``_get_recon_tables`` hands the
+transform matrices to the encoder's C++ path (host/hevc_enc.cc).
 """
 
 from __future__ import annotations
@@ -180,3 +181,35 @@ def parse_slice_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
                                             sps.pic_width_in_ctbs, 20)
     return cols, coeff_buf, offs, last_ctb
 
+
+# ------------------------------------------------------------ tables
+
+_recon_tables = None
+
+
+def _get_recon_tables():
+    """int32 copies of the authoritative Python tables for the C++ code
+    (tables.py stays the single source of truth); the HEVC encoder's C++
+    path (host/hevc_enc.cc) takes the transform matrices.  JAX
+    native_parse.py:270."""
+    global _recon_tables
+    if _recon_tables is None:
+        from .tables import DCT, DST4, INTRA_PRED_ANGLE, INTRA_INV_ANGLE
+        from .filters import BETA_TABLE, TC_TABLE
+        pred_angle = np.zeros(35, np.int32)
+        inv_angle = np.zeros(35, np.int32)
+        for mode in range(2, 35):
+            a = INTRA_PRED_ANGLE[mode]
+            pred_angle[mode] = a
+            if a < 0:
+                inv_angle[mode] = INTRA_INV_ANGLE[a]
+        _recon_tables = dict(
+            dst4=np.ascontiguousarray(DST4, np.int32),
+            dct4=np.ascontiguousarray(DCT[4], np.int32),
+            dct8=np.ascontiguousarray(DCT[8], np.int32),
+            dct16=np.ascontiguousarray(DCT[16], np.int32),
+            dct32=np.ascontiguousarray(DCT[32], np.int32),
+            beta=np.ascontiguousarray(BETA_TABLE, np.int32),
+            tc=np.ascontiguousarray(TC_TABLE, np.int32),
+            pred_angle=pred_angle, inv_angle=inv_angle)
+    return _recon_tables

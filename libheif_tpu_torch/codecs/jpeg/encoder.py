@@ -25,6 +25,7 @@ from ...color import convert_image
 from ...core import trace
 from ...core.error import HeifError, SubError
 from ...image.pixel_image import PixelImage, Channel, Colorspace, Chroma
+from ..host_copy import host_planes
 from ..registry import Encoder as RegistryEncoder, register_encoder
 from . import cuda_fast, native_scan
 from .bitio import HuffTable, BitWriter
@@ -55,17 +56,6 @@ class _CompPlan:
         self.blocks = blocks          # (N, 64) zigzag int16
         self.blocks_w = blocks_w
         self.blocks_h = blocks_h
-
-
-def _host_coefficients(coeffs: torch.Tensor) -> np.ndarray:
-    """The device's coefficients as numpy, in one copy (through pinned
-    memory from a card)."""
-    if coeffs.device.type == "cpu":
-        return coeffs.numpy()
-    host = torch.empty(coeffs.shape, dtype=coeffs.dtype, pin_memory=True)
-    host.copy_(coeffs, non_blocking=True)
-    torch.cuda.current_stream(coeffs.device).synchronize()
-    return host.numpy()
 
 
 def component_jobs(img: PixelImage):
@@ -133,7 +123,7 @@ def encode_jpeg(img: PixelImage, quality: int = 75) -> bytes:
     with trace.span("jpeg.encode.fdct"):
         coeffs = cuda_fast.fdct_quant(jobs, quant)
     with trace.span("jpeg.encode.copy"):
-        host = _host_coefficients(coeffs)
+        host = host_planes([coeffs])[0]
 
     plans: List[_CompPlan] = []
     first = 0

@@ -13,11 +13,12 @@ tracks (``tracks``, ``get_track``, ``has_sequence``, JAX
 context.py:76-110) decode their samples on the same device.
 
 The write side makes still-image files: ``new_file``, ``encode_image``
-for ``unci``, ``mski`` and the registered encoders (``jpeg``; HEVC and AV1
-have none yet and raise ``Unsupported_codec``), each image's alpha as a
-hidden aux item, ``set_primary_item``, ``write`` and ``write_to_file``
+for ``unci``, ``mski`` and the registered encoders (``jpeg``, ``hevc``,
+``av1``; another format raises ``Unsupported_codec``), each image's alpha
+as a hidden aux item, ``set_primary_item``, ``write`` and ``write_to_file``
 (JAX context.py:400-552, :738-805).  An encode runs on the context's
-device: planes that lie elsewhere are copied there first.  The JAX
+device: planes that lie elsewhere are copied there first; the HEVC and
+AV1 encoders convert there, then code on the host.  The JAX
 writers of tracks, region and text items, thumbnails and metadata items
 are not ported yet.
 """

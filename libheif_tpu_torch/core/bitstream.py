@@ -303,3 +303,50 @@ class ByteWriter:
 
     def patch_uint(self, at: int, v: int, nbytes: int) -> None:
         self._data[at:at + nbytes] = int(v).to_bytes(nbytes, "big")
+
+
+class BitWriter:
+    """MSB-first bit writer (ref: bitstream.h BitWriter:473); the HEVC
+    encoder's parameter sets and slice headers.  Counterpart of
+    libheif_tpu/core/bitstream.py:335."""
+
+    __slots__ = ("_data", "_bitbuf", "_bits")
+
+    def __init__(self):
+        self._data = bytearray()
+        self._bitbuf = 0
+        self._bits = 0
+
+    def write_bits(self, v: int, n: int) -> None:
+        if n == 0:
+            return
+        self._bitbuf = (self._bitbuf << n) | (v & ((1 << n) - 1))
+        self._bits += n
+        while self._bits >= 8:
+            self._bits -= 8
+            self._data.append((self._bitbuf >> self._bits) & 0xFF)
+        self._bitbuf &= (1 << self._bits) - 1
+
+    def write_bit(self, v: int) -> None:
+        self.write_bits(v, 1)
+
+    @property
+    def bit_position(self) -> int:
+        """Bits written so far."""
+        return len(self._data) * 8 + self._bits
+
+    def byte_align(self, pad_bit: int = 0) -> None:
+        while self._bits != 0:
+            self.write_bits(pad_bit, 1)
+
+    def data(self) -> bytes:
+        if self._bits:
+            raise HeifError.usage(msg="BitWriter not byte-aligned")
+        return bytes(self._data)
+
+    def data_padded(self) -> bytes:
+        w = BitWriter()
+        w._data = bytearray(self._data)
+        w._bitbuf, w._bits = self._bitbuf, self._bits
+        w.byte_align()
+        return bytes(w._data)

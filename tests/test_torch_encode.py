@@ -16,8 +16,9 @@ CPU: the same images, made with numpy from a seed, go through both.
   packages to the same items and planes.  At 10-14 bits both write 16-bit
   words under a uncC of that depth (ROADMAP §3 D): equal bytes and equal
   decodes, which are not the source;
-* HEVC and AV1 have no encoder in the port yet and raise
-  ``Unsupported_codec``.
+* the HEVC and AV1 encoders are registered and ``encode_image`` reaches
+  them (their parity with the JAX encoders: tests/test_torch_hevc_encode.py
+  and tests/test_torch_av1_encode.py).
 """
 
 from __future__ import annotations
@@ -333,8 +334,8 @@ def test_jpeg_encoder_is_registered():
     assert isinstance(enc, penc.JpegEncoder)
     assert ("jpeg", "tpu-jpeg") in registry.list_encoders()
     assert registry.have_encoder("jpeg")
-    assert not registry.have_encoder("hevc")
-    assert not registry.have_encoder("av1")
+    assert registry.have_encoder("hevc")
+    assert registry.have_encoder("av1")
 
 
 # ------------------------------------------------------------ unci files
@@ -597,14 +598,21 @@ def test_write_without_a_file_raises():
         HeifContext(device="cpu").write()
 
 
-@pytest.mark.parametrize("fmt", ["hevc", "av1"])
-def test_hevc_av1_have_no_encoder_yet(fmt):
+@pytest.mark.parametrize("fmt,item_type", [("hevc", "hvc1"), ("av1", "av01")])
+def test_hevc_av1_encoders_are_registered(fmt, item_type):
+    """Importing the port registers both encoders (as the JAX package's
+    codecs/hevc/__init__.py:16 and av1/__init__.py:18 do), and
+    encode_image reaches them on the CPU."""
+    enc = registry.get_encoder(fmt)
+    assert enc is not None and enc.id == jregistry.get_encoder(fmt).id
+    assert (fmt, enc.id) in registry.list_encoders()
     _, p = image_pair("420", 16, 16)
     ctx = HeifContext(device="cpu")
-    with pytest.raises(HeifError) as e:
-        ctx.encode_image(p, fmt)
-    assert e.value.subcode == SubError.Unsupported_codec
-    assert fmt in str(e.value)
+    iid = ctx.encode_image(p, fmt)
+    assert ctx.file.get_infe(iid).item_type == item_type
+    img = HeifContext.read_from_bytes(ctx.write(), device="cpu") \
+        .decode_image(None)
+    assert (img.width, img.height) == (16, 16)
 
 
 # ------------------------------------------- options, registry, brands
