@@ -23,6 +23,7 @@ from .context import HeifContext
 from .file import HeifFile
 from .items import DecodingOptions
 from .option_types import EncodingOptions
+from .sequences import TrackOptions
 
 __all__ = ["resolve_device", "HeifContext", "HeifFile", "DecodingOptions",
-           "EncodingOptions", "decode_intra_picture"]
+           "EncodingOptions", "TrackOptions", "decode_intra_picture"]

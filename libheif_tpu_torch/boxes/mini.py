@@ -6,14 +6,15 @@ mini.cc:41).  The mini box is a bit-packed single-image header: every
 field is parsed and the embedded codec configurations and item data are
 kept, so that the context can make the items from them
 (items/mini_item.py).  A parsed box writes back its bytes unchanged;
-``build_payload`` and the rest of the write side wait for the write API.
+``build_payload`` (JAX :295-433) lays out the fields of a box made by
+the writer (file/mini_write.py).
 """
 
 from __future__ import annotations
 
 from typing import List
 
-from ..core.bitstream import ByteReader, ByteWriter, BitReader
+from ..core.bitstream import ByteReader, ByteWriter, BitReader, BitWriter
 from ..core.error import HeifError, SubError
 from ..core.limits import SecurityLimits
 from .box import Box, register_box
@@ -292,3 +293,142 @@ class Box_mini(Box):
                 f"exif: {self.exif_flag}, xmp: {self.xmp_flag}",
                 f"main data: {len(self.main_item_data)} bytes, "
                 f"config: {len(self.main_item_codec_config)} bytes"]
+
+    # ------------------------------------------------------------ write
+
+    def build_payload(self) -> None:
+        """Serialize the field set into ``self.raw`` (the exact mirror
+        of :meth:`parse_payload`; bit layout ref: mini.cc:886
+        Box_mini::write).  HDR gainmap payloads are not emitted — the
+        builder only sets hdr_flag when clli/mdcv metadata is present.
+        """
+        bits = BitWriter()
+
+        self.hdr_flag = bool(self.clli or self.mdcv or self.amve or
+                             self.ndwt)
+        bits.write_bits(self.mini_version, 2)
+        bits.write_bit(int(self.explicit_codec_types_flag))
+        bits.write_bit(int(self.float_flag))
+        bits.write_bit(int(self.full_range_flag))
+        bits.write_bit(int(self.alpha_flag))
+        bits.write_bit(int(self.explicit_cicp_flag))
+        bits.write_bit(int(self.hdr_flag))
+        bits.write_bit(int(self.icc_flag))
+        bits.write_bit(int(self.exif_flag))
+        bits.write_bit(int(self.xmp_flag))
+        bits.write_bits(self.chroma_subsampling, 2)
+        bits.write_bits(self.orientation - 1, 3)
+
+        large_dims = self.width > 128 or self.height > 128
+        dim_bits = 15 if large_dims else 7
+        bits.write_bit(int(large_dims))
+        bits.write_bits(self.width - 1, dim_bits)
+        bits.write_bits(self.height - 1, dim_bits)
+
+        if self.chroma_subsampling in (1, 2):
+            bits.write_bit(int(self.chroma_is_horizontally_centered))
+        if self.chroma_subsampling == 1:
+            bits.write_bit(int(self.chroma_is_vertically_centered))
+
+        if self.float_flag:
+            log2 = {16: 4, 32: 5, 64: 6}[self.bit_depth]
+            bits.write_bits(log2 - 4, 2)
+        else:
+            if self.bit_depth > 8:
+                bits.write_bit(1)
+                bits.write_bits(self.bit_depth - 9, 3)
+            else:
+                bits.write_bit(0)
+
+        if self.alpha_flag:
+            bits.write_bit(int(self.alpha_is_premultiplied))
+
+        if self.explicit_cicp_flag:
+            bits.write_bits(self.colour_primaries, 8)
+            bits.write_bits(self.transfer_characteristics, 8)
+            bits.write_bits(self.matrix_coefficients, 8)
+
+        if self.explicit_codec_types_flag:
+            bits.write_bits(self.infe_type, 32)
+            bits.write_bits(self.codec_config_type, 32)
+
+        if self.hdr_flag:
+            bits.write_bit(0)   # gainmap_flag (not emitted by builder)
+            bits.write_bit(int(self.clli is not None))
+            bits.write_bit(int(self.mdcv is not None))
+            bits.write_bit(0)   # cclv
+            bits.write_bit(int(self.amve is not None))
+            bits.write_bit(0)   # reve
+            bits.write_bit(int(self.ndwt is not None))
+            if self.clli is not None:
+                bits.write_bits(self.clli["max_cll"], 16)
+                bits.write_bits(self.clli["max_pall"], 16)
+            if self.mdcv is not None:
+                for x, y in self.mdcv["primaries"]:
+                    bits.write_bits(x, 16)
+                    bits.write_bits(y, 16)
+                bits.write_bits(self.mdcv["white_point"][0], 16)
+                bits.write_bits(self.mdcv["white_point"][1], 16)
+                bits.write_bits(self.mdcv["max_lum"], 32)
+                bits.write_bits(self.mdcv["min_lum"], 32)
+            if self.amve is not None:
+                bits.write_bits(self.amve["illumination"], 32)
+                bits.write_bits(self.amve["x"], 16)
+                bits.write_bits(self.amve["y"], 16)
+            if self.ndwt is not None:
+                bits.write_bits(self.ndwt["diffuse_white"], 32)
+
+        # ---- chunk sizes (mirror of parse) ----
+        icc_size = len(self.icc_data)
+        exif_size = len(self.exif_data)
+        xmp_size = len(self.xmp_data)
+        main_cfg_size = len(self.main_item_codec_config)
+        main_data_size = len(self.main_item_data)
+        alpha_data_size = len(self.alpha_item_data)
+        alpha_cfg_size = len(self.alpha_item_codec_config) \
+            if self.alpha_item_codec_config != self.main_item_codec_config \
+            else 0
+
+        large_meta = max(icc_size, exif_size, xmp_size) > (1 << 10)
+        large_cfg = max(main_cfg_size, alpha_cfg_size) >= (1 << 3)
+        large_data = max(main_data_size, alpha_data_size) > (1 << 15)
+        meta_bits = 20 if large_meta else 10
+        cfg_bits = 12 if large_cfg else 3
+        data_bits = 28 if large_data else 15
+
+        if self.icc_flag or self.exif_flag or self.xmp_flag:
+            bits.write_bit(int(large_meta))
+        bits.write_bit(int(large_cfg))
+        bits.write_bit(int(large_data))
+
+        if self.icc_flag:
+            bits.write_bits(icc_size - 1, meta_bits)
+        bits.write_bits(main_cfg_size, cfg_bits)
+        bits.write_bits(main_data_size - 1, data_bits)
+        if self.alpha_flag:
+            bits.write_bits(alpha_data_size, data_bits)
+            if alpha_data_size > 0:
+                bits.write_bits(alpha_cfg_size, cfg_bits)
+        if self.exif_flag or self.xmp_flag:
+            bits.write_bit(int(self.exif_xmp_compressed))
+        if self.exif_flag:
+            bits.write_bits(exif_size - 1, meta_bits)
+        if self.xmp_flag:
+            bits.write_bits(xmp_size - 1, meta_bits)
+
+        bits.byte_align()
+        out = bytearray(bits.data())
+
+        out += self.main_item_codec_config
+        if self.alpha_flag and alpha_data_size > 0 and alpha_cfg_size:
+            out += self.alpha_item_codec_config
+        if self.icc_flag:
+            out += self.icc_data
+        if self.alpha_flag and alpha_data_size > 0:
+            out += self.alpha_item_data
+        out += self.main_item_data
+        if self.exif_flag:
+            out += self.exif_data
+        if self.xmp_flag:
+            out += self.xmp_data
+        self.raw = bytes(out)

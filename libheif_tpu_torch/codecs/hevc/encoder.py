@@ -1,9 +1,9 @@
-"""HEVC intra still-image encoder.
+"""HEVC intra still-image encoder, and the registry's HEVC encoder.
 
-Counterpart of libheif_tpu/codecs/hevc/encoder.py without the sequence
-encoder (``HevcSequenceEncodeSession`` :1296, ``HevcEncoder.
-start_sequence_encode`` :1382 and inter_enc.py, which come with the
-track writers).  It replaces the reference's x265 plugin boundary for
+Counterpart of libheif_tpu/codecs/hevc/encoder.py.  Its sequence half,
+``HevcSequenceEncodeSession`` (JAX :1296) and ``HevcEncoder.
+start_sequence_encode`` (:1382), drives inter_enc.SequenceEncoder for
+the track writer.  It replaces the reference's x265 plugin boundary for
 still images (reference: libheif/plugins/encoder_x265.cc) with a
 from-scratch intra encoder: a fixed CU-size quadtree, a per-CU intra mode
 decision, forward transform and quantisation, CABAC entropy coding.  The
@@ -1351,13 +1351,100 @@ def _encode_slice_entry():
 # registry encoder
 # --------------------------------------------------------------------------
 
+class HevcSequenceEncodeSession:
+    """Stateful inter track encoding (ref: encoder.h:76-89 sequence
+    hooks feeding x265's GOP): frame 0 is an IDR sync sample, later
+    frames are P slices ("ipp"), low-delay B slices ("ldb"), or
+    reordered B frames between I/P anchors ("ibp", "bpyr", which need
+    ctts).  Every ``gop`` frames of "ipp" and "ldb" a new encoder starts
+    with an IDR, as in the JAX session.  The encoder's references decode
+    on ``device`` (``None`` means CUDA); a frame that is not YCbCr 4:2:0
+    is converted on its own device first."""
+
+    def __init__(self, width: int, height: int, qp: int,
+                 gop: int = 32, gop_struct: str = "ipp", device=None):
+        self.params = EncParams(qp=qp, deblock=True)
+        self.gop_struct = gop_struct
+        self.width, self.height = width, height
+        self.gop = gop
+        self.device = device
+        self.enc = self._new_encoder()
+        self.count = 0
+        self.config = None
+
+    def _new_encoder(self):
+        from .inter_enc import SequenceEncoder
+        return SequenceEncoder(self.width, self.height, self.params,
+                               gop_struct=self.gop_struct,
+                               device=self.device)
+
+    def _cfg_box(self, cfg_nals):
+        cfg = hvcC_from_sps(parse_hevc_sps(cfg_nals[0]))
+        for n in cfg_nals:
+            cfg.add_nal(n)
+        return cfg
+
+    def _prep(self, img: PixelImage) -> PixelImage:
+        if img.colorspace != Colorspace.YCbCr or img.chroma != Chroma.C420:
+            img = convert_image(img, Colorspace.YCbCr, Chroma.C420,
+                                device=next(iter(img.planes.values())).device)
+        if self.count and self.count % self.gop == 0 and \
+                self.gop_struct not in ("ibp", "bpyr"):
+            # periodic IDR refresh: reset the closed-loop encoder
+            self.enc = self._new_encoder()
+        return img
+
+    def encode_frame(self, img: PixelImage):
+        """IPPP/low-delay path (no reordering): returns
+        (length-prefixed sample data, hvcC-or-None, is_sync)."""
+        img = self._prep(img)
+        nal, cfg_nals = self.enc.encode_frame(img)
+        self.count += 1
+        cfg = None
+        if cfg_nals:
+            cfg = self.config = self._cfg_box(cfg_nals)
+        return len(nal).to_bytes(4, "big") + nal, cfg, bool(cfg_nals)
+
+    def push_frames(self, img: PixelImage):
+        """Reorder-aware path: returns a list of
+        (sample data, hvcC-or-None, is_sync, cts_frame_offset) in
+        decode order (possibly empty while the lookahead holds)."""
+        img = self._prep(img)
+        samples = self.enc.push_frame(img)
+        self.count += 1
+        out = []
+        for s in samples:
+            cfg = None
+            if self.config is None and self.enc.config_nals:
+                cfg = self.config = self._cfg_box(self.enc.config_nals)
+            out.append((len(s.data).to_bytes(4, "big") + s.data, cfg,
+                        s.is_sync, s.cts_offset))
+        return out
+
+    def flush_frames(self):
+        """Drain the lookahead at end of track."""
+        return [(len(s.data).to_bytes(4, "big") + s.data, None,
+                 s.is_sync, s.cts_offset) for s in self.enc.flush()]
+
+
 class HevcEncoder(RegistryEncoder):
-    """Registry encoder for `hvc1` items (ref: encoder_x265.cc): quality
-    q gives qp = 51 - q / 2, clamped to 1..51."""
+    """Registry encoder for `hvc1` items and tracks (ref:
+    encoder_x265.cc): quality q gives qp = 51 - q / 2, clamped to
+    1..51."""
 
     id = "tpu-hevc"
     format = "hevc"
     lossy_supported = True
+
+    def start_sequence_encode(self, width: int, height: int,
+                              options=None, gop_struct: str = "ipp",
+                              device=None) -> HevcSequenceEncodeSession:
+        """A sequence session whose references decode on ``device``."""
+        quality = getattr(options, "quality", 50) if options else 50
+        qp = max(1, min(51, 51 - quality * 50 // 100))
+        return HevcSequenceEncodeSession(width, height, qp,
+                                         gop_struct=gop_struct,
+                                         device=device)
 
     def encode_single_image(self, img: PixelImage, options=None):
         quality = getattr(options, "quality", 50) if options else 50

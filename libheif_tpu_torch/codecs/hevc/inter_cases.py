@@ -13,6 +13,11 @@ tiles a picture with PUs of every shape (2Nx2N, 2NxN, Nx2N, AMP at
 16x16, NxN and 8x4/4x8 at 8x8), which never overlap, so every order of
 the jobs gives the same samples; and ``synthetic`` joins them with
 random reference pictures into ``cuda_fast.inter_pred``'s arguments.
+
+``panning_scene`` gives the source frames of the sequence encoder's
+tracks: a seeded textured canvas panned a few samples a frame, with a
+little noise, as YCbCr 4:2:0 planes.  The tests feed the same frames to
+the JAX writer and the port's.
 """
 
 from __future__ import annotations
@@ -122,3 +127,36 @@ def synthetic(W: int, H: int, bd: int, seed: int, device, refs: int = 3,
     rows = pu_rows(pus, mo)
     return tuple(torch.from_numpy(a).to(device)
                  for a in (inter_jobs(rows), ydpb, cdpb))
+
+
+def panning_scene(W: int, H: int, n: int, seed: int,
+                  step: Tuple[int, int] = (3, 1),
+                  noise: int = 2) -> List[Tuple[np.ndarray, ...]]:
+    """``n`` frames (Y, Cb, Cr) of uint8 numpy planes, W x H and 4:2:0
+    (W and H even): a canvas of 8x8 blocks of seeded random levels under
+    a horizontal ramp, seen through a window that moves ``step`` = (dx,
+    dy) luma samples a frame (the chroma windows half as far), the luma
+    of every frame but the first with uniform noise in [-noise, noise]."""
+    rng = np.random.default_rng(seed)
+    dx, dy = step
+    ch, cw = H + n * abs(dy) + 16, W + n * abs(dx) + 16
+    blocks = rng.integers(0, 64, ((ch + 7) // 8, (cw + 7) // 8))
+    canvas = np.kron(blocks, np.ones((8, 8), np.int64))[:ch, :cw]
+    luma = ((canvas * 3 + np.arange(cw)[None, :] // 2) % 256).astype(
+        np.uint8)
+    chroma = [rng.integers(40, 216, (ch // 2, cw // 2)).astype(np.uint8)
+              for _ in range(2)]
+    chroma = [np.kron(c[::4, ::4], np.ones((4, 4), np.uint8))[:ch // 2,
+                                                             :cw // 2]
+              for c in chroma]
+    x0, y0 = (0 if dx >= 0 else n * -dx), (0 if dy >= 0 else n * -dy)
+    frames = []
+    for i in range(n):
+        x, y = x0 + i * dx, y0 + i * dy
+        yp = luma[y:y + H, x:x + W].astype(np.int32)
+        if i and noise:
+            yp = yp + rng.integers(-noise, noise + 1, yp.shape)
+        frames.append((np.clip(yp, 0, 255).astype(np.uint8),) + tuple(
+            c[y // 2:y // 2 + H // 2, x // 2:x // 2 + W // 2].copy()
+            for c in chroma))
+    return frames

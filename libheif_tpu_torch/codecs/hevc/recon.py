@@ -1,13 +1,22 @@
-"""HEVC intra reconstruction on the host: dequant, inverse transforms,
-prediction.
+"""HEVC reconstruction on the host for the encoders: dequant, inverse
+transforms, intra prediction, and the motion compensation of the inter
+encoder's search.
 
-Counterpart of the intra part of libheif_tpu/codecs/hevc/recon.py
-(``dequant`` :21, ``inverse_transform`` :39, ``IntraReconstructor`` :168
-with ``_gather_refs``, ``_filter_refs``, ``_predict`` and ``_recon_tu``).
-Spec: scaling §8.6.3, transforms §8.6.4, intra prediction §8.4.4.2.  It
-is the HEVC encoder's closed-loop reconstruction (encoder.py): the
-encoder predicts each block from the samples a decoder will hold.  The
-port's decoder reconstructs on the device and does not use it.
+Counterpart of libheif_tpu/codecs/hevc/recon.py without its decoder
+(``dequant`` :21, ``inverse_transform`` :39, the MC helpers ``_gather``
+:78, ``mc_luma_14`` :86, ``mc_chroma_14`` :113, ``weight_uni`` :140,
+``weight_bi`` :148, ``mc_luma`` :156, ``mc_chroma`` :162, and
+``IntraReconstructor`` :168 with ``_gather_refs``, ``_filter_refs``,
+``_predict`` and ``_recon_tu``).  Spec: scaling §8.6.3, transforms
+§8.6.4, intra prediction §8.4.4.2, fractional sample interpolation
+§8.5.3.3.3, weighted sample prediction §8.5.3.3.4.  The intra part is
+the still encoder's closed-loop reconstruction (encoder.py): it predicts
+each block from the samples a decoder will hold.  The MC helpers price
+each candidate vector of the sequence encoder's motion search
+(inter_enc.py), one small block at a time, so they stay numpy: a launch
+a candidate would be a sync a candidate.  The port's decoders
+reconstruct on the device (``hevc_inter_pred`` for MC) and use none of
+this.
 """
 
 from __future__ import annotations
@@ -63,6 +72,109 @@ def inverse_transform(tu: TU, d: np.ndarray, bit_depth: int) -> np.ndarray:
     shift2 = 20 - bit_depth
     r = (e @ m + (1 << (shift2 - 1))) >> shift2
     return np.clip(r, -32768, 32767).astype(np.int32)
+
+
+# HEVC inter interpolation filters (spec 8.5.4.2.2.1/2.2.2)
+_QFILT = {
+    1: (-1, 4, -10, 58, 17, -5, 1, 0),
+    2: (-1, 4, -11, 40, 40, -11, 4, -1),
+    3: (0, 1, -5, 17, 58, -10, 4, -1),
+}
+_CFILT = {
+    1: (-2, 58, 10, -2), 2: (-4, 54, 16, -2), 3: (-6, 46, 28, -4),
+    4: (-4, 36, 36, -4), 5: (-4, 28, 46, -6), 6: (-2, 16, 54, -4),
+    7: (-2, 10, 58, -2),
+}
+
+
+def _gather(ref: np.ndarray, y0: int, x0: int, h: int, w: int) -> np.ndarray:
+    """Edge-replicated block fetch (HEVC conceptual infinite padding)."""
+    rh, rw = ref.shape
+    ys = np.clip(np.arange(y0, y0 + h), 0, rh - 1)
+    xs = np.clip(np.arange(x0, x0 + w), 0, rw - 1)
+    return ref[np.ix_(ys, xs)].astype(np.int64)
+
+
+def mc_luma_14(ref: np.ndarray, x0: int, y0: int, w: int, h: int,
+               mvx: int, mvy: int, bd: int) -> np.ndarray:
+    """Luma fractional-sample interpolation (spec 8.5.4.2.2.1) at the
+    14-bit intermediate precision, before weighted sample prediction."""
+    xi, yi = x0 + (mvx >> 2), y0 + (mvy >> 2)
+    fx, fy = mvx & 3, mvy & 3
+    shift1 = bd - 8
+    shift3 = 14 - bd
+    if fx == 0 and fy == 0:
+        val = _gather(ref, yi, xi, h, w) << shift3
+    elif fy == 0:
+        b = _gather(ref, yi, xi - 3, h, w + 7)
+        t = _QFILT[fx]
+        val = sum(t[i] * b[:, i:i + w] for i in range(8)) >> shift1
+    elif fx == 0:
+        b = _gather(ref, yi - 3, xi, h + 7, w)
+        t = _QFILT[fy]
+        val = sum(t[i] * b[i:i + h, :] for i in range(8)) >> shift1
+    else:
+        b = _gather(ref, yi - 3, xi - 3, h + 7, w + 7)
+        t = _QFILT[fx]
+        tmp = sum(t[i] * b[:, i:i + w] for i in range(8)) >> shift1
+        t = _QFILT[fy]
+        val = sum(t[i] * tmp[i:i + h, :] for i in range(8)) >> 6
+    return val
+
+
+def mc_chroma_14(ref: np.ndarray, xc: int, yc: int, w: int, h: int,
+                 mvx: int, mvy: int, bd: int) -> np.ndarray:
+    """Chroma eighth-pel interpolation (spec 8.5.4.2.2.2) at the 14-bit
+    intermediate precision; coords/dims in chroma samples."""
+    xi, yi = xc + (mvx >> 3), yc + (mvy >> 3)
+    fx, fy = mvx & 7, mvy & 7
+    shift1 = bd - 8
+    shift3 = 14 - bd
+    if fx == 0 and fy == 0:
+        val = _gather(ref, yi, xi, h, w) << shift3
+    elif fy == 0:
+        b = _gather(ref, yi, xi - 1, h, w + 3)
+        t = _CFILT[fx]
+        val = sum(t[i] * b[:, i:i + w] for i in range(4)) >> shift1
+    elif fx == 0:
+        b = _gather(ref, yi - 1, xi, h + 3, w)
+        t = _CFILT[fy]
+        val = sum(t[i] * b[i:i + h, :] for i in range(4)) >> shift1
+    else:
+        b = _gather(ref, yi - 1, xi - 1, h + 3, w + 3)
+        t = _CFILT[fx]
+        tmp = sum(t[i] * b[:, i:i + w] for i in range(4)) >> shift1
+        t = _CFILT[fy]
+        val = sum(t[i] * tmp[i:i + h, :] for i in range(4)) >> 6
+    return val
+
+
+def weight_uni(val: np.ndarray, bd: int) -> np.ndarray:
+    """Default uni-directional weighted sample prediction
+    (spec 8.5.4.3.2, predFlag one list)."""
+    sh = 14 - bd
+    return np.clip((val + (1 << (sh - 1))) >> sh, 0,
+                   (1 << bd) - 1).astype(np.int32)
+
+
+def weight_bi(a: np.ndarray, b: np.ndarray, bd: int) -> np.ndarray:
+    """Default bi-directional weighted sample prediction
+    (spec 8.5.4.3.2: (predL0 + predL1 + offset2) >> shift2)."""
+    sh = 15 - bd
+    return np.clip((a + b + (1 << (sh - 1))) >> sh, 0,
+                   (1 << bd) - 1).astype(np.int32)
+
+
+def mc_luma(ref: np.ndarray, x0: int, y0: int, w: int, h: int,
+            mvx: int, mvy: int, bd: int) -> np.ndarray:
+    """Uni-directional luma MC incl. default weighting; clipped int32."""
+    return weight_uni(mc_luma_14(ref, x0, y0, w, h, mvx, mvy, bd), bd)
+
+
+def mc_chroma(ref: np.ndarray, xc: int, yc: int, w: int, h: int,
+              mvx: int, mvy: int, bd: int) -> np.ndarray:
+    """Uni-directional chroma MC incl. default weighting."""
+    return weight_uni(mc_chroma_14(ref, xc, yc, w, h, mvx, mvy, bd), bd)
 
 
 class IntraReconstructor:

@@ -351,6 +351,19 @@ class PixelImage:
                 f"{self.chroma} [{chans}]>")
 
 
+def image_on_device(img: PixelImage, device) -> PixelImage:
+    """``img``, or where a plane lies on another device than ``device``
+    (resolved already), a copy of it with every plane on ``device``; the
+    caller's image is left as it is."""
+    if all(p.device == device for p in img.planes.values()):
+        return img
+    out = img._like(img.width, img.height)
+    for ch, p in img.planes.items():
+        out.planes[ch] = p.to(device)
+        out.plane_info[ch] = img.plane_info[ch]
+    return out
+
+
 def from_numpy_planes(planes: Dict[str, np.ndarray], bits: Dict[str, int],
                       colorspace: str, chroma: str,
                       device=None) -> PixelImage:

@@ -1,4 +1,4 @@
-"""Text annotation items (txti), read side.
+"""Text annotation items (txti).
 
 Counterpart of libheif_tpu/items/text_item.py (reference:
 libheif/text.{h,cc} TextItem text.h:31).  The item payload is UTF-8
@@ -15,3 +15,6 @@ class TextItem:
     @staticmethod
     def parse(item_id: int, data: bytes) -> "TextItem":
         return TextItem(item_id, bytes(data).decode("utf-8", "replace"))
+
+    def serialize(self) -> bytes:
+        return self.text.encode("utf-8")

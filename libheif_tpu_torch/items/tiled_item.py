@@ -14,8 +14,11 @@ chunks of entries, and the tile's bytes).  Each tile decodes on the
 context's device: unci tiles through one UnciDecoder kept by the item,
 hvc1, av01 and jpeg tiles through their item's decoder
 (``codec_items.CodedImageItem``).  A full-image decode
-is refused, as in the reference.  The write side (add_new_tiled_item,
-add_image_tile) waits for the write API.
+is refused, as in the reference.  The write side (JAX :277-357):
+``add_new_tiled_item`` makes an item with an empty offset table,
+``add_image_tile`` encodes a tile on the context's device (unci through
+UnciEncoder, hevc, av1 and jpeg through the registry) and appends it,
+and ``process_before_write`` patches the final table over the first.
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ from ..core.limits import SecurityLimits
 from ..boxes.meta import Box_ispe
 from ..boxes.tild import Box_tilC, TiledImageParameters
 from ..boxes.unc import Box_uncC, Box_cmpd, Box_cmpC, Box_icef
-from ..codecs.unc import UnciDecoder
-from ..image.pixel_image import PixelImage
+from ..codecs import registry
+from ..codecs.unc import UnciDecoder, UnciEncoder
+from ..image.pixel_image import PixelImage, image_on_device
+from ..option_types import EncodingOptions
 from .codec_items import CodedImageItem
 from .item import (ImageItem, ImageTiling, ITEM_REGISTRY, register_item,
                    DecodingOptions)
@@ -41,6 +46,11 @@ TILD_OFFSET_NOT_LOADED = 10
 # tiles of the codecs that the JAX package decodes on the host only are
 # refused by name
 _UNPORTED_TILES = {"vvc1": "VVC", "avc1": "AVC (H.264)", "j2k1": "JPEG 2000"}
+
+# registry format name of the tiles the port encodes -> infe fourcc
+_FORMAT_TO_FOURCC = {"hevc": "hvc1", "av1": "av01", "jpeg": "jpeg",
+                     "unci": "unci"}
+_FOURCC_TO_FORMAT = {v: k for k, v in _FORMAT_TO_FOURCC.items()}
 
 # entries to fetch per offset-table read, so remote/streaming access
 # amortizes transfer latency (ref: mReadChunkSize_bytes tiled.cc:1054)
@@ -165,6 +175,8 @@ class ImageItem_Tiled(ImageItem):
         self._header: Optional[TiledHeader] = None
         self._tilC: Optional[Box_tilC] = None
         self._unci: Optional[UnciDecoder] = None
+        self._next_position = 0      # encode side: the append cursor
+        self._fmt: Optional[str] = None
 
     # --------------------------------------------------------------- common
 
@@ -269,3 +281,87 @@ class ImageItem_Tiled(ImageItem):
             tilC.get_child(item_cls.config_box_cls), data,
             declared_size=(p.tile_width, p.tile_height),
             limits=self.ctx.limits)
+
+    # --------------------------------------------------------------- encode
+
+    @classmethod
+    def add_new_tiled_item(cls, ctx, params: TiledImageParameters,
+                           fmt: str = "hevc") -> "ImageItem_Tiled":
+        """Create an empty tili item ready for appended tiles
+        (ref: add_new_tiled_item, tiled.cc:750)."""
+        if fmt not in _FORMAT_TO_FOURCC:
+            raise HeifError.unsupported(
+                SubError.Unsupported_codec,
+                f"tili tiles of format {fmt!r} are not supported by the "
+                "port")
+        params.compression_format = _FORMAT_TO_FOURCC[fmt]
+        infe = ctx.file.add_new_item("tili")
+        item = cls(ctx, infe.item_id)
+        ctx.items[infe.item_id] = item
+
+        tilC = Box_tilC(params)
+        ctx.file.add_property(infe.item_id, tilC, True)
+        item._tilC = tilC
+        ctx.file.add_property(
+            infe.item_id, Box_ispe(params.image_width, params.image_height),
+            False)
+
+        hdr = TiledHeader(params, ctx.limits)
+        item._header = hdr
+        table = hdr.serialize()
+        ctx.file.append_item_data(infe.item_id, table)
+        item._next_position = len(table)
+        item._fmt = fmt
+        return item
+
+    def add_image_tile(self, tile_x: int, tile_y: int, img: PixelImage,
+                       options=None) -> None:
+        """Encode one tile on the context's device and append its
+        bitstream (ref: add_image_tile, tiled.cc:833)."""
+        options = options or EncodingOptions()
+        tilC = self._get_tilC()
+        p = tilC.params
+        if img.width != p.tile_width or img.height != p.tile_height:
+            raise HeifError.usage(
+                msg="tile image size does not match the specified tile size")
+        img = image_on_device(img, self.ctx.device)
+        fmt = self._fmt or _FOURCC_TO_FORMAT.get(p.compression_format)
+        if fmt == "unci":
+            enc = UnciEncoder(1, 1)
+            data = enc.encode_tile(img)
+            cmpd, uncC = enc.make_boxes(img)
+            props = [(cmpd, False), (uncC, True)]
+        else:
+            enc = registry.get_encoder(fmt) if fmt else None
+            if enc is None:
+                raise HeifError.unsupported(
+                    SubError.Unsupported_codec,
+                    f"no encoder available for tili tiles of "
+                    f"{p.compression_format!r}")
+            data, cfg, extra = enc.encode_single_image(img, options)
+            props = ([(cfg, True)] if cfg is not None else []) + \
+                list(extra or [])
+
+        hdr = self._get_header()
+        offset = self._next_position
+        hdr.set_tile_range(tile_x, tile_y, offset, len(data))
+        self.file.append_item_data(self.item_id, data)
+        self._next_position = offset + len(data)
+
+        # shared tile-property template: first tile populates tilC children
+        # (ispe skipped: synthesized from tile size; ref tiled.cc:886-936)
+        existing = {c.box_type for c in tilC.children}
+        for prop, _essential in props:
+            if prop is None or prop.box_type == "ispe" or \
+                    prop.box_type in existing:
+                continue
+            tilC.children.append(prop)
+            existing.add(prop.box_type)
+
+    def process_before_write(self) -> None:
+        """Patch the final offset table over the placeholder
+        (ref: process_before_write, tiled.cc:946)."""
+        if self._header is None:
+            return
+        self.file.replace_item_data(self.item_id, 0,
+                                    self._header.serialize())

@@ -1,8 +1,12 @@
-"""Image sequences, read side: tracks and their sample tables
+"""Image sequences: tracks and their sample tables, and the track writers
 (counterpart of libheif_tpu/sequences)."""
 
-from .track import (Sample, RawSequenceSample, SampleAuxInfoReader, Track,
-                    TrackVisual, TrackMetadata, interpret_tracks)
+from .track import (Sample, RawSequenceSample, SampleAuxInfoReader,
+                    SampleAuxInfoWriter, Track, TrackVisual, TrackMetadata,
+                    TrackOptions, VisualTrackWriter, MetadataTrackWriter,
+                    interpret_tracks)
 
-__all__ = ["Sample", "RawSequenceSample", "SampleAuxInfoReader", "Track",
-           "TrackVisual", "TrackMetadata", "interpret_tracks"]
+__all__ = ["Sample", "RawSequenceSample", "SampleAuxInfoReader",
+           "SampleAuxInfoWriter", "Track", "TrackVisual", "TrackMetadata",
+           "TrackOptions", "VisualTrackWriter", "MetadataTrackWriter",
+           "interpret_tracks"]

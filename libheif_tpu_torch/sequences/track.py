@@ -16,8 +16,18 @@ stateful sequence session, codecs/hevc/decoder.py HevcSequenceSession),
 ``av01`` one still a sample (a non-key sample fails as it does in the
 JAX package, whose AV1 decoder has no sequence session), ``mjpg``
 through the JPEG decoder.  ``avc1``/``avc3``, ``vvc1``/``vvi1`` and
-``j2ki`` raise Unsupported by name.  The writers (TrackOptions,
-VisualTrackWriter, MetadataTrackWriter) are not ported yet.
+``j2ki`` raise Unsupported by name.
+
+The write side (JAX track.py:111-146, :624-1015): ``TrackOptions``,
+``VisualTrackWriter`` (``hvc1`` intra or inter through the registry's
+HEVC encoder and its sequence session, ``av01``, ``mjpg``, ``uncv``
+through UnciEncoder; raw samples, track references, TAI/GIMI aux info
+through ``SampleAuxInfoWriter``, the GIMI track meta) and
+``MetadataTrackWriter``.  A writer encodes on its context's device;
+``avc``, ``vvc`` and ``j2k`` tracks raise Unsupported by name.  Its
+spans are ``track.write`` (a frame's encode) and
+``track.write.finalize`` (the trak tree, with the lookahead's last
+frames).
 """
 
 from __future__ import annotations
@@ -26,12 +36,21 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from .._build import resolve_device
-from ..core.error import HeifError, SubError
+from ..codecs import registry
+from ..codecs.unc import UnciEncoder
+from ..core import trace
+from ..core.error import ErrorCode, HeifError, SubError
 from ..boxes.box import Box
-from ..boxes.meta import TaiClockInfo, TaiTimestampPacket
-from ..boxes.seq import (Box_tkhd, Box_mdhd, Box_stsd, Box_stts, Box_ctts,
-                         Box_stsc, Box_stsz, Box_stss, Box_saiz, Box_saio,
-                         Box_tref, VisualSampleEntry)
+from ..boxes.meta import (Box_dinf, Box_dref, Box_hdlr, Box_idat, Box_iinf,
+                          Box_iloc, Box_infe, Box_meta, Box_pitm, Box_taic,
+                          Box_url, IlocExtent, IlocItem, TaiClockInfo,
+                          TaiTimestampPacket)
+from ..boxes.seq import (Box_auxi, Box_ccst, Box_ctts, Box_mdhd, Box_mdia,
+                         Box_minf, Box_nmhd, Box_saio, Box_saiz, Box_stbl,
+                         Box_stco, Box_stsc, Box_stsd, Box_stss, Box_stsz,
+                         Box_stts, Box_tkhd, Box_trak, Box_tref, Box_uri,
+                         Box_urim, Box_vmhd, VisualSampleEntry)
+from ..image.pixel_image import image_on_device
 
 GIMI_TRACK_CONTENT_ID_URI = "urn:uuid:15beb8e4-944d-5fc6-a3dd-cb5a7e655c73"
 
@@ -591,3 +610,391 @@ def interpret_tracks(file, device=None) -> List[Track]:
                 if isinstance(master, TrackVisual):
                     master.alpha_track = t
     return out
+
+
+# ====================================================================== write
+
+class SampleAuxInfoWriter:
+    """Accumulates aux payloads, emitted as one block after the sample
+    data (ref: track.cc:65 SampleAuxInfoHelper, write_all mode)."""
+
+    def __init__(self, aux_info_type: str, parameter: int = 0):
+        self.saiz = Box_saiz()
+        self.saiz.set_aux_info_type(aux_info_type, parameter)
+        self.saio = Box_saio()
+        self.saio.set_aux_info_type(aux_info_type, parameter)
+        self.blob = bytearray()
+
+    def add_sample_info(self, data: bytes) -> None:
+        if len(data) > 255:
+            raise HeifError(ErrorCode.Encoding_error, SubError.Unspecified,
+                            "sample aux info block too large")
+        self.saiz.sample_sizes.append(len(data))
+        self.blob += data
+
+    def add_nonpresent_sample(self) -> None:
+        self.saiz.sample_sizes.append(0)
+
+    def finalize(self, file) -> Tuple[Box_saiz, Box_saio]:
+        """Append the aux block to the mdat stream; the mdat-relative
+        offset is made absolute at file write time (as stco's are).
+        Idempotent, so repeated context writes give the same bytes."""
+        if self.saio.offsets:
+            return self.saiz, self.saio
+        sizes = self.saiz.sample_sizes
+        if sizes and all(s == sizes[0] for s in sizes) and sizes[0] != 0:
+            self.saiz.default_sample_info_size = sizes[0]
+            self.saiz.sample_count = len(sizes)
+        self.saio.offsets = [file.append_sample_data(bytes(self.blob))]
+        return self.saiz, self.saio
+
+
+@dataclass
+class TrackOptions:
+    """heif_track_options equivalent (ref: track.h:95 TrackOptions)."""
+    timescale: int = 90000
+    interleaved_sample_aux_infos: bool = False
+    with_tai_timestamps: int = 0        # 0=none 1=mandatory 2=optional
+    tai_clock_info: Optional[TaiClockInfo] = None
+    with_gimi_content_ids: int = 0
+    gimi_track_content_id: str = ""
+    # inter coding of an hevc track: "ipp", "ldb", "ibp" or "bpyr" (True
+    # means "ipp"); False keeps all-intra tracks
+    inter_frames: object = False
+
+
+# sample entries whose encoders the JAX package runs on the host only
+_UNPORTED_TRACK_FORMATS = {"avc": "AVC", "vvc": "VVC", "j2k": "JPEG 2000"}
+
+
+def _runs(values: List[int]) -> List[Tuple[int, int]]:
+    """(count, value) runs of ``values`` (the stts/ctts entries)."""
+    out: List[Tuple[int, int]] = []
+    for v in values:
+        if out and out[-1][1] == v:
+            out[-1] = (out[-1][0] + 1, v)
+        else:
+            out.append((1, v))
+    return out
+
+
+class VisualTrackWriter:
+    """Appends encoded frames as track samples (ref: Track_Visual encode
+    path track_visual.cc:478, Track::write_sample_data track.cc:953).
+    Frames are encoded on ``device`` (``None`` means CUDA): a frame
+    lying elsewhere is copied there first, and an inter track's encoder
+    decodes its references there."""
+
+    def __init__(self, file, width: int, height: int, fmt: str = "hevc",
+                 timescale: int = 90000, track_id: int = 1,
+                 options: Optional[TrackOptions] = None,
+                 handler: str = "vide",
+                 aux_type_urn: Optional[str] = None, device=None):
+        if fmt in _UNPORTED_TRACK_FORMATS:
+            raise HeifError.unsupported(
+                SubError.Unsupported_codec,
+                f"{_UNPORTED_TRACK_FORMATS[fmt]} ({fmt!r}) tracks are not "
+                "supported by the port yet")
+        self.file = file
+        self.width = width
+        self.height = height
+        self.fmt = fmt
+        self.device = resolve_device(device)
+        self.sample_entry_type = {"hevc": "hvc1", "av1": "av01",
+                                  "jpeg": "mjpg", "unc": "uncv",
+                                  "uncv": "uncv"}.get(fmt, "hvc1")
+        self.options = options or TrackOptions(timescale=timescale)
+        if timescale != 90000:
+            self.options.timescale = timescale
+        self.timescale = self.options.timescale
+        self.track_id = track_id
+        self.handler = handler
+        self.aux_type_urn = aux_type_urn
+        self.sample_sizes: List[int] = []
+        self.sample_offsets: List[int] = []
+        self.sample_durations: List[int] = []
+        self.cts_offsets: List[int] = []     # signed, ctts v1 (B frames)
+        self.sync_samples: List[int] = []
+        self.config_box = None
+        self.track_references: List[Tuple[str, List[int]]] = []
+        self.tai_writer = (SampleAuxInfoWriter("stai")
+                           if self.options.with_tai_timestamps else None)
+        self.gimi_writer = (SampleAuxInfoWriter("suid")
+                            if self.options.with_gimi_content_ids else None)
+        # A reorder-aware encode session emits samples of other display
+        # frames (or none) on each push: each display frame's aux data
+        # waits here and lands on its sample by display index (= decode
+        # index + cts offset).
+        self._seq_aux: Dict[int, Tuple[Optional[TaiTimestampPacket],
+                                       Optional[str]]] = {}
+        self._seq_pushed = 0
+        self._seq_emitted = 0
+        self._enc_session = None
+        self._last_duration = 1
+
+    def add_reference_to_track(self, ref_type: str,
+                               to_track_id: int) -> None:
+        for rt, ids in self.track_references:
+            if rt == ref_type:
+                ids.append(to_track_id)
+                return
+        self.track_references.append((ref_type, [to_track_id]))
+
+    def add_frame(self, img, duration: int, options=None,
+                  tai: Optional[TaiTimestampPacket] = None,
+                  gimi_content_id: Optional[str] = None) -> None:
+        """Encode ``img`` (a PixelImage) as the next display frame."""
+        if duration == 0:
+            raise HeifError.usage(msg="Sample duration may not be 0")
+        if tai is None:
+            tai = getattr(img, "tai_timestamp", None)
+        if gimi_content_id is None:
+            gimi_content_id = getattr(img, "gimi_sample_content_id", None)
+        img = image_on_device(img, self.device)
+        with trace.span("track.write"):
+            if self.sample_entry_type == "uncv":
+                # uncompressed video track (ref: Box_uncv unc_boxes.h:494):
+                # raw 23001-17 frames, uncC/cmpd as sample-entry children
+                data, cmpd, uncC, cmpC, icef = UnciEncoder().encode(img)
+                if cmpC is not None or icef is not None:
+                    raise HeifError.usage(
+                        msg="generic compression unsupported for uncv "
+                            "tracks")
+                if self.config_box is None:
+                    self.config_box = [cmpd, uncC]
+            else:
+                enc = registry.get_encoder(self.fmt)
+                if enc is None:
+                    raise HeifError.unsupported(
+                        SubError.Unsupported_codec,
+                        f"no encoder available for format {self.fmt!r}")
+                inter = self.options.inter_frames
+                if inter and hasattr(enc, "start_sequence_encode"):
+                    self._add_inter_frame(enc, img, duration, options, tai,
+                                          gimi_content_id)
+                    return
+                data, cfg, _props = enc.encode_single_image(img, options)
+                if self.config_box is None:
+                    self.config_box = cfg
+            self._append_sample(data, duration, tai, gimi_content_id)
+
+    def _add_inter_frame(self, enc, img, duration, options, tai,
+                         gimi_content_id) -> None:
+        """An inter track's frame through its stateful sequence session
+        (ref: track_visual.cc:478 feeding the plugin's GOP)."""
+        inter = self.options.inter_frames
+        if self._enc_session is None:
+            self._enc_session = enc.start_sequence_encode(
+                img.width, img.height, options,
+                gop_struct=inter if isinstance(inter, str) else "ipp",
+                device=self.device)
+        self._last_duration = duration
+        self._seq_aux[self._seq_pushed] = (tai, gimi_content_id)
+        self._seq_pushed += 1
+        self._append_session_samples(self._enc_session.push_frames(img),
+                                     duration)
+
+    def _append_session_samples(self, samples, duration: int) -> None:
+        for data, cfg, is_sync, cts in samples:
+            if self.config_box is None and cfg is not None:
+                self.config_box = cfg
+            s_tai, s_gimi = self._seq_aux.pop(self._seq_emitted + cts,
+                                              (None, None))
+            self._seq_emitted += 1
+            self._append_sample(data, duration, s_tai, s_gimi,
+                                is_sync=is_sync, cts_offset=cts * duration)
+
+    def add_raw_sample(self, sample: RawSequenceSample) -> None:
+        """(ref: heif_track_add_raw_sequence_sample)."""
+        if sample.duration == 0:
+            raise HeifError.usage(msg="Sample duration may not be 0")
+        self._append_sample(sample.data, sample.duration,
+                            sample.timestamp,
+                            sample.gimi_sample_content_id,
+                            is_sync=sample.is_sync)
+
+    def _append_sample(self, data: bytes, duration: int,
+                       tai: Optional[TaiTimestampPacket],
+                       gimi_content_id: Optional[str],
+                       is_sync: bool = True,
+                       cts_offset: int = 0) -> None:
+        self.sample_offsets.append(self.file.append_sample_data(data))
+        self.sample_sizes.append(len(data))
+        self.sample_durations.append(duration)
+        self.cts_offsets.append(cts_offset)
+        if is_sync:
+            self.sync_samples.append(len(self.sample_sizes))
+        if self.tai_writer is not None:
+            if tai is not None:
+                self.tai_writer.add_sample_info(tai.to_bytes())
+            elif self.options.with_tai_timestamps == 2:
+                self.tai_writer.add_nonpresent_sample()
+            else:
+                raise HeifError(ErrorCode.Encoding_error, SubError.Unspecified,
+                                "Mandatory TAI timestamp missing")
+        if self.gimi_writer is not None:
+            if gimi_content_id is not None:
+                self.gimi_writer.add_sample_info(
+                    gimi_content_id.encode("utf-8") + b"\0")
+            elif self.options.with_gimi_content_ids == 2:
+                self.gimi_writer.add_nonpresent_sample()
+            else:
+                raise HeifError(ErrorCode.Encoding_error, SubError.Unspecified,
+                                "Mandatory ContentID missing")
+
+    def flush_encoder(self) -> None:
+        """Drain a reorder-aware encode session's lookahead (the
+        trailing P of an IBP GOP) into the sample table."""
+        if self._enc_session is not None:
+            self._append_session_samples(self._enc_session.flush_frames(),
+                                         self._last_duration)
+
+    def _build_track_meta(self) -> Box_meta:
+        """Trak-level meta carrying the GIMI track content ID as a
+        'uri ' item stored in idat (no offset patching needed)."""
+        payload = self.options.gimi_track_content_id.encode("utf-8") + b"\0"
+        meta = Box_meta()
+        hdlr = Box_hdlr()
+        hdlr.handler_type = "meta"
+        infe = Box_infe()
+        infe.item_id = 1
+        infe.item_type = "uri "
+        infe.item_uri_type = GIMI_TRACK_CONTENT_ID_URI
+        iinf = Box_iinf()
+        iinf.children.append(infe)
+        pitm = Box_pitm()
+        pitm.item_id = 1
+        iloc = Box_iloc()
+        item = IlocItem()
+        item.item_id = 1
+        item.construction_method = 1
+        item.extents.append(IlocExtent(0, 0, len(payload)))
+        iloc.items.append(item)
+        iloc.version = 1
+        meta.children.extend([hdlr, pitm, iinf, iloc, Box_idat(payload)])
+        return meta
+
+    def _sample_entry(self) -> Box:
+        entry = VisualSampleEntry(self.sample_entry_type)
+        entry.width = self.width
+        entry.height = self.height
+        if self.config_box is not None:
+            if isinstance(self.config_box, list):
+                entry.children.extend(self.config_box)
+            else:
+                entry.children.append(self.config_box)
+        if self.aux_type_urn:
+            entry.children.append(Box_auxi(self.aux_type_urn))
+        if self.options.tai_clock_info is not None:
+            entry.children.append(Box_taic(self.options.tai_clock_info))
+        entry.children.append(Box_ccst())
+        return entry
+
+    def _sample_tables(self) -> List[Box]:
+        """stts, ctts (signed, version 1, when a sample is reordered),
+        stsc, stsz, stco, stss."""
+        stts = Box_stts()
+        stts.entries = _runs(self.sample_durations)
+        boxes = [stts]
+        if any(self.cts_offsets):
+            ctts = Box_ctts()
+            ctts.version = 1
+            ctts.entries = _runs(self.cts_offsets)
+            boxes.append(ctts)
+        boxes += self._chunk_tables()
+        stss = Box_stss()
+        stss.samples = list(self.sync_samples)
+        return boxes + [stss]
+
+    def _chunk_tables(self) -> List[Box]:
+        """stsc, stsz, stco: one chunk per sample, since tracks may
+        interleave in the mdat."""
+        stsc = Box_stsc()
+        stsc.entries = [(1, 1, 1)]
+        stsz = Box_stsz()
+        stsz.sizes = list(self.sample_sizes)
+        stco = Box_stco()
+        stco.offsets = list(self.sample_offsets)
+        return [stsc, stsz, stco]
+
+    def finalize(self) -> Box:
+        """Build the trak box tree."""
+        with trace.span("track.write.finalize"):
+            self.flush_encoder()
+            tkhd = Box_tkhd()
+            tkhd.width = self.width << 16
+            tkhd.height = self.height << 16
+            mhd = Box_vmhd() if self.handler in ("vide", "pict", "auxv") \
+                else Box_nmhd()
+            return self._trak(tkhd, mhd, self.handler, "libheif_tpu video",
+                              self._sample_entry(), self._sample_tables())
+
+    def _trak(self, tkhd, mhd, handler: str, name: str, entry: Box,
+              tables: List[Box]) -> Box:
+        """tkhd, mdia (mdhd, hdlr, minf: ``mhd``, dinf, stbl: stsd holding
+        ``entry``, ``tables`` and the aux info), tref and the GIMI
+        meta."""
+        duration = sum(self.sample_durations)
+        tkhd.track_id = self.track_id
+        tkhd.duration = duration
+        mdhd = Box_mdhd()
+        mdhd.timescale = self.timescale
+        mdhd.duration = duration
+        hdlr = Box_hdlr()
+        hdlr.handler_type = handler
+        hdlr.name = name
+        dref = Box_dref()
+        dref.children.append(Box_url())
+        dinf = Box_dinf()
+        dinf.children.append(dref)
+        stsd = Box_stsd()
+        stsd.children.append(entry)
+        stbl = Box_stbl()
+        stbl.children.extend([stsd] + tables)
+        for writer in (self.tai_writer, self.gimi_writer):
+            if writer is not None and writer.saiz.sample_sizes:
+                stbl.children.extend(writer.finalize(self.file))
+        minf = Box_minf()
+        minf.children.extend([mhd, dinf, stbl])
+        mdia = Box_mdia()
+        mdia.children.extend([mdhd, hdlr, minf])
+        trak = Box_trak()
+        trak.children.extend([tkhd, mdia])
+        if self.track_references:
+            tref = Box_tref()
+            for ref_type, ids in self.track_references:
+                tref.add_references(ref_type, ids)
+            trak.children.append(tref)
+        if self.options.gimi_track_content_id:
+            trak.children.append(self._build_track_meta())
+        return trak
+
+
+class MetadataTrackWriter(VisualTrackWriter):
+    """URI metadata track writer
+    (ref: heif_context_add_uri_metadata_sequence_track)."""
+
+    def __init__(self, file, uri: str, timescale: int = 90000,
+                 track_id: int = 1,
+                 options: Optional[TrackOptions] = None, device=None):
+        super().__init__(file, 0, 0, fmt="urim", timescale=timescale,
+                         track_id=track_id, options=options,
+                         handler="meta", device=device)
+        self.uri_value = uri
+
+    def add_metadata_sample(self, data: bytes, duration: int,
+                            tai: Optional[TaiTimestampPacket] = None,
+                            gimi_content_id: Optional[str] = None) -> None:
+        if duration == 0:
+            raise HeifError.usage(msg="Sample duration may not be 0")
+        self._append_sample(data, duration, tai, gimi_content_id)
+
+    def finalize(self) -> Box:
+        with trace.span("track.write.finalize"):
+            urim = Box_urim()
+            urim.children.append(Box_uri(self.uri_value))
+            stts = Box_stts()
+            stts.entries = _runs(self.sample_durations)
+            return self._trak(Box_tkhd(), Box_nmhd(), "meta",
+                              "libheif_tpu metadata", urim,
+                              [stts] + self._chunk_tables())
