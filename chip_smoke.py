@@ -8,7 +8,8 @@ Run from the root of the repository on a machine with one CUDA card:
 It needs no network and imports neither JAX nor the JAX package.  Phases:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the hand-written kernels from libheif_tpu_torch/codecs/*/csrc;
+2. build the hand-written kernels from libheif_tpu_torch/codecs/*/csrc,
+   and meanwhile the codecs' host C++ (HEVC, JPEG, AVC) on threads;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes of the CPU tests, odd sizes, every vector width and tap rule of
    the colour kernels, and the full width: all exact (the count of
@@ -234,6 +235,28 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    four unci tiles, strided_extract_paste once a tile on read; an hvc1
    still with alpha and Exif as mini), each equal to the CPU write, each
    decode on the card equal to the CPU's;
+4k. the AVC phase, on the x264 streams committed in
+   libheif_tpu_torch/testdata/avc (with libavcodec's plane hashes; the
+   monochrome one from the JAX package's encoder): build and load the
+   C++ intra engine (avc_host); decode every stream through AvcDecoder
+   on the card and on the CPU, 0 samples differing and equal to the
+   manifest (the weighted-prediction stream refused on both); write an
+   AVC phone photo (an 8x6 grid of 48 512x512 avc1 CABAC items, item i
+   the committed tile i mod 4, 4032x3024 output) and decode it through
+   HeifContext to interleaved RGB, with the launch counts read around it
+   (planes_ycbcr8_to_rgb once, nothing else), its planes held equal to
+   the single tiles' CPU decodes placed where the grid puts them, its
+   RGB to planes_ycbcr8_to_rgb's plain version on the card (exact) and to
+   the CPU's decode (the colour contract), its median wall of REPEATS in
+   MP/s split by the avc.* and color.* spans, and the colour kernel's,
+   the copies' and the card's busy share from torch.profiler; the same
+   for a 1920x1080 CABAC avc1 item; 256x256 CAVLC and monochrome items
+   and a tili of the four tiles on the card and the CPU; the committed
+   CIF 9-frame CABAC and QCIF 6-frame CAVLC IPPP avc1 tracks through
+   decode_next_image, every frame to interleaved RGB and equal to the
+   manifest (planes_ycbcr8_to_rgb once a frame), then decode_sample on
+   an earlier frame (a restart at the IDR) and a later one, each frame's
+   ms printed;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -295,13 +318,15 @@ The line before the last is {"kernels": [...]}; the last line is
 (on a machine with several cards, the cards' mesh spans all of them);
 ``python3 chip_smoke.py --sequences-only`` the build, phase 4h and
 hevc_inter_pred's row; ``python3 chip_smoke.py --encode-only`` the build,
-phases 4i and 4j and the two encode kernels' rows.  Each AV1 stream is
-parsed once a run (av1_parse_once): the phases decode the same committed
-streams many times over.
+phases 4i and 4j and the two encode kernels' rows;
+``python3 chip_smoke.py --avc-only`` the build and phase 4k.  Each AV1
+stream is parsed once a run (av1_parse_once): the phases decode the same
+committed streams many times over.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import hashlib
@@ -319,7 +344,8 @@ from libheif_tpu_torch import (
     DecodingOptions, EncodingOptions, HeifContext, HeifFile, _build)
 from libheif_tpu_torch import context as context_mod
 from libheif_tpu_torch.boxes import read_all_boxes
-from libheif_tpu_torch.boxes.codec_cfg import Box_av1C, Box_hvcC, Box_jpgC
+from libheif_tpu_torch.boxes.codec_cfg import (
+    Box_av1C, Box_avcC, Box_hvcC, Box_jpgC)
 from libheif_tpu_torch.boxes.meta import (
     Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe, TaiClockInfo,
     TaiTimestampPacket)
@@ -333,6 +359,8 @@ from libheif_tpu_torch.codecs.av1 import device_recon as av1_recon
 from libheif_tpu_torch.codecs.av1 import encoder as av1_encoder
 from libheif_tpu_torch.codecs.av1 import obu as av1_obu
 from libheif_tpu_torch.codecs.av1 import wave_cases as av1_cases
+from libheif_tpu_torch.codecs.avc import AvcDecoder
+from libheif_tpu_torch.codecs.avc import headers as avc_headers
 from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
 from libheif_tpu_torch.codecs.hevc import device_modes
@@ -5318,6 +5346,401 @@ def write_launches(wr, name):
             for n, r in wr["tracks"].items()}
 
 
+# ---------------------------------------------------------------------- AVC
+# Phase 4k: AVC decode on the host (the C++ intra engine for CABAC intra
+# pictures, Python for CAVLC and P pictures), each picture's planes copied
+# to the card once, the colour conversion there.
+
+AVC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "libheif_tpu_torch", "testdata", "avc")
+AVC_HD = "hd-1920x1080"
+AVC_CAVLC = "cavlc-256"
+AVC_MONO = "mono-128x96"
+# the committed tracks and the frames decode_sample reads after the
+# in-order pass: an earlier one (a restart at the IDR), then a later one
+AVC_TRACKS = {"seq-cif-cabac": (2, 6), "seq-qcif-cavlc": (1, 4)}
+AVC_PLANES = (("Y", Channel.Y), ("U", Channel.Cb), ("V", Channel.Cr))
+
+
+def avc_streams():
+    with open(os.path.join(AVC_DIR, "manifest.json")) as f:
+        return {e["name"]: e for e in json.load(f)["streams"]}
+
+
+def avc_parts(e):
+    """(SPS list, PPS list, slice NALs) of a committed annex-B stream."""
+    with open(os.path.join(AVC_DIR, e["file"]), "rb") as f:
+        nals = avc_headers.split_annexb(f.read())
+    kinds = [avc_headers.nal_type(n) for n in nals]
+    return ([n for n, k in zip(nals, kinds) if k == avc_headers.NAL_SPS],
+            [n for n, k in zip(nals, kinds) if k == avc_headers.NAL_PPS],
+            [n for n, k in zip(nals, kinds)
+             if k in (avc_headers.NAL_SLICE_IDR,
+                      avc_headers.NAL_SLICE_NON_IDR)])
+
+
+def avc_config(sps, pps):
+    cfg = Box_avcC()
+    cfg.avc_profile, cfg.avc_level = sps[0][1], sps[0][3]
+    cfg.sps_list, cfg.pps_list = list(sps), list(pps)
+    return cfg
+
+
+def length_prefixed(nals):
+    return b"".join(len(n).to_bytes(4, "big") + n for n in nals)
+
+
+def avc_hashes(img):
+    """SHA-256 of each uint8 plane under the manifest's names (Y, U, V;
+    Y alone for a monochrome image)."""
+    return {k: hashlib.sha256(img.np_plane(ch).tobytes()).hexdigest()
+            for k, ch in AVC_PLANES if img.has_channel(ch)}
+
+
+def add_avc1(f, e, hidden=True):
+    """An avc1 item holding stream ``e``: its slices with 4-byte lengths,
+    an avcC with its SPS and PPS, and ispe."""
+    sps, pps, slices = avc_parts(e)
+    item = f.add_new_item("avc1").item_id
+    f.append_item_data(item, length_prefixed(slices))
+    f.add_property(item, avc_config(sps, pps), True)
+    f.add_property(item, Box_ispe(e["width"], e["height"]), False)
+    f.get_infe(item).hidden = hidden
+    return item
+
+
+def avc_photo_file(streams):
+    """The AVC phone photo: 48 hidden avc1 items (item i holds stream
+    PHOTO_TILES[i mod 4]) in a 6x8 grid with a 4032x3024 output."""
+    f = new_file()
+    rows, cols = PHOTO_GRID
+    ids = [add_avc1(f, streams[PHOTO_TILES[i % 4]])
+           for i in range(rows * cols)]
+    grid = f.add_new_item("grid").item_id
+    f.append_item_data(grid, ImageGrid(rows, cols, *PHOTO).write(), 1)
+    f.add_property(grid, Box_ispe(*PHOTO), False)
+    f.add_reference("dimg", grid, ids)
+    f.set_primary_item(grid)
+    return f.write()
+
+
+def avc1_file(e):
+    f = new_file()
+    f.set_primary_item(add_avc1(f, e, hidden=False))
+    return f.write()
+
+
+def avc1_tili_file(streams):
+    """A 1024x1024 tili of the four 512x512 photo tiles, each tile
+    carrying its SPS and PPS in band, the first one's avcC in tilC."""
+    tiles = [length_prefixed(sum(avc_parts(streams[n]), []))
+             for n in PHOTO_TILES]
+    sps, pps, _ = avc_parts(streams[PHOTO_TILES[0]])
+    return tili_file(tiles, 1024, 1024, 512, 512, "avc1",
+                     [avc_config(sps, pps)])
+
+
+def avc_sequence(e, device):
+    """Every frame of committed sequence ``e`` through AvcDecoder's
+    session on ``device``, a slice a sample."""
+    sps, pps, slices = avc_parts(e)
+    session = AvcDecoder(device).start_sequence(avc_config(sps, pps))
+    frames = []
+    for s in slices:
+        session.push_sample(length_prefixed([s]))
+        while (img := session.pull()) is not None:
+            frames.append(img)
+    return frames
+
+
+def check_avc_streams(streams):
+    """Every committed stream through AvcDecoder on the card and on the
+    CPU: the same planes, equal to libavcodec's (the manifest); the
+    weighted-prediction stream refused on both."""
+    out = {}
+    for name, e in streams.items():
+        t0 = time.perf_counter()
+        if e["kind"] == "still":
+            sps, pps, slices = avc_parts(e)
+            cfg, data = avc_config(sps, pps), length_prefixed(slices)
+            card = AvcDecoder(DEV).decode_single_image(cfg, data)
+            same_image(f"avc {name}", card,
+                       AvcDecoder("cpu").decode_single_image(cfg, data))
+            assert avc_hashes(card) == e["sha256"], name
+        elif "refused" in e:
+            for device in (DEV, "cpu"):
+                try:
+                    avc_sequence(e, device)
+                except HeifError as err:
+                    assert e["refused"] in str(err), (name, str(err))
+                else:
+                    raise AssertionError(f"{name} was not refused")
+        else:
+            card = avc_sequence(e, DEV)
+            cpu = avc_sequence(e, "cpu")
+            assert len(card) == len(cpu) == e["frames"], name
+            for i, (a, b) in enumerate(zip(card, cpu)):
+                same_image(f"avc {name} frame {i}", a, b)
+                assert avc_hashes(a) == e["sha256"][i], (name, i)
+        out[name] = ms_since(t0)
+        log(f"check avc stream {name:22s} equal to the manifest and the "
+            f"CPU ({out[name]:.0f} ms)")
+    return out
+
+
+def avc_photo_singles(streams):
+    """The photo tiles' CPU decodes, each equal to the manifest."""
+    singles = {}
+    for n in PHOTO_TILES:
+        sps, pps, slices = avc_parts(streams[n])
+        singles[n] = AvcDecoder("cpu").decode_single_image(
+            avc_config(sps, pps), length_prefixed(slices))
+        assert avc_hashes(singles[n]) == streams[n]["sha256"], n
+    return singles
+
+
+def check_avc_photo(tally, blob, streams):
+    """The AVC photo through HeifContext to interleaved RGB: its launches
+    and spans read around the decode; the YCbCr planes handed to the
+    output conversion against the single tiles' CPU decodes placed where
+    the grid puts them; the RGB against planes_ycbcr8_to_rgb's plain
+    version on the card (exact) and the whole decode on the CPU (the
+    colour contract).  Returns (launches, the decode's parts, RGB)."""
+    seen = []
+    real_convert = context_mod.convert_image
+
+    def convert(img, *args, **kw):
+        seen.append(img)
+        return real_convert(img, *args, **kw)
+    context_mod.convert_image = convert
+    try:
+        with launch_counts() as launches, trace.collect() as spans:
+            t0 = time.perf_counter()
+            ctx = HeifContext.read_from_bytes(blob)
+            file_ms = ms_since(t0)
+            rgb = ctx.decode_image(None, Colorspace.RGB,
+                                   Chroma.InterleavedRGB)
+            first_ms = ms_since(t0)
+    finally:
+        context_mod.convert_image = real_convert
+    parts = {"total_ms": first_ms, "file_parse_ms": file_ms,
+             "spans": spans}
+    log(f"avc photo launches {launches} in {first_ms:.1f} ms, by part "
+        f"{json.dumps(parts)}")
+    n = PHOTO_GRID[0] * PHOTO_GRID[1]
+    for s in ("avc.decode", "avc.decode.native", "avc.decode.copy"):
+        assert spans[s]["count"] == n, (s, spans[s])
+    assert "avc.decode.python" not in spans
+    assert launches["planes_ycbcr8_to_rgb"] == 1, launches
+    assert sum(launches[k] for k in ALL_KERNELS) == 1, launches
+    assert launches["assemble_tile_buffers"] == 0
+    inter = rgb.plane(Channel.Interleaved)
+    assert (rgb.width, rgb.height) == PHOTO and inter.dtype == torch.uint8 \
+        and tuple(inter.shape) == (PHOTO[1], PHOTO[0] * 3) \
+        and inter.device.type == DEV
+    img, = seen
+    assert (img.width, img.height, img.colorspace, img.chroma) == \
+        (*PHOTO, Colorspace.YCbCr, Chroma.C420)
+    singles = avc_photo_singles(streams)
+    rows, cols = PHOTO_GRID
+    n_diff = 0
+    for i in range(rows * cols):
+        ty, tx = divmod(i, cols)
+        for _, ch in AVC_PLANES:
+            t = 512 // (1 if ch == Channel.Y else 2)
+            got = img.plane(ch)[ty * t:ty * t + t, tx * t:tx * t + t].cpu()
+            h, w = got.shape
+            n_diff += int((got != singles[PHOTO_TILES[i % 4]].plane(ch)
+                           [:h, :w]).sum())
+    log(f"check avc photo YCbCr (card) vs the single tiles' CPU decodes "
+        f"placed: differing {n_diff}")
+    assert n_diff == 0, "the grid's planes differ from the single tiles"
+    try:
+        YCbCrToRGB.USE_KERNEL = False        # the plain path on the card
+        plain = convert_image(img, Colorspace.RGB, Chroma.InterleavedRGB)
+    finally:
+        YCbCrToRGB.USE_KERNEL = None
+    tally.compare("planes_ycbcr8_to_rgb", "avc photo RGB vs plain", inter,
+                  plain.plane(Channel.Interleaved), exact=True)
+    cpu = HeifContext.read_from_bytes(blob, device="cpu").decode_image(
+        None, Colorspace.RGB, Chroma.InterleavedRGB)
+    tally.compare("planes_ycbcr8_to_rgb", "avc photo RGB vs CPU decode",
+                  inter, cpu.plane(Channel.Interleaved).to(inter.device),
+                  exact=False)
+    return launches, parts, rgb, img
+
+
+def time_avc_file(blob, ref, what, first):
+    """A file's decode to interleaved RGB through the entry point REPEATS
+    times in fresh contexts, the last under torch.profiler: the walls in
+    MP/s beside the first decode's split (``first``: its total and
+    spans), each RGB equal to ``ref``, the colour kernel's and the
+    copies' device ms and the card's busy share of that decode."""
+    totals = []
+    out = {}
+
+    def decode():
+        t0 = time.perf_counter()
+        out["rgb"] = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        out["ms"] = ms_since(t0)
+    for _ in range(REPEATS - 1):
+        decode()
+        totals.append(out["ms"])
+        assert torch.equal(out["rgb"].plane(Channel.Interleaved),
+                           ref.plane(Channel.Interleaved)), what
+    dev = device_ms(decode)
+    totals.append(out["ms"])
+    assert torch.equal(out["rgb"].plane(Channel.Interleaved),
+                       ref.plane(Channel.Interleaved)), what
+    px = ref.width * ref.height
+    med = float(np.median(totals))
+    t = {"total_ms": totals, "median_ms": med,
+         "median_mp_per_s": px / 1e3 / med,
+         "first": first}
+    spans = first["spans"]
+    split = {s: v["ms"] for s, v in spans.items()
+             if s.startswith(("avc.", "color."))}
+    # the rest: the file's parse, the grid's paste, the items' pipeline
+    split["rest"] = first["total_ms"] - spans["avc.decode"]["ms"] - sum(
+        v for s, v in split.items() if s.startswith("color."))
+    t["split_ms"] = split
+    if dev is None:
+        t["device"] = "not measured (the profiler recorded no device time)"
+    else:
+        dev["colour_kernel_ms"] = sum(
+            k["ms"] for k in dev["top"] if "planes_ycbcr8_to_rgb" in k["name"])
+        dev["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / out["ms"]
+        t["device"] = dev
+    log(f"{what} {json.dumps(t)}")
+    return t
+
+
+def first_decode(blob, what):
+    """One decode to interleaved RGB with its launches and spans read
+    around it: (launches, {"total_ms", "spans"}, RGB)."""
+    with launch_counts() as launches, trace.collect() as spans:
+        t0 = time.perf_counter()
+        rgb = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        ms = ms_since(t0)
+    log(f"{what} launches {launches} in {ms:.1f} ms, spans "
+        f"{json.dumps(spans)}")
+    assert launches["planes_ycbcr8_to_rgb"] == 1, launches
+    assert sum(launches[k] for k in ALL_KERNELS) == 1, launches
+    return launches, {"total_ms": ms, "spans": spans}, rgb
+
+
+def check_avc_items(streams):
+    """The 1920x1080 CABAC item (timed), the 256x256 CAVLC item, the
+    monochrome item and a tili of the four photo tiles: each on the card
+    and on the CPU with 0 samples differing and equal to the manifest."""
+    out = {}
+    for name in (AVC_HD, AVC_CAVLC, AVC_MONO):
+        e = streams[name]
+        blob = avc1_file(e)
+        img = decode_both(f"avc1 {name}", blob)
+        assert avc_hashes(img) == e["sha256"], name
+        decode_both(f"avc1 {name} RGB", blob, Colorspace.RGB, Chroma.C444)
+        log(f"check file avc1 {name} planes vs manifest: equal")
+        if name == AVC_HD:
+            launches, first, rgb = first_decode(blob, "avc hd item")
+            out["hd_item"] = time_avc_file(blob, rgb, "avc hd item", first)
+            out["hd_item"]["launches"] = launches
+    blob = avc1_tili_file(streams)
+    for i, n in enumerate(PHOTO_TILES):
+        img = decode_both(f"tili avc1 tile {i}", blob, tile=(i % 2, i // 2))
+        assert avc_hashes(img) == streams[n]["sha256"], n
+    return out
+
+
+def check_avc_tracks(streams):
+    """The committed avc1 tracks through HeifContext on the card: every
+    frame in order (decode_next_image, then interleaved RGB) equal to the
+    manifest, with the launches and spans read around the pass, then
+    random access: an earlier frame (a restart at the IDR) and a later
+    one."""
+    out = {}
+    for name, (earlier, later) in AVC_TRACKS.items():
+        e = streams[name]
+        with open(os.path.join(AVC_DIR, e["track"]), "rb") as f:
+            blob = f.read()
+        ms = []
+        with launch_counts() as launches, trace.collect() as spans:
+            t = HeifContext.read_from_bytes(blob).tracks[0]
+            for i in range(e["frames"]):
+                t0 = time.perf_counter()
+                img = t.decode_next_image()
+                rgb = convert_image(img, Colorspace.RGB,
+                                    Chroma.InterleavedRGB)
+                ms.append(ms_since(t0))
+                assert avc_hashes(img) == e["sha256"][i], (name, i)
+                assert rgb.plane(Channel.Interleaved).device.type == DEV
+            assert t.decode_next_image() is None
+        assert launches["planes_ycbcr8_to_rgb"] == e["frames"], launches
+        assert sum(launches[k] for k in ALL_KERNELS) == e["frames"]
+        access = {}
+        for i in (earlier, later):
+            t0 = time.perf_counter()
+            img = t.decode_sample(i)
+            access[i] = ms_since(t0)
+            assert avc_hashes(img) == e["sha256"][i], (name, i)
+        out[name] = {"frame_ms": ms, "ms_a_frame": sum(ms) / len(ms),
+                     "launches": launches, "random_access_ms": access,
+                     "spans": spans}
+        log(f"avc track {name} {json.dumps(out[name])}")
+    return out
+
+
+def check_avc(tally):
+    """Phase 4k: the C++ engine's build and load, every committed stream,
+    the AVC photo (timed, split by span), the items and the tracks."""
+    t_start = time.perf_counter()
+    steps = {}
+
+    def step(name):
+        steps[name] = time.perf_counter() - t_start - sum(steps.values())
+    _build.AVC_HOST_LIBRARY.load()
+    log(f"avc_host {_build.AVC_HOST_LIBRARY.path}")
+    step("build")
+    streams = avc_streams()
+    stream_ms = check_avc_streams(streams)
+    step("streams")
+    blob = avc_photo_file(streams)
+    log(f"avc photo file {len(blob)} B")
+    launches, first, rgb, ycc = check_avc_photo(tally, blob, streams)
+    photo = time_avc_file(blob, rgb, "avc photo", first)
+    photo["launches"] = launches
+    photo["colour_kernel_event_ms"] = DeviceTimer()([
+        lambda: cuda_fast.ycbcr8_planes_to_rgb(
+            *(ycc.plane(c) for _, c in AVC_PLANES), kr=float(KR),
+            kb=float(KB))])
+    step("photo")
+    items = check_avc_items(streams)
+    step("items")
+    tracks = check_avc_tracks(streams)
+    step("tracks")
+    log(f"avc phase steps (s) {json.dumps(steps)}")
+    return {"stream_ms": stream_ms, "photo": photo, **items,
+            "tracks": tracks, "steps_s": steps,
+            "seconds": time.perf_counter() - t_start}
+
+
+def avc_launches(avc):
+    """planes_ycbcr8_to_rgb's launches on phase 4k's paths."""
+    out = {"avc_photo": avc["photo"]["launches"]["planes_ycbcr8_to_rgb"],
+           "avc_hd_item": avc["hd_item"]["launches"]["planes_ycbcr8_to_rgb"]}
+    for name, t in avc["tracks"].items():
+        out[f"avc track {name} in order"] = \
+            t["launches"]["planes_ycbcr8_to_rgb"]
+    return out
+
+
+def avc_alone(tally):
+    """Phase 4k alone, on card 0."""
+    return check_avc(tally), None
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -5325,11 +5748,23 @@ def nvidia_smi():
     return out.stdout.strip()
 
 
+HOST_LIBRARIES = (_build.HOST_LIBRARY, _build.JPEG_HOST_LIBRARY,
+                  _build.AVC_HOST_LIBRARY)
+
+
 def build_library():
-    """Build (or load) every kernel, logging the time and ptxas's lines."""
+    """Build (or load) every kernel, logging the time and ptxas's lines;
+    the codecs' host C++ libraries build on threads meanwhile (each one
+    ``c++``), so that no later phase waits for its build."""
     t0 = time.perf_counter()
+    hosts = concurrent.futures.ThreadPoolExecutor(len(HOST_LIBRARIES))
+    built = [hosts.submit(lib.load) for lib in HOST_LIBRARIES]
     _build.LIBRARY.load()
     log(f"built {_build.LIBRARY.path} in {time.perf_counter() - t0:.1f} s")
+    for lib, b in zip(HOST_LIBRARIES, built):
+        b.result()
+        log(f"built {lib.path} by {time.perf_counter() - t0:.1f} s")
+    hosts.shutdown()
     for line in _build.LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("ptxas:", line.strip())
@@ -5609,6 +6044,12 @@ def main():
 
     phase_done("write")
 
+    # 4k. AVC: the C++ intra engine, every committed stream on the card and
+    # the CPU, the AVC photo (timed, split by span), items, a tili, tracks
+    avc = check_avc(tally)
+
+    phase_done("avc")
+
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
                     tile_w=W // TILES, kr=float(KR), kb=float(KB))
@@ -5712,6 +6153,8 @@ def main():
                 lambda t=t: cuda_fast.fused_strided_decode(lay, t)
                 for t in copies]),
             "widths_pitch_s_plus_8": strided_widths(lay, copies[0])})
+    kern["planes_ycbcr8_to_rgb"]["launches_by_path"].update(
+        avc_launches(avc))
     strided_sweep = strided_width_sweep(timer, lay, inplace)
     strided_layouts = strided_layout_timings(timer)
 
@@ -5901,6 +6344,7 @@ def main():
                        "512x512", "launches": j_launches, "parts": j_runs},
         "colour_ops": colour_rows, "metadata_file": metadata,
         "mesh": mesh, "sequences": seq, "encode": enc, "write": wr,
+        "avc": avc,
         "av1_parses": {"streams": len(AV1_PARSES),
                        "ms": sum(AV1_PARSE_MS.values())},
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
@@ -5935,6 +6379,7 @@ def main():
 if __name__ == "__main__":
     ALONE = {"--mesh-only": ("mesh", mesh_alone),
              "--sequences-only": ("sequences", sequences_alone),
-             "--encode-only": ("encode", encode_alone)}
+             "--encode-only": ("encode", encode_alone),
+             "--avc-only": ("avc", avc_alone)}
     alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(run_alone(*alone) if alone else main())

@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of libheif_tpu: HEIF files with unci (Bayer ones
-too), hvc1 (HEVC intra), av01 (AV1 intra), jpeg, grid, iden, overlay,
-tili and mski images, mini files, their transforms and alpha, the colour
-conversion, and the read-side metadata (Exif, XMP, region and text
-items), from bytes, a path or a streaming reader; and still-image files
-written with unci, mski, jpeg, hvc1 and av01 items
-(``HeifContext.new_file``, ``encode_image``, ``write``).
+too), hvc1 (HEVC intra), av01 (AV1 intra), jpeg, avc1 (AVC, decoded on
+the host), grid, iden, overlay, tili and mski images, image sequences
+(hvc1, av01, mjpg, uncv, avc1/avc3 tracks), mini files, their
+transforms and alpha, the colour conversion, and the read-side metadata
+(Exif, XMP, region and text items), from bytes, a path or a streaming
+reader; and still-image files written with unci, mski, jpeg, hvc1 and
+av01 items (``HeifContext.new_file``, ``encode_image``, ``write``).
 
 The package mirrors the module names of ``libheif_tpu`` so each part can
 be read beside its counterpart, but it imports nothing from it and never
@@ -12,9 +13,9 @@ imports JAX.  Planes are torch tensors.  Every entry point takes
 ``device=None``, which means ``"cuda"``: without CUDA it raises unless
 the caller passes ``device="cpu"``.  The hand-written Hopper kernels
 (``codecs/*/csrc/*.cu``) run on CUDA tensors; on CPU tensors each kernel
-wrapper runs its plain PyTorch version.  The HEVC parser and encoder and
-the JPEG scan are host C++ (``codecs/hevc/host/``, ``codecs/jpeg/host/``),
-built at first use on every device.
+wrapper runs its plain PyTorch version.  The HEVC parser and encoder,
+the JPEG scan and the AVC intra engine are host C++
+(``codecs/{hevc,jpeg,avc}/host/``), built at first use on every device.
 """
 
 from ._build import resolve_device

@@ -5,10 +5,11 @@ The CUDA sources under ``codecs/*/csrc/`` are compiled at first use by
 one shared library with a plain C interface, written to
 ``build/libheif_tpu_torch/`` at the root of the checkout, and loaded with
 ``ctypes``.  The host C++ of the HEVC parser and encoder
-(``codecs/hevc/host/``) and of the JPEG scan (``codecs/jpeg/host/``) is
-built the same way by the system C++ compiler, one library each, on every
-machine that decodes or encodes that codec, the CPU included.  Each library's file name carries a hash
-of its sources and flags (and, for the host library, of the CPU it is
+(``codecs/hevc/host/``), of the JPEG scan (``codecs/jpeg/host/``) and of
+the AVC intra engine (``codecs/avc/host/``) is built the same way by the
+system C++ compiler, one library each, on every machine that decodes or
+encodes that codec, the CPU included.  Each library's file name carries
+a hash of its sources and flags (and, for the host library, of the CPU it is
 tuned for), so an edited source is rebuilt and a stale library is never
 loaded.  A build or launch failure raises; nothing falls back.
 """
@@ -144,7 +145,7 @@ class _CudaLibrary(_Library):
 
 class _HostLibrary(_Library):
     """A codec's host C++ (``what``: the HEVC parser, wave planner and
-    encoder, the JPEG scan), built by ``c++``."""
+    encoder, the JPEG scan, the AVC intra engine), built by ``c++``."""
 
     def __init__(self, stem: str, pattern: str, key: bytes, what: str):
         super().__init__(stem, pattern, key)
@@ -167,6 +168,9 @@ HOST_LIBRARY = _HostLibrary("hevc_host", "codecs/hevc/host/*.cc",
 JPEG_HOST_LIBRARY = _HostLibrary("jpeg_host", "codecs/jpeg/host/*.cc",
                                  " ".join(HOST_CXX_FLAGS).encode() +
                                  _cpu_id(), "JPEG scan")
+AVC_HOST_LIBRARY = _HostLibrary("avc_host", "codecs/avc/host/*.cc",
+                                " ".join(HOST_CXX_FLAGS).encode() + _cpu_id(),
+                                "AVC intra engine")
 
 
 class CudaKernel:

@@ -12,7 +12,7 @@ Offsets are relative to the start of the item data, so a single tile of
 a gigapixel image decodes from two small ranged reads (table entry, in
 chunks of entries, and the tile's bytes).  Each tile decodes on the
 context's device: unci tiles through one UnciDecoder kept by the item,
-hvc1, av01 and jpeg tiles through their item's decoder
+hvc1, av01, jpeg and avc1 tiles through their item's decoder
 (``codec_items.CodedImageItem``).  A full-image decode
 is refused, as in the reference.  The write side (JAX :277-357):
 ``add_new_tiled_item`` makes an item with an empty offset table,
@@ -45,7 +45,7 @@ TILD_OFFSET_NOT_LOADED = 10
 
 # tiles of the codecs that the JAX package decodes on the host only are
 # refused by name
-_UNPORTED_TILES = {"vvc1": "VVC", "avc1": "AVC (H.264)", "j2k1": "JPEG 2000"}
+_UNPORTED_TILES = {"vvc1": "VVC", "j2k1": "JPEG 2000"}
 
 # registry format name of the tiles the port encodes -> infe fourcc
 _FORMAT_TO_FOURCC = {"hevc": "hvc1", "av1": "av01", "jpeg": "jpeg",

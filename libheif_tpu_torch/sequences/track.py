@@ -15,8 +15,10 @@ through the HEVC decoder (a track with non-sync samples through a
 stateful sequence session, codecs/hevc/decoder.py HevcSequenceSession),
 ``av01`` one still a sample (a non-key sample fails as it does in the
 JAX package, whose AV1 decoder has no sequence session), ``mjpg``
-through the JPEG decoder.  ``avc1``/``avc3``, ``vvc1``/``vvi1`` and
-``j2ki`` raise Unsupported by name.
+through the JPEG decoder, ``avc1``/``avc3`` through the AVC decoder (a
+track with non-sync samples through its sequence session,
+codecs/avc/decoder.py AvcSequenceSession, which takes in-band parameter
+sets too).  ``vvc1``/``vvi1`` and ``j2ki`` raise Unsupported by name.
 
 The write side (JAX track.py:111-146, :624-1015): ``TrackOptions``,
 ``VisualTrackWriter`` (``hvc1`` intra or inter through the registry's
@@ -63,8 +65,7 @@ _ALPHA_AUX_URNS = (AUX_TYPE_ALPHA_HEVC, AUX_TYPE_ALPHA_AVC,
                    AUX_TYPE_ALPHA_MPEGB)
 
 # sample entries of codecs the JAX package decodes on the host only
-_UNPORTED_CODINGS = {"avc1": "AVC", "avc3": "AVC", "vvc1": "VVC",
-                     "vvi1": "VVC", "j2ki": "JPEG 2000"}
+_UNPORTED_CODINGS = {"vvc1": "VVC", "vvi1": "VVC", "j2ki": "JPEG 2000"}
 
 
 @dataclass
@@ -441,6 +442,9 @@ class TrackVisual(Track):
         if self.coding == "mjpg":
             from ..codecs.jpeg import JpegDecoder
             return JpegDecoder(self.device)
+        if self.coding in ("avc1", "avc3"):
+            from ..codecs.avc import AvcDecoder
+            return AvcDecoder(self.device)
         name = _UNPORTED_CODINGS.get(self.coding)
         raise HeifError.unsupported(
             SubError.Unsupported_codec,

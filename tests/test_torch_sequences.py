@@ -386,13 +386,13 @@ def test_moov_boxes_write_back_unchanged():
 
 
 def test_unported_codings_raise_by_name():
-    """A track of a codec the port does not decode yet (avc1) raises
+    """A track of a codec the port does not decode yet (vvc1) raises
     Unsupported naming it; its tables still read."""
-    ctx, jctx = both(visual_file("avc", n=1, w=32, h=32))
+    ctx, jctx = both(visual_file("vvc", n=1, w=32, h=32))
     t = ctx.tracks[0]
-    assert t.coding == "avc1"
+    assert t.coding == "vvc1"
     assert_same_tables(t, jctx.tracks[0])
-    with pytest.raises(HeifError, match="AVC") as e:
+    with pytest.raises(HeifError, match="VVC") as e:
         t.decode_sample(0)
     assert e.value.code == ErrorCode.Unsupported_feature
 
