@@ -239,8 +239,9 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    libheif_tpu_torch/testdata/avc (with libavcodec's plane hashes; the
    monochrome one from the JAX package's encoder): build and load the
    C++ intra engine (avc_host); decode every stream through AvcDecoder
-   on the card and on the CPU, 0 samples differing and equal to the
-   manifest (the weighted-prediction stream refused on both); write an
+   on the card, equal to the manifest (the stills also on the CPU, 0
+   samples differing; the weighted-prediction stream refused on both);
+   write an
    AVC phone photo (an 8x6 grid of 48 512x512 avc1 CABAC items, item i
    the committed tile i mod 4, 4032x3024 output) and decode it through
    HeifContext to interleaved RGB, with the launch counts read around it
@@ -257,6 +258,27 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    manifest (planes_ycbcr8_to_rgb once a frame), then decode_sample on
    an earlier frame (a restart at the IDR) and a later one, each frame's
    ms printed;
+4l. AVC encode and JPEG 2000 through HeifContext on the card (the sizes,
+   qualities and the JAX writer's SHA-256 of the same calls from the
+   manifests that tests/card_encodes.py writes): the HEVC photo's
+   4032x3024 planes with phase 4i's alpha through encode_image(img,
+   "avc") at q 50 (the C++ engine, its walls split by the avc.encode
+   spans), the file's SHA-256 the JAX writer's for the same calls, read
+   back on the card to interleaved RGB (planes_ycbcr8_to_rgb once,
+   nothing else) with its YCbCr and alpha planes equal to the encoders'
+   reconstructions after the in-loop filter; a tili of four 512x512
+   avc1 tiles and a QCIF IPPP avc track (every frame read back equal to
+   the encoder's reference picture), each the JAX writer's bytes; build
+   and load the JPEG 2000 block coders (j2k_host); the committed
+   OpenJPEG and HTJ2K codestreams as j2k1 items on the card and the CPU,
+   equal to the JAX decode's hashes and OpenJPEG's where exact (5/3, 16
+   bits, HTJ2K); the photo as a lossless 5/3 j2k1 item (converted to RGB
+   4:4:4 on the card by planes_ycbcr8_to_rgb, once), the file the JAX
+   writer's bytes, read back on the card equal to the conversion, encode
+   and decode split by the j2k.* spans; a 1024x768 crop at 9/7 q 60 and
+   as htj2k and a tili of four jpeg2000 tiles, each the JAX writer's
+   bytes (the SHA-256 of the same calls), each read back on the card and
+   the CPU alike;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -319,7 +341,9 @@ The line before the last is {"kernels": [...]}; the last line is
 ``python3 chip_smoke.py --sequences-only`` the build, phase 4h and
 hevc_inter_pred's row; ``python3 chip_smoke.py --encode-only`` the build,
 phases 4i and 4j and the two encode kernels' rows;
-``python3 chip_smoke.py --avc-only`` the build and phase 4k.  Each AV1
+``python3 chip_smoke.py --avc-only`` the build, phase 4k and phase 4l's
+AVC encode; ``python3 chip_smoke.py --j2k-only`` the build and phase 4l's
+JPEG 2000 half.  Each AV1
 stream is parsed once a run (av1_parse_once): the phases decode the same
 committed streams many times over.
 """
@@ -346,6 +370,7 @@ from libheif_tpu_torch import context as context_mod
 from libheif_tpu_torch.boxes import read_all_boxes
 from libheif_tpu_torch.boxes.codec_cfg import (
     Box_av1C, Box_avcC, Box_hvcC, Box_jpgC)
+from libheif_tpu_torch.boxes.j2k import Box_cdef, Box_j2kH
 from libheif_tpu_torch.boxes.meta import (
     Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe, TaiClockInfo,
     TaiTimestampPacket)
@@ -360,6 +385,7 @@ from libheif_tpu_torch.codecs.av1 import encoder as av1_encoder
 from libheif_tpu_torch.codecs.av1 import obu as av1_obu
 from libheif_tpu_torch.codecs.av1 import wave_cases as av1_cases
 from libheif_tpu_torch.codecs.avc import AvcDecoder
+from libheif_tpu_torch.codecs.avc import encoder as avc_encoder
 from libheif_tpu_torch.codecs.avc import headers as avc_headers
 from libheif_tpu_torch.codecs.hevc import cuda_fast as hevc_fast
 from libheif_tpu_torch.codecs.hevc import decoder as hevc_decoder
@@ -369,6 +395,7 @@ from libheif_tpu_torch.codecs.hevc import encoder as hevc_encoder
 from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
 from libheif_tpu_torch.codecs.hevc import inter_cases
 from libheif_tpu_torch.codecs import kernel_timing
+from libheif_tpu_torch.codecs.j2k import native as j2k_native
 from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
 from libheif_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
 from libheif_tpu_torch.codecs.jpeg import encoder as jpeg_encoder
@@ -2187,18 +2214,24 @@ def check_av1_plan(tally, what, plan, waves=True):
 def check_av1_kernels(tally, streams):
     """Both AV1 kernels on every small stream but the film-grain ones
     (grain is a plain-torch output stage: their hashes hold it), the
-    intrabc ones and the screenshot among them, on a batch whose pictures
-    have different wave counts and on 512x512 tiles (stage B on three of
-    them; the plain wave loop is slow), against their plain versions."""
+    intrabc ones among them, on a batch whose pictures have different
+    wave counts and on the 512x512 tiles that the photo's plan does not
+    hold (AV1_WAVE_SINGLES), against their plain versions.  The photo's
+    four tiles are checked in the photo's plan (check_av1_plan in main);
+    the screenshot's decode is held to the manifest's hash
+    (check_av1_streams) and its stage B timed (av1_screenshot_stage_b):
+    its plan and plain versions took ~10 s here."""
     small = [[e] for n, e in streams.items()
-             if not n.startswith(("tile", "grain"))]
+             if not n.startswith(("tile", "grain")) and n != SCREENSHOT]
     batches = small + [[streams[n] for n in AV1_MIXED]]
-    batches += [[e] for n, e in streams.items() if n.startswith("tile")]
+    batches += [[streams[n]] for n in AV1_WAVE_SINGLES]
     for batch in batches:
         what = "+".join(e["name"] for e in batch)
+        t0 = time.perf_counter()
         plan = av1_recon.build_plan([av1_parse(e)[2] for e in batch], DEV)
-        check_av1_plan(tally, what, plan, waves=not what.startswith(
-            "tile") or what in AV1_WAVE_SINGLES)
+        check_av1_plan(tally, what, plan)
+        log(f"av1 kernels on {what} checked in "
+            f"{time.perf_counter() - t0:.2f} s")
     # waves that mix 64x64, filter-intra, CfL and 4x4 jobs (some beyond
     # the kernel's shared memory at once), against the plain version in
     # the kernel's order and in the lockstep order
@@ -4508,22 +4541,23 @@ YCC = (Channel.Y, Channel.Cb, Channel.Cr)
 
 
 @contextlib.contextmanager
-def encoders_made(cls):
-    """While inside, each ``cls.encode`` call (IntraEncoder,
-    Av1IntraEncoder) appends its encoder, whose ``recon`` then holds its
-    closed-loop reconstruction, to the list yielded."""
-    real = cls.encode
+def encoders_made(cls, method="encode"):
+    """While inside, each ``cls.<method>`` call (IntraEncoder.encode,
+    Av1IntraEncoder.encode, whose ``recon`` then holds the closed-loop
+    reconstruction; the AVC _NativeSliceEncoder.encode_slice) appends its
+    encoder to the list yielded."""
+    real = getattr(cls, method)
     made = []
 
     def spy(self, *args):
         out = real(self, *args)
         made.append(self)
         return out
-    cls.encode = spy
+    setattr(cls, method, spy)
     try:
         yield made
     finally:
-        cls.encode = real
+        setattr(cls, method, real)
 
 
 def recon_differing(planes, recon, names):
@@ -5737,8 +5771,396 @@ def avc_launches(avc):
 
 
 def avc_alone(tally):
-    """Phase 4k alone, on card 0."""
-    return check_avc(tally), None
+    """Phase 4k and phase 4l's AVC encode, on card 0."""
+    avc = check_avc(tally)
+    avc["encode"] = check_avc_encode(photo_ycc())
+    return avc, None
+
+
+# -------------------------------------------------------------------- 4l
+# AVC encode and JPEG 2000 through HeifContext on the card: what is
+# encoded (sizes, qualities, crops, tiles) and the JAX writer's SHA-256
+# of the same calls come from the manifests (tests/card_encodes.py)
+
+AVC_ENC_MANIFEST = os.path.join(AVC_DIR, "encode_manifest.json")
+J2K_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "libheif_tpu_torch", "testdata", "j2k")
+AVC_ENC_SPANS = ("avc.encode", "avc.encode.copy", "avc.encode.native",
+                 "avc.encode.write")
+J2K_DEC_SPANS = ("j2k.decode", "j2k.decode.parse", "j2k.decode.t1",
+                 "j2k.decode.dwt", "j2k.decode.copy")
+J2K_ENC_SPANS = ("j2k.encode", "j2k.encode.copy", "j2k.encode.dwt",
+                 "j2k.encode.t1", "j2k.encode.write")
+RGB3 = (Channel.R, Channel.G, Channel.B)
+
+
+def read_manifest(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def sha256(blob):
+    return hashlib.sha256(blob).hexdigest()
+
+
+def photo_ycc():
+    """The HEVC photo decoded on the card: {Y, Cb, Cr} uint8 planes."""
+    img = HeifContext.read_from_bytes(photo_file(hevc_streams())) \
+        .decode_image(None)
+    assert (img.width, img.height, img.chroma) == (*PHOTO, Chroma.C420)
+    return {ch: img.plane(ch).to(torch.uint8) for ch in YCC}
+
+
+def spans_split(spans, prefix):
+    """The wall of each span under ``prefix`` (ms) with its count."""
+    return {s: {"ms": v["ms"], "count": v["count"]}
+            for s, v in spans.items() if s.startswith(prefix)}
+
+
+def card_write(what, build, want_sha):
+    """``build()`` -> file bytes, written on the card: its SHA-256 is the
+    JAX writer's (``want_sha``).  Returns the file, its launches and
+    spans, and the wall."""
+    with launch_counts() as launches, trace.collect() as spans:
+        t0 = time.perf_counter()
+        blob = build()
+        card_ms = ms_since(t0)
+    assert sha256(blob) == want_sha, \
+        f"{what}: the file differs from the JAX writer's"
+    log(f"check write {what:40s} {len(blob)} B equal to the JAX writer's "
+        f"SHA-256; card {card_ms:.1f} ms, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return blob, launches, dict(spans), {"card_ms": card_ms,
+                                          "bytes": len(blob)}
+
+
+def check_avc_photo_encode(planes, man):
+    """The photo with its alpha through encode_image(img, "avc") on the
+    card (the C++ engine on the host after one copy of each image's
+    planes): the JAX writer's bytes (its SHA-256); read back on
+    the card to interleaved RGB (planes_ycbcr8_to_rgb once, no other
+    launch), the YCbCr and alpha planes handed to the conversion equal to
+    the encoders' reconstructions after the in-loop filter."""
+    src = image_of({**planes, Channel.Alpha: alpha_gradient(*PHOTO)},
+                   Colorspace.YCbCr, Chroma.C420)
+    opts = EncodingOptions(quality=man["quality"])
+    with encoders_made(avc_encoder._NativeSliceEncoder,
+                       "encode_slice") as encs:
+        blob, launches, spans, walls = card_write(
+            "avc photo q%d + alpha" % man["quality"],
+            lambda: encode_file(src, "avc", opts)[0],
+            man["files"]["photo-alpha"]["sha256"])
+    assert len(encs) == 2, f"{len(encs)} C++ encodes for an image + alpha"
+    for s in AVC_ENC_SPANS:
+        want = 4 if s == "avc.encode.write" else 2
+        assert spans.get(s, {}).get("count") == want, (s, spans.get(s))
+    assert "avc.encode.python" not in spans
+    ran = {k: v for k, v in launches.items() if v}
+    assert not ran, f"the avc encode launched {ran}"
+    seen = []
+    real_convert = context_mod.convert_image
+
+    def convert(img, *args, **kw):
+        seen.append(img)
+        return real_convert(img, *args, **kw)
+    context_mod.convert_image = convert
+    try:
+        with launch_counts() as dec_launches, trace.collect() as dspans:
+            t0 = time.perf_counter()
+            rgb = HeifContext.read_from_bytes(blob).decode_image(
+                None, Colorspace.RGB, Chroma.InterleavedRGB)
+            decode_ms = ms_since(t0)
+    finally:
+        context_mod.convert_image = real_convert
+    assert dec_launches["planes_ycbcr8_to_rgb"] == 1, dec_launches
+    assert sum(dec_launches[k] for k in ALL_KERNELS) == 1, dec_launches
+    assert rgb.plane(Channel.Interleaved).device.type == DEV
+    img, = seen
+    for e in encs:
+        e.loop_filter()
+    diff = recon_differing([img.plane(ch) for ch in YCC], encs[0].planes,
+                           YCC)
+    diff.update(recon_differing([img.plane(Channel.Alpha)],
+                                encs[1].planes[:1], [Channel.Alpha]))
+    assert not any(diff.values()), \
+        f"avc photo: decode vs the encoder's reconstruction {diff}"
+    quality = {ch: psnr(img.plane(ch), src.plane(ch))
+               for ch in YCC + (Channel.Alpha,)}
+    out = {**walls, "launches": launches, "spans": spans,
+           "encode_split_ms": spans_split(spans, "avc.encode"),
+           "decode_ms": decode_ms, "decode_launches": dec_launches,
+           "decode_spans": dict(dspans), "decode_vs_recon_differing": diff,
+           "psnr_db": quality}
+    log(f"avc encode photo {json.dumps(out)}")
+    return out
+
+
+def check_avc_tili_encode(planes, man):
+    """A tili of four avc1 tiles cut from the photo, written on the card
+    (the JAX writer's bytes), each tile decoded on the card and the CPU."""
+    side = man["tile"]
+    opts = EncodingOptions(quality=man["quality"])
+
+    def build():
+        ctx = HeifContext()
+        tid = ctx.add_tiled_image(2 * side, 2 * side, side, side, fmt="avc")
+        for tx, ty in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            ctx.add_image_tile_to_tiled(tid, tx, ty, image_of(
+                photo_crop(planes, side, (ty * side, tx * side)),
+                Colorspace.YCbCr, Chroma.C420), opts)
+        return ctx.write()
+    blob, launches, spans, walls = card_write(
+        "avc tili of four avc1 tiles", build, man["files"]["tili"]["sha256"])
+    for tx, ty in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        decode_both(f"avc tili tile {tx},{ty}", blob, tile=(tx, ty))
+    return {**walls, "spans": spans}
+
+
+def check_avc_track_encode(man):
+    """A QCIF IPPP avc track of the panning scene written on the card:
+    the JAX writer's SHA-256; every frame read back on the card equal to
+    the encoder's reference picture (its deblocked reconstruction)."""
+    w, h, n = man["track"]
+    ctx = HeifContext()
+    tw = ctx.add_visual_track(w, h, fmt="avc", options=TrackOptions(
+        timescale=30, inter_frames="ipp"))
+    refs = []
+    with trace.collect() as spans:
+        t0 = time.perf_counter()
+        for f in inter_cases.panning_scene(w, h, n, man["track_seed"]):
+            tw.add_frame(image_of({ch: torch.from_numpy(p).to(DEV)
+                                   for ch, p in zip(YCC, f)},
+                                  Colorspace.YCbCr, Chroma.C420),
+                         duration=1,
+                         options=EncodingOptions(quality=man["quality"]))
+            refs.append(tw._enc_session.ref)
+        blob = ctx.write()
+        ms = ms_since(t0)
+    assert sha256(blob) == man["files"]["qcif-ipp"]["sha256"], \
+        "the avc track differs from the JAX writer's"
+    t = HeifContext.read_from_bytes(blob).tracks[0]
+    diff = {}
+    for i, ref in enumerate(refs):
+        img = t.decode_next_image()
+        diff[i] = sum(recon_differing([img.plane(ch) for ch in YCC], ref,
+                                      YCC).values())
+    assert t.decode_next_image() is None
+    assert not any(diff.values()), f"avc track frames vs the DPB {diff}"
+    out = {"frames": n, "bytes": len(blob), "ms": ms,
+           "ms_a_frame": ms / n, "spans": dict(spans),
+           "frames_vs_reference_differing": diff}
+    log(f"check avc track {w}x{h} IPPP x{n}: the JAX writer's SHA-256, "
+        f"every frame equal to the encoder's reference {json.dumps(out)}")
+    return out
+
+
+def check_avc_encode(planes):
+    """Phase 4l, AVC: the photo with alpha, a tili, an IPPP track."""
+    t0 = time.perf_counter()
+    man = read_manifest(AVC_ENC_MANIFEST)
+    assert tuple(man["photo"]) == PHOTO
+    out = {"photo": check_avc_photo_encode(planes, man),
+           "tili": check_avc_tili_encode(planes, man),
+           "track": check_avc_track_encode(man)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def j2k1_file(data, e):
+    """A j2k1 item holding codestream ``data`` (its j2kH holding a cdef of
+    its components' roles) and ispe."""
+    cdef = Box_cdef()
+    if e["components"] == 1:
+        cdef.channels = [(0, 0, 1)]
+    else:
+        cdef.set_channels_rgb(False)
+    j2kh = Box_j2kH()
+    j2kh.children.append(cdef)
+    f = new_file()
+    item = f.add_new_item("j2k1").item_id
+    f.append_item_data(item, data)
+    f.add_property(item, j2kh, True)
+    f.add_property(item, Box_ispe(e["width"], e["height"]), False)
+    f.set_primary_item(item)
+    return f.write()
+
+
+def j2k_hashes(img):
+    """SHA-256 of each component (R, G, B or Y) as the manifest holds
+    them: uint8, or little-endian uint16."""
+    chans = RGB3 if img.has_channel(Channel.R) else (Channel.Y,)
+    return [hashlib.sha256(np.ascontiguousarray(
+        img.np_plane(ch), "<u2" if img.bit_depth(ch) > 8 else "u1")
+        .tobytes()).hexdigest() for ch in chans]
+
+
+def check_j2k_streams(man):
+    """Every committed codestream as a j2k1 item decoded on the card and
+    on the CPU: the same planes, equal to the JAX decode's hashes and to
+    OpenJPEG's where the two agree (5/3, HTJ2K, 16 bits)."""
+    out = {}
+    for e in man["streams"]:
+        with open(os.path.join(J2K_DIR, e["file"]), "rb") as f:
+            blob = j2k1_file(f.read(), e)
+        with trace.collect() as spans:
+            t0 = time.perf_counter()
+            img = decode_both(f"j2k1 {e['name']}", blob)
+            ms = ms_since(t0)
+        assert j2k_hashes(img) == e["sha256_jax"], e["name"]
+        if e["openjpeg_exact"]:
+            assert j2k_hashes(img) == e["sha256_openjpeg"], e["name"]
+        assert [img.bit_depth(ch) for ch in (
+            RGB3 if e["components"] == 3 else (Channel.Y,))] == e["depths"]
+        out[e["name"]] = {"card_and_cpu_ms": ms,
+                          "spans": spans_split(spans, "j2k.")}
+        log(f"check j2k stream {e['name']:20s} {e['width']}x{e['height']} "
+            f"depths {e['depths']} card = CPU = the JAX decode"
+            f"{' = OpenJPEG' if e['openjpeg_exact'] else ''} "
+            f"({ms:.0f} ms)")
+    return out
+
+
+def check_j2k_photo(planes, man):
+    """The photo as a lossless 5/3 j2k1 item through encode_image on the
+    card (the encoder converts it to RGB 4:4:4 there: planes_ycbcr8_to_rgb
+    once): the JAX writer's bytes (its SHA-256); read back on the
+    card, its planes equal the photo's RGB 4:4:4 conversion exactly."""
+    src = image_of(planes, Colorspace.YCbCr, Chroma.C420)
+    opts = EncodingOptions(lossless=True)
+    blob, launches, spans, walls = card_write(
+        "j2k photo 5/3 lossless",
+        lambda: encode_file(src, "jpeg2000", opts)[0],
+        man["writes"]["photo-53"]["sha256"])
+    for s in J2K_ENC_SPANS:
+        assert spans.get(s, {}).get("count", 0) >= 1, (s, spans.get(s))
+    assert launches["planes_ycbcr8_to_rgb"] == 1, launches
+    assert sum(launches[k] for k in ALL_KERNELS) == 1, launches
+    with launch_counts() as dec_launches, trace.collect() as dspans:
+        t0 = time.perf_counter()
+        img = HeifContext.read_from_bytes(blob).decode_image(None)
+        decode_ms = ms_since(t0)
+    assert sum(dec_launches[k] for k in ALL_KERNELS) == 0, dec_launches
+    for s in J2K_DEC_SPANS:
+        assert dspans.get(s, {}).get("count", 0) >= 1, (s, dspans.get(s))
+    assert dspans["j2k.decode.copy"]["count"] == 1
+    ref = convert_image(src, Colorspace.RGB, Chroma.C444)
+    n = {ch: int((img.plane(ch) != ref.plane(ch)).sum()) for ch in RGB3}
+    assert img.plane(Channel.R).device.type == DEV
+    assert not any(n.values()), f"j2k photo: read back vs its source {n}"
+    out = {**walls, "launches": launches,
+           "encode_split_ms": spans_split(spans, "j2k.encode"),
+           "decode_ms": decode_ms,
+           "decode_split_ms": spans_split(dspans, "j2k."),
+           "decode_vs_source_differing": n}
+    log(f"j2k encode photo {json.dumps(out)}")
+    return out
+
+
+def check_j2k_crops(planes, man):
+    """9/7 at the manifest's quality and htj2k on the crop: each the JAX
+    writer's bytes (its SHA-256); decoded on the card and the CPU
+    alike (the htj2k one equal to the crop's RGB 4:4:4 conversion)."""
+    cw, ch_ = man["crop"]
+    oy, ox = man["crop_at"]
+    crop = {Channel.Y: planes[Channel.Y][oy:oy + ch_, ox:ox + cw]}
+    for c in (Channel.Cb, Channel.Cr):
+        crop[c] = planes[c][oy // 2:(oy + ch_) // 2, ox // 2:(ox + cw) // 2]
+    src = image_of(crop, Colorspace.YCbCr, Chroma.C420)
+    out = {}
+    for name, fmt, opts in (
+            ("crop-97-q60", "jpeg2000",
+             EncodingOptions(lossless=False, quality=man["quality"])),
+            ("crop-htj2k", "htj2k", EncodingOptions(lossless=True))):
+        blob, launches, spans, walls = card_write(
+            f"j2k {name} {cw}x{ch_}",
+            lambda: encode_file(src, fmt, opts)[0],
+            man["writes"][name]["sha256"])
+        img = decode_both(f"j2k1 {name}", blob)
+        if opts.lossless:
+            ref = convert_image(src, Colorspace.RGB, Chroma.C444)
+            assert all(torch.equal(img.plane(c), ref.plane(c))
+                       for c in RGB3), name
+        else:
+            walls["psnr_db_vs_rgb"] = {
+                c: psnr(img.plane(c), ref_c) for c, ref_c in zip(
+                    RGB3, (convert_image(src, Colorspace.RGB, Chroma.C444)
+                           .plane(c) for c in RGB3))}
+        out[name] = {**walls, "launches": launches,
+                     "encode_split_ms": spans_split(spans, "j2k.")}
+    log(f"j2k crops {json.dumps(out)}")
+    return out
+
+
+def check_j2k_tili(planes, man):
+    """A tili of four jpeg2000 tiles (lossless) cut from the photo,
+    written on the card (the JAX writer's bytes), each tile decoded on
+    the card and the CPU."""
+    side = man["tile"]
+    opts = EncodingOptions(lossless=True)
+
+    def build():
+        ctx = HeifContext()
+        tid = ctx.add_tiled_image(2 * side, 2 * side, side, side,
+                                  fmt="jpeg2000")
+        for tx, ty in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            ctx.add_image_tile_to_tiled(tid, tx, ty, image_of(
+                photo_crop(planes, side, (ty * side, tx * side)),
+                Colorspace.YCbCr, Chroma.C420), opts)
+        return ctx.write()
+    blob, launches, spans, walls = card_write(
+        "j2k tili of four jpeg2000 tiles", build,
+        man["writes"]["tili"]["sha256"])
+    for tx, ty in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        decode_both(f"j2k tili tile {tx},{ty}", blob, tile=(tx, ty))
+    return {**walls, "launches": launches}
+
+
+def check_j2k(planes):
+    """Phase 4l, JPEG 2000: the C++ block coders' build and load, the
+    committed codestreams, the photo, the crops, a tili."""
+    t_start = time.perf_counter()
+    steps = {}
+
+    def step(name):
+        steps[name] = time.perf_counter() - t_start - sum(steps.values())
+    j2k_native.lib()
+    log(f"j2k_host {_build.J2K_HOST_LIBRARY.path}")
+    step("build")
+    man = read_manifest(os.path.join(J2K_DIR, "manifest.json"))
+    assert tuple(man["photo"]) == PHOTO
+    out = {"streams": check_j2k_streams(man)}
+    step("streams")
+    out["photo"] = check_j2k_photo(planes, man)
+    step("photo")
+    out["crops"] = check_j2k_crops(planes, man)
+    step("crops")
+    out["tili"] = check_j2k_tili(planes, man)
+    step("tili")
+    log(f"j2k phase steps (s) {json.dumps(steps)}")
+    out["steps_s"] = steps
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def encode_4l_launches(avc_enc, j2k):
+    """planes_ycbcr8_to_rgb's launches on phase 4l's paths."""
+    out = {}
+    if avc_enc is not None:
+        out["avc encode photo, read back"] = \
+            avc_enc["photo"]["decode_launches"]["planes_ycbcr8_to_rgb"]
+    if j2k is not None:
+        out["j2k encode photo (to RGB 4:4:4)"] = \
+            j2k["photo"]["launches"]["planes_ycbcr8_to_rgb"]
+        for name, c in j2k["crops"].items():
+            out[f"j2k encode {name}"] = c["launches"]["planes_ycbcr8_to_rgb"]
+        out["j2k encode tili"] = \
+            j2k["tili"]["launches"]["planes_ycbcr8_to_rgb"]
+    return out
+
+
+def j2k_alone(tally):
+    """Phase 4l's JPEG 2000 half alone, on card 0."""
+    return check_j2k(photo_ycc()), None
 
 
 def nvidia_smi():
@@ -5749,7 +6171,7 @@ def nvidia_smi():
 
 
 HOST_LIBRARIES = (_build.HOST_LIBRARY, _build.JPEG_HOST_LIBRARY,
-                  _build.AVC_HOST_LIBRARY)
+                  _build.AVC_HOST_LIBRARY, _build.J2K_HOST_LIBRARY)
 
 
 def build_library():
@@ -6050,6 +6472,18 @@ def main():
 
     phase_done("avc")
 
+    # 4l. AVC encode (the photo with alpha, a tili, an IPPP track) and JPEG
+    # 2000 (the committed codestreams, the photo, crops, a tili) through
+    # HeifContext on the card, against the CPU and the JAX writer's files
+    photo_planes = {ch: enc_ycc.plane(ch) for ch in YCC}
+    avc_enc = check_avc_encode(photo_planes)
+
+    phase_done("avc_encode")
+
+    j2k = check_j2k(photo_planes)
+
+    phase_done("j2k")
+
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
                     tile_w=W // TILES, kr=float(KR), kb=float(KB))
@@ -6155,6 +6589,8 @@ def main():
             "widths_pitch_s_plus_8": strided_widths(lay, copies[0])})
     kern["planes_ycbcr8_to_rgb"]["launches_by_path"].update(
         avc_launches(avc))
+    kern["planes_ycbcr8_to_rgb"]["launches_by_path"].update(
+        encode_4l_launches(avc_enc, j2k))
     strided_sweep = strided_width_sweep(timer, lay, inplace)
     strided_layouts = strided_layout_timings(timer)
 
@@ -6344,7 +6780,7 @@ def main():
                        "512x512", "launches": j_launches, "parts": j_runs},
         "colour_ops": colour_rows, "metadata_file": metadata,
         "mesh": mesh, "sequences": seq, "encode": enc, "write": wr,
-        "avc": avc,
+        "avc": avc, "avc_encode": avc_enc, "j2k": j2k,
         "av1_parses": {"streams": len(AV1_PARSES),
                        "ms": sum(AV1_PARSE_MS.values())},
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
@@ -6380,6 +6816,7 @@ if __name__ == "__main__":
     ALONE = {"--mesh-only": ("mesh", mesh_alone),
              "--sequences-only": ("sequences", sequences_alone),
              "--encode-only": ("encode", encode_alone),
-             "--avc-only": ("avc", avc_alone)}
+             "--avc-only": ("avc", avc_alone),
+             "--j2k-only": ("j2k", j2k_alone)}
     alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(run_alone(*alone) if alone else main())

@@ -6,7 +6,8 @@ one shared library with a plain C interface, written to
 ``build/libheif_tpu_torch/`` at the root of the checkout, and loaded with
 ``ctypes``.  The host C++ of the HEVC parser and encoder
 (``codecs/hevc/host/``), of the JPEG scan (``codecs/jpeg/host/``) and of
-the AVC intra engine (``codecs/avc/host/``) is built the same way by the
+the AVC intra engine (``codecs/avc/host/``) and of the JPEG 2000 block
+coders (``codecs/j2k/host/``) is built the same way by the
 system C++ compiler, one library each, on every machine that decodes or
 encodes that codec, the CPU included.  Each library's file name carries
 a hash of its sources and flags (and, for the host library, of the CPU it is
@@ -145,7 +146,8 @@ class _CudaLibrary(_Library):
 
 class _HostLibrary(_Library):
     """A codec's host C++ (``what``: the HEVC parser, wave planner and
-    encoder, the JPEG scan, the AVC intra engine), built by ``c++``."""
+    encoder, the JPEG scan, the AVC intra engine, the JPEG 2000 block
+    coders), built by ``c++``."""
 
     def __init__(self, stem: str, pattern: str, key: bytes, what: str):
         super().__init__(stem, pattern, key)
@@ -171,6 +173,9 @@ JPEG_HOST_LIBRARY = _HostLibrary("jpeg_host", "codecs/jpeg/host/*.cc",
 AVC_HOST_LIBRARY = _HostLibrary("avc_host", "codecs/avc/host/*.cc",
                                 " ".join(HOST_CXX_FLAGS).encode() + _cpu_id(),
                                 "AVC intra engine")
+J2K_HOST_LIBRARY = _HostLibrary("j2k_host", "codecs/j2k/host/*.cc",
+                                " ".join(HOST_CXX_FLAGS).encode() + _cpu_id(),
+                                "JPEG 2000 block coders")
 
 
 class CudaKernel:

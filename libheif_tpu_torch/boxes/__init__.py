@@ -8,6 +8,7 @@ from . import codec_cfg  # noqa: F401  (registers hvcC, av1C, jpgC)
 from . import mini  # noqa: F401  (registers mini)
 from . import tild  # noqa: F401  (registers tilC)
 from . import seq  # noqa: F401  (registers the moov/trak/stbl family)
+from . import j2k  # noqa: F401  (registers j2kH, cdef, cmap, pclr, j2kL)
 
 __all__ = [
     "Box", "FullBox", "BoxHeader", "Box_other", "Box_Error",

@@ -65,7 +65,10 @@ def split_length_prefixed(data: bytes, length_size: int) -> List[bytes]:
 
 
 def unescape_rbsp(nal: bytes) -> bytes:
-    """Remove emulation-prevention bytes (spec 7.4.1.1), find-based."""
+    """Remove emulation-prevention bytes (spec 7.4.1.1), find-based.  A
+    memoryview (an item's payload read in place) is taken as its bytes:
+    ``in`` on a memoryview compares single bytes and finds no sequence."""
+    nal = bytes(nal)
     if b"\x00\x00\x03" not in nal:
         return nal
     out = bytearray()

@@ -13,8 +13,9 @@
 // A copy of libheif_tpu/native/src/avc_native.cc, unchanged but for
 // this paragraph; libheif_tpu_torch/_build.py builds it as the
 // avc_host library (AVC_HOST_LIBRARY).  The port's decoder calls the
-// two decode exports (codecs/avc/native_decode.py); the encode export,
-// tpuheif_avc_encode_slice, has no caller in the port yet.
+// two decode exports (codecs/avc/native_decode.py), its still-image
+// encoder the encode export, tpuheif_avc_encode_slice
+// (codecs/avc/encoder.py _NativeSliceEncoder).
 
 #include <cstdint>
 #include <cstring>

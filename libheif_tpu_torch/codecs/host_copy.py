@@ -3,14 +3,15 @@
 The host encoders (the HEVC and AV1 loops, the C++ HEVC path, the JPEG
 scan) read numpy arrays.  ``host_planes`` joins tensors on their device,
 copies them in one transfer (through pinned memory from a card) and
-splits them on the host.  The host decoders (AVC) write numpy arrays:
-``device_planes`` is the inverse, the arrays joined in pinned memory on
-the host, one copy to the card and views of it there.
+splits them on the host.  The host decoders (AVC, JPEG 2000) write
+numpy arrays: ``device_planes`` is the inverse, the arrays' bytes joined
+in pinned memory on the host, one copy to the card and views of it
+there.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,27 +46,44 @@ _ALIGN = 256      # bytes between the starts of two planes on the card
 
 def device_planes(arrays: Sequence[np.ndarray],
                   device) -> List[torch.Tensor]:
-    """``arrays`` (numpy arrays of one dtype) as tensors of their shapes
-    on ``device``: on a card, joined in one pinned host buffer, each
-    plane at a multiple of 256 bytes, copied in one host-to-device
-    transfer and returned as views of it; on the CPU the arrays
-    themselves, without a copy."""
+    """``arrays`` (numpy arrays, of one dtype or several) as tensors of
+    their shapes and dtypes on ``device``: on a card, their bytes joined
+    in one pinned host buffer, each plane at a multiple of 256 bytes,
+    copied in one host-to-device transfer of bytes and returned as views
+    of it (so a ``uint16`` plane, for which CUDA builds of torch lack
+    most kernels, and planes of several depths move in the same copy);
+    on the CPU the arrays themselves, without a copy."""
     device = torch.device(device)
-    dtype = arrays[0].dtype
-    assert all(a.dtype == dtype for a in arrays), "planes of one dtype"
     if device.type == "cpu":
         return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-    step = max(1, _ALIGN // dtype.itemsize)
+    host, starts = join_bytes(arrays, pin=True)
+    # the caching host allocator keeps ``host`` until the copy is done
+    return split_bytes(host.to(device, non_blocking=True), arrays, starts)
+
+
+def join_bytes(arrays: Sequence[np.ndarray],
+               pin: bool) -> Tuple[torch.Tensor, List[int]]:
+    """The arrays' bytes in one uint8 host tensor (pinned if ``pin``),
+    each at a multiple of 256 bytes, and their start offsets."""
     starts, end = [], 0
     for a in arrays:
         starts.append(end)
-        end += -(-a.size // step) * step
-    pinned = torch.empty(end, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
-                         pin_memory=True)
-    host = pinned.numpy()
+        end += max(1, -(-a.nbytes // _ALIGN)) * _ALIGN
+    buf = torch.empty(end, dtype=torch.uint8, pin_memory=pin)
+    host = buf.numpy()
     for a, first in zip(arrays, starts):
-        host[first:first + a.size] = a.reshape(-1)
-    # the caching host allocator keeps ``pinned`` until the copy is done
-    flat = pinned.to(device, non_blocking=True)
-    return [flat[first:first + a.size].view(a.shape)
-            for a, first in zip(arrays, starts)]
+        host[first:first + a.nbytes] = \
+            np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    return buf, starts
+
+
+def split_bytes(flat: torch.Tensor, arrays: Sequence[np.ndarray],
+                starts: Sequence[int]) -> List[torch.Tensor]:
+    """Views of ``flat`` (as ``join_bytes`` laid it out, on any device)
+    with the arrays' dtypes and shapes."""
+    return [flat[first:first + a.nbytes].view(_torch_dtype(a.dtype))
+            .view(a.shape) for a, first in zip(arrays, starts)]
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype

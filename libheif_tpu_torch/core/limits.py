@@ -61,6 +61,12 @@ class SecurityLimits:
             raise HeifError.security(
                 f"{n} items exceed limit of {self.max_items}")
 
+    def check_children_count(self, n: int, box_type: str = "") -> None:
+        if self.max_children_per_box and n > self.max_children_per_box:
+            raise HeifError.security(
+                f"{n} child boxes in {box_type or 'box'} exceed limit of "
+                f"{self.max_children_per_box}")
+
     def check_block_size(self, nbytes: int, what: str = "memory block") -> None:
         if self.max_memory_block_size and nbytes > self.max_memory_block_size:
             raise HeifError.security(

@@ -43,13 +43,13 @@ TILD_OFFSET_NOT_AVAILABLE = 0
 TILD_OFFSET_SEE_LOWER_RESOLUTION_LAYER = 1
 TILD_OFFSET_NOT_LOADED = 10
 
-# tiles of the codecs that the JAX package decodes on the host only are
-# refused by name
-_UNPORTED_TILES = {"vvc1": "VVC", "j2k1": "JPEG 2000"}
+# tiles of the codec that the JAX package decodes on the host only and
+# the port does not yet are refused by name
+_UNPORTED_TILES = {"vvc1": "VVC"}
 
 # registry format name of the tiles the port encodes -> infe fourcc
 _FORMAT_TO_FOURCC = {"hevc": "hvc1", "av1": "av01", "jpeg": "jpeg",
-                     "unci": "unci"}
+                     "avc": "avc1", "jpeg2000": "j2k1", "unci": "unci"}
 _FOURCC_TO_FORMAT = {v: k for k, v in _FORMAT_TO_FOURCC.items()}
 
 # entries to fetch per offset-table read, so remote/streaming access
@@ -289,6 +289,13 @@ class ImageItem_Tiled(ImageItem):
                            fmt: str = "hevc") -> "ImageItem_Tiled":
         """Create an empty tili item ready for appended tiles
         (ref: add_new_tiled_item, tiled.cc:750)."""
+        if fmt == "htj2k":
+            # the JAX writer labels these tiles 'htj2' (the name cut to
+            # four letters), a format no reader decodes
+            raise HeifError.unsupported(
+                SubError.Unsupported_codec,
+                "tili tiles of format 'htj2k' are not supported: the JAX "
+                "writer labels them 'htj2', a format no reader decodes")
         if fmt not in _FORMAT_TO_FOURCC:
             raise HeifError.unsupported(
                 SubError.Unsupported_codec,

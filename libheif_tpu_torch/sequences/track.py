@@ -22,11 +22,12 @@ sets too).  ``vvc1``/``vvi1`` and ``j2ki`` raise Unsupported by name.
 
 The write side (JAX track.py:111-146, :624-1015): ``TrackOptions``,
 ``VisualTrackWriter`` (``hvc1`` intra or inter through the registry's
-HEVC encoder and its sequence session, ``av01``, ``mjpg``, ``uncv``
-through UnciEncoder; raw samples, track references, TAI/GIMI aux info
-through ``SampleAuxInfoWriter``, the GIMI track meta) and
+HEVC encoder and its sequence session, ``avc1`` intra or IPPP through
+the AVC encoder and its session, ``av01``, ``mjpg``, ``uncv`` through
+UnciEncoder; raw samples, track references, TAI/GIMI aux info through
+``SampleAuxInfoWriter``, the GIMI track meta) and
 ``MetadataTrackWriter``.  A writer encodes on its context's device;
-``avc``, ``vvc`` and ``j2k`` tracks raise Unsupported by name.  Its
+``vvc`` and ``j2k`` tracks raise Unsupported by name.  Its
 spans are ``track.write`` (a frame's encode) and
 ``track.write.finalize`` (the trak tree, with the lookahead's last
 frames).
@@ -64,7 +65,8 @@ AUX_TYPE_ALPHA_MPEGB = "urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"
 _ALPHA_AUX_URNS = (AUX_TYPE_ALPHA_HEVC, AUX_TYPE_ALPHA_AVC,
                    AUX_TYPE_ALPHA_MPEGB)
 
-# sample entries of codecs the JAX package decodes on the host only
+# sample entries the port does not read: VVC (not ported yet) and JPEG
+# 2000 (the JAX package maps ``j2ki`` to a codec with no decoder)
 _UNPORTED_CODINGS = {"vvc1": "VVC", "vvi1": "VVC", "j2ki": "JPEG 2000"}
 
 
@@ -667,8 +669,10 @@ class TrackOptions:
     inter_frames: object = False
 
 
-# sample entries whose encoders the JAX package runs on the host only
-_UNPORTED_TRACK_FORMATS = {"avc": "AVC", "vvc": "VVC", "j2k": "JPEG 2000"}
+# sample entries of codecs the port does not write: VVC (not ported yet)
+# and JPEG 2000 (``j2ki``: the JAX package has no sequence encoder for it
+# and reads no such track)
+_UNPORTED_TRACK_FORMATS = {"vvc": "VVC", "j2k": "JPEG 2000"}
 
 
 def _runs(values: List[int]) -> List[Tuple[int, int]]:
@@ -705,8 +709,9 @@ class VisualTrackWriter:
         self.fmt = fmt
         self.device = resolve_device(device)
         self.sample_entry_type = {"hevc": "hvc1", "av1": "av01",
-                                  "jpeg": "mjpg", "unc": "uncv",
-                                  "uncv": "uncv"}.get(fmt, "hvc1")
+                                  "avc": "avc1", "jpeg": "mjpg",
+                                  "unc": "uncv", "uncv": "uncv"}.get(
+                                      fmt, "hvc1")
         self.options = options or TrackOptions(timescale=timescale)
         if timescale != 90000:
             self.options.timescale = timescale

@@ -430,7 +430,7 @@ def test_missing_mandatory_aux_raises_as_jax():
                 tw.add_frame(pk.image(seq_frame(0, 32, 32)), duration=1)
 
 
-@pytest.mark.parametrize("fmt", ["avc", "vvc", "j2k"])
+@pytest.mark.parametrize("fmt", ["vvc", "j2k"])
 def test_host_only_track_codecs_refused_by_name(fmt):
     with pytest.raises(HeifError) as e:
         Port.context().add_visual_track(32, 32, fmt=fmt)
