@@ -279,6 +279,25 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    as htj2k and a tili of four jpeg2000 tiles, each the JAX writer's
    bytes (the SHA-256 of the same calls), each read back on the card and
    the CPU alike;
+4m. VVC on the host as in the JAX package, the planes copied to the card
+   once (the streams, files and SHA-256 from the manifests that
+   tests/vvc_streams.py writes in libheif_tpu_torch/testdata/vvc):
+   decode every committed stream through VvcDecoder on the card, equal
+   to the JAX decode's plane hashes (the 10-bit one among them); decode
+   the 1920x1080 vvc1 item (the JAX writer's encode of
+   codecs/vvc/cases.synthetic_photo) through HeifContext to interleaved
+   RGB, with the launch counts read around it (planes_ycbcr8_to_rgb
+   once, nothing else), its YCbCr planes equal to the JAX decode's, its
+   RGB within the colour contract of the plain colour path on the card,
+   its wall split by the vvc.decode spans; read a 2x2 grid of 256x256
+   vvc1 tiles, a tili of four 128x128 vvc1 tiles and a 3-frame vvc1
+   track, and the same samples as a vvi1 track, to RGB, each picture
+   equal to the manifest; then write on the card encode_image(img,
+   "vvc") of a 256x256 RGB crop, add_visual_track(..., "vvc") of three
+   128x96 frames and add_tiled_image(..., fmt="vvc") of four 128x128
+   tiles, each file the JAX writer's SHA-256 and each picture read back
+   equal to its encoder's reconstruction, the walls split by the
+   vvc.encode spans; the card's name and power limit beside each time;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -343,7 +362,8 @@ hevc_inter_pred's row; ``python3 chip_smoke.py --encode-only`` the build,
 phases 4i and 4j and the two encode kernels' rows;
 ``python3 chip_smoke.py --avc-only`` the build, phase 4k and phase 4l's
 AVC encode; ``python3 chip_smoke.py --j2k-only`` the build and phase 4l's
-JPEG 2000 half.  Each AV1
+JPEG 2000 half; ``python3 chip_smoke.py --vvc-only`` the build and phase
+4m.  Each AV1
 stream is parsed once a run (av1_parse_once): the phases decode the same
 committed streams many times over.
 """
@@ -369,7 +389,7 @@ from libheif_tpu_torch import (
 from libheif_tpu_torch import context as context_mod
 from libheif_tpu_torch.boxes import read_all_boxes
 from libheif_tpu_torch.boxes.codec_cfg import (
-    Box_av1C, Box_avcC, Box_hvcC, Box_jpgC)
+    Box_av1C, Box_avcC, Box_hvcC, Box_jpgC, Box_vvcC)
 from libheif_tpu_torch.boxes.j2k import Box_cdef, Box_j2kH
 from libheif_tpu_torch.boxes.meta import (
     Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe, TaiClockInfo,
@@ -400,6 +420,9 @@ from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
 from libheif_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
 from libheif_tpu_torch.codecs.jpeg import encoder as jpeg_encoder
 from libheif_tpu_torch.codecs.jpeg import idct as jpeg_idct
+from libheif_tpu_torch.codecs.vvc import VvcDecoder
+from libheif_tpu_torch.codecs.vvc import encoder as vvc_encoder
+from libheif_tpu_torch.codecs.vvc.cases import synthetic_photo
 from libheif_tpu_torch.codecs.unc import (
     UnciDecoder, UnciEncoder, cuda_fast, kernels, sass_count)
 from libheif_tpu_torch.codecs.unc.layout import (
@@ -6163,6 +6186,344 @@ def j2k_alone(tally):
     return check_j2k(photo_ycc()), None
 
 
+# ---------------------------------------------------------------------- VVC
+# Phase 4m: VVC on the host, as in the JAX package (its intra-only codec
+# pair: CABAC, coding tree and reconstruction in Python), each picture's
+# planes copied to the card once and converted to RGB there; the writes
+# convert their input on the card and copy its planes to the host once.
+# The streams, files and the JAX writer's SHA-256 come from the manifests
+# that tests/vvc_streams.py writes.
+
+VVC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "libheif_tpu_torch", "testdata", "vvc")
+VVC_DEC_SPANS = ("vvc.decode", "vvc.decode.parse", "vvc.decode.recon",
+                 "vvc.decode.copy")
+VVC_ENC_SPANS = ("vvc.encode", "vvc.encode.copy", "vvc.encode.plan",
+                 "vvc.encode.cabac")
+VVC_HD_BUDGET_S = 60.0      # the HD decode's wall to report beyond
+
+
+def vvc_nals(name):
+    """[SPS, PPS, slice] of a committed stream (4-byte lengths)."""
+    with open(os.path.join(VVC_DIR, f"{name}.vvc"), "rb") as f:
+        data = f.read()
+    out, pos = [], 0
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        out.append(data[pos + 4:pos + 4 + n])
+        pos += 4 + n
+    return out
+
+
+def vvc_hashes(img):
+    """SHA-256 of Y, Cb, Cr as the manifests hold them: uint8, or
+    little-endian uint16 above 8 bits."""
+    return [hashlib.sha256(np.ascontiguousarray(
+        img.np_plane(ch), "<u2" if img.bit_depth(ch) > 8 else "u1")
+        .tobytes()).hexdigest() for ch in YCC]
+
+
+def vvc_file(name):
+    with open(os.path.join(VVC_DIR, name), "rb") as f:
+        return f.read()
+
+
+def as_vvi1(blob):
+    """A one-track file with its vvc1 sample entry renamed vvi1."""
+    at = blob.index(b"stsd") + 16
+    assert blob[at:at + 4] == b"vvc1", blob[at:at + 4]
+    return blob[:at] + b"vvi1" + blob[at + 4:]
+
+
+def check_vvc_streams(man, card):
+    """Every committed stream through VvcDecoder on the card, the 10-bit
+    one among them: planes on the card equal to the JAX decode's hashes."""
+    out = {}
+    for e in man["streams"]:
+        t0 = time.perf_counter()
+        nals = vvc_nals(e["name"])
+        cfg = Box_vvcC()
+        for n in nals[:2]:
+            cfg.add_nal(n)
+        img = VvcDecoder(DEV).decode_single_image(
+            cfg, length_prefixed(nals[2:]))
+        assert img.plane(Channel.Y).device.type == DEV
+        assert img.bit_depth(Channel.Y) == e["depth"], e["name"]
+        assert vvc_hashes(img) == e["sha256"], e["name"]
+        out[e["name"]] = ms_since(t0)
+        log(f"check vvc stream {e['name']:14s} {e['coded'][0]}x"
+            f"{e['coded'][1]} {e['depth']}-bit equal to the JAX decode "
+            f"({out[e['name']]:.0f} ms; {card})")
+    return out
+
+
+def vvc_rgb_decode(blob, tile=None):
+    """One decode of ``blob`` (or of its tile) to interleaved RGB on the
+    card, the launches and spans read around it: (launches, spans, ms,
+    RGB image, the YCbCr image handed to the conversion)."""
+    seen = []
+    real_convert = context_mod.convert_image
+
+    def convert(img, *args, **kw):
+        seen.append(img)
+        return real_convert(img, *args, **kw)
+    context_mod.convert_image = convert
+    try:
+        with launch_counts() as launches, trace.collect() as spans:
+            t0 = time.perf_counter()
+            ctx = HeifContext.read_from_bytes(blob)
+            if tile is None:
+                rgb = ctx.decode_image(None, Colorspace.RGB,
+                                       Chroma.InterleavedRGB)
+            else:
+                rgb = ctx.decode_tile(ctx.primary_item_id, *tile,
+                                      Colorspace.RGB, Chroma.InterleavedRGB)
+            ms = ms_since(t0)
+    finally:
+        context_mod.convert_image = real_convert
+    img, = seen
+    assert rgb.plane(Channel.Interleaved).device.type == DEV
+    assert (img.colorspace, img.chroma) == (Colorspace.YCbCr, Chroma.C420)
+    assert launches["planes_ycbcr8_to_rgb"] == 1, launches
+    assert sum(launches[k] for k in ALL_KERNELS) == 1, launches
+    return launches, dict(spans), ms, rgb, img
+
+
+def vvc_against_plain(tally, what, rgb, img):
+    """The RGB against the port's plain colour path on the card, on the
+    same YCbCr planes (the colour contract)."""
+    try:
+        YCbCrToRGB.USE_KERNEL = False
+        plain = convert_image(img, Colorspace.RGB, Chroma.InterleavedRGB)
+    finally:
+        YCbCrToRGB.USE_KERNEL = None
+    tally.compare("planes_ycbcr8_to_rgb", what, rgb.plane(Channel.Interleaved),
+                  plain.plane(Channel.Interleaved), exact=False)
+
+
+def check_vvc_hd(tally, files, card):
+    """The 1920x1080 vvc1 item through HeifContext to interleaved RGB: the
+    VVC main path.  planes_ycbcr8_to_rgb launches exactly once and no
+    other kernel; the YCbCr planes are the JAX decode's; the RGB holds the
+    colour contract against the plain path; the wall is split by the
+    vvc.decode spans."""
+    e = files["hd"]
+    blob = vvc_file(e["file"])
+    assert sha256(blob) == e["sha256"]
+    launches, spans, ms, rgb, img = vvc_rgb_decode(blob)
+    assert (rgb.width, rgb.height) == (1920, 1080)
+    assert vvc_hashes(img) == e["planes_sha256"], "hd planes"
+    for s in VVC_DEC_SPANS:
+        assert spans[s]["count"] == 1, (s, spans.get(s))
+    vvc_against_plain(tally, "vvc hd item RGB vs plain", rgb, img)
+    split = spans_split(spans, "vvc.")
+    split.update(spans_split(spans, "color."))
+    out = {"ms": ms, "bytes": len(blob), "launches": launches,
+           "split_ms": split, "card": card,
+           "rest_ms": ms - spans["vvc.decode"]["ms"] - sum(
+               v["ms"] for k, v in spans.items() if k.startswith("color.")),
+           "mp_per_s": 1920 * 1080 / 1e3 / ms,
+           "over_budget": ms > VVC_HD_BUDGET_S * 1e3}
+    log(f"vvc hd item 1920x1080 to RGB {json.dumps(out)}")
+    return out
+
+
+def check_vvc_reads(tally, files, card):
+    """The committed grid, tili and track (and the track's samples as
+    vvi1) read back to interleaved RGB on the card, each picture's planes
+    equal to the JAX decode's (the manifest), one planes_ycbcr8_to_rgb
+    launch a picture."""
+    out = {}
+    e = files["grid"]
+    blob = vvc_file(e["file"])
+    launches, spans, ms, rgb, img = vvc_rgb_decode(blob)
+    assert vvc_hashes(img) == e["planes_sha256"], "grid planes"
+    assert spans["vvc.decode"]["count"] == 4, spans["vvc.decode"]
+    vvc_against_plain(tally, "vvc grid RGB vs plain", rgb, img)
+    out["grid"] = {"ms": ms, "launches": launches,
+                   "split_ms": spans_split(spans, "vvc.")}
+    log(f"check vvc grid 2x2 of 256x256 to RGB: planes equal to the JAX "
+        f"decode {json.dumps(out['grid'])} ({card})")
+    e = files["tili"]
+    blob = vvc_file(e["file"])
+    out["tili"] = {}
+    tiles = [(tx, ty) for ty in (0, 1) for tx in (0, 1)]
+    for (tx, ty), ref in zip(tiles, e["tiles_sha256"]):
+        launches, _, ms, rgb, img = vvc_rgb_decode(blob, (tx, ty))
+        assert vvc_hashes(img) == ref, (tx, ty)
+        out["tili"][f"{tx},{ty}"] = {"ms": ms, "launches": launches}
+    log(f"check vvc tili 2x2 of 128x128, each tile to RGB equal to the JAX "
+        f"decode {json.dumps(out['tili'])} ({card})")
+    e = files["track"]
+    blob = vvc_file(e["file"])
+    for coding, b in (("vvc1", blob), ("vvi1", as_vvi1(blob))):
+        frame_ms = []
+        with launch_counts() as launches, trace.collect() as spans:
+            t = HeifContext.read_from_bytes(b).tracks[0]
+            assert t.coding == coding
+            for ref in e["frames_sha256"]:
+                t0 = time.perf_counter()
+                img = t.decode_next_image()
+                rgb = convert_image(img, Colorspace.RGB,
+                                    Chroma.InterleavedRGB)
+                frame_ms.append(ms_since(t0))
+                assert vvc_hashes(img) == ref, (coding, len(frame_ms))
+                assert rgb.plane(Channel.Interleaved).device.type == DEV
+            assert t.decode_next_image() is None
+        n = len(e["frames_sha256"])
+        assert launches["planes_ycbcr8_to_rgb"] == n, launches
+        assert sum(launches[k] for k in ALL_KERNELS) == n, launches
+        out[f"track_{coding}"] = {"frame_ms": frame_ms, "launches": launches,
+                                  "split_ms": spans_split(spans, "vvc.")}
+        log(f"check vvc {coding} track {n} frames to RGB equal to the JAX "
+            f"decode {json.dumps(out[f'track_{coding}'])} ({card})")
+    return out
+
+
+def vvc_cut(rgb, at, w, h, ycc):
+    """A w x h crop of the photo at luma (row, column) ``at`` on the card:
+    RGB, or (``ycc``) the YCbCr 4:2:0 planes cut from it by integer
+    slicing (tests/vvc_streams.ycc_cut)."""
+    oy, ox = at
+    c = rgb[oy:oy + h, ox:ox + w]
+    if not ycc:
+        return image_of({ch: torch.from_numpy(np.ascontiguousarray(
+            c[..., k])).to(DEV) for k, ch in enumerate(RGB3)},
+            Colorspace.RGB, Chroma.C444)
+    planes = (c[..., 1], c[::2, ::2, 0], c[::2, ::2, 2])
+    return image_of({ch: torch.from_numpy(np.ascontiguousarray(p)).to(DEV)
+                     for ch, p in zip(YCC, planes)},
+                    Colorspace.YCbCr, Chroma.C420)
+
+
+def vvc_recon_check(what, imgs, encs):
+    """Decoded pictures against the encoders' reconstructions."""
+    assert len(imgs) == len(encs), (what, len(imgs), len(encs))
+    diff = {}
+    for i, (img, enc) in enumerate(zip(imgs, encs)):
+        diff[i] = sum(recon_differing([img.plane(ch) for ch in YCC],
+                                      enc.recon.planes, YCC).values())
+    assert not any(diff.values()), f"{what}: decode vs recon {diff}"
+    return diff
+
+
+def check_vvc_writes(man, card):
+    """encode_image(img, "vvc") of a 256x256 RGB crop of the photo,
+    add_visual_track(..., "vvc") of three 128x96 frames and
+    add_tiled_image(..., fmt="vvc") of four 128x128 tiles, written on the
+    card: each file the JAX writer's (its SHA-256), each picture read
+    back on the card equal to its encoder's reconstruction, the walls
+    split by the vvc.encode spans."""
+    files = man["files"]
+    q = EncodingOptions(quality=man["quality"])
+    rgb = synthetic_photo(*man["photo"], man["photo_seed"])
+    out = {}
+    side = man["grid_side"]
+    with encoders_made(vvc_encoder.VvcIntraEncoder) as encs:
+        blob, launches, spans, walls = card_write(
+            "vvc still 256x256 RGB", lambda: encode_file(vvc_cut(
+                rgb, man["grid_at"], side, side, False), "vvc", q)[0],
+            files["still"]["sha256"])
+    assert not {k: v for k, v in launches.items() if v}, launches
+    for s in VVC_ENC_SPANS:
+        assert spans[s]["count"] == 1, (s, spans.get(s))
+    _, dspans, dms, _, img = vvc_rgb_decode(blob)
+    assert vvc_hashes(img) == files["still"]["planes_sha256"]
+    out["still"] = {**walls, "split_ms": spans_split(spans, "vvc.encode"),
+                    "decode_ms": dms, "card": card,
+                    "vs_recon": vvc_recon_check("vvc still", [img], encs)}
+    log(f"vvc write still {json.dumps(out['still'])}")
+
+    w, h, n = man["track"]
+
+    def track():
+        ctx = HeifContext()
+        tw = ctx.add_visual_track(w, h, fmt="vvc",
+                                  options=TrackOptions(timescale=30))
+        oy, ox = man["track_at"]
+        for i in range(n):
+            tw.add_frame(vvc_cut(rgb, (oy, ox + man["track_step"] * i), w, h,
+                                 True), duration=1, options=q)
+        return ctx.write()
+    with encoders_made(vvc_encoder.VvcIntraEncoder) as encs:
+        blob, launches, spans, walls = card_write(
+            f"vvc track {w}x{h} x{n}", track, files["track"]["sha256"])
+    t = HeifContext.read_from_bytes(blob).tracks[0]
+    frames = [t.decode_next_image() for _ in range(n)]
+    assert t.decode_next_image() is None
+    out["track"] = {**walls, "split_ms": spans_split(spans, "vvc.encode"),
+                    "ms_a_frame": walls["card_ms"] / n, "card": card,
+                    "vs_recon": vvc_recon_check("vvc track", frames, encs)}
+    log(f"vvc write track {json.dumps(out['track'])}")
+
+    side = man["tili_side"]
+
+    def tili():
+        ctx = HeifContext()
+        tid = ctx.add_tiled_image(2 * side, 2 * side, side, side, fmt="vvc")
+        oy, ox = man["tili_at"]
+        for ty in (0, 1):
+            for tx in (0, 1):
+                ctx.add_image_tile_to_tiled(tid, tx, ty, vvc_cut(
+                    rgb, (oy + ty * side, ox + tx * side), side, side, True),
+                    q)
+        return ctx.write()
+    with encoders_made(vvc_encoder.VvcIntraEncoder) as encs:
+        blob, launches, spans, walls = card_write(
+            f"vvc tili 2x2 of {side}x{side}", tili, files["tili"]["sha256"])
+    ctx = HeifContext.read_from_bytes(blob)
+    tiles = [ctx.decode_tile(ctx.primary_item_id, tx, ty)
+             for ty in (0, 1) for tx in (0, 1)]
+    out["tili"] = {**walls, "split_ms": spans_split(spans, "vvc.encode"),
+                   "card": card,
+                   "vs_recon": vvc_recon_check("vvc tili", tiles, encs)}
+    log(f"vvc write tili {json.dumps(out['tili'])}")
+    return out
+
+
+def check_vvc(tally):
+    """Phase 4m: the committed streams, the HD item (the VVC main path),
+    the grid, tili and tracks, and the three writes."""
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    steps = {}
+
+    def step(name):
+        steps[name] = time.perf_counter() - t_start - sum(steps.values())
+    man = read_manifest(os.path.join(VVC_DIR, "manifest.json"))
+    enc_man = read_manifest(os.path.join(VVC_DIR, "encode_manifest.json"))
+    stream_ms = check_vvc_streams(man, card)
+    step("streams")
+    hd = check_vvc_hd(tally, enc_man["files"], card)
+    step("hd")
+    reads = check_vvc_reads(tally, enc_man["files"], card)
+    step("reads")
+    writes = check_vvc_writes(enc_man, card)
+    step("writes")
+    log(f"vvc phase steps (s) {json.dumps(steps)} ({card})")
+    return {"card": card, "stream_ms": stream_ms, "hd_item": hd,
+            "reads": reads, "writes": writes, "steps_s": steps,
+            "seconds": time.perf_counter() - t_start}
+
+
+def vvc_launches(vvc):
+    """planes_ycbcr8_to_rgb's launches on phase 4m's paths."""
+    r = vvc["reads"]
+    out = {"vvc_hd_item": vvc["hd_item"]["launches"]["planes_ycbcr8_to_rgb"],
+           "vvc grid": r["grid"]["launches"]["planes_ycbcr8_to_rgb"],
+           "vvc tili tiles": sum(t["launches"]["planes_ycbcr8_to_rgb"]
+                                 for t in r["tili"].values())}
+    for coding in ("vvc1", "vvi1"):
+        out[f"vvc {coding} track in order"] = \
+            r[f"track_{coding}"]["launches"]["planes_ycbcr8_to_rgb"]
+    return out
+
+
+def vvc_alone(tally):
+    """Phase 4m alone, on card 0."""
+    return check_vvc(tally), None
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -6484,6 +6845,13 @@ def main():
 
     phase_done("j2k")
 
+    # 4m. VVC: the committed streams, the 1920x1080 vvc1 item (the VVC main
+    # path), a grid, a tili, vvc1 and vvi1 tracks, and three writes through
+    # HeifContext on the card against the JAX writer's files
+    vvc = check_vvc(tally)
+
+    phase_done("vvc")
+
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
                     tile_w=W // TILES, kr=float(KR), kb=float(KB))
@@ -6591,6 +6959,8 @@ def main():
         avc_launches(avc))
     kern["planes_ycbcr8_to_rgb"]["launches_by_path"].update(
         encode_4l_launches(avc_enc, j2k))
+    kern["planes_ycbcr8_to_rgb"]["launches_by_path"].update(
+        vvc_launches(vvc))
     strided_sweep = strided_width_sweep(timer, lay, inplace)
     strided_layouts = strided_layout_timings(timer)
 
@@ -6780,7 +7150,7 @@ def main():
                        "512x512", "launches": j_launches, "parts": j_runs},
         "colour_ops": colour_rows, "metadata_file": metadata,
         "mesh": mesh, "sequences": seq, "encode": enc, "write": wr,
-        "avc": avc, "avc_encode": avc_enc, "j2k": j2k,
+        "avc": avc, "avc_encode": avc_enc, "j2k": j2k, "vvc": vvc,
         "av1_parses": {"streams": len(AV1_PARSES),
                        "ms": sum(AV1_PARSE_MS.values())},
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
@@ -6817,6 +7187,7 @@ if __name__ == "__main__":
              "--sequences-only": ("sequences", sequences_alone),
              "--encode-only": ("encode", encode_alone),
              "--avc-only": ("avc", avc_alone),
-             "--j2k-only": ("j2k", j2k_alone)}
+             "--j2k-only": ("j2k", j2k_alone),
+             "--vvc-only": ("vvc", vvc_alone)}
     alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(run_alone(*alone) if alone else main())

@@ -4,7 +4,7 @@ from .box import (
 )
 from . import meta  # noqa: F401  (registers the item and property boxes)
 from . import unc  # noqa: F401  (registers cmpd/uncC/cmpC/icef)
-from . import codec_cfg  # noqa: F401  (registers hvcC, av1C, jpgC)
+from . import codec_cfg  # noqa: F401  (registers hvcC, av1C, avcC, vvcC, jpgC)
 from . import mini  # noqa: F401  (registers mini)
 from . import tild  # noqa: F401  (registers tilC)
 from . import seq  # noqa: F401  (registers the moov/trak/stbl family)

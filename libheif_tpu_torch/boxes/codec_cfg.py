@@ -1,12 +1,12 @@
-"""The HEVC, AV1, JPEG and AVC codec configuration boxes (hvcC, av1C,
-jpgC, avcC), NAL emulation prevention, and the head of an HEVC SPS that
-fills an encoder's hvcC (``parse_hevc_sps``, ``hvcC_from_sps``).
+"""The HEVC, AV1, JPEG, AVC and VVC codec configuration boxes (hvcC,
+av1C, jpgC, avcC, vvcC), NAL emulation prevention, and the head of an
+HEVC SPS that fills an encoder's hvcC (``parse_hevc_sps``,
+``hvcC_from_sps``).
 
-Counterpart of libheif_tpu/boxes/codec_cfg.py:26-290, :294-345, :360-412
-and :595-607, trimmed to HEVC, AV1, JPEG and AVC (reference:
+Counterpart of libheif_tpu/boxes/codec_cfg.py (reference:
 libheif/codecs/hevc_boxes.{h,cc} Box_hvcC hevc_boxes.h:35,
 avif_boxes.cc:36 Box_av1C, jpeg_boxes.h:32 Box_jpgC, avc_boxes.h:34
-Box_avcC).
+Box_avcC, vvc_boxes.h:32 Box_vvcC).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 from ..core.bitstream import BitReader, ByteReader, ByteWriter
 from ..core.error import HeifError, SubError
 from ..core.limits import SecurityLimits
-from .box import Box, register_box
+from .box import Box, FullBox, register_box
 
 
 @dataclass
@@ -200,6 +200,12 @@ class Box_av1C(Box):
             return 12 if self.twelve_bit else 10
         return 8
 
+    def dump_fields(self) -> List[str]:
+        return [f"seq_profile: {self.seq_profile}, level: {self.seq_level_idx_0}",
+                f"bitdepth: {self.bit_depth}, monochrome: {self.monochrome}, "
+                f"subsampling: {self.chroma_subsampling_x}{self.chroma_subsampling_y}",
+                f"configOBUs: {len(self.config_obus)} bytes"]
+
 
 @register_box("jpgC")
 class Box_jpgC(Box):
@@ -268,6 +274,189 @@ class Box_avcC(Box):
 
     def all_nals(self) -> List[bytes]:
         return list(self.sps_list) + list(self.pps_list)
+
+
+# --------------------------------------------------------------------------
+# vvcC
+# --------------------------------------------------------------------------
+
+@register_box("vvcC")
+class Box_vvcC(FullBox):
+    """VVC decoder configuration record (ref: vvc_boxes.h:32 Box_vvcC,
+    wire layout vvc_boxes.cc Box_vvcC::parse; ISO/IEC 14496-15 §11).
+
+    Carries the VvcPTLRecord plus SPS/PPS/APS NAL arrays, mirroring the
+    hvcC structure with VVC's 6-bit NAL types.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.length_size = 4
+        self.ptl_present = True
+        self.ols_idx = 0
+        self.num_sublayers = 1
+        self.constant_frame_rate = 0
+        self.chroma_format_idc = 1
+        self.bit_depth_minus8 = 0
+        # VvcPTLRecord
+        self.general_profile_idc = 1     # Main 10
+        self.general_tier_flag = 0
+        self.general_level_idc = 51
+        self.ptl_frame_only_constraint = 1
+        self.ptl_multi_layer_enabled = 0
+        self.general_constraint_info = b"\x00"   # >=1 byte required
+        self.sublayer_level_present: List[bool] = []
+        self.sublayer_level_idc: List[int] = []
+        self.sub_profiles: List[int] = []
+        self.max_picture_width = 0
+        self.max_picture_height = 0
+        self.avg_frame_rate = 0
+        # NAL arrays: list of (array_completeness, nal_unit_type, [nals])
+        self.nal_arrays: List[Tuple[int, int, List[bytes]]] = []
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        b = r.read8()
+        self.length_size = ((b >> 1) & 3) + 1
+        self.ptl_present = bool(b & 1)
+        if self.ptl_present:
+            word = r.read16()
+            self.ols_idx = (word >> 7) & 0x1FF
+            self.num_sublayers = (word >> 4) & 0x7
+            self.constant_frame_rate = (word >> 2) & 0x3
+            self.chroma_format_idc = word & 0x3
+            self.bit_depth_minus8 = (r.read8() >> 5) & 0x7
+            num_ci = r.read8() & 0x3F
+            if num_ci == 0:
+                raise HeifError.invalid_input(
+                    SubError.Invalid_parameter_value,
+                    "vvcC with num_bytes_constraint_info==0")
+            b = r.read8()
+            self.general_profile_idc = (b >> 1) & 0x7F
+            self.general_tier_flag = b & 1
+            self.general_level_idc = r.read8()
+            ci = bytearray()
+            for i in range(num_ci):
+                byte = r.read8()
+                if i == 0:
+                    self.ptl_frame_only_constraint = (byte >> 7) & 1
+                    self.ptl_multi_layer_enabled = (byte >> 6) & 1
+                    byte &= 0x3F
+                ci.append(byte)
+            self.general_constraint_info = bytes(ci)
+            self.sublayer_level_present = []
+            if self.num_sublayers > 1:
+                b = r.read8()
+                mask = 0x80
+                flags = [False] * (self.num_sublayers - 1)
+                for i in range(self.num_sublayers - 2, -1, -1):
+                    flags[i] = bool(b & mask)
+                    mask >>= 1
+                self.sublayer_level_present = flags
+            self.sublayer_level_idc = [0] * self.num_sublayers
+            if self.num_sublayers > 0:
+                self.sublayer_level_idc[-1] = self.general_level_idc
+                for i in range(self.num_sublayers - 2, -1, -1):
+                    if i < len(self.sublayer_level_present) and \
+                            self.sublayer_level_present[i]:
+                        self.sublayer_level_idc[i] = r.read8()
+                    else:
+                        self.sublayer_level_idc[i] = \
+                            self.sublayer_level_idc[i + 1]
+            n_sub = r.read8()
+            self.sub_profiles = [r.read32() for _ in range(n_sub)]
+            self.max_picture_width = r.read16()
+            self.max_picture_height = r.read16()
+            self.avg_frame_rate = r.read16()
+        else:
+            raise HeifError.unsupported(
+                SubError.Unsupported_data_version,
+                "vvcC with ptl_present_flag=0 is not supported")
+
+        n_arrays = r.read8()
+        self.nal_arrays = []
+        for _ in range(n_arrays):
+            b = r.read8()
+            completeness = (b >> 7) & 1
+            nal_type = b & 0x3F
+            n_units = r.read16()
+            nals = []
+            for _ in range(n_units):
+                size = r.read16()
+                if size == 0:
+                    continue
+                nals.append(r.read_bytes(size))
+            self.nal_arrays.append((completeness, nal_type, nals))
+
+    def write_payload(self, w: ByteWriter) -> None:
+        self.write_full_header(w)
+        w.write8(0xF8 | ((self.length_size - 1) << 1) |
+                 (1 if self.ptl_present else 0))
+        if self.ptl_present:
+            w.write16(((self.ols_idx & 0x1FF) << 7) |
+                      ((self.num_sublayers & 0x7) << 4) |
+                      ((self.constant_frame_rate & 0x3) << 2) |
+                      (self.chroma_format_idc & 0x3))
+            w.write8((self.bit_depth_minus8 & 0x7) << 5 | 0x1F)
+            ci = self.general_constraint_info or b"\x00"
+            w.write8(len(ci) & 0x3F)
+            w.write8(((self.general_profile_idc & 0x7F) << 1) |
+                     (self.general_tier_flag & 1))
+            w.write8(self.general_level_idc)
+            for i, byte in enumerate(ci):
+                if i == 0:
+                    byte = (byte & 0x3F) | \
+                        ((self.ptl_frame_only_constraint & 1) << 7) | \
+                        ((self.ptl_multi_layer_enabled & 1) << 6)
+                w.write8(byte)
+            if self.num_sublayers > 1:
+                b = 0
+                mask = 0x80
+                for i in range(self.num_sublayers - 2, -1, -1):
+                    if i < len(self.sublayer_level_present) and \
+                            self.sublayer_level_present[i]:
+                        b |= mask
+                    mask >>= 1
+                w.write8(b)
+                for i in range(self.num_sublayers - 2, -1, -1):
+                    if i < len(self.sublayer_level_present) and \
+                            self.sublayer_level_present[i]:
+                        w.write8(self.sublayer_level_idc[i])
+            w.write8(len(self.sub_profiles))
+            for sp in self.sub_profiles:
+                w.write32(sp)
+            w.write16(self.max_picture_width)
+            w.write16(self.max_picture_height)
+            w.write16(self.avg_frame_rate)
+        w.write8(len(self.nal_arrays))
+        for completeness, nal_type, nals in self.nal_arrays:
+            w.write8(((completeness & 1) << 7) | (nal_type & 0x3F))
+            w.write16(len(nals))
+            for nal in nals:
+                w.write16(len(nal))
+                w.write_bytes(nal)
+
+    def get_header_nals(self) -> List[bytes]:
+        out = []
+        for _, _, nals in self.nal_arrays:
+            out.extend(nals)
+        return out
+
+    def add_nal(self, nal: bytes) -> None:
+        """File NAL into its type array (VVC nal type = byte1 >> 3)."""
+        nal_type = (nal[1] >> 3) & 0x1F if len(nal) >= 2 else 0
+        for i, (comp, t, nals) in enumerate(self.nal_arrays):
+            if t == nal_type:
+                nals.append(nal)
+                return
+        self.nal_arrays.append((1, nal_type, [nal]))
+
+    def dump_fields(self) -> List[str]:
+        return [f"profile: {self.general_profile_idc}, "
+                f"level: {self.general_level_idc}, "
+                f"chroma: {self.chroma_format_idc}, "
+                f"depth: {self.bit_depth_minus8 + 8}",
+                f"size: {self.max_picture_width}x{self.max_picture_height}",
+                f"nal arrays: {[(t, len(n)) for _, t, n in self.nal_arrays]}"]
 
 
 def emulation_prevention_positions(nal: bytes) -> List[int]:

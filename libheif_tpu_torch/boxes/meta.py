@@ -4,7 +4,8 @@ Counterpart of libheif_tpu/boxes/meta.py (reference: libheif/box.{h,cc} —
 box.h:401-2039): the file-level boxes (ftyp, meta, hdlr, pitm), the item
 tables (iloc, iinf/infe, iref, idat, dinf/dref/url), the property
 containers (iprp/ipco/ipma) and the properties the decode path reads
-(ispe, pixi, irot, imir, clap, colr, auxC), plus free/skip and mdat.
+(ispe, pixi, irot, imir, clap, colr, auxC) and the HDR metadata that
+``mini`` carries (clli, mdcv), plus free/skip and mdat.
 Every other box parses as :class:`Box_other` and round-trips unchanged.
 Wire formats follow ISO/IEC 14496-12 and ISO/IEC 23008-12.
 """
@@ -716,6 +717,55 @@ class Box_auxC(FullBox):
 
     def dump_fields(self) -> List[str]:
         return [f"aux type: {self.aux_type}"]
+
+
+@register_box("clli")
+class Box_clli(Box):
+    """Content light level (ref: box.cc:2783)."""
+
+    def __init__(self, max_cll: int = 0, max_pall: int = 0):
+        super().__init__()
+        self.max_content_light_level = max_cll
+        self.max_pic_average_light_level = max_pall
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.max_content_light_level = r.read16()
+        self.max_pic_average_light_level = r.read16()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        w.write16(self.max_content_light_level)
+        w.write16(self.max_pic_average_light_level)
+
+    def dump_fields(self) -> List[str]:
+        return [f"max_content_light_level: {self.max_content_light_level}",
+                f"max_pic_average_light_level: {self.max_pic_average_light_level}"]
+
+
+@register_box("mdcv")
+class Box_mdcv(Box):
+    """Mastering display colour volume (ref: box.cc:2827)."""
+
+    def __init__(self):
+        super().__init__()
+        self.display_primaries = [(0, 0), (0, 0), (0, 0)]  # (x,y) per RGB
+        self.white_point = (0, 0)
+        self.max_display_mastering_luminance = 0
+        self.min_display_mastering_luminance = 0
+
+    def parse_payload(self, r: ByteReader, limits: SecurityLimits, depth=0) -> None:
+        self.display_primaries = [(r.read16(), r.read16()) for _ in range(3)]
+        self.white_point = (r.read16(), r.read16())
+        self.max_display_mastering_luminance = r.read32()
+        self.min_display_mastering_luminance = r.read32()
+
+    def write_payload(self, w: ByteWriter) -> None:
+        for x, y in self.display_primaries:
+            w.write16(x)
+            w.write16(y)
+        w.write16(self.white_point[0])
+        w.write16(self.white_point[1])
+        w.write32(self.max_display_mastering_luminance)
+        w.write32(self.min_display_mastering_luminance)
 
 
 # --------------------------------------------------------------------------

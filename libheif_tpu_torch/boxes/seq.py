@@ -318,10 +318,11 @@ class VisualSampleEntry(Box):
                 f"compressor={self.compressor_name!r}"]
 
 
-# avc3 (parameter sets in band) beside the JAX package's list, which
-# leaves it out, so that an avc3 track opens (its track code reads avc3)
-for _fourcc in ("hvc1", "hev1", "av01", "avc1", "avc3", "vvc1", "mjpg",
-                "j2ki", "uncv"):
+# avc3 (parameter sets in band) and vvi1 beside the JAX package's list,
+# which leaves them out, so that such tracks open (its track code reads
+# both)
+for _fourcc in ("hvc1", "hev1", "av01", "avc1", "avc3", "vvc1", "vvi1",
+                "mjpg", "j2ki", "uncv"):
     register_box(_fourcc)(type(f"Box_{_fourcc}", (VisualSampleEntry,), {
         "__init__": (lambda fc: lambda self: VisualSampleEntry.__init__(
             self, fc))(_fourcc)}))

@@ -160,8 +160,8 @@ class ByteReader:
 
 class BitReader:
     """MSB-first bit reader with Exp-Golomb codes (ref: bitstream.h
-    BitReader:408), for the HEVC parameter sets and slice headers and the
-    bit-packed mini box."""
+    BitReader:408), for the HEVC and VVC parameter sets and slice headers
+    and the bit-packed mini box."""
 
     __slots__ = ("_buf", "_bytepos", "_end", "_bitbuf", "_bits")
 
@@ -216,6 +216,11 @@ class BitReader:
 
     def bits_remaining(self) -> int:
         return (self._end - self._bytepos) * 8 + self._bits
+
+    @property
+    def bit_position(self) -> int:
+        """Bits consumed from the start of the buffer."""
+        return self._bytepos * 8 - self._bits
 
     def byte_align(self) -> None:
         self._bits -= self._bits % 8

@@ -6,9 +6,8 @@ libheif/file.cc:257-285 mini write + ftyp adjustment).  When enabled and
 the content fits the compact profile (a single av01/hvc1 primary, an
 optional alpha aux item and Exif/XMP), the file is written as
 ``ftyp('mif3') + mini`` with no meta/mdat; other content is written in
-the normal format.  The port has no ``clli``/``mdcv`` boxes yet (ROADMAP
-queue 1 item 5): a primary item carrying one is written in the normal
-format, where the JAX writer would copy it into the mini box.
+the normal format.  The primary item's ``clli`` and ``mdcv`` go into the
+mini box's HDR fields, as in the JAX writer.
 """
 
 from __future__ import annotations
@@ -43,8 +42,6 @@ def can_convert_to_mini(file) -> Tuple[bool, str]:
         if prop.box_type == "ispe" and \
                 (prop.width > 32768 or prop.height > 32768):
             return False, "dimensions exceed mini box limits"
-        if prop.box_type in ("clli", "mdcv"):
-            return False, f"no {prop.box_type} box in the port yet"
 
     alpha_id = exif_id = xmp_id = 0
     for iid in file.item_ids:
@@ -118,6 +115,15 @@ def build_mini_box(file) -> Optional[Box_mini]:
                 nclx = prop
             elif prop.colour_type in ("prof", "rICC"):
                 icc = prop
+        elif bt == "clli":
+            mini.clli = {"max_cll": prop.max_content_light_level,
+                         "max_pall": prop.max_pic_average_light_level}
+        elif bt == "mdcv":
+            mini.mdcv = {
+                "primaries": list(prop.display_primaries),
+                "white_point": prop.white_point,
+                "max_lum": prop.max_display_mastering_luminance,
+                "min_lum": prop.min_display_mastering_luminance}
 
     if mini.width == 0 or mini.height == 0 or config_box is None:
         return None

@@ -12,12 +12,12 @@ Offsets are relative to the start of the item data, so a single tile of
 a gigapixel image decodes from two small ranged reads (table entry, in
 chunks of entries, and the tile's bytes).  Each tile decodes on the
 context's device: unci tiles through one UnciDecoder kept by the item,
-hvc1, av01, jpeg and avc1 tiles through their item's decoder
+hvc1, av01, jpeg, avc1, j2k1 and vvc1 tiles through their item's decoder
 (``codec_items.CodedImageItem``).  A full-image decode
 is refused, as in the reference.  The write side (JAX :277-357):
 ``add_new_tiled_item`` makes an item with an empty offset table,
 ``add_image_tile`` encodes a tile on the context's device (unci through
-UnciEncoder, hevc, av1 and jpeg through the registry) and appends it,
+UnciEncoder, the coded formats through the registry) and appends it,
 and ``process_before_write`` patches the final table over the first.
 """
 
@@ -43,13 +43,10 @@ TILD_OFFSET_NOT_AVAILABLE = 0
 TILD_OFFSET_SEE_LOWER_RESOLUTION_LAYER = 1
 TILD_OFFSET_NOT_LOADED = 10
 
-# tiles of the codec that the JAX package decodes on the host only and
-# the port does not yet are refused by name
-_UNPORTED_TILES = {"vvc1": "VVC"}
-
 # registry format name of the tiles the port encodes -> infe fourcc
-_FORMAT_TO_FOURCC = {"hevc": "hvc1", "av1": "av01", "jpeg": "jpeg",
-                     "avc": "avc1", "jpeg2000": "j2k1", "unci": "unci"}
+_FORMAT_TO_FOURCC = {"hevc": "hvc1", "av1": "av01", "vvc": "vvc1",
+                     "jpeg": "jpeg", "avc": "avc1", "jpeg2000": "j2k1",
+                     "unci": "unci"}
 _FOURCC_TO_FORMAT = {v: k for k, v in _FORMAT_TO_FOURCC.items()}
 
 # entries to fetch per offset-table read, so remote/streaming access
@@ -267,11 +264,6 @@ class ImageItem_Tiled(ImageItem):
 
         if fourcc == "unci":
             return self._unci_decoder().decode(data)
-        if fourcc in _UNPORTED_TILES:
-            raise HeifError.unsupported(
-                SubError.Unsupported_codec,
-                f"tili tiles of {fourcc!r} ({_UNPORTED_TILES[fourcc]}) are "
-                "not supported by the port yet")
         item_cls = ITEM_REGISTRY.get(fourcc)
         if item_cls is None or not issubclass(item_cls, CodedImageItem):
             raise HeifError.unsupported(

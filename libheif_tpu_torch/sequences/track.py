@@ -18,16 +18,20 @@ JAX package, whose AV1 decoder has no sequence session), ``mjpg``
 through the JPEG decoder, ``avc1``/``avc3`` through the AVC decoder (a
 track with non-sync samples through its sequence session,
 codecs/avc/decoder.py AvcSequenceSession, which takes in-band parameter
-sets too).  ``vvc1``/``vvi1`` and ``j2ki`` raise Unsupported by name.
+sets too), ``vvc1``/``vvi1`` one intra picture a sample through the VVC
+decoder (as the JAX package's ``vvc1`` track; its context opens no
+``vvi1`` track, having no such sample entry).  ``j2ki`` raises
+Unsupported by name.
 
 The write side (JAX track.py:111-146, :624-1015): ``TrackOptions``,
 ``VisualTrackWriter`` (``hvc1`` intra or inter through the registry's
 HEVC encoder and its sequence session, ``avc1`` intra or IPPP through
-the AVC encoder and its session, ``av01``, ``mjpg``, ``uncv`` through
+the AVC encoder and its session, ``av01``, ``vvc1`` (all intra),
+``mjpg``, ``uncv`` through
 UnciEncoder; raw samples, track references, TAI/GIMI aux info through
 ``SampleAuxInfoWriter``, the GIMI track meta) and
 ``MetadataTrackWriter``.  A writer encodes on its context's device;
-``vvc`` and ``j2k`` tracks raise Unsupported by name.  Its
+``j2k`` tracks raise Unsupported by name.  Its
 spans are ``track.write`` (a frame's encode) and
 ``track.write.finalize`` (the trak tree, with the lookahead's last
 frames).
@@ -65,9 +69,9 @@ AUX_TYPE_ALPHA_MPEGB = "urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"
 _ALPHA_AUX_URNS = (AUX_TYPE_ALPHA_HEVC, AUX_TYPE_ALPHA_AVC,
                    AUX_TYPE_ALPHA_MPEGB)
 
-# sample entries the port does not read: VVC (not ported yet) and JPEG
-# 2000 (the JAX package maps ``j2ki`` to a codec with no decoder)
-_UNPORTED_CODINGS = {"vvc1": "VVC", "vvi1": "VVC", "j2ki": "JPEG 2000"}
+# sample entries the port does not read: JPEG 2000 (the JAX package maps
+# ``j2ki`` to a codec with no decoder)
+_UNPORTED_CODINGS = {"j2ki": "JPEG 2000"}
 
 
 @dataclass
@@ -447,6 +451,9 @@ class TrackVisual(Track):
         if self.coding in ("avc1", "avc3"):
             from ..codecs.avc import AvcDecoder
             return AvcDecoder(self.device)
+        if self.coding in ("vvc1", "vvi1"):
+            from ..codecs.vvc import VvcDecoder
+            return VvcDecoder(self.device)
         name = _UNPORTED_CODINGS.get(self.coding)
         raise HeifError.unsupported(
             SubError.Unsupported_codec,
@@ -669,10 +676,9 @@ class TrackOptions:
     inter_frames: object = False
 
 
-# sample entries of codecs the port does not write: VVC (not ported yet)
-# and JPEG 2000 (``j2ki``: the JAX package has no sequence encoder for it
-# and reads no such track)
-_UNPORTED_TRACK_FORMATS = {"vvc": "VVC", "j2k": "JPEG 2000"}
+# sample entries of codecs the port does not write: JPEG 2000 (``j2ki``:
+# the JAX package has no sequence encoder for it and reads no such track)
+_UNPORTED_TRACK_FORMATS = {"j2k": "JPEG 2000"}
 
 
 def _runs(values: List[int]) -> List[Tuple[int, int]]:
@@ -709,7 +715,8 @@ class VisualTrackWriter:
         self.fmt = fmt
         self.device = resolve_device(device)
         self.sample_entry_type = {"hevc": "hvc1", "av1": "av01",
-                                  "avc": "avc1", "jpeg": "mjpg",
+                                  "avc": "avc1", "vvc": "vvc1",
+                                  "jpeg": "mjpg",
                                   "unc": "uncv", "uncv": "uncv"}.get(
                                       fmt, "hvc1")
         self.options = options or TrackOptions(timescale=timescale)

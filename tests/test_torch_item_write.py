@@ -350,5 +350,13 @@ def test_tile_size_refused_as_jax():
 
 
 def test_unported_tile_format_refused_by_name():
-    with pytest.raises(HeifError, match="vvc"):
-        Port.context().add_tiled_image(64, 64, 32, 32, fmt="vvc")
+    """VVC tiles are ported: ``fmt="vvc"`` makes a tili of vvc1 tiles,
+    as in the JAX package.  A format no codec writes is refused naming
+    it."""
+    for pk in (Jax, Port):
+        ctx = pk.context()
+        tid = ctx.add_tiled_image(64, 64, 32, 32, fmt="vvc")
+        assert ctx.file.get_item_type(tid) == "tili"
+        assert ctx.get_item(tid)._tilC.params.compression_format == "vvc1"
+    with pytest.raises(HeifError, match="vvc2"):
+        Port.context().add_tiled_image(64, 64, 32, 32, fmt="vvc2")

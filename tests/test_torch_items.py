@@ -474,9 +474,14 @@ def test_tili_offset_table_is_read_in_chunks():
 
 
 def test_tili_unported_codec_is_named():
-    pctx = HeifContext.read_from_bytes(blob("tili_vvc"), device="cpu")
-    with pytest.raises(HeifError, match="vvc1"):
-        pctx.decode_tile(pctx.primary_item_id, 0, 0)
+    """VVC tiles are ported: a tili whose tilC names vvc1 tiles but
+    carries no vvcC (the unci tili renamed) raises the JAX package's
+    HeifError, No_vvcC_box."""
+    jctx, pctx = _contexts(blob("tili_vvc"))
+    _, err = _raise_both(
+        lambda: jctx.decode_tile(jctx.primary_item_id, 0, 0),
+        lambda: pctx.decode_tile(pctx.primary_item_id, 0, 0))
+    assert err.subcode.name == "No_vvcC_box"
 
 
 def test_item_data_range_matches_jax():

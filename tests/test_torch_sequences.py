@@ -386,13 +386,22 @@ def test_moov_boxes_write_back_unchanged():
 
 
 def test_unported_codings_raise_by_name():
-    """A track of a codec the port does not decode yet (vvc1) raises
-    Unsupported naming it; its tables still read."""
-    ctx, jctx = both(visual_file("vvc", n=1, w=32, h=32))
+    """A track of a codec the port does not decode (j2ki: the JAX package
+    has no decoder for it; here a vvc1 track's sample entry renamed)
+    raises Unsupported naming it; its tables still read.  The vvc1 track
+    itself decodes as in the JAX package."""
+    blob = visual_file("vvc", n=1, w=32, h=32)
+    ctx, jctx = both(blob)
+    assert ctx.tracks[0].coding == "vvc1"
+    assert_same_image(ctx.tracks[0].decode_sample(0),
+                      jctx.tracks[0].decode_sample(0), "vvc1 sample 0")
+    at = blob.index(b"stsd") + 16
+    assert blob[at:at + 4] == b"vvc1"
+    ctx, jctx = both(blob[:at] + b"j2ki" + blob[at + 4:])
     t = ctx.tracks[0]
-    assert t.coding == "vvc1"
+    assert t.coding == "j2ki"
     assert_same_tables(t, jctx.tracks[0])
-    with pytest.raises(HeifError, match="VVC") as e:
+    with pytest.raises(HeifError, match="JPEG 2000") as e:
         t.decode_sample(0)
     assert e.value.code == ErrorCode.Unsupported_feature
 
