@@ -298,6 +298,26 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    tiles, each file the JAX writer's SHA-256 and each picture read back
    equal to its encoder's reconstruction, the walls split by the
    vvc.encode spans; the card's name and power limit beside each time;
+4n. the read side of the C-named API (libheif_tpu_torch/api) on the card,
+   as a user calls it: heif_context_alloc() (the card), heif_context_
+   read_from_memory, heif_context_get_primary_image_handle,
+   heif_decode_image and heif_image_get_plane_readonly on the HEVC photo
+   and the JPEG photo (interleaved RGB) and phase 4b's 4096x4096 unci
+   grid with alpha (interleaved RGBA), with the launch counts read around
+   each decode (hevc_dequant_itx, hevc_intra_wave and
+   planes_ycbcr8_to_rgb once; jpeg_dequant_idct and planes_ycbcr8_to_rgb
+   once; strided_extract_paste 65 times and planes_ycbcr8_to_rgb once;
+   no other kernel), each plane the image's own tensor on the card and
+   equal sample for sample to HeifContext's decode on the card; a small
+   file written by the port's writer on the card (an hvc1 primary with
+   a jpeg thumbnail, unci depth and generic aux images, Exif, XMP, pasp,
+   udes, gimi, and a second image in ster and altr groups) through every
+   read function of the API on a card context and on a CPU context,
+   every answer and every image equal; an image made by
+   heif_image_create(..., device=None) filled through heif_image_get_plane,
+   read back, encoded as unci by the context's encode_image and decoded
+   back through the API, all equal; each wall beside the card's name
+   and power limit;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -363,7 +383,7 @@ phases 4i and 4j and the two encode kernels' rows;
 ``python3 chip_smoke.py --avc-only`` the build, phase 4k and phase 4l's
 AVC encode; ``python3 chip_smoke.py --j2k-only`` the build and phase 4l's
 JPEG 2000 half; ``python3 chip_smoke.py --vvc-only`` the build and phase
-4m.  Each AV1
+4m; ``python3 chip_smoke.py --api-only`` the build and phase 4n.  Each AV1
 stream is parsed once a run (av1_parse_once): the phases decode the same
 committed streams many times over.
 """
@@ -374,6 +394,7 @@ import concurrent.futures
 import contextlib
 import functools
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -385,14 +406,15 @@ import numpy as np
 import torch
 
 from libheif_tpu_torch import (
-    DecodingOptions, EncodingOptions, HeifContext, HeifFile, _build)
+    DecodingOptions, EncodingOptions, HeifContext, HeifFile, _build, api)
 from libheif_tpu_torch import context as context_mod
 from libheif_tpu_torch.boxes import read_all_boxes
 from libheif_tpu_torch.boxes.codec_cfg import (
     Box_av1C, Box_avcC, Box_hvcC, Box_jpgC, Box_vvcC)
 from libheif_tpu_torch.boxes.j2k import Box_cdef, Box_j2kH
 from libheif_tpu_torch.boxes.meta import (
-    Box_auxC, Box_clap, Box_imir, Box_irot, Box_ispe, TaiClockInfo,
+    Box_altr, Box_auxC, Box_clap, Box_gimi_content_id, Box_grpl, Box_imir,
+    Box_irot, Box_ispe, Box_pasp, Box_ster, Box_udes, TaiClockInfo,
     TaiTimestampPacket)
 from libheif_tpu_torch.boxes.tild import Box_tilC, TiledImageParameters
 from libheif_tpu_torch.boxes.unc import (
@@ -6524,6 +6546,314 @@ def vvc_alone(tally):
     return check_vvc(tally), None
 
 
+# ---------------------------------------------------------------------- api
+# Phase 4n: the read side of the C-named API (libheif_tpu_torch/api) on the
+# card, as a user calls it: heif_context_alloc -> heif_context_read_from_
+# memory -> heif_context_get_primary_image_handle -> heif_decode_image ->
+# heif_image_get_plane_readonly.
+
+API_DEPTH_URN = "urn:mpeg:mpegB:cicp:systems:auxiliary:depth"
+API_OTHER_URN = "urn:example:aux:segmentation"
+API_IMAGE = (1024, 768)      # the heif_image_create image
+# the read functions the walk calls with the context, an item id or a
+# handle (and, for two-argument ones, an id), by name prefix
+API_READ_PREFIXES = ("heif_context_get_", "heif_context_is_",
+                     "heif_item_get_", "heif_item_is_",
+                     "heif_image_handle_get_", "heif_image_handle_has_",
+                     "heif_image_handle_is_")
+API_BRAND_READS = ("heif_read_main_brand", "heif_read_minor_version_brand",
+                   "heif_list_compatible_brands", "heif_get_file_mime_type",
+                   "heif_check_filetype", "heif_check_jpeg_filetype",
+                   "heif_main_brand", "heif_has_compatible_filetype")
+
+
+def api_decode(blob, colorspace, chroma, device=None):
+    """The primary image of ``blob`` through the C-named API on ``device``
+    (None: the card)."""
+    ctx = api.heif_context_alloc(device=device)
+    api.heif_context_read_from_memory(ctx, blob)
+    handle = api.heif_context_get_primary_image_handle(ctx)
+    return api.heif_decode_image(handle, colorspace, chroma)
+
+
+def check_api_photo(what, blob, chroma, want, card):
+    """One photo through the API on the card to ``chroma``, the launch
+    counts read around it (``want`` {kernel: launches}, every other
+    kernel none); its plane, read with heif_image_get_plane_readonly, the
+    image's own tensor on the card and equal sample for sample to
+    HeifContext's decode on the card; the wall of that first API decode,
+    then the API's and HeifContext's walls in turns (API, HeifContext,
+    HeifContext, API)."""
+    def context_decode():
+        return HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, chroma)
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        img = api_decode(blob, Colorspace.RGB, chroma)
+    first_ms = ms_since(t0)
+    plane = api.heif_image_get_plane_readonly(img, Channel.Interleaved)
+    assert plane is img.plane(Channel.Interleaved) and \
+        plane.device.type == DEV, what
+    for name in ALL_KERNELS:
+        assert launches[name] == want.get(name, 0), \
+            f"api {what}: {name} launched {launches[name]} times, not " \
+            f"{want.get(name, 0)}"
+    ref = context_decode().plane(Channel.Interleaved)
+    assert plane.shape == ref.shape and plane.dtype == ref.dtype, what
+    n = int((plane != ref).sum())
+    walls = {"api": [], "heif_context": []}
+    for who in ("api", "heif_context", "heif_context", "api"):
+        t0 = time.perf_counter()
+        if who == "api":
+            api_decode(blob, Colorspace.RGB, chroma)
+        else:
+            context_decode()
+        walls[who].append(ms_since(t0))
+    log(f"check api {what:40s} {img.width}x{img.height} {chroma} "
+        f"differing {n} of {plane.numel()} from HeifContext's decode; "
+        f"launches {want}; api first {first_ms:.1f} ms, then api "
+        f"{walls['api']} ms, HeifContext {walls['heif_context']} ms in "
+        f"turns ({card})")
+    assert n == 0, f"api {what}: the API's decode differs from HeifContext's"
+    return {"size": [img.width, img.height], "chroma": chroma,
+            "launches": {k: launches[k] for k in want},
+            "first_ms": first_ms, "api_ms": walls["api"],
+            "heif_context_ms": walls["heif_context"], "card": card}
+
+
+def api_small_file():
+    """A file written by the port's writer on the card: a 256x192 hvc1
+    primary with a jpeg thumbnail, an unci depth image and an unci
+    generic aux image, Exif and XMP, pasp, udes and a gimi content id,
+    and a second (jpeg) image grouped with it by ster and altr."""
+    ctx = HeifContext()
+    ctx.new_file()
+    opts = EncodingOptions(quality=80)
+    primary = ctx.encode_image(sampled_image(256, 192, "420", 7), "hevc",
+                               opts)
+    ctx.set_primary_item(primary)
+    second = ctx.encode_image(sampled_image(256, 192, "420", 8), "jpeg",
+                              opts)
+    ctx.add_thumbnail(primary, sampled_image(64, 48, "420", 9), "jpeg",
+                      opts)
+    f = ctx.file
+    for urn, seed in ((API_DEPTH_URN, 10), (API_OTHER_URN, 11)):
+        aux = ctx.encode_image(sampled_image(256, 192, "mono", seed), "unci")
+        f.add_property(aux, Box_auxC(urn), True)
+        f.add_reference("auxl", aux, [primary])
+        f.get_infe(aux).hidden = True
+    ctx.add_exif(primary, EXIF)
+    ctx.add_xmp(primary, XMP)
+    f.add_property(primary, Box_pasp(4, 3), False)
+    f.add_property(primary, Box_udes("en", "api", "the read-side API",
+                                     "card"), False)
+    f.add_property(primary, Box_gimi_content_id("urn:uuid:api-read"), False)
+    f.grpl = Box_grpl()
+    f.meta.children.append(f.grpl)
+    f.grpl.children += [Box_ster(100, [primary, second]),
+                        Box_altr(101, [second, primary])]
+    return ctx.write()
+
+
+def api_plain(x):
+    """An API answer as plain comparable values (a handle as its item id,
+    a box or other object as its class and public fields)."""
+    if isinstance(x, api.heif_image_handle):
+        return ("handle", x.item_id)
+    if isinstance(x, HeifContext):
+        return "context"
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, (bytes, bytearray, memoryview)):
+        return bytes(x)
+    if isinstance(x, (list, tuple)):
+        return [api_plain(v) for v in x]
+    if isinstance(x, dict):
+        return {k: api_plain(v) for k, v in x.items()}
+    if hasattr(x, "__dict__"):
+        return [type(x).__name__, {k: api_plain(v) for k, v in
+                                   vars(x).items() if not k.startswith("_")}]
+    return repr(x)
+
+
+def api_answer(fn, *args):
+    try:
+        return api_plain(fn(*args))
+    except HeifError as e:
+        return ("HeifError", e.code.name, e.subcode.name)
+
+
+def api_reads(prefixes, n_args):
+    """The API's read functions named with one of ``prefixes`` that take
+    ``n_args`` arguments without defaults."""
+    out = []
+    for name in sorted(dir(api)):
+        fn = getattr(api, name)
+        if not name.startswith(prefixes) or not callable(fn):
+            continue
+        required = [p for p in inspect.signature(fn).parameters.values()
+                    if p.default is inspect.Parameter.empty]
+        if len(required) == n_args:
+            out.append((name, fn))
+    return out
+
+
+def api_walk(blob, device):
+    """Every read function of the API on a context on ``device`` read
+    from ``blob``: {call: answer}, and the images' decodes."""
+    ctx = api.heif_context_alloc(device=device)
+    api.heif_context_read_from_memory(ctx, blob)
+    out = {}
+    for name, fn in api_reads(("heif_context_get_", "heif_context_is_"), 1):
+        out[name] = api_answer(fn, ctx)
+    for name in API_BRAND_READS:
+        out[name] = api_answer(getattr(api, name), blob)
+    out["decoders"] = api.heif_get_decoder_descriptors()
+    item_reads = api_reads(("heif_item_get_", "heif_item_is_",
+                            "heif_context_get_item_references",
+                            "heif_context_is_top_level_image_ID"), 2)
+    handle_reads = api_reads(API_READ_PREFIXES[4:], 1)
+    handle_id_reads = api_reads(API_READ_PREFIXES[4:], 2) + [
+        ("image_handle.heif_image_handle_get_depth_image_handle",
+         api.image_handle.heif_image_handle_get_depth_image_handle)]
+    images = {}
+    for iid in api.heif_context_get_list_of_item_IDs(ctx) + [999]:
+        for name, fn in item_reads:
+            out[(name, iid)] = api_answer(fn, ctx, iid)
+        if not (iid in ctx.items and ctx.items[iid].is_image_item):
+            continue
+        h = api.heif_context_get_image_handle(ctx, iid)
+        for name, fn in handle_reads:
+            out[(name, iid)] = api_answer(fn, h)
+        ids = set(api.heif_image_handle_get_list_of_thumbnail_IDs(h) +
+                  api.heif_image_handle_get_list_of_auxiliary_image_IDs(h) +
+                  api.heif_image_handle_get_list_of_metadata_block_IDs(h) +
+                  [0, 1, 999])
+        for name, fn in handle_id_reads:
+            for i in sorted(ids):
+                out[(name, iid, i)] = api_answer(fn, h, i)
+        try:
+            images[iid] = api.heif_decode_image(h)
+        except HeifError as e:          # Exif, mime: not images
+            images[iid] = ("HeifError", e.code.name, e.subcode.name)
+    return out, images
+
+
+def check_api_walk(card):
+    """The small file's every read answer on a card context equal to a
+    CPU context's, and each of its images decoded through the API on the
+    card equal to the CPU's."""
+    t0 = time.perf_counter()
+    blob = api_small_file()
+    write_ms = ms_since(t0)
+    t0 = time.perf_counter()
+    answers, images = api_walk(blob, None)
+    walk_ms = ms_since(t0)
+    cpu_answers, cpu_images = api_walk(blob, "cpu")
+    differ = [k for k in cpu_answers if answers.get(k) != cpu_answers[k]]
+    assert set(answers) == set(cpu_answers) and not differ, differ[:5]
+    primary = answers["heif_context_get_primary_image_ID"]
+    groups = answers["heif_context_get_entity_groups"]
+    assert [g[1]["entity_group_type"] for g in groups] == ["ster", "altr"]
+    assert answers[("heif_image_handle_get_pixel_aspect_ratio",
+                    primary)] == [True, 4, 3]
+    assert answers[("heif_image_handle_get_exif", primary)] == EXIF
+    assert len(answers[("heif_image_handle_get_list_of_auxiliary_image_IDs",
+                        primary)]) == 2
+    assert answers[("heif_image_handle_get_number_of_depth_images",
+                    primary)] == 1
+    for iid, img in images.items():
+        if isinstance(img, tuple):
+            assert cpu_images[iid] == img, iid
+        else:
+            same_image(f"api small file item {iid}", img, cpu_images[iid])
+    decoded = sum(not isinstance(i, tuple) for i in images.values())
+    assert decoded == 5, decoded
+    log(f"check api walk: {len(answers)} read calls equal on the card and "
+        f"the CPU, {decoded} images decoded equal; the file "
+        f"{len(blob)} B written in {write_ms:.1f} ms, read and walked on "
+        f"the card in {walk_ms:.1f} ms ({card})")
+    return {"file_bytes": len(blob), "read_calls": len(answers),
+            "images": decoded, "write_ms": write_ms,
+            "walk_ms": walk_ms, "card": card}
+
+
+def check_api_image(card):
+    """An image made by heif_image_create on the card, filled through
+    heif_image_get_plane (writes reach the image), read back equal, then
+    encoded as unci through the context's encode_image, written, and read
+    back through the API on the card equal."""
+    w, h = API_IMAGE
+    want = sampled_image(w, h, "420", 12)
+    img = api.heif_image_create(w, h, Colorspace.YCbCr, Chroma.C420)
+    assert img.device.type == DEV
+    for ch in (Channel.Y, Channel.Cb, Channel.Cr):
+        pw, ph = want.plane_size(ch)
+        api.heif_image_add_plane(img, ch, pw, ph, 8)
+        assert api.heif_image_get_plane(img, ch).device.type == DEV
+        api.heif_image_get_plane(img, ch)[:] = want.plane(ch)
+    for ch in (Channel.Y, Channel.Cb, Channel.Cr):
+        assert torch.equal(api.heif_image_get_plane_readonly(img, ch),
+                           want.plane(ch)), f"write through {ch} lost"
+    ctx = api.heif_context_alloc()
+    ctx.new_file()
+    ctx.encode_image(img, "unci")
+    blob = api.heif_context_write(ctx)
+    back = api_decode(blob, Colorspace.Undefined, Chroma.Undefined)
+    for ch in (Channel.Y, Channel.Cb, Channel.Cr):
+        p = api.heif_image_get_plane_readonly(back, ch)
+        assert p.device.type == DEV and torch.equal(p, want.plane(ch)), \
+            f"the unci file's {ch} differs from the image"
+    log(f"check api heif_image_create {w}x{h}: planes written through "
+        f"heif_image_get_plane, read back, encoded as unci ({len(blob)} B) "
+        f"and decoded through the API on the card, all equal ({card})")
+    return {"size": [w, h], "unci_bytes": len(blob)}
+
+
+def check_api(photo, jpeg_photo, unci_grid):
+    """Phase 4n: the HEVC photo, the JPEG photo and the 4096x4096 unci
+    grid with alpha through the API on the card (each equal to
+    HeifContext's decode, with its launch counts), the small file's walk
+    (card against CPU), and an image made by heif_image_create."""
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    photos = {
+        "hevc photo": check_api_photo(
+            "hevc photo", photo, Chroma.InterleavedRGB,
+            {"hevc_dequant_itx": 1, "hevc_intra_wave": 1,
+             "planes_ycbcr8_to_rgb": 1}, card),
+        "jpeg photo": check_api_photo(
+            "jpeg photo", jpeg_photo, Chroma.InterleavedRGB,
+            {"jpeg_dequant_idct": 1, "planes_ycbcr8_to_rgb": 1}, card),
+        "unci grid+alpha": check_api_photo(
+            "unci grid+alpha", unci_grid, Chroma.InterleavedRGBA,
+            {"strided_extract_paste": TILES * TILES + 1,
+             "planes_ycbcr8_to_rgb": 1}, card)}
+    walk = check_api_walk(card)
+    image = check_api_image(card)
+    seconds = time.perf_counter() - t_start
+    log(f"api phase {seconds:.1f} s ({card})")
+    return {"card": card, "photos": photos, "walk": walk, "image": image,
+            "seconds": seconds}
+
+
+def api_launches(api_phase):
+    """{kernel: {path: launches}} of phase 4n's decodes."""
+    out = {}
+    for what, r in api_phase["photos"].items():
+        for name, n in r["launches"].items():
+            out.setdefault(name, {})[f"api {what}"] = n
+    return out
+
+
+def api_alone(tally):
+    """Phase 4n alone, on card 0."""
+    uncC, cmpd, data = flagship_input()
+    return check_api(photo_file(hevc_streams()),
+                     jpeg_photo_file(jpeg_streams()),
+                     grid_file(data, alpha_payload())), None
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -6852,6 +7182,13 @@ def main():
 
     phase_done("vvc")
 
+    # 4n. the read side of the C-named API on the card: the HEVC photo, the
+    # JPEG photo and the unci grid with alpha through heif_decode_image,
+    # the small file's read functions card against CPU, heif_image_create
+    api_phase = check_api(photo, j_photo, blobs["grid"])
+
+    phase_done("api")
+
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
                     tile_w=W // TILES, kr=float(KR), kb=float(KB))
@@ -7085,6 +7422,9 @@ def main():
         timer, tally, enc_luma, mode_search_launches(enc))
     log(f"file single total ms {[r['total_ms'] for r in single_runs]} "
         f"beside the library path {e2e_ms} ms")
+    # launches of phase 4n's decodes through the C-named API, per kernel
+    for name, by_path in api_launches(api_phase).items():
+        kern[name]["api_launches"] = by_path
 
     phase_done("timing")
 
@@ -7151,6 +7491,7 @@ def main():
         "colour_ops": colour_rows, "metadata_file": metadata,
         "mesh": mesh, "sequences": seq, "encode": enc, "write": wr,
         "avc": avc, "avc_encode": avc_enc, "j2k": j2k, "vvc": vvc,
+        "api": api_phase,
         "av1_parses": {"streams": len(AV1_PARSES),
                        "ms": sum(AV1_PARSE_MS.values())},
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
@@ -7188,6 +7529,7 @@ if __name__ == "__main__":
              "--encode-only": ("encode", encode_alone),
              "--avc-only": ("avc", avc_alone),
              "--j2k-only": ("j2k", j2k_alone),
-             "--vvc-only": ("vvc", vvc_alone)}
+             "--vvc-only": ("vvc", vvc_alone),
+             "--api-only": ("api", api_alone)}
     alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(run_alone(*alone) if alone else main())

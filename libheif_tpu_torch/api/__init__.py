@@ -1,0 +1,46 @@
+"""Public API package, read side: the compatibility surface mirroring
+the reference's C headers (ref: libheif/api/libheif/*); counterpart of
+libheif_tpu/api/__init__.py.
+
+Every function keeps its reference C name (`heif_context_read_from_file`
+etc.) and the JAX package's signature, so code written against either
+maps 1:1.  Objects are Python-native (HeifContext, PixelImage, torch
+planes) instead of opaque pointers, and errors raise HeifError instead
+of returning heif_error (see api.error.catching() for C-style capture).
+A context allocated with ``heif_context_alloc(device=None)`` lives on
+the card (it raises without one; pass ``device="cpu"`` for the CPU), and
+the planes that ``heif_decode_image`` gives lie there; the plane
+getters return the image's own tensors (api/image.py).
+
+Module ↔ reference header map (the read side; the JAX package's
+encoding, tiling, uncompressed, experimental, properties, components,
+regions, text, sequences, tai_timestamps, omaf and plugin modules are
+not ported yet):
+  error          heif_error.h            library       heif_library.h
+  context        heif_context.h          image_handle  heif_image_handle.h
+  image          heif_image.h            decoding      heif_decoding.h
+  color          heif_color.h            items         heif_items.h
+  metadata       heif_metadata.h         brands        heif_brands.h
+  security       heif_security.h         aux_images    heif_aux_images.h
+  entity_groups  heif_entity_groups.h
+"""
+
+from .types import ImageTiling, EncodingOptions
+
+from .error import *            # noqa: F401,F403
+from .library import *          # noqa: F401,F403
+from .context import *          # noqa: F401,F403
+from .image_handle import *     # noqa: F401,F403
+from .image import *            # noqa: F401,F403
+from .decoding import *         # noqa: F401,F403
+from .color import *            # noqa: F401,F403
+from .items import *            # noqa: F401,F403
+from .metadata import *         # noqa: F401,F403
+from .brands import *           # noqa: F401,F403
+from .security import *         # noqa: F401,F403
+from .aux_images import *       # noqa: F401,F403
+from .entity_groups import *    # noqa: F401,F403
+
+from ..context import HeifContext  # noqa: F401  (pythonic entry point)
+
+__all__ = ["HeifContext", "ImageTiling", "EncodingOptions"]

@@ -1,6 +1,7 @@
 from .box import (
     Box, FullBox, BoxHeader, Box_other, Box_Error, register_box,
-    read_box, read_all_boxes, BOX_REGISTRY,
+    register_uuid_box, read_box, read_all_boxes, BOX_REGISTRY,
+    UUID_BOX_REGISTRY,
 )
 from . import meta  # noqa: F401  (registers the item and property boxes)
 from . import unc  # noqa: F401  (registers cmpd/uncC/cmpC/icef)
@@ -12,5 +13,6 @@ from . import j2k  # noqa: F401  (registers j2kH, cdef, cmap, pclr, j2kL)
 
 __all__ = [
     "Box", "FullBox", "BoxHeader", "Box_other", "Box_Error",
-    "register_box", "read_box", "read_all_boxes", "BOX_REGISTRY",
+    "register_box", "register_uuid_box", "read_box", "read_all_boxes",
+    "BOX_REGISTRY", "UUID_BOX_REGISTRY",
 ]

@@ -28,6 +28,7 @@ from ..core.limits import SecurityLimits
 MAX_BOX_RECURSION_DEPTH = 20  # ref: box.cc kMaxRecursionDepth
 
 BOX_REGISTRY: Dict[str, Type["Box"]] = {}
+UUID_BOX_REGISTRY: Dict[bytes, Type["Box"]] = {}
 
 
 def register_box(*fourccs: str) -> Callable[[Type["Box"]], Type["Box"]]:
@@ -35,6 +36,15 @@ def register_box(*fourccs: str) -> Callable[[Type["Box"]], Type["Box"]]:
         for fcc in fourccs:
             BOX_REGISTRY[fcc] = cls
         cls.box_type = fourccs[0]
+        return cls
+    return deco
+
+
+def register_uuid_box(uuid: bytes) -> Callable[[Type["Box"]], Type["Box"]]:
+    """Register a 'uuid' extension box by its 16-byte type
+    (ref: Box_gimi_content_id, box.h:1957 set_uuid_type)."""
+    def deco(cls: Type["Box"]) -> Type["Box"]:
+        UUID_BOX_REGISTRY[uuid] = cls
         return cls
     return deco
 
@@ -264,6 +274,8 @@ def read_box(r: ByteReader, limits: SecurityLimits, depth: int = 0) -> Box:
 
     sub = r.sub_reader(payload_size)
     cls = BOX_REGISTRY.get(hdr.type)
+    if hdr.type == "uuid" and hdr.uuid is not None:
+        cls = UUID_BOX_REGISTRY.get(hdr.uuid, cls)
     if cls is None:
         box = Box_other(hdr.type)
         box.uuid = hdr.uuid

@@ -3,8 +3,8 @@ package (libheif_tpu/codecs/j2k/): the marker and packet parse, the
 tier-1 block coders (EBCOT MQ and HT, C++ in host/, built as the
 ``j2k_host`` library) and the numpy wavelets; the planes move between
 the host and the device in one copy each way (codec.py).  Importing the
-package registers the ``jpeg2000`` and ``htj2k`` encoders, as
-libheif_tpu/codecs/j2k/__init__.py:15 does."""
+package registers the ``jpeg2000`` decoder and the ``jpeg2000`` and
+``htj2k`` encoders, as libheif_tpu/codecs/j2k/__init__.py:15 does."""
 
 from .codec import (HTJ2KEncoder_Registry, J2KEncoder_Registry,
                     J2KImageDecoder, register)

@@ -2,9 +2,9 @@
 
 Counterpart of libheif_tpu/codecs/j2k/codec.py (ref: plugins/
 decoder_openjpeg.cc:519, plugins/encoder_openjpeg.cc; jpeg2000_dec.cc
-Decoder_JPEG2000).  The port decodes without a registry, so the decoder
-is a class taking a device, as AvcDecoder is: ``J2KImageDecoder(device)``
-decodes a `j2k1` item or tile on the host and brings its planes to the
+Decoder_JPEG2000).  The decoder is a class taking a device, as AvcDecoder
+is, registered as ``tpu-j2k`` for ``jpeg2000`` (JAX codec.py:26):
+``J2KImageDecoder(device)`` decodes a `j2k1` item or tile on the host and brings its planes to the
 device in one copy (host_copy.device_planes), components of several
 depths included.  The two registry encoders, ``jpeg2000`` and ``htj2k``,
 convert on the image's device where they must (interleaved to RGB 4:4:4;
@@ -27,7 +27,8 @@ from ...core import trace
 from ...core.error import HeifError, SubError
 from ...image.pixel_image import Channel, Chroma, Colorspace, PixelImage
 from ..host_copy import device_planes, host_planes
-from ..registry import Encoder, register_encoder
+from ..registry import (BuiltinDecoder, Encoder, register_decoder,
+                        register_encoder)
 from .decoder import decode_codestream
 from .encoder import encode_codestream
 
@@ -176,5 +177,6 @@ class HTJ2KEncoder_Registry(J2KEncoder_Registry):
 
 
 def register():
+    register_decoder(BuiltinDecoder("tpu-j2k", "jpeg2000", J2KImageDecoder))
     register_encoder(J2KEncoder_Registry())
     register_encoder(HTJ2KEncoder_Registry())

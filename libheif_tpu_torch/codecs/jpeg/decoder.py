@@ -600,7 +600,7 @@ def compose(frames: Sequence[JpegFrame], columns: int, width: int,
     views = []
     with span("grid.compose"):
         for name in names:
-            out.add_plane(name, 8, device=device)
+            out.add_plane(name, bit_depth=8, device=device)
         for idx, frame in enumerate(frames):
             ty, tx = divmod(idx, columns)
             row = []

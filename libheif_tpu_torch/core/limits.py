@@ -36,6 +36,12 @@ class SecurityLimits:
     max_bad_pixels: int = 1000
     max_iso23001_17_pixel_size_bytes: int = 256
 
+    @staticmethod
+    def disabled() -> "SecurityLimits":
+        """All limits off (reference: heif_get_disabled_security_limits)."""
+        return SecurityLimits(
+            **{f: 0 for f in SecurityLimits.__dataclass_fields__})
+
     # -- checks ---------------------------------------------------------
 
     def check_image_size(self, width: int, height: int) -> None:

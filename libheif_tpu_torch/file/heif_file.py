@@ -38,8 +38,8 @@ from ..boxes.box import Box, read_box
 from ..boxes.mini import Box_mini
 from ..boxes.meta import (
     Box_ftyp, Box_meta, Box_hdlr, Box_pitm, Box_iloc, Box_iinf, Box_infe,
-    Box_iprp, Box_ipco, Box_ipma, Box_iref, Box_idat, Box_mdat, IlocItem,
-    IlocExtent,
+    Box_iprp, Box_ipco, Box_ipma, Box_iref, Box_idat, Box_grpl, Box_mdat,
+    IlocItem, IlocExtent,
 )
 from ..io.reader import GrowStatus
 from .file_layout import FileLayout
@@ -74,6 +74,7 @@ class HeifFile:
         self.ipma: Optional[Box_ipma] = None
         self.iref: Optional[Box_iref] = None
         self.idat: Optional[Box_idat] = None
+        self.grpl: Optional[Box_grpl] = None   # entity groups (JAX :66)
 
         self.infe_by_id: Dict[int, Box_infe] = {}
         self._next_item_id = 1
@@ -197,6 +198,7 @@ class HeifFile:
         self.iprp = m.get_child(Box_iprp)
         self.iref = m.get_child(Box_iref)
         self.idat = m.get_child(Box_idat)
+        self.grpl = m.get_child(Box_grpl)
         if self.iprp is not None:
             self.ipco = self.iprp.get_child(Box_ipco)
             self.ipma = self.iprp.get_child(Box_ipma)

@@ -132,7 +132,13 @@ def _moved(fn: Callable[..., torch.Tensor],
     return fn(*(a.view(view) for a in arrays)).contiguous().view(dtype)
 
 
-def _dtype_for(bit_depth: int) -> torch.dtype:
+def _dtype_for(bit_depth: int, datatype: str = "unsigned") -> torch.dtype:
+    """The sample type of a plane (JAX PixelImage._dtype_for)."""
+    if datatype == "float":
+        return torch.float32 if bit_depth <= 32 else torch.float64
+    if datatype == "signed":
+        return torch.int8 if bit_depth <= 8 else (
+            torch.int16 if bit_depth <= 16 else torch.int32)
     return torch.uint8 if bit_depth <= 8 else (
         torch.uint16 if bit_depth <= 16 else torch.uint32)
 
@@ -144,12 +150,16 @@ class PlaneInfo:
 
 
 class PixelImage:
-    """A planar image: named channel → 2-D tensor (+ per-plane bit depth)."""
+    """A planar image: named channel → 2-D tensor (+ per-plane bit depth).
+
+    ``device`` is where ``add_plane`` allocates when it is not given one
+    (``heif_image_create`` records the resolved device here); None leaves
+    the choice to each ``add_plane`` call, whose own None means CUDA."""
 
     def __init__(self, width: int, height: int,
                  colorspace: str = Colorspace.Undefined,
                  chroma: str = Chroma.Undefined,
-                 limits: Optional[SecurityLimits] = None):
+                 limits: Optional[SecurityLimits] = None, device=None):
         self.width = width
         self.height = height
         self.colorspace = colorspace
@@ -164,24 +174,30 @@ class PixelImage:
         # CFA mosaic pattern of a FilterArray image: BayerPattern or None
         # (ref: BayerPattern image_description.h:59, cpat unc_boxes.h)
         self.bayer_pattern: Optional[BayerPattern] = None
+        self.device = device
 
     # ---------------------------------------------------------------- planes
 
-    def add_plane(self, channel: str, bit_depth: int = 8,
-                  device=None) -> None:
-        """Allocate a zeroed plane of the channel's size on ``device``
-        (``None`` means CUDA) under the security budget (ref:
-        HeifPixelImage::add_plane / alloc under memory budget).  Unsigned
-        samples only."""
-        width, height = subsampled_size(self.width, self.height, channel,
-                                        self.chroma)
+    def add_plane(self, channel: str, width: Optional[int] = None,
+                  height: Optional[int] = None, bit_depth: int = 8,
+                  datatype: str = "unsigned", device=None) -> None:
+        """Allocate a zeroed ``width`` x ``height`` plane (the channel's
+        subsampled size where either is None, as in JAX pixel_image.py:
+        168-180) of ``datatype`` samples (unsigned, signed or float) under
+        the security budget (ref: HeifPixelImage::add_plane / alloc under
+        memory budget), on ``device``, else on the image's device, else
+        CUDA."""
+        if width is None or height is None:
+            width, height = subsampled_size(self.width, self.height,
+                                            channel, self.chroma)
         self.limits.check_image_size(width, height)
-        dtype = _dtype_for(bit_depth)
+        dtype = _dtype_for(bit_depth, datatype)
         nbytes = width * height * dtype.itemsize
         self.limits.check_block_size(nbytes, f"plane {channel}")
+        dev = resolve_device(self.device if device is None else device)
         self.planes[channel] = torch.zeros((height, width), dtype=dtype,
-                                           device=resolve_device(device))
-        self.plane_info[channel] = PlaneInfo(bit_depth)
+                                           device=dev)
+        self.plane_info[channel] = PlaneInfo(bit_depth, datatype)
 
     def set_plane(self, channel: str, array: torch.Tensor,
                   bit_depth: Optional[int] = None,
@@ -204,7 +220,14 @@ class PixelImage:
         return self.planes[channel]
 
     def np_plane(self, channel: str) -> np.ndarray:
+        """A host copy of the plane (a copy for a plane on the card:
+        writes into it do not reach the image)."""
         return self.plane(channel).cpu().numpy()
+
+    def plane_size(self, channel: str) -> Tuple[int, int]:
+        """(width, height) of the channel's plane."""
+        h, w = self.plane(channel).shape[:2]
+        return w, h
 
     def bit_depth(self, channel: str) -> int:
         if channel not in self.plane_info:
@@ -326,7 +349,7 @@ class PixelImage:
 
     def _like(self, width: int, height: int) -> "PixelImage":
         out = PixelImage(width, height, self.colorspace, self.chroma,
-                         self.limits)
+                         self.limits, self.device)
         out.premultiplied_alpha = self.premultiplied_alpha
         out.color_profile_nclx = self.color_profile_nclx
         out.color_profile_icc = self.color_profile_icc

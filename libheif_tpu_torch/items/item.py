@@ -59,14 +59,15 @@ class DecodingOptions:
     grid always decodes in batches on the device.  ``mesh``
     (parallel/mesh.py ``make_mesh``) shards an hvc1 grid's tiles over its
     members (parallel/coded_grid.py decode_tiles_device); None decodes
-    them on the context's device.  The JAX ``decoder_id`` (which codec
-    plugin decodes a coded item) waits for a second decoder of one
-    format."""
+    them on the context's device.  ``decoder_id`` pins the codec
+    registry's decoder of a coded item's format (codecs/registry.py); an
+    id that names none raises ``Unsupported_codec``, as in JAX."""
 
     ignore_transformations: bool = False
     convert_hdr_to_8bit: bool = False
     strict_decoding: bool = False
     ignore_aux_alpha: bool = False
+    decoder_id: Optional[str] = None
     # color-conversion options applied to the decoded output
     # (ref: heif_decoding_options.color_conversion_options /
     # heif_color_conversion_options_ext incl. alpha composition)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional, Set
 
+from ..codecs import registry
 from ..color.nclx import NclxProfile
 from ..core.bitstream import ByteReader
 from ..core.error import HeifError, SubError
@@ -70,7 +71,10 @@ class MiniImageItem(ImageItem):
         else:
             config = self.mini.main_item_codec_config
             data = self.mini.main_item_data
-        return codec.decoder_cls(self.ctx.device).decode_single_image(
+        dec = registry.decoder_for(
+            codec.compression_format, options.decoder_id, self.ctx.device,
+            f"no decoder available for mini codec {self.item_type!r}")
+        return dec.decode_single_image(
             _config_box(codec.config_box_cls, config), data,
             declared_size=(self.mini.width, self.mini.height),
             limits=self.ctx.limits)

@@ -269,7 +269,10 @@ class ImageItem_Tiled(ImageItem):
             raise HeifError.unsupported(
                 SubError.Unsupported_codec,
                 f"unsupported tili tile format {fourcc!r}")
-        return item_cls.decoder_cls(self.ctx.device).decode_single_image(
+        dec = registry.decoder_for(
+            item_cls.compression_format,
+            (options or DecodingOptions()).decoder_id, self.ctx.device)
+        return dec.decode_single_image(
             tilC.get_child(item_cls.config_box_cls), data,
             declared_size=(p.tile_width, p.tile_height),
             limits=self.ctx.limits)

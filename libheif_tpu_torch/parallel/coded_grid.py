@@ -39,6 +39,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..boxes.meta import Box_clap, Box_imir, Box_irot, Box_ispe
+from ..codecs import registry
 from ..codecs.av1 import decoder as av1_decoder
 from ..codecs.av1 import device_recon as av1_recon
 from ..codecs.jpeg import decoder as jpeg_decoder
@@ -106,7 +107,8 @@ def try_batched_hevc_grid(grid_item, grid, tile_ids,
                           options) -> Optional[PixelImage]:
     """Batched decode of an all-hvc1 grid, composed on the context's
     device.  Returns None where the batch does not apply (other item
-    types, per-tile transforms or alpha, streams the port refuses, tiles
+    types, a ``decoder_id`` that does not select the built-in decoder,
+    per-tile transforms or alpha, streams the port refuses, tiles
     of different size or depth): the caller then decodes tile by tile.
     Tiles that differ in another field a plan takes batch-wide (CTB size,
     strong smoothing) decode as separate batches.  ``options.mesh``
@@ -114,7 +116,8 @@ def try_batched_hevc_grid(grid_item, grid, tile_ids,
     ctx = grid_item.ctx
     try:
         tiles = [ctx.get_item(tid) for tid in tile_ids]
-        if not all(isinstance(t, ImageItem_HEVC) for t in tiles):
+        if not all(isinstance(t, ImageItem_HEVC) for t in tiles) or \
+                not registry.selects_builtin("hevc", options.decoder_id):
             return None
         for t in tiles:
             if t.init_error is not None or t.alpha_item is not None:
@@ -170,7 +173,8 @@ def paste_tiles(grid, tiles: Sequence[PixelImage], ctx, options
         for idx, tile in enumerate(tiles):
             if not out.planes:
                 for ch in tile.channels():
-                    out.add_plane(ch, tile.bit_depth(ch), device=ctx.device)
+                    out.add_plane(ch, bit_depth=tile.bit_depth(ch),
+                                  device=ctx.device)
             ty, tx = divmod(idx, grid.columns)
             out.copy_into(tile, tx * tw, ty * th)
             if options.on_progress is not None:
@@ -189,14 +193,16 @@ def try_batched_av1_grid(grid_item, grid, tile_ids,
                          options) -> Optional[PixelImage]:
     """Batched decode of an all-av01 grid, composed on the context's
     device.  Returns None where the batch does not apply (other item
-    types, per-tile transforms or alpha, streams the port refuses, tiles
+    types, a ``decoder_id`` that does not select the built-in decoder,
+    per-tile transforms or alpha, streams the port refuses, tiles
     of different size, depth or chroma): the caller then decodes tile by
     tile.  Tiles that differ in another field a plan takes batch-wide
     (the intra edge filter flag) decode as separate batches."""
     ctx = grid_item.ctx
     try:
         tiles = [ctx.get_item(tid) for tid in tile_ids]
-        if not all(isinstance(t, ImageItem_AVIF) for t in tiles):
+        if not all(isinstance(t, ImageItem_AVIF) for t in tiles) or \
+                not registry.selects_builtin("av1", options.decoder_id):
             return None
         for t in tiles:
             if t.init_error is not None or t.alpha_item is not None:
@@ -241,14 +247,16 @@ def try_batched_jpeg_grid(grid_item, grid, tile_ids,
     """Batched decode of an all-jpeg grid on the context's device: the
     tiles scan on a thread pool, then one launch of jpeg_dequant_idct
     writes every tile's planes at its place in the composed planes.
-    Returns None where the batch does not apply (other item types,
-    per-tile transforms or alpha, streams the port refuses, tiles that
+    Returns None where the batch does not apply (other item types, a
+    ``decoder_id`` that does not select the built-in decoder, per-tile
+    transforms or alpha, streams the port refuses, tiles that
     differ in size, sampling or component count, which raise BatchMismatch
     inside): the caller then decodes tile by tile."""
     ctx = grid_item.ctx
     try:
         tiles = [ctx.get_item(tid) for tid in tile_ids]
-        if not all(isinstance(t, ImageItem_JPEG) for t in tiles):
+        if not all(isinstance(t, ImageItem_JPEG) for t in tiles) or \
+                not registry.selects_builtin("jpeg", options.decoder_id):
             return None
         for t in tiles:
             if t.init_error is not None or t.alpha_item is not None:

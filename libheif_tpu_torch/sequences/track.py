@@ -72,6 +72,10 @@ _ALPHA_AUX_URNS = (AUX_TYPE_ALPHA_HEVC, AUX_TYPE_ALPHA_AVC,
 # sample entries the port does not read: JPEG 2000 (the JAX package maps
 # ``j2ki`` to a codec with no decoder)
 _UNPORTED_CODINGS = {"j2ki": "JPEG 2000"}
+# sample entry -> the codec registry's format of its decoder
+_CODING_FORMATS = {"hvc1": "hevc", "hev1": "hevc", "av01": "av1",
+                   "mjpg": "jpeg", "avc1": "avc", "avc3": "avc",
+                   "vvc1": "vvc", "vvi1": "vvc"}
 
 
 @dataclass
@@ -438,22 +442,11 @@ class TrackVisual(Track):
         return None
 
     def _decoder(self):
-        """The decoder of this track's coding, on the track's device."""
-        if self.coding in ("hvc1", "hev1"):
-            from ..codecs.hevc import HevcDecoder
-            return HevcDecoder(self.device)
-        if self.coding == "av01":
-            from ..codecs.av1 import Av1Decoder
-            return Av1Decoder(self.device)
-        if self.coding == "mjpg":
-            from ..codecs.jpeg import JpegDecoder
-            return JpegDecoder(self.device)
-        if self.coding in ("avc1", "avc3"):
-            from ..codecs.avc import AvcDecoder
-            return AvcDecoder(self.device)
-        if self.coding in ("vvc1", "vvi1"):
-            from ..codecs.vvc import VvcDecoder
-            return VvcDecoder(self.device)
+        """The registry's decoder of this track's coding, on the track's
+        device (JAX track.py:477 looks it up without an id)."""
+        fmt = _CODING_FORMATS.get(self.coding)
+        if fmt is not None:
+            return registry.decoder_for(fmt, None, self.device)
         name = _UNPORTED_CODINGS.get(self.coding)
         raise HeifError.unsupported(
             SubError.Unsupported_codec,
