@@ -318,6 +318,35 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    read back, encoded as unci by the context's encode_image and decoded
    back through the API, all equal; each wall beside the card's name
    and power limit;
+4o. the write side of the C-named API on the card, each step on a
+   context from heif_context_alloc() with its launch counts asserted:
+   (a) the HEVC photo through heif_context_encode_image and
+   heif_context_encode_thumbnail (256 box) with the jpeg encoder at
+   quality 90 (jpeg_fdct_quant twice); (b) heif_context_encode_grid of
+   its 6x8 tiles of 512x512 as jpeg tiles (jpeg_fdct_quant 48 times),
+   read back through heif_decode_image to interleaved RGB
+   (jpeg_dequant_idct and planes_ycbcr8_to_rgb once) equal to
+   HeifContext's decode; (c) heif_context_add_empty_unci_image of
+   4096x4096 in 512x512 tiles filled by 64 heif_context_add_image_tile
+   calls with the flagship's planes, read back (strided_extract_paste 64
+   times) equal to them; each file of (a)-(c) and (g) the JAX writer's
+   SHA-256 (testdata/api/manifest.json, tests/api_writes.py); (d)
+   heif_image_handle_decode_image_tile of the HEVC photo's tiles (0, 0)
+   and (7, 5) to interleaved RGB (the HEVC kernels and
+   planes_ycbcr8_to_rgb once each), equal to the whole decode's crop; (e)
+   heif_image_add_component of the twelve datatypes at 4032x3024 on the
+   card, each written whole and read back through its typed getter (the
+   same tensor), and an inline mask region packed from the photo's luma
+   on the card and unpacked by heif_region_get_mask_image onto it; (f) a
+   .py plugin taking the jpeg format (priority 1000, numpy planes)
+   serving the JPEG photo tile by tile (48 calls) equal to the built-in
+   decode after heif_unload_plugin (jpeg_dequant_idct once), and
+   bindings/c/example_plugin.c built with cc, loaded, the photo's luma
+   round-tripped through it onto the card; (g) a QCIF ipp hevc track
+   through heif_context_add_visual_sequence_track and
+   heif_track_encode_sequence_image, read back with
+   heif_track_decode_next_image equal to HeifContext's track decode;
+   each step's wall beside the card's name and power limit;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -383,7 +412,8 @@ phases 4i and 4j and the two encode kernels' rows;
 ``python3 chip_smoke.py --avc-only`` the build, phase 4k and phase 4l's
 AVC encode; ``python3 chip_smoke.py --j2k-only`` the build and phase 4l's
 JPEG 2000 half; ``python3 chip_smoke.py --vvc-only`` the build and phase
-4m; ``python3 chip_smoke.py --api-only`` the build and phase 4n.  Each AV1
+4m; ``python3 chip_smoke.py --api-only`` the build and phase 4n;
+``python3 chip_smoke.py --api-write-only`` the build and phase 4o.  Each AV1
 stream is parsed once a run (av1_parse_once): the phases decode the same
 committed streams many times over.
 """
@@ -436,7 +466,7 @@ from libheif_tpu_torch.codecs.hevc import device_recon
 from libheif_tpu_torch.codecs.hevc import encoder as hevc_encoder
 from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
 from libheif_tpu_torch.codecs.hevc import inter_cases
-from libheif_tpu_torch.codecs import kernel_timing
+from libheif_tpu_torch.codecs import kernel_timing, registry
 from libheif_tpu_torch.codecs.j2k import native as j2k_native
 from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
 from libheif_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
@@ -6594,10 +6624,7 @@ def check_api_photo(what, blob, chroma, want, card):
     plane = api.heif_image_get_plane_readonly(img, Channel.Interleaved)
     assert plane is img.plane(Channel.Interleaved) and \
         plane.device.type == DEV, what
-    for name in ALL_KERNELS:
-        assert launches[name] == want.get(name, 0), \
-            f"api {what}: {name} launched {launches[name]} times, not " \
-            f"{want.get(name, 0)}"
+    only_launches(f"api {what}", launches, want)
     ref = context_decode().plane(Channel.Interleaved)
     assert plane.shape == ref.shape and plane.dtype == ref.dtype, what
     n = int((plane != ref).sum())
@@ -6852,6 +6879,471 @@ def api_alone(tally):
     return check_api(photo_file(hevc_streams()),
                      jpeg_photo_file(jpeg_streams()),
                      grid_file(data, alpha_payload())), None
+
+
+# ---------------------------------------------------------------- api write
+# Phase 4o: the write side of the C-named API on the card: encoding,
+# tiling, unci, components, regions, plugins and sequences as a user calls
+# them, each file against the JAX writer's SHA-256.
+
+API_MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "libheif_tpu_torch", "testdata", "api",
+                            "manifest.json")
+API_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "libheif_tpu_torch")
+API_QUALITY = 90
+API_THUMB_BOX = 256
+API_SEQUENCE = (176, 144, 3, 25)     # QCIF, frames, panning_scene seed
+# heif_image_add_component's twelve (datatype, bits), the typed getter's
+# suffix and the torch dtype
+API_COMPONENTS = (
+    ("unsigned", 8, "uint8", torch.uint8),
+    ("unsigned", 16, "uint16", torch.uint16),
+    ("unsigned", 32, "uint32", torch.uint32),
+    ("unsigned", 64, "uint64", torch.uint64),
+    ("signed", 8, "int8", torch.int8), ("signed", 16, "int16", torch.int16),
+    ("signed", 32, "int32", torch.int32), ("signed", 64, "int64", torch.int64),
+    ("float", 32, "float32", torch.float32),
+    ("float", 64, "float64", torch.float64),
+    ("complex", 32, "complex32", torch.complex64),
+    ("complex", 64, "complex64", torch.complex128))
+# a plugin that takes over the jpeg format: the built-in decoder on the
+# CPU, its planes handed back as numpy arrays, its calls counted
+API_JPEG_PLUGIN = '''
+from libheif_tpu_torch.codecs import registry
+
+CALLS = [0]
+
+
+class CountingJpeg(registry.Decoder):
+    id = "counting-jpeg"
+    format = "jpeg"
+    priority = 1000
+
+    def decode_single_image(self, config_box, data, declared_size=None,
+                            limits=None):
+        CALLS[0] += 1
+        img = registry.get_decoder("jpeg", "tpu-jpeg").on_device(
+            "cpu").decode_single_image(config_box, data, declared_size,
+                                       limits)
+        img.planes = {ch: p.numpy() for ch, p in img.planes.items()}
+        return img
+
+
+def register():
+    registry.register_decoder(CountingJpeg())
+'''
+
+
+def api_image(planes, space=Colorspace.YCbCr, chroma=Chroma.C420):
+    """An image made through the API on the card from {channel: tensor
+    on the card}, 8-bit: heif_image_create, heif_image_add_plane, each
+    plane written through heif_image_get_plane."""
+    main = planes.get(Channel.Y, next(iter(planes.values())))
+    img = api.heif_image_create(main.shape[1], main.shape[0], space, chroma)
+    for ch, p in planes.items():
+        api.heif_image_add_plane(img, ch, p.shape[1], p.shape[0], 8)
+        api.heif_image_get_plane(img, ch).copy_(p)
+    return img
+
+
+def only_launches(what, launches, want):
+    """``launches`` (from launch_counts) hold ``want`` {kernel: launches}
+    and no launch of another kernel."""
+    for name in ALL_KERNELS:
+        assert launches[name] == want.get(name, 0), \
+            f"{what}: {name} launched {launches[name]} times, not " \
+            f"{want.get(name, 0)}"
+    return {k: launches[k] for k in want}
+
+
+def planes_equal(what, got, want):
+    """{channel: tensor} planes on the card, sample for sample."""
+    for ch, p in want.items():
+        g = got.plane(ch)
+        assert g.device.type == DEV, f"{what} {ch} not on the card"
+        assert g.shape == p.shape and torch.equal(g, p), \
+            f"{what}: {ch} differs"
+
+
+def check_api_encode_photo(planes, man):
+    """(a) The photo through heif_context_encode_image and
+    heif_context_encode_thumbnail with the jpeg encoder at quality 90:
+    one jpeg_fdct_quant launch each."""
+    def build():
+        ctx = api.heif_context_alloc()
+        enc = api.heif_context_get_encoder_for_format(ctx, "jpeg")
+        api.heif_encoder_set_lossy_quality(enc, API_QUALITY)
+        img = api_image(planes)
+        h = api.heif_context_encode_image(ctx, img, enc)
+        api.heif_context_encode_thumbnail(ctx, img, h, enc, None,
+                                          API_THUMB_BOX)
+        return api.heif_context_write(ctx)
+    blob, launches, _, wall = card_write("api photo", build,
+                                         man["files"]["photo"]["sha256"])
+    ms = wall["card_ms"]
+    return {"bytes": len(blob), "ms": ms, "launches": only_launches(
+        "api write photo", launches, {"jpeg_fdct_quant": 2})}
+
+
+def check_api_encode_grid(tiles, man):
+    """(b) heif_context_encode_grid of the photo's 6x8 tiles as jpeg
+    tiles (one jpeg_fdct_quant launch a tile), read back through
+    heif_decode_image to interleaved RGB (one jpeg_dequant_idct launch for
+    the grid, one planes_ycbcr8_to_rgb) equal to HeifContext's decode."""
+    imgs = [api_image(t) for t in tiles]
+
+    def build():
+        ctx = api.heif_context_alloc()
+        enc = api.heif_context_get_encoder_for_format(ctx, "jpeg")
+        h = api.heif_context_encode_grid(
+            ctx, [imgs[i % 4] for i in range(48)], 6, 8, enc.impl,
+            EncodingOptions(quality=API_QUALITY))
+        api.heif_context_set_primary_image(ctx, h)
+        return api.heif_context_write(ctx)
+    blob, launches, _, wall = card_write("api grid", build,
+                                         man["files"]["grid"]["sha256"])
+    ms = wall["card_ms"]
+    out = {"bytes": len(blob), "ms": ms, "launches": only_launches(
+        "api write grid", launches, {"jpeg_fdct_quant": 48})}
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        img = api_decode(blob, Colorspace.RGB, Chroma.InterleavedRGB)
+    out["read_ms"] = ms_since(t0)
+    out["read_launches"] = only_launches(
+        "api grid read", launches,
+        {"jpeg_dequant_idct": 1, "planes_ycbcr8_to_rgb": 1})
+    ref = HeifContext.read_from_bytes(blob).decode_image(
+        None, Colorspace.RGB, Chroma.InterleavedRGB)
+    assert (img.width, img.height) == (4096, 3072)
+    planes_equal("api grid read", img, {Channel.Interleaved: ref.plane(
+        Channel.Interleaved)})
+    return out
+
+
+def check_api_unci(man):
+    """(c) heif_context_add_empty_unci_image of 4096x4096 in 512x512
+    tiles, 64 heif_context_add_image_tile calls with the flagship's
+    planes (no kernel launch: the tiles are packed by torch ops), read
+    back tile by tile through heif_image_handle_decode_image_tile (a tili
+    image is read per tile only; one strided_extract_paste a tile), each
+    tile equal to the input's.  The item holds 65 iloc extents (the tiled
+    header and one a tile), above the default security limit of 32: the
+    reading context raises it, as a reader of the JAX writer's file
+    must."""
+    _, _, data = flagship_input()
+    t = W // TILES
+    full = {ch: torch.from_numpy(np.ascontiguousarray(p)).to(DEV)
+            for ch, p in zip(YCC, np_planes(data, TILES, t, t))}
+
+    def tile(tx, ty):
+        return {ch: p[ty * s:(ty + 1) * s, tx * s:(tx + 1) * s]
+                for ch, p in full.items()
+                for s in ((t if ch == Channel.Y else t // 2),)}
+
+    def build():
+        ctx = api.heif_context_alloc()
+        p = api.heif_unci_image_parameters_alloc()
+        p.image_width, p.image_height = W, H
+        p.tile_width = p.tile_height = t
+        h = api.heif_context_add_empty_unci_image(ctx, p)
+        for ty in range(TILES):
+            for tx in range(TILES):
+                api.heif_context_add_image_tile(ctx, h, tx, ty,
+                                                api_image(tile(tx, ty)), None)
+        return api.heif_context_write(ctx)
+    blob, launches, _, wall = card_write("api unci", build,
+                                         man["files"]["unci"]["sha256"])
+    ms = wall["card_ms"]
+    out = {"bytes": len(blob), "ms": ms, "launches": only_launches(
+        "api write unci", launches, {})}
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        ctx = api.heif_context_alloc()
+        api.heif_context_get_security_limits(ctx) \
+            .max_iloc_extents_per_item = TILES * TILES + 1
+        api.heif_context_read_from_memory(ctx, blob)
+        h = api.heif_context_get_primary_image_handle(ctx)
+        got = {(tx, ty): api.heif_image_handle_decode_image_tile(
+            h, "undefined", "undefined", None, tx, ty)
+            for ty in range(TILES) for tx in range(TILES)}
+    out["read_ms"] = ms_since(t0)
+    out["read_launches"] = only_launches(
+        "api unci read", launches, {"strided_extract_paste": TILES * TILES})
+    for (tx, ty), img in got.items():
+        planes_equal(f"api unci tile ({tx}, {ty})", img, tile(tx, ty))
+    return out
+
+
+def check_api_tiles(photo, planes):
+    """(d) heif_image_handle_decode_image_tile of the HEVC photo's tiles
+    (0, 0) and (7, 5) to interleaved RGB (one launch of each HEVC kernel
+    and of planes_ycbcr8_to_rgb a tile): the tile's YCbCr equal to the
+    whole decode's crop where they overlap, its RGB to the conversion of
+    that YCbCr."""
+    ctx = api.heif_context_alloc()
+    api.heif_context_read_from_memory(ctx, photo)
+    h = api.heif_context_get_primary_image_handle(ctx)
+    tiling = api.heif_image_handle_get_image_tiling(h)
+    assert (tiling.num_columns, tiling.num_rows, tiling.tile_width) == \
+        (PHOTO_GRID[1], PHOTO_GRID[0], 512)
+    out = {}
+    for tx, ty in ((0, 0), (7, 5)):
+        t0 = time.perf_counter()
+        with launch_counts() as launches:
+            rgb = api.heif_image_handle_decode_image_tile(
+                h, Colorspace.RGB, Chroma.InterleavedRGB, None, tx, ty)
+        ms = ms_since(t0)
+        counts = only_launches(
+            f"api tile ({tx}, {ty})", launches,
+            {"hevc_dequant_itx": 1, "hevc_intra_wave": 1,
+             "planes_ycbcr8_to_rgb": 1})
+        ycc = api.heif_image_handle_decode_image_tile(
+            h, "undefined", "undefined", None, tx, ty)
+        for ch in YCC:
+            s = 1 if ch == Channel.Y else 2
+            p = ycc.plane(ch)
+            whole = planes[ch][ty * 512 // s:, tx * 512 // s:]
+            ph, pw = min(p.shape[0], whole.shape[0]), \
+                min(p.shape[1], whole.shape[1])
+            assert torch.equal(p[:ph, :pw], whole[:ph, :pw]), \
+                f"tile ({tx}, {ty}) {ch} differs from the whole decode"
+        want = convert_image(ycc, Colorspace.RGB, Chroma.InterleavedRGB)
+        planes_equal(f"api tile ({tx}, {ty}) RGB", rgb, {
+            Channel.Interleaved: want.plane(Channel.Interleaved)})
+        out[f"{tx},{ty}"] = {"ms": ms, "launches": counts}
+        log(f"check api tile ({tx}, {ty}): {rgb.width}x{rgb.height} RGB "
+            f"equal to the whole decode's crop in {ms:.1f} ms; {counts}")
+    return out
+
+
+def check_api_components(planes):
+    """(e) One heif_image_add_component of each datatype at the photo's
+    size on the card, written whole from the host and read back through
+    its typed getter (the same tensor); an inline mask region made from
+    the photo's luma and unpacked by heif_region_get_mask_image on the
+    card."""
+    w, h = PHOTO
+    img = api.heif_image_create(w, h, Colorspace.YCbCr, Chroma.C420)
+    base = np.arange(w * h, dtype=np.int64).reshape(h, w) % 251
+    t0 = time.perf_counter()
+    for cid, (datatype, bits, suffix, dtype) in enumerate(API_COMPONENTS):
+        a = api.heif_image_add_component(img, cid, "custom", datatype, bits,
+                                         w, h)
+        assert a.device.type == DEV and a.dtype == dtype and \
+            a.shape == (h, w), (suffix, a.dtype, a.device)
+        assert int(torch.count_nonzero(a.view(torch.uint8))) == 0, suffix
+        host = torch.from_numpy(base).to(dtype) if not dtype.is_complex \
+            else torch.complex(torch.from_numpy(base).to(
+                torch.float64), -torch.from_numpy(base).to(
+                    torch.float64)).to(dtype)
+        a.copy_(host)
+        got = getattr(api, f"heif_image_get_component_{suffix}")(img, cid)
+        assert got is a and getattr(
+            api, f"heif_image_get_component_{suffix}_readonly")(img, cid) \
+            is a, suffix
+        assert torch.equal(got.cpu().view(torch.uint8),
+                           host.view(torch.uint8)), suffix
+        assert api.heif_image_get_component_datatype(img, cid) == datatype
+        assert api.heif_image_get_component_bits_per_pixel(img, cid) == bits
+    try:
+        api.heif_image_get_component_uint8(img, 1)
+        raise AssertionError("a uint16 component read as uint8")
+    except HeifError:
+        pass
+    comp_ms = ms_since(t0)
+    del img
+    ctx = api.heif_context_alloc()
+    enc = api.heif_context_get_encoder_for_format(ctx, "jpeg")
+    handle = api.heif_context_encode_image(
+        ctx, sampled_image(64, 48, "420", 13), enc)
+    ri = api.heif_image_handle_add_region_item(handle, w, h)
+    mask = api_image({Channel.Y: planes[Channel.Y]}, Colorspace.Monochrome,
+                     Chroma.Monochrome)
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        region = api.heif_region_item_add_region_inline_mask(
+            ri, 0, 0, w, h, mask)
+        x, y, mw, mh, out = api.heif_region_get_mask_image(region)
+    mask_ms = ms_since(t0)
+    only_launches("api inline mask", launches, {})
+    assert (x, y, mw, mh) == (0, 0, w, h) and len(region.mask_data) == \
+        w * h // 8
+    want = ((planes[Channel.Y] >> 7) * 255).to(torch.uint8)
+    planes_equal("api inline mask", out, {Channel.Y: want})
+    log(f"check api components: {len(API_COMPONENTS)} datatypes at {w}x{h} "
+        f"on the card in {comp_ms:.1f} ms; inline mask packed and unpacked "
+        f"on the card in {mask_ms:.1f} ms")
+    return {"components": len(API_COMPONENTS), "components_ms": comp_ms,
+            "mask_ms": mask_ms}
+
+
+def check_api_plugins(jpeg_photo, planes):
+    """(f) A .py plugin that takes the jpeg format (priority 1000) serving
+    the JPEG photo through heif_decode_image tile by tile, its numpy planes
+    moved to the card, equal to the built-in decode after
+    heif_unload_plugin (one jpeg_dequant_idct launch); then
+    bindings/c/example_plugin.c built with cc and loaded, the photo's luma
+    through its encoder and decoder onto the card."""
+    os.makedirs(API_BUILD, exist_ok=True)
+    path = os.path.join(API_BUILD, "api_counting_jpeg_plugin.py")
+    with open(path, "w") as f:
+        f.write(API_JPEG_PLUGIN)
+    handle = api.heif_load_plugin(path)
+    assert [d.id for d in handle.decoders] == ["counting-jpeg"]
+    t0 = time.perf_counter()
+    try:
+        with launch_counts() as launches:
+            img = api_decode(jpeg_photo, Colorspace.RGB, Chroma.InterleavedRGB)
+        calls = handle.module.CALLS[0]
+    finally:
+        api.heif_unload_plugin(handle)
+    plugin_ms = ms_since(t0)
+    assert calls == PHOTO_GRID[0] * PHOTO_GRID[1], calls
+    plugin_launches = only_launches("api jpeg plugin", launches,
+                                    {"planes_ycbcr8_to_rgb": 1})
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        ref = api_decode(jpeg_photo, Colorspace.RGB, Chroma.InterleavedRGB)
+    builtin_ms = ms_since(t0)
+    builtin_launches = only_launches(
+        "api jpeg after unload", launches,
+        {"jpeg_dequant_idct": 1, "planes_ycbcr8_to_rgb": 1})
+    planes_equal("api jpeg plugin", img, {Channel.Interleaved: ref.plane(
+        Channel.Interleaved)})
+
+    so = os.path.join(API_BUILD, "grayraw_plugin.so")
+    cdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bindings", "c")
+    t0 = time.perf_counter()
+    subprocess.run(["cc", "-shared", "-fPIC", "-O2",
+                    os.path.join(cdir, "example_plugin.c"), f"-I{cdir}",
+                    "-o", so], check=True, capture_output=True)
+    cc_ms = ms_since(t0)
+    native = api.heif_load_plugin(so)
+    try:
+        luma = planes[Channel.Y]
+        t0 = time.perf_counter()
+        data, _, _ = registry.get_encoder("grayraw").encode_single_image(
+            api_image({Channel.Y: luma}, Colorspace.Monochrome,
+                      Chroma.Monochrome))
+        back = registry.decoder_for("grayraw", None, None) \
+            .decode_single_image(None, data)
+        native_ms = ms_since(t0)
+    finally:
+        api.heif_unload_plugin(native)
+    assert not registry.have_decoder("grayraw")
+    planes_equal("api grayraw plugin", back, {Channel.Y: luma})
+    log(f"check api plugins: {calls} calls of the jpeg plugin, decode "
+        f"{plugin_ms:.1f} ms (built-in {builtin_ms:.1f} ms), equal; "
+        f"grayraw .so built in {cc_ms:.1f} ms, {len(data)} B round trip "
+        f"of the luma in {native_ms:.1f} ms, equal on the card")
+    return {"plugin_calls": calls, "plugin_ms": plugin_ms,
+            "plugin_launches": plugin_launches, "builtin_ms": builtin_ms,
+            "builtin_launches": builtin_launches, "cc_ms": cc_ms,
+            "native_ms": native_ms}
+
+
+def check_api_sequence(man):
+    """(g) A QCIF ipp hevc track through heif_context_add_visual_sequence_
+    track and heif_track_encode_sequence_image (the encoder's references
+    decoded on the card: hevc_inter_pred once a P picture, hevc_intra_wave
+    once for the IDR), then read back with heif_track_decode_next_image
+    equal to HeifContext's track decode, the same launches."""
+    w, h, n, seed = API_SEQUENCE
+    frames = [api_image({c: torch.from_numpy(p).to(DEV)
+                         for c, p in zip(YCC, f)})
+              for f in inter_cases.panning_scene(w, h, n, seed)]
+
+    def build():
+        ctx = api.heif_context_alloc()
+        tw = api.heif_context_add_visual_sequence_track(
+            ctx, w, h, "vide", "hevc",
+            TrackOptions(timescale=30, inter_frames="ipp"))
+        for img in frames:
+            api.heif_track_encode_sequence_image(tw, img)
+        api.heif_track_encode_end_of_sequence(tw)
+        return api.heif_context_write(ctx)
+    blob, launches, _, wall = card_write("api sequence", build,
+                                         man["files"]["sequence"]["sha256"])
+    ms = wall["card_ms"]
+    itx = launches["hevc_dequant_itx"]
+    assert 1 <= itx <= n, launches
+    want = {"hevc_inter_pred": n - 1, "hevc_intra_wave": 1,
+            "hevc_dequant_itx": itx}
+    out = {"bytes": len(blob), "ms": ms,
+           "launches": only_launches("api write sequence", launches, want)}
+    ctx = api.heif_context_alloc()
+    api.heif_context_read_from_memory(ctx, blob)
+    track = api.heif_context_get_track(ctx, 0)
+    ref = HeifContext.read_from_bytes(blob).tracks[0]
+    t0 = time.perf_counter()
+    with launch_counts() as launches:
+        got = [api.heif_track_decode_next_image(track) for _ in range(n)]
+    out["read_ms"] = ms_since(t0)
+    out["read_launches"] = only_launches("api sequence read", launches,
+                                         want)
+    for i, img in enumerate(got):
+        r = ref.decode_next_image()
+        planes_equal(f"api sequence frame {i}", img,
+                     {ch: r.plane(ch) for ch in YCC})
+    return out
+
+
+def check_api_write(photo, jpeg_photo):
+    """Phase 4o: the write side of the C-named API on the card, steps (a)
+    to (g) above, each against the JAX writer's SHA-256 (testdata/api/
+    manifest.json, tests/api_writes.py) or its reference on the card,
+    with its launch counts."""
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    man = read_manifest(API_MANIFEST)
+    steps, walls = {}, {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        steps[name] = fn(*args)
+        walls[name] = time.perf_counter() - t0
+    img = HeifContext.read_from_bytes(photo).decode_image(None)
+    assert (img.width, img.height, img.chroma) == (*PHOTO, Chroma.C420)
+    planes = {ch: img.plane(ch) for ch in YCC}
+    tiles = [{ch: p[:512 // s, 512 * i // s:512 * (i + 1) // s]
+              for ch, p in planes.items()
+              for s in ((1 if ch == Channel.Y else 2),)} for i in range(4)]
+    walls["photo_decode"] = time.perf_counter() - t_start
+    step("photo", check_api_encode_photo, planes, man)
+    step("grid", check_api_encode_grid, tiles, man)
+    step("unci", check_api_unci, man)
+    step("tiles", check_api_tiles, photo, planes)
+    step("components", check_api_components, planes)
+    step("plugins", check_api_plugins, jpeg_photo, planes)
+    step("sequence", check_api_sequence, man)
+    seconds = time.perf_counter() - t_start
+    log(f"phase 4o steps (s) {json.dumps(walls)} ({card})")
+    log(f"api write phase {seconds:.1f} s ({card})")
+    return {"card": card, "steps": steps, "step_seconds": walls,
+            "seconds": seconds}
+
+
+def api_write_launches(api_write_phase):
+    """{kernel: {path: launches}} of phase 4o's writes and reads."""
+    out = {}
+    for what, r in api_write_phase["steps"].items():
+        for key in ("launches", "read_launches", "plugin_launches",
+                    "builtin_launches"):
+            for name, n in r.get(key, {}).items():
+                out.setdefault(name, {})[f"api {what} {key}"] = n
+        if what == "tiles":
+            for at, t in r.items():
+                for name, n in t["launches"].items():
+                    out.setdefault(name, {})[f"api tile {at}"] = n
+    return out
+
+
+def api_write_alone(tally):
+    """Phase 4o alone, on card 0."""
+    return check_api_write(photo_file(hevc_streams()),
+                           jpeg_photo_file(jpeg_streams())), None
 
 
 def nvidia_smi():
@@ -7189,6 +7681,14 @@ def main():
 
     phase_done("api")
 
+    # 4o. the write side of the C-named API on the card: the photo and a
+    # grid encoded as jpeg, an empty unci tiling filled tile by tile, tiles
+    # of the HEVC photo, components and an inline mask, .py and .so
+    # plugins, an hevc sequence track
+    api_write_phase = check_api_write(photo, j_photo)
+
+    phase_done("api_write")
+
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
                     tile_w=W // TILES, kr=float(KR), kb=float(KB))
@@ -7425,6 +7925,9 @@ def main():
     # launches of phase 4n's decodes through the C-named API, per kernel
     for name, by_path in api_launches(api_phase).items():
         kern[name]["api_launches"] = by_path
+    # launches of phase 4o's writes and reads through the API, per kernel
+    for name, by_path in api_write_launches(api_write_phase).items():
+        kern[name]["api_write_launches"] = by_path
 
     phase_done("timing")
 
@@ -7491,7 +7994,7 @@ def main():
         "colour_ops": colour_rows, "metadata_file": metadata,
         "mesh": mesh, "sequences": seq, "encode": enc, "write": wr,
         "avc": avc, "avc_encode": avc_enc, "j2k": j2k, "vvc": vvc,
-        "api": api_phase,
+        "api": api_phase, "api_write": api_write_phase,
         "av1_parses": {"streams": len(AV1_PARSES),
                        "ms": sum(AV1_PARSE_MS.values())},
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
@@ -7530,6 +8033,7 @@ if __name__ == "__main__":
              "--avc-only": ("avc", avc_alone),
              "--j2k-only": ("j2k", j2k_alone),
              "--vvc-only": ("vvc", vvc_alone),
-             "--api-only": ("api", api_alone)}
+             "--api-only": ("api", api_alone),
+             "--api-write-only": ("api_write", api_write_alone)}
     alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(run_alone(*alone) if alone else main())

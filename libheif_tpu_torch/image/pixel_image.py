@@ -117,7 +117,8 @@ def subsampled_size(width: int, height: int, channel: str,
 
 # PyTorch implements few operators for uint16/uint32 (on the CPU not even
 # flip); data movement runs on a signed view of the same bits instead.
-_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
 
 
 def _moved(fn: Callable[..., torch.Tensor],

@@ -67,6 +67,13 @@ def test_read_functions_match_jax(fmt):
     assert [g[1]["entity_group_type"] for g in jw["groups_None_0"]] == \
         ["ster", "altr", "pymd"]
     assert "udes" in jw["dump"] and "grpl" in jw["dump"]
+    # and what the write side's read functions are meant to see
+    assert h["heif_image_handle_get_number_of_region_items"] == 1
+    assert len([k for k in h if k.startswith("region_")]) == 1 + 7
+    assert h["heif_image_handle_get_number_of_text_items"] == 1
+    assert h["heif_image_handle_has_camera_intrinsic_matrix"] is True
+    assert jw["sequence"][3] == 1 and len(
+        jw[f"track_raw_{jw['sequence'][4][0]}"]) == 2
 
 
 @pytest.mark.parametrize("how", ("file", "memory_without_copy", "reader"))
@@ -155,26 +162,55 @@ def test_library_and_security_match_jax():
 
 
 @pytest.mark.parametrize("call", (
-    lambda: papi.heif_load_plugin("x.py"),
-    lambda: papi.heif_load_plugins("/nonexistent"),
-    lambda: papi.heif_unload_plugin(None),
-    papi.heif_get_plugin_directories, papi.heif_get_plugin_paths,
-    lambda: papi.heif_register_decoder(None, None)))
-def test_plugin_functions_raise_by_name(call):
-    with pytest.raises(papi.HeifError) as e:
-        call()
-    assert e.value.code == papi.heif_error_code.Unsupported_feature
-    assert "api/plugin.py" in str(e.value)
+    lambda api: api.heif_load_plugin("x.py"),
+    lambda api: api.heif_load_plugins("/nonexistent"),
+    lambda api: api.heif_unload_plugin(None),
+    lambda api: api.heif_get_plugin_directories(),
+    lambda api: api.heif_get_plugin_paths(),
+    lambda api: api.heif_register_decoder(None, None)))
+def test_plugin_functions_raise_by_name(call, monkeypatch):
+    """The plugin functions (which raised by name until the plugin
+    modules were ported) answer as the JAX package's do: the same value,
+    or an error of the same type, code and subcode."""
+    monkeypatch.delenv("LIBHEIF_TPU_PLUGIN_PATH", raising=False)
+    got = []
+    for api in (japi, papi):
+        try:
+            got.append(af.plain(call(api)))
+        except Exception as e:  # noqa: BLE001 -- compared by type
+            got.append([type(e).__name__,
+                        *((e.code.name, e.subcode.name)
+                          if hasattr(e, "subcode") else ())])
+    assert got[0] == got[1]
 
 
 def test_init_refuses_plugin_directories(tmp_path, monkeypatch):
+    """heif_init loads the plugins of LIBHEIF_TPU_PLUGIN_PATH into its
+    own package's registry (it refused them until the plugin modules were
+    ported), and the last heif_deinit unloads them, as in JAX."""
+    from libheif_tpu.codecs import registry as jreg
+    from libheif_tpu_torch.codecs import registry as preg
     monkeypatch.setenv("LIBHEIF_TPU_PLUGIN_PATH", str(tmp_path))
     papi.heif_init()            # an empty directory: nothing to load
     papi.heif_deinit()
-    (tmp_path / "codec_plugin.py").write_text("def register(): pass\n")
-    with pytest.raises(papi.HeifError) as e:
-        papi.heif_init()
-    assert "codec_plugin.py" in str(e.value)
+    for pkg in ("libheif_tpu", "libheif_tpu_torch"):
+        (tmp_path / f"{pkg}_plugin.py").write_text(
+            f"from {pkg}.codecs.registry import Decoder, register_decoder\n"
+            "class Toy(Decoder):\n"
+            f"    id, format = 'toy-{pkg}', 'toyfmt'\n"
+            "def register():\n"
+            f"    if __name__.startswith('{pkg}_plugin_'):\n"
+            "        register_decoder(Toy())\n")
+    before = (jreg.list_decoders(), preg.list_decoders())
+    for api, reg, other in ((papi, preg, jreg), (japi, jreg, preg)):
+        api.heif_init()
+        try:
+            assert [d for d in reg.list_decoders() if d[0] == "toyfmt"] == \
+                [("toyfmt", f"toy-{api.__name__.split('.')[0]}")]
+            assert ("toyfmt" in dict(other.list_decoders())) is False
+        finally:
+            api.heif_deinit()
+        assert (jreg.list_decoders(), preg.list_decoders()) == before
 
 
 def test_metadata_compression_matches_jax():
