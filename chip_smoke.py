@@ -347,6 +347,20 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    heif_track_encode_sequence_image, read back with
    heif_track_decode_next_image equal to HeifContext's track decode;
    each step's wall beside the card's name and power limit;
+4p. the command-line tools and image-file codecs (libheif_tpu_torch/
+   tools, libheif_tpu_torch/io) on the card, as a user runs them: (a) the
+   HEVC photo decoded to YCbCr 4:2:0 and written with write_y4m, heif_enc
+   -c hevc -q 50 of that Y4M and heif_dec of the .heic back to Y4M, each
+   file the JAX tools' SHA-256 (testdata/tools/manifest.json,
+   tests/tool_runs.py); (b) heif_dec of the .heic to PNG and
+   heif_thumbnailer -s 512 of it, held under the colour contract to the
+   same tools on the CPU over a unci file of the decoded planes; (c)
+   write_jpeg and read_jpeg of the photo's planes, the manifest's bytes
+   and planes and the CPU's; (d) heif_dec of the 4096x4096 unci grid +
+   alpha file to Y4M, its planes the generator's; (e) the
+   bindings_support calls of bindings/c/example_decode.c on the card, its
+   channel checksums and encode equal to the CPU's; each step's wall and
+   launches per kernel beside the card's name and power limit;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -413,7 +427,8 @@ phases 4i and 4j and the two encode kernels' rows;
 AVC encode; ``python3 chip_smoke.py --j2k-only`` the build and phase 4l's
 JPEG 2000 half; ``python3 chip_smoke.py --vvc-only`` the build and phase
 4m; ``python3 chip_smoke.py --api-only`` the build and phase 4n;
-``python3 chip_smoke.py --api-write-only`` the build and phase 4o.  Each AV1
+``python3 chip_smoke.py --api-write-only`` the build and phase 4o;
+``python3 chip_smoke.py --tools-only`` the build and phase 4p.  Each AV1
 stream is parsed once a run (av1_parse_once): the phases decode the same
 committed streams many times over.
 """
@@ -425,18 +440,22 @@ import contextlib
 import functools
 import hashlib
 import inspect
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
 from libheif_tpu_torch import (
-    DecodingOptions, EncodingOptions, HeifContext, HeifFile, _build, api)
+    DecodingOptions, EncodingOptions, HeifContext, HeifFile, _build, api,
+    bindings_support)
+from libheif_tpu_torch import io as hio
 from libheif_tpu_torch import context as context_mod
 from libheif_tpu_torch.boxes import read_all_boxes
 from libheif_tpu_torch.boxes.codec_cfg import (
@@ -487,7 +506,7 @@ from libheif_tpu_torch.core.error import HeifError
 from libheif_tpu_torch.core.fourcc import fourcc
 from libheif_tpu_torch.core.fraction import Fraction
 from libheif_tpu_torch.image.pixel_image import (
-    Channel, Colorspace, Chroma, PixelImage)
+    Channel, Colorspace, Chroma, PixelImage, image_on_device)
 from libheif_tpu_torch.items.derived import ImageGrid, ImageOverlay
 from libheif_tpu_torch.items.region_item import RegionGeometry
 from libheif_tpu_torch.items.mask_item import Box_mskC
@@ -498,6 +517,8 @@ from libheif_tpu_torch.parallel import (
 from libheif_tpu_torch.parallel.host_sharding import decode_grid_host_sharded
 from libheif_tpu_torch.parallel.mesh import chunk_bounds
 from libheif_tpu_torch.sequences import TrackOptions
+from libheif_tpu_torch.tools import (
+    heif_dec, heif_enc, heif_thumbnailer, make_ci_sample)
 
 SEED = 0
 W = H = 4096
@@ -1064,17 +1085,22 @@ def strided_layout_timings(timer):
     return out
 
 
+UNCOUNTED_THREADS = set()
+
+
 @contextlib.contextmanager
 def launch_counts():
     """Every kernel's launch count set to 0 on entry; on exit (after a
     synchronise) the dict yielded holds the counts and the number of
     host tile assemblies (kernels.assemble_tile_buffers calls) made
-    inside the block."""
+    inside the block, but by the threads in UNCOUNTED_THREADS (phase
+    4p's CPU references, which run meanwhile)."""
     assemble = kernels.assemble_tile_buffers
     counts = {"assemble_tile_buffers": 0}
 
     def counted_assemble(*args):
-        counts["assemble_tile_buffers"] += 1
+        if threading.get_ident() not in UNCOUNTED_THREADS:
+            counts["assemble_tile_buffers"] += 1
         return assemble(*args)
 
     kernels.assemble_tile_buffers = counted_assemble
@@ -7346,6 +7372,339 @@ def api_write_alone(tally):
                            jpeg_photo_file(jpeg_streams())), None
 
 
+# -------------------------------------------------------------------- tools
+# Phase 4p: the command-line tools and the image-file codecs on the card,
+# as a user runs them, against the JAX tools' files (tests/tool_runs.py)
+# and the same tools on the CPU.
+
+TOOLS_MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "libheif_tpu_torch", "testdata", "tools",
+                              "manifest.json")
+THUMB_SIZE = 512
+# bindings/c/example_decode.c: the channels it checksums, the first present
+SHIM_CHANNELS = (0, 3, 10)           # heif_channel_Y, _R, _interleaved
+SHIM_QUALITY = 60
+
+
+def run_tool(mod, argv):
+    """``python -m libheif_tpu_torch.tools.<mod> argv`` in this process,
+    with the kernels' launches counted; its stdout goes to the log."""
+    out = io.StringIO()
+    with launch_counts() as launches, contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    name = mod.__name__.rsplit(".", 1)[1]
+    log(f"tools: {name} {' '.join(os.path.basename(a) for a in argv)}: "
+        f"{out.getvalue().strip()}")
+    assert rc == 0, f"{name} {argv} returned {rc}"
+    return nonzero(launches)
+
+
+def nonzero(launches):
+    return {n: c for n, c in launches.items() if c}
+
+
+def file_sha256(path):
+    with open(path, "rb") as f:
+        return sha256(f.read())
+
+
+def same_as_manifest(what, got, man):
+    assert got == man["sha256"], \
+        f"tools: {what} SHA-256 {got} is not the JAX tools' {man['sha256']}"
+    log(f"tools: {what} SHA-256 equal to the JAX tools' ({man['bytes']} B)")
+
+
+def colour_contract(what, card_png, cpu_png):
+    """The card's PNG against the CPU's: equal bytes, or decoded samples
+    at most 1 LSB apart on fewer than 1% of them (the colour contract,
+    tests/test_pallas_fast.py:1-9,49-51)."""
+    with open(card_png, "rb") as f:
+        a = f.read()
+    with open(cpu_png, "rb") as f:
+        b = f.read()
+    if a == b:
+        log(f"tools: {what} PNG bytes equal to the CPU's")
+        return {"equal_bytes": True, "differing": 0, "max_abs_err": 0}
+    x = hio.read_png(a)[0].astype(np.int32)
+    y = hio.read_png(b)[0].astype(np.int32)
+    assert x.shape == y.shape, f"tools: {what} {x.shape} vs {y.shape}"
+    d = np.abs(x - y)
+    differing, err = int(np.count_nonzero(d)), int(d.max())
+    log(f"tools: {what} samples differing from the CPU's {differing} of "
+        f"{d.size}, max abs err {err}")
+    assert err <= 1 and differing < d.size / 100, \
+        f"tools: {what} outside the colour contract"
+    return {"equal_bytes": False, "differing": differing,
+            "max_abs_err": err}
+
+
+def shim_decode(path):
+    """bindings/c/example_decode.c's calls through bindings_support on the
+    device its variable names: (width, height, channel, its size and
+    stride, checksum as example_decode.c:61-80 sums it), and the decoded
+    image."""
+    bs = bindings_support
+    ctx = bs.read_from_file(path)
+    assert bs.top_level_count(ctx) >= 1
+    pid = bs.primary_id(ctx)
+    w, h, _, _ = bs.handle_info(ctx, pid)
+    img = bs.decode(ctx, pid, 99, 99)          # undefined: no conversion
+    for c in SHIM_CHANNELS:
+        if not bs.has_channel(img, c):
+            continue
+        pw, ph, _ = bs.channel_size(img, c)
+        rows = bs.plane(img, c).view(np.uint8).reshape(ph, -1)
+        checksum = int(rows[:, :pw].sum(dtype=np.uint64))
+        return (w, h, c, pw, ph, rows.shape[1], checksum), img
+    raise AssertionError(f"tools: no Y, R or interleaved channel in {path}")
+
+
+def shim_encode(img, path):
+    """example_decode.c's encode round trip: the decoded image as hevc at
+    quality 60 through bindings_support; the file's bytes."""
+    bs = bindings_support
+    ctx = bs.context_new()
+    bs.encode(ctx, img, "hevc", SHIM_QUALITY)
+    bs.write_to_file(ctx, path)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@contextlib.contextmanager
+def shim_device(device):
+    """bindings_support's device variable set to ``device`` (None: unset,
+    which means CUDA)."""
+    var = bindings_support.DEVICE_VARIABLE
+    old = os.environ.pop(var, None)
+    if device is not None:
+        os.environ[var] = device
+    try:
+        yield
+    finally:
+        os.environ.pop(var, None)
+        if old is not None:
+            os.environ[var] = old
+
+
+def uncounted(fn):
+    """``fn`` run with its thread in UNCOUNTED_THREADS: a CPU reference on
+    a worker thread, whose host tile assemblies are not the card's."""
+    @functools.wraps(fn)
+    def run(*args):
+        UNCOUNTED_THREADS.add(threading.get_ident())
+        try:
+            return fn(*args)
+        finally:
+            UNCOUNTED_THREADS.discard(threading.get_ident())
+    return run
+
+
+@uncounted
+def cpu_jpeg(img, quality):
+    """write_jpeg and read_jpeg of ``img`` on the CPU: the JFIF and the
+    SHA-256 of the read's planes."""
+    jfif = hio.write_jpeg(image_on_device(img, torch.device("cpu")), quality)
+    back = hio.read_jpeg(jfif, "cpu")
+    return jfif, sha256(b"".join(back.np_plane(ch).tobytes() for ch in YCC))
+
+
+@uncounted
+def cpu_tools(path):
+    """Step (b)'s tools on the CPU over a unci file of the decoded planes
+    (its decode is the card's bit for bit: decoded.y4m's hash).  It runs
+    on a worker thread beside the card's steps, so its tools print as
+    they are (no stdout redirect, which is process-wide)."""
+    cpu = ["--device", "cpu"]
+    for mod, argv in (
+            (heif_enc, [path["decoded.y4m"], "-c", "unci", "-o",
+                        path["twin.heif"]]),
+            (heif_dec, [path["twin.heif"], path["twin.png"]]),
+            (heif_thumbnailer, ["-s", str(THUMB_SIZE), path["twin.heif"],
+                                path["twin_thumb.png"]])):
+        assert mod.main(argv + cpu) == 0, f"{mod.__name__} {argv} on the CPU"
+
+
+def check_tools(photo, grid, data, alpha):
+    """Phase 4p: steps (a) to (e) of the docstring on the card, each with
+    its wall and launches per kernel, beside the card's name and power
+    limit.  The CPU references of (b) and (c) run on a worker thread
+    while the card's steps go on; their wall is what the phase waits for
+    them at its end."""
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    man = read_manifest(TOOLS_MANIFEST)
+    files, steps, walls, launches = man["files"], {}, {}, {}
+    assert tuple(man["photo"]) == PHOTO
+    tmp = tempfile.TemporaryDirectory()
+    path = {n: os.path.join(tmp.name, n) for n in (
+        "photo.y4m", "photo.heic", "decoded.y4m", "photo.png", "thumb.png",
+        "twin.heif", "twin.png", "twin_thumb.png", "grid.heif", "grid.y4m",
+        "sample.heif", "sample_card.heic", "sample_cpu.heic")}
+    worker = concurrent.futures.ThreadPoolExecutor(1)
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # (a) the photo to Y4M, heif_enc -c hevc of it, heif_dec back to Y4M
+    with launch_counts() as n:
+        img = HeifContext.read_from_bytes(photo).decode_image(None)
+    launches["photo_decode"] = nonzero(n)
+    assert (img.width, img.height, img.chroma) == (*PHOTO, Chroma.C420)
+    cpu_jpeg_run = worker.submit(cpu_jpeg, img, man["jpeg_quality"])
+    with open(path["photo.y4m"], "wb") as f:
+        f.write(hio.write_y4m([[img.plane(ch) for ch in YCC]]))
+    same_as_manifest("write_y4m photo.y4m", file_sha256(path["photo.y4m"]),
+                     files["photo.y4m"])
+    step("a_photo_y4m")
+    launches["heif_enc"] = run_tool(heif_enc, [
+        path["photo.y4m"], "-c", "hevc", "-q", str(man["hevc_quality"]),
+        "-o", path["photo.heic"]])
+    same_as_manifest("heif_enc photo.heic", file_sha256(path["photo.heic"]),
+                     files["photo.heic"])
+    step("a_heif_enc")
+    launches["heif_dec_y4m"] = run_tool(heif_dec, [path["photo.heic"],
+                                                   path["decoded.y4m"]])
+    same_as_manifest("heif_dec decoded.y4m",
+                     file_sha256(path["decoded.y4m"]), files["decoded.y4m"])
+    cpu_tools_run = worker.submit(cpu_tools, path)
+    step("a_heif_dec_y4m")
+
+    # (b) heif_dec to PNG and heif_thumbnailer on the card (the same tools
+    # on the CPU run on the worker)
+    launches["heif_dec_png"] = run_tool(heif_dec, [path["photo.heic"],
+                                                   path["photo.png"]])
+    launches["heif_thumbnailer"] = run_tool(heif_thumbnailer, [
+        "-s", str(THUMB_SIZE), path["photo.heic"], path["thumb.png"]])
+    step("b_card")
+
+    # (c) write_jpeg and read_jpeg of the photo's planes on the card, the
+    # JAX io's bytes and planes (and, at the end, the CPU's)
+    with launch_counts() as n:
+        jfif = hio.write_jpeg(img, man["jpeg_quality"])
+    launches["write_jpeg"] = nonzero(n)
+    same_as_manifest("write_jpeg photo.jpg", sha256(jfif),
+                     files["photo.jpg"])
+    with launch_counts() as n:
+        back = hio.read_jpeg(jfif)
+    launches["read_jpeg"] = nonzero(n)
+    back_sha = sha256(b"".join(back.np_plane(ch).tobytes() for ch in YCC))
+    assert back_sha == man["jpeg_read_planes_sha256"], \
+        "tools: read_jpeg planes differ from the JAX read's"
+    log("tools: read_jpeg planes SHA-256 equal to the JAX read's")
+    step("c_card")
+
+    # (d) heif_dec of the unci grid + alpha file to Y4M
+    with open(path["grid.heif"], "wb") as f:
+        f.write(grid)
+    launches["heif_dec_grid"] = run_tool(heif_dec, [path["grid.heif"],
+                                                    path["grid.y4m"]])
+    with open(path["grid.y4m"], "rb") as f:
+        frame = hio.read_y4m(f.read())["frames"][0]
+    for ch, got, ref, sub in zip(
+            YCC, frame, np_planes(data, TILES, W // TILES, H // TILES),
+            (1, 2, 2)):
+        assert np.array_equal(got, transformed(ref, sub)), \
+            f"tools: heif_dec grid.y4m {ch} vs the generator"
+    log("tools: heif_dec grid.y4m planes equal to the generator's")
+    step("d_grid")
+
+    # (e) example_decode.c's calls through bindings_support on the card
+    # (its variable unset) and on the CPU
+    make_ci_sample.main([path["sample.heif"]])
+    shim = {}
+    with shim_device(None):
+        with launch_counts() as n:
+            shim["sample_card"], simg = shim_decode(path["sample.heif"])
+        launches["shim_sample"] = nonzero(n)
+        enc_card = shim_encode(simg, path["sample_card.heic"])
+        with launch_counts() as n:
+            shim["grid_card"], _ = shim_decode(path["grid.heif"])
+        launches["shim_grid"] = nonzero(n)
+    with shim_device("cpu"):
+        shim["sample_cpu"], simg = shim_decode(path["sample.heif"])
+        enc_cpu = shim_encode(simg, path["sample_cpu.heic"])
+    assert shim["sample_card"] == shim["sample_cpu"], \
+        f"tools: shim checksum {shim['sample_card']} vs the CPU's " \
+        f"{shim['sample_cpu']}"
+    assert enc_card == enc_cpu, "tools: shim encode differs from the CPU's"
+    y = transformed(np_planes(data, TILES, W // TILES, H // TILES)[0], 1)
+    shim["grid_numpy"] = (*CLAP, 0, *CLAP, CLAP[0],
+                          int(y.sum(dtype=np.uint64)))
+    assert list(shim["grid_card"]) == list(shim["grid_numpy"]), \
+        f"tools: shim grid checksum {shim['grid_card']} vs numpy's " \
+        f"{shim['grid_numpy']}"
+    log(f"tools: shim checksums {json.dumps(shim)}; encode equal to the "
+        "CPU's")
+    steps["shim"] = shim
+    step("e_shim")
+
+    # the CPU references: (b) under the colour contract, (c) equal
+    cpu_tools_run.result()
+    steps["png"] = colour_contract("heif_dec photo.png", path["photo.png"],
+                                   path["twin.png"])
+    steps["thumbnail"] = colour_contract(
+        "heif_thumbnailer thumb.png", path["thumb.png"],
+        path["twin_thumb.png"])
+    cpu_jfif, cpu_back_sha = cpu_jpeg_run.result()
+    assert cpu_jfif == jfif, \
+        "tools: write_jpeg on the card differs from the CPU's"
+    assert cpu_back_sha == back_sha, \
+        "tools: read_jpeg on the card differs from the CPU's"
+    log("tools: write_jpeg bytes and read_jpeg planes equal to the CPU's")
+    worker.shutdown()
+    step("wait_for_cpu_references")
+    tmp.cleanup()
+
+    seconds = time.perf_counter() - t_start
+    log(f"phase 4p launches {json.dumps(launches)} ({card})")
+    log(f"phase 4p steps (s) {json.dumps(walls)} ({card})")
+    log(f"tools phase {seconds:.1f} s ({card})")
+    return {"card": card, "steps": steps, "launches": launches,
+            "step_seconds": walls, "seconds": seconds}
+
+
+# the launches per kernel that phase 4p must see (predicted in PERF.md)
+TOOLS_LAUNCHES = {
+    "photo_decode": {"hevc_dequant_itx": 1, "hevc_intra_wave": 1},
+    "heif_enc": {},
+    "heif_dec_y4m": {"hevc_dequant_itx": 1, "hevc_intra_wave": 1},
+    "heif_dec_png": {"hevc_dequant_itx": 1, "hevc_intra_wave": 1,
+                     "planes_ycbcr8_to_rgb": 1},
+    "heif_thumbnailer": {"hevc_dequant_itx": 1, "hevc_intra_wave": 1,
+                         "planes_ycbcr8_to_rgb": 1},
+    "write_jpeg": {"jpeg_fdct_quant": 1},
+    "read_jpeg": {"jpeg_dequant_idct": 1},
+    "heif_dec_grid": {"strided_extract_paste": TILES * TILES + 1},
+    "shim_sample": {"hevc_dequant_itx": 1, "hevc_intra_wave": 1},
+    "shim_grid": {"strided_extract_paste": TILES * TILES + 1}}
+
+
+def tools_launches(tools_phase):
+    """{kernel: {step: launches}} of phase 4p, after holding every step's
+    launches to TOOLS_LAUNCHES."""
+    got = tools_phase["launches"]
+    assert got == TOOLS_LAUNCHES, \
+        f"phase 4p launches {got} are not the predicted {TOOLS_LAUNCHES}"
+    out = {}
+    for what, counts in got.items():
+        for name, n in counts.items():
+            out.setdefault(name, {})[f"tools {what}"] = n
+    return out
+
+
+def tools_alone(tally):
+    """Phase 4p alone, on card 0."""
+    uncC, cmpd, data = flagship_input()
+    alpha = alpha_payload()
+    phase = check_tools(photo_file(hevc_streams()), grid_file(data, alpha),
+                        data, alpha)
+    tools_launches(phase)
+    return phase, None
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -7689,6 +8048,16 @@ def main():
 
     phase_done("api_write")
 
+    # 4p. the command-line tools and image-file codecs on the card: the
+    # HEVC photo through write_y4m, heif_enc and heif_dec (the JAX tools'
+    # files), heif_dec to PNG and heif_thumbnailer (the CPU's under the
+    # colour contract), write_jpeg/read_jpeg, heif_dec of the unci grid,
+    # and example_decode.c's calls through bindings_support
+    tools_phase = check_tools(photo, blobs["grid"], data, alpha)
+    tools_by_kernel = tools_launches(tools_phase)
+
+    phase_done("tools")
+
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
                     tile_w=W // TILES, kr=float(KR), kb=float(KB))
@@ -7928,6 +8297,9 @@ def main():
     # launches of phase 4o's writes and reads through the API, per kernel
     for name, by_path in api_write_launches(api_write_phase).items():
         kern[name]["api_write_launches"] = by_path
+    # launches of phase 4p's tool runs, per kernel and step
+    for name, by_path in tools_by_kernel.items():
+        kern[name]["tools_launches"] = by_path
 
     phase_done("timing")
 
@@ -7995,6 +8367,7 @@ def main():
         "mesh": mesh, "sequences": seq, "encode": enc, "write": wr,
         "avc": avc, "avc_encode": avc_enc, "j2k": j2k, "vvc": vvc,
         "api": api_phase, "api_write": api_write_phase,
+        "tools": tools_phase,
         "av1_parses": {"streams": len(AV1_PARSES),
                        "ms": sum(AV1_PARSE_MS.values())},
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
@@ -8034,6 +8407,7 @@ if __name__ == "__main__":
              "--j2k-only": ("j2k", j2k_alone),
              "--vvc-only": ("vvc", vvc_alone),
              "--api-only": ("api", api_alone),
-             "--api-write-only": ("api_write", api_write_alone)}
+             "--api-write-only": ("api_write", api_write_alone),
+             "--tools-only": ("tools", tools_alone)}
     alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(run_alone(*alone) if alone else main())

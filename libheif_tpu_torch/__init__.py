@@ -18,6 +18,8 @@ the JPEG scan and the AVC intra engine are host C++
 (``codecs/{hevc,jpeg,avc}/host/``), built at first use on every device.
 """
 
+__version__ = "0.1.0"
+
 from ._build import resolve_device
 from .codecs.hevc import decode_intra_picture
 from .context import HeifContext

@@ -4,9 +4,8 @@ of libheif_tpu/api/metadata.py.
 Exif / XMP / generic metadata blocks linked to images via 'cdsc'
 references (ref: heif_metadata.h over context metadata access).
 Brotli compression of XMP needs a ``brotli`` (or ``brotlicffi``) module,
-as in the JAX package (codecs/unc/codec.py:31-39 there), whose absence
-makes it unsupported; the port's unci codec has no brotli, so the
-lookup lives here (``_brotli``).
+as in the JAX package, whose absence makes it unsupported; the lookup is
+the unci codec's (``codecs/unc/codec._brotli``), as there.
 """
 
 from __future__ import annotations
@@ -16,19 +15,6 @@ from typing import List, Optional
 
 from ..core.error import HeifError, SubError
 from .image_handle import heif_image_handle
-
-
-def _brotli():
-    """The brotli module, or None where neither brotli nor brotlicffi is
-    installed."""
-    try:
-        import brotli  # type: ignore
-    except ImportError:
-        try:
-            import brotlicffi as brotli  # type: ignore
-        except ImportError:
-            brotli = None
-    return brotli
 
 
 def _blocks(handle: heif_image_handle, type_filter: Optional[str] = None):
@@ -136,7 +122,8 @@ def heif_metadata_compression_method_supported(method: str) -> bool:
     if method in ("off", "undefined", None, "deflate", "zlib"):
         return True
     if method == "brotli":
-        return _brotli() is not None
+        from ..codecs.unc import codec as _unc
+        return _unc._brotli() is not None
     return False
 
 
@@ -155,7 +142,8 @@ def heif_context_add_XMP_metadata2(ctx, handle, data: bytes,
         comp = _z.compress(bytes(data))
         encoding = "compress_zlib"
     elif compression == "brotli":
-        brotli = _brotli()
+        from ..codecs.unc import codec as _unc
+        brotli = _unc._brotli()
         if brotli is None:
             raise HeifError.unsupported(
                 SubError.Unsupported_header_compression_method,

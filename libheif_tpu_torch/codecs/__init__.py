@@ -9,6 +9,9 @@ from . import hevc  # noqa: F401  (registers the HEVC codec)
 from . import av1   # noqa: F401  (registers the AV1 codec)
 from . import jpeg  # noqa: F401  (registers the JPEG codec)
 from . import avc   # noqa: F401  (registers the AVC codec)
-from . import unc   # noqa: F401  (registers the built-in unci/mask shims)
+from . import unc   # noqa: F401
+from .unc import registry_shim
+
+registry_shim.register()   # the built-in unci/mask shims
 from . import j2k   # noqa: F401  (registers the JPEG 2000 codec)
 from . import vvc   # noqa: F401  (registers the VVC codec)

@@ -7,7 +7,7 @@ unc_codec.h:52, decode_uncompressed_image_tile unc_codec.h:56) plus the
 generic-compression handling (cmpC/icef, unc_decoder.cc:200-282), and its
 encoder (``_compress`` :67, ``UnciEncoder`` :242-348).
 
-Host side: layout computation, zlib/deflate (de)compression, tile buffer
+Host side: layout computation, zlib/deflate/brotli (de)compression, tile buffer
 assembly (skipped on CUDA for the byte-aligned layouts, whose strided
 kernel reads the payload in place).  Device side: the extraction in
 kernels.py, and on the encode side the packing of each tile's samples
@@ -36,30 +36,61 @@ from .layout import compute_layout, UncLayout
 from . import cuda_fast, kernels
 
 
-def _decompress(method: str, data: bytes) -> bytes:
-    """(ref: compression.h:59-114 — zlib/deflate; brotli is not part of
-    this package yet)."""
-    if method not in ("zlib", "defl"):
-        raise HeifError.unsupported(
-            SubError.Unsupported_generic_compression_method,
-            f"generic compression method {method!r}")
+def _brotli():
+    """The brotli module, looked up at each call: ``brotli``, else
+    ``brotlicffi``, else None (JAX codec.py:31-40).  The unci codec and
+    the XMP compression of api/metadata.py both ask here."""
     try:
-        return zlib.decompress(data) if method == "zlib" \
-            else zlib.decompress(data, -15)
-    except zlib.error as e:
+        import brotli  # type: ignore
+    except ImportError:
+        try:
+            import brotlicffi as brotli  # type: ignore
+        except ImportError:
+            brotli = None
+    return brotli
+
+
+def _no_brotli() -> HeifError:
+    return HeifError.unsupported(
+        SubError.Unsupported_generic_compression_method,
+        "brotli not available in this build")
+
+
+def _decompress(method: str, data: bytes) -> bytes:
+    """(ref: compression.h:59-114 — zlib/deflate/brotli)."""
+    try:
+        if method == "zlib":
+            return zlib.decompress(data)
+        if method == "defl":
+            return zlib.decompress(data, -15)
+        if method == "brot":
+            brotli = _brotli()
+            if brotli is None:
+                raise _no_brotli()
+            return brotli.decompress(data)
+    except HeifError:
+        raise
+    except Exception as e:
         raise HeifError.invalid_input(
             SubError.Decompression_invalid_data,
             f"corrupt {method} stream: {e}") from e
+    raise HeifError.unsupported(
+        SubError.Unsupported_generic_compression_method,
+        f"generic compression method {method!r}")
 
 
 def _compress(method: str, data: bytes) -> bytes:
-    """(ref: compression.h — zlib/deflate; brotli is not part of this
-    package yet)."""
+    """(ref: compression.h — zlib/deflate/brotli)."""
     if method == "zlib":
         return zlib.compress(data)
     if method == "defl":
         co = zlib.compressobj(wbits=-15)
         return co.compress(data) + co.flush()
+    if method == "brot":
+        brotli = _brotli()
+        if brotli is None:
+            raise _no_brotli()
+        return brotli.compress(data)
     raise HeifError.unsupported(
         SubError.Unsupported_generic_compression_method,
         f"generic compression method {method!r}")
