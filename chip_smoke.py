@@ -361,6 +361,32 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    bindings_support calls of bindings/c/example_decode.c on the card, its
    channel checksums and encode equal to the CPU's; each step's wall and
    launches per kernel beside the card's name and power limit;
+4q. tools/heif_fuzz on the card (libheif_tpu_torch/tools/heif_fuzz.py):
+   (a) FUZZ_N inputs over the committed corpus (every .heif of
+   libheif_tpu_torch/testdata, each file in turn mutated one to three
+   times by the tool's mutate, rng FUZZ_SEED), taken one by one by
+   FUZZ_CHILDREN child processes of this script (--fuzz-child,
+   heif_fuzz.run_children), each input through run_one on the card, timed
+   alone, then heif_fuzz.walk (every top-level image to its native chroma
+   and to interleaved RGB, up to three frames of each track) on the card,
+   ending in a synchronise, while the same walk runs on the CPU on a
+   worker thread: the same HeifError code and subcode or the same native
+   planes (RGB within the colour contract) on every input, no other
+   exception, no hang (run_one past the tool's 20 s deadline, or a child
+   silent on an input), and each of the eight file-decode kernels launched
+   by some input (a child that dies is charged to its input, whose
+   reproducer is written, and another takes its place); (b), the same
+   child under compute-sanitizer, is left out: the toolkit's
+   compute-sanitizer refuses this card (PERF.md §6); (c) the 4096x4096
+   unci grid + alpha file and the HEVC photo decode to the planes they
+   gave before (a); (d) a grid declaring 256x256 tiles of a 65536x65536
+   image raises a HeifError, and the security-limit sweep of
+   tests/test_fuzz_robustness.py over a committed unci file raises only
+   HeifErrors, with the card's peak memory grown by less than 64 MB; (e)
+   the encoder fuzzer's six trials (hevc, av1, unci) encoded, written and
+   read back on the card, each file the JAX writer's SHA-256
+   (testdata/fuzz/encoder_manifest.json); each step's wall and launches
+   per kernel beside the card's name and power limit;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -428,7 +454,8 @@ AVC encode; ``python3 chip_smoke.py --j2k-only`` the build and phase 4l's
 JPEG 2000 half; ``python3 chip_smoke.py --vvc-only`` the build and phase
 4m; ``python3 chip_smoke.py --api-only`` the build and phase 4n;
 ``python3 chip_smoke.py --api-write-only`` the build and phase 4o;
-``python3 chip_smoke.py --tools-only`` the build and phase 4p.  Each AV1
+``python3 chip_smoke.py --tools-only`` the build and phase 4p;
+``python3 chip_smoke.py --fuzz-only`` the build and phase 4q.  Each AV1
 stream is parsed once a run (av1_parse_once): the phases decode the same
 committed streams many times over.
 """
@@ -518,7 +545,8 @@ from libheif_tpu_torch.parallel.host_sharding import decode_grid_host_sharded
 from libheif_tpu_torch.parallel.mesh import chunk_bounds
 from libheif_tpu_torch.sequences import TrackOptions
 from libheif_tpu_torch.tools import (
-    heif_dec, heif_enc, heif_thumbnailer, make_ci_sample)
+    heif_dec, heif_enc, heif_fuzz, heif_thumbnailer, make_ci_sample,
+    warmup_cache)
 
 SEED = 0
 W = H = 4096
@@ -7705,6 +7733,323 @@ def tools_alone(tally):
     return phase, None
 
 
+# ------------------------------------------------------------ fuzz (4q)
+# heif_fuzz on the card: the committed corpus mutated through every
+# file-decode kernel (tools/heif_fuzz.py's mutate, run_one and walk),
+# each input's outcome held to the CPU's; the card's health afterwards;
+# the security limits before device allocation; the encoder fuzzer's
+# trials.
+
+FUZZ_SEED = 27
+FUZZ_N = 400
+FUZZ_CHILDREN = 4            # (a)'s child processes
+FUZZ_INPUT_S = 120.0         # a child's limit on one input, walks included
+FUZZ_DEADLINE_S = 20.0       # run_one's deadline, as the tool's
+FUZZ_KERNELS = ("strided_extract_paste", "planes_ycbcr8_to_rgb",
+                "hevc_dequant_itx", "hevc_intra_wave", "hevc_inter_pred",
+                "av1_dequant_itx", "av1_intra_wave", "jpeg_dequant_idct")
+FUZZ_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "libheif_tpu_torch", "testdata", "fuzz")
+FUZZ_GROWTH_MB = 64          # (d): device memory the limits may let grow
+SWEEP_FILE = "rich-unci.heif"
+SWEEP_LIMITS = ({"max_items": 1}, {"max_image_size_pixels": 16},
+                {"max_memory_block_size": 64}, {"max_number_of_tiles": 1})
+
+
+def fuzz_inputs(n, seed):
+    """The phase's ``n`` inputs: input i is file i mod len(corpus) of
+    heif_fuzz's corpus, mutated one to three times by heif_fuzz.mutate,
+    all from one rng (``seed``) drawn as the tool draws: [(seed file, the
+    kinds of its mutations, bytes)]."""
+    paths = heif_fuzz.corpus_paths()
+    seeds = []
+    for p in paths:
+        with open(p, "rb") as f:
+            seeds.append(f.read())
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        data, kinds = seeds[i % len(seeds)], []
+        for _ in range(int(rng.integers(1, 4))):
+            kind = int(rng.integers(0, 8))
+            kinds.append(kind if data else 0)
+            data = heif_fuzz.mutate(data, rng, kind)
+        out.append((os.path.relpath(paths[i % len(seeds)],
+                                    heif_fuzz.TESTDATA), kinds, data))
+    return out
+
+
+def fuzz_child():
+    """A child of (a) (``--fuzz-child``), serving requests {"i"}: input i
+    through run_one on the card (timed alone), then heif_fuzz.walk on
+    the card (launches counted) while the same walk runs on the CPU on a
+    worker thread; it answers with the outcome, run_one's seconds, the
+    kernels launched and the walks' first difference.  Anything but a
+    HeifError ends the process, and the parent charges it to input i."""
+    torch.set_num_threads(1)
+    inputs = fuzz_inputs(FUZZ_N, FUZZ_SEED)
+    worker = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_walk = uncounted(heif_fuzz.walk)
+
+    def handle(request):
+        i = request["i"]
+        seed_file, kinds, data = inputs[i]
+        t0 = time.perf_counter()
+        with launch_counts() as n:
+            outcome = heif_fuzz.run_one(data, FUZZ_DEADLINE_S, DEV)
+            run_one_s = time.perf_counter() - t0
+            cpu_run = worker.submit(cpu_walk, data, "cpu")
+            card = heif_fuzz.walk(data, DEV)
+        card_s = time.perf_counter() - t0
+        return {"i": i, "seed": seed_file, "kinds": kinds,
+                "outcome": outcome, "run_one_s": run_one_s,
+                "launches": {k: n[k] for k in FUZZ_KERNELS if n[k]},
+                "card_s": card_s,
+                "diff": heif_fuzz.walks_differ(card, cpu_run.result()),
+                "s": time.perf_counter() - t0,
+                "walk": heif_fuzz.summary(card)}
+    heif_fuzz.serve(handle)
+    return 0
+
+
+def native_hashes(blob):
+    img = HeifContext.read_from_bytes(blob, device=DEV).decode_image(None)
+    return {str(c): sha256(img.np_plane(c).tobytes())
+            for c in img.channels()}
+
+
+def huge_grid_file(device):
+    """The tile_fuzzer analog of tests/test_fuzz_robustness.py:120-142: a
+    grid declaring 256x256 tiles of a 65536x65536 image over four
+    references to one 8x8 unci tile (the port's writer; the JAX writer's
+    bytes, tests/test_torch_fuzz.py)."""
+    grid_payload = bytes([0, 1]) + bytes([255, 255]) + \
+        (65536).to_bytes(4, "big") + (65536).to_bytes(4, "big")
+    ctx = api.heif_context_alloc(device=device)
+    img = PixelImage(8, 8, Colorspace.RGB, Chroma.C444, device=device)
+    for ch in (Channel.R, Channel.G, Channel.B):
+        img.set_plane(ch, torch.zeros((8, 8), dtype=torch.uint8,
+                                      device=device), 8)
+    tile_id = ctx.encode_image(img, "unci")
+    grid_id = ctx.file.add_new_item("grid").item_id
+    ctx.file.append_item_data(grid_id, grid_payload, construction_method=1)
+    ctx.file.add_reference("dimg", grid_id, [tile_id] * 4)
+    ctx.file.add_property(grid_id, Box_ispe(65536, 65536), False)
+    return ctx.write(), grid_id
+
+
+def limit_sweep(data, device):
+    """tests/test_fuzz_robustness.py:145-157 on ``data``: each limit's
+    decodes of every top-level image and track frame, [(limit, step,
+    outcome)]; only HeifError may stop one."""
+    from libheif_tpu_torch.core.limits import SecurityLimits
+    out = []
+    for kw in SWEEP_LIMITS:
+        name = ",".join(f"{k}={v}" for k, v in kw.items())
+        try:
+            ctx = HeifContext.read_from_bytes(data, SecurityLimits(**kw),
+                                              device=device)
+        except HeifError as e:
+            out.append((name, "open", e.code.name))
+            continue
+        for iid in ctx.top_level_image_ids():
+            try:
+                ctx.decode_image(iid)
+                out.append((name, iid, "ok"))
+            except HeifError as e:
+                out.append((name, iid, e.code.name))
+        for t in ctx.tracks:
+            if hasattr(t, "decode_next_image"):
+                try:
+                    t.decode_next_image()
+                    out.append((name, f"track {t.track_id}", "ok"))
+                except HeifError as e:
+                    out.append((name, f"track {t.track_id}", e.code.name))
+    return out
+
+
+def check_encoder_trials(device):
+    """(e): each of heif_fuzz's encoder trials encoded through the C-named
+    API's context on ``device``, written, and read back there; each file
+    the JAX writer's SHA-256 (testdata/fuzz/encoder_manifest.json)."""
+    man = read_manifest(os.path.join(FUZZ_DIR, "encoder_manifest.json"))
+    out = []
+    for t, m in zip(heif_fuzz.encoder_trials(), man["trials"]):
+        fmt, w, h, q, lossless = (t[k] for k in ("fmt", "w", "h", "quality",
+                                                 "lossless"))
+        assert (m["fmt"], m["w"], m["h"], m["quality"], m["lossless"]) == \
+            (fmt, w, h, q, lossless), f"encoder trial {m['trial']} drawn " \
+                                      "otherwise than the manifest's"
+        img = PixelImage(w, h, Colorspace.YCbCr, Chroma.C420, device=device)
+        for ch, p in zip(YCC, t["planes"]):
+            img.set_plane(ch, torch.from_numpy(p).to(device), 8)
+        ctx = api.heif_context_alloc(device=device)
+        ctx.encode_image(img, fmt, EncodingOptions(quality=q,
+                                                   lossless=lossless))
+        blob = ctx.write()
+        assert sha256(blob) == m["sha256"], \
+            f"encoder trial {m['trial']} ({fmt} {w}x{h} q{q} " \
+            f"lossless={lossless}): not the JAX writer's file"
+        back = HeifContext.read_from_bytes(blob, device=device).decode_image()
+        assert (back.width, back.height) == (w, h)
+        out.append({"fmt": fmt, "size": f"{w}x{h}", "quality": q,
+                    "lossless": lossless, "bytes": len(blob)})
+    return out
+
+
+def check_fuzz(photo, grid):
+    """Phase 4q: (c)'s reference planes of the unci grid + alpha file and
+    the HEVC photo; (a) the mutated inputs on the card against the CPU,
+    in FUZZ_CHILDREN child processes taking the next input as each comes
+    free: no crash, no hang (run_one past FUZZ_DEADLINE_S, the tool's
+    rule), no difference, every file-decode kernel launched by some
+    input; (b) is left out: the toolkit's compute-sanitizer refuses this
+    card (PERF.md §6); (c) the two files decode to the planes they gave
+    before (a); (d) the 65536x65536 grid and the limit sweep grow the
+    card's memory by less than FUZZ_GROWTH_MB; (e) the encoder fuzzer's
+    files.  Each step's wall and launches beside the card's name and
+    power limit."""
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    walls, launches = {}, {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    with launch_counts() as n:
+        healthy = {"unci grid + alpha": native_hashes(grid),
+                   "hevc photo": native_hashes(photo)}
+    launches["c_before"] = nonzero(n)
+    step("c_before")
+
+    # (a)
+    inputs = fuzz_inputs(FUZZ_N, FUZZ_SEED)
+    here = os.path.dirname(os.path.abspath(__file__))
+    answers = heif_fuzz.run_children(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         "--fuzz-child"], [(i, {"i": i}) for i in range(FUZZ_N)],
+        lambda i: inputs[i][2], children=FUZZ_CHILDREN,
+        timeout_s=FUZZ_INPUT_S, cwd=here)
+    step("a")
+    crashes = {i: r for i, r in answers.items() if "crash" in r}
+    results = {i: r for i, r in answers.items() if "crash" not in r}
+    hangs = {i: {"run_one_s": r["run_one_s"], "reproducer":
+                 heif_fuzz.reproducer("hang", i, inputs[i][2])}
+             for i, r in results.items()
+             if r["run_one_s"] > FUZZ_DEADLINE_S}
+    by_kernel = {k: {"inputs": 0, "launches": 0} for k in FUZZ_KERNELS}
+    outcomes, by_seed, by_kind, diffs, errors = {}, {}, {}, {}, {}
+    for i, r in sorted(results.items()):
+        outcomes[r["outcome"]] = outcomes.get(r["outcome"], 0) + 1
+        s = by_seed.setdefault(r["seed"], {"ok": 0, "heif-error": 0})
+        s[r["outcome"]] += 1
+        for kind in set(r["kinds"]):
+            s = by_kind.setdefault(kind, {"ok": 0, "heif-error": 0})
+            s[r["outcome"]] += 1
+        for k, c in r["launches"].items():
+            by_kernel[k]["inputs"] += 1
+            by_kernel[k]["launches"] += c
+        if r["diff"] is not None:
+            diffs[i] = {"seed": r["seed"], "kinds": r["kinds"],
+                        "diff": r["diff"]}
+        for _, o in r["walk"]:
+            if isinstance(o, list) and o[0] == "error":
+                errors[f"{o[1]}/{o[2]}"] = errors.get(f"{o[1]}/{o[2]}",
+                                                      0) + 1
+    log(f"fuzz (a): {len(results)} of {FUZZ_N} inputs (seed {FUZZ_SEED}) "
+        f"in {walls['a']:.1f} s, outcomes {json.dumps(outcomes)}, crashes "
+        f"{sorted(crashes)}, hangs {sorted(hangs)}, card/CPU differences "
+        f"{len(diffs)} ({card})")
+    log(f"fuzz (a) inputs launching each kernel {json.dumps(by_kernel)}")
+    log(f"fuzz (a) by seed file {json.dumps(by_seed)}")
+    log(f"fuzz (a) by mutation kind {json.dumps(by_kind)}")
+    log(f"fuzz (a) HeifError steps {json.dumps(errors)}")
+    for key in ("run_one_s", "s"):
+        log(f"fuzz (a) slowest inputs by {key} " + json.dumps(
+            [{k: r[k] for k in ("i", "seed", "kinds", "run_one_s",
+                                "card_s", "s")}
+             for r in sorted(results.values(), key=lambda r: -r[key])[:5]]))
+    for i, c in sorted(crashes.items()):
+        log(f"fuzz (a) CRASH at input {i} ({c['crash']}), reproducer "
+            f"{c['reproducer']}:\n{c['stderr']}")
+    for i, c in sorted(hangs.items()):
+        log(f"fuzz (a) HANG at input {i} (run_one {c['run_one_s']:.1f} s), "
+            f"reproducer {c['reproducer']}")
+    for i, d in sorted(diffs.items()):
+        log(f"fuzz (a) input {i} differs: {json.dumps(d)}")
+    assert not crashes, f"fuzz (a): crashes at inputs {sorted(crashes)}"
+    assert not hangs, f"fuzz (a): hangs at inputs {sorted(hangs)}"
+    assert len(results) == FUZZ_N, \
+        f"fuzz (a): {FUZZ_N - len(results)} inputs without a result"
+    assert not diffs, f"fuzz (a): the card differs from the CPU at " \
+                      f"inputs {sorted(diffs)}"
+    missed = [k for k, v in by_kernel.items() if not v["inputs"]]
+    assert not missed, f"fuzz (a): no mutated input launched {missed}"
+
+    # (c) the card after the children
+    with launch_counts() as n:
+        after = {"unci grid + alpha": native_hashes(grid),
+                 "hevc photo": native_hashes(photo)}
+    launches["c_after"] = nonzero(n)
+    assert after == healthy, "fuzz (c): the planes changed after (a)"
+    log("fuzz (c): the unci grid + alpha file and the HEVC photo decode to "
+        "the planes they gave before (a)")
+    step("c_after")
+
+    # (d) the security limits before device allocation
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.max_memory_allocated()
+    with launch_counts() as n:
+        blob, grid_id = huge_grid_file(DEV)
+        try:
+            HeifContext.read_from_bytes(blob, device=DEV).decode_image(
+                grid_id)
+            raise AssertionError("fuzz (d): the 65536x65536 grid decoded")
+        except HeifError as e:
+            huge = f"{e.code.name}/{e.subcode.name}: {e}"
+        with open(os.path.join(FUZZ_DIR, SWEEP_FILE), "rb") as f:
+            sweep = limit_sweep(f.read(), DEV)
+    launches["d"] = nonzero(n)
+    growth = torch.cuda.max_memory_allocated() - base
+    log(f"fuzz (d): the 65536x65536 grid raised {huge}; sweep "
+        f"{json.dumps(sweep)}; peak device memory grew {growth} B ({card})")
+    assert growth < FUZZ_GROWTH_MB << 20, \
+        f"fuzz (d): device memory grew {growth} B"
+    step("d")
+
+    # (e) the encoder fuzzer
+    with launch_counts() as n:
+        trials = check_encoder_trials(DEV)
+    launches["e"] = nonzero(n)
+    log(f"fuzz (e): six encoder trials with the JAX writer's SHA-256 "
+        f"{json.dumps(trials)}")
+    step("e")
+
+    seconds = time.perf_counter() - t_start
+    log(f"phase 4q launches {json.dumps(launches)} ({card})")
+    log(f"phase 4q steps (s) {json.dumps(walls)} ({card})")
+    log(f"fuzz phase {seconds:.1f} s ({card})")
+    return {"card": card, "inputs": FUZZ_N, "seed": FUZZ_SEED,
+            "outcomes": outcomes, "by_kernel": by_kernel,
+            "by_seed": by_seed, "by_kind": by_kind, "errors": errors,
+            "slowest_run_one_s": max(r["run_one_s"]
+                                     for r in results.values()),
+            "growth_bytes": growth, "huge_grid": huge, "sweep": sweep,
+            "encoder_trials": trials, "launches": launches,
+            "step_seconds": walls, "seconds": seconds}
+
+
+def fuzz_alone(tally):
+    """Phase 4q alone, on card 0."""
+    _, _, data = flagship_input()
+    return check_fuzz(photo_file(hevc_streams()),
+                      grid_file(data, alpha_payload())), None
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -7712,23 +8057,13 @@ def nvidia_smi():
     return out.stdout.strip()
 
 
-HOST_LIBRARIES = (_build.HOST_LIBRARY, _build.JPEG_HOST_LIBRARY,
-                  _build.AVC_HOST_LIBRARY, _build.J2K_HOST_LIBRARY)
-
-
 def build_library():
-    """Build (or load) every kernel, logging the time and ptxas's lines;
-    the codecs' host C++ libraries build on threads meanwhile (each one
-    ``c++``), so that no later phase waits for its build."""
-    t0 = time.perf_counter()
-    hosts = concurrent.futures.ThreadPoolExecutor(len(HOST_LIBRARIES))
-    built = [hosts.submit(lib.load) for lib in HOST_LIBRARIES]
-    _build.LIBRARY.load()
-    log(f"built {_build.LIBRARY.path} in {time.perf_counter() - t0:.1f} s")
-    for lib, b in zip(HOST_LIBRARIES, built):
-        b.result()
-        log(f"built {lib.path} by {time.perf_counter() - t0:.1f} s")
-    hosts.shutdown()
+    """Build (or load) every kernel and the codecs' host C++ libraries, all
+    at once, through tools/warmup_cache (so that no later phase waits for
+    a build), logging each library's seconds and ptxas's lines."""
+    for stem, seconds in warmup_cache.build(
+            warmup_cache.libraries()).items():
+        log(f"built {stem} by {seconds:.1f} s")
     for line in _build.LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("ptxas:", line.strip())
@@ -8058,6 +8393,13 @@ def main():
 
     phase_done("tools")
 
+    # 4q. heif_fuzz on the card: the mutated corpus against the CPU in
+    # child processes, the card's health after them, the security limits
+    # before device allocation, the encoder fuzzer's files
+    fuzz_phase = check_fuzz(photo, blobs["grid"])
+
+    phase_done("fuzz")
+
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
                     tile_w=W // TILES, kr=float(KR), kb=float(KB))
@@ -8300,6 +8642,9 @@ def main():
     # launches of phase 4p's tool runs, per kernel and step
     for name, by_path in tools_by_kernel.items():
         kern[name]["tools_launches"] = by_path
+    # phase 4q's mutated inputs that launched each kernel, and its launches
+    for name, counts in fuzz_phase["by_kernel"].items():
+        kern[name]["fuzz_launches"] = counts
 
     phase_done("timing")
 
@@ -8367,7 +8712,7 @@ def main():
         "mesh": mesh, "sequences": seq, "encode": enc, "write": wr,
         "avc": avc, "avc_encode": avc_enc, "j2k": j2k, "vvc": vvc,
         "api": api_phase, "api_write": api_write_phase,
-        "tools": tools_phase,
+        "tools": tools_phase, "fuzz": fuzz_phase,
         "av1_parses": {"streams": len(AV1_PARSES),
                        "ms": sum(AV1_PARSE_MS.values())},
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
@@ -8408,6 +8753,9 @@ if __name__ == "__main__":
              "--vvc-only": ("vvc", vvc_alone),
              "--api-only": ("api", api_alone),
              "--api-write-only": ("api_write", api_write_alone),
-             "--tools-only": ("tools", tools_alone)}
+             "--tools-only": ("tools", tools_alone),
+             "--fuzz-only": ("fuzz", fuzz_alone)}
+    if sys.argv[1:] == ["--fuzz-child"]:
+        sys.exit(fuzz_child())
     alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None
     sys.exit(run_alone(*alone) if alone else main())

@@ -105,13 +105,18 @@ class _Library:
                 self._lib = ctypes.CDLL(str(self._build()))
             return self._lib
 
-    def _build(self) -> Path:
-        srcs = self.sources()
+    def target(self) -> Path:
+        """The library's file: its name carries a hash of its key and
+        sources."""
         h = hashlib.sha1(self.key)
-        for s in srcs:
+        for s in self.sources():
             h.update(s.name.encode())
             h.update(s.read_bytes())
-        out = BUILD_DIR / f"{self.stem}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"{self.stem}-{h.hexdigest()[:16]}.so"
+
+    def _build(self) -> Path:
+        srcs = self.sources()
+        out = self.target()
         self.path = out
         if out.exists():
             return out

@@ -13,6 +13,7 @@ tools/extract_avc_tables.py and pinned by the libavcodec difftests.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -24,6 +25,7 @@ from .mb import SliceDecoder, MBInfo, I_NXN, I_PCM
 # ------------------------------------------------------------------ tables
 
 _VLC_CACHE: Optional[dict] = None
+_VLC_LOCK = threading.Lock()
 
 
 def _build_vlc(lens: np.ndarray, bits: np.ndarray, values) -> Dict[
@@ -36,9 +38,19 @@ def _build_vlc(lens: np.ndarray, bits: np.ndarray, values) -> Dict[
 
 
 def _tables() -> dict:
+    """The CAVLC code tables, built once.  The build reads the shared
+    ``tables._NPZ``, whose zip members two threads must not open at once
+    (``zipfile`` seeks the shared file from where the other thread left
+    it), so it runs under a lock."""
+    if _VLC_CACHE is None:
+        with _VLC_LOCK:
+            if _VLC_CACHE is None:
+                _build_tables()
+    return _VLC_CACHE
+
+
+def _build_tables() -> None:
     global _VLC_CACHE
-    if _VLC_CACHE is not None:
-        return _VLC_CACHE
     z = T._NPZ
     t = {}
     ctl = z["cavlc_coeff_token_len"].reshape(4, 68)
@@ -81,7 +93,6 @@ def _tables() -> dict:
     t["cbp_intra"] = z["cavlc_cbp_intra"].astype(np.int32)
     t["cbp_inter"] = z["cavlc_cbp_inter"].astype(np.int32)
     _VLC_CACHE = t
-    return t
 
 
 # ------------------------------------------------------------------ reader
@@ -232,6 +243,11 @@ def residual_cavlc(r: CavlcReader, nc: int, max_coeff: int) -> np.ndarray:
             zeros_left -= run
         else:
             run = 0
+        if not -len(out) <= pos < len(out):
+            # total_zeros and run_before name a coefficient outside the
+            # block: a corrupt stream
+            raise HeifError.invalid_input(
+                msg="CAVLC coefficient position out of range")
         out[pos] = levels[i]
         pos -= 1 + run
     return out

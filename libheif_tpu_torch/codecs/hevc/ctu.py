@@ -1044,6 +1044,9 @@ class SliceParser:
             idx = self._parse_merge_idx()
             cands = self._merge_candidates(xp, yp, w, h, part_mode,
                                            part_idx, cu_x, cu_y, cu_size)
+            if idx >= len(cands):
+                # a corrupt five_minus_max_num_merge_cand or merge_idx
+                raise HeifError.invalid_input(msg="merge_idx out of range")
             mv0, ref0, mv1, ref1 = cands[idx]
             # 8x4/4x8 PUs may not be bi-predicted: a bi merge candidate
             # degrades to uni-L0 (spec 8.5.3.2.3)

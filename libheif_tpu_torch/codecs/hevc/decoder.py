@@ -465,6 +465,8 @@ class HevcSequenceSession:
     decodes whole."""
 
     def __init__(self, config_box, limits=None, device=None):
+        if config_box is None:
+            raise HeifError.invalid_input(SubError.No_hvcC_box)
         sps = pps = None
         for nal in config_box.get_header_nals():
             t = H.nal_type(nal)

@@ -27,6 +27,8 @@ NAL_SUFFIX_SEI = 40
 
 
 def nal_type(nal: bytes) -> int:
+    if not nal:
+        raise HeifError.invalid_input(msg="empty NAL unit")
     return (nal[0] >> 1) & 0x3F
 
 
@@ -232,6 +234,10 @@ def _scaling_list_data(br: BitReader):
                     dcs[size_id][matrix_id] = 16
                 else:
                     ref = matrix_id - delta * (3 if size_id == 3 else 1)
+                    if ref < 0:
+                        raise HeifError.invalid_input(
+                            msg="scaling_list_pred_matrix_id_delta out "
+                                "of range")
                     lists[size_id][matrix_id] = \
                         list(lists[size_id][ref])
                     dcs[size_id][matrix_id] = dcs[size_id][ref]

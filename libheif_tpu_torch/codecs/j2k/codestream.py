@@ -145,9 +145,9 @@ class CapSeg:
 def parse_cap(body: bytes) -> CapSeg:
     if len(body) < 4:
         raise _err("CAP too short")
-    pcap = struct.unpack(">I", body[:4])[0]
+    pcap = _unpack(">I", body[:4])[0]
     n = (len(body) - 4) // 2
-    ccap = list(struct.unpack(">%dH" % n, body[4:4 + 2 * n]))
+    ccap = list(_unpack(">%dH" % n, body[4:4 + 2 * n]))
     return CapSeg(pcap, ccap)
 
 
@@ -179,10 +179,18 @@ def _err(msg: str) -> HeifError:
     return HeifError.invalid_input(msg=msg)
 
 
+def _unpack(fmt: str, buf: bytes) -> tuple:
+    """``struct.unpack`` of a marker field; a field cut short by the end
+    of the codestream raises a HeifError (struct.error in the JAX copy)."""
+    if len(buf) != struct.calcsize(fmt):
+        raise _err("truncated JPEG 2000 codestream")
+    return struct.unpack(fmt, buf)
+
+
 def parse_siz(body: bytes) -> SizSeg:
     if len(body) < 36:
         raise _err("SIZ too short")
-    (rsiz, xs, ys, xo, yo, xt, yt, xto, yto, csiz) = struct.unpack(
+    (rsiz, xs, ys, xo, yo, xt, yt, xto, yto, csiz) = _unpack(
         ">HIIIIIIIIH", body[:36])
     s = SizSeg(rsiz, xs, ys, xo, yo, xt, yt, xto, yto)
     p = 36
@@ -210,7 +218,7 @@ def parse_cod(body: bytes) -> CodStyle:
     c = CodStyle()
     c.scod = body[0]
     c.prog_order = body[1]
-    c.nlayers = struct.unpack(">H", body[2:4])[0]
+    c.nlayers = _unpack(">H", body[2:4])[0]
     c.mct = body[4]
     c.levels = body[5]
     c.xcb = (body[6] & 0x0F) + 2
@@ -235,7 +243,7 @@ def parse_coc(body: bytes, base: CodStyle, ncomps: int) -> Tuple[int, CodStyle]:
     if ncomps < 257:
         comp, p = body[0], 1
     else:
-        comp, p = struct.unpack(">H", body[:2])[0], 2
+        comp, p = _unpack(">H", body[:2])[0], 2
     c = CodStyle(scod=base.scod, prog_order=base.prog_order,
                  nlayers=base.nlayers, mct=base.mct)
     scoc = body[p]
@@ -260,13 +268,13 @@ def parse_qcd(body: bytes) -> QuantStyle:
     if q.style == 0:
         q.steps = [(b >> 3, 0) for b in body[p:]]
     elif q.style == 1:
-        v = struct.unpack(">H", body[p:p + 2])[0]
+        v = _unpack(">H", body[p:p + 2])[0]
         q.steps = [(v >> 11, v & 0x7FF)]
     elif q.style == 2:
         n = (len(body) - 1) // 2
         q.steps = []
         for i in range(n):
-            v = struct.unpack(">H", body[p + 2 * i:p + 2 * i + 2])[0]
+            v = _unpack(">H", body[p + 2 * i:p + 2 * i + 2])[0]
             q.steps.append((v >> 11, v & 0x7FF))
     else:
         raise _err("bad quantization style %d" % q.style)
@@ -287,7 +295,7 @@ def parse_qcc(body: bytes, ncomps: int) -> Tuple[int, QuantStyle]:
     if ncomps < 257:
         comp, p = body[0], 1
     else:
-        comp, p = struct.unpack(">H", body[:2])[0], 2
+        comp, p = _unpack(">H", body[:2])[0], 2
     return comp, parse_qcd(body[p:])
 
 
@@ -295,11 +303,11 @@ def _unwrap_jp2(data: bytes) -> bytes:
     """Extract the contiguous codestream (jp2c) from a JP2 file."""
     pos = 0
     while pos + 8 <= len(data):
-        size = struct.unpack(">I", data[pos:pos + 4])[0]
+        size = _unpack(">I", data[pos:pos + 4])[0]
         btype = data[pos + 4:pos + 8]
         hdr = 8
         if size == 1:
-            size = struct.unpack(">Q", data[pos + 8:pos + 16])[0]
+            size = _unpack(">Q", data[pos + 8:pos + 16])[0]
             hdr = 16
         elif size == 0:
             size = len(data) - pos
@@ -315,19 +323,19 @@ def parse_codestream(data: bytes) -> Codestream:
     if data[:4] == b"\x00\x00\x00\x0c" and data[4:8] == b"jP  ":
         data = _unwrap_jp2(data)
     cs = Codestream()
-    if len(data) < 4 or struct.unpack(">H", data[:2])[0] != SOC:
+    if len(data) < 4 or _unpack(">H", data[:2])[0] != SOC:
         raise _err("missing SOC")
     pos = 2
     main_done = False
     while pos + 2 <= len(data):
-        marker = struct.unpack(">H", data[pos:pos + 2])[0]
+        marker = _unpack(">H", data[pos:pos + 2])[0]
         pos += 2
         if marker == EOC:
             break
         if marker == SOT:
-            lseg = struct.unpack(">H", data[pos:pos + 2])[0]
+            lseg = _unpack(">H", data[pos:pos + 2])[0]
             body = data[pos + 2:pos + lseg]
-            isot, psot, tpsot, tnsot = struct.unpack(">HIBB", body[:8])
+            isot, psot, tpsot, tnsot = _unpack(">HIBB", body[:8])
             sot_start = pos - 2
             if psot == 0:
                 psot = len(data) - sot_start
@@ -337,19 +345,19 @@ def parse_codestream(data: bytes) -> Codestream:
             tp_end = sot_start + psot
             # find SOD
             q = pos + lseg
-            m2 = struct.unpack(">H", data[q:q + 2])[0]
+            m2 = _unpack(">H", data[q:q + 2])[0]
             # skip any tile-part header markers (COD/QCD/COM/PLT...) until SOD
             while m2 != SOD:
-                l2 = struct.unpack(">H", data[q + 2:q + 4])[0]
+                l2 = _unpack(">H", data[q + 2:q + 4])[0]
                 q += 2 + l2
-                m2 = struct.unpack(">H", data[q:q + 2])[0]
+                m2 = _unpack(">H", data[q:q + 2])[0]
             body_data = data[q + 2:tp_end]
             cs.tile_data[isot] = cs.tile_data.get(isot, b"") + body_data
             pos = tp_end
             continue
         if pos + 2 > len(data):
             break
-        lseg = struct.unpack(">H", data[pos:pos + 2])[0]
+        lseg = _unpack(">H", data[pos:pos + 2])[0]
         body = data[pos + 2:pos + lseg]
         if marker == SIZ:
             cs.siz = parse_siz(body)

@@ -94,6 +94,15 @@ class SyntaxIO:
         return value
 
 
+def _level(value) -> int:
+    """A decoded absolute level, which the int32 coefficient arrays must
+    hold; a corrupt abs_remainder or dec_abs_level raises."""
+    if value > 0x7FFFFFFF:
+        raise HeifError.invalid_input(msg="VVC coefficient level out of "
+                                          "range")
+    return value
+
+
 # --------------------------------------------------------------------------
 # CU model
 # --------------------------------------------------------------------------
@@ -818,7 +827,7 @@ class SliceCoder:
                     io.eg(rice, rem)
                 else:
                     rem = io.eg(rice)
-                absf[gy, gx] = abs1[gy, gx] + 2 * rem
+                absf[gy, gx] = _level(int(abs1[gy, gx]) + 2 * rem)
 
             # ---- pass 3: dec_abs_level for budget-exhausted positions
             for k in pass3_positions:
@@ -844,7 +853,7 @@ class SliceCoder:
                     level = v + 1
                 else:
                     level = v
-                absf[gy, gx] = level
+                absf[gy, gx] = _level(level)
 
             # ---- pass 4: signs (no sign hiding in this toolset)
             for k in range(start, -1, -1):

@@ -177,31 +177,22 @@ def predict_intra(ref: np.ndarray, mode: int, log2w: int, log2h: int,
                 side_src[min(idx - 1, smax)]
 
     k = np.arange(1, lines + 1)
-    i_idx = (k * angle) >> 5
     i_fact = (k * angle) & 31
-    pos = np.arange(mn)
+    # each line's taps start at its base (i_idx + 1 past the corner)
+    at = (off + ((k * angle) >> 5) + 1)[:, None] + np.arange(mn)[None, :]
     hi = len(ext) - 1
-    predT = np.zeros((lines, mn), np.int64)
-    filt = _FG if use_gauss else _FC
-    for d_i in range(lines):
-        base = off + int(i_idx[d_i]) + 1
-        f = int(i_fact[d_i])
-        if c_idx == 0:
-            # 4-tap interpolation over taps at base-1 .. base+2 (§8.4.5.2.12)
-            taps = filt[f]
-            acc = np.zeros(mn, np.int64)
-            for t in range(4):
-                idx = np.clip(pos + base - 1 + t, 0, hi)
-                acc += taps[t] * ext[idx]
-            row = np.clip((acc + 32) >> 6, 0, maxv)
-        else:
-            idx0 = np.clip(pos + base, 0, hi)
-            if f == 0:
-                row = ext[idx0]
-            else:
-                idx1 = np.clip(pos + base + 1, 0, hi)
-                row = ((32 - f) * ext[idx0] + f * ext[idx1] + 16) >> 5
-        predT[d_i] = row
+    if c_idx == 0:
+        # 4-tap interpolation over taps at base-1 .. base+2 (§8.4.5.2.12)
+        taps = (_FG if use_gauss else _FC)[i_fact]
+        acc = np.zeros((lines, mn), np.int64)
+        for t in range(4):
+            acc += taps[:, t:t + 1] * ext[np.clip(at - 1 + t, 0, hi)]
+        predT = np.clip((acc + 32) >> 6, 0, maxv)
+    else:
+        e0 = ext[np.clip(at, 0, hi)]
+        f = i_fact[:, None]
+        predT = np.where(f == 0, e0, ((32 - f) * e0 + f * ext[np.clip(
+            at + 1, 0, hi)] + 16) >> 5)
 
     pred = predT if vertical else predT.T
     if mode in (INTRA_HOR, INTRA_VER):
@@ -253,11 +244,6 @@ class PictureRecon:
         w4 = (self.w + 3) // 4 + 1
         self.avail = np.zeros((h4, w4), bool)
 
-    def _sample_available(self, lx: int, ly: int) -> bool:
-        if lx < 0 or ly < 0 or lx >= self.w or ly >= self.h:
-            return False
-        return bool(self.avail[ly >> 2, lx >> 2])
-
     def gather_refs(self, x: int, y: int, log2w: int, log2h: int,
                     c_idx: int) -> np.ndarray:
         """2(w+h)+1 reference array with unavailable-sample substitution
@@ -270,33 +256,30 @@ class PictureRecon:
         plane = self.planes[c_idx]
         ph, pw = plane.shape
 
-        coords = []
-        for i in range(span):
-            coords.append((px - 1, py + span - 1 - i))
-        coords.append((px - 1, py - 1))
-        for i in range(span):
-            coords.append((px + i, py - 1))
-
+        i = np.arange(span)
+        xs = np.concatenate([np.full(span, px - 1), [px - 1], px + i])
+        ys = np.concatenate([py + span - 1 - i, [py - 1],
+                             np.full(span, py - 1)])
+        # inside the plane and inside the picture in luma samples
+        inside = (xs >= 0) & (xs < pw) & (ys >= 0) & (ys < ph) & \
+            ((xs << shift) < self.w) & ((ys << shift) < self.h)
         n_ref = 2 * span + 1
-        vals = np.zeros(n_ref, np.int32)
         avail = np.zeros(n_ref, bool)
-        for i, (sx, sy) in enumerate(coords):
-            if 0 <= sx < pw and 0 <= sy < ph and \
-                    self._sample_available(sx << shift, sy << shift):
-                vals[i] = plane[sy, sx]
-                avail[i] = True
+        avail[inside] = self.avail[(ys[inside] << shift) >> 2,
+                                   (xs[inside] << shift) >> 2]
+        vals = np.zeros(n_ref, np.int32)
+        vals[avail] = plane[ys[avail], xs[avail]]
 
         if not avail.any():
             vals[:] = 1 << (self.bd - 1)
             return vals
         if not avail.all():
             if not avail[0]:
-                idx = int(np.argmax(avail))
-                vals[0] = vals[idx]
+                vals[0] = vals[int(np.argmax(avail))]
                 avail[0] = True
-            for i in range(1, n_ref):
-                if not avail[i]:
-                    vals[i] = vals[i - 1]
+            # each missing sample takes the one before it (§8.4.5.2.8)
+            last = np.where(avail, np.arange(n_ref), 0)
+            vals = vals[np.maximum.accumulate(last)]
         return vals
 
     def reconstruct_tb(self, x: int, y: int, log2w: int, log2h: int,
