@@ -387,6 +387,27 @@ It needs no network and imports neither JAX nor the JAX package.  Phases:
    read back on the card, each file the JAX writer's SHA-256
    (testdata/fuzz/encoder_manifest.json); each step's wall and launches
    per kernel beside the card's name and power limit;
+4r. the host decode engines of HEVC and AV1 stills (codecs/engines.py):
+   the HEVC photo and the AVIF photo through HeifContext to interleaved
+   RGB on the device engine and with LIBHEIF_TPU_HEVC_ENGINE /
+   LIBHEIF_TPU_AV1_ENGINE set to "native", and the 512x512 tile
+   ENGINE_TILE of each codec as a single-item file on its numpy engine
+   ("python", "host") and the device engine: each host decode 0 samples
+   off the device engine's planes of the same run, the photos' whole
+   tiles and the single tiles equal to the manifests' hashes, no HEVC or
+   AV1 kernel launched under a host engine and one planes_ycbcr8_to_rgb a
+   decode; each decode's wall, the threads that decoded its pictures and,
+   for the photos, a second decode's wall and the card's busy share of a
+   third, profiled decode over that decode's own wall (torch.profiler),
+   beside the card's name and power limit.  The phase
+   sets each variable and unsets it after; main refuses to run with
+   either set;
+4s. only under --grid-pool-only, not in the whole run: the grids whose
+   tiles decode one by one (the unci grid + alpha file, the AVC photo,
+   the committed VVC grid) with max_decoding_threads=1, which is how a
+   grid on a card decoded before its tiles took the context's pool, and
+   with the pool's default of 4, in the order 1, 4, 4, 1: the same
+   planes and launches both ways, each way's walls;
 5. drive the fused yuv420_tiles_to_rgb path (the headline of bench.py) at
    the same shape, with its own launch count;
 6. time kernels, plain versions, one-call PyTorch yardsticks (also for
@@ -455,7 +476,10 @@ JPEG 2000 half; ``python3 chip_smoke.py --vvc-only`` the build and phase
 4m; ``python3 chip_smoke.py --api-only`` the build and phase 4n;
 ``python3 chip_smoke.py --api-write-only`` the build and phase 4o;
 ``python3 chip_smoke.py --tools-only`` the build and phase 4p;
-``python3 chip_smoke.py --fuzz-only`` the build and phase 4q.  Each AV1
+``python3 chip_smoke.py --fuzz-only`` the build and phase 4q;
+``python3 chip_smoke.py --engines-only`` the build and phase 4r.  With
+LIBHEIF_TPU_HEVC_ENGINE or LIBHEIF_TPU_AV1_ENGINE set the script refuses
+to run: only phase 4r sets them.  Each AV1
 stream is parsed once a run (av1_parse_once): the phases decode the same
 committed streams many times over.
 """
@@ -512,7 +536,7 @@ from libheif_tpu_torch.codecs.hevc import device_recon
 from libheif_tpu_torch.codecs.hevc import encoder as hevc_encoder
 from libheif_tpu_torch.codecs.hevc import headers as hevc_headers
 from libheif_tpu_torch.codecs.hevc import inter_cases
-from libheif_tpu_torch.codecs import kernel_timing, registry
+from libheif_tpu_torch.codecs import engines, kernel_timing, registry
 from libheif_tpu_torch.codecs.j2k import native as j2k_native
 from libheif_tpu_torch.codecs.jpeg import cuda_fast as jpeg_fast
 from libheif_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
@@ -8050,6 +8074,255 @@ def fuzz_alone(tally):
                       grid_file(data, alpha_payload())), None
 
 
+# -------------------------------------------------------------------- 4r
+# the host decode engines of HEVC and AV1 stills (codecs/engines.py),
+# chosen by LIBHEIF_TPU_HEVC_ENGINE / LIBHEIF_TPU_AV1_ENGINE, which only
+# this phase sets
+
+ENGINE_VARIABLES = (engines.HEVC_VARIABLE, engines.AV1_VARIABLE)
+ENGINE_TILE = "tile512_s0"       # the small tile of each numpy engine
+
+
+def refuse_engine_variables():
+    """Every phase but 4r decodes on the device engine: an engine
+    variable set by the caller would change their paths and counts."""
+    set_ = {v: os.environ[v] for v in ENGINE_VARIABLES if os.environ.get(v)}
+    if set_:
+        print(f"chip_smoke.py: unset {set_} first (phase 4r sets them)",
+              file=sys.stderr)
+    return not set_
+
+
+@contextlib.contextmanager
+def engine_variable(variable, engine):
+    """``variable`` set to ``engine`` inside the block, and unset after:
+    the other phases run with neither variable set."""
+    os.environ[variable] = engine
+    try:
+        yield
+    finally:
+        del os.environ[variable]
+
+
+def engine_decode(blob, what, variable=None, engine=None, profile=False):
+    """One decode of ``blob`` to interleaved RGB through the context, under
+    ``variable`` = ``engine`` (neither: the device engine): its wall, its
+    launches, the threads that decoded its pictures one by one (0 for a
+    batch), the YCbCr image
+    handed to the output conversion, and with ``profile`` the wall of a
+    second decode and the card's kernel and copy time over a third one
+    (torch.profiler), its busy share taken over that third decode's own
+    wall."""
+    seen, threads = [], set()
+    real_convert = context_mod.convert_image
+    real_hevc = hevc_decoder.decode_intra_picture
+    real_av1 = av1_decoder.decode_intra_frame_ex
+
+    def convert(img, *args, **kw):
+        seen.append(img)
+        return real_convert(img, *args, **kw)
+
+    def on_thread(fn):
+        def run(*args, **kw):
+            threads.add(threading.get_ident())
+            return fn(*args, **kw)
+        return run
+
+    def decode():
+        t0 = time.perf_counter()
+        rgb = HeifContext.read_from_bytes(blob).decode_image(
+            None, Colorspace.RGB, Chroma.InterleavedRGB)
+        return rgb, ms_since(t0)
+    context_mod.convert_image = convert
+    hevc_decoder.decode_intra_picture = on_thread(real_hevc)
+    av1_decoder.decode_intra_frame_ex = on_thread(real_av1)
+    try:
+        with contextlib.ExitStack() as stack:
+            if variable is not None:
+                stack.enter_context(engine_variable(variable, engine))
+            with launch_counts() as launches:
+                rgb, ms = decode()
+            n_threads = len(threads)
+            if profile:
+                warm_ms = decode()[1]
+                profiled_ms = []
+                # device_ms may run the decode again: the last run's wall
+                dev = device_ms(lambda: profiled_ms.append(decode()[1]))
+    finally:
+        context_mod.convert_image = real_convert
+        hevc_decoder.decode_intra_picture = real_hevc
+        av1_decoder.decode_intra_frame_ex = real_av1
+    out = {"wall_ms": ms, "launches": nonzero(launches),
+           "threads": n_threads}
+    if profile:
+        if dev is None:
+            out["device"] = "not measured (the profiler recorded no " \
+                            "device time)"
+        else:
+            out["device"] = {"kernels_ms": dev["kernels_ms"],
+                             "copies_ms": dev["copies_ms"]}
+            out["profiled_wall_ms"] = profiled_ms[-1]
+            out["busy_share"] = (dev["kernels_ms"] + dev["copies_ms"]) / \
+                profiled_ms[-1]
+        out["second_wall_ms"] = warm_ms
+    log(f"engines {what}: {json.dumps(out)}")
+    return out, seen[0], rgb
+
+
+def ycc_planes(img):
+    return [img.plane(c) for c in (Channel.Y, Channel.Cb, Channel.Cr)]
+
+
+def samples_off(got, ref):
+    return sum(int((a.to(torch.int32) != b.to(torch.int32)).sum())
+               for a, b in zip(got, ref))
+
+
+def whole_tiles_against(img, streams, tiles, grid_shape, key):
+    """The grid's tiles that lie whole inside the output, each against
+    its stream's committed hashes (``key``: the manifest's plane names):
+    the count of tiles checked."""
+    rows, cols = grid_shape
+    n = 0
+    for i in range(rows * cols):
+        ty, tx = divmod(i, cols)
+        cut = []
+        for ch, sub in ((Channel.Y, 1), (Channel.Cb, 2), (Channel.Cr, 2)):
+            t = 512 // sub
+            cut.append(img.plane(ch)[ty * t:ty * t + t, tx * t:tx * t + t])
+        if any(tuple(p.shape) != (512 // s, 512 // s)
+               for p, s in zip(cut, (1, 2, 2))):
+            continue
+        e = streams[tiles[i % len(tiles)]]
+        got = dict(zip(key, int32_hashes([p.to(torch.int32) for p in cut])
+                       .values()))
+        assert got == e["sha256"], f"tile {i}: not the manifest's planes"
+        n += 1
+    return n
+
+
+def check_engines(streams, a_streams, photo, a_photo):
+    """Phase 4r: the HEVC photo and the AVIF photo through HeifContext on
+    the device engine and under "native", and a 512x512 tile of each
+    codec on its numpy engine ("python", "host") and the device engine:
+    every decode held to the manifests' hashes (the photos' whole tiles)
+    and to the device engine's planes of the same run, 0 samples off; no
+    HEVC or AV1 kernel launched under a host engine, one
+    planes_ycbcr8_to_rgb a decode; the walls of a first and a second
+    decode, the card's busy share of a third (over its own wall) and the
+    threads used, beside the card's name and power limit."""
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    rows = {}
+    hevc_kernels = ("hevc_dequant_itx", "hevc_intra_wave")
+    av1_kernels = ("av1_dequant_itx", "av1_intra_wave")
+    photos = (
+        ("hevc photo", photo, engines.HEVC_VARIABLE, PHOTO_GRID,
+         PHOTO_TILES, streams, ("Y", "Cb", "Cr"), hevc_kernels),
+        ("avif photo", a_photo, engines.AV1_VARIABLE, AV1_PHOTO_GRID,
+         PHOTO_TILES, a_streams, ("Y", "U", "V"), av1_kernels))
+    for what, blob, variable, shape, tiles, mf, key, kernels in photos:
+        dev, dev_img, dev_rgb = engine_decode(blob, f"{what} device",
+                                              profile=True)
+        nat, nat_img, nat_rgb = engine_decode(blob, f"{what} native",
+                                              variable, "native",
+                                              profile=True)
+        off = samples_off(ycc_planes(nat_img), ycc_planes(dev_img))
+        whole = whole_tiles_against(nat_img, mf, tiles, shape, key)
+        assert off == 0, f"{what}: native differs from device by {off}"
+        assert torch.equal(nat_rgb.plane(Channel.Interleaved),
+                           dev_rgb.plane(Channel.Interleaved)), what
+        assert all(dev["launches"].get(k) == 1 for k in kernels), dev
+        assert nat["launches"] == {"planes_ycbcr8_to_rgb": 1}, nat
+        rows[what] = {"device": dev, "native": nat, "samples_off": off,
+                      "whole_tiles_vs_manifest": whole,
+                      "native_over_device": nat["wall_ms"] /
+                      dev["wall_ms"]}
+    # one tile on each numpy engine; the AV1 host engine replays (and so
+    # empties) its parse's jobs: it takes a parse of its own
+    singles = (
+        ("hevc tile", hvc1_file(streams[ENGINE_TILE]),
+         engines.HEVC_VARIABLE, "python", streams[ENGINE_TILE],
+         ("Y", "Cb", "Cr"), hevc_kernels),
+        ("av1 tile", av01_file(a_streams[ENGINE_TILE]),
+         engines.AV1_VARIABLE, "host", a_streams[ENGINE_TILE],
+         ("Y", "U", "V"), av1_kernels))
+    for what, blob, variable, engine, e, key, kernels in singles:
+        dev, dev_img, _ = engine_decode(blob, f"{what} device")
+        cached = av1_decoder._parse_frame
+        av1_decoder._parse_frame = _AV1_PARSE_FRAME
+        try:
+            host, img, _ = engine_decode(blob, f"{what} {engine}", variable,
+                                         engine)
+        finally:
+            av1_decoder._parse_frame = cached
+        off = samples_off(ycc_planes(img), ycc_planes(dev_img))
+        got = dict(zip(key, int32_hashes(
+            [p.to(torch.int32) for p in ycc_planes(img)]).values()))
+        assert off == 0, f"{what}: {engine} differs from device by {off}"
+        assert got == e["sha256"], f"{what}: not the manifest's planes"
+        assert all(dev["launches"].get(k) == 1 for k in kernels), dev
+        assert host["launches"] == {"planes_ycbcr8_to_rgb": 1}, host
+        rows[what] = {"device": dev, engine: host, "samples_off": off,
+                      "vs_manifest": "equal"}
+    seconds = time.perf_counter() - t_start
+    log(f"phase 4r {json.dumps(rows)} ({card})")
+    log(f"engines phase {seconds:.1f} s ({card})")
+    return {"card": card, **rows, "seconds": seconds}
+
+
+def check_grid_pool():
+    """Phase 4s: each grid decoded to interleaved RGB(A) through the
+    context on one thread and on the pool of 4, in rounds of 1, 4, 4, 1:
+    the planes and the launch counts equal both ways, and each way's
+    walls, beside the card's name and power limit."""
+    card = nvidia_smi()
+    uncC, cmpd, data = flagship_input()
+    man = read_manifest(os.path.join(VVC_DIR, "encode_manifest.json"))
+    grids = (("unci grid + alpha", grid_file(data, alpha_payload()),
+              Chroma.InterleavedRGBA, REPEATS),
+             ("avc photo", avc_photo_file(avc_streams()),
+              Chroma.InterleavedRGB, 3),
+             ("vvc grid", vvc_file(man["files"]["grid"]["file"]),
+              Chroma.InterleavedRGB, 1))
+    rows = {}
+    for what, blob, chroma, rounds in grids:
+        walls, launches, planes = {1: [], 4: []}, {}, {}
+        for _ in range(rounds):
+            for n in (1, 4, 4, 1):
+                opts = DecodingOptions(max_decoding_threads=n)
+                with launch_counts() as counted:
+                    t0 = time.perf_counter()
+                    rgb = HeifContext.read_from_bytes(blob).decode_image(
+                        None, Colorspace.RGB, chroma, options=opts)
+                    walls[n].append(ms_since(t0))
+                launches.setdefault(n, nonzero(counted))
+                assert nonzero(counted) == launches[n], (what, n, counted)
+                planes.setdefault(n, rgb.plane(Channel.Interleaved))
+        assert launches[1] == launches[4], (what, launches)
+        assert torch.equal(planes[1], planes[4]), what
+        rows[what] = {"launches": launches[4], "one_thread_ms": walls[1],
+                      "pool_ms": walls[4],
+                      "median_one_thread_ms": float(np.median(walls[1])),
+                      "median_pool_ms": float(np.median(walls[4]))}
+        log(f"grid pool {what}: {json.dumps(rows[what])} ({card})")
+    return {"card": card, **rows}
+
+
+def grid_pool_alone(tally):
+    """Phase 4s, on card 0."""
+    install_av1_parse_once()
+    return check_grid_pool(), None
+
+
+def engines_alone(tally):
+    """Phase 4r alone, on card 0."""
+    install_av1_parse_once()
+    streams, a_streams = hevc_streams(), av1_streams()
+    return check_engines(streams, a_streams, photo_file(streams),
+                         av1_photo_file(a_streams)), None
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -8084,6 +8357,8 @@ def run_alone(what, body):
     where there are rows, holding those rows only)."""
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 1
+    if not refuse_engine_variables():
         return 1
     t0 = time.perf_counter()
     log(nvidia_smi())
@@ -8142,6 +8417,8 @@ def mesh_alone(tally):
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 1
+    if not refuse_engine_variables():
         return 1
     t_start = time.perf_counter()
     phase_s = {}        # seconds since the start at the end of each phase
@@ -8399,6 +8676,13 @@ def main():
     fuzz_phase = check_fuzz(photo, blobs["grid"])
 
     phase_done("fuzz")
+
+    # 4r. the host decode engines: the HEVC and AVIF photos under
+    # "native" and a tile on each numpy engine, against the device
+    # engine's planes and the manifests, with their walls
+    engines_phase = check_engines(streams, a_streams, photo, a_photo)
+
+    phase_done("engines")
 
     # 5. the fused tile path at full width
     fused_kw = dict(tile_rows=TILES, tile_cols=TILES, tile_h=H // TILES,
@@ -8712,7 +8996,7 @@ def main():
         "mesh": mesh, "sequences": seq, "encode": enc, "write": wr,
         "avc": avc, "avc_encode": avc_enc, "j2k": j2k, "vvc": vvc,
         "api": api_phase, "api_write": api_write_phase,
-        "tools": tools_phase, "fuzz": fuzz_phase,
+        "tools": tools_phase, "fuzz": fuzz_phase, "engines": engines_phase,
         "av1_parses": {"streams": len(AV1_PARSES),
                        "ms": sum(AV1_PARSE_MS.values())},
         "int32_ops_per_s": int32_ops_per_s, "sms": sms, "max_sm_mhz": mhz,
@@ -8754,7 +9038,9 @@ if __name__ == "__main__":
              "--api-only": ("api", api_alone),
              "--api-write-only": ("api_write", api_write_alone),
              "--tools-only": ("tools", tools_alone),
-             "--fuzz-only": ("fuzz", fuzz_alone)}
+             "--fuzz-only": ("fuzz", fuzz_alone),
+             "--engines-only": ("engines", engines_alone),
+             "--grid-pool-only": ("grid_pool", grid_pool_alone)}
     if sys.argv[1:] == ["--fuzz-child"]:
         sys.exit(fuzz_child())
     alone = ALONE.get(sys.argv[1]) if len(sys.argv) == 2 else None

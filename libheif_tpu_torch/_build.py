@@ -4,12 +4,13 @@ The CUDA sources under ``codecs/*/csrc/`` are compiled at first use by
 ``nvcc`` (one process per source, all started together) and linked into
 one shared library with a plain C interface, written to
 ``build/libheif_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``.  The host C++ of the HEVC parser and encoder
-(``codecs/hevc/host/``), of the JPEG scan (``codecs/jpeg/host/``) and of
-the AVC intra engine (``codecs/avc/host/``) and of the JPEG 2000 block
-coders (``codecs/j2k/host/``) is built the same way by the
-system C++ compiler, one library each, on every machine that decodes or
-encodes that codec, the CPU included.  Each library's file name carries
+``ctypes``.  The host C++ of the HEVC parser, reconstructor and encoder
+(``codecs/hevc/host/``), of the AV1 decoder (``codecs/av1/host/``), of
+the JPEG scan (``codecs/jpeg/host/``), of the AVC intra engine
+(``codecs/avc/host/``) and of the JPEG 2000 block coders
+(``codecs/j2k/host/``) is built the same way by the system C++ compiler,
+one library each, on every machine that decodes or encodes that codec,
+the CPU included.  Each library's file name carries
 a hash of its sources and flags (and, for the host library, of the CPU it is
 tuned for), so an edited source is rebuilt and a stale library is never
 loaded.  A build or launch failure raises; nothing falls back.
@@ -150,9 +151,9 @@ class _CudaLibrary(_Library):
 
 
 class _HostLibrary(_Library):
-    """A codec's host C++ (``what``: the HEVC parser, wave planner and
-    encoder, the JPEG scan, the AVC intra engine, the JPEG 2000 block
-    coders), built by ``c++``."""
+    """A codec's host C++ (``what``: the HEVC parser, wave planner,
+    reconstructor and encoder, the AV1 decoder, the JPEG scan, the AVC
+    intra engine, the JPEG 2000 block coders), built by ``c++``."""
 
     def __init__(self, stem: str, pattern: str, key: bytes, what: str):
         super().__init__(stem, pattern, key)
@@ -171,7 +172,10 @@ LIBRARY = _CudaLibrary("kernels", "codecs/*/csrc/*.cu",
                        " ".join(NVCC_FLAGS).encode())
 HOST_LIBRARY = _HostLibrary("hevc_host", "codecs/hevc/host/*.cc",
                             " ".join(HOST_CXX_FLAGS).encode() + _cpu_id(),
-                            "HEVC parser and encoder")
+                            "HEVC parser, reconstructor and encoder")
+AV1_HOST_LIBRARY = _HostLibrary("av1_host", "codecs/av1/host/*.cc",
+                                " ".join(HOST_CXX_FLAGS).encode() + _cpu_id(),
+                                "AV1 decoder")
 JPEG_HOST_LIBRARY = _HostLibrary("jpeg_host", "codecs/jpeg/host/*.cc",
                                  " ".join(HOST_CXX_FLAGS).encode() +
                                  _cpu_id(), "JPEG scan")
@@ -187,8 +191,12 @@ class CudaKernel:
     """One hand-written kernel: its C entry point and its launch count.
 
     ``launches`` grows by one each time the kernel is launched, and at
-    no other time, so a caller can show that a path went through it.
+    no other time, so a caller can show that a path went through it;
+    launches from several threads (a grid's tiles on the decode pool)
+    are each counted.
     """
+
+    _count_lock = threading.Lock()
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence):
         self.name = name
@@ -226,4 +234,8 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed with cudaError_t {err}")
-        self.launches += 1
+        self.count_launch()
+
+    def count_launch(self) -> None:
+        with CudaKernel._count_lock:
+            self.launches += 1

@@ -1,14 +1,25 @@
 """AV1 still-image decoder: OBUs → planes → PixelImage on the device.
 
 Counterpart of libheif_tpu/codecs/av1/decoder.py (``parse_obus`` :20,
-``parse_frame`` :54, ``finish_frame`` :89 and the device engine of
-``decode_intra_frame_ex`` :116-143; reference:
-libheif/plugins/decoder_dav1d.cc, decoder_aom.cc).  The OBU walk and the
-tile parse run on the host in Python; the reconstruction
-(device_recon, intra block copy included) and the in-loop filters
-(deblock, CDEF, loop restoration) run on the decoder's device, then film
-grain synthesis as an output stage (grain.py; the reference's
-``_maybe_grain`` :146).
+``parse_frame`` :54, ``finish_frame`` :89, ``decode_intra_frame_ex``
+:116-143; reference: libheif/plugins/decoder_dav1d.cc, decoder_aom.cc).
+The engine comes from the caller or ``LIBHEIF_TPU_AV1_ENGINE``, read at
+each call (codecs/engines.py; nothing named means "device"):
+
+* "device": the OBU walk and the tile parse on the host in Python; the
+  reconstruction (device_recon, intra block copy included) and the
+  in-loop filters (deblock, CDEF, loop restoration) on the decoder's
+  device;
+* "host": the same parse, its jobs replayed on the host
+  (``TileDecoder.run_jobs``, span av1.recon.host), the planes copied to
+  the device, then the same filters there;
+* "native": the C++ decoder (native_decode.py, host/av1_native.cc; span
+  av1.decode.native) parses, reconstructs and filters, and the planes
+  reach the device in one pinned copy (span av1.decode.copy).  A stream
+  with a feature it lacks raises Unsupported.
+
+After every engine, film grain synthesis as an output stage on the
+device (grain.py; the reference's ``_maybe_grain`` :146).
 """
 
 from __future__ import annotations
@@ -18,12 +29,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..._build import resolve_device
 from ...core.error import HeifError
 from ...core.trace import span
 from ...image.pixel_image import PixelImage, Channel, Colorspace, Chroma
+from ..engines import av1_engine
+from ..host_copy import device_samples
 from . import obu as O
 from .device_recon import decode_frames_device
 from .grain import apply_film_grain
+from .native_decode import decode_frame_native
 from .tile import TileDecoder
 
 
@@ -138,18 +153,42 @@ def maybe_grain(planes: Dict[str, torch.Tensor], seq, fh
                             seq.subsampling_x, seq.subsampling_y)
 
 
-def decode_intra_frame(data: bytes, device=None, limits=None
+def decode_intra_frame(data: bytes, device=None, limits=None,
+                       engine: Optional[str] = None
                        ) -> Dict[str, torch.Tensor]:
     """Decode the first (still) frame of a stream of OBUs → its cropped
     int32 planes ("Y", and "U", "V" unless monochrome) on ``device``
     (None means CUDA)."""
-    return decode_intra_frame_ex(data, device, limits)[0]
+    return decode_intra_frame_ex(data, device, limits, engine)[0]
 
 
-def decode_intra_frame_ex(data: bytes, device=None, limits=None):
-    """decode_intra_frame, also returning the SequenceHeader."""
+def decode_intra_frame_ex(data: bytes, device=None, limits=None,
+                          engine: Optional[str] = None):
+    """decode_intra_frame, also returning the SequenceHeader.
+
+    engine: "native" (host C++), "host" (numpy job replay), "device", or
+    None/"auto" (``LIBHEIF_TPU_AV1_ENGINE``, else "device")."""
+    engine = av1_engine(engine)
+    if engine == "native":
+        device = resolve_device(device)
+        seq, fh, tiles = parse_obus(data)
+        if limits is not None:
+            limits.check_image_size(fh.frame_width, fh.frame_height)
+        with span("av1.decode.native"):
+            planes = decode_frame_native(seq, fh, tiles)
+        with span("av1.decode.copy"):
+            planes = dict(zip(planes, device_samples(
+                list(planes.values()), device)))
+        return maybe_grain(planes, seq, fh), seq
     seq, fh, dec = parse_frame(data, limits)
-    planes = decode_frames_device([dec], device)[0]
+    if engine == "host":
+        device = resolve_device(device)
+        with span("av1.recon.host"):
+            dec.run_jobs()
+        with span("av1.decode.copy"):
+            planes = device_samples(dec.planes, device)
+    else:
+        planes = decode_frames_device([dec], device)[0]
     return maybe_grain(finish_frame(seq, fh, dec, planes), seq, fh), seq
 
 

@@ -1,21 +1,24 @@
-"""AV1 host reconstruction for the encoder's closed loop.
+"""AV1 host reconstruction: the encoder's closed loop and the decoder's
+"host" engine.
 
 The AV1 encoder (encoder.py) walks the decoder's tile parse with a
 scripted entropy coder, and plans each block's symbols from the samples a
 decoder will hold, so each transform block is reconstructed on the host
-as soon as it is parsed.  The port's decoder reconstructs on the device
-and trimmed these functions from its recon.py, itx.py and tile.py; here
-they are, copied from the JAX package:
+as soon as it is parsed.  The decoder's "host" engine replays a parsed
+frame's jobs here in order (``TileDecoder.run_jobs``).  The port's
+device engine reconstructs on the device, and these functions are kept
+apart from its recon.py, itx.py and tile.py; here they are, copied from
+the JAX package:
 
 * ``predict_filter_intra`` (libheif_tpu/codecs/av1/recon.py:54),
   ``predict_intra`` (:110), the edge helpers ``_filter_edge`` and
   ``_upsample_edge`` (:384, :407) and ``iwht4`` (:509), spec §7.11.2,
   §7.13.3;
 * ``inv_txfm2d`` (itx.py:503), over the port's 1-D transforms (itx.py);
-* ``inv_transform`` and ``run_job`` (tile.py:1798, :1871, the methods
-  ``_inv_transform`` and ``_run_job`` of its ``TileDecoder``, which the
-  JAX encoder calls through ``eager_recon``), without the intrabc copy:
-  the encoder codes no intrabc block.
+* ``inv_transform``, ``ibc_copy`` and ``run_job`` (tile.py:1798,
+  :1826, :1871, the methods ``_inv_transform``, ``_ibc_copy`` and
+  ``_run_job`` of its ``TileDecoder``, which the JAX encoder calls
+  through ``eager_recon``).
 """
 
 from __future__ import annotations
@@ -435,15 +438,66 @@ def inv_transform(td, plane, tx, coeffs, eob, qindex,
     return inv_txfm2d(d, T.tx_w(tx), T.tx_h(tx), tx_type)
 
 
+def ibc_copy(td, job) -> None:
+    """An intrabc block's copy from the current reconstruction (spec
+    7.11.4 via the BILINEAR inter filter): luma DVs are full-pel, chroma
+    may land on half-sample positions."""
+    plane = job.plane
+    frame = td.planes[plane]
+    sx = td.ssx if plane else 0
+    sy = td.ssy if plane else 0
+    mvr, mvc = job.ibc_mv
+    # full-pel luma offsets; chroma gets the same DV at its scale
+    offy, offx = mvr >> 3, mvc >> 3
+    py, px = job.py, job.px
+    hh, ww = job.hh, job.ww
+    if plane == 0:
+        frame[py:py + hh, px:px + ww] = \
+            frame[py + offy:py + offy + hh, px + offx:px + offx + ww]
+        return
+    cy_off, cx_off = offy >> sy, offx >> sx
+    fy, fx = (offy & sy), (offx & sx)      # half-sample flags
+    src_y, src_x = py + cy_off, px + cx_off
+    if not fy and not fx:
+        frame[py:py + hh, px:px + ww] = \
+            frame[src_y:src_y + hh, src_x:src_x + ww]
+        return
+    # BILINEAR convolve (spec 7.11.3.4, InterRound0=3, Round1=11):
+    # taps 128 (full) / 64,64 (half) on the 8-bit source
+    a = frame[src_y:src_y + hh + fy, src_x:src_x + ww + fx
+              ].astype(np.int64)
+    if fx:
+        hrow = (64 * a[:, :ww] + 64 * a[:, 1:ww + 1]) >> 3
+    else:
+        hrow = (128 * a[:, :ww]) >> 3
+    if fy:
+        v = 64 * hrow[:hh, :] + 64 * hrow[1:hh + 1, :]
+    else:
+        v = 128 * hrow[:hh, :]
+    out = (v + (1 << 10)) >> 11
+    frame[py:py + hh, px:px + ww] = np.clip(out, 0, (1 << td.bd) - 1)
+
+
 def run_job(td, job) -> None:
     """One TxbJob of the tile parse (tile.TileDecoder ``td``): predict,
-    add the residual, write the block into ``td.planes``."""
+    add the residual, write the block into ``td.planes``; an intrabc
+    block's copy job copies, its residual job adds to the copy."""
     seq = td.seq
     frame = td.planes[job.plane]
     px, py, tw, th = job.px, job.py, job.tw, job.th
 
-    if job.ibc_mv is not None or job.ibc_add:
-        raise NotImplementedError("the host replay has no intrabc copy")
+    if job.ibc_mv is not None:
+        ibc_copy(td, job)
+        return
+    if job.ibc_add:
+        hh, ww = job.hh, job.ww
+        if job.eob > 0:
+            res = inv_transform(td, job.plane, job.tx, job.coeffs,
+                                job.eob, job.qindex, job.tx_type)
+            region = frame[py:py + hh, px:px + ww]
+            frame[py:py + hh, px:px + ww] = np.clip(
+                region + res[:hh, :ww], 0, (1 << td.bd) - 1)
+        return
 
     if job.pal_pred is not None:
         pred = job.pal_pred

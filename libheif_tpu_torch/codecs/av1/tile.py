@@ -1,10 +1,11 @@
 """AV1 intra tile decoding: partition tree, mode info, coefficients.
 
-Counterpart of libheif_tpu/codecs/av1/tile.py without its host replay
-(run_jobs, _run_job, _ibc_copy).  Spec §5.11 (tile group syntax) + §8.3
-(symbol contexts).  The parse emits one deferred TxbJob per transform
-block; device_recon reconstructs them.  Inter tools are rejected
-upstream (obu.py accepts only intra frames).
+Counterpart of libheif_tpu/codecs/av1/tile.py.  Spec §5.11 (tile group
+syntax) + §8.3 (symbol contexts).  The parse emits one deferred TxbJob
+per transform block; device_recon reconstructs them on the device, or
+``run_jobs`` replays them on the host (the decoder's "host" engine, over
+host_recon).  Inter tools are rejected upstream (obu.py accepts only
+intra frames).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from .cdf import CdfContext
 from .msac import Msac
 from .obu import SequenceHeader, FrameHeader
 from .deblock import EdgeMaps
+from . import host_recon
 
 _SKIP_CONTEXTS_TAB = [
     [1, 2, 2, 2, 3],
@@ -250,7 +252,7 @@ class TileDecoder:
         self._cur_tx_type = T.DCT_DCT
         self.edges = EdgeMaps([p.shape for p in planes])
         self.jobs: List[TxbJob] = []   # deferred pixel work, run by
-        #                                device_recon
+        #                                device_recon or run_jobs
 
         # CDEF filter index per 64x64 unit, stored at its top-left mi
         # (-1 = every block skipped; spec read_cdef 5.11.56)
@@ -1783,3 +1785,17 @@ class TileDecoder:
 
     _luma_tx_type = T.DCT_DCT
 
+    # ------------------------------------------------------ job executor
+
+    def _ibc_copy(self, job: TxbJob) -> None:
+        host_recon.ibc_copy(self, job)
+
+    def run_jobs(self) -> None:
+        """Sequential host replay of the deferred pixel work into
+        ``planes`` (JAX tile.py:1863; the "host" engine)."""
+        for job in self.jobs:
+            self._run_job(job)
+        self.jobs = []
+
+    def _run_job(self, job: TxbJob) -> None:
+        host_recon.run_job(self, job)

@@ -208,6 +208,15 @@ class SliceSyntax:
         sp.eo_class = [int(e[18]), int(e[19])]
         return sp
 
+    def sao_from_table(self) -> None:
+        """``sao`` (per CTB a SaoParam) from the C++ parser's
+        ``sao_table``, every CTB's, for the numpy filters (JAX
+        native_parse.py ``_unpack_sao`` :185)."""
+        self.sao = {} if self.sao_table is None else {
+            (cx, cy): self.sao_param(cx, cy)
+            for cy in range(self.sao_table.shape[0])
+            for cx in range(self.sao_table.shape[1])}
+
     def sao_from_params(self) -> None:
         """``sao_table`` from the Python parser's ``sao`` (None when no
         CTB has SAO parameters), in the C++ parser's record layout."""
@@ -248,6 +257,24 @@ def raw_tus(tus: Sequence[TU]):
             pos += parts[-1].size
     coeff = np.concatenate(parts) if parts else np.zeros(0, np.int32)
     return cols, coeff, offs
+
+def tus_from_raw(cols: np.ndarray, coeff: np.ndarray,
+                 offs: np.ndarray) -> List[TU]:
+    """The inverse of ``raw_tus``: the C++ parser's columns as TU objects
+    (JAX native_parse.py:209-217), each with its (n, n) coefficients or
+    None."""
+    tus = []
+    for (x, y, log2, c, mode, qp, ts, tqb), off in zip(cols.tolist(),
+                                                       offs.tolist()):
+        coeffs = None
+        if off >= 0:
+            n = 1 << log2
+            coeffs = coeff[off:off + n * n].reshape(n, n).copy()
+        tus.append(TU(x=x, y=y, log2=log2, c_idx=c, pred_mode=mode, qp=qp,
+                      transform_skip=bool(ts), tqb=bool(tqb),
+                      coeffs=coeffs))
+    return tus
+
 
 class SliceParser:
     def __init__(self, sps: SPS, pps: PPS, sh: SliceHeader,

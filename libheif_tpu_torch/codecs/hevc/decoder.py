@@ -1,15 +1,28 @@
 """HEVC decoder: from hvcC and NALs to PixelImages on the device, for
 stills and for sequences.
 
-Counterpart of libheif_tpu/codecs/hevc/decoder.py (:24-105, :334-370 and
-the device engine of decode_intra_picture and HevcDecoder; the sequence
-side :195-465), reference: libheif/plugins/decoder_libde265.cc:479-521.
-An intra picture parses in the C++ parser on the host; a P or B picture
-in the Python slice parser (ctu.SliceParser, spans hevc.parse and
-hevc.parse.inter).  Either reconstructs on the context's device
-(device_recon), a P or B picture from the reference pictures of a DPB
-that lives on the device too (``DeviceDpb``); the motion of each
-picture, which TMVP reads, stays on the host.
+Counterpart of libheif_tpu/codecs/hevc/decoder.py (:24-193,
+:334-370 and HevcDecoder; the sequence side :195-465), reference:
+libheif/plugins/decoder_libde265.cc:479-521.  An intra picture parses in
+the C++ parser on the host; a P or B picture in the Python slice parser
+(ctu.SliceParser, spans hevc.parse and hevc.parse.inter).  Either
+reconstructs on the context's device (device_recon), a P or B picture
+from the reference pictures of a DPB that lives on the device too
+(``DeviceDpb``); the motion of each picture, which TMVP reads, stays on
+the host.
+
+An intra still may also decode on a host engine, where the caller or
+``LIBHEIF_TPU_HEVC_ENGINE`` names one (codecs/engines.py; read at each
+call): "native", the C++ reconstruction and filters (host/hevc_recon.cc,
+span hevc.decode.native), or "python", the numpy IntraReconstructor,
+Deblocker and apply_sao (span hevc.decode.python); the planes then reach
+the device in one pinned copy (span hevc.decode.copy).  As in the JAX
+package, "native" on a picture of several slices takes the numpy
+engine, and on a scaling-list picture raises Unsupported.
+``SequenceDecoder`` decodes its intra pictures on the device whatever
+the variable says; the JAX package sends a first IDR through its
+two-thread native pipeline (:288-298), which gives the same planes where
+it does not race (ROADMAP §3 D).
 
 Refused by name (Unsupported): weighted prediction and long-term
 reference pictures (headers.parse_slice_header), a P or B picture of
@@ -28,13 +41,18 @@ import torch
 from ..._build import resolve_device
 from ...core.error import HeifError, SubError
 from ...core.trace import span
+from ..engines import hevc_engine
+from ..host_copy import device_samples
 from ...boxes.codec_cfg import (emulation_prevention_positions,
                                 remove_emulation_prevention)
 from ...image.pixel_image import PixelImage, Channel, Colorspace, Chroma
 from . import headers as H
-from .ctu import ColMotion, SliceParser, SliceSyntax, raw_tus
+from .ctu import ColMotion, SliceParser, SliceSyntax, raw_tus, tus_from_raw
 from .device_recon import build_plan, decode_pictures_device, reconstruct
-from .native_parse import parse_slice_raw
+from .filters import Deblocker, apply_sao
+from .native_parse import (decode_picture_native, parse_slice_native,
+                           parse_slice_raw)
+from .recon import IntraReconstructor
 
 
 def split_length_prefixed(data: bytes, length_size: int) -> List[bytes]:
@@ -189,12 +207,50 @@ def _parse_picture(sps: H.SPS, pps: H.PPS, slice_nals: List[bytes]):
 
 
 def decode_intra_picture(sps: H.SPS, pps: H.PPS, slice_nals: List[bytes],
-                         device=None
+                         device=None, engine: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode one intra picture from its slice NALs → the uncropped
-    (Y, Cb, Cr) int32 planes on ``device`` (None means CUDA)."""
-    syn, raw = parse_picture(sps, pps, slice_nals)
-    return decode_pictures_device([syn], [raw], device)[0]
+    (Y, Cb, Cr) int32 planes on ``device`` (None means CUDA).
+
+    engine: "native" (host C++), "python" (numpy), "device", or
+    None/"auto" (``LIBHEIF_TPU_HEVC_ENGINE``, else "device")."""
+    engine = hevc_engine(engine)
+    if engine == "device":
+        syn, raw = parse_picture(sps, pps, slice_nals)
+        return decode_pictures_device([syn], [raw], device)[0]
+    device = resolve_device(device)
+    check_picture_supported(sps, pps, slice_nals)
+    nal = slice_nals[0]
+    sh = H.parse_slice_header(nal, sps, {pps.pps_id: pps})
+    rbsp = remove_emulation_prevention(nal[2:])
+    subs = _substreams(nal, rbsp, sh.data_offset_bits, sh.entry_point_offsets)
+    if engine == "native" and len(slice_nals) == 1:
+        with span("hevc.decode.native"):
+            planes = decode_picture_native(sps, pps, sh, rbsp, subs)
+    else:
+        # "python", and "native" on a picture of several slices (JAX :126)
+        with span("hevc.decode.python"):
+            if len(slice_nals) > 1:
+                syntax = _parse_multi_slice(sps, pps, slice_nals)
+            else:
+                syntax = parse_slice_native(sps, pps, sh, rbsp, subs)
+            planes = IntraReconstructor(syntax).run()
+            Deblocker(syntax, planes).run()
+            planes = apply_sao(syntax, planes)
+    with span("hevc.decode.copy"):
+        return tuple(device_samples(planes, device))
+
+
+def _parse_multi_slice(sps: H.SPS, pps: H.PPS, slice_nals: List[bytes]):
+    """A picture of several slices as one SliceSyntax with TU objects and
+    per-CTB SAO parameters, for the numpy engine (JAX :165-193, which
+    runs the Python parser): each slice segment through the C++ parser
+    into the picture's shared maps, with the same rules as the device
+    engine's ``parse_picture``."""
+    syn, (cols, coeff, offs) = _parse_picture(sps, pps, slice_nals)
+    syn.tus = tus_from_raw(cols, coeff, offs)
+    syn.sao_from_table()
+    return syn
 
 
 def extract_stream(config_box, data: bytes):
@@ -319,8 +375,9 @@ class SequenceDecoder:
     JAX decoder.py SequenceDecoder :195-331, one picture (all its slice
     NALs) at a time: an all-intra picture through the C++ parser (several
     slices too), a P or B picture (one slice segment) through the Python
-    parser; both reconstruct on ``device``, and the DPB holds the
-    filtered planes there (``DeviceDpb``)."""
+    parser; both reconstruct on ``device`` (the device engine, whatever
+    ``LIBHEIF_TPU_HEVC_ENGINE`` says), and the DPB holds the filtered
+    planes there (``DeviceDpb``)."""
 
     def __init__(self, sps: H.SPS, pps: H.PPS, device=None):
         self.sps = sps

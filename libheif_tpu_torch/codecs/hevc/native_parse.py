@@ -1,12 +1,17 @@
-"""ctypes bridge to the C++ HEVC slice parser (host/hevc_parse.cc).
+"""ctypes bridge to the C++ HEVC slice parser (host/hevc_parse.cc) and
+reconstructor (host/hevc_recon.cc).
 
-Counterpart of libheif_tpu/codecs/hevc/native_parse.py:23-248.  The
-parser is the port's only one: it builds at first use
-(``_build.HOST_LIBRARY``) and a failed build raises.  Its output stays in
-flat form, the TU columns and coefficient buffer that
-``device_recon.build_plan`` consumes; the decoder builds no TU objects
-and reconstructs on the device.  ``_get_recon_tables`` hands the
-transform matrices to the encoder's C++ path (host/hevc_enc.cc).
+Counterpart of libheif_tpu/codecs/hevc/native_parse.py.  The parser is
+the port's only one: it builds at first use (``_build.HOST_LIBRARY``)
+and a failed build raises.  The device engine takes its output in flat
+form, the TU columns and coefficient buffer that
+``device_recon.build_plan`` consumes (``parse_slice_raw``).  The host
+engines take it too: ``decode_picture_native`` (the "native" engine)
+hands it to the C++ reconstructor, and ``parse_slice_native`` (the
+"python" engine) turns it into TU objects for the numpy reconstructor
+(recon.py, filters.py).  ``_get_recon_tables`` hands the transform
+matrices and filter tables to the C++ reconstructor and to the
+encoder's C++ path (host/hevc_enc.cc).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from ...core.error import HeifError, SubError
 from ..._build import HOST_LIBRARY
 from .headers import SPS, PPS, SliceHeader
 from .cabac import ContextModels
-from .ctu import SliceSyntax
+from .ctu import SliceSyntax, tus_from_raw
 
 # fixed family order shared with hevc_parse.cc (enum CtxFamily)
 _FAMILIES = [
@@ -182,6 +187,21 @@ def parse_slice_raw(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
     return cols, coeff_buf, offs, last_ctb
 
 
+def parse_slice_native(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
+                       substreams: List[Tuple[int, int]]) -> SliceSyntax:
+    """Parse a picture of one intra slice with the C++ parser into a
+    SliceSyntax with TU objects (``tus``) and per-CTB SAO parameters
+    (``sao``), the numpy engine's input (JAX native_parse.py:201-219; JAX
+    ``parse_slice`` :253 also sends P and B slices to its Python parser,
+    which the port's numpy engine, an intra one, does not need)."""
+    out = SliceSyntax(sps, pps, sh)
+    cols, coeff, offs, _ = parse_slice_raw(sps, pps, sh, rbsp, substreams,
+                                           out)
+    out.tus = tus_from_raw(cols, coeff, offs)
+    out.sao_from_table()
+    return out
+
+
 # ------------------------------------------------------------ tables
 
 _recon_tables = None
@@ -189,9 +209,9 @@ _recon_tables = None
 
 def _get_recon_tables():
     """int32 copies of the authoritative Python tables for the C++ code
-    (tables.py stays the single source of truth); the HEVC encoder's C++
-    path (host/hevc_enc.cc) takes the transform matrices.  JAX
-    native_parse.py:270."""
+    (tables.py stays the single source of truth): the reconstructor
+    (host/hevc_recon.cc) takes all of them, the HEVC encoder's C++ path
+    (host/hevc_enc.cc) the transform matrices.  JAX native_parse.py:270."""
     global _recon_tables
     if _recon_tables is None:
         from .tables import DCT, DST4, INTRA_PRED_ANGLE, INTRA_INV_ANGLE
@@ -213,3 +233,62 @@ def _get_recon_tables():
             tc=np.ascontiguousarray(TC_TABLE, np.int32),
             pred_angle=pred_angle, inv_angle=inv_angle)
     return _recon_tables
+
+
+# ------------------------------------------------------------- recon
+
+_RECON_ARGS = [_P] + [_P, ctypes.c_int64] + [_P] * 5 + \
+    [ctypes.c_int32, ctypes.c_int32] + [_P] * 13 + \
+    [ctypes.c_int32, _P, ctypes.c_int32]
+
+
+def _recon_entry():
+    fn = HOST_LIBRARY.load().tpuheif_hevc_recon
+    if fn.argtypes is None:
+        fn.argtypes = _RECON_ARGS
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_picture_native(sps: SPS, pps: PPS, sh: SliceHeader, rbsp: bytes,
+                          substreams: List[Tuple[int, int]]):
+    """The "native" engine of a picture of one slice (JAX
+    native_parse.py:296-396, serial): the C++ parse of the whole picture,
+    then the C++ reconstruction, deblocking and SAO, with no per-TU Python
+    objects.  Returns the uncropped (Y, Cb, Cr) uint16 planes.  A
+    scaling-list picture raises Unsupported: the C++ dequantiser is
+    flat."""
+    if sps.scaling_list_enabled:
+        raise HeifError.unsupported(SubError.Unsupported_codec,
+                                    "native engine unavailable")
+    out = SliceSyntax(sps, pps, sh)
+    tu_meta, n_tus, coeff_buf, _ = _parse_raw(sps, pps, sh, rbsp,
+                                              substreams, out)
+    sao_present = int(sps.sample_adaptive_offset_enabled and
+                      (sh.sao_luma or sh.sao_chroma))
+    rparams = np.asarray([
+        sps.pic_width, sps.pic_height, sps.log2_ctb_size,
+        sps.bit_depth_luma, sps.bit_depth_chroma,
+        int(sps.strong_intra_smoothing),
+        int(sh.deblocking_filter_disabled),
+        sh.beta_offset_div2 * 2, sh.tc_offset_div2 * 2,
+        pps.cb_qp_offset, pps.cr_qp_offset, sao_present,
+    ], dtype=np.int32)
+    t = _get_recon_tables()
+    y = np.empty((sps.pic_height, sps.pic_width), np.uint16)
+    cb = np.empty((sps.pic_height >> 1, sps.pic_width >> 1), np.uint16)
+    cr = np.empty_like(cb)
+    err = ctypes.create_string_buffer(200)
+    rc = _recon_entry()(
+        rparams.ctypes.data, tu_meta.ctypes.data, n_tus,
+        coeff_buf.ctypes.data, *(a.ctypes.data for a in (
+            out.tu_log2, out.cu_log2, out.qp_y, out.tqb_map)),
+        out.w4, out.h4, out.sao_buf.ctypes.data,
+        *(t[k].ctypes.data for k in ("dst4", "dct4", "dct8", "dct16",
+                                     "dct32", "beta", "tc", "pred_angle",
+                                     "inv_angle")),
+        y.ctypes.data, cb.ctypes.data, cr.ctypes.data, 1, err, len(err))
+    if rc != 0:
+        raise HeifError.invalid_input(
+            msg=err.value.decode() or "HEVC reconstruction failed")
+    return y, cb, cr

@@ -1,22 +1,24 @@
 """HEVC reconstruction on the host for the encoders: dequant, inverse
 transforms, intra prediction, and the motion compensation of the inter
-encoder's search.
+encoder's search, and the numpy engine's intra decode.
 
-Counterpart of libheif_tpu/codecs/hevc/recon.py without its decoder
-(``dequant`` :21, ``inverse_transform`` :39, the MC helpers ``_gather``
-:78, ``mc_luma_14`` :86, ``mc_chroma_14`` :113, ``weight_uni`` :140,
-``weight_bi`` :148, ``mc_luma`` :156, ``mc_chroma`` :162, and
-``IntraReconstructor`` :168 with ``_gather_refs``, ``_filter_refs``,
-``_predict`` and ``_recon_tu``).  Spec: scaling §8.6.3, transforms
+Counterpart of libheif_tpu/codecs/hevc/recon.py without its inter
+decode (``dequant`` :21, ``inverse_transform`` :39, the MC helpers
+``_gather`` :78, ``mc_luma_14`` :86, ``mc_chroma_14`` :113,
+``weight_uni`` :140, ``weight_bi`` :148, ``mc_luma`` :156, ``mc_chroma``
+:162, and ``IntraReconstructor`` :168 with ``_gather_refs``,
+``_filter_refs``, ``_predict``, ``_recon_tu`` and ``run`` over the TUs of
+an intra picture).  Spec: scaling §8.6.3, transforms
 §8.6.4, intra prediction §8.4.4.2, fractional sample interpolation
 §8.5.3.3.3, weighted sample prediction §8.5.3.3.4.  The intra part is
 the still encoder's closed-loop reconstruction (encoder.py): it predicts
 each block from the samples a decoder will hold.  The MC helpers price
 each candidate vector of the sequence encoder's motion search
 (inter_enc.py), one small block at a time, so they stay numpy: a launch
-a candidate would be a sync a candidate.  The port's decoders
-reconstruct on the device (``hevc_inter_pred`` for MC) and use none of
-this.
+a candidate would be a sync a candidate.  The decoders' device engine
+reconstructs on the device (``hevc_inter_pred`` for MC); the "python"
+engine of ``decoder.decode_intra_picture`` runs ``IntraReconstructor``,
+then filters.py.
 """
 
 from __future__ import annotations
@@ -396,3 +398,11 @@ class IntraReconstructor:
             # luma TU marks z-order availability
             self.avail[tu.y >> 2:(tu.y + n) >> 2,
                        tu.x >> 2:(tu.x + n) >> 2] = True
+
+    def run(self):
+        """Every TU of the picture in decode order → the (Y, Cb, Cr)
+        int32 planes before the in-loop filters."""
+        maxv = (1 << self.bd) - 1
+        for tu in self.syn.tus:
+            self._recon_tu(tu, maxv)
+        return tuple(self.planes)

@@ -6,7 +6,7 @@ copies them in one transfer (through pinned memory from a card) and
 splits them on the host.  The host decoders (AVC, JPEG 2000) write
 numpy arrays: ``device_planes`` is the inverse, the arrays' bytes joined
 in pinned memory on the host, one copy to the card and views of it
-there.
+there (``device_samples`` widens image samples to int32 there).
 """
 
 from __future__ import annotations
@@ -59,6 +59,18 @@ def device_planes(arrays: Sequence[np.ndarray],
     host, starts = join_bytes(arrays, pin=True)
     # the caching host allocator keeps ``host`` until the copy is done
     return split_bytes(host.to(device, non_blocking=True), arrays, starts)
+
+
+def device_samples(arrays: Sequence[np.ndarray],
+                   device) -> List[torch.Tensor]:
+    """Host planes of image samples (at most 15 bits; uint8, uint16 or
+    int32) as int32 tensors on ``device``: ``device_planes`` of their 8-
+    or 16-bit form, widened there.  The host engines of HEVC and AV1
+    stills hand their planes to the device this way."""
+    narrow = [a if a.dtype == np.uint8 else a.view(np.int16)
+              if a.dtype == np.uint16 else a.astype(np.int16)
+              for a in arrays]
+    return [t.to(torch.int32) for t in device_planes(narrow, device)]
 
 
 def join_bytes(arrays: Sequence[np.ndarray],

@@ -8,13 +8,15 @@ ImageOverlay overlay.cc:76; iden.{h,cc} iden.h:31).
 A grid of hvc1 tiles, of av01 tiles or of jpeg tiles decodes as one
 batch (parallel/coded_grid: one plan and one pass of the reconstruction
 for every tile), as the JAX package's device grid path does for the
-first two, on every device.  Any other grid, and a grid the batch does not take, decodes its
-tiles in grid order
-and pastes them with ``PixelImage.copy_into`` into zeroed planes on the
-context's device.  On CUDA the tiles decode one after another on the
-current stream, so the kernels' launch counts stay exact; on the CPU
-they decode on a thread pool, as the JAX package does, with the same
-result.
+first two, on every device; an hvc1 or av01 grid takes its batch unless
+``LIBHEIF_TPU_HEVC_ENGINE`` / ``LIBHEIF_TPU_AV1_ENGINE`` names a host
+engine and ``DecodingOptions.prefer_device_grid`` is false (the port's
+default engine is the device's; JAX derived.py:134-151 batches only
+where asked).  Any other grid, and a grid the batch does not take,
+decodes its tiles on a pool of ``max_decoding_threads`` threads on every
+device, as the JAX package does (:152-179), and pastes them in grid
+order with ``PixelImage.copy_into`` into zeroed planes on the context's
+device.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..core.error import HeifError, ErrorCode, SubError
 from ..image.pixel_image import PixelImage, Channel, Colorspace, Chroma
 from ..codecs.unc import cuda_fast
 from ..color import convert_image
+from ..codecs.engines import av1_engine, hevc_engine
 from ..parallel.coded_grid import (try_batched_av1_grid,
                                   try_batched_hevc_grid,
                                   try_batched_jpeg_grid)
@@ -112,8 +115,11 @@ class ImageItem_Grid(ImageItem):
         self.ctx.limits.check_image_size(grid.output_width, grid.output_height)
         self.ctx.limits.check_tile_count(grid.columns, grid.rows)
 
-        batched = try_batched_hevc_grid(self, grid, tile_ids, options)
-        if batched is None:
+        batched = None
+        device_grid = options.prefer_device_grid
+        if device_grid or hevc_engine() == "device":
+            batched = try_batched_hevc_grid(self, grid, tile_ids, options)
+        if batched is None and (device_grid or av1_engine() == "device"):
             batched = try_batched_av1_grid(self, grid, tile_ids, options)
         if batched is None:
             batched = try_batched_jpeg_grid(self, grid, tile_ids, options)
@@ -140,12 +146,10 @@ class ImageItem_Grid(ImageItem):
             except HeifError as e:
                 return e
 
-        n_threads = 1
-        if self.ctx.device.type == "cpu":
-            n_threads = options.max_decoding_threads
-            if n_threads is None:
-                n_threads = self.ctx.max_decoding_threads or 1
-            n_threads = max(1, min(n_threads, os.cpu_count() or 1, n_total))
+        n_threads = options.max_decoding_threads
+        if n_threads is None:
+            n_threads = self.ctx.max_decoding_threads or 1
+        n_threads = max(1, min(n_threads, os.cpu_count() or 1, n_total))
         if n_threads > 1:
             with ThreadPoolExecutor(max_workers=n_threads) as ex:
                 results = list(ex.map(_decode_one, items))

@@ -55,8 +55,12 @@ class ImageTiling:
 class DecodingOptions:
     """(ref: heif_decoding_options v10, heif_decoding.h:63-158).
 
-    The JAX package's ``prefer_device_grid`` has no counterpart: an hvc1
-    grid always decodes in batches on the device.  ``mesh``
+    ``prefer_device_grid`` (JAX item.py:60): True makes an all-hvc1 or
+    all-av01 grid decode in batches on the context's device whatever
+    ``LIBHEIF_TPU_HEVC_ENGINE`` / ``LIBHEIF_TPU_AV1_ENGINE`` say.  False
+    (the default) takes the batches too unless the codec's variable names
+    a host engine; then the tiles decode one by one on the pool of
+    ``max_decoding_threads`` (items/derived.py).  ``mesh``
     (parallel/mesh.py ``make_mesh``) shards an hvc1 grid's tiles over its
     members (parallel/coded_grid.py decode_tiles_device); None decodes
     them on the context's device.  ``decoder_id`` pins the codec
@@ -75,7 +79,10 @@ class DecodingOptions:
     # progress/cancel callbacks
     on_progress: Optional[Callable[[int, int], None]] = None
     cancel: Optional[Callable[[], bool]] = None
-    # host tile-decode thread count of the grid path on the CPU (the
+    # decode an hvc1 or av01 grid's tiles as batches on the device, even
+    # where the codec's engine variable names a host engine
+    prefer_device_grid: bool = False
+    # tile-decode thread count of the grid path, on every device (the
     # analog of heif_context_set_max_decoding_threads, context.h:72);
     # None = use the owning context's max_decoding_threads
     max_decoding_threads: Optional[int] = None

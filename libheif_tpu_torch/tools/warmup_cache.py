@@ -4,10 +4,11 @@ tools/warmup_cache.py.
 Where the JAX package fills a compilation cache, the port builds the
 libraries of ``_build.py`` that a first decode or encode would otherwise
 build: the hand-written CUDA kernels (``LIBRARY``, by ``nvcc``) and the
-host C++ of the HEVC parser and encoder, the JPEG scan, the AVC intra
-engine and the JPEG 2000 block coders (``HOST_LIBRARY``,
-``JPEG_HOST_LIBRARY``, ``AVC_HOST_LIBRARY``, ``J2K_HOST_LIBRARY``, by
-``c++``), all started together, into ``build/libheif_tpu_torch/``.  A
+host C++ of the HEVC parser, reconstructor and encoder, the AV1 decoder,
+the JPEG scan, the AVC intra engine and the JPEG 2000 block coders
+(``HOST_LIBRARY``, ``AV1_HOST_LIBRARY``, ``JPEG_HOST_LIBRARY``,
+``AVC_HOST_LIBRARY``, ``J2K_HOST_LIBRARY``, by ``c++``), all started
+together, into ``build/libheif_tpu_torch/``.  A
 library whose hashed file already exists is loaded, not rebuilt.  Run
 once per checkout (or after a source changes):
 
@@ -15,8 +16,8 @@ once per checkout (or after a source changes):
     python -m libheif_tpu_torch.tools.warmup_cache --device cpu # host only
     python -m libheif_tpu_torch.tools.warmup_cache --list       # show them
 
-The default builds all five and raises without a card or without
-``nvcc``; ``--device cpu`` builds the four host libraries.
+The default builds all six and raises without a card or without
+``nvcc``; ``--device cpu`` builds the five host libraries.
 """
 
 from __future__ import annotations
@@ -29,13 +30,14 @@ import time
 from . import add_device_argument
 from .. import _build
 
-HOST_LIBRARIES = (_build.HOST_LIBRARY, _build.JPEG_HOST_LIBRARY,
-                  _build.AVC_HOST_LIBRARY, _build.J2K_HOST_LIBRARY)
+HOST_LIBRARIES = (_build.HOST_LIBRARY, _build.AV1_HOST_LIBRARY,
+                  _build.JPEG_HOST_LIBRARY, _build.AVC_HOST_LIBRARY,
+                  _build.J2K_HOST_LIBRARY)
 
 
 def libraries(device=None):
     """The libraries that decoding and encoding on ``device`` load: all
-    five on a card (None means CUDA, and raises without one), the four
+    six on a card (None means CUDA, and raises without one), the five
     host libraries on the CPU."""
     dev = _build.resolve_device(device)
     return ((_build.LIBRARY,) if dev.type == "cuda" else ()) + HOST_LIBRARIES

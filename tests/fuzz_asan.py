@@ -15,7 +15,15 @@ and write checked.  Each input is walked twice, through the kernels and
 through their plain versions, and the two walks must agree bit for bit.
 An access outside a tensor ends the child with ASan's report.
 
-    python -m tests.fuzz_asan [N]
+With ``--native-engines`` the child decodes HEVC and AV1 stills on the
+host engines (``LIBHEIF_TPU_HEVC_ENGINE=native``,
+``LIBHEIF_TPU_AV1_ENGINE=native``), and the host libraries that hold
+them, ``hevc_host`` (the parser and host/hevc_recon.cc) and ``av1_host``
+(host/av1_native.cc), are built with ``-fsanitize=address`` too
+(``build_host``), so every read and write of the C++ decoders on the
+mutated bytes is checked.
+
+    python -m tests.fuzz_asan [--native-engines] [N]
 
 walks the first N inputs of chip_smoke.py's phase 4q (400 by default)
 and prints the count of inputs, the inputs launching each kernel with
@@ -41,11 +49,14 @@ SOURCES = [ROOT / "libheif_tpu_torch" / "codecs" / c / "csrc" / f
            for c, f in (("hevc", "hevc_kernels.cu"), ("av1", "av1_kernels.cu"),
                         ("jpeg", "jpeg_kernels.cu"))]
 ASAN_FLAGS = ("-fsanitize=address", "-fno-omit-frame-pointer", "-g")
+NATIVE_ENGINES = {"LIBHEIF_TPU_HEVC_ENGINE": "native",
+                  "LIBHEIF_TPU_AV1_ENGINE": "native"}
 
 
-def runtime():
-    """The ASan runtime g++ links against, or None."""
-    path = subprocess.run(["g++", "-print-file-name=libasan.so"],
+def runtime(name="asan"):
+    """The sanitizer runtime g++ links against (``name``: "asan", or
+    "tsan" for ThreadSanitizer's), or None."""
+    path = subprocess.run(["g++", f"-print-file-name=lib{name}.so"],
                           capture_output=True, text=True).stdout.strip()
     return path if os.path.isabs(path) and os.path.exists(path) else None
 
@@ -72,6 +83,33 @@ def build(cu: Path) -> Path:
         os.replace(tmp, out)
     finally:
         cc.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
+    return out
+
+
+def build_host(lib, sanitizer="address") -> Path:
+    """The build of the host library ``lib`` (a ``_build._HostLibrary``)
+    instrumented by ``-fsanitize=<sanitizer>`` ("address" or "thread"),
+    built once per source."""
+    sys.path.insert(0, str(HERE))
+    import torch_cuda_emu as emu
+    flags = ("-std=c++17", "-O1", f"-fsanitize={sanitizer}",
+             *ASAN_FLAGS[1:], "-pthread", "-shared", "-fPIC")
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in lib.sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = emu.BUILD_DIR / f"{lib.stem}-{sanitizer}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    emu.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        subprocess.run(["g++", *flags, "-o", str(tmp),
+                        *map(str, lib.sources())],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
     return out
 
@@ -121,6 +159,23 @@ def _child():
     libs = [ctypes.CDLL(str(p)) for p in json.loads(os.environ[
         "FUZZ_ASAN_LIBS"])]
     counts, on = _bind(libs)
+    from libheif_tpu_torch import _build
+    for stem, path in json.loads(os.environ.get("FUZZ_ASAN_HOST_LIBS",
+                                                "{}")).items():
+        lib = next(v for v in vars(_build).values()
+                   if isinstance(v, _build._HostLibrary) and v.stem == stem)
+        lib._lib = ctypes.CDLL(path)
+    if "FUZZ_ASAN_HOST_LIBS" in os.environ:
+        # the host engines' calls, counted beside the kernels' launches
+        from libheif_tpu_torch.codecs.av1 import decoder as av1_dec
+        from libheif_tpu_torch.codecs.hevc import decoder as hevc_dec
+        for mod, name, label in (
+                (hevc_dec, "decode_picture_native", "host hevc native"),
+                (av1_dec, "decode_frame_native", "host av1 native")):
+            def counted(*a, _fn=getattr(mod, name), _label=label):
+                counts[_label] = counts.get(_label, 0) + 1
+                return _fn(*a)
+            setattr(mod, name, counted)
 
     def handle(request):
         data = base64.b64decode(request["data"])
@@ -140,12 +195,13 @@ def _child():
     heif_fuzz.serve(handle)
 
 
-def run(items, timeout_s, sources=SOURCES):
+def run(items, timeout_s, sources=SOURCES, native_engines=False):
     """{label: result} of ``items`` [(label, bytes)] through a child
     under ASan, the kernels of ``sources`` instrumented (the others'
-    launches go to their plain versions); an ASan report or another death,
-    or an input taking more than ``timeout_s``, raises with the input it
-    was on and the report."""
+    launches go to their plain versions), and with ``native_engines``
+    the HEVC and AV1 stills decoded by the instrumented host engines; an
+    ASan report or another death, or an input taking more than
+    ``timeout_s``, raises with the input it was on and the report."""
     asan = runtime()
     if asan is None:
         raise RuntimeError("g++ has no AddressSanitizer runtime")
@@ -153,6 +209,13 @@ def run(items, timeout_s, sources=SOURCES):
     env = dict(os.environ, LD_PRELOAD=asan, OMP_NUM_THREADS="1",
                ASAN_OPTIONS="detect_leaks=0:alloc_dealloc_mismatch=0",
                FUZZ_ASAN_LIBS=json.dumps(libs))
+    for name in NATIVE_ENGINES:
+        env.pop(name, None)
+    if native_engines:
+        from libheif_tpu_torch import _build
+        env.update(NATIVE_ENGINES, FUZZ_ASAN_HOST_LIBS=json.dumps(
+            {lib.stem: str(build_host(lib))
+             for lib in (_build.HOST_LIBRARY, _build.AV1_HOST_LIBRARY)}))
     data = dict(items)
     results = heif_fuzz.run_children(
         [sys.executable, "-m", "tests.fuzz_asan", "--child"],
@@ -178,8 +241,11 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--child"]:
         _child()
     else:
-        n = int(sys.argv[1]) if len(sys.argv) > 1 else 400
-        res = run(phase_inputs(n), 600)
+        args = sys.argv[1:]
+        native = "--native-engines" in args
+        args = [a for a in args if a != "--native-engines"]
+        n = int(args[0]) if args else 400
+        res = run(phase_inputs(n), 600, native_engines=native)
         launched = {}
         for r in res.values():
             for k, v in r["launches"].items():
@@ -189,5 +255,6 @@ if __name__ == "__main__":
         bad = {lab: r for lab, r in res.items() if r["diff"] or r["escapes"]}
         # the child ran to its end: AddressSanitizer reported nothing
         print(json.dumps({"inputs": len(res), "asan_reports": 0,
+                          "engines": "native" if native else "device",
                           "inputs_and_launches": launched,
                           "differences": bad}, indent=1))

@@ -1,11 +1,13 @@
 """The port's module listing against the JAX package's, on the CPU.
 
 Every ``.py`` module of ``libheif_tpu/`` has a counterpart of the same
-relative path under ``libheif_tpu_torch/`` except three:
+relative path under ``libheif_tpu_torch/`` except two:
 ``codecs/unc/pallas_fast.py`` (its five Pallas kernels became the CUDA
-kernels of ``codecs/unc/csrc/unc_kernels.cu``), ``native/__init__.py``
-(whose counterpart is ``_build.py``) and ``codecs/av1/native_decode.py``
-(a host reconstruction engine for a codec the port decodes on the card).
+kernels of ``codecs/unc/csrc/unc_kernels.cu``) and ``native/__init__.py``
+(whose counterpart is ``_build.py``).  ``codecs/av1/native_decode.py``,
+the bridge of the JAX package's C++ AV1 decoder, has its counterpart
+since the port runs the host decode engines too (its "native" engine,
+``_build.AV1_HOST_LIBRARY``).
 No file of the port imports ``jax`` or anything of ``libheif_tpu``.
 Every tool of ``tools/`` has a counterpart in ``libheif_tpu_torch/tools/``
 except the two benchmarks (the port's benchmark is its own),
@@ -27,8 +29,7 @@ from libheif_tpu_torch.tools import warmup_cache
 
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {"codecs/unc/pallas_fast.py", "native/__init__.py",
-              "codecs/av1/native_decode.py"}
+NOT_PORTED = {"codecs/unc/pallas_fast.py", "native/__init__.py"}
 TOOLS_NOT_PORTED = {"benchmark.py", "benchmark_all.py", "api_audit.py",
                     "extract_av1_cdfs.py", "extract_av1_qlookup.py",
                     "extract_avc_tables.py"}
@@ -78,8 +79,9 @@ def test_only_the_named_tools_are_missing():
 def test_warmup_cache_lists_the_five_libraries(capsys):
     assert warmup_cache.main(["--list"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    libs = (_build.LIBRARY, _build.HOST_LIBRARY, _build.JPEG_HOST_LIBRARY,
-            _build.AVC_HOST_LIBRARY, _build.J2K_HOST_LIBRARY)
+    libs = (_build.LIBRARY, _build.HOST_LIBRARY, _build.AV1_HOST_LIBRARY,
+            _build.JPEG_HOST_LIBRARY, _build.AVC_HOST_LIBRARY,
+            _build.J2K_HOST_LIBRARY)
     assert [ln.split(":")[0] for ln in lines] == [lib.stem for lib in libs]
     for ln, lib in zip(lines, libs):
         assert str(lib.target()) in ln
